@@ -1,0 +1,27 @@
+"""repro_torch: the per-example-gradient DP-SGD system of :mod:`repro`
+(Rochette, Manoel & Tramel 2019) ported to PyTorch and CUDA for one
+NVIDIA H100.
+
+The module layout mirrors the JAX package (``core/``, ``kernels/``,
+``models/``, ``configs/``, ``optim/``, ``data/``, ``analysis/``) and so
+do the names, so every function has an obvious counterpart.  Params are
+nested dicts of tensors with the JAX package's key paths and layouts
+(conv ``w`` is ``(D, C, K, K)``, dense ``w`` is ``(in, out)`` used as
+``x @ w``), and models keep ``apply(params, batch, tapper) -> (B,)``.
+
+This slice covers the DP-SGD step on the paper's CNNs under the fixed
+strategies (naive / multi / crb / ghost / bk) with flat clipping; the
+planner, checkpointing, sharding and the LM models come later (see
+ROADMAP.md).  Every entry point takes ``device=`` and defaults to
+``"cuda"``; without a card it raises unless ``device="cpu"`` is passed.
+"""
+__version__ = "0.1.0"
+
+from repro_torch.core import (DPConfig, NormCfg, PrivacyAccountant,
+                              PrivacyEngine, Tapper, clipped_grad_sum,
+                              dp_gradient)
+from repro_torch.weights import params_from_numpy, params_to_numpy
+
+__all__ = ["DPConfig", "NormCfg", "PrivacyAccountant", "PrivacyEngine",
+           "Tapper", "clipped_grad_sum", "dp_gradient", "params_from_numpy",
+           "params_to_numpy", "__version__"]

@@ -1,0 +1,177 @@
+"""The port's tapper and dense/conv kinds against ``repro.core``.
+
+A toy CNN's captures come from both packages' capture backward on the
+same params and batch (compared first), then the *same* numpy captures
+feed every kind operation of both packages: ``pe_grad``, ``norm_sq`` for
+every method, and ``contrib``.  The port's ``"pallas"`` methods run the
+kernels' plain versions on the CPU and are held against the JAX
+package's jnp realizations of the same function (``gram`` / ``ghost`` /
+``fgc``).  Synthetic captures add a strided, a dilated and a grouped
+conv, and a dense layer with a sequence long enough to take the chunked
+Gram.  f32, rtol 1e-5 (sums in another order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import kinds as jkinds  # noqa: E402
+from repro.core import strategies as jstrat  # noqa: E402
+from repro.core.tapper import LayerMeta as JMeta  # noqa: E402
+from repro.models.cnn import CNN as JCNN  # noqa: E402
+from repro.models.cnn import toy_cnn_config as jtoy  # noqa: E402
+from repro_torch.core import kinds as tkinds  # noqa: E402
+from repro_torch.core.tapper import LayerMeta as TMeta  # noqa: E402
+from repro_torch.core.tapper import capture_backward  # noqa: E402
+from repro_torch.models.cnn import CNN as TCNN  # noqa: E402
+from repro_torch.models.cnn import toy_cnn_config as ttoy  # noqa: E402
+from repro_torch.weights import params_from_numpy  # noqa: E402
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(tree):
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def _close(got, want, rtol=1e-5):
+    got = [np.asarray(g) for g in jax.tree.leaves(
+        jax.tree.map(lambda a: a.numpy() if hasattr(a, "numpy") else a, got))]
+    want = [np.asarray(w) for w in jax.tree.leaves(want)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=rtol,
+                                   atol=1e-6 * max(np.abs(w).max(), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def toy():
+    """(JAX metas, numpy captures, numpy cotangents, numpy params) of a
+    toy CNN, after checking that the port captures the same."""
+    jcfg = jtoy(2, 2.0, c0=4, img=16)
+    jm = JCNN(jcfg)
+    jparams, _ = jm.init(jax.random.PRNGKey(0))
+    pnp = _np(jparams)
+    rng = np.random.RandomState(0)
+    batch = {"img": rng.randn(3, 3, 16, 16).astype(np.float32),
+             "label": rng.randint(0, 10, 3).astype(np.int32)}
+    jl, jcaps, jdtaps, jmetas = jstrat._capture(
+        jm.apply, jparams, jax.tree.map(jnp.asarray, batch))
+    tm = TCNN(ttoy(2, 2.0, c0=4, img=16))
+    tparams = params_from_numpy(pnp, like=tm.init(0, device="cpu")[0],
+                                device="cpu")
+    tl, tcaps, tdtaps, tmetas = capture_backward(
+        tm.apply, tparams, _t(batch), with_metas=True)
+    assert list(tmetas) == list(jmetas)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for n in jmetas:
+        assert tmetas[n].kind == jmetas[n].kind
+        assert tmetas[n].static == jmetas[n].static
+        np.testing.assert_allclose(tcaps[n]["x"].numpy(),
+                                   np.asarray(jcaps[n]["x"]), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(tdtaps[n].numpy(), np.asarray(jdtaps[n]),
+                                   rtol=1e-5, atol=1e-7)
+    return jmetas, _np(jcaps), _np(jdtaps), pnp
+
+
+def _synthetic_conv(stride, dilation, padding, groups, seed):
+    rng = np.random.RandomState(seed)
+    B, C, D, K, H = 3, 4, 6, 3, 11
+    x = rng.randn(B, C, H, H).astype(np.float32)
+    w = rng.randn(D, C // groups, K, K).astype(np.float32)
+    from repro.models.convops import conv_forward
+    y = conv_forward(jnp.asarray(x), jnp.asarray(w), stride=stride,
+                     dilation=dilation, padding=padding, groups=groups)
+    dy = rng.randn(*y.shape).astype(np.float32)
+    fields = dict(kind="conv", path=("sconv",), bias_key="b",
+                  static={"stride": stride, "dilation": dilation,
+                          "padding": padding, "groups": groups,
+                          "kernel_shape": w.shape})
+    return fields, {"x": x}, dy, {"w": w, "b": np.zeros(D, np.float32)}
+
+
+def _synthetic_dense_seq():
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 1100, 6).astype(np.float32)
+    dy = rng.randn(2, 1100, 5).astype(np.float32)
+    fields = dict(kind="dense", path=("sfc",), bias_key="b")
+    return fields, {"x": x}, dy, {"w": np.zeros((6, 5), np.float32),
+                                  "b": np.zeros(5, np.float32)}
+
+
+def _layer(toy, name):
+    if name == "conv_strided":
+        return _synthetic_conv(2, 1, 1, 1, 1)
+    if name == "conv_dilated":
+        return _synthetic_conv(1, 2, 2, 1, 2)
+    if name == "conv_grouped":
+        return _synthetic_conv(2, 1, 1, 2, 3)
+    if name == "dense_seq":
+        return _synthetic_dense_seq()
+    jmetas, caps, dtaps, pnp = toy
+    m = jmetas[name]
+    fields = dict(kind=m.kind, path=m.path, bias_key=m.bias_key,
+                  static=dict(m.static))
+    return fields, caps[name], dtaps[name], pnp[m.path[0]]
+
+
+CONV_LAYERS = ["conv0", "conv1", "conv_strided", "conv_dilated",
+               "conv_grouped"]
+DENSE_LAYERS = ["fc0", "dense_seq"]
+# (op, port kwargs, JAX kwargs): "pallas" in the port is held against the
+# JAX package's jnp realization of the same function.
+CONV_OPS = [
+    ("pe_grad", {"conv_impl": "fgc"}, {"conv_impl": "fgc"}),
+    ("pe_grad", {"conv_impl": "pallas"}, {"conv_impl": "fgc"}),
+    ("norm_sq", {"conv_norm": "pe"}, {"conv_norm": "pe"}),
+    ("norm_sq", {"conv_norm": "ghost"}, {"conv_norm": "ghost"}),
+    ("norm_sq", {"conv_norm": "pallas"}, {"conv_norm": "ghost"}),
+    ("norm_sq", {"conv_norm": "auto"}, {"conv_norm": "auto"}),
+    ("contrib", {}, {}),
+]
+DENSE_OPS = [
+    ("pe_grad", {}, {}),
+    ("norm_sq", {"norm_method": "rank1"}, {"norm_method": "rank1"}),
+    ("norm_sq", {"norm_method": "stream"}, {"norm_method": "stream"}),
+    ("norm_sq", {"norm_method": "gram"}, {"norm_method": "gram"}),
+    ("norm_sq", {"norm_method": "pallas"}, {"norm_method": "gram"}),
+    ("norm_sq", {"norm_method": "auto"}, {"norm_method": "auto"}),
+    ("contrib", {}, {}),
+]
+CASES = ([(n, *op) for n in CONV_LAYERS for op in CONV_OPS]
+         + [(n, *op) for n in DENSE_LAYERS for op in DENSE_OPS])
+
+
+@pytest.mark.parametrize("name,op,tkw,jkw", CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'-'.join(c[2].values())}"
+                              for c in CASES])
+def test_kind_parity(toy, name, op, tkw, jkw):
+    fields, cap, dy, psub = _layer(toy, name)
+    B = dy.shape[0]
+    w = np.random.RandomState(11).rand(B).astype(np.float32)
+    weights = {"weights": w} if op == "contrib" else {}
+    want = jkinds.apply_kind(
+        op, JMeta(**fields), jax.tree.map(jnp.asarray, cap), jnp.asarray(dy),
+        params_sub=jax.tree.map(jnp.asarray, psub),
+        **{k: jnp.asarray(v) for k, v in weights.items()}, **jkw)
+    got = tkinds.apply_kind(
+        op, TMeta(**fields), _t(cap), _t(dy), params_sub=_t(psub),
+        **{k: _t(v) for k, v in weights.items()}, **tkw)
+    _close(got, _np(want))
+
+
+def test_unported_kinds_raise(toy):
+    fields, cap, dy, psub = _layer(toy, "fc0")
+    for meta in (TMeta(**dict(fields, scanned=1)),
+                 TMeta(**dict(fields, kind="embed"))):
+        with pytest.raises(NotImplementedError, match="LM slice"):
+            tkinds.apply_kind("norm_sq", meta, _t(cap), _t(dy))
