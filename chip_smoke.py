@@ -167,7 +167,11 @@ def kernel_cases(torch):
             pe = torch.bmm(x.transpose(1, 2).float(), dy.float())
             return pe.square().sum((1, 2)) + dy.float().sum(1).square().sum(1)
 
-        flops = 2 * b * t * t * (di + do)
+        # ‖δy_bᵀx_b‖²_F needs the cheaper of its two contractions: the
+        # Grams (2·T²·(Di+Do) per example, the kernel's route) or the
+        # direct product δy_bᵀx_b (2·T·Di·Do), which is far less at
+        # conv0 and conv1.
+        flops = 2 * b * t * min(t * (di + do), di * do)
         nbytes = (x.numel() + dy.numel()) * x.element_size() + b * 4
         b_ms, b_by = bound(flops, nbytes, dt)
         row = {"kernel": "gram_norm", "case": name, "dtype": dt,

@@ -33,7 +33,9 @@ class ClipPolicy:
       * ``stale``     — flat coefficients from the previous step's norms.
 
     ``budgets`` / ``fused`` / ``quantile`` / ``ema`` configure the non-flat
-    modes and are validated as in the JAX package.
+    modes and are validated as in the JAX package; set away from their
+    defaults they raise at use (:func:`check_served`) until the planner
+    slice reads them.
     """
 
     mode: str = "flat"
@@ -83,6 +85,10 @@ class NormCfg:
     and plans stay one-to-one; in the port it means this repo's own CUDA
     kernel (``gram_norm`` for dense/conv norms, ``pe_conv_grad_2d`` for
     conv_impl), and on CPU tensors its plain PyTorch version.
+
+    ``embed`` and ``mem_budget`` are read only by the LM kinds and the
+    planner; set away from their defaults they raise at use
+    (:func:`check_served`).
     """
 
     dense: str = "auto"
@@ -103,7 +109,8 @@ class DPConfig:
     legacy-kwarg shim included).
 
     Norm realizations live in a nested :class:`NormCfg`; ``overrides``
-    ({tap-name glob: method}) are kept for the planner.  ``microbatches``
+    ({tap-name glob: method}) are validated here and raise at use until
+    the planner reads them (:func:`check_served`).  ``microbatches``
     is a positive int (``"auto"`` resolves to 1 under the fixed
     strategies, as in the JAX package).
     """
@@ -181,6 +188,27 @@ class DPConfig:
         return self.norm.conv
 
 
+def check_served(cfg: DPConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run:
+    ``strategy="auto"``, non-flat clipping, and the knobs that only the
+    planner slice reads (ROADMAP.md item 9) when set away from their
+    defaults, so that no setting is silently ignored."""
+    if cfg.strategy == "auto" or cfg.clipping.mode != "flat":
+        raise strategies._auto_unsupported()
+    norm0, clip0 = NormCfg(), ClipPolicy()
+    unserved = [name for name, changed in [
+        ("overrides", bool(cfg.overrides)),
+        ("NormCfg.embed", cfg.norm.embed != norm0.embed),
+        ("NormCfg.mem_budget", cfg.norm.mem_budget != norm0.mem_budget),
+        *((f"ClipPolicy.{f}", getattr(cfg.clipping, f) != getattr(clip0, f))
+          for f in ("budgets", "fused", "quantile", "ema"))] if changed]
+    if unserved:
+        raise NotImplementedError(
+            f"{', '.join(unserved)} set away from the default: only the "
+            f"planner slice (ROADMAP.md item 9) reads these; leave them at "
+            f"their defaults under the fixed strategies")
+
+
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
               l2_clip: float):
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
@@ -225,9 +253,9 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
 
     Returns (mean loss, gradient tree in float32, aux dict with
     ``per_example_norms`` and ``clip_fraction``)."""
-    if cfg.strategy == "auto" or plan is not None \
-            or cfg.clipping.mode != "flat" or clip_state:
+    if plan is not None or clip_state:
         raise strategies._auto_unsupported()
+    check_served(cfg)
     B = next(iter(batch.values())).shape[0]
     denom = denom or B
     m = resolve_microbatches(cfg)

@@ -22,7 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.clipping import (DPConfig, dp_gradient,
+from repro_torch.core.clipping import (DPConfig, check_served, dp_gradient,
                                        resolve_microbatches)
 from repro_torch.core.privacy import PrivacyAccountant
 from repro_torch.device import resolve_device
@@ -96,6 +96,7 @@ class PrivacyEngine:
             raise NotImplementedError(
                 f"clipping mode {self.dp.clipping.mode!r} comes with the "
                 f"planner slice (ROADMAP.md item 9)")
+        check_served(self.dp)
         self.apply_fn = apply_fn
         self._update_fn = _resolve_optimizer(optimizer)
         self._lr = lr

@@ -6,7 +6,8 @@
 * ε of the port's accountant equals ``repro.core.privacy``'s to 1e-12,
   and a ledger of another mechanism raises ``LedgerMismatch``.
 * Synthetic batches, configs and the optimizers match the JAX package's.
-* ``DPConfig`` keeps its validation and its legacy-kwarg shim.
+* ``DPConfig`` keeps its validation and its legacy-kwarg shim, and the
+  knobs only the planner reads raise at use when set.
 """
 import dataclasses
 import warnings
@@ -27,7 +28,8 @@ from repro.optim import schedule as jsched  # noqa: E402
 import repro_torch.core.privacy as tpriv  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core import (DPConfig, KeyProvenanceError, NormCfg,  # noqa
-                              PrivacyEngine, add_noise)
+                              PrivacyEngine, add_noise, dp_gradient)
+from repro_torch.core.clipping import ClipPolicy  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.models.cnn import CNN, toy_cnn_config  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -209,3 +211,27 @@ def test_dpconfig_validation_and_legacy_shim():
     assert any(issubclass(x.category, DeprecationWarning) for x in w)
     assert cfg.norm == NormCfg(dense="gram", conv="auto", conv_impl="pallas")
     assert DPConfig(overrides={"conv*": "pe"}).overrides == (("conv*", "pe"),)
+
+
+@pytest.mark.parametrize("knob, kw", [
+    ("overrides", dict(overrides={"conv*": "pe"})),
+    ("NormCfg.embed", dict(norm=NormCfg(embed="gram"))),
+    ("NormCfg.mem_budget", dict(norm=NormCfg(mem_budget=1 << 20))),
+    ("NormCfg.embed", dict(embed_norm="segsum")),
+    ("ClipPolicy.budgets", dict(clipping=ClipPolicy(budgets={"fc*": 2.0}))),
+    ("ClipPolicy.quantile", dict(clipping=ClipPolicy(quantile=0.7))),
+    ("ClipPolicy.ema", dict(clipping=ClipPolicy(ema=0.5))),
+    ("ClipPolicy.fused", dict(clipping=ClipPolicy(fused=False))),
+])
+def test_planner_only_knobs_raise_at_use(toy_engine, knob, kw):
+    """A knob only the planner reads raises rather than being ignored."""
+    eng, params, batch = toy_engine
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        cfg = DPConfig(strategy="bk", **kw)
+    with pytest.raises(NotImplementedError, match=knob):
+        dp_gradient(eng.apply_fn, params, batch, cfg=cfg)
+    with pytest.raises(NotImplementedError, match=knob):
+        PrivacyEngine(eng.apply_fn, params, batch, cfg, device="cpu")
+    # At their defaults the same config runs.
+    dp_gradient(eng.apply_fn, params, batch, cfg=DPConfig(strategy="bk"))
