@@ -9,10 +9,11 @@ nested dicts of tensors with the JAX package's key paths and layouts
 (conv ``w`` is ``(D, C, K, K)``, dense ``w`` is ``(in, out)`` used as
 ``x @ w``), and models keep ``apply(params, batch, tapper) -> (B,)``.
 
-This slice covers the DP-SGD step on the paper's CNNs under the fixed
-strategies (naive / multi / crb / ghost / bk) with flat clipping; the
-planner, checkpointing, sharding and the LM models come later (see
-ROADMAP.md).  Every entry point takes ``device=`` and defaults to
+It covers the DP-SGD step on the paper's CNNs, under the fixed
+strategies (naive / multi / crb / ghost / bk) and the planned one
+(``strategy="auto"``), with flat, per-layer and stale clipping on one
+device; checkpointing, calibration, sharding and the LM models come later
+(see ROADMAP.md).  Every entry point takes ``device=`` and defaults to
 ``"cuda"``; without a card it raises unless ``device="cpu"`` is passed.
 """
 __version__ = "0.1.0"

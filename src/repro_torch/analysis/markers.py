@@ -1,5 +1,14 @@
-"""``tag``: the marker the core pipeline puts on its load-bearing values
-(clip coefficients, group norms, realizations, noise terms).
+"""``tag``: the marker the core pipeline puts on its load-bearing values:
+
+  * ``kind="clip_coef"``   — per-example clip coefficients (``mode`` says
+    which policy produced them: flat, per_layer or stale);
+  * ``kind="group_norm"``  — a parameter group's per-example squared
+    norms, with the group key, the realized method and whether a fused
+    single pass produced them;
+  * ``kind="realization"`` — a kind-level norm realization;
+  * ``kind="fused_impl"``  — a fused norm+contrib single pass
+    (``gram_norm_fused``);
+  * ``kind="noise"``       — each Gaussian noise term.
 
 In the JAX package it is an identity primitive that the static verifier
 finds in the traced graph.  Here it is the identity for now, with the

@@ -1,16 +1,18 @@
-"""DP-SGD gradient computation: clip, accumulate, noise (flat clipping).
+"""DP-SGD gradient computation: clip, accumulate, noise.
 
 The preferred entry point is :class:`repro_torch.core.engine.PrivacyEngine`;
-:func:`dp_gradient` is the functional core it drives.  The per-layer and
-stale clipping modes, ``microbatches="auto"`` under the planner and
-injected plans come with the planner slice (ROADMAP.md item 9).
+:func:`dp_gradient` is the functional core it drives.  Clipping is flat,
+per-layer or stale (:class:`ClipPolicy`); ``microbatches="auto"`` splits
+the batch from the plan's memory estimates.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from fnmatch import fnmatchcase
 from typing import Any, Callable, Mapping
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.markers import tag
@@ -26,16 +28,20 @@ F32 = torch.float32
 class ClipPolicy:
     """How per-example clip coefficients are derived and applied.
 
-    Modes (the JAX package's; only ``flat`` runs in this slice):
+    Modes (the JAX package's):
       * ``flat``      — one coefficient per example from the *total* grad
         norm: ``w_b = min(1, C / ‖g_b‖)``.  Exact.
-      * ``per_layer`` — per-layer budgets ``C_l`` with ``Σ_l C_l² = C²``.
-      * ``stale``     — flat coefficients from the previous step's norms.
-
-    ``budgets`` / ``fused`` / ``quantile`` / ``ema`` configure the non-flat
-    modes and are validated as in the JAX package; set away from their
-    defaults they raise at use (:func:`check_served`) until the planner
-    slice reads them.
+      * ``per_layer`` — each parameter group ``l`` is clipped against its
+        own budget ``C_l`` with ``Σ_l C_l² = C²``, so the clipped sum's
+        sensitivity stays ``C``.  ``budgets``: ``"uniform"``
+        (``C/√G``), a ``{glob: weight}`` mapping over the "/"-joined
+        group keys, or ``"auto"`` (``C_l ∝`` an EMA, factor ``ema``, of
+        each group's ``quantile`` norm, tracked by the engine).
+      * ``stale``     — flat coefficients from the *previous* step's norms
+        (the first step bootstraps with flat clipping), so norm and
+        contribution come from one pass over the captures; ``fused``
+        lets the plan route Gram-realized layers through
+        ``gram_norm_fused``.
     """
 
     mode: str = "flat"
@@ -58,6 +64,38 @@ class ClipPolicy:
                 (str(p), float(w)) for p, w in
                 (self.budgets.items() if isinstance(self.budgets, Mapping)
                  else self.budgets)))
+
+
+def resolve_budgets(policy: ClipPolicy, l2_clip: float, group_keys,
+                    observed=None, *, device="cpu"):
+    """Per-group clip budgets ``C_l`` with ``Σ_l C_l² = C²`` (exactly, up
+    to float rounding), as an f32 tensor on ``device``.
+
+    ``observed`` (per-group positive norm statistics, e.g. the engine's
+    tracked quantiles) drives the ``"auto"`` split ``C_l ∝ q_l``; without
+    it ``"auto"`` falls back to uniform.  Mapping budgets are glob-matched
+    against the ``"/"``-joined group keys, first match wins.
+    """
+    G = len(group_keys)
+    if G == 0:
+        raise ValueError("no parameter groups to budget")
+    if isinstance(policy.budgets, tuple):
+        w = []
+        for key in group_keys:
+            for pat, wt in policy.budgets:
+                if fnmatchcase(key, pat):
+                    w.append(wt)
+                    break
+            else:
+                w.append(1.0)
+        w = np.asarray(w, np.float64)
+    elif policy.budgets == "auto" and observed is not None:
+        w = np.asarray(observed, np.float64)
+    else:
+        w = np.ones((G,), np.float64)
+    w = np.maximum(w, 1e-12)
+    b = l2_clip * w / np.sqrt(np.sum(w * w))
+    return torch.tensor(b, dtype=F32, device=device)
 
 
 def as_clip_policy(clipping) -> ClipPolicy:
@@ -86,9 +124,9 @@ class NormCfg:
     kernel (``gram_norm`` for dense/conv norms, ``pe_conv_grad_2d`` for
     conv_impl), and on CPU tensors its plain PyTorch version.
 
-    ``embed`` and ``mem_budget`` are read only by the LM kinds and the
-    planner; set away from their defaults they raise at use
-    (:func:`check_served`).
+    ``mem_budget`` bounds the planner's materializing paths and drives
+    ``microbatches="auto"``.  ``embed`` is read only by the LM kinds; set
+    away from its default it raises at use (:func:`check_served`).
     """
 
     dense: str = "auto"
@@ -108,11 +146,12 @@ class DPConfig:
     """Structured DP-SGD configuration (the JAX package's, validation and
     legacy-kwarg shim included).
 
-    Norm realizations live in a nested :class:`NormCfg`; ``overrides``
-    ({tap-name glob: method}) are validated here and raise at use until
-    the planner reads them (:func:`check_served`).  ``microbatches``
-    is a positive int (``"auto"`` resolves to 1 under the fixed
-    strategies, as in the JAX package).
+    Norm realizations live in a nested :class:`NormCfg`, and individual
+    layers are pinned with ``overrides`` ({tap-name glob: method}, first
+    match wins; read by the planner).  ``microbatches`` may be ``"auto"``:
+    the count is derived from the ExecPlan's per-layer peak-memory
+    estimates against ``norm.mem_budget`` (1 under the fixed strategies,
+    which have no plan).
     """
 
     l2_clip: float = 1.0
@@ -187,26 +226,24 @@ class DPConfig:
     def conv_norm(self) -> str:
         return self.norm.conv
 
+    def planner_opts(self) -> dict:
+        """Keyword arguments for :func:`.costmodel.get_plan`."""
+        return dict(norm_method=self.norm.dense, conv_norm=self.norm.conv,
+                    mem_budget=self.norm.mem_budget,
+                    overrides=self.overrides,
+                    clip_mode=self.clipping.mode,
+                    clip_fused=self.clipping.fused)
+
 
 def check_served(cfg: DPConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run:
-    ``strategy="auto"``, non-flat clipping, and the knobs that only the
-    planner slice reads (ROADMAP.md item 9) when set away from their
-    defaults, so that no setting is silently ignored."""
-    if cfg.strategy == "auto" or cfg.clipping.mode != "flat":
-        raise strategies._auto_unsupported()
-    norm0, clip0 = NormCfg(), ClipPolicy()
-    unserved = [name for name, changed in [
-        ("overrides", bool(cfg.overrides)),
-        ("NormCfg.embed", cfg.norm.embed != norm0.embed),
-        ("NormCfg.mem_budget", cfg.norm.mem_budget != norm0.mem_budget),
-        *((f"ClipPolicy.{f}", getattr(cfg.clipping, f) != getattr(clip0, f))
-          for f in ("budgets", "fused", "quantile", "ema"))] if changed]
-    if unserved:
+    """Raise ``NotImplementedError`` for the one knob this slice does not
+    read: ``NormCfg.embed`` set away from its default (the embedding kinds
+    come with the LM slice, ROADMAP.md item 11), so that no setting is
+    silently ignored."""
+    if cfg.norm.embed != NormCfg().embed:
         raise NotImplementedError(
-            f"{', '.join(unserved)} set away from the default: only the "
-            f"planner slice (ROADMAP.md item 9) reads these; leave them at "
-            f"their defaults under the fixed strategies")
+            "NormCfg.embed set away from the default: only the embedding "
+            "kinds of the LM slice (ROADMAP.md item 11) read it")
 
 
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
@@ -230,15 +267,21 @@ def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
     return out
 
 
-def resolve_microbatches(cfg: DPConfig) -> int:
-    """``cfg.microbatches`` as a count: ``"auto"`` is 1 under the fixed
-    strategies (they have no plan to consult), as in the JAX package."""
+def resolve_microbatches(apply_fn, params, batch, cfg: DPConfig,
+                         plan=None) -> int:
+    """Resolve ``cfg.microbatches`` to a concrete count.  ``"auto"``
+    derives it from the full-batch ExecPlan's memory estimates (planned
+    strategy only; the fixed strategies have no plan and run unsplit)."""
     m = cfg.microbatches
     if m != "auto":
         return int(m)
-    if cfg.strategy == "auto":
-        raise strategies._auto_unsupported()
-    return 1
+    if cfg.strategy != "auto":
+        return 1
+    if plan is None:
+        plan = costmodel.get_plan(apply_fn, params, batch,
+                                  **cfg.planner_opts())
+    B = next(iter(batch.values())).shape[0]
+    return costmodel.auto_microbatches(plan, B, cfg.norm.mem_budget)
 
 
 def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
@@ -246,33 +289,71 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
                 plan=None, clip_state: dict | None = None):
     """Full DP-SGD gradient:  (Σ_b clip(g_b) + σC·ξ) / denom.
 
-    ``batch`` leaves have leading batch B; with ``cfg.microbatches`` > 1
-    the batch is split and the clipped sums accumulated in a Python loop
-    (valid because clipping is per-example and accumulation a plain sum).
-    ``key`` is the ``torch.Generator`` the noise is drawn from.
+    ``batch`` leaves have leading B; with ``cfg.microbatches`` > 1 the
+    batch is split and the clipped sums accumulated in a Python loop
+    (valid because clipping is per-example and accumulation a plain sum);
+    ``"auto"`` derives the split from the ExecPlan's memory estimates.
+    ``plan`` injects a pre-built (possibly deserialized) ExecPlan; it must
+    match the per-microbatch shapes *and* the clipping mode.  ``key`` is
+    the ``torch.Generator`` the noise is drawn from.
+
+    ``clip_state`` threads the cross-step state of the non-flat modes
+    (the engine owns this loop):
+      * ``{"prev_norms_sq": (B,)}`` — ``stale``: the norms the lagged
+        coefficients come from.  Absent → bootstrap: this call clips with
+        exact flat coefficients (and a flat plan) and returns the norms
+        that seed the next step.
+      * ``{"budgets": (G,)}`` — ``per_layer`` with ``budgets="auto"``:
+        the engine-tracked split.  Absent → the policy's static split
+        (uniform / mapping) is resolved against the plan's groups.
 
     Returns (mean loss, gradient tree in float32, aux dict with
-    ``per_example_norms`` and ``clip_fraction``)."""
-    if plan is not None or clip_state:
-        raise strategies._auto_unsupported()
+    ``per_example_norms`` and ``clip_fraction``).  ``per_layer`` adds
+    ``per_layer_norms`` (G, B), ``per_layer_clip_fraction`` (G,) and
+    ``clip_budgets``; ``stale`` adds ``clip_fraction_lagged`` (what the
+    applied coefficients clipped; ``clip_fraction`` describes the current
+    norms, i.e. the next step's coefficients) and ``clip_state``."""
     check_served(cfg)
     B = next(iter(batch.values())).shape[0]
     denom = denom or B
-    m = resolve_microbatches(cfg)
+    policy = cfg.clipping
+    clip_state = dict(clip_state or {})
+    prev_ns = clip_state.get("prev_norms_sq")
+    budgets = clip_state.get("budgets")
+    bootstrap = policy.mode == "stale" and prev_ns is None
+    if bootstrap:
+        # No lagged norms yet: clip exactly (flat), under a flat plan —
+        # the stale plan's fused realizations need coefficients entering
+        # the pass.  The returned clip_state seeds the steady state.
+        policy = ClipPolicy()
+        cfg = dataclasses.replace(cfg, clipping=policy)
+        plan = None
+    m = cfg.microbatches
+    if m == "auto":
+        m = resolve_microbatches(apply_fn, params, batch, cfg, plan=plan)
+        if m > 1:
+            plan = None   # a caller-supplied plan was for the full batch
     if B % m:
         raise ValueError(f"batch {B} not divisible by microbatches {m}")
     mb = B // m
-    gsum, losses, norms = None, [], []
+    gsum, losses, norms, group_ns, budgets_used = None, [], [], [], None
     for i in range(m):
-        part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        l_i, g_i, n_i = strategies.clipped_grad_sum(
+        sl = slice(i * mb, (i + 1) * mb)
+        part = {k: v[sl] for k, v in batch.items()}
+        l_i, g_i, n_i, detail = strategies.clipped_grad_sum_detailed(
             apply_fn, params, part, l2_clip=cfg.l2_clip,
             strategy=cfg.strategy, norm_method=cfg.norm.dense,
-            conv_impl=cfg.norm.conv_impl, conv_norm=cfg.norm.conv)
+            conv_impl=cfg.norm.conv_impl, conv_norm=cfg.norm.conv,
+            overrides=cfg.overrides, mem_budget=cfg.norm.mem_budget,
+            plan=plan, clip_policy=policy, budgets=budgets,
+            prev_norms_sq=None if prev_ns is None else prev_ns[sl])
         g_i = tree_map(lambda g: g.to(F32), g_i)
         gsum = g_i if gsum is None else tree_map(torch.add, gsum, g_i)
         losses.append(l_i)
         norms.append(n_i)
+        if detail["group_norms_sq"] is not None:
+            group_ns.append(detail["group_norms_sq"])
+            budgets_used = detail["budgets"]
     losses, norms_sq = torch.cat(losses), torch.cat(norms)
     if key is not None and cfg.noise_multiplier > 0:
         gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip)
@@ -282,5 +363,24 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         "per_example_norms": torch.sqrt(norms_sq + 1e-12),
         "clip_fraction": (torch.sqrt(norms_sq) > C).to(F32).mean(),
     }
+    if policy.mode == "per_layer":
+        # The flat-style scalar above would be wrong (it compares the
+        # *total* norm against C while clipping happened per layer):
+        # report per-layer fractions against the per-layer budgets, and
+        # make the scalar their mean over (layer, example) pairs.
+        group_ns = torch.cat(group_ns, dim=1)                    # (G, B)
+        pl_norms = torch.sqrt(group_ns + 1e-12)
+        clipped = (pl_norms > budgets_used[:, None]).to(F32)
+        aux["per_layer_norms"] = pl_norms
+        aux["per_layer_clip_fraction"] = clipped.mean(dim=1)
+        aux["clip_fraction"] = clipped.mean()
+        aux["clip_budgets"] = budgets_used
+    elif policy.mode == "stale" or bootstrap:
+        # ``clip_fraction`` describes the *current* norms — the
+        # coefficients the next step applies.  What this step applied is
+        # lagged; label it instead of reporting it wrongly.
+        applied_ns = norms_sq if bootstrap else prev_ns
+        aux["clip_fraction_lagged"] = \
+            (torch.sqrt(applied_ns) > C).to(F32).mean()
+        aux["clip_state"] = {"prev_norms_sq": norms_sq}
     return losses.mean(), grad, aux
-

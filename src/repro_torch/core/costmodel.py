@@ -1,16 +1,113 @@
-"""The scalar cost models that the ``"auto"`` norm methods of
-:mod:`repro_torch.core.kinds` consult.
+"""Per-layer execution planner for the DP-SGD pipeline (single device).
 
-Only the crossover formulas live here in this slice; the per-layer
-planner, ``ExecPlan`` and its store come with ROADMAP.md item 9.
+The paper's empirical finding is that which per-example-gradient strategy
+wins depends on layer geometry (depth, width, batch, kernel size).  This
+module turns that into an analytic *per-layer* plan: from the tapped
+layers' :class:`~repro_torch.core.tapper.LayerMeta` and capture/output
+shapes (one shape-only probe on ``device="meta"``) it chooses
+
+  norm phase (per layer)
+    * ``gram``   — Gram-trick ghost norm, no per-example gradient
+                   materialization (dense: FLOPs ≈ 2·B·T²·(Din+Dout);
+                   conv via im2col: 2·B·T²·(C·K/g + D/g)·g);
+    * ``stream`` / ``pe`` — materialize per-example grads then reduce
+                   (dense: ≈ 4·B·T·Din·Dout; conv: ≈ 4·B·T·(C·K/g)·(D/g)·g),
+                   bounded by a peak-memory budget;
+    * ``rank1``  — no sequence axis: ‖g_b‖² = ‖x_b‖²·‖δy_b‖² exactly;
+
+  sum phase (per parameter group)
+    * ``stash``    — the norm already materialized per-example grads;
+                     keep them and form Σ_b w_b·g_b by a (B,)-weighted
+                     reduction (zero recompute);
+    * ``contrib``  — weighted per-layer contraction from the captures
+                     (the book-keeping path);
+    * ``backward`` — take this group's gradient from one shared weighted
+                     backward pass, chosen only when the contractions it
+                     replaces pay for the backward's fixed cost.
+
+Under stale clipping the Gram-realized dense/conv layers are marked
+``fused``: their norm and contribution come from one ``gram_norm_fused``
+pass.
+
+The decision rules and constants are the JAX package's
+(``repro.core.costmodel``), so the two packages plan alike.  Only the
+single-device planner is ported: ``mesh=`` and ``calibration=`` raise
+(ROADMAP.md items 14 and 13), and the on-disk plan store and the
+mispredict loop come with items 10 and 13.  Plans are cached on (model
+identity, batch/param shapes, knobs): steady-state training re-plans
+nothing and never re-probes (:func:`get_plan`).
 """
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+import functools
+import hashlib
+import json
+import math
+import pathlib
+from collections import OrderedDict
+from fnmatch import fnmatchcase
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.core.tapper import LayerMeta, TensorSpec, probe
+from repro_torch.tree import get_subtree, leaf_paths
 
 GRAM_CHUNK = 1024
 STREAM_MEM_BUDGET = 2 << 30  # bytes of per-example-grad scratch we tolerate
 BYTES = 4
+# A weighted second backward costs ~2x the forward on top of the wgrad
+# contractions it shares with `contrib`; expressed as a multiple of the
+# total per-layer wgrad FLOPs (forward ≈ Σ wgrad, dx-chain ≈ Σ wgrad).
+BACKWARD_FIXED_FACTOR = 2.0
+
+# The JAX package's analytic fallback table, verbatim: it prices its TPU,
+# not the H100, and is kept so that the port's plans equal the reference's
+# until calibration (ROADMAP.md item 13) measures this card.  Of the three
+# only ``hbm_flops_per_byte`` moves a single-device decision (the fused
+# credit under stale clipping); the wire price needs a mesh and the FLOP
+# rate only converts FLOP-equivalents into predicted seconds.
+ANALYTIC_FALLBACK = {
+    "collective_flops_per_byte": 512.0,
+    "hbm_flops_per_byte": 128.0,
+    "flops_per_second": 197.0e12,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class CostConstants:
+    """The rates one planning pass prices against, plus provenance
+    (``calibration`` is a measured calibration's digest, "" when
+    analytic; it is part of every plan's identity)."""
+
+    collective_flops_per_byte: float
+    hbm_flops_per_byte: float
+    flops_per_second: float
+    source: str = "analytic"
+    calibration: str = ""
+
+
+ANALYTIC_CONSTANTS = CostConstants(
+    collective_flops_per_byte=ANALYTIC_FALLBACK["collective_flops_per_byte"],
+    hbm_flops_per_byte=ANALYTIC_FALLBACK["hbm_flops_per_byte"],
+    flops_per_second=ANALYTIC_FALLBACK["flops_per_second"])
+
+PLAN_CACHE_SIZE = 16
+
+
+def _single_device(mesh=None, calibration=None):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-aware planning comes with sharding (ROADMAP.md item 14)")
+    if calibration is not None:
+        raise NotImplementedError(
+            "measured cost constants come with calibration (ROADMAP.md "
+            "item 13)")
+
+
+# ---------------------------------------------------------------------------
+# Scalar cost models (the stable, unit-tested crossover formulas)
 
 
 def dense_norm_method(T: int, Di: int, Do: int, B: int,
@@ -45,12 +142,630 @@ def conv_norm_method(T: int, C: int, D: int, K: int, B: int, groups: int = 1,
     return "ghost"
 
 
+# ---------------------------------------------------------------------------
+# Plan structures
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """Per-tap decision + cost estimates (whole batch, one device)."""
+
+    name: str
+    kind: str
+    norm_method: str          # gram|stream|rank1|pallas|ghost|pe
+    stash: bool               # norm phase materializes per-example grads
+    norm_flops: float
+    contrib_flops: float
+    wgrad_flops: float        # this layer's share of a weighted backward
+    stash_bytes: float = 0.0  # size of the (B, *param) grads if stashed
+    fallback_norm: str = ""   # best no-stash method (cumulative demotion)
+    fused: bool = False       # stale mode: single-pass gram_norm_fused
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """One parameter (tree path) and the taps that use it: one in this
+    slice (shared taps come with the LM slice, ROADMAP.md item 11)."""
+
+    path: tuple
+    members: tuple                 # tap names
+    sum_method: str                # stash | contrib | backward
+
+
+PLAN_FORMAT_VERSION = 1
+
+_META_FIELDS = ("kind", "path", "param_key", "bias_key", "w_transposed",
+                "segmented", "scanned", "shared", "static")
+
+
+def _retuple(x):
+    """JSON arrays back to tuples (paths, kernel shapes, strides...)."""
+    if isinstance(x, list):
+        return tuple(_retuple(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _retuple(v) for k, v in x.items()}
+    return x
+
+
+def _jsonable(x):
+    if isinstance(x, tuple):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    return x
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExecPlan:
+    """The per-layer execution plan — a first-class, frozen value.
+
+    Inspect with :meth:`explain` (per-layer table of chosen norm/sum
+    realizations with predicted FLOPs/bytes); serialize with
+    :meth:`to_json` / :meth:`from_json`, keyed on :attr:`fingerprint`
+    (model + batch/param shapes + planner knobs + the port's sources).  A
+    deserialized plan executes without re-probing; its layer names are
+    checked against the live capture pass, so a stale plan fails loudly.
+    """
+
+    groups: tuple
+    layers: dict                   # name -> LayerPlan
+    metas: dict                    # name -> LayerMeta
+    needs_backward: bool
+    total_norm_flops: float
+    total_contrib_flops: float
+    tap_shapes: dict = dataclasses.field(default_factory=dict)
+    capture_bytes: float = 0.0     # captures + outputs + cotangents
+    fingerprint: str = ""
+    batch_sig: tuple = ()          # batch shapes the plan was built on
+    clip_mode: str = "flat"        # flat | per_layer | stale
+    calibration: str = ""          # calibration digest ("" = analytic)
+    _anchor: Any = None            # pins apply_fn identity while cached
+
+    # -- inspection --------------------------------------------------------
+
+    def sum_methods(self) -> dict:
+        return {n: g.sum_method for g in self.groups for n in g.members}
+
+    def peak_stash_bytes(self) -> float:
+        """Stashes coexist from the norm phase to the sum phase."""
+        return sum(self.layers[g.members[0]].stash_bytes
+                   for g in self.groups if g.sum_method == "stash")
+
+    def explain(self) -> str:
+        """Per-layer table of the chosen realizations and predicted costs."""
+        sums = self.sum_methods()
+        header = (f"{'layer':<28} {'kind':<10} {'norm':<8} {'sum':<9} "
+                  f"{'norm MF':>9} {'sum MF':>9} {'stash MB':>9}")
+        lines = [header, "-" * len(header)]
+        for n, lp in self.layers.items():
+            stash_mb = lp.stash_bytes / 2**20 if lp.stash else 0.0
+            sum_m = "fused" if lp.fused else sums.get(n, "?")
+            lines.append(
+                f"{n:<28} {lp.kind:<10} {lp.norm_method:<8} "
+                f"{sum_m:<9} {lp.norm_flops / 1e6:>9.2f} "
+                f"{lp.contrib_flops / 1e6:>9.2f} {stash_mb:>9.2f}")
+        passes = ("2 fwd + 2 bwd (shared weighted backward)"
+                  if self.needs_backward else "1 fwd + 1 bwd")
+        n_fused = sum(lp.fused for lp in self.layers.values())
+        lines.append("-" * len(header))
+        lines.append(
+            f"steady-state passes: {passes}; total norm "
+            f"{self.total_norm_flops / 1e6:.2f} MF, contrib "
+            f"{self.total_contrib_flops / 1e6:.2f} MF; captures "
+            f"{self.capture_bytes / 2**20:.2f} MB, peak stash "
+            f"{self.peak_stash_bytes() / 2**20:.2f} MB")
+        lines.append(
+            f"clipping mode: {self.clip_mode}"
+            + (f" ({n_fused} fused single-pass norm+contrib layer"
+               f"{'s' if n_fused != 1 else ''})" if n_fused else ""))
+        lines.append(
+            f"cost constants: measured calibration {self.calibration}"
+            if self.calibration else
+            "cost constants: analytic fallback (no calibration)")
+        if self.fingerprint:
+            lines.append(f"fingerprint: {self.fingerprint}")
+        return "\n".join(lines)
+
+    # -- serialization -----------------------------------------------------
+
+    def to_payload(self) -> dict:
+        metas = {n: {f: _jsonable(getattr(m, f)) for f in _META_FIELDS}
+                 for n, m in self.metas.items()}
+        return {
+            "format": PLAN_FORMAT_VERSION,
+            "fingerprint": self.fingerprint,
+            "batch_sig": _jsonable(self.batch_sig),
+            "clip_mode": self.clip_mode,
+            "needs_backward": self.needs_backward,
+            "total_norm_flops": self.total_norm_flops,
+            "total_contrib_flops": self.total_contrib_flops,
+            "calibration": self.calibration,
+            "capture_bytes": self.capture_bytes,
+            "layers": {n: dataclasses.asdict(lp)
+                       for n, lp in self.layers.items()},
+            "groups": [{"path": list(g.path), "members": list(g.members),
+                        "sum_method": g.sum_method} for g in self.groups],
+            "metas": metas,
+            "tap_shapes": {n: {"shape": list(s.shape),
+                               "dtype": _dtype_name(s.dtype)}
+                           for n, s in self.tap_shapes.items()},
+        }
+
+    def to_json(self, **json_kw) -> str:
+        return json.dumps(self.to_payload(), **json_kw)
+
+    @classmethod
+    def from_payload(cls, p: dict) -> "ExecPlan":
+        if p.get("format") != PLAN_FORMAT_VERSION:
+            raise ValueError(
+                f"unsupported plan format {p.get('format')!r} "
+                f"(this build reads {PLAN_FORMAT_VERSION})")
+        layers = {n: LayerPlan(**d) for n, d in p["layers"].items()}
+        groups = tuple(
+            GroupPlan(tuple(g["path"]), tuple(g["members"]),
+                      g["sum_method"]) for g in p["groups"])
+        metas = {n: LayerMeta(**{f: (_retuple(d[f]) if f in ("path", "static")
+                                     else d[f]) for f in _META_FIELDS})
+                 for n, d in p["metas"].items()}
+        tap_shapes = {n: TensorSpec(tuple(s["shape"]),
+                                    getattr(torch, s["dtype"]))
+                      for n, s in p["tap_shapes"].items()}
+        return cls(groups=groups, layers=layers, metas=metas,
+                   needs_backward=p["needs_backward"],
+                   total_norm_flops=p["total_norm_flops"],
+                   total_contrib_flops=p["total_contrib_flops"],
+                   tap_shapes=tap_shapes,
+                   capture_bytes=p["capture_bytes"],
+                   fingerprint=p["fingerprint"],
+                   batch_sig=_retuple(p["batch_sig"]),
+                   clip_mode=p["clip_mode"],
+                   calibration=p["calibration"])
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExecPlan":
+        return cls.from_payload(json.loads(s))
+
+    def __eq__(self, other) -> bool:
+        """Semantic equality: the serialized payload, so
+        ``from_json(to_json(p)) == p``."""
+        if not isinstance(other, ExecPlan):
+            return NotImplemented
+        return self.to_payload() == other.to_payload()
+
+
+# ---------------------------------------------------------------------------
+# Per-layer geometry + planning
+
+
+def _prod(xs) -> int:
+    return int(math.prod(int(x) for x in xs)) if xs else 1
+
+
+def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
+                *, norm_method: str, conv_norm: str, mem_budget: int,
+                clip_mode: str = "flat", clip_fused: bool = True,
+                cc: CostConstants = ANALYTIC_CONSTANTS) -> LayerPlan:
+    """Costs for one tap of an unscanned, unshared dense or conv layer.
+
+    The auto choice minimizes the *joint* norm + sum cost: a norm that
+    materializes per-example grads makes the sum phase a free (B,)-weighted
+    reduction over the stash, so ``stream``/``pe`` is charged once while
+    ``gram``/``ghost`` is charged norm + contraction."""
+    if meta.scanned or meta.shared or meta.segmented \
+            or meta.kind not in ("dense", "conv"):
+        raise NotImplementedError(
+            f"layer {name!r} (kind {meta.kind!r}): scanned, shared, "
+            f"segmented and LM layers come with the LM slice (ROADMAP.md "
+            f"item 11)")
+    app_dy = tuple(dy_sh.shape)
+
+    def _fused_credit(read_bytes: float, cand_flops: float) -> float:
+        # Stale coefficients are known entering the pass, so the Gram
+        # norm and the weighted contribution share one read of the
+        # captures (gram_norm_fused) instead of two passes.  The credit
+        # is capped at a sliver of the candidate's own FLOPs so it breaks
+        # near-ties toward fusing but never flips a layer whose
+        # materializing path holds a real compute advantage.
+        if clip_mode == "stale" and clip_fused:
+            return min(cc.hbm_flops_per_byte * read_bytes,
+                       0.05 * cand_flops)
+        return 0.0
+
+    if meta.kind == "dense":
+        x_shape = tuple(cap_sh["x"].shape)
+        B, Di, Do = x_shape[0], x_shape[-1], app_dy[-1]
+        T = _prod(x_shape[1:-1])
+        cf = 2.0 * B * T * Di * Do
+        mem_stash = B * Di * Do * BYTES
+        stash = False
+        fallback = norm_method
+        if norm_method == "auto":
+            if T == 1:
+                m = fallback = "rank1"
+            else:
+                gram_flops = (2.0 * T * T * (Di + Do)
+                              + 2.0 * T * Di * Do) * B
+                gram_total = gram_flops - _fused_credit(
+                    T * (Di + Do) * BYTES * B, gram_flops)
+                stream_stash = 4.0 * T * Di * Do * B
+                stream_again = (4.0 * T * Di * Do + 2.0 * T * Di * Do) * B
+                fallback = ("stream" if stream_again < gram_total
+                            and mem_stash <= mem_budget else "gram")
+                if stream_stash < gram_total and mem_stash <= mem_budget:
+                    m, stash = "stream", True
+                else:
+                    m = fallback
+        else:
+            m = norm_method
+            stash = m == "stream" and mem_stash <= mem_budget
+        if m == "rank1" and T != 1:
+            m = fallback = "gram"
+        nf = {"gram": 2.0 * T * T * (Di + Do),
+              "pallas": 2.0 * T * T * (Di + Do),
+              "stream": 4.0 * T * Di * Do,
+              "rank1": 2.0 * T * (Di + Do)}[m] * B
+        return LayerPlan(name, "dense", m, stash, nf, cf, cf,
+                         stash_bytes=mem_stash, fallback_norm=fallback)
+
+    st = meta.static
+    x_shape = tuple(cap_sh["x"].shape)
+    B, C = x_shape[0], x_shape[1]
+    D = app_dy[1]
+    T = _prod(app_dy[2:])
+    K = _prod(st["kernel_shape"][2:])
+    g = max(st.get("groups", 1), 1)
+    F, Dg = (C // g) * K, D // g
+    cf = 2.0 * B * T * F * Dg * g
+    mem_stash = B * D * (C // g) * K * BYTES
+    stash = False
+    fallback = conv_norm
+    if conv_norm == "auto":
+        ghost_flops = (2.0 * T * T * (F + Dg) + 2.0 * T * F * Dg) * g * B
+        ghost_total = ghost_flops - _fused_credit(
+            T * (F + Dg) * g * BYTES * B, ghost_flops)
+        pe_stash = 4.0 * T * F * Dg * g * B
+        pe_again = (4.0 * T * F * Dg + 2.0 * T * F * Dg) * g * B
+        fallback = ("pe" if pe_again < ghost_total
+                    and mem_stash <= mem_budget else "ghost")
+        if pe_stash < ghost_total and mem_stash <= mem_budget:
+            m, stash = "pe", True
+        else:
+            m = fallback
+    else:
+        m = conv_norm
+        stash = m == "pe" and mem_stash <= mem_budget
+    nf = (2.0 * B * T * T * (F + Dg) * g if m == "ghost"
+          else 4.0 * B * T * F * Dg * g)
+    return LayerPlan(name, "conv", m, stash, nf, cf, cf,
+                     stash_bytes=mem_stash, fallback_norm=fallback)
+
+
+_OVERRIDE_METHODS = {
+    "dense": {"auto", "gram", "stream", "rank1", "pallas"},
+    "conv": {"auto", "ghost", "pe", "pallas"},
+}
+
+
 def normalize_overrides(overrides) -> tuple:
     """Per-layer overrides as an ordered, hashable tuple of (pattern,
-    method) pairs.  Patterns are fnmatch globs over tap names; the first
-    match wins.  Only the planner reads them."""
+    method) pairs.  Patterns are fnmatch globs over tap names (``"conv1"``,
+    ``"fc*"``); the first match wins, in the order given."""
     if not overrides:
         return ()
     if isinstance(overrides, Mapping):
         overrides = overrides.items()
     return tuple((str(p), str(m)) for p, m in overrides)
+
+
+def _override_for(name: str, kind: str, overrides: tuple) -> str | None:
+    """First matching override for this layer; a method that is wrong for
+    the layer's kind is a hard error."""
+    valid = _OVERRIDE_METHODS.get(kind)
+    if valid is None:
+        return None
+    for pat, m in overrides:
+        if fnmatchcase(name, pat):
+            if m not in valid:
+                raise ValueError(
+                    f"per-layer override {pat!r}={m!r} invalid for {kind} "
+                    f"layer {name!r}; choose from {sorted(valid)}")
+            return m
+    return None
+
+
+def _nbytes(spec) -> float:
+    return float(_prod(spec.shape)) * spec.dtype.itemsize
+
+
+def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
+                   norm_method: str = "auto", conv_norm: str = "auto",
+                   mem_budget: int = STREAM_MEM_BUDGET,
+                   overrides=None, clip_mode: str = "flat",
+                   clip_fused: bool = True) -> ExecPlan:
+    """Build the per-layer plan from probed shapes.
+
+    Fixed ``norm_method`` / ``conv_norm`` override the analytic choice
+    uniformly (the planner still fills in cost estimates); ``overrides``
+    pins individual layers by tap-name glob and wins over both.
+
+    ``clip_mode`` shapes the plan around the coefficient flow of the
+    executing :class:`~repro_torch.core.clipping.ClipPolicy`: ``per_layer``
+    never selects the shared weighted backward (one backward cannot
+    realize per-layer weights); ``stale`` drops it too (the known
+    coefficients make every contraction direct) and, with ``clip_fused``,
+    credits and marks Gram-realized dense/conv layers for the fused
+    single-pass ``gram_norm_fused`` norm+contrib.
+    """
+    overrides = normalize_overrides(overrides)
+    cc = ANALYTIC_CONSTANTS
+    layers: dict[str, LayerPlan] = {}
+    by_path: dict[tuple, list] = {}
+    for name, meta in metas.items():
+        ov = _override_for(name, meta.kind, overrides)
+        layers[name] = _plan_layer(
+            name, meta, cap_shapes[name], tap_shapes[name],
+            norm_method=ov or norm_method, conv_norm=ov or conv_norm,
+            mem_budget=mem_budget, clip_mode=clip_mode,
+            clip_fused=clip_fused, cc=cc)
+        by_path.setdefault(meta.path, []).append(name)
+
+    total_wgrad = sum(lp.wgrad_flops for lp in layers.values())
+    # A weighted backward pays the forward + dx chain (the fixed factor)
+    # AND computes every parameter's wgrad — including those of groups
+    # that keep their stash/contraction, whose share is pure waste.  So
+    # switching the candidate set to the backward only pays off when the
+    # contractions it replaces exceed fixed + total_wgrad.
+    backward_cost = (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad
+
+    # Only shared taps put two names on one path, and _plan_layer has
+    # refused those: every group is a single tap.
+    groups = [GroupPlan(path, tuple(names),
+                        "stash" if layers[names[0]].stash else "contrib")
+              for path, names in sorted(by_path.items())]
+
+    # All stashes live together from the norm phase to the sum phase, so
+    # the budget is charged cumulatively; groups past it fall back to a
+    # transient norm + phase-2 contraction (one layer's scratch at a time).
+    running = 0.0
+    for i, g in enumerate(groups):
+        if g.sum_method != "stash":
+            continue
+        lp = layers[g.members[0]]
+        if running + lp.stash_bytes > mem_budget:
+            groups[i] = dataclasses.replace(g, sum_method="contrib")
+            # Re-decide the norm under no-stash economics: without the
+            # free sum, the stash-optimal method may no longer win.
+            layers[lp.name] = dataclasses.replace(
+                lp, stash=False,
+                norm_method=lp.fallback_norm or lp.norm_method)
+        else:
+            running += lp.stash_bytes
+
+    # Greedy backward set: groups whose contraction is dearer than their
+    # wgrad share, kept only if the replaced contractions pay for the
+    # whole extra backward.  Never under a non-flat clipping mode: one
+    # weighted backward cannot realize per-layer coefficients, and stale
+    # coefficients make every contraction direct.
+    candidates: list[tuple[float, int]] = []
+    if clip_mode == "flat":
+        for i, g in enumerate(groups):
+            if g.sum_method != "contrib":
+                continue
+            cost_c = sum(layers[n].contrib_flops for n in g.members)
+            cost_b = sum(layers[n].wgrad_flops for n in g.members)
+            if cost_c > cost_b:
+                candidates.append((cost_c, i))
+    needs_backward = sum(s for s, _ in candidates) > backward_cost
+    if needs_backward:
+        for _, gi in candidates:
+            groups[gi] = dataclasses.replace(groups[gi],
+                                             sum_method="backward")
+
+    # Stale coefficients are step-invariant inside the pass: mark the
+    # Gram-realized dense/conv layers for the fused single-pass
+    # norm+contrib (gram_norm_fused).
+    if clip_mode == "stale" and clip_fused:
+        for name, lp in layers.items():
+            if lp.stash:
+                continue
+            if (lp.kind == "dense" and lp.norm_method in ("gram", "pallas")) \
+                    or (lp.kind == "conv"
+                        and lp.norm_method in ("ghost", "pallas")):
+                layers[name] = dataclasses.replace(lp, fused=True)
+
+    capture_bytes = 0.0
+    for name in metas:
+        capture_bytes += sum(_nbytes(s) for s in cap_shapes[name].values())
+        capture_bytes += 2.0 * _nbytes(tap_shapes[name])  # output + cotangent
+
+    return ExecPlan(
+        groups=tuple(groups), layers=layers, metas=metas,
+        needs_backward=needs_backward,
+        total_norm_flops=sum(lp.norm_flops for lp in layers.values()),
+        total_contrib_flops=sum(lp.contrib_flops for lp in layers.values()),
+        tap_shapes=dict(tap_shapes), capture_bytes=capture_bytes,
+        clip_mode=clip_mode, calibration=cc.calibration)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache: (model identity, batch/param shapes, knobs) -> ExecPlan
+#
+# probe() re-runs the model on meta tensors; caching the probe + plan makes
+# the steady-state auto path exactly one forward + one backward per step.
+
+
+_PLAN_CACHE: "OrderedDict[tuple, ExecPlan]" = OrderedDict()
+
+
+def _fn_ident(apply_fn) -> tuple:
+    self = getattr(apply_fn, "__self__", None)
+    if self is not None:
+        return (id(self), getattr(apply_fn, "__name__", ""))
+    return (id(apply_fn), "")
+
+
+def _shape_sig(tree) -> tuple:
+    return tuple(("/".join(map(str, p)), tuple(leaf.shape),
+                  _dtype_name(leaf.dtype))
+                 for p, leaf in ((p, get_subtree(tree, p))
+                                 for p in leaf_paths(tree)))
+
+
+@functools.lru_cache(maxsize=1)
+def code_fingerprint() -> str:
+    """Hash of the port's model/pipeline *sources* (``repro_torch.models``
+    and ``repro_torch.core``).  Folded into every plan fingerprint, so a
+    plan produced by different code fails the fingerprint check instead
+    of silently executing under a stale plan."""
+    import repro_torch.core
+    import repro_torch.models
+    h = hashlib.sha1()
+    for pkg in (repro_torch.core, repro_torch.models):
+        root = pathlib.Path(next(iter(pkg.__path__)))
+        for path in sorted(root.rglob("*.py")):
+            h.update(str(path.relative_to(root.parent)).encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def model_fingerprint(apply_fn, params, batch, opts: tuple = ()) -> str:
+    """Cross-process-stable plan identity: model qualname + batch/param
+    shape signature + planner knobs + the source hash.  Unlike the
+    in-process cache key it never uses ``id()``."""
+    owner = getattr(apply_fn, "__self__", None)
+    if owner is not None:
+        ident = type(owner).__module__ + "." + type(owner).__qualname__
+    else:
+        ident = (getattr(apply_fn, "__module__", "") + "."
+                 + getattr(apply_fn, "__qualname__", "<fn>"))
+    payload = repr((ident, _shape_sig(batch), _shape_sig(params), opts,
+                    code_fingerprint()))
+    return hashlib.sha1(payload.encode()).hexdigest()[:16]
+
+
+def clear_plan_cache():
+    _PLAN_CACHE.clear()
+
+
+def _sig_summary(sig) -> str:
+    return ", ".join(f"{k}{tuple(s)}:{dt}" for k, s, dt in sig) or "(empty)"
+
+
+def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
+                       batch_sig=None, clip_mode: str | None = None,
+                       calibration: str | None = None):
+    """Validate a deserialized/injected plan against the live context,
+    naming the offending field — calibration, clipping mode, batch shape
+    or fingerprint — so a stale plan fails loudly instead of executing a
+    stale layout.  ``calibration`` is a digest string ("" asserts the
+    analytic constants)."""
+    if calibration is not None and plan.calibration != calibration:
+        raise ValueError(
+            f"stale ExecPlan: calibration mismatch — plan "
+            f"{plan.fingerprint or '<unfingerprinted>'} was priced under "
+            f"{plan.calibration or 'analytic constants'!r}, this process "
+            f"plans under {calibration or 'analytic constants'!r}; re-plan")
+    if clip_mode is not None and plan.clip_mode != clip_mode:
+        raise ValueError(
+            f"stale ExecPlan: clipping mode mismatch — plan "
+            f"{plan.fingerprint or '<unfingerprinted>'} was built for "
+            f"clipping mode {plan.clip_mode!r}, this process clips "
+            f"{clip_mode!r}; re-plan for this policy")
+    if batch_sig is not None and plan.batch_sig \
+            and tuple(plan.batch_sig) != tuple(batch_sig):
+        raise ValueError(
+            f"stale ExecPlan: batch shape mismatch — plan "
+            f"{plan.fingerprint or '<unfingerprinted>'} was built for "
+            f"[{_sig_summary(plan.batch_sig)}], this step feeds "
+            f"[{_sig_summary(batch_sig)}]")
+    if fingerprint and plan.fingerprint and plan.fingerprint != fingerprint:
+        raise ValueError(
+            f"stale ExecPlan: fingerprint mismatch — plan "
+            f"{plan.fingerprint} != expected {fingerprint} (model code, "
+            f"param shapes, or planner knobs changed)")
+
+
+def _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
+                clip_mode="flat", clip_fused=True) -> tuple:
+    return (norm_method, conv_norm, mem_budget,
+            normalize_overrides(overrides),
+            (str(clip_mode), bool(clip_fused)))
+
+
+def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
+                     conv_norm: str = "auto",
+                     mem_budget: int = STREAM_MEM_BUDGET, overrides=None,
+                     clip_mode: str = "flat", clip_fused: bool = True,
+                     mesh=None, calibration=None) -> str:
+    """The fingerprint :func:`get_plan` would key this request on — same
+    knob normalization, no probe."""
+    _single_device(mesh, calibration)
+    return model_fingerprint(
+        apply_fn, params, batch,
+        _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
+                    clip_mode, clip_fused))
+
+
+def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
+             conv_norm: str = "auto", mem_budget: int = STREAM_MEM_BUDGET,
+             overrides=None, clip_mode: str = "flat",
+             clip_fused: bool = True, mesh=None,
+             calibration=None) -> ExecPlan:
+    """Cached planner entry point.  ``params`` and ``batch`` may be
+    tensors on any device, meta tensors included: only their shapes and
+    dtypes are read.  The anchor pinned in the cached plan keeps
+    ``id(apply_fn.__self__)`` alive for the entry's lifetime, so a
+    recycled id can never alias a different model."""
+    _single_device(mesh, calibration)
+    opts = _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
+                       clip_mode, clip_fused)
+    key = (_fn_ident(apply_fn), _shape_sig(batch), _shape_sig(params), opts)
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        _PLAN_CACHE.move_to_end(key)
+        return plan
+    metas, tap_shapes, cap_shapes = probe(apply_fn, params, batch,
+                                          return_captures=True)
+    plan = plan_execution(
+        metas, cap_shapes, tap_shapes, norm_method=norm_method,
+        conv_norm=conv_norm, mem_budget=mem_budget, overrides=opts[3],
+        clip_mode=clip_mode, clip_fused=clip_fused)
+    plan = dataclasses.replace(
+        plan, fingerprint=model_fingerprint(apply_fn, params, batch, opts),
+        batch_sig=_shape_sig(batch))
+    object.__setattr__(plan, "_anchor", getattr(apply_fn, "__self__",
+                                                apply_fn))
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
+        _PLAN_CACHE.popitem(last=False)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Plan-driven microbatch scheduling
+
+
+MICROBATCH_MEM_BUDGET = STREAM_MEM_BUDGET
+
+
+def auto_microbatches(plan: ExecPlan, batch_size: int,
+                      mem_budget: int | None = None) -> int:
+    """Microbatch count from the plan's peak-memory estimates: the smallest
+    divisor of ``batch_size`` whose per-microbatch peak (captures, layer
+    outputs and cotangents, coexisting stashes — all linear in the leading
+    batch axis) fits the budget.  Falls back to fully sequential
+    (``batch_size``) when even single-example microbatches estimate over
+    budget."""
+    budget = float(mem_budget or MICROBATCH_MEM_BUDGET)
+    need = plan.capture_bytes + plan.peak_stash_bytes()
+    B = max(int(batch_size), 1)
+    m = 1
+    while m < B and need / m > budget:
+        m += 1
+        while B % m and m < B:
+            m += 1
+    return m

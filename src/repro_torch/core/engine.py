@@ -1,14 +1,27 @@
-"""PrivacyEngine: the DP-SGD public surface on one device.
+"""PrivacyEngine: the plan-first DP-SGD public surface on one device.
 
 Make-private-once, step-many: construct the engine once from the model's
-``apply_fn``, the params, an example batch and a :class:`DPConfig`, then
-call :meth:`PrivacyEngine.private_step` per step (gradient, per-example
-clipping, noise and the optimizer update, with accountant bookkeeping).
+``apply_fn``, the params, an example batch and a :class:`DPConfig`; the
+per-layer :class:`~repro_torch.core.costmodel.ExecPlan` is then a
+first-class value —
 
-This slice runs the fixed strategies (naive / multi / crb / ghost / bk)
-with flat clipping.  ``strategy="auto"`` and plans, meshes and
-calibration come with ROADMAP.md items 9, 13 and 14 and raise
-``NotImplementedError`` here.
+  * ``engine.plan()``          the frozen plan (built once, cached);
+  * ``engine.explain()``       per-layer table of the chosen norm/sum
+                               realizations with predicted FLOPs/bytes;
+  * ``plan.to_json()``         the plan as JSON, keyed on
+                               ``engine.fingerprint()`` (model + shapes +
+                               knobs + the port's sources); an injected
+                               ``plan=`` is checked against it;
+  * ``engine.microbatches()``  plan-driven ``microbatches="auto"``;
+  * ``engine.private_step()``  gradient + clip + noise + optimizer update,
+                               with accountant bookkeeping.
+
+Steady state executes exactly one forward and one backward per step for
+``strategy="auto"`` (counters in :data:`repro_torch.core.tapper.STATS`).
+Flat, per-layer and stale clipping thread their cross-step state here
+(:meth:`clip_state_dict`).  Meshes and calibration come with ROADMAP.md
+items 14 and 13 and raise ``NotImplementedError``; so do the on-disk
+plan store (item 10) and the mispredict re-plan loop (item 13).
 
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
@@ -17,15 +30,19 @@ and the accountant's ledger stays the truth.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.core.clipping import (DPConfig, check_served, dp_gradient,
-                                       resolve_microbatches)
-from repro_torch.core.privacy import PrivacyAccountant
+                                       resolve_budgets, resolve_microbatches)
+from repro_torch.core.privacy import PrivacyAccountant, clipping_sensitivity
+from repro_torch.core.tapper import TensorSpec, spec_of
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 
 class KeyProvenanceError(ValueError):
@@ -52,13 +69,14 @@ def noise_seed(run_seed: int, step: int) -> int:
 
 
 class PrivacyEngine:
-    """DP-SGD driver bound to one (model, batch shape, config, device).
+    """Plan-first DP-SGD engine bound to one (model, batch shape, config,
+    device).
 
     Parameters:
       apply_fn:   ``apply_fn(params, batch, tapper) -> (B,) losses``.
-      params:     parameter tree (only its structure is checked here).
-      batch_spec: an example batch (kept for the JAX package's signature).
-      dp:         :class:`DPConfig` with a fixed strategy.
+      params:     parameter tree (only shapes and dtypes are retained).
+      batch_spec: an example batch fixing the step's batch shapes.
+      dp:         :class:`DPConfig`.
       optimizer:  "adamw" | "sgdm" | ``update(grads, state, params, *, lr,
                   weight_decay) -> (params, state)``.
       lr:         learning rate, or ``lr(opt_step) -> lr``.
@@ -69,7 +87,11 @@ class PrivacyEngine:
                   (:meth:`noise_key`); pass ``step=`` to the step methods.
       device:     where the step runs; ``"cuda"`` unless the caller asks
                   for ``"cpu"``.
-      plan, mesh, calibration: not served yet (raise).
+      plan:       inject a pre-built or deserialized ExecPlan (must match
+                  the model, shapes, clipping mode and planner knobs;
+                  validated up front with named-field errors and again at
+                  execution).
+      mesh, calibration: not served yet (raise).
     """
 
     def __init__(self, apply_fn: Callable, params, batch_spec,
@@ -81,23 +103,16 @@ class PrivacyEngine:
                  run_seed: int | None = None, device="cuda"):
         self.device = resolve_device(device)
         self.dp = dp if dp is not None else DPConfig()
-        if self.dp.strategy == "auto" or plan is not None:
-            raise NotImplementedError(
-                "strategy='auto' and injected plans need the planner "
-                "(ROADMAP.md item 9); pass a fixed strategy "
-                "(naive / multi / crb / ghost / bk)")
         if mesh is not None:
             raise NotImplementedError(
                 "sharded execution comes with ROADMAP.md item 14")
         if calibration is not None:
             raise NotImplementedError(
                 "calibration comes with ROADMAP.md item 13")
-        if self.dp.clipping.mode != "flat":
-            raise NotImplementedError(
-                f"clipping mode {self.dp.clipping.mode!r} comes with the "
-                f"planner slice (ROADMAP.md item 9)")
         check_served(self.dp)
         self.apply_fn = apply_fn
+        self._params_spec = tree_map(spec_of, params)
+        self._batch_spec = tree_map(spec_of, batch_spec)
         self._update_fn = _resolve_optimizer(optimizer)
         self._lr = lr
         self._weight_decay = weight_decay
@@ -106,17 +121,80 @@ class PrivacyEngine:
                 sampling_rate=sampling_rate,
                 noise_multiplier=self.dp.noise_multiplier)
         self.accountant = accountant
+        if plan is not None and self.dp.strategy == "auto":
+            # Fail loudly *now* on a stale injected plan, naming the
+            # offending field (batch / clip mode / calibration /
+            # fingerprint).
+            costmodel.check_plan_matches(
+                plan, batch_sig=costmodel._shape_sig(self._batch_spec),
+                fingerprint=self.fingerprint(),
+                clip_mode=self.dp.clipping.mode, calibration="")
+        self._plan = plan
         self.run_seed = run_seed
+        # Cross-step clipping state: stale mode's lagged norms (a device
+        # tensor: no host sync on the stale path), and the per-layer
+        # "auto" budget split tracked from observed norm quantiles.
+        self._prev_norms_sq = None
+        self._budgets = None
+        self._budget_q = None
+
+    # -- planning ------------------------------------------------------------
+
+    def fingerprint(self) -> str:
+        """The plan fingerprint for this engine's (model, shapes, config)."""
+        return costmodel.plan_fingerprint(
+            self.apply_fn, self._params_spec, self._batch_spec,
+            **self.dp.planner_opts())
+
+    def plan(self) -> costmodel.ExecPlan:
+        """The full-batch ExecPlan (built once; cache hits are free)."""
+        if self._plan is None:
+            self._plan = costmodel.get_plan(
+                self.apply_fn, self._params_spec, self._batch_spec,
+                **self.dp.planner_opts())
+        return self._plan
 
     def explain(self) -> str:
-        return (f"PrivacyEngine: strategy={self.dp.strategy} "
-                f"C={self.dp.l2_clip} sigma={self.dp.noise_multiplier} "
-                f"clipping=flat microbatches={self.microbatches()} "
-                f"device={self.device} norm={self.dp.norm} (fixed strategy: "
-                f"no plan)")
+        """Human-readable per-layer plan table (see ExecPlan.explain)
+        under a header with the engine's configuration."""
+        clip = self.dp.clipping
+        header = (f"PrivacyEngine: strategy={self.dp.strategy} "
+                  f"C={self.dp.l2_clip} sigma={self.dp.noise_multiplier} "
+                  f"clipping={clip.mode}"
+                  + (f"(budgets={clip.budgets})"
+                     if clip.mode == "per_layer" else "")
+                  + f" microbatches={self.microbatches()}"
+                  + ("" if self.dp.microbatches != "auto" else " (auto)")
+                  + f" device={self.device}")
+        cal = ("calibration: none — planning with the analytic fallback "
+               "constants (costmodel.ANALYTIC_FALLBACK)")
+        if self.dp.strategy != "auto":
+            return (header + f"\nfixed strategy {self.dp.strategy!r}: the "
+                    "planner is bypassed; plan below is advisory.\n"
+                    + cal + "\n" + self.plan().explain())
+        return header + "\n" + cal + "\n" + self.plan().explain()
 
     def microbatches(self) -> int:
-        return resolve_microbatches(self.dp)
+        """The resolved microbatch count (plan-driven for ``"auto"``)."""
+        plan = self._plan
+        if self.dp.microbatches == "auto" and self.dp.strategy == "auto":
+            plan = self.plan()
+        return resolve_microbatches(self.apply_fn, self._params_spec,
+                                    self._batch_spec, self.dp, plan=plan)
+
+    def _exec_plan(self) -> costmodel.ExecPlan | None:
+        """The plan matching the shapes the step actually executes: the
+        full-batch plan, or a per-microbatch-shape plan when splitting."""
+        if self.dp.strategy != "auto":
+            return None
+        m = self.microbatches()
+        if m == 1:
+            return self.plan()
+        mb_spec = {k: TensorSpec((s.shape[0] // m,) + tuple(s.shape[1:]),
+                                 s.dtype)
+                   for k, s in self._batch_spec.items()}
+        return costmodel.get_plan(self.apply_fn, self._params_spec, mb_spec,
+                                  **self.dp.planner_opts())
 
     # -- noise ---------------------------------------------------------------
 
@@ -156,14 +234,109 @@ class PrivacyEngine:
 
     def noisy_grad(self, params, batch, key=None, denom: int | None = None,
                    *, step: int | None = None):
-        """(mean loss, noised clipped mean gradient, aux)."""
-        return dp_gradient(self.apply_fn, params, batch, cfg=self.dp,
-                           key=self._check_key(key, step), denom=denom)
+        """(mean loss, noised clipped mean gradient, aux).  Cross-step
+        clipping state (stale norms, auto budgets) is threaded exactly as
+        in ``private_step``."""
+        cfg = dataclasses.replace(self.dp, microbatches=self.microbatches())
+        out = dp_gradient(self.apply_fn, params, batch, cfg=cfg,
+                          key=self._check_key(key, step), denom=denom,
+                          plan=self._exec_plan(),
+                          clip_state=self._clip_state())
+        self._absorb_clip_aux(out[2])
+        return out
+
+    # -- cross-step clipping state -------------------------------------------
+
+    def clip_state_dict(self) -> dict:
+        """Host-side snapshot of the cross-step clipping state — the stale
+        lagged norms and the per-layer auto-budget split + tracked
+        quantiles.  It belongs in every checkpoint: a stale-mode restart
+        without ``prev_norms_sq`` would re-run the flat bootstrap, and an
+        auto-budget restart without ``budget_q`` would re-split the budget
+        from scratch — both change what the accounted mechanism
+        released."""
+        out = {}
+        if self._prev_norms_sq is not None:
+            out["prev_norms_sq"] = self._prev_norms_sq.cpu().numpy()
+        if self._budgets is not None:
+            out["budgets"] = self._budgets.cpu().numpy()
+        if self._budget_q is not None:
+            out["budget_q"] = np.asarray(self._budget_q)
+        return out
+
+    def load_clip_state(self, state: dict | None):
+        """Install a :meth:`clip_state_dict` (missing keys reset to empty —
+        a flat-mode checkpoint carries none)."""
+        state = dict(state or {})
+
+        def dev(a):
+            return None if a is None else torch.as_tensor(
+                np.asarray(a, np.float32), device=self.device)
+
+        self._prev_norms_sq = dev(state.get("prev_norms_sq"))
+        self._budgets = dev(state.get("budgets"))
+        q = state.get("budget_q")
+        self._budget_q = None if q is None else np.asarray(q, np.float64)
+
+    def reset_clip_state(self):
+        """Drop all cross-step clipping state (a from-scratch restart:
+        stale mode re-bootstraps, auto budgets re-track)."""
+        self.load_clip_state(None)
+
+    def _group_keys(self) -> tuple:
+        return tuple("/".join(str(p) for p in g.path)
+                     for g in self.plan().groups)
+
+    def _clip_state(self) -> dict:
+        """The clip_state dict for the next step."""
+        clip = self.dp.clipping
+        if clip.mode == "stale" and self._prev_norms_sq is not None:
+            return {"prev_norms_sq": self._prev_norms_sq}
+        if clip.mode == "per_layer" and clip.budgets == "auto":
+            if self._budgets is None:
+                self._budgets = resolve_budgets(
+                    clip, self.dp.l2_clip, self._group_keys(),
+                    observed=self._budget_q, device=self.device)
+            # The auto split must keep the clipped sum's sensitivity at C
+            # (Σ C_l² = C²) or the σC noise calibration breaks.
+            sens = clipping_sensitivity(self._budgets.cpu().numpy())
+            if abs(sens - self.dp.l2_clip) > 1e-3 * self.dp.l2_clip:
+                raise AssertionError(
+                    f"auto budget split broke the sensitivity invariant: "
+                    f"sqrt(sum C_l^2) = {sens} != C = {self.dp.l2_clip}")
+            return {"budgets": self._budgets}
+        return {}
+
+    def _absorb_clip_aux(self, aux: dict):
+        """Bookkeeping after a step: thread stale norms (on the device),
+        update the per-layer norm quantile EMA driving ``budgets="auto"``
+        (on the host)."""
+        clip = self.dp.clipping
+        if clip.mode == "stale":
+            self._prev_norms_sq = aux["clip_state"]["prev_norms_sq"]
+        elif clip.mode == "per_layer" and clip.budgets == "auto":
+            q = np.quantile(aux["per_layer_norms"].cpu().numpy()
+                            .astype(np.float64), clip.quantile, axis=1)
+            q = np.maximum(q, 1e-12)
+            if self._budget_q is None:
+                self._budget_q = q
+            else:
+                self._budget_q = clip.ema * self._budget_q \
+                    + (1.0 - clip.ema) * q
+            self._budgets = resolve_budgets(
+                clip, self.dp.l2_clip, self._group_keys(),
+                observed=self._budget_q, device=self.device)
 
     def private_step(self, params, opt, batch, key=None, *,
                      step: int | None = None):
         """One DP-SGD step: gradient + clip + noise + optimizer update, and
-        one step on the accountant.  Returns (params, opt, loss, aux)."""
+        one step on the accountant.  Returns (params, opt, loss, aux).
+
+        Non-flat clipping modes thread state across steps: ``stale``
+        feeds this step's norms to the next step's coefficients (the
+        first step bootstraps with exact flat clipping); ``per_layer``
+        with ``budgets="auto"`` re-splits the budget from the tracked
+        per-layer norm quantiles after every step."""
         loss, grad, aux = self.noisy_grad(params, batch, key, step=step)
         lr = self._lr(opt["step"]) if callable(self._lr) else self._lr
         params, opt = self._update_fn(grad, opt, params, lr=lr,

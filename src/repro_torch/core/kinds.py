@@ -8,6 +8,10 @@ Given a layer's captured input ``x_b`` and output cotangent ``δy_b`` (from
                    materialization where structure allows        [ghost]
   * ``contrib``  — weighted sum Σ_b w_b g_b at parameter shape    [bk]
 
+and, when the weights are known entering the pass (stale-coefficient
+clipping), ``apply_norm_contrib`` forms the norm and the contribution in
+one pass (``gram_norm_fused`` for dense and conv layers).
+
 For a dense layer with a sequence axis the ghost norm uses the Gram
 identity  ``‖g_b‖² = Σ_{t,t'} (x_t·x_{t'}) (δy_t·δy_{t'})``  which costs
 ``T²(Din+Dout)`` instead of materializing ``T·Din·Dout``.  Conv layers
@@ -28,7 +32,7 @@ import torch
 
 from repro_torch.analysis.markers import tag
 from repro_torch.core import costmodel
-from repro_torch.core.tapper import LayerMeta
+from repro_torch.core.tapper import STATS, LayerMeta
 
 F32 = torch.float32
 
@@ -36,6 +40,12 @@ F32 = torch.float32
 def _realized(n, meta: LayerMeta, method: str):
     """Mark a realized per-example norm (see ``analysis.markers``)."""
     return tag(n, kind="realization", layer_kind=meta.kind, method=method,
+               path="/".join(str(p) for p in meta.path))
+
+
+def _fused_marker(n, meta: LayerMeta, method: str):
+    """Mark a fused norm+contrib realization (see ``analysis.markers``)."""
+    return tag(n, kind="fused_impl", method=method,
                path="/".join(str(p) for p in meta.path))
 
 
@@ -120,6 +130,22 @@ def dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
     return _realized(n, meta, "gram")
 
 
+def dense_norm_and_contrib(meta: LayerMeta, cap, dy, w):
+    """Fused phase: per-example squared norms *and* the weighted sum
+    Σ_b w_b·g_b in one pass over (x, δy), through ``gram_norm_fused``
+    (this repo's CUDA kernel on the card, its plain version on the CPU):
+    x and δy are read once for both outputs.  The weights must be known
+    entering the pass (stale-coefficient clipping)."""
+    from repro_torch.kernels import ops as kops
+    STATS.fused += 1
+    x, g = _flatten_seq(cap["x"]), _flatten_seq(dy)
+    n, cw, cb = kops.gram_norm_fused(x, g, w, has_bias=bool(meta.bias_key))
+    out = {meta.param_key: cw.T if meta.w_transposed else cw}
+    if meta.bias_key:
+        out[meta.bias_key] = cb
+    return _fused_marker(n, meta, "pallas"), out
+
+
 def dense_contrib(meta: LayerMeta, cap, dy, w):
     x, g = _flatten_seq(cap["x"]), _flatten_seq(dy)
     if meta.w_transposed:
@@ -199,6 +225,50 @@ def conv_norm_sq(meta: LayerMeta, cap, dy, impl: str = "fgc",
                      meta, "pe")
 
 
+def conv_norm_and_contrib(meta: LayerMeta, cap, dy, w):
+    """Fused conv ghost norm + weighted weight gradient: im2col the input
+    and run the dense fused pass per group.  The contribution
+    Σ_b w_b x̃_bᵀ δy_b *is* the weighted conv weight gradient in patch
+    space (channel-major, filter-position-minor, the (D, C/g, *K) weight
+    layout), so the reshape back is free.  The transposed patch and
+    cotangent views go to the kernel as they are: it reads through their
+    strides, so no (B, T, C·K) copy is made."""
+    from repro_torch.models.convops import unfold_patches
+    st = meta.static
+    g = max(st.get("groups", 1), 1)
+    kshape = tuple(st["kernel_shape"])
+    patches = unfold_patches(cap["x"], kshape[2:], stride=st["stride"],
+                             dilation=st["dilation"], padding=st["padding"])
+    B, CK, T = patches.shape
+    D = dy.shape[1]
+    gy = dy.reshape(B, D, T)
+    if g == 1:
+        meta_d = LayerMeta("dense", meta.path, param_key=meta.param_key,
+                           bias_key=meta.bias_key)
+        n, out = dense_norm_and_contrib(
+            meta_d, {"x": patches.transpose(1, 2)}, gy.transpose(1, 2), w)
+        out[meta.param_key] = out[meta.param_key].T.reshape(kshape)
+        return n, out
+    Fg, Dg = CK // g, D // g
+    xg = patches.reshape(B, g, Fg, T)
+    gg = gy.reshape(B, g, Dg, T)
+    meta_d = LayerMeta("dense", meta.path, param_key=meta.param_key)
+    n = torch.zeros((B,), dtype=F32, device=dy.device)
+    w_parts = []
+    for gi in range(g):
+        n_i, out = dense_norm_and_contrib(
+            meta_d, {"x": xg[:, gi].transpose(1, 2)},
+            gg[:, gi].transpose(1, 2), w)
+        n = n + n_i
+        w_parts.append(out[meta.param_key].T.reshape((Dg,) + kshape[1:]))
+    res = {meta.param_key: torch.cat(w_parts, dim=0)}
+    if meta.bias_key:
+        sb = gy.to(F32).sum(dim=2)                               # (B, D)
+        n = n + sb.square().sum(dim=1)
+        res[meta.bias_key] = _ee("b,bo->o", w, sb)
+    return n, res
+
+
 _CONV_WEIGHT_GRAD = {1: torch.nn.grad.conv1d_weight,
                      2: torch.nn.grad.conv2d_weight,
                      3: torch.nn.grad.conv3d_weight}
@@ -239,6 +309,33 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
     return _apply_flat(op, meta, cap, dy, params_sub=params_sub,
                        weights=weights, norm_method=norm_method,
                        conv_impl=conv_impl, conv_norm=conv_norm)
+
+
+def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
+                       params_sub=None, fused: bool = True,
+                       conv_impl: str = "fgc", norm_method: str = "auto",
+                       conv_norm: str = "auto"):
+    """Per-example squared norms *and* the weighted sum Σ_b w_b·g_b from
+    one pass over the captures; valid whenever the weights are known
+    entering the pass (stale-coefficient clipping).
+
+    Unscanned dense (non-segmented) and conv layers, shared or not, go to
+    the fused ``gram_norm_fused`` realizations when ``fused``, the layers
+    the planner marks ``fused``; the non-fused request falls back to the
+    norm_sq + contrib pair (still one capture pass of the model, just two
+    reductions over the same tensors).  Scanned layers come with the LM
+    slice and raise there."""
+    if fused and not meta.scanned:
+        if meta.kind == "dense" and not meta.segmented:
+            return dense_norm_and_contrib(meta, cap, dy, weights)
+        if meta.kind == "conv":
+            return conv_norm_and_contrib(meta, cap, dy, weights)
+    n = apply_kind("norm_sq", meta, cap, dy, params_sub=params_sub,
+                   norm_method=norm_method, conv_impl=conv_impl,
+                   conv_norm=conv_norm)
+    c = apply_kind("contrib", meta, cap, dy, params_sub=params_sub,
+                   weights=weights, conv_impl=conv_impl)
+    return n, c
 
 
 def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,

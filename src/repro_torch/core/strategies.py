@@ -18,8 +18,14 @@ The paper's three strategies plus the ghost / book-keeping extensions:
     by weighted per-layer contractions from the captures already in hand —
     no second backward.
 
-The planned ``auto`` pipeline and the non-flat clipping modes come with
-the planner slice (ROADMAP.md item 9).
+  * ``auto``  — the planned pipeline: a per-layer
+    :class:`~repro_torch.core.costmodel.ExecPlan` mixes the above (one
+    capture backward, per-layer norms that may stash per-example grads,
+    then stashes / contractions / at most one shared weighted backward),
+    and under stale clipping fuses norm and contribution in one pass.
+
+Clipping modes (``ClipPolicy``): ``flat`` everywhere; ``per_layer`` and
+``stale`` under ``auto`` and ``bk``.
 
 ``apply_fn(params, batch, tapper) -> (B,) per-example losses`` is the only
 contract a model must satisfy.  Execution counts (forwards / backwards)
@@ -32,20 +38,13 @@ from collections import defaultdict
 import torch
 
 from repro_torch.analysis.markers import tag
-from repro_torch.core import kinds
+from repro_torch.core import costmodel, kinds
 from repro_torch.core.tapper import STATS, Tapper, capture_backward
 from repro_torch.tree import (from_paths, get_subtree, leaf_paths,
                               set_subtree, tree_map)
 
 STRATEGIES = ("naive", "multi", "crb", "ghost", "bk", "auto")
 F32 = torch.float32
-
-
-def _auto_unsupported():
-    return NotImplementedError(
-        "strategy='auto' (the planner), plans and non-flat clipping modes "
-        "come with the planner slice (ROADMAP.md item 9); use one of "
-        "naive / multi / crb / ghost / bk")
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +188,19 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
 
 def clip_coefficients(norms_sq, l2_clip, eps: float = 1e-12, *,
                       mode: str = "flat"):
+    """(B,) coefficients ``min(1, C / ‖g_b‖)``; ``mode`` records which
+    policy produced them ("stale" when fed lagged norms)."""
     norms = torch.sqrt(norms_sq + eps)
     coef = torch.clamp(l2_clip / norms, max=1.0)
     return tag(coef, kind="clip_coef", mode=mode, l2_clip=float(l2_clip))
+
+
+def per_layer_clip_coefficients(group_norms_sq, budgets, eps: float = 1e-12):
+    """(G, B) coefficients: each group clipped against its own budget."""
+    norms = torch.sqrt(group_norms_sq + eps)
+    b = budgets.to(device=norms.device, dtype=norms.dtype)
+    return tag(torch.clamp(b[:, None] / norms, max=1.0), kind="clip_coef",
+               mode="per_layer")
 
 
 def _flat_detail(coef):
@@ -216,18 +225,56 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
                               strategy: str = "ghost",
                               norm_method: str = "auto",
                               conv_impl: str = "fgc", check: bool = False,
-                              conv_norm: str | None = None, plan=None,
-                              clip_policy=None):
+                              conv_norm: str | None = None, overrides=None,
+                              mem_budget: int | None = None, plan=None,
+                              clip_policy=None, budgets=None,
+                              prev_norms_sq=None):
     """Returns (per-example losses, Σ_b clip(g_b), per-example norms²,
-    detail) under flat clipping.
+    detail).
 
     ``conv_norm`` (auto | ghost | pe | pallas) picks the conv norm
     realization (``None`` is an alias for ``"auto"``), ``norm_method``
     the dense one, ``conv_impl`` (fgc | pallas) the materializing conv
-    gradient.  ``detail`` holds the applied coefficients (``coef``)."""
+    gradient.  ``overrides`` pins individual layers by tap-name glob and
+    ``mem_budget`` bounds the materializing paths (planned strategy
+    only); ``plan`` injects a pre-built, possibly deserialized ExecPlan,
+    skipping the cached planner lookup.
+
+    ``clip_policy`` (a :class:`~repro_torch.core.clipping.ClipPolicy`;
+    None = flat) selects the clipping mode; non-flat modes require the
+    planned (``auto``) or book-keeping (``bk``) strategy.  ``budgets``
+    injects a resolved (G,) per-layer budget tensor (else the policy's
+    static split is resolved against the sorted group keys);
+    ``prev_norms_sq`` feeds stale mode's lagged (B,) norms.
+
+    ``detail``: ``group_keys`` (static tuple), ``group_norms_sq`` ((G, B)
+    under per_layer, else None), ``coef`` (the applied coefficients —
+    (B,) flat/stale, (G, B) per_layer), ``budgets`` ((G,) under
+    per_layer, else None).
+    """
     mode = clip_policy.mode if clip_policy is not None else "flat"
-    if strategy == "auto" or plan is not None or mode != "flat":
-        raise _auto_unsupported()
+    if mode != "flat" and strategy not in ("auto", "bk"):
+        raise ValueError(
+            f"clipping mode {mode!r} requires strategy 'auto' or 'bk', "
+            f"got {strategy!r}")
+    if mode == "stale" and prev_norms_sq is None:
+        raise ValueError(
+            "stale clipping needs prev_norms_sq (the engine bootstraps "
+            "the first step with flat clipping and threads the state)")
+    if strategy == "auto":
+        if plan is None:
+            plan = costmodel.get_plan(
+                apply_fn, params, batch, norm_method=norm_method,
+                conv_norm=conv_norm or "auto",
+                mem_budget=mem_budget or costmodel.STREAM_MEM_BUDGET,
+                overrides=overrides, clip_mode=mode,
+                clip_fused=(clip_policy.fused if clip_policy is not None
+                            else True))
+        return planned_clipped_sum(apply_fn, params, batch, plan,
+                                   l2_clip=l2_clip, conv_impl=conv_impl,
+                                   check=check, clip_policy=clip_policy,
+                                   budgets=budgets,
+                                   prev_norms_sq=prev_norms_sq)
     if strategy in ("naive", "multi", "crb"):
         if strategy == "naive":
             losses, pe = naive_per_example_grads(apply_fn, params, batch)
@@ -243,12 +290,31 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
         raise ValueError(f"unknown strategy {strategy!r}")
 
     losses, caps, dtaps, metas = _capture(apply_fn, params, batch)
-    _, group_ns = group_norms_from_captures(
+    group_keys, group_ns = group_norms_from_captures(
         params, caps, dtaps, metas, norm_method=norm_method,
         conv_impl=conv_impl, conv_norm=conv_norm or "auto")
     norms_sq = group_ns.sum(dim=0)
-    coef = clip_coefficients(norms_sq, l2_clip).detach()
-    detail = _flat_detail(coef)
+
+    if mode == "per_layer":
+        if budgets is None:
+            from repro_torch.core.clipping import resolve_budgets
+            budgets = resolve_budgets(clip_policy, l2_clip, group_keys,
+                                      device=group_ns.device)
+        coef = per_layer_clip_coefficients(group_ns, budgets).detach()
+        detail = {"group_keys": group_keys, "group_norms_sq": group_ns,
+                  "coef": coef, "budgets": budgets}
+        gi_of = {k: i for i, k in enumerate(group_keys)}
+
+        def weight_of(meta):
+            return coef[gi_of[group_key_of(meta.path)]]
+    else:
+        coef = (clip_coefficients(prev_norms_sq, l2_clip, mode="stale")
+                if mode == "stale"
+                else clip_coefficients(norms_sq, l2_clip)).detach()
+        detail = _flat_detail(coef)
+
+        def weight_of(meta):
+            return coef
 
     if strategy == "ghost":
         paths = leaf_paths(params)
@@ -265,8 +331,8 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
     for name, meta in metas.items():
         contrib = kinds.apply_kind(
             "contrib", meta, caps[name], dtaps[name],
-            params_sub=get_subtree(params, meta.path), weights=coef,
-            conv_impl=conv_impl)
+            params_sub=get_subtree(params, meta.path),
+            weights=weight_of(meta), conv_impl=conv_impl)
         _accumulate_param_grads(acc, meta.path, contrib)
     gsum = _grads_to_tree(acc)
     if check:
@@ -275,3 +341,186 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
             raise ValueError(f"bk missing param contribs: {missing}")
     return losses, gsum, norms_sq, detail
 
+
+# ---------------------------------------------------------------------------
+# The planned (mixed per-layer) pipeline: strategy="auto"
+
+
+def _norm_kwargs(lp):
+    if lp.kind == "dense":
+        return {"norm_method": lp.norm_method}
+    return {"conv_norm": lp.norm_method}
+
+
+def _group_norm_tag(n_sq, g, method: str, fused: bool = False):
+    """Mark one plan group's realized (B,) squared norms: which group,
+    which realized method, and whether a fused single pass produced
+    them."""
+    return tag(n_sq, kind="group_norm", group=group_key_of(g.path),
+               method=method, fused=fused)
+
+
+def _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
+                        stash):
+    """Phase-1 norm of one plan group (one tap in this slice): (B,)
+    squared norms, stashing any per-example grads the chosen realization
+    materialized."""
+    psub = get_subtree(params, g.path)
+    n = g.members[0]
+    lp, meta = plan.layers[n], metas[n]
+    if lp.stash:
+        pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
+                              params_sub=psub, conv_impl=conv_impl)
+        stash[n] = pe
+        return _group_norm_tag(kinds._sumsq(pe), g, "stash")
+    return _group_norm_tag(kinds.apply_kind(
+        "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
+        conv_impl=conv_impl, **_norm_kwargs(lp)), g, lp.norm_method)
+
+
+def _weighted_stash_sum(pe, w):
+    return tree_map(
+        lambda leaf: torch.einsum("b...,b->...", leaf.to(F32), w), pe)
+
+
+def _stale_group_norm_contrib(g, plan, metas, caps, dtaps, params, coef,
+                              conv_impl, fused_ok, acc):
+    """Stale-coefficient single pass over one plan group: the norm (for
+    the *next* step's coefficients) and the weighted contribution come
+    from the same captures, with the fused ``gram_norm_fused``
+    realization where the plan selected it."""
+    psub = get_subtree(params, g.path)
+    n = g.members[0]
+    lp, meta = plan.layers[n], metas[n]
+    if lp.fused and fused_ok:
+        n_g, contrib = kinds.apply_norm_contrib(
+            meta, caps[n], dtaps[n], weights=coef, params_sub=psub,
+            fused=True, conv_impl=conv_impl, **_norm_kwargs(lp))
+        _accumulate_param_grads(acc, g.path, contrib)
+        return _group_norm_tag(n_g, g, lp.norm_method, fused=True)
+    if lp.stash:
+        pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
+                              params_sub=psub, conv_impl=conv_impl)
+        _accumulate_param_grads(acc, g.path, _weighted_stash_sum(pe, coef))
+        return _group_norm_tag(kinds._sumsq(pe), g, "stash")
+    n_g = kinds.apply_kind(
+        "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
+        conv_impl=conv_impl, **_norm_kwargs(lp))
+    _accumulate_param_grads(acc, g.path, kinds.apply_kind(
+        "contrib", meta, caps[n], dtaps[n], params_sub=psub,
+        weights=coef, conv_impl=conv_impl))
+    return _group_norm_tag(n_g, g, lp.norm_method)
+
+
+def planned_clipped_sum(apply_fn, params, batch, plan, *, l2_clip: float,
+                        conv_impl: str = "fgc", check: bool = False,
+                        clip_policy=None, budgets=None, prev_norms_sq=None):
+    """Execute a :class:`~repro_torch.core.costmodel.ExecPlan`: one capture
+    backward, per-layer planned norms (stashing any per-example grads the
+    norm phase materialized), then the clipped sum from stashes /
+    book-keeping contractions / at most one shared weighted backward.
+
+    Returns (losses, gsum, total norms², detail) — see
+    :func:`clipped_grad_sum_detailed` for the detail contract.
+
+    ``flat`` applies one (B,) coefficient vector everywhere; ``per_layer``
+    gives each parameter group its own coefficients from its own norms and
+    budget; ``stale`` knows every coefficient *entering* the pass and
+    collapses norm + sum into one sweep over the captures, fused
+    (``gram_norm_fused``) where the plan marked it.  The plan must have
+    been built for the executing mode, and its layers must be the model's
+    (the live metas from the capture pass): a mismatch fails loudly."""
+    mode = clip_policy.mode if clip_policy is not None else "flat"
+    fused_ok = clip_policy.fused if clip_policy is not None else True
+    costmodel.check_plan_matches(plan, clip_mode=mode)
+    losses, caps, dtaps, metas = _capture(apply_fn, params, batch)
+    if set(metas) != set(plan.layers):
+        missing = sorted(set(plan.layers) - set(metas))
+        extra = sorted(set(metas) - set(plan.layers))
+        raise ValueError(
+            f"ExecPlan {plan.fingerprint or '<unfingerprinted>'} does not "
+            f"match this model: plan-only layers {missing}, model-only "
+            f"layers {extra} — re-plan (stale or mismatched serialized "
+            f"plan?)")
+    group_keys = tuple(group_key_of(g.path) for g in plan.groups)
+    if mode != "flat":
+        bad = [group_keys[i] for i, g in enumerate(plan.groups)
+               if g.sum_method == "backward"]
+        if bad:
+            raise ValueError(
+                f"plan uses the shared weighted backward for {bad} — "
+                f"incompatible with clipping mode {mode!r} (re-plan)")
+
+    if mode == "stale":
+        if prev_norms_sq is None:
+            raise ValueError("stale clipping needs prev_norms_sq")
+        coef = clip_coefficients(prev_norms_sq, l2_clip,
+                                 mode="stale").detach()
+        acc: dict = {}
+        total = 0.0
+        for g in plan.groups:
+            total = total + _stale_group_norm_contrib(
+                g, plan, metas, caps, dtaps, params, coef, conv_impl,
+                fused_ok, acc)
+        gsum = _grads_to_tree(acc)
+        if check:
+            missing = check_coverage(params, gsum)
+            if missing:
+                raise ValueError(f"auto missing param contribs: {missing}")
+        return losses, gsum, total, _flat_detail(coef)
+
+    stash: dict = {}
+    group_ns = torch.stack([
+        _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
+                            stash)
+        for g in plan.groups])                                   # (G, B)
+    total = group_ns.sum(dim=0)
+
+    if mode == "per_layer":
+        if budgets is None:
+            from repro_torch.core.clipping import resolve_budgets
+            budgets = resolve_budgets(clip_policy, l2_clip, group_keys,
+                                      device=group_ns.device)
+        coef = per_layer_clip_coefficients(group_ns, budgets).detach()
+        detail = {"group_keys": group_keys, "group_norms_sq": group_ns,
+                  "coef": coef, "budgets": budgets}
+        weights = list(coef)
+    else:
+        flat_coef = clip_coefficients(total, l2_clip).detach()
+        detail = _flat_detail(flat_coef)
+        weights = [flat_coef] * len(plan.groups)
+
+    wgrads = None
+    if plan.needs_backward:
+        paths = leaf_paths(params)
+        p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        STATS.forwards += 1
+        STATS.backwards += 1
+        with torch.enable_grad():
+            losses2 = apply_fn(p, batch, Tapper())
+            gs = torch.autograd.grad((losses2 * detail["coef"]).sum(),
+                                     [get_subtree(p, q) for q in paths])
+        wgrads = from_paths(paths, gs)
+
+    acc = {}
+    for gi, g in enumerate(plan.groups):
+        w = weights[gi]
+        if g.sum_method == "backward":
+            _accumulate_param_grads(acc, g.path, get_subtree(wgrads, g.path))
+            continue
+        n = g.members[0]
+        if g.sum_method == "stash":
+            _accumulate_param_grads(acc, g.path,
+                                    _weighted_stash_sum(stash[n], w))
+            continue
+        _accumulate_param_grads(acc, g.path, kinds.apply_kind(
+            "contrib", metas[n], caps[n], dtaps[n],
+            params_sub=get_subtree(params, g.path), weights=w,
+            conv_impl=conv_impl))
+
+    gsum = _grads_to_tree(acc)
+    if check:
+        missing = check_coverage(params, gsum)
+        if missing:
+            raise ValueError(f"auto missing param contribs: {missing}")
+    return losses, gsum, total, detail

@@ -16,10 +16,12 @@ that does not require grad yet becomes a leaf that does) and one
 (examples are independent, so ``∂(Σ_b L_b)/∂y[b] = ∂L_b/∂y[b]``).  No
 zero tensor is allocated or added.
 
-Shape-only probing (``probe``), scanned stacks (``scan_with_taps``) and
-the LM layer kinds (``embed``/``scale``/``local_vjp``/
-``dense_segmented``) come with the planner and LM slices (ROADMAP.md
-items 9 and 11).  Shared parameters keep the ``"~"`` name prefix.
+The shape-only ``probe`` the planner consumes runs the model on
+``device="meta"`` tensors: it records every layer's metadata, capture
+shapes and output shapes, and touches no data and no device.  Scanned
+stacks (``scan_with_taps``) and the LM layer kinds (``embed``/``scale``/
+``local_vjp``/``dense_segmented``) come with the LM slice (ROADMAP.md
+item 11).  Shared parameters keep the ``"~"`` name prefix.
 
 Models stay pure: a ``Tapper`` in mode ``"none"`` is a no-op, so the same
 model code serves ordinary training and every PEG strategy.
@@ -27,8 +29,11 @@ model code serves ordinary training and every PEG strategy.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Pipeline instrumentation
@@ -39,9 +44,14 @@ import torch
 
 
 class PipelineStats:
-    """Counters for forwards / backwards / probes through a model."""
+    """Counters for forwards / backwards / probes through a model.
 
-    __slots__ = ("forwards", "backwards", "probes")
+    ``fused`` additionally counts fused norm+contrib realizations
+    (``gram_norm_fused`` single passes picked by stale-coefficient plans);
+    it stays out of :meth:`snapshot`, which counts passes through the
+    model."""
+
+    __slots__ = ("forwards", "backwards", "probes", "fused")
 
     def __init__(self):
         self.reset()
@@ -50,6 +60,7 @@ class PipelineStats:
         self.forwards = 0
         self.backwards = 0
         self.probes = 0
+        self.fused = 0
 
     def snapshot(self) -> dict:
         return {"forwards": self.forwards, "backwards": self.backwards,
@@ -89,6 +100,17 @@ class LayerMeta:
     static: dict = dataclasses.field(default_factory=dict)
 
 
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor: what the shape-only probe records."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def spec_of(t) -> TensorSpec:
+    return TensorSpec(tuple(t.shape), t.dtype)
+
+
 def _parse_name(name: str) -> tuple[tuple, bool]:
     shared = name.startswith("~")
     return tuple(name.lstrip("~").split("/")), shared
@@ -101,13 +123,14 @@ class Tapper:
       * ``"none"``    — plain forward; nothing recorded.
       * ``"capture"`` — record each layer's captures (detached) and its
                         output as a differentiation target in ``outputs``.
+      * ``"probe"``   — record each layer's captures and output as
+                        :class:`TensorSpec` (the model runs on meta
+                        tensors, see :func:`probe`).
     """
 
     def __init__(self, mode: str = "none", metas: dict | None = None):
-        if mode not in ("none", "capture"):
-            raise NotImplementedError(
-                f"Tapper mode {mode!r}: the shape-only probe comes with the "
-                f"planner slice (ROADMAP.md item 9)")
+        if mode not in ("none", "capture", "probe"):
+            raise ValueError(f"unknown Tapper mode {mode!r}")
         self.mode = mode
         self.captures: dict = {}
         self.outputs: dict = {}
@@ -122,6 +145,10 @@ class Tapper:
                 f"tap {name!r} applied twice: shared/scanned layers come with "
                 f"the LM slice (ROADMAP.md item 11)")
         self.metas.setdefault(name, meta)
+        if self.mode == "probe":
+            self.outputs[name] = spec_of(y)
+            self.captures[name] = {k: spec_of(v) for k, v in captures.items()}
+            return y
         if not y.requires_grad:
             y = y.detach().requires_grad_(True)
         self.outputs[name] = y
@@ -160,7 +187,28 @@ class Tapper:
 
 
 # ---------------------------------------------------------------------------
-# The capture backward pass
+# Probe and the capture backward pass
+
+
+def _meta(t):
+    return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def probe(apply_fn, params, batch, *, return_captures: bool = False):
+    """Shape-only trace: the model runs once on ``device="meta"`` copies
+    of ``params`` and ``batch`` (tensors or anything with ``shape`` and
+    ``dtype``), so no data is read and no device does work.  Returns
+    (metas, out_shapes) — the :class:`LayerMeta` of every tapped layer and
+    the :class:`TensorSpec` of its output (= its cotangent) — and with
+    ``return_captures`` also the per-layer capture spec dicts, which the
+    planner consumes."""
+    STATS.probes += 1
+    tp = Tapper("probe")
+    with torch.no_grad():
+        apply_fn(tree_map(_meta, params), tree_map(_meta, batch), tp)
+    if return_captures:
+        return tp.metas, tp.outputs, tp.captures
+    return tp.metas, tp.outputs
 
 
 def capture_backward(apply_fn, params, batch, *, with_metas: bool = False):

@@ -24,11 +24,14 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source stem -> {C entry point: argtypes}
 ENTRY_POINTS = {
     "pe_conv_grad": {"repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 10 + [_P]},
-    "gram_norm": {"repro_gram_norm": [_P, _P, _P, _P] + [_I] * 6 + [_P]},
+    "gram_norm": {
+        "repro_gram_norm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+        "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 5
+                                 + [_I] * 7 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

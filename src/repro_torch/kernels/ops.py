@@ -7,7 +7,8 @@ The rule, for every wrapper:
     :mod:`repro_torch.kernels.ref`;
   * nothing falls back from one to the other.
 
-Each wrapper checks types (f32 or bf16 in), contiguity and shapes,
+Each wrapper checks types (f32 or bf16 in), contiguity (except
+``gram_norm_fused``, whose kernel reads through strides) and shapes,
 allocates outputs and scratch with ``torch.empty``, launches on
 PyTorch's current stream, and adds one to ``LAUNCHES[<kernel>]`` per
 launch.  ``chip_smoke.py`` reads the counts to show that the main path
@@ -24,12 +25,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"pe_conv_grad_2d": 0, "gram_norm": 0}
+LAUNCHES = {"pe_conv_grad_2d": 0, "gram_norm": 0, "gram_norm_fused": 0}
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65535
-_GRAM_BT = 64   # Gram tile rows in csrc/gram_norm.cu
+_GRAM_BT = 64      # Gram tile rows in csrc/gram_norm.cu
+_FUSED_TILE = 64   # contribution tile (Di and Do) of gram_norm_fused
 
 
 def reset_launches():
@@ -51,14 +53,18 @@ def _check_pair(name: str, x, dy, ndim: int):
         raise ValueError(f"{name}: x on {x.device}, dy on {dy.device}")
 
 
-def _launch_ready(name: str, *tensors) -> bool:
+def _launch_ready(name: str, *tensors, strided: bool = False) -> bool:
     """True for CUDA inputs (launch the kernel), False for CPU inputs
-    (take the plain version); raises for anything else."""
+    (take the plain version); raises for anything else.  A ``strided``
+    kernel reads through strides with 64-bit offsets, so its inputs skip
+    the contiguity and 32-bit size checks."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {dev}")
+    if strided:
+        return True
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
@@ -102,6 +108,58 @@ def gram_norm(x, dy, *, has_bias: bool = False):
     _raise_on(rc, "gram_norm")
     LAUNCHES["gram_norm"] += 1
     return out
+
+
+def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
+    """x (B, T, Di), dy (B, T, Do), w (B,) -> (norms (B,), contribution
+    Σ_b w_b·x_bᵀδy_b (Di, Do), bias contribution Σ_b w_b·Σ_t δy_bt (Do,)),
+    all f32; the bias contribution is zeros without a bias.
+
+    The kernel reads x and dy through their strides, so a transposed view
+    (the conv path's im2col patches) needs no copy."""
+    _check_pair("gram_norm_fused", x, dy, 3)
+    B, T, Di = x.shape
+    Do = dy.shape[2]
+    if dy.shape[1] != T or tuple(w.shape) != (B,):
+        raise ValueError(f"gram_norm_fused: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)} and w {tuple(w.shape)} do not "
+                         f"fit (B, T, Di), (B, T, Do), (B,)")
+    if not _launch_ready("gram_norm_fused", x, dy, strided=True):
+        return _ref.gram_norm_fused_ref(x, dy, w, has_bias=has_bias)
+    if w.device != x.device:
+        raise ValueError(f"gram_norm_fused: w on {w.device}, x on {x.device}")
+    n_tiles = -(-Di // _FUSED_TILE) * -(-Do // _FUSED_TILE)
+    if max(B, T, Di, Do, B * n_tiles) > _INT_MAX \
+            or -(-Di // _FUSED_TILE) > _GRID_YZ_MAX:
+        raise ValueError(f"gram_norm_fused: {tuple(x.shape)} x "
+                         f"{tuple(dy.shape)} exceeds the kernel's grid")
+    dev = x.device
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    cc = torch.empty((Di * Do + Do,), dtype=torch.float32, device=dev)
+    c, cb = cc[:Di * Do].view(Di, Do), cc[Di * Do:]
+    if B == 0 or Di == 0 or Do == 0:
+        return out.zero_(), c.zero_(), cb.zero_()
+    wf = w.to(torch.float32).contiguous()
+    partial = torch.empty((B, n_tiles), dtype=torch.float32, device=dev)
+    # Split the batch into G groups so that about two waves of blocks
+    # (three resident per SM) cover the card; each group's contribution
+    # has its own slot in cpart, summed in order by the kernel pair.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = max(1, min(B, -(-6 * sms // n_tiles)))
+    cpart = (torch.empty((groups, cc.numel()), dtype=torch.float32,
+                         device=dev) if groups > 1 else cc)
+    from repro_torch.kernels import build
+    lib = build.load("gram_norm")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_gram_norm_fused(
+            x.data_ptr(), *x.stride(), dy.data_ptr(), *dy.stride(),
+            wf.data_ptr(), partial.data_ptr(), out.data_ptr(), cc.data_ptr(),
+            cpart.data_ptr(), B, T, Di, Do, groups, int(has_bias),
+            int(x.dtype == torch.bfloat16), stream)
+    _raise_on(rc, "gram_norm_fused")
+    LAUNCHES["gram_norm_fused"] += 1
+    return out, c, cb
 
 
 def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):

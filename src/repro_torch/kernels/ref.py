@@ -2,9 +2,10 @@
 contracts), translated from the JAX package's ``kernels/ref.py``.
 
 ``ops`` takes these only for tensors on the CPU; on the card they serve
-``chip_smoke.py`` as the yardstick each kernel is held against.  Both
-repeat their kernel's arithmetic in f32: the Gram identity for
-``gram_norm``, the shifted products for ``pe_conv_grad_2d``.
+``chip_smoke.py`` as the yardstick each kernel is held against.  Each
+repeats its kernel's function in f32: the Gram identity for
+``gram_norm`` and ``gram_norm_fused``'s norm, the shifted products for
+``pe_conv_grad_2d``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,24 @@ def gram_norm_ref(x, dy, *, has_bias: bool = False):
     if has_bias:
         n = n + sy.sum(dim=(1, 2))
     return n
+
+
+def gram_norm_fused_ref(x, dy, w, *, has_bias: bool = False):
+    """Fused ghost norm + weighted contribution:
+    (‖δy_bᵀx_b‖²_F [+ ‖Σ_t δy_bt‖²], Σ_b w_b·x_bᵀδy_b, Σ_b w_b·Σ_t δy_bt),
+    all f32; the bias sum is zeros without a bias.  The norm goes by the
+    T×T Gram identity and the contribution as one (B·T)-row contraction,
+    as in the JAX package's reference."""
+    xf, gf = x.to(F32), dy.to(F32)
+    wf = w.to(device=x.device, dtype=F32)
+    sy = torch.bmm(gf, gf.transpose(1, 2))
+    n = torch.einsum("bts,bts->b", torch.bmm(xf, xf.transpose(1, 2)), sy)
+    c = torch.einsum("b,bti,bto->io", wf, xf, gf)
+    cb = torch.zeros((dy.shape[-1],), dtype=F32, device=dy.device)
+    if has_bias:
+        n = n + sy.sum(dim=(1, 2))
+        cb = torch.einsum("b,bto->o", wf, gf)
+    return n, c, cb
 
 
 def pe_conv_grad_2d_ref(x, dy, KH: int, KW: int):

@@ -6,8 +6,9 @@
 * ε of the port's accountant equals ``repro.core.privacy``'s to 1e-12,
   and a ledger of another mechanism raises ``LedgerMismatch``.
 * Synthetic batches, configs and the optimizers match the JAX package's.
-* ``DPConfig`` keeps its validation and its legacy-kwarg shim, and the
-  knobs only the planner reads raise at use when set.
+* ``DPConfig`` keeps its validation and its legacy-kwarg shim; every
+  knob the planned step reads is honored, and ``NormCfg.embed`` (read
+  only by the LM slice) raises at use when set.
 """
 import dataclasses
 import warnings
@@ -213,25 +214,90 @@ def test_dpconfig_validation_and_legacy_shim():
     assert DPConfig(overrides={"conv*": "pe"}).overrides == (("conv*", "pe"),)
 
 
+def _fused_toy():
+    """A toy CNN whose stale plan fuses a layer (conv3, Gram regime)."""
+    m = CNN(toy_cnn_config(4, 2.0, c0=16, img=32))
+    params, _ = m.init(0, device="cpu")
+    b = tsyn.SyntheticImageDataset(32, 10, n_examples=4).batch(range(2))
+    return m.apply, params, {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _knob_honored(knob, apply_fn, params, batch, cfg):
+    """Show, knob by knob, that the planned step reads it."""
+    from repro_torch.core.tapper import STATS
+    eng = PrivacyEngine(apply_fn, params, batch, cfg, device="cpu")
+    base = PrivacyEngine(apply_fn, params, batch,
+                         dataclasses.replace(cfg, overrides=(),
+                                             norm=NormCfg(),
+                                             clipping=ClipPolicy(
+                                                 mode=cfg.clipping.mode)),
+                         device="cpu")
+    plan, plan0 = eng.plan(), base.plan()
+    if knob in ("overrides", "NormCfg.mem_budget", "ClipPolicy.fused"):
+        assert plan.fingerprint != plan0.fingerprint
+    if knob == "overrides":
+        assert plan0.layers["conv0"].norm_method == "pe"
+        assert all(lp.norm_method == "ghost"
+                   for n, lp in plan.layers.items() if n.startswith("conv"))
+    elif knob == "NormCfg.mem_budget":
+        assert plan0.peak_stash_bytes() > cfg.norm.mem_budget
+        assert plan.peak_stash_bytes() <= cfg.norm.mem_budget
+    elif knob == "ClipPolicy.fused":
+        assert any(lp.fused for lp in plan0.layers.values())
+        assert not any(lp.fused for lp in plan.layers.values())
+    outs = []
+    for s in range(2):          # stale: bootstrap, then a steady step
+        STATS.reset()
+        outs.append(eng.noisy_grad(params, batch)[2])
+    if knob == "ClipPolicy.fused":
+        assert STATS.fused == 0
+    if knob == "ClipPolicy.budgets":
+        b = outs[0]["clip_budgets"]
+        keys = [g.path[0] for g in plan.groups]
+        assert b[keys.index("fc0")] / b[keys.index("conv0")] == \
+            pytest.approx(2.0, rel=1e-6)
+    if knob in ("ClipPolicy.quantile", "ClipPolicy.ema"):
+        # Replay the engine's tracking on the host: quantile q of each
+        # group's norms, then an EMA with factor ema.
+        qs = [np.quantile(a["per_layer_norms"].numpy().astype(np.float64),
+                          cfg.clipping.quantile, axis=1) for a in outs]
+        want = cfg.clipping.ema * qs[0] + (1 - cfg.clipping.ema) * qs[1]
+        np.testing.assert_allclose(eng.clip_state_dict()["budget_q"], want,
+                                   rtol=1e-12)
+
+
 @pytest.mark.parametrize("knob, kw", [
-    ("overrides", dict(overrides={"conv*": "pe"})),
+    ("overrides", dict(overrides={"conv*": "ghost"})),
     ("NormCfg.embed", dict(norm=NormCfg(embed="gram"))),
-    ("NormCfg.mem_budget", dict(norm=NormCfg(mem_budget=1 << 20))),
+    ("NormCfg.mem_budget", dict(norm=NormCfg(mem_budget=1 << 10))),
     ("NormCfg.embed", dict(embed_norm="segsum")),
-    ("ClipPolicy.budgets", dict(clipping=ClipPolicy(budgets={"fc*": 2.0}))),
-    ("ClipPolicy.quantile", dict(clipping=ClipPolicy(quantile=0.7))),
-    ("ClipPolicy.ema", dict(clipping=ClipPolicy(ema=0.5))),
-    ("ClipPolicy.fused", dict(clipping=ClipPolicy(fused=False))),
+    ("ClipPolicy.budgets", dict(clipping=ClipPolicy(mode="per_layer",
+                                                    budgets={"fc*": 2.0}))),
+    ("ClipPolicy.quantile", dict(clipping=ClipPolicy(
+        mode="per_layer", budgets="auto", quantile=0.7))),
+    ("ClipPolicy.ema", dict(clipping=ClipPolicy(mode="per_layer",
+                                                budgets="auto", ema=0.5))),
+    ("ClipPolicy.fused", dict(clipping=ClipPolicy(mode="stale",
+                                                  fused=False))),
 ])
 def test_planner_only_knobs_raise_at_use(toy_engine, knob, kw):
-    """A knob only the planner reads raises rather than being ignored."""
+    """Under ``strategy="auto"`` every knob the planner and the clipping
+    modes read is honored; only ``NormCfg.embed`` (read by the LM slice's
+    embedding kinds) still raises rather than being ignored."""
     eng, params, batch = toy_engine
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        cfg = DPConfig(strategy="bk", **kw)
-    with pytest.raises(NotImplementedError, match=knob):
-        dp_gradient(eng.apply_fn, params, batch, cfg=cfg)
-    with pytest.raises(NotImplementedError, match=knob):
-        PrivacyEngine(eng.apply_fn, params, batch, cfg, device="cpu")
-    # At their defaults the same config runs.
-    dp_gradient(eng.apply_fn, params, batch, cfg=DPConfig(strategy="bk"))
+        cfg = DPConfig(strategy="auto", l2_clip=0.05, **kw)
+    if knob == "NormCfg.embed":
+        with pytest.raises(NotImplementedError, match=knob):
+            dp_gradient(eng.apply_fn, params, batch, cfg=cfg)
+        with pytest.raises(NotImplementedError, match=knob):
+            PrivacyEngine(eng.apply_fn, params, batch, cfg, device="cpu")
+        # At its default the same config runs.
+        dp_gradient(eng.apply_fn, params, batch,
+                    cfg=DPConfig(strategy="auto"))
+        return
+    if knob == "ClipPolicy.fused":
+        _knob_honored(knob, *_fused_toy(), cfg)
+    else:
+        _knob_honored(knob, eng.apply_fn, params, batch, cfg)

@@ -137,26 +137,37 @@ def test_toy_cnn_step_parity_kernel_knobs(strategy):
 
 
 def test_fixed_strategies_only():
+    """Meshes and calibration still raise; the planned strategy, injected
+    plans and stale clipping run, and a fixed strategy's explain shows
+    the plan as advisory."""
     cfg = ttoy(**TOY)
     m = TCNN(cfg)
     params, _ = m.init(0, device="cpu")
     batch = {"img": torch.zeros(2, 3, 32, 32),
              "label": torch.zeros(2, dtype=torch.int32)}
+    for kw, item in (({"mesh": "data:8"}, "item 14"),
+                     ({"calibration": "measure"}, "item 13")):
+        with pytest.raises(NotImplementedError, match=item):
+            tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
+                                dp=tcore.DPConfig(strategy="crb"), **kw)
+    plan = tcore.get_plan(m.apply, params, batch)
     for kw in ({"dp": tcore.DPConfig(strategy="auto")},
-               {"dp": tcore.DPConfig(strategy="crb"), "mesh": "data:8"},
-               {"dp": tcore.DPConfig(strategy="crb"), "plan": object()},
-               {"dp": tcore.DPConfig(strategy="crb"),
-                "calibration": "measure"},
+               {"dp": tcore.DPConfig(strategy="auto"), "plan": plan},
                {"dp": tcore.DPConfig(strategy="bk", clipping="stale")}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcore.PrivacyEngine(m.apply, params, batch, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcore.dp_gradient(m.apply, params, batch,
-                          cfg=tcore.DPConfig(strategy="auto"))
+        eng = tcore.PrivacyEngine(m.apply, params, batch, device="cpu", **kw)
+        for _ in range(2):      # the stale bootstrap, then a steady step
+            _, grad, aux = eng.noisy_grad(params, batch)
+        assert torch.isfinite(aux["per_example_norms"]).all()
+    assert eng.clip_state_dict()["prev_norms_sq"].shape == (2,)
+    _, _, aux = tcore.dp_gradient(m.apply, params, batch,
+                                  cfg=tcore.DPConfig(strategy="auto"))
+    assert aux["per_example_norms"].shape == (2,)
     eng = tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
                               dp=tcore.DPConfig(strategy="ghost",
                                                 microbatches="auto"))
-    assert eng.microbatches() == 1 and "ghost" in eng.explain()
+    assert eng.microbatches() == 1
+    assert "fixed strategy 'ghost'" in eng.explain()
+    assert "advisory" in eng.explain()
 
 
 def test_microbatches_sum_like_one_batch():
