@@ -10,13 +10,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build: every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
    (in parallel, at first use, into ``build/``);
 3. kernels against their plain PyTorch versions at the shapes the main
-   path gives them (AlexNet, 256 px, B = 32), plus a ragged and a bf16
-   case: max error, kernel / plain / library time, and the bound
-   (``gram_norm_fused`` on the transposed im2col views the conv path
-   hands it, and once on a contiguous copy for comparison);
+   path gives them (AlexNet, 256 px, B = 32; Llama-3.2-1B, B = 8,
+   T = 1024), plus ragged and bf16 cases: max error, kernel / plain /
+   library time, and the bound (``gram_norm_fused`` on the transposed
+   im2col views the conv path hands it, and once on a contiguous copy for
+   comparison; the flash forward, dq and dk/dv at the model's
+   (8, 1024, 32, 64) with rep 1 in bf16 and f32, at rep 4, full
+   (non-causal) and with a ragged T, each twice to show the backward
+   kernels bitwise repeatable);
 4. small parity: a toy CNN's clipped gradients on the card (kernels) equal
    the port on the CPU (plain versions; the CPU tests hold those against
    the JAX package), under crb / ghost / bk and the planned stale step;
+   and a reduced Llama-3.2-1B's (flash kernels) under bk and ``auto``;
 5. main path: ``PrivacyEngine.private_step`` on full-width AlexNet
    (1000 classes, ~74.7 M params), 3 steps each of crb / ghost / bk with the
    kernel knobs and of the planned step (``strategy="auto"``) under flat
@@ -29,10 +34,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    crb(kernel) clipped sum the crb(grouped-conv) one, the fused stale
    step the unfused one on the same lagged norms, and two fused stale
    steps must be bitwise equal.
+6. LM main path: ``PrivacyEngine.private_step`` on full-width
+   Llama-3.2-1B (16 layers, d_model 2048, 32/8 heads, vocab 128 256, tied
+   embeddings, bf16, ``attn_impl="flash"``; ~1.24 B params), B = 8,
+   T = 1024, σ = 1: 3 steps each of bk (the config's strategy) and
+   ``auto`` flat, step ms, peak memory and one profiled step each.  Each
+   step's capture pass must launch every flash kernel once per layer
+   (16).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
+import functools
 import json
 import math
 import pathlib
@@ -63,6 +76,30 @@ GRAM_CASES = [("conv0", 3969, 363, 64), ("conv1", 961, 1600, 192),
               ("fc1", 1, 4096, 4096), ("fc2", 1, 4096, 1000)]
 # The layers a stale plan fuses on full-width AlexNet at B = 32.
 FUSED_CASES = GRAM_CASES[2:5]
+
+# Llama-3.2-1B's main-path batch.  gqa_apply repeats K and V to all 32
+# query heads before attention (as the JAX package does), so the model
+# path runs the flash kernels at rep 1; rep 4 (32 / 8) is checked alone.
+LM_B, LM_T, LM_LAYERS = 8, 1024, 16
+# (case, B, T, H, Hkv, hd, causal, dtype, on the main path)
+FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
+               ("llama_f32", LM_B, LM_T, 32, 32, 64, True, "float32", False),
+               ("llama_rep4_bf16", LM_B, LM_T, 32, 8, 64, True, "bfloat16",
+                False),
+               ("full_f32", 2, 256, 8, 8, 64, False, "float32", False),
+               ("ragged_f32", 2, 100, 4, 2, 64, True, "float32", False)]
+# The flash kernels' outputs are in the input dtype, so a bf16 output is
+# held to bf16's tolerance per entry (one rounding flip is at most 2^-7 of
+# the entry) and an f32 output to f32's; entries near zero get an absolute
+# floor of 1e-5 of the largest entry.  A bf16 output also gets FLASH_ULPS
+# bf16 ulps of its row's RMS (over head_dim): the forward rounds P to bf16
+# tile by tile against the running max, the plain version once against the
+# row's max, which moves an entry by up to about 2 such ulps.
+# tests/test_torch_flash_cuda.py holds this bound against that rounding,
+# and against a forward that drops a key tile or is 3 % off on one.
+FLASH_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+FLASH_ATOL = 1e-5
+FLASH_ULPS = 4
 
 
 class SmokeFailure(Exception):
@@ -108,14 +145,14 @@ def bound(flops, nbytes, dtype):
                                  else "bytes")
 
 
-def compare(torch, got, want, dtype, floor=1e-3):
+def compare(torch, got, want, dtype, floor=1e-3, rtol=None):
     """Max abs error, and whether every entry is within rtol of the
     plain version (relative to the entry, with an absolute floor of
     rtol · floor times the largest entry for entries near zero)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     scale = want.abs().max().item()
-    rtol = RTOL[dtype]
+    rtol = RTOL[dtype] if rtol is None else rtol
     ok = bool((err <= rtol * want.abs() + rtol * floor * scale).all())
     return err.max().item(), err.max().item() / max(scale, 1e-30), ok
 
@@ -202,6 +239,7 @@ def kernel_cases(torch):
         del x, dy, got, want
         torch.cuda.empty_cache()
     rows += fused_cases(torch, rnd)
+    rows += flash_cases(torch, rnd)
     bad = [f"{r['kernel']}@{r['case']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -276,6 +314,120 @@ def fused_cases(torch, rnd):
     return rows
 
 
+def flash_close(torch, got, want):
+    """``compare`` for a flash output, by its own dtype (see FLASH_RTOL):
+    max abs error, its share of the largest entry, and whether every
+    entry is within bound."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    bound = (FLASH_RTOL["bfloat16" if bf16 else "float32"] * want.abs()
+             + FLASH_ATOL * scale)
+    if bf16:
+        rms = want.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+        bound = bound + FLASH_ULPS * torch.exp2(torch.floor(
+            torch.log2(rms)) - 7)
+    return (err.max().item(), err.max().item() / max(scale, 1e-30),
+            bool((err <= bound).all()))
+
+
+def flash_cases(torch, rnd):
+    """The flash forward, dq and dk/dv kernels against their plain
+    versions (``ref.flash_fwd_ref`` / ``flash_dq_ref`` / ``flash_dkv_ref``,
+    the full (T, S) softmax); the library yardstick is
+    ``F.scaled_dot_product_attention``'s forward and its backward (one
+    call giving dq, dk and dv), timed only here."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for name, b, t, h, hkv, hd, causal, dt, main in FLASH_CASES:
+        tdt = getattr(torch, dt)
+        q, do = rnd(b, t, h, hd, dtype=tdt), rnd(b, t, h, hd, dtype=tdt)
+        k, v = rnd(b, t, hkv, hd, dtype=tdt), rnd(b, t, hkv, hd, dtype=tdt)
+        o, lse = ops.flash_fwd(q, k, v, causal=causal)
+        delta = ops.flash_delta(o, do)
+        bwd = (q, k, v, do, lse, delta)
+        dq = ops.flash_dq(*bwd, causal=causal)
+        dk, dv = ops.flash_dkv(*bwd, causal=causal)
+        dq2 = ops.flash_dq(*bwd, causal=causal)
+        dk2, dv2 = ops.flash_dkv(*bwd, causal=causal)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                  and torch.equal(dv, dv2))
+        del dq2, dk2, dv2
+        ro, rl = ref.flash_fwd_ref(q, k, v, causal=causal)
+        rdq = ref.flash_dq_ref(*bwd, causal=causal)
+        rdk, rdv = ref.flash_dkv_ref(*bwd, causal=causal)
+        rtol = FLASH_RTOL[dt]
+        errs = {"flash_fwd": [flash_close(torch, o, ro),
+                              flash_close(torch, lse, rl)],
+                "flash_dq": [flash_close(torch, dq, rdq)],
+                "flash_dkv": [flash_close(torch, dk, rdk),
+                              flash_close(torch, dv, rdv)]}
+        del ro, rl, rdq, rdk, rdv
+
+        # library: SDPA on (B, H, T, hd) views, forward and backward
+        qh, kh, vh = (a.detach().transpose(1, 2).requires_grad_(True)
+                      for a in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 is_causal=causal, enable_gqa=hkv != h)
+        out = sdpa(qh, kh, vh)
+        lib_fwd = cuda_ms(torch, lambda: sdpa(qh, kh, vh), 5)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True), 5)
+        del out, qh, kh, vh
+        # No PyTorch call computes dq alone: SDPA's backward (dq, dk and
+        # dv in one call) stands on the dk/dv row only, so the kernels
+        # line counts it once.
+        times = {
+            "flash_fwd": (lambda: ops.flash_fwd(q, k, v, causal=causal),
+                          lambda: ref.flash_fwd_ref(q, k, v, causal=causal),
+                          lib_fwd, "F.scaled_dot_product_attention forward"),
+            "flash_dq": (lambda: ops.flash_dq(*bwd, causal=causal),
+                         lambda: ref.flash_dq_ref(*bwd, causal=causal),
+                         None, "none: no PyTorch call computes dq alone "
+                               "(SDPA's backward is on the flash_dkv row)"),
+            "flash_dkv": (lambda: ops.flash_dkv(*bwd, causal=causal),
+                          lambda: ref.flash_dkv_ref(*bwd, causal=causal),
+                          lib_bwd, "F.scaled_dot_product_attention backward "
+                                   "(dq, dk and dv in one call)")}
+        # (query, key) pairs the causal mask keeps (T = S here); the
+        # forward does 2 hd-deep products per pair (q.k, p.v), dq 3
+        # (q.k, do.v, ds.k), dk/dv 4 (q.k, do.v, p^T.do, ds^T.q).
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        es = q.element_size()
+        io = (q.numel() + k.numel() + v.numel()) * es
+        rows_bhT = b * h * t * 4
+        work = {"flash_fwd": (4 * hd * pairs, io + q.numel() * es
+                              + rows_bhT),
+                "flash_dq": (6 * hd * pairs, io + 2 * q.numel() * es
+                             + 2 * rows_bhT),
+                "flash_dkv": (8 * hd * pairs, io + q.numel() * es
+                              + (k.numel() + v.numel()) * es + 2 * rows_bhT)}
+        for kern, (kfn, pfn, lib_ms, lib_what) in times.items():
+            flops, nbytes = work[kern]
+            b_ms, b_by = bound(flops, nbytes, dt)
+            e = errs[kern]
+            row = {"kernel": kern, "case": name, "dtype": dt,
+                   "shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "hd": hd,
+                             "causal": causal},
+                   "max_abs_err": max(x[0] for x in e),
+                   "max_rel_err": max(x[1] for x in e),
+                   "rtol": rtol, "ok": all(x[2] for x in e) and repeat,
+                   "bitwise_repeat": repeat,
+                   "kernel_ms": cuda_ms(torch, kfn, 5),
+                   "plain_ms": cuda_ms(torch, pfn, 2),
+                   "library_ms": lib_ms, "library": lib_what,
+                   "bound_ms": b_ms, "bound_by": b_by, "main_path": main,
+                   "calls_per_step": LM_LAYERS if main else 1}
+            rows.append(row)
+            log(row)
+        del q, k, v, do, o, lse, delta, bwd, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tree_close(torch, got, want, rtol, atol, what):
     for k in want:
         if isinstance(want[k], dict):
@@ -328,6 +480,43 @@ def small_parity(torch):
                "toy auto stale clipped sum")
     log({"phase": "small_parity", "ok": True,
          "strategies": ["crb", "ghost", "bk", "auto stale"]})
+
+
+def small_lm_parity(torch):
+    """Phase 4 (LM): a reduced Llama-3.2-1B (2 layers, head_dim 16, f32,
+    ``attn_impl="flash"``) gives the same clipped sums on the card (the
+    flash kernels) as on the CPU, under bk and ``auto``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import tree_map
+    cfg = get_config("llama3.2-1b").reduced().replace(attn_impl="flash")
+    m = TransformerLM(cfg)
+    params, _ = m.init(3, device="cpu")
+    b = SyntheticLMDataset(cfg.vocab, 16, n_examples=8).batch(range(4))
+    batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    for strategy in ("bk", "auto"):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev), params)
+            bt = {k: v.to(dev) for k, v in batch.items()}
+            n0 = ops.LAUNCHES["flash_fwd"]
+            out[dev] = clipped_grad_sum(m.apply, p, bt, l2_clip=1.0,
+                                        strategy=strategy)
+            launched = ops.LAUNCHES["flash_fwd"] - n0
+            check(launched == (cfg.n_layers if dev == "cuda" else 0),
+                  f"reduced llama {strategy} on {dev}: {launched} flash "
+                  f"forward launches")
+        check(torch.allclose(out["cuda"][0].cpu(), out["cpu"][0],
+                             rtol=1e-5), f"llama {strategy}: losses differ")
+        check(torch.allclose(out["cuda"][2].cpu(), out["cpu"][2],
+                             rtol=1e-4), f"llama {strategy}: norms differ")
+        tree_close(torch, out["cuda"][1], out["cpu"][1], 1e-4, 1e-6,
+                   f"reduced llama {strategy} clipped sum")
+    log({"phase": "small_lm_parity", "ok": True,
+         "strategies": ["bk", "auto"]})
 
 
 def main_path(torch):
@@ -479,6 +668,87 @@ def main_path(torch):
     return launches
 
 
+def lm_main_path(torch, launches):
+    """Phase 6: full-width Llama-3.2-1B DP-SGD steps through the engine,
+    bk and ``auto`` flat; adds the flash launches to ``launches``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig, PrivacyEngine
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import get_subtree, leaf_paths
+
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff,
+           cfg.vocab, cfg.hd) == (LM_LAYERS, 2048, 32, 8, 8192, 128256, 64)
+          and cfg.tie_embeddings and cfg.dtype == "bfloat16",
+          "llama3.2-1b config")
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params, _ = model.init(0, device="cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(get_subtree(params, p).numel()
+                   for p in leaf_paths(params))
+    t0 = time.perf_counter()
+    n_examples = 4096
+    ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=n_examples, seed=0)
+    batches = []
+    for s in range(4):
+        b = ds.batch(range(s * LM_B, (s + 1) * LM_B))
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in b.items()})
+    log({"phase": "lm_setup", "arch": cfg.name, "params": n_params,
+         "batch": LM_B, "seq": LM_T, "init_s": init_s,
+         "data_s": time.perf_counter() - t0})
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    steps = 3
+    for lane, strategy in (("llama_bk", "bk"), ("llama_auto_flat", "auto")):
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy)
+        eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                            optimizer="adamw", lr=1e-4, run_seed=0,
+                            sampling_rate=LM_B / n_examples, device="cuda")
+        plan = eng.explain() if strategy == "auto" else None
+        p, opt = params, adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, per_step = [], [], []
+        for s in range(steps):
+            ops.reset_launches()
+            t = time.perf_counter()
+            p, opt, loss, aux = eng.private_step(p, opt, batches[s], step=s)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(dict(ops.LAUNCHES))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
+        for k, v in counts.items():
+            launches[k] += v
+        prof = profile_step(torch, lambda: eng.private_step(
+            p, opt, batches[steps], step=steps), top=10)
+        check(all(math.isfinite(v) for v in losses),
+              f"{lane}: non-finite loss {losses}")
+        for k in flash:
+            got = [c[k] for c in per_step]
+            # one capture pass per step (bk, and auto with no weighted
+            # backward): each layer's attention launches each kernel once
+            check(got == [LM_LAYERS] * steps,
+                  f"{lane}: {k} launches per step {got}, expected "
+                  f"{LM_LAYERS}")
+        log({"phase": "lm_main_path", "lane": lane, "strategy": strategy,
+             "clipping": "flat", "plan": plan, "losses": losses,
+             "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
+             "launches_each_step": per_step,
+             "peak_mem_gb": peak, "profiled_step": prof,
+             "clip_fraction": float(aux["clip_fraction"]),
+             "report": eng.report()})
+        del p, opt, eng, aux
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
 def profile_step(torch, fn, top=8):
     """One step under ``torch.profiler``: wall ms, summed CUDA kernel ms,
     the device's busy share (kernel ms / wall ms, one stream) and the
@@ -511,7 +781,8 @@ def dataclass_dict(obj):
 
 def summarize(rows, launches):
     """One entry per kernel: sums over the main path's shapes (one step's
-    worth of each kernel's calls), errors over every case."""
+    worth of each kernel's calls: a flash row counts once per layer),
+    errors over every case."""
     meta = {
         "pe_conv_grad_2d": ("src/repro_torch/kernels/csrc/pe_conv_grad.cu",
                             "src/repro/kernels/pe_conv_grad.py:72"),
@@ -519,25 +790,36 @@ def summarize(rows, launches):
                       "src/repro/kernels/gram_norm.py:78"),
         "gram_norm_fused": ("src/repro_torch/kernels/csrc/gram_norm.cu",
                             "src/repro/kernels/gram_norm.py:145"),
+        "flash_fwd": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                      "src/repro/kernels/flash_attn.py:160"),
+        "flash_dq": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                     "src/repro/kernels/flash_attn.py:210"),
+        "flash_dkv": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                      "src/repro/kernels/flash_attn.py:229"),
     }
     out = []
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
         main = [r for r in mine if r["main_path"]]
-        t_ops = sum(r["bound_ms"] for r in main if r["bound_by"] ==
-                    "operations")
-        t_bytes = sum(r["bound_ms"] for r in main if r["bound_by"] ==
-                      "bytes")
+        def per_step(key, rows_):
+            return sum(r[key] * r.get("calls_per_step", 1) for r in rows_)
+
+        t_ops = per_step("bound_ms", [r for r in main
+                                      if r["bound_by"] == "operations"])
+        t_bytes = per_step("bound_ms", [r for r in main
+                                        if r["bound_by"] == "bytes"])
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["max_rel_err"] for r in mine),
-            "ms": sum(r["kernel_ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
+            "ms": per_step("kernel_ms", main),
+            "plain_ms": per_step("plain_ms", main),
             "bound_ms": t_ops + t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in main),
+            "library_ms": (None if any(r["library_ms"] is None
+                                       for r in main)
+                           else per_step("library_ms", main)),
             "cases": [r["case"] for r in main]})
     return out
 
@@ -571,9 +853,13 @@ def main():
     rows = kernel_cases(torch)
     log({"phase": "kernels_done", "seconds": time.perf_counter() - t})
     small_parity(torch)
+    small_lm_parity(torch)
     t = time.perf_counter()
     launches = main_path(torch)
     log({"phase": "main_path_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    lm_main_path(torch, launches)
+    log({"phase": "lm_main_path_done", "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
     log({"kernels": summarize(rows, launches)})

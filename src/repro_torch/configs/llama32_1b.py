@@ -1,0 +1,8 @@
+"""Llama-3.2-1B [hf:meta-llama; unverified] — dense, GQA kv=8, tied."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", family="dense", n_layers=16, d_model=2048,
+    n_heads=32, n_kv=8, d_ff=8192, vocab=128256, head_dim=64,
+    norm="rmsnorm", mlp="swiglu", tie_embeddings=True, rope_theta=5e5,
+    dtype="bfloat16", remat=False, dp_strategy="bk", prefill_last_only=True)

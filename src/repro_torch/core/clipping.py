@@ -114,7 +114,7 @@ class NormCfg:
     """Per-kind norm-realization knobs (the JAX package's names).
 
     dense:     auto | gram | stream | rank1 | pallas
-    embed:     auto | segsum | gram | pe        (LM slice)
+    embed:     auto | segsum | gram | pe
     conv:      auto | ghost | pe | pallas       (norm realization)
     conv_impl: fgc | bgc | pallas               (materializing conv grad)
     mem_budget: bytes of per-example-grad scratch the planner tolerates.
@@ -125,8 +125,7 @@ class NormCfg:
     conv_impl), and on CPU tensors its plain PyTorch version.
 
     ``mem_budget`` bounds the planner's materializing paths and drives
-    ``microbatches="auto"``.  ``embed`` is read only by the LM kinds; set
-    away from its default it raises at use (:func:`check_served`).
+    ``microbatches="auto"``.  ``embed`` is read by the embedding kinds.
     """
 
     dense: str = "auto"
@@ -228,22 +227,31 @@ class DPConfig:
 
     def planner_opts(self) -> dict:
         """Keyword arguments for :func:`.costmodel.get_plan`."""
-        return dict(norm_method=self.norm.dense, conv_norm=self.norm.conv,
+        return dict(norm_method=self.norm.dense, embed_method=self.norm.embed,
+                    conv_norm=self.norm.conv,
                     mem_budget=self.norm.mem_budget,
                     overrides=self.overrides,
                     clip_mode=self.clipping.mode,
                     clip_fused=self.clipping.fused)
 
 
-def check_served(cfg: DPConfig) -> None:
-    """Raise ``NotImplementedError`` for the one knob this slice does not
-    read: ``NormCfg.embed`` set away from its default (the embedding kinds
-    come with the LM slice, ROADMAP.md item 11), so that no setting is
-    silently ignored."""
-    if cfg.norm.embed != NormCfg().embed:
+def check_served(cfg: DPConfig, metas: dict) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not serve:
+    ``per_layer`` or ``stale`` clipping of a model with scanned or shared
+    layers (``metas``: the plan's or the probe's layer metadata).  The
+    planner plans those modes; executing them (per-layer budgets over
+    stacked layers, the fused stale pass of scanned layers) comes with the
+    rest of the LM slice (ROADMAP.md item 11)."""
+    mode = cfg.clipping.mode
+    if mode == "flat":
+        return
+    bad = sorted(n for n, m in metas.items() if m.scanned or m.shared)
+    if bad:
         raise NotImplementedError(
-            "NormCfg.embed set away from the default: only the embedding "
-            "kinds of the LM slice (ROADMAP.md item 11) read it")
+            f"{mode!r} clipping of scanned or shared layers ({bad[0]!r} "
+            f"and {len(bad) - 1} more) comes with the rest of the LM "
+            f"slice (ROADMAP.md item 11); this slice serves flat clipping "
+            f"for such models")
 
 
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
@@ -297,6 +305,9 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
     match the per-microbatch shapes *and* the clipping mode.  ``key`` is
     the ``torch.Generator`` the noise is drawn from.
 
+    A non-flat clipping mode is checked against the model's layers first
+    (:func:`check_served`).
+
     ``clip_state`` threads the cross-step state of the non-flat modes
     (the engine owns this loop):
       * ``{"prev_norms_sq": (B,)}`` — ``stale``: the norms the lagged
@@ -313,7 +324,9 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
     ``clip_budgets``; ``stale`` adds ``clip_fraction_lagged`` (what the
     applied coefficients clipped; ``clip_fraction`` describes the current
     norms, i.e. the next step's coefficients) and ``clip_state``."""
-    check_served(cfg)
+    if cfg.clipping.mode != "flat":
+        check_served(cfg, (plan or costmodel.get_plan(
+            apply_fn, params, batch, **cfg.planner_opts())).metas)
     B = next(iter(batch.values())).shape[0]
     denom = denom or B
     policy = cfg.clipping
@@ -343,7 +356,8 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         l_i, g_i, n_i, detail = strategies.clipped_grad_sum_detailed(
             apply_fn, params, part, l2_clip=cfg.l2_clip,
             strategy=cfg.strategy, norm_method=cfg.norm.dense,
-            conv_impl=cfg.norm.conv_impl, conv_norm=cfg.norm.conv,
+            conv_impl=cfg.norm.conv_impl, embed_method=cfg.norm.embed,
+            conv_norm=cfg.norm.conv,
             overrides=cfg.overrides, mem_budget=cfg.norm.mem_budget,
             plan=plan, clip_policy=policy, budgets=budgets,
             prev_norms_sq=None if prev_ns is None else prev_ns[sl])

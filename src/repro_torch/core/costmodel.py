@@ -25,9 +25,18 @@ shapes (one shape-only probe on ``device="meta"``) it chooses
                      backward pass, chosen only when the contractions it
                      replaces pay for the backward's fixed cost.
 
-Under stale clipping the Gram-realized dense/conv layers are marked
-``fused``: their norm and contribution come from one ``gram_norm_fused``
-pass.
+An embedding gather picks ``segsum`` / ``gram`` / ``pe``
+(:func:`embed_norm_method`); an elementwise affine (norm scale)
+materializes its tiny per-example grads.  Scanned layers multiply the
+per-application cost by the stack; shared scanned dense/scale layers fold
+the stack into the sequence axis.  Taps that share one parameter form a
+group with a ``norm_mode``: ``single``, ``tied`` (embedding + transposed
+LM head: both norms plus the cross term) or ``group_pe`` (materialize the
+summed per-example grad).
+
+Under stale clipping the Gram-realized dense/conv layers of single-tap
+groups are marked ``fused``: their norm and contribution come from one
+``gram_norm_fused`` pass.
 
 The decision rules and constants are the JAX package's
 (``repro.core.costmodel``), so the two packages plan alike.  Only the
@@ -122,6 +131,22 @@ def dense_norm_method(T: int, Di: int, Do: int, B: int,
     return "gram"
 
 
+EMBED_PE_BUDGET = 32 << 20  # materialize embed pe grads below this
+
+
+def embed_norm_method(T: int, D: int, B: int | None = None,
+                      vocab: int | None = None,
+                      pe_budget: int = EMBED_PE_BUDGET) -> str:
+    """segsum is O(T·logT + T·D); the same-token-masked Gram is O(T²·D);
+    materializing the (B, V, D) per-example grad (``pe``) costs O(B·V·D)
+    but needs no sort and makes the sum phase free (stash), so it is
+    picked whenever the table is small enough for a hard memory bound."""
+    if B is not None and vocab is not None \
+            and B * vocab * D * BYTES <= pe_budget:
+        return "pe"
+    return "gram" if T <= 32 else "segsum"
+
+
 def conv_norm_method(T: int, C: int, D: int, K: int, B: int, groups: int = 1,
                      mem_budget: int = STREAM_MEM_BUDGET) -> str:
     """Conv ghost-norm (im2col Gram over T output positions with per-group
@@ -152,7 +177,7 @@ class LayerPlan:
 
     name: str
     kind: str
-    norm_method: str          # gram|stream|rank1|pallas|ghost|pe
+    norm_method: str          # gram|stream|rank1|pallas|ghost|pe|segsum
     stash: bool               # norm phase materializes per-example grads
     norm_flops: float
     contrib_flops: float
@@ -164,15 +189,15 @@ class LayerPlan:
 
 @dataclasses.dataclass(frozen=True)
 class GroupPlan:
-    """One parameter (tree path) and the taps that use it: one in this
-    slice (shared taps come with the LM slice, ROADMAP.md item 11)."""
+    """One parameter (tree path); >1 member means shared/tied taps."""
 
     path: tuple
     members: tuple                 # tap names
+    norm_mode: str                 # single | tied | group_pe
     sum_method: str                # stash | contrib | backward
 
 
-PLAN_FORMAT_VERSION = 1
+PLAN_FORMAT_VERSION = 2   # v2: GroupPlan.norm_mode (tied / group_pe)
 
 _META_FIELDS = ("kind", "path", "param_key", "bias_key", "w_transposed",
                 "segmented", "scanned", "shared", "static")
@@ -231,8 +256,9 @@ class ExecPlan:
         return {n: g.sum_method for g in self.groups for n in g.members}
 
     def peak_stash_bytes(self) -> float:
-        """Stashes coexist from the norm phase to the sum phase."""
-        return sum(self.layers[g.members[0]].stash_bytes
+        """Stashes coexist from the norm phase to the sum phase; a group's
+        members share one parameter, so it stashes one (B, *param) tree."""
+        return sum(max(self.layers[n].stash_bytes for n in g.members)
                    for g in self.groups if g.sum_method == "stash")
 
     def explain(self) -> str:
@@ -288,6 +314,7 @@ class ExecPlan:
             "layers": {n: dataclasses.asdict(lp)
                        for n, lp in self.layers.items()},
             "groups": [{"path": list(g.path), "members": list(g.members),
+                        "norm_mode": g.norm_mode,
                         "sum_method": g.sum_method} for g in self.groups],
             "metas": metas,
             "tap_shapes": {n: {"shape": list(s.shape),
@@ -307,7 +334,7 @@ class ExecPlan:
         layers = {n: LayerPlan(**d) for n, d in p["layers"].items()}
         groups = tuple(
             GroupPlan(tuple(g["path"]), tuple(g["members"]),
-                      g["sum_method"]) for g in p["groups"])
+                      g["norm_mode"], g["sum_method"]) for g in p["groups"])
         metas = {n: LayerMeta(**{f: (_retuple(d[f]) if f in ("path", "static")
                                      else d[f]) for f in _META_FIELDS})
                  for n, d in p["metas"].items()}
@@ -346,22 +373,29 @@ def _prod(xs) -> int:
 
 
 def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
-                *, norm_method: str, conv_norm: str, mem_budget: int,
+                *, norm_method: str, embed_method: str, conv_norm: str,
+                mem_budget: int, vocab: int | None = None,
                 clip_mode: str = "flat", clip_fused: bool = True,
                 cc: CostConstants = ANALYTIC_CONSTANTS) -> LayerPlan:
-    """Costs for one tap of an unscanned, unshared dense or conv layer.
+    """Costs for one tap (whole batch, one device).  Stacked (scanned)
+    applications multiply the per-application cost; shared stacked dense
+    layers fold the stack into the sequence axis first (matching
+    kinds.apply_kind).
 
     The auto choice minimizes the *joint* norm + sum cost: a norm that
     materializes per-example grads makes the sum phase a free (B,)-weighted
     reduction over the stash, so ``stream``/``pe`` is charged once while
     ``gram``/``ghost`` is charged norm + contraction."""
-    if meta.scanned or meta.shared or meta.segmented \
-            or meta.kind not in ("dense", "conv"):
+    if meta.segmented or meta.kind not in ("dense", "conv", "embed",
+                                           "scale"):
         raise NotImplementedError(
-            f"layer {name!r} (kind {meta.kind!r}): scanned, shared, "
-            f"segmented and LM layers come with the LM slice (ROADMAP.md "
-            f"item 11)")
-    app_dy = tuple(dy_sh.shape)
+            f"layer {name!r} (kind {meta.kind!r}"
+            f"{', segmented' if meta.segmented else ''}): comes with the "
+            f"rest of the LM slice (ROADMAP.md item 11)")
+    k = meta.scanned
+    dy_shape = tuple(dy_sh.shape)
+    stack = _prod(dy_shape[:k])
+    app_dy = dy_shape[k:]
 
     def _fused_credit(read_bytes: float, cand_flops: float) -> float:
         # Stale coefficients are known entering the pass, so the Gram
@@ -376,25 +410,34 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         return 0.0
 
     if meta.kind == "dense":
-        x_shape = tuple(cap_sh["x"].shape)
+        x_shape = tuple(cap_sh["x"].shape)[k:]
         B, Di, Do = x_shape[0], x_shape[-1], app_dy[-1]
         T = _prod(x_shape[1:-1])
-        cf = 2.0 * B * T * Di * Do
-        mem_stash = B * Di * Do * BYTES
+        mult = stack
+        if meta.shared and k:
+            T, mult = T * stack, 1        # folded into the sequence axis
+        cf = 2.0 * B * T * Di * Do * mult
+        # Stashing keeps (B, *stack, Di, Do) alive until the sum phase;
+        # the un-stashed stream norm reduces one stacked layer at a time,
+        # so it needs one layer's scratch but pays the contraction again.
+        mem_stash = B * Di * Do * BYTES * mult
+        mem_layer = B * Di * Do * BYTES
         stash = False
         fallback = norm_method
         if norm_method == "auto":
             if T == 1:
                 m = fallback = "rank1"
             else:
+                per_ex = B * mult
                 gram_flops = (2.0 * T * T * (Di + Do)
-                              + 2.0 * T * Di * Do) * B
+                              + 2.0 * T * Di * Do) * per_ex
                 gram_total = gram_flops - _fused_credit(
-                    T * (Di + Do) * BYTES * B, gram_flops)
-                stream_stash = 4.0 * T * Di * Do * B
-                stream_again = (4.0 * T * Di * Do + 2.0 * T * Di * Do) * B
+                    T * (Di + Do) * BYTES * per_ex, gram_flops)
+                stream_stash = 4.0 * T * Di * Do * per_ex
+                stream_again = (4.0 * T * Di * Do
+                                + 2.0 * T * Di * Do) * per_ex
                 fallback = ("stream" if stream_again < gram_total
-                            and mem_stash <= mem_budget else "gram")
+                            and mem_layer <= mem_budget else "gram")
                 if stream_stash < gram_total and mem_stash <= mem_budget:
                     m, stash = "stream", True
                 else:
@@ -407,45 +450,86 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         nf = {"gram": 2.0 * T * T * (Di + Do),
               "pallas": 2.0 * T * T * (Di + Do),
               "stream": 4.0 * T * Di * Do,
-              "rank1": 2.0 * T * (Di + Do)}[m] * B
+              "rank1": 2.0 * T * (Di + Do)}[m] * B * mult
         return LayerPlan(name, "dense", m, stash, nf, cf, cf,
                          stash_bytes=mem_stash, fallback_norm=fallback)
 
-    st = meta.static
-    x_shape = tuple(cap_sh["x"].shape)
-    B, C = x_shape[0], x_shape[1]
-    D = app_dy[1]
-    T = _prod(app_dy[2:])
-    K = _prod(st["kernel_shape"][2:])
-    g = max(st.get("groups", 1), 1)
-    F, Dg = (C // g) * K, D // g
-    cf = 2.0 * B * T * F * Dg * g
-    mem_stash = B * D * (C // g) * K * BYTES
-    stash = False
-    fallback = conv_norm
-    if conv_norm == "auto":
-        ghost_flops = (2.0 * T * T * (F + Dg) + 2.0 * T * F * Dg) * g * B
-        ghost_total = ghost_flops - _fused_credit(
-            T * (F + Dg) * g * BYTES * B, ghost_flops)
-        pe_stash = 4.0 * T * F * Dg * g * B
-        pe_again = (4.0 * T * F * Dg + 2.0 * T * F * Dg) * g * B
-        fallback = ("pe" if pe_again < ghost_total
-                    and mem_stash <= mem_budget else "ghost")
-        if pe_stash < ghost_total and mem_stash <= mem_budget:
-            m, stash = "pe", True
+    if meta.kind == "conv":
+        st = meta.static
+        x_shape = tuple(cap_sh["x"].shape)[k:]
+        B, C = x_shape[0], x_shape[1]
+        D = app_dy[1]
+        T = _prod(app_dy[2:])
+        K = _prod(st["kernel_shape"][2:])
+        g = max(st.get("groups", 1), 1)
+        F, Dg = (C // g) * K, D // g
+        cf = 2.0 * B * T * F * Dg * g * stack
+        mem_stash = B * D * (C // g) * K * BYTES * stack
+        mem_layer = B * D * (C // g) * K * BYTES
+        stash = False
+        fallback = conv_norm
+        if conv_norm == "auto":
+            per_ex = B * stack
+            ghost_flops = (2.0 * T * T * (F + Dg)
+                           + 2.0 * T * F * Dg) * g * per_ex
+            ghost_total = ghost_flops - _fused_credit(
+                T * (F + Dg) * g * BYTES * per_ex, ghost_flops)
+            pe_stash = 4.0 * T * F * Dg * g * per_ex
+            pe_again = (4.0 * T * F * Dg + 2.0 * T * F * Dg) * g * per_ex
+            fallback = ("pe" if pe_again < ghost_total
+                        and mem_layer <= mem_budget else "ghost")
+            if pe_stash < ghost_total and mem_stash <= mem_budget:
+                m, stash = "pe", True
+            else:
+                m = fallback
         else:
-            m = fallback
-    else:
-        m = conv_norm
-        stash = m == "pe" and mem_stash <= mem_budget
-    nf = (2.0 * B * T * T * (F + Dg) * g if m == "ghost"
-          else 4.0 * B * T * F * Dg * g)
-    return LayerPlan(name, "conv", m, stash, nf, cf, cf,
-                     stash_bytes=mem_stash, fallback_norm=fallback)
+            m = conv_norm
+            stash = m == "pe" and mem_stash <= mem_budget
+        nf = (2.0 * B * T * T * (F + Dg) * g if m == "ghost"
+              else 4.0 * B * T * F * Dg * g) * stack
+        return LayerPlan(name, "conv", m, stash, nf, cf, cf,
+                         stash_bytes=mem_stash, fallback_norm=fallback)
+
+    if meta.kind == "embed":
+        ids_shape = tuple(cap_sh["ids"].shape)[k:]
+        B = ids_shape[0]
+        T = _prod(ids_shape[1:])
+        D = app_dy[-1]
+        V = vocab or T
+        stash_bytes = B * V * D * BYTES * stack
+        seg_f = (T * max(math.log2(max(T, 2)), 1.0) + 2.0 * T * D)
+        # stack multiplies the stashed (B, V, D) scratch for the budget
+        m = (embed_method if embed_method != "auto"
+             else embed_norm_method(T, D, B * stack, vocab))
+        nf = {"gram": 2.0 * B * T * T * D,
+              "pe": B * (T * D + V * D),
+              "segsum": B * seg_f}[m] * stack
+        cf = 2.0 * B * T * D * stack
+        fb = m if m != "pe" else ("gram" if T <= 32 else "segsum")
+        return LayerPlan(name, "embed", m, m == "pe", nf, cf, cf,
+                         stash_bytes=stash_bytes, fallback_norm=fb)
+
+    # scale: per-example grads are (B, d): materialize and stash
+    B = app_dy[0] if app_dy else 1
+    n = 2.0 * B * (_prod(app_dy) // max(B, 1)) * stack
+    return LayerPlan(name, "scale", "pe", True, n, n, n,
+                     stash_bytes=(B * app_dy[-1] * BYTES * stack
+                                  if app_dy else 0.0))
+
+
+def _vocab_of(meta: LayerMeta, params) -> int | None:
+    if params is None:
+        return meta.static.get("vocab")
+    try:
+        leaf = get_subtree(params, meta.path)[meta.param_key]
+        return int(leaf.shape[-2])
+    except (KeyError, TypeError, IndexError):
+        return None
 
 
 _OVERRIDE_METHODS = {
     "dense": {"auto", "gram", "stream", "rank1", "pallas"},
+    "embed": {"auto", "segsum", "gram", "pe"},
     "conv": {"auto", "ghost", "pe", "pallas"},
 }
 
@@ -462,8 +546,10 @@ def normalize_overrides(overrides) -> tuple:
 
 
 def _override_for(name: str, kind: str, overrides: tuple) -> str | None:
-    """First matching override for this layer; a method that is wrong for
-    the layer's kind is a hard error."""
+    """First matching override for this layer.  Kinds with no override
+    vocabulary (scale) ignore matches — a block-level glob like
+    ``"blocks/*"`` sweeps up their taps — but a method that is wrong for
+    an overridable kind is a hard error."""
     valid = _OVERRIDE_METHODS.get(kind)
     if valid is None:
         return None
@@ -481,16 +567,19 @@ def _nbytes(spec) -> float:
     return float(_prod(spec.shape)) * spec.dtype.itemsize
 
 
-def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
-                   norm_method: str = "auto", conv_norm: str = "auto",
+def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
+                   params=None, *, norm_method: str = "auto",
+                   embed_method: str = "auto", conv_norm: str = "auto",
                    mem_budget: int = STREAM_MEM_BUDGET,
                    overrides=None, clip_mode: str = "flat",
                    clip_fused: bool = True) -> ExecPlan:
-    """Build the per-layer plan from probed shapes.
+    """Build the per-layer plan from probed shapes (``params``: the tree
+    or its specs, read for the embedding tables' vocabulary sizes).
 
-    Fixed ``norm_method`` / ``conv_norm`` override the analytic choice
-    uniformly (the planner still fills in cost estimates); ``overrides``
-    pins individual layers by tap-name glob and wins over both.
+    Fixed ``norm_method`` / ``embed_method`` / ``conv_norm`` override the
+    analytic choice uniformly (the planner still fills in cost estimates);
+    ``overrides`` pins individual layers by tap-name glob and wins over
+    all three.
 
     ``clip_mode`` shapes the plan around the coefficient flow of the
     executing :class:`~repro_torch.core.clipping.ClipPolicy`: ``per_layer``
@@ -508,9 +597,10 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
         ov = _override_for(name, meta.kind, overrides)
         layers[name] = _plan_layer(
             name, meta, cap_shapes[name], tap_shapes[name],
-            norm_method=ov or norm_method, conv_norm=ov or conv_norm,
-            mem_budget=mem_budget, clip_mode=clip_mode,
-            clip_fused=clip_fused, cc=cc)
+            norm_method=ov or norm_method, embed_method=ov or embed_method,
+            conv_norm=ov or conv_norm, mem_budget=mem_budget,
+            vocab=_vocab_of(meta, params) if meta.kind == "embed" else None,
+            clip_mode=clip_mode, clip_fused=clip_fused, cc=cc)
         by_path.setdefault(meta.path, []).append(name)
 
     total_wgrad = sum(lp.wgrad_flops for lp in layers.values())
@@ -521,11 +611,25 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
     # contractions it replaces exceed fixed + total_wgrad.
     backward_cost = (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad
 
-    # Only shared taps put two names on one path, and _plan_layer has
-    # refused those: every group is a single tap.
-    groups = [GroupPlan(path, tuple(names),
-                        "stash" if layers[names[0]].stash else "contrib")
-              for path, names in sorted(by_path.items())]
+    groups: list[GroupPlan] = []
+    for path, names in sorted(by_path.items()):
+        if len(names) == 1:
+            mode = "single"
+            sum_method = "stash" if layers[names[0]].stash else "contrib"
+        else:
+            ks = sorted((metas[n].kind, metas[n].w_transposed) for n in names)
+            mode = ("tied" if ks == [("dense", True), ("embed", False)]
+                    and len(names) == 2 else "group_pe")
+            if mode == "tied":
+                n_e = next(n for n in names if metas[n].kind == "embed")
+                if layers[n_e].norm_method == "pe":
+                    # Small tied table: materializing the summed grad once
+                    # beats segsum + Gram + the cross term, and stashes.
+                    mode = "group_pe"
+            # group_pe stashes the summed per-example grad during the norm
+            # phase; tied contracts per member.
+            sum_method = "stash" if mode == "group_pe" else "contrib"
+        groups.append(GroupPlan(path, tuple(names), mode, sum_method))
 
     # All stashes live together from the norm phase to the sum phase, so
     # the budget is charged cumulatively; groups past it fall back to a
@@ -534,16 +638,20 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
     for i, g in enumerate(groups):
         if g.sum_method != "stash":
             continue
-        lp = layers[g.members[0]]
-        if running + lp.stash_bytes > mem_budget:
+        # members of a group share one parameter, so a group stashes one
+        # (B, *param) tree: the largest member estimate, not the sum.
+        gb = max(layers[n].stash_bytes for n in g.members)
+        if running + gb > mem_budget:
             groups[i] = dataclasses.replace(g, sum_method="contrib")
-            # Re-decide the norm under no-stash economics: without the
-            # free sum, the stash-optimal method may no longer win.
-            layers[lp.name] = dataclasses.replace(
-                lp, stash=False,
-                norm_method=lp.fallback_norm or lp.norm_method)
+            for n in g.members:
+                lp = layers[n]
+                # Re-decide the norm under no-stash economics: without the
+                # free sum, the stash-optimal method may no longer win.
+                layers[n] = dataclasses.replace(
+                    lp, stash=False,
+                    norm_method=lp.fallback_norm or lp.norm_method)
         else:
-            running += lp.stash_bytes
+            running += gb
 
     # Greedy backward set: groups whose contraction is dearer than their
     # wgrad share, kept only if the replaced contractions pay for the
@@ -567,13 +675,16 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict, *,
 
     # Stale coefficients are step-invariant inside the pass: mark the
     # Gram-realized dense/conv layers for the fused single-pass
-    # norm+contrib (gram_norm_fused).
+    # norm+contrib (gram_norm_fused).  Only single-tap groups fuse —
+    # tied/shared-path groups keep their cross-term norm algebra — and
+    # only unscanned convs.
     if clip_mode == "stale" and clip_fused:
+        single = {g.members[0] for g in groups if len(g.members) == 1}
         for name, lp in layers.items():
-            if lp.stash:
+            if name not in single or lp.stash:
                 continue
             if (lp.kind == "dense" and lp.norm_method in ("gram", "pallas")) \
-                    or (lp.kind == "conv"
+                    or (lp.kind == "conv" and metas[name].scanned == 0
                         and lp.norm_method in ("ghost", "pallas")):
                 layers[name] = dataclasses.replace(lp, fused=True)
 
@@ -689,15 +800,15 @@ def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
             f"param shapes, or planner knobs changed)")
 
 
-def _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
+def _opts_tuple(norm_method, embed_method, conv_norm, mem_budget, overrides,
                 clip_mode="flat", clip_fused=True) -> tuple:
-    return (norm_method, conv_norm, mem_budget,
+    return (norm_method, embed_method, conv_norm, mem_budget,
             normalize_overrides(overrides),
             (str(clip_mode), bool(clip_fused)))
 
 
 def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
-                     conv_norm: str = "auto",
+                     embed_method: str = "auto", conv_norm: str = "auto",
                      mem_budget: int = STREAM_MEM_BUDGET, overrides=None,
                      clip_mode: str = "flat", clip_fused: bool = True,
                      mesh=None, calibration=None) -> str:
@@ -706,12 +817,13 @@ def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
     _single_device(mesh, calibration)
     return model_fingerprint(
         apply_fn, params, batch,
-        _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
-                    clip_mode, clip_fused))
+        _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
+                    overrides, clip_mode, clip_fused))
 
 
 def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
-             conv_norm: str = "auto", mem_budget: int = STREAM_MEM_BUDGET,
+             embed_method: str = "auto", conv_norm: str = "auto",
+             mem_budget: int = STREAM_MEM_BUDGET,
              overrides=None, clip_mode: str = "flat",
              clip_fused: bool = True, mesh=None,
              calibration=None) -> ExecPlan:
@@ -721,8 +833,8 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     ``id(apply_fn.__self__)`` alive for the entry's lifetime, so a
     recycled id can never alias a different model."""
     _single_device(mesh, calibration)
-    opts = _opts_tuple(norm_method, conv_norm, mem_budget, overrides,
-                       clip_mode, clip_fused)
+    opts = _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
+                       overrides, clip_mode, clip_fused)
     key = (_fn_ident(apply_fn), _shape_sig(batch), _shape_sig(params), opts)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -731,9 +843,10 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     metas, tap_shapes, cap_shapes = probe(apply_fn, params, batch,
                                           return_captures=True)
     plan = plan_execution(
-        metas, cap_shapes, tap_shapes, norm_method=norm_method,
-        conv_norm=conv_norm, mem_budget=mem_budget, overrides=opts[3],
-        clip_mode=clip_mode, clip_fused=clip_fused)
+        metas, cap_shapes, tap_shapes, params, norm_method=norm_method,
+        embed_method=embed_method, conv_norm=conv_norm,
+        mem_budget=mem_budget, overrides=opts[4], clip_mode=clip_mode,
+        clip_fused=clip_fused)
     plan = dataclasses.replace(
         plan, fingerprint=model_fingerprint(apply_fn, params, batch, opts),
         batch_sig=_shape_sig(batch))

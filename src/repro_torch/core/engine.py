@@ -109,7 +109,6 @@ class PrivacyEngine:
         if calibration is not None:
             raise NotImplementedError(
                 "calibration comes with ROADMAP.md item 13")
-        check_served(self.dp)
         self.apply_fn = apply_fn
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
@@ -130,6 +129,9 @@ class PrivacyEngine:
                 fingerprint=self.fingerprint(),
                 clip_mode=self.dp.clipping.mode, calibration="")
         self._plan = plan
+        if self.dp.clipping.mode != "flat":
+            # Refuse an unserved mode now, not at the first step.
+            check_served(self.dp, self.plan().metas)
         self.run_seed = run_seed
         # Cross-step clipping state: stale mode's lagged norms (a device
         # tensor: no host sync on the stale path), and the per-layer

@@ -1,4 +1,4 @@
-"""Per-layer-kind gradient algebra (dense and conv kinds).
+"""Per-layer-kind gradient algebra (dense, conv, embed and scale kinds).
 
 Given a layer's captured input ``x_b`` and output cotangent ``δy_b`` (from
 :mod:`repro_torch.core.tapper`), each *kind* knows three operations:
@@ -15,17 +15,27 @@ one pass (``gram_norm_fused`` for dense and conv layers).
 For a dense layer with a sequence axis the ghost norm uses the Gram
 identity  ``‖g_b‖² = Σ_{t,t'} (x_t·x_{t'}) (δy_t·δy_{t'})``  which costs
 ``T²(Din+Dout)`` instead of materializing ``T·Din·Dout``.  Conv layers
-reach the same identity over im2col patches.
+reach the same identity over im2col patches.  An embedding gather's norm
+sums its cotangent rows per token id (``segsum``); a tied embedding and
+LM head add their cross term (:func:`tied_embed_head_cross`).
+
+Scanned layers (captures with leading stacked-layer axes) are taken one
+layer at a time, as the JAX package's ``lax.map`` does, so the scratch
+of a kind's realization is one layer's worth; shared scanned dense and
+scale layers fold their applications into the sequence axis instead.
 
 All reductions accumulate in float32 regardless of capture dtype.
 
 The method string ``"pallas"`` keeps the JAX package's spelling so that
 ``NormCfg`` and configs stay one-to-one; here it means this repo's own
-CUDA kernel (:mod:`repro_torch.kernels.ops`).  Scanned, shared,
-segmented, embed, scale, attn and local_vjp kinds come with the LM slice
-(ROADMAP.md item 11) and raise ``NotImplementedError``.
+CUDA kernel (:mod:`repro_torch.kernels.ops`).  Segmented (MoE) layers,
+the attn and local_vjp kinds, and the fused realization of scanned
+layers come with the rest of the LM slice (ROADMAP.md item 11) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -33,6 +43,7 @@ import torch
 from repro_torch.analysis.markers import tag
 from repro_torch.core import costmodel
 from repro_torch.core.tapper import STATS, LayerMeta
+from repro_torch.tree import tree_map
 
 F32 = torch.float32
 
@@ -110,23 +121,25 @@ def dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
         return _realized(_sumsq(pe), meta, "stream")
     if method != "gram":
         raise ValueError(f"unknown dense norm method {method!r}")
-    # gram, chunked over rows to bound the (B, chunk, T) intermediate
+    # gram, chunked over rows to bound the (B, chunk, T) intermediate;
+    # the f32 copies of x and δy are made once, not per chunk
     chunk = costmodel.GRAM_CHUNK
     need_bias = bool(meta.bias_key)
+    xf, gf = x.to(F32), g.to(F32)
 
     def chunk_norm(xc, gc):
-        sx = _ee("bci,bti->bct", xc, x)
-        sy = _ee("bco,bto->bct", gc, g)
-        n = _ee("bct,bct->b", sx, sy)
+        sx = torch.einsum("bci,bti->bct", xc, xf)
+        sy = torch.einsum("bco,bto->bct", gc, gf)
+        n = torch.einsum("bct,bct->b", sx, sy)
         if need_bias:
             n = n + sy.sum(dim=(1, 2))
         return n
 
     if T <= chunk:
-        return _realized(chunk_norm(x, g), meta, "gram")
+        return _realized(chunk_norm(xf, gf), meta, "gram")
     n = torch.zeros((B,), dtype=F32, device=x.device)
     for s in range(0, T, chunk):
-        n = n + chunk_norm(x[:, s:s + chunk], g[:, s:s + chunk])
+        n = n + chunk_norm(xf[:, s:s + chunk], gf[:, s:s + chunk])
     return _realized(n, meta, "gram")
 
 
@@ -156,6 +169,105 @@ def dense_contrib(meta: LayerMeta, cap, dy, w):
     if meta.bias_key:
         out[meta.bias_key] = _ee("b,bto->o", w, g)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding (gather)
+
+
+def _embed_flat(cap, dy):
+    """ids (B, T) int64 and cotangent rows (B, T, D)."""
+    ids = cap["ids"]
+    B = ids.shape[0]
+    ids2 = ids.reshape(B, -1).long()
+    return ids2, dy.reshape(B, ids2.shape[1], -1)
+
+
+def embed_pe_grad(meta: LayerMeta, cap, dy, vocab: int):
+    ids2, g2 = _embed_flat(cap, dy)
+    B, T, D = g2.shape
+    out = torch.zeros((B, vocab, D), dtype=F32, device=g2.device)
+    out.scatter_add_(1, ids2[..., None].expand(B, T, D), g2.to(F32))
+    return {meta.param_key: out}
+
+
+def embed_norm_sq(meta: LayerMeta, cap, dy, method: str = "segsum",
+                  vocab: int | None = None):
+    """Embedding-gather ghost norm: ‖g_b‖² = Σ_v ‖Σ_{t: id_t=v} δy_t‖².
+
+    ``segsum``: sort each example's tokens, sum the cotangent rows of each
+    run of equal ids, square — O(T·logT + T·D).  ``gram``: the
+    same-token-masked T×T Gram — O(T²·D).  ``pe``: materialize the
+    (B, V, D) per-example grad and reduce (small tables only; see
+    costmodel.embed_norm_method)."""
+    ids2, g2 = _embed_flat(cap, dy)
+    B, T, D = g2.shape
+    if method == "auto":
+        method = costmodel.embed_norm_method(T, D, B, vocab)
+    if method == "pe":
+        return _realized(_sumsq(embed_pe_grad(meta, cap, dy, vocab)),
+                         meta, "pe")
+    if method == "gram":
+        sy = _ee("btd,bsd->bts", g2, g2)
+        m = (ids2[:, :, None] == ids2[:, None, :]).to(F32)
+        return _realized(torch.einsum("bts,bts->b", m, sy), meta, "gram")
+    if method != "segsum":
+        raise ValueError(f"unknown embed norm method {method!r}")
+    ids_s, order = torch.sort(ids2, dim=1, stable=True)
+    g_s = torch.gather(g2.to(F32), 1, order[..., None].expand(B, T, D))
+    newseg = torch.cumsum(torch.cat(
+        [torch.zeros((B, 1), dtype=torch.long, device=ids2.device),
+         (ids_s[:, 1:] != ids_s[:, :-1]).long()], dim=1), dim=1)
+    summed = torch.zeros((B, T, D), dtype=F32, device=g2.device)
+    summed.scatter_add_(1, newseg[..., None].expand(B, T, D), g_s)
+    return _realized(summed.square().sum(dim=(1, 2)), meta, "segsum")
+
+
+def embed_contrib(meta: LayerMeta, cap, dy, w, vocab: int):
+    ids2, g2 = _embed_flat(cap, dy)
+    D = g2.shape[-1]
+    gw = g2.to(F32) * w.to(F32)[:, None, None]
+    out = torch.zeros((vocab, D), dtype=F32, device=g2.device)
+    out.index_add_(0, ids2.reshape(-1), gw.reshape(-1, D))
+    return {meta.param_key: out}
+
+
+# ---------------------------------------------------------------------------
+# Scale / bias (elementwise affine)
+
+
+def _scale_reduce_axes(x, gshape):
+    """Axes of x (beyond batch) over which the g-broadcast reduces."""
+    nd, ng = x.ndim, len(gshape)
+    axes = []
+    for ax in range(1, nd):
+        gax = ax - (nd - ng)
+        if gax < 0 or gshape[gax] == 1:
+            axes.append(ax)
+    return tuple(axes)
+
+
+def scale_pe_grad(meta: LayerMeta, cap, dy, gshape):
+    x, g = cap["x"], dy
+    axes = _scale_reduce_axes(x, gshape)
+    # the product in the capture dtype, as the JAX package forms it
+    pg = (x * g).to(F32).sum(dim=axes)
+    out = {meta.param_key: pg.reshape((x.shape[0],) + tuple(gshape))}
+    if meta.bias_key:
+        pb = g.to(F32).sum(dim=axes)
+        out[meta.bias_key] = pb.reshape((x.shape[0],) + tuple(gshape))
+    return out
+
+
+def scale_norm_sq(meta: LayerMeta, cap, dy, gshape):
+    return _realized(_sumsq(scale_pe_grad(meta, cap, dy, gshape)),
+                     meta, "pe")
+
+
+def scale_contrib(meta: LayerMeta, cap, dy, w, gshape):
+    pe = scale_pe_grad(meta, cap, dy, gshape)
+    wb = w.to(F32).reshape((-1,) + (1,) * len(gshape))
+    return {k: (v * wb).sum(dim=0) for k, v in pe.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -294,26 +406,107 @@ def conv_contrib(meta: LayerMeta, cap, dy, w):
 
 
 # ---------------------------------------------------------------------------
-# Dispatch
+# Stacked-layer handling: fold meta.scanned leading axes
+
+
+def _unscanned(meta: LayerMeta) -> LayerMeta:
+    return dataclasses.replace(meta, scanned=0, shared=False)
+
+
+def _split_stack(meta: LayerMeta, cap, dy):
+    """Flatten the stacked-layer axes into one leading G axis (views)."""
+    k = meta.scanned
+
+    def flat(a):
+        return a.reshape((-1,) + tuple(a.shape[k:]))
+
+    return ({n: flat(a) for n, a in cap.items()}, flat(dy),
+            tuple(dy.shape[:k]))
+
+
+def _fold_into_seq(meta: LayerMeta, cap, dy):
+    """For shared params: fold the stacked axes into the sequence axis, so
+    the per-example gradient is summed over applications *before* norms:
+    (S1..Sk, B, *rest, D) -> (B, S, *rest, D)."""
+    if meta.scanned == 0:
+        return cap, dy
+
+    def fold(a):
+        return a.reshape((-1,) + tuple(a.shape[meta.scanned:])) \
+            .transpose(0, 1)
+    return {n: fold(a) for n, a in cap.items()}, fold(dy)
+
+
+def _item11(what: str):
+    return NotImplementedError(
+        f"{what} comes with the rest of the LM slice (ROADMAP.md item 11)")
 
 
 def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
                weights=None, norm_method: str = "auto", conv_impl: str = "fgc",
-               conv_norm: str = "pe"):
-    """Dispatch ``op`` in {"pe_grad","norm_sq","contrib"} over the kinds of
-    this slice: unscanned, unshared dense and conv layers."""
-    if meta.scanned or meta.shared or meta.segmented:
-        raise NotImplementedError(
-            f"layer {'/'.join(map(str, meta.path))}: scanned, shared and "
-            f"segmented layers come with the LM slice (ROADMAP.md item 11)")
-    return _apply_flat(op, meta, cap, dy, params_sub=params_sub,
-                       weights=weights, norm_method=norm_method,
-                       conv_impl=conv_impl, conv_norm=conv_norm)
+               embed_method: str = "segsum", conv_norm: str = "pe"):
+    """Dispatch ``op`` in {"pe_grad","norm_sq","contrib"} over the kinds,
+    handling stacked (scanned) axes and shared parameters."""
+    kw = dict(norm_method=norm_method, conv_impl=conv_impl,
+              embed_method=embed_method, conv_norm=conv_norm)
+    if meta.segmented:
+        raise _item11(f"layer {'/'.join(map(str, meta.path))}: segmented "
+                      f"(MoE) layers")
+    if meta.shared and meta.scanned and meta.kind in ("dense", "scale"):
+        # Fold applications into the sequence axis: the per-example
+        # gradient of a shared parameter is the sum over applications,
+        # and the fold makes every op (the Gram norm's cross terms too)
+        # exact.
+        cap, dy = _fold_into_seq(meta, cap, dy)
+        return _apply_flat(op, _unscanned(meta), cap, dy,
+                           params_sub=params_sub, weights=weights, **kw)
+    if meta.shared and meta.scanned and op == "norm_sq":
+        # Generic shared fallback: materialize the summed per-example grad
+        # (exact cross terms), then take norms.
+        pe = apply_kind("pe_grad", meta, cap, dy, params_sub=params_sub,
+                        conv_impl=conv_impl)
+        return _realized(_sumsq(pe), meta, "pe")
+    if not meta.scanned:
+        return _apply_flat(op, meta, cap, dy, params_sub=params_sub,
+                           weights=weights, **kw)
+    cap_f, dy_f, stack_shape = _split_stack(meta, cap, dy)
+    meta_f = _unscanned(meta)
+    G = dy_f.shape[0]
+    if params_sub is not None and not meta.shared:
+        psub = tree_map(lambda a: a.reshape((-1,) + tuple(
+            a.shape[meta.scanned:])), params_sub)
+    else:
+        psub = None
+    # One stacked layer at a time: peak scratch is one layer's worth.
+    # Results land in preallocated (G, ...) buffers (norms: a running sum).
+    total, bufs = None, None
+    for i in range(G):
+        p_i = params_sub if meta.shared else (
+            None if psub is None else tree_map(lambda a: a[i], psub))
+        res = _apply_flat(op, meta_f, {n: a[i] for n, a in cap_f.items()},
+                          dy_f[i], params_sub=p_i, weights=weights, **kw)
+        if op == "norm_sq" or meta.shared:
+            total = res if total is None else (
+                total + res if op == "norm_sq"
+                else tree_map(torch.add, total, res))
+            continue
+        if bufs is None:
+            bufs = tree_map(lambda a: torch.empty(
+                (G,) + tuple(a.shape), dtype=a.dtype, device=a.device), res)
+        tree_map(lambda buf, a: buf[i].copy_(a), bufs, res)
+    if op == "norm_sq" or meta.shared:
+        return total
+    if op == "contrib":
+        return tree_map(lambda a: a.reshape(stack_shape + a.shape[1:]), bufs)
+    # pe_grad: (G, B, *p) -> (B, *stack, *p)
+    return tree_map(lambda a: torch.movedim(
+        a.reshape(stack_shape + a.shape[1:]), len(stack_shape), 0), bufs)
 
 
 def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
                        params_sub=None, fused: bool = True,
                        conv_impl: str = "fgc", norm_method: str = "auto",
+                       embed_method: str = "segsum",
                        conv_norm: str = "auto"):
     """Per-example squared norms *and* the weighted sum Σ_b w_b·g_b from
     one pass over the captures; valid whenever the weights are known
@@ -323,23 +516,28 @@ def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
     the fused ``gram_norm_fused`` realizations when ``fused``, the layers
     the planner marks ``fused``; the non-fused request falls back to the
     norm_sq + contrib pair (still one capture pass of the model, just two
-    reductions over the same tensors).  Scanned layers come with the LM
-    slice and raise there."""
-    if fused and not meta.scanned:
+    reductions over the same tensors).  The fused realization of scanned
+    layers comes with the rest of the LM slice (stale clipping on
+    scanned layers is refused before it is reached,
+    ``clipping.check_served``)."""
+    if fused and meta.scanned:
+        raise _item11(f"layer {'/'.join(map(str, meta.path))}: the fused "
+                      f"norm+contrib of scanned layers")
+    if fused:
         if meta.kind == "dense" and not meta.segmented:
             return dense_norm_and_contrib(meta, cap, dy, weights)
         if meta.kind == "conv":
             return conv_norm_and_contrib(meta, cap, dy, weights)
     n = apply_kind("norm_sq", meta, cap, dy, params_sub=params_sub,
                    norm_method=norm_method, conv_impl=conv_impl,
-                   conv_norm=conv_norm)
+                   embed_method=embed_method, conv_norm=conv_norm)
     c = apply_kind("contrib", meta, cap, dy, params_sub=params_sub,
                    weights=weights, conv_impl=conv_impl)
     return n, c
 
 
 def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
-                conv_impl, conv_norm="pe"):
+                conv_impl, embed_method="segsum", conv_norm="pe"):
     kind = meta.kind
     if op not in ("pe_grad", "norm_sq", "contrib"):
         raise ValueError(f"unknown op {op!r}")
@@ -349,6 +547,22 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
         if op == "norm_sq":
             return dense_norm_sq(meta, cap, dy, method=norm_method)
         return dense_contrib(meta, cap, dy, weights)
+    if kind == "embed":
+        vocab = (params_sub[meta.param_key].shape[-2]
+                 if params_sub is not None else meta.static.get("vocab"))
+        if op == "pe_grad":
+            return embed_pe_grad(meta, cap, dy, vocab)
+        if op == "norm_sq":
+            return embed_norm_sq(meta, cap, dy, method=embed_method,
+                                 vocab=vocab)
+        return embed_contrib(meta, cap, dy, weights, vocab)
+    if kind == "scale":
+        gshape = tuple(params_sub[meta.param_key].shape)
+        if op == "pe_grad":
+            return scale_pe_grad(meta, cap, dy, gshape)
+        if op == "norm_sq":
+            return scale_norm_sq(meta, cap, dy, gshape)
+        return scale_contrib(meta, cap, dy, weights, gshape)
     if kind == "conv":
         if op == "pe_grad":
             return conv_pe_grad(meta, cap, dy, impl=conv_impl)
@@ -356,8 +570,32 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
             return conv_norm_sq(meta, cap, dy, impl=conv_impl,
                                 method=conv_norm)
         return conv_contrib(meta, cap, dy, weights)
-    if kind in ("embed", "scale", "attn", "local_vjp"):
-        raise NotImplementedError(
-            f"layer kind {kind!r} comes with the LM slice (ROADMAP.md "
-            f"item 11)")
+    if kind in ("attn", "local_vjp"):
+        raise _item11(f"layer kind {kind!r}")
     raise ValueError(f"unknown kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Tied-parameter cross term: <g_embed_b, g_head_b> for weight-tied LM heads
+
+
+def tied_embed_head_cross(cap_e, dy_e, cap_d, dy_d):
+    """2·⟨g_in, g_out⟩ per example for a parameter used both as an
+    embedding table (gather) and, transposed, as the LM head (dense
+    ``w_transposed``):
+
+      g_in[v,d]  = Σ_t 1[id_t=v] δe[t,d]
+      g_out[v,d] = Σ_s δl[s,v] h[s,d]
+      ⟨g_in,g_out⟩ = Σ_{t,s} δl[s, id_t] · (δe[t]·h[s])
+
+    so the (V, D) per-example gradients are never formed: one (B, T, S)
+    f32 product and a gather of δl at the token ids."""
+    ids2, de = _embed_flat(cap_e, dy_e)                   # (B,T), (B,T,D)
+    B, T = ids2.shape
+    h = _flatten_seq(cap_d["x"])                          # (B, S, D)
+    S = h.shape[1]
+    dl = dy_d.reshape(B, S, -1)                           # (B, S, V)
+    a = _ee("btd,bsd->bts", de, h)                        # (B, T, S)
+    dl_at = torch.gather(dl, 2, ids2[:, None, :].expand(B, S, T))
+    inner = torch.einsum("bts,bst->b", a, dl_at.to(F32))
+    return 2.0 * inner

@@ -143,14 +143,16 @@ def group_key_of(path: tuple) -> str:
 def group_norms_from_captures(params, caps, dtaps, metas, *,
                               norm_method: str = "auto",
                               conv_impl: str = "fgc",
+                              embed_method: str = "segsum",
                               conv_norm: str = "auto"):
     """Per-parameter-group per-example squared grad norms, grouping taps
-    that touch the same parameter.
+    that touch the same parameter (tied embeddings).
 
     Returns ``(group_keys, norms)`` with ``norms`` of shape (G, B), in
     sorted-path order.  A group with one tap takes that kind's norm; a
-    group with several takes the generic exact fallback (materialize the
-    summed per-example grad, then square)."""
+    tied embedding + LM head takes both norms plus their cross term; any
+    other group takes the generic exact fallback (materialize the summed
+    per-example grad, then square)."""
     by_param = defaultdict(list)
     for name, meta in metas.items():
         by_param[meta.path].append(name)
@@ -168,18 +170,51 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
             norms.append(_tagged(kinds.apply_kind(
                 "norm_sq", metas[n], caps[n], dtaps[n], params_sub=psub,
                 norm_method=norm_method, conv_impl=conv_impl,
-                conv_norm=conv_norm), path))
+                embed_method=embed_method, conv_norm=conv_norm), path))
             continue
-        pe_sum: dict = {}
-        for n in names:
-            pe = kinds.apply_kind("pe_grad", metas[n], caps[n], dtaps[n],
-                                  params_sub=psub, conv_impl=conv_impl)
-            for k, v in pe.items():
-                pe_sum[k] = pe_sum[k] + v if k in pe_sum else v
-        norms.append(_tagged(kinds._sumsq(pe_sum), path, "pe"))
+        if _is_tied(names, metas):
+            kw = {"embed": {"embed_method": embed_method},
+                  "dense": {"norm_method": norm_method}}
+            norms.append(_tagged(_tied_norm(
+                names, metas, caps, dtaps, psub,
+                lambda n: kw[metas[n].kind]), path, "tied"))
+            continue
+        norms.append(_tagged(kinds._sumsq(_summed_pe(
+            names, metas, caps, dtaps, psub, conv_impl)), path, "pe"))
     if not norms:
         raise ValueError("no tapped layers")
     return tuple(keys), torch.stack(norms)
+
+
+def _is_tied(names, metas) -> bool:
+    """A tied embedding + LM head: one gather tap and one transposed
+    dense tap on the same table."""
+    ks = sorted((metas[n].kind, metas[n].w_transposed) for n in names)
+    return ks == [("dense", True), ("embed", False)]
+
+
+def _tied_norm(names, metas, caps, dtaps, psub, kw_of):
+    """‖g_embed + g_head‖² = ‖g_embed‖² + ‖g_head‖² + 2⟨g_embed, g_head⟩,
+    each term without forming a (V, D) per-example gradient; ``kw_of(n)``
+    gives member ``n``'s norm-method keywords."""
+    n_e = next(n for n in names if metas[n].kind == "embed")
+    n_d = next(n for n in names if metas[n].kind == "dense")
+    n_g = sum(kinds.apply_kind("norm_sq", metas[n], caps[n], dtaps[n],
+                               params_sub=psub, **kw_of(n))
+              for n in (n_e, n_d))
+    return n_g + kinds.tied_embed_head_cross(caps[n_e], dtaps[n_e],
+                                             caps[n_d], dtaps[n_d])
+
+
+def _summed_pe(g_members, metas, caps, dtaps, psub, conv_impl):
+    """The summed per-example grad of a group's taps (exact cross terms)."""
+    pe_sum: dict = {}
+    for n in g_members:
+        pe = kinds.apply_kind("pe_grad", metas[n], caps[n], dtaps[n],
+                              params_sub=psub, conv_impl=conv_impl)
+        for k, v in pe.items():
+            pe_sum[k] = pe_sum[k] + v if k in pe_sum else v
+    return pe_sum
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +260,7 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
                               strategy: str = "ghost",
                               norm_method: str = "auto",
                               conv_impl: str = "fgc", check: bool = False,
+                              embed_method: str = "segsum",
                               conv_norm: str | None = None, overrides=None,
                               mem_budget: int | None = None, plan=None,
                               clip_policy=None, budgets=None,
@@ -234,11 +270,13 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
 
     ``conv_norm`` (auto | ghost | pe | pallas) picks the conv norm
     realization (``None`` is an alias for ``"auto"``), ``norm_method``
-    the dense one, ``conv_impl`` (fgc | pallas) the materializing conv
-    gradient.  ``overrides`` pins individual layers by tap-name glob and
-    ``mem_budget`` bounds the materializing paths (planned strategy
-    only); ``plan`` injects a pre-built, possibly deserialized ExecPlan,
-    skipping the cached planner lookup.
+    the dense one, ``embed_method`` (auto | segsum | gram | pe) the
+    embedding one, ``conv_impl`` (fgc | pallas) the materializing conv
+    gradient.  ``overrides`` pins
+    individual layers by tap-name glob and ``mem_budget`` bounds the
+    materializing paths (planned strategy only); ``plan`` injects a
+    pre-built, possibly deserialized ExecPlan, skipping the cached
+    planner lookup.
 
     ``clip_policy`` (a :class:`~repro_torch.core.clipping.ClipPolicy`;
     None = flat) selects the clipping mode; non-flat modes require the
@@ -265,7 +303,7 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
         if plan is None:
             plan = costmodel.get_plan(
                 apply_fn, params, batch, norm_method=norm_method,
-                conv_norm=conv_norm or "auto",
+                embed_method=embed_method, conv_norm=conv_norm or "auto",
                 mem_budget=mem_budget or costmodel.STREAM_MEM_BUDGET,
                 overrides=overrides, clip_mode=mode,
                 clip_fused=(clip_policy.fused if clip_policy is not None
@@ -292,7 +330,8 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
     losses, caps, dtaps, metas = _capture(apply_fn, params, batch)
     group_keys, group_ns = group_norms_from_captures(
         params, caps, dtaps, metas, norm_method=norm_method,
-        conv_impl=conv_impl, conv_norm=conv_norm or "auto")
+        conv_impl=conv_impl, embed_method=embed_method,
+        conv_norm=conv_norm or "auto")
     norms_sq = group_ns.sum(dim=0)
 
     if mode == "per_layer":
@@ -349,7 +388,11 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
 def _norm_kwargs(lp):
     if lp.kind == "dense":
         return {"norm_method": lp.norm_method}
-    return {"conv_norm": lp.norm_method}
+    if lp.kind == "embed":
+        return {"embed_method": lp.norm_method}
+    if lp.kind == "conv":
+        return {"conv_norm": lp.norm_method}
+    return {}
 
 
 def _group_norm_tag(n_sq, g, method: str, fused: bool = False):
@@ -362,20 +405,30 @@ def _group_norm_tag(n_sq, g, method: str, fused: bool = False):
 
 def _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
                         stash):
-    """Phase-1 norm of one plan group (one tap in this slice): (B,)
-    squared norms, stashing any per-example grads the chosen realization
-    materialized."""
+    """Phase-1 norm of one plan group: (B,) squared norms, stashing any
+    per-example grads the chosen realization materialized (keyed by the
+    tap name for a single-tap group, by the path for ``group_pe``)."""
     psub = get_subtree(params, g.path)
-    n = g.members[0]
-    lp, meta = plan.layers[n], metas[n]
-    if lp.stash:
-        pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
-                              params_sub=psub, conv_impl=conv_impl)
-        stash[n] = pe
-        return _group_norm_tag(kinds._sumsq(pe), g, "stash")
-    return _group_norm_tag(kinds.apply_kind(
-        "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
-        conv_impl=conv_impl, **_norm_kwargs(lp)), g, lp.norm_method)
+    if g.norm_mode == "single":
+        n = g.members[0]
+        lp, meta = plan.layers[n], metas[n]
+        if lp.stash:
+            pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
+                                  params_sub=psub, conv_impl=conv_impl)
+            stash[n] = pe
+            return _group_norm_tag(kinds._sumsq(pe), g, "stash")
+        return _group_norm_tag(kinds.apply_kind(
+            "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
+            conv_impl=conv_impl, **_norm_kwargs(lp)), g, lp.norm_method)
+    if g.norm_mode == "tied":
+        return _group_norm_tag(_tied_norm(
+            g.members, metas, caps, dtaps, psub,
+            lambda n: _norm_kwargs(plan.layers[n])), g, "tied")
+    # group_pe: exact generic fallback, materialized once
+    pe_sum = _summed_pe(g.members, metas, caps, dtaps, psub, conv_impl)
+    if g.sum_method == "stash":
+        stash[g.path] = pe_sum
+    return _group_norm_tag(kinds._sumsq(pe_sum), g, "pe")
 
 
 def _weighted_stash_sum(pe, w):
@@ -390,6 +443,20 @@ def _stale_group_norm_contrib(g, plan, metas, caps, dtaps, params, coef,
     from the same captures, with the fused ``gram_norm_fused``
     realization where the plan selected it."""
     psub = get_subtree(params, g.path)
+    if g.norm_mode == "tied":
+        n_g = _planned_group_norm(g, plan, metas, caps, dtaps, params,
+                                  conv_impl, {})
+        for n in g.members:
+            _accumulate_param_grads(acc, g.path, kinds.apply_kind(
+                "contrib", metas[n], caps[n], dtaps[n], params_sub=psub,
+                weights=coef, conv_impl=conv_impl))
+        return n_g
+    if g.norm_mode == "group_pe":
+        # the materialized summed per-example grad serves both
+        pe_sum = _summed_pe(g.members, metas, caps, dtaps, psub, conv_impl)
+        _accumulate_param_grads(acc, g.path,
+                                _weighted_stash_sum(pe_sum, coef))
+        return _group_norm_tag(kinds._sumsq(pe_sum), g, "pe")
     n = g.members[0]
     lp, meta = plan.layers[n], metas[n]
     if lp.fused and fused_ok:
@@ -508,15 +575,15 @@ def planned_clipped_sum(apply_fn, params, batch, plan, *, l2_clip: float,
         if g.sum_method == "backward":
             _accumulate_param_grads(acc, g.path, get_subtree(wgrads, g.path))
             continue
-        n = g.members[0]
         if g.sum_method == "stash":
-            _accumulate_param_grads(acc, g.path,
-                                    _weighted_stash_sum(stash[n], w))
+            pe = stash[g.members[0] if g.norm_mode == "single" else g.path]
+            _accumulate_param_grads(acc, g.path, _weighted_stash_sum(pe, w))
             continue
-        _accumulate_param_grads(acc, g.path, kinds.apply_kind(
-            "contrib", metas[n], caps[n], dtaps[n],
-            params_sub=get_subtree(params, g.path), weights=w,
-            conv_impl=conv_impl))
+        psub = get_subtree(params, g.path)
+        for n in g.members:
+            _accumulate_param_grads(acc, g.path, kinds.apply_kind(
+                "contrib", metas[n], caps[n], dtaps[n], params_sub=psub,
+                weights=w, conv_impl=conv_impl))
 
     gsum = _grads_to_tree(acc)
     if check:

@@ -18,10 +18,22 @@ zero tensor is allocated or added.
 
 The shape-only ``probe`` the planner consumes runs the model on
 ``device="meta"`` tensors: it records every layer's metadata, capture
-shapes and output shapes, and touches no data and no device.  Scanned
-stacks (``scan_with_taps``) and the LM layer kinds (``embed``/``scale``/
-``local_vjp``/``dense_segmented``) come with the LM slice (ROADMAP.md
-item 11).  Shared parameters keep the ``"~"`` name prefix.
+shapes and output shapes, and touches no data and no device.
+
+:func:`scan_with_taps` runs a stack of layers (params with a leading L
+axis) as a Python loop, one layer at a time; each layer's captures and
+outputs come out stacked with a leading L axis, and their metas get
+``scanned + 1``, as ``lax.scan`` gives them in the JAX package.  The
+stacks are formed after the backward pass, one tap at a time, so the
+forward never holds a capture twice (a layer's capture is the tensor its
+backward saves anyway) and captures that are one tensor in the model
+(the input of ``wq``/``wk``/``wv``) stay one stacked tensor.
+
+Shared parameters (tied embeddings) are declared by prefixing the tap
+name with ``"~"``: the parameter path is then read from the params root
+and the layer is marked ``shared``.  The ``local_vjp`` and
+``dense_segmented`` kinds come with the rest of the LM slice (ROADMAP.md
+item 11).
 
 Models stay pure: a ``Tapper`` in mode ``"none"`` is a no-op, so the same
 model code serves ordinary training and every PEG strategy.
@@ -78,7 +90,7 @@ class LayerMeta:
     """Static description of one tapped layer (the JAX package's fields).
 
     Attributes:
-      kind: "dense" | "conv" in this slice.
+      kind: "dense" | "conv" | "embed" | "scale" in this slice.
       path: key path of this layer's param dict inside model params.
       param_key: key of the weight inside the layer param dict.
       bias_key: key of the bias (or None).
@@ -126,6 +138,10 @@ class Tapper:
       * ``"probe"``   — record each layer's captures and output as
                         :class:`TensorSpec` (the model runs on meta
                         tensors, see :func:`probe`).
+
+    Inside :func:`scan_with_taps` a scanned tap's captures and output are
+    lists with one entry per layer until :func:`capture_backward` stacks
+    them (probe mode stacks the specs at once).
     """
 
     def __init__(self, mode: str = "none", metas: dict | None = None):
@@ -136,14 +152,18 @@ class Tapper:
         self.outputs: dict = {}
         self.metas: dict[str, LayerMeta] = metas if metas is not None else {}
 
+    def active(self) -> bool:
+        return self.mode != "none"
+
     # -- core -------------------------------------------------------------
     def tap(self, name: str, y, captures: dict, meta: LayerMeta):
         if self.mode == "none":
             return y
         if name in self.outputs:
             raise NotImplementedError(
-                f"tap {name!r} applied twice: shared/scanned layers come with "
-                f"the LM slice (ROADMAP.md item 11)")
+                f"tap {name!r} applied twice outside a scan: shared "
+                f"call sites of one name come with the rest of the LM "
+                f"slice (ROADMAP.md item 11)")
         self.metas.setdefault(name, meta)
         if self.mode == "probe":
             self.outputs[name] = spec_of(y)
@@ -168,6 +188,24 @@ class Tapper:
                          w_transposed=w_transposed, shared=shared)
         return self.tap(name, y, {"x": x}, meta)
 
+    def embed(self, name: str, table, ids):
+        """Tapped embedding gather ``y = table[ids]``."""
+        y = table[ids.long()]
+        path, shared = _parse_name(name)
+        meta = LayerMeta("embed", path, param_key="emb", shared=shared)
+        return self.tap(name, y, {"ids": ids}, meta)
+
+    def scale(self, name: str, x, g, b=None):
+        """Tapped elementwise affine (RMSNorm/LayerNorm): y = x*g (+ b)."""
+        y = x * g
+        if b is not None:
+            y = y + b
+        path, shared = _parse_name(name)
+        meta = LayerMeta("scale", path, param_key="g",
+                         bias_key="b" if b is not None else None,
+                         shared=shared)
+        return self.tap(name, y, {"x": x}, meta)
+
     def conv(self, name: str, x, w, b=None, *, stride=1, dilation=1,
              padding=0, groups=1):
         """Tapped N-D convolution, NC(spatial) layout, weight (D, C/g, *K)."""
@@ -184,6 +222,91 @@ class Tapper:
                     "padding": padding, "groups": groups,
                     "kernel_shape": tuple(w.shape)})
         return self.tap(name, y, {"x": x}, meta)
+
+
+# ---------------------------------------------------------------------------
+# Scanned layer stacks
+
+
+def _leading(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
+
+
+def _stack_spec(specs) -> TensorSpec:
+    return TensorSpec((len(specs),) + tuple(specs[0].shape), specs[0].dtype)
+
+
+def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params):
+    """Run ``body_fn(sub_tp, carry, params_l) -> carry`` over stacked
+    layers (``xs_params``: the parameter tree with a leading L axis), one
+    layer at a time, in order (``lax.scan``'s semantics), threading
+    captures.  Each sub-tap ``n`` appears in ``tp`` as ``name/n`` with
+    ``scanned + 1`` and, unless it is shared (``"~"``: its path stays
+    absolute), ``name``'s path in front of its own."""
+    prefix = name + "/"
+    sub_metas: dict[str, LayerMeta] = {}
+    layers = []
+    for i in range(_leading(xs_params)):
+        stp = Tapper(tp.mode, metas=sub_metas)
+        carry = body_fn(stp, carry, tree_map(lambda a: a[i], xs_params))
+        layers.append(stp)
+    if not tp.active():
+        return carry
+    # Sorted, as the JAX package's scan returns its capture dict.
+    for sub_name in sorted(sub_metas):
+        meta = sub_metas[sub_name]
+        full = prefix + sub_name
+        new_path = meta.path if meta.shared \
+            else tuple(name.split("/")) + meta.path
+        tp.metas.setdefault(full, dataclasses.replace(
+            meta, path=new_path, scanned=meta.scanned + 1))
+        caps = [stp.captures[sub_name] for stp in layers]
+        outs = [stp.outputs[sub_name] for stp in layers]
+        if tp.mode == "probe":
+            tp.captures[full] = {k: _stack_spec([c[k] for c in caps])
+                                 for k in caps[0]}
+            tp.outputs[full] = _stack_spec(outs)
+        else:
+            tp.captures[full] = {k: [c[k] for c in caps] for k in caps[0]}
+            tp.outputs[full] = outs
+    return carry
+
+
+def _flat(tree, out: list):
+    """Tensors of a (nested) list, depth first."""
+    if isinstance(tree, list):
+        for t in tree:
+            _flat(t, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _unflat(tree, it):
+    if isinstance(tree, list):
+        return [_unflat(t, it) for t in tree]
+    return next(it)
+
+
+def _stack(items, seen: dict):
+    """(Nested) per-layer list -> one tensor with the leading layer axes.
+    Lists of the very same per-layer tensors (one capture feeding several
+    taps) stack once; the list is emptied, so a layer's tensors are freed
+    as soon as no list holds them."""
+    if not isinstance(items, list):
+        return items
+    if isinstance(items[0], list):
+        out = torch.stack([_stack(i, seen) for i in items])
+    else:
+        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                    for t in items)
+        out = seen.get(key)
+        if out is None:
+            out = seen[key] = torch.stack(items)
+    items.clear()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +336,9 @@ def probe(apply_fn, params, batch, *, return_captures: bool = False):
 
 def capture_backward(apply_fn, params, batch, *, with_metas: bool = False):
     """One forward + one backward → (per-example losses, captures, output
-    cotangents), all detached.  ``with_metas`` also returns the
-    :class:`LayerMeta` dict recorded during the forward."""
+    cotangents), all detached; scanned taps' come stacked (leading L).
+    ``with_metas`` also returns the :class:`LayerMeta` dict recorded
+    during the forward."""
     STATS.forwards += 1
     STATS.backwards += 1
     metas: dict[str, LayerMeta] = {}
@@ -224,10 +348,20 @@ def capture_backward(apply_fn, params, batch, *, with_metas: bool = False):
         names = list(tp.outputs)
         if not names:
             raise ValueError("no tapped layers")
-        grads = torch.autograd.grad(losses.sum(),
-                                    [tp.outputs[n] for n in names])
-    dtaps = dict(zip(names, grads))
+        flat: list = []
+        for n in names:
+            _flat(tp.outputs[n], flat)
+        grads = torch.autograd.grad(losses.sum(), flat)
+    del flat
+    it = iter(grads)
+    nested = {n: _unflat(tp.outputs[n], it) for n in names}
+    del it, grads
+    tp.outputs.clear()
+    dtaps = {n: _stack(nested[n], {}) for n in names}
+    seen: dict = {}
+    caps = {n: {k: _stack(v, seen) for k, v in c.items()}
+            for n, c in tp.captures.items()}
     losses = losses.detach()
     if with_metas:
-        return losses, tp.captures, dtaps, metas
-    return losses, tp.captures, dtaps
+        return losses, caps, dtaps, metas
+    return losses, caps, dtaps

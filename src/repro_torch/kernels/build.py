@@ -32,6 +32,11 @@ ENTRY_POINTS = {
         "repro_gram_norm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
         "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 5
                                  + [_I] * 7 + [_P]},
+    "flash_attn": {
+        "repro_flash_fwd": ([_P] + [_L] * 3) * 3 + [_P] * 2 + [_I] * 8
+                           + [_P],
+        "repro_flash_bwd": [_I] + ([_P] + [_L] * 3) * 4 + [_P] * 5
+                           + [_I] * 8 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -8,11 +8,18 @@ The rule, for every wrapper:
   * nothing falls back from one to the other.
 
 Each wrapper checks types (f32 or bf16 in), contiguity (except
-``gram_norm_fused``, whose kernel reads through strides) and shapes,
-allocates outputs and scratch with ``torch.empty``, launches on
-PyTorch's current stream, and adds one to ``LAUNCHES[<kernel>]`` per
+``gram_norm_fused`` and the flash kernels, which read through strides)
+and shapes, allocates outputs and scratch with ``torch.empty``, launches
+on PyTorch's current stream, and adds one to ``LAUNCHES[<kernel>]`` per
 launch.  ``chip_smoke.py`` reads the counts to show that the main path
 went through the kernels.
+
+``flash_attention`` is differentiable: a ``torch.autograd.Function``
+runs the forward wrapper and, in its backward, the dq and dk/dv
+wrappers, which recompute P from the saved lse (on the CPU each wrapper
+takes its plain version, so both devices run one backward
+formulation).  On ``device="meta"`` (the planner's shape-only probe) it
+returns an empty output of the right shape and launches nothing.
 
 The JAX package's TPU tile autotuner (``_autotune_bd``, ``pick_bd``,
 ``vmem_budget``, ``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart
@@ -25,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"pe_conv_grad_2d": 0, "gram_norm": 0, "gram_norm_fused": 0}
+LAUNCHES = {"pe_conv_grad_2d": 0, "gram_norm": 0, "gram_norm_fused": 0,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
@@ -222,3 +230,194 @@ def pe_conv_grad(x, dy, *, kernel_spatial, stride=1, dilation=1, padding=0,
     return convops.pe_conv_grad(x, dy, kernel_spatial=kernel_spatial,
                                 stride=stride, dilation=dilation,
                                 padding=padding, groups=groups, impl="fgc")
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (csrc/flash_attn.cu)
+
+_FLASH_HD = (16, 32, 64, 128)   # head dims the kernels are built for
+
+
+class FlashShapeError(ValueError):
+    """Sequence/block geometry ``flash_attention`` cannot run: a key
+    length that does not divide into key blocks, or query heads that are
+    not a multiple of the KV heads (the JAX package's error)."""
+
+
+def _strides3(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check_qkv(name: str, q, k, v, do=None):
+    """q (and dO) (B, T, H, hd), k and v (B, S, Hkv, hd), one dtype, f32
+    or bf16, H a multiple of Hkv."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    if Hkv == 0 or H % Hkv:
+        raise FlashShapeError(f"{name}: {H} query heads are not a multiple "
+                              f"of {Hkv} kv heads")
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B \
+            or k.shape[3] != hd \
+            or (do is not None and tuple(do.shape) != tuple(q.shape)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (B, T, H, hd), "
+                         f"(B, S, Hkv, hd)")
+    dts = {t.dtype for t in (q, k, v, do) if t is not None}
+    if len(dts) != 1 or q.dtype not in _IN_DTYPES:
+        raise TypeError(f"{name}: inputs must share f32 or bf16, got "
+                        f"{sorted(map(str, dts))}")
+
+
+def _flash_ready(name: str, *tensors) -> bool:
+    """True for CUDA inputs the kernels take, False for CPU inputs;
+    raises for anything else."""
+    if not _launch_ready(name, *tensors, strided=True):
+        return False
+    hd = tensors[0].shape[-1]
+    if hd not in _FLASH_HD:
+        raise NotImplementedError(
+            f"{name}: head_dim {hd} not in {_FLASH_HD}, the head dims the "
+            f"kernels are built for (ROADMAP.md item 11)")
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head_dim axis must be contiguous")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: inputs on {t.device} and "
+                             f"{tensors[0].device}")
+        if max(t.shape[:3]) > _INT_MAX or t.shape[2] > _GRID_YZ_MAX:
+            raise ValueError(f"{name}: {tuple(t.shape)} exceeds the "
+                             f"kernel's grid")
+    if tensors[0].shape[0] > _GRID_YZ_MAX:
+        raise ValueError(f"{name}: batch {tensors[0].shape[0]} too large "
+                         f"for the grid")
+    return True
+
+
+def flash_fwd(q, k, v, *, causal: bool = True):
+    """One forward kernel launch: q (B, T, H, hd), k/v (B, S, Hkv, hd) ->
+    (o (B, T, H, hd) in q's dtype, lse (B, H, T) f32).  No padding and no
+    block contract here: see :func:`flash_attention`."""
+    _check_qkv("flash_fwd", q, k, v)
+    if not _flash_ready("flash_fwd", q, k, v):
+        return _ref.flash_fwd_ref(q, k, v, causal=causal)
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    from repro_torch.kernels import build
+    lib = build.load("flash_attn")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_flash_fwd(
+            q.data_ptr(), *_strides3(q), k.data_ptr(), *_strides3(k),
+            v.data_ptr(), *_strides3(v), o.data_ptr(), lse.data_ptr(),
+            B, T, S, H, Hkv, hd, int(causal),
+            int(q.dtype == torch.bfloat16), stream)
+    _raise_on(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _flash_bwd(which: int, q, k, v, do, lse, delta, causal):
+    """One launch of the dq (``which`` 1) or dk/dv (2) kernel."""
+    name = "flash_dq" if which == 1 else "flash_dkv"
+    _check_qkv(name, q, k, v, do)
+    if not _flash_ready(name, q, k, v, do):
+        fn = _ref.flash_dq_ref if which == 1 else _ref.flash_dkv_ref
+        return fn(q, k, v, do, lse, delta, causal=causal)
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != (B, H, T) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous (B, H, T) "
+                             f"f32 tensor on {dev}")
+    dq = dk = dv = None
+    if which == 1:
+        dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
+    else:
+        dk = torch.empty((B, S, Hkv, hd), dtype=k.dtype, device=dev)
+        dv = torch.empty((B, S, Hkv, hd), dtype=v.dtype, device=dev)
+    from repro_torch.kernels import build
+    lib = build.load("flash_attn")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_flash_bwd(
+            which, q.data_ptr(), *_strides3(q), k.data_ptr(), *_strides3(k),
+            v.data_ptr(), *_strides3(v), do.data_ptr(), *_strides3(do),
+            lse.data_ptr(), delta.data_ptr(),
+            None if dq is None else dq.data_ptr(),
+            None if dk is None else dk.data_ptr(),
+            None if dv is None else dv.data_ptr(),
+            B, T, S, H, Hkv, hd, int(causal),
+            int(q.dtype == torch.bfloat16), stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return dq if which == 1 else (dk, dv)
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True):
+    """One dq kernel launch -> dq (B, T, H, hd), from the forward's lse and
+    Δ = :func:`flash_delta` (both (B, H, T) f32)."""
+    return _flash_bwd(1, q, k, v, do, lse, delta, causal)
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
+    """One dk/dv kernel launch -> (dk, dv), each (B, S, Hkv, hd), summed
+    over the rep query heads of each KV head."""
+    return _flash_bwd(2, q, k, v, do, lse, delta, causal)
+
+
+flash_delta = _ref.flash_delta
+
+
+class _Flash(torch.autograd.Function):
+    """The kernels under autograd: the forward saves (q, k, v, o, lse);
+    the backward forms Δ once and launches dq and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = flash_delta(o, do)
+        dq = flash_dq(q, k, v, do, lse, delta, causal=ctx.causal)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512,
+                    bk: int = 512):
+    """q (B, T, H, hd); k, v (B, S, Hkv, hd) with H % Hkv == 0 ->
+    (B, T, H, hd), differentiable.
+
+    The JAX wrapper's contract: ``bq, bk = min(bq, T), min(bk, S)``;
+    query lengths that do not divide ``bq`` are zero-padded and sliced
+    back (padded rows are dead); a key length that does not divide ``bk``
+    raises :class:`FlashShapeError` (padding keys would corrupt every
+    real row's softmax normalizer).  The kernels' own tiles (64) are
+    independent of ``bq`` / ``bk``."""
+    _check_qkv("flash_attention", q, k, v)
+    T, S = q.shape[1], k.shape[1]
+    bq, bk = min(bq, T), min(bk, S)
+    if S % bk:
+        raise FlashShapeError(
+            f"flash_attention: key length S={S} does not divide into key "
+            f"blocks of bk={bk}; pass a bk dividing S (zero-padding keys "
+            f"would corrupt the softmax normalizer)")
+    pad = -T % bq
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    if q.device.type == "meta":
+        out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+    else:
+        out = _Flash.apply(q, k, v, causal)
+    return out[:, :T] if pad else out

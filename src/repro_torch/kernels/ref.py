@@ -5,7 +5,7 @@ contracts), translated from the JAX package's ``kernels/ref.py``.
 ``chip_smoke.py`` as the yardstick each kernel is held against.  Each
 repeats its kernel's function in f32: the Gram identity for
 ``gram_norm`` and ``gram_norm_fused``'s norm, the shifted products for
-``pe_conv_grad_2d``.
+``pe_conv_grad_2d``, the full (T, S) softmax for the flash kernels.
 """
 from __future__ import annotations
 
@@ -57,3 +57,93 @@ def pe_conv_grad_2d_ref(x, dy, KH: int, KW: int):
             row.append(torch.einsum("bchw,bdhw->bdc", xs, dyf))
         rows.append(torch.stack(row, dim=-1))
     return torch.stack(rows, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the full-softmax math of the three flash kernels
+
+NEG = -1e30
+
+
+def _flash_scores(q, k, causal: bool):
+    """(B, H, T, S) f32 raw scores q·kᵀ (no scale) with the GQA fold, and
+    the causal mask (True where key s <= query t), or None."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.to(F32), kr.to(F32))
+    mask = None
+    if causal:
+        t = torch.arange(T, device=q.device)[:, None]
+        mask = torch.arange(S, device=q.device)[None, :] <= t
+    return s, mask
+
+
+def flash_fwd_ref(q, k, v, *, causal: bool = True):
+    """q (B, T, H, hd), k/v (B, S, Hkv, hd) -> (o (B, T, H, hd) in q's
+    dtype, lse (B, H, T) f32), as the forward kernel computes them:
+    masked scores are -1e30, P is cast to v's dtype before P·V, the row
+    sum is taken on the f32 P, and lse = m + log(max(l, 1e-30))."""
+    hd = q.shape[-1]
+    H, Hkv = q.shape[2], k.shape[2]
+    s, mask = _flash_scores(q, k, causal)
+    s = s * hd ** -0.5
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    vr = v.repeat_interleave(H // Hkv, dim=2)
+    acc = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).to(F32),
+                       vr.to(F32))
+    lc = torch.clamp(l, min=1e-30)
+    o = acc / lc.permute(0, 2, 1, 3)
+    lse = (m + torch.log(lc))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_delta(o, do):
+    """Δ = rowsum(dO∘O) in f32, (B, H, T): the softmax-Jacobian term of
+    the backward, formed outside the kernels (as in the JAX package)."""
+    return (do.to(F32) * o.to(F32)).sum(-1).transpose(1, 2).contiguous()
+
+
+def _flash_ds(q, k, v, do, lse, delta, causal):
+    """P = exp(s - lse) and dS = P∘(dO·Vᵀ − Δ)·scale, (B, H, T, S) f32 —
+    the flash backward's recomputation."""
+    hd = q.shape[-1]
+    H, Hkv = q.shape[2], k.shape[2]
+    scale = hd ** -0.5
+    s, mask = _flash_scores(q, k, causal)
+    s = s * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG)
+    p = torch.exp(s - lse[..., None])
+    vr = v.repeat_interleave(H // Hkv, dim=2).to(F32)
+    dp = torch.einsum("bthd,bshd->bhts", do.to(F32), vr)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True):
+    """dq = dS·K (dS cast to k's dtype), in q's dtype: the plain version
+    of the dq kernel."""
+    _, ds = _flash_ds(q, k, v, do, lse, delta, causal)
+    rep = q.shape[2] // k.shape[2]
+    dq = torch.einsum("bhts,bshd->bthd", ds.to(k.dtype).to(F32),
+                      k.repeat_interleave(rep, dim=2).to(F32))
+    return dq.to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True):
+    """(dk, dv): dk = dSᵀ·Q, dv = Pᵀ·dO (P and dS cast to the input dtype),
+    summed over each KV head's ``rep`` query heads: the plain version of
+    the dk/dv kernel."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    p, ds = _flash_ds(q, k, v, do, lse, delta, causal)
+    dk = torch.einsum("bhts,bthd->bshd", ds.to(q.dtype).to(F32), q.to(F32))
+    dv = torch.einsum("bhts,bthd->bshd", p.to(do.dtype).to(F32),
+                      do.to(F32))
+    dk = dk.reshape(B, S, Hkv, H // Hkv, hd).sum(3)
+    dv = dv.reshape(B, S, Hkv, H // Hkv, hd).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)

@@ -1,8 +1,8 @@
 """Shared model-building blocks: the parameter builder with logical
-sharding axes, and the per-example cross entropy the CNNs use.
+sharding axes, norms (tapped affines), RoPE, and per-example losses.
 
-The JAX package's norms, RoPE and LM losses come with the LM slice
-(ROADMAP.md item 11).
+The JAX package's activation-sharding hints (``shard_act``) have no
+counterpart here: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -10,6 +10,10 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.core.tapper import Tapper
+
+F32 = torch.float32
 
 # ---------------------------------------------------------------------------
 # Parameter builder: every param leaf is a Pm(value, logical_axes) pair until
@@ -45,6 +49,107 @@ def split_tree(tree):
             return (t.value, t.axes)[i]
         return {k: split(v, i) for k, v in t.items()}
     return split(tree, 0), split(tree, 1)
+
+
+def stack_layers(gen: torch.Generator, n: int, layer_init):
+    """Initialize ``n`` layers (in order, from one generator) and stack
+    each leaf with a leading 'layer' axis."""
+    trees = [layer_init(gen) for _ in range(n)]
+
+    def stack(*ps):
+        if isinstance(ps[0], Pm):
+            return Pm(torch.stack([p.value for p in ps]),
+                      ("layer",) + ps[0].axes)
+        return {k: stack(*(p[k] for p in ps)) for k in ps[0]}
+    return stack(*trees)
+
+
+# ---------------------------------------------------------------------------
+# Norms (affine parts are tapped so their per-example grads are covered)
+
+
+def rmsnorm(tp: Tapper, name: str, p, x, eps: float = 1e-6):
+    xf = x.to(F32)
+    nx = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    nx = nx.to(x.dtype)
+    if p is None:
+        return nx
+    return tp.scale(name, nx, p["g"])
+
+
+def layernorm(tp: Tapper, name: str, p, x, eps: float = 1e-5):
+    xf = x.to(F32)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    nx = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if p is None:  # non-parametric (OLMo)
+        return nx
+    return tp.scale(name, nx, p["g"], p.get("b"))
+
+
+def norm_init(gen: torch.Generator, d: int, kind: str, dtype=F32,
+              device="cpu"):
+    if kind == "layernorm_np":
+        return None
+    if kind == "layernorm":
+        return {"g": mk(gen, (d,), ("embed",), dist="ones", dtype=dtype,
+                        device=device),
+                "b": mk(gen, (d,), ("embed",), dist="zeros", dtype=dtype,
+                        device=device)}
+    return {"g": mk(gen, (d,), ("embed",), dist="ones", dtype=dtype,
+                    device=device)}
+
+
+def apply_norm(tp, name, p, x, kind: str):
+    if kind in ("layernorm", "layernorm_np"):
+        return layernorm(tp, name, p, x)
+    return rmsnorm(tp, name, p, x)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+
+
+def rope_angles(positions, dim: int, theta: float):
+    """positions (..., T) -> cos/sin (..., T, dim/2), in float32."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=F32,
+                                          device=positions.device) / dim))
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (B, T, H, hd); cos/sin (B, T, hd/2) or (T, hd/2)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+
+
+def per_example_xent(logits, labels, mask=None,
+                     vocab_valid: int | None = None):
+    """Per-example mean cross entropy, in float32.  logits (B, T, V);
+    labels (B, T).  ``vocab_valid`` masks padded vocabulary rows out of
+    the softmax (their logits become -1e30)."""
+    lg = logits.to(F32)
+    V = lg.shape[-1]
+    if vocab_valid is not None and vocab_valid < V:
+        pad = torch.arange(V, device=lg.device) >= vocab_valid
+        lg = lg.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean(dim=-1)
+    m = mask.to(F32)
+    return (nll * m).sum(dim=-1) / torch.clamp(m.sum(dim=-1), min=1.0)
 
 
 def per_example_xent_cls(logits, labels):

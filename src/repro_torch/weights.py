@@ -46,8 +46,15 @@ def params_from_numpy(tree, *, like=None, device="cuda"):
                     f"leaf {_path_str(p)} has shape {np.shape(got[p])}, "
                     f"expected {shape}")
 
-    return tree_map(
-        lambda t: torch.from_numpy(np.array(t, copy=True)).to(dev), tree)
+    def load(t):
+        # numpy has no bfloat16 of its own: JAX hands bf16 leaves over in
+        # an extension dtype that torch cannot read, so they pass as f32.
+        if t.dtype.name == "bfloat16":
+            return torch.from_numpy(np.asarray(t, np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(t, copy=True)).to(dev)
+
+    return tree_map(load, tree)
 
 
 def params_to_numpy(tree):

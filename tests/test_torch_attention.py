@@ -1,0 +1,162 @@
+"""The port's attention against the JAX package's.
+
+``ops.flash_attention`` runs its autograd Function on the CPU too, where
+the forward, dq and dk/dv wrappers take their plain versions
+(``kernels/ref.py``: the full-softmax forward, and the backward that
+recomputes P from the saved lse), the versions the kernels are held
+against on the card.  It is held against the JAX package's Pallas flash
+kernel run in interpret mode, as ``tests/test_kernels.py`` and
+``tests/test_attention.py`` run it: the forward and the vjp of a random
+cotangent, over their sweeps (GQA rep 1 / 2 / 4, causal and full,
+bq != bk, query padding) and the ``FlashShapeError`` raises; the lse
+rows are held against the JAX package's.  ``attend`` is compared for the
+xla, chunked and flash
+implementations.  Tolerance rtol 2e-4 / atol 2e-5 (f32; sums in another
+order).  The CUDA kernels run only on the card:
+``tests/test_torch_flash_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attn as jfa  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.core.tapper import Tapper  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def _qkv(seed, B, T, H, hd, S=None, Hkv=None):
+    rng = np.random.RandomState(seed)
+    S = T if S is None else S
+    Hkv = H if Hkv is None else Hkv
+    return (rng.randn(B, T, H, hd).astype(np.float32),
+            rng.randn(B, S, Hkv, hd).astype(np.float32),
+            rng.randn(B, S, Hkv, hd).astype(np.float32),
+            rng.randn(B, T, H, hd).astype(np.float32))
+
+
+def _jax_fwd_vjp(fn, q, k, v, w):
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(w))]
+
+
+def _torch_fwd_vjp(fn, q, k, v, w):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(w))
+    return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+# (B, T, S, H, Hkv, hd, causal, bq, bk): tests/test_kernels.py's sweep,
+# then tests/test_attention.py's GQA, rectangular-block and padding cases.
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 16, True, 32, 32),
+    (1, 128, 128, 2, 2, 8, True, 64, 32),
+    (2, 32, 32, 4, 1, 16, False, 16, 16),
+    (2, 64, 64, 4, 4, 8, True, 16, 16),
+    (2, 64, 64, 4, 2, 8, False, 16, 16),
+    (2, 64, 64, 4, 1, 8, True, 16, 16),
+    (2, 64, 64, 2, 1, 8, True, 8, 32),
+    (2, 64, 64, 2, 1, 8, True, 32, 8),
+    (1, 40, 40, 2, 2, 8, True, 16, 8),
+    (2, 24, 48, 8, 2, 16, False, 16, 16),
+]
+
+
+@pytest.mark.parametrize("cfg", FLASH_CASES,
+                         ids=["-".join(map(str, c)) for c in FLASH_CASES])
+def test_flash_attention_vs_pallas(cfg):
+    B, T, S, H, Hkv, hd, causal, bq, bk = cfg
+    q, k, v, w = _qkv(sum(cfg), B, T, H, hd, S=S, Hkv=Hkv)
+    want = _jax_fwd_vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, bq=bq, bk=bk, interpret=True), q, k, v, w)
+    before = dict(ops.LAUNCHES)
+    got = _torch_fwd_vjp(lambda a, b, c: ops.flash_attention(
+        a, b, c, causal=causal, bq=bq, bk=bk), q, k, v, w)
+    assert ops.LAUNCHES == before          # CPU tensors never launch
+    _close(got, want)
+    # The forward's saved lse rows, which the backward recomputes P from,
+    # against the JAX kernel's (on queries padded to a multiple of bq).
+    bq = min(bq, T)
+    qp = np.pad(q, ((0, 0), (0, -T % bq), (0, 0), (0, 0)))
+    _, jlse = jfa._fwd_call(jnp.asarray(qp), jnp.asarray(k), jnp.asarray(v),
+                            causal, bq, min(bk, S), True)
+    _, lse = ref.flash_fwd_ref(*(torch.from_numpy(a) for a in (qp, k, v)),
+                               causal=causal)
+    np.testing.assert_allclose(lse.numpy()[..., :T],
+                               np.asarray(jlse)[..., :T], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_flash_shape_errors_and_meta():
+    q, k, v, _ = _qkv(40, 1, 40, 2, 8)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    with pytest.raises(ops.FlashShapeError):      # S % bk != 0
+        ops.flash_attention(qt, kt, vt, causal=True, bq=16, bk=16)
+    with pytest.raises(ops.FlashShapeError):      # no kv heads
+        ops.flash_attention(qt, kt[:, :, :0], vt[:, :, :0], bq=16, bk=8)
+    with pytest.raises(ops.FlashShapeError):      # H % Hkv != 0
+        ops.flash_attention(torch.zeros(1, 8, 3, 8), torch.zeros(1, 8, 2, 8),
+                            torch.zeros(1, 8, 2, 8))
+    with pytest.raises(TypeError):
+        ops.flash_attention(qt, kt.double(), vt)
+    # The planner's probe: shape only, nothing launched.
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(qt.to("meta"), kt.to("meta"), vt.to("meta"),
+                              bq=16, bk=8)
+    assert out.device.type == "meta" and out.shape == qt.shape
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("impl,causal", [("xla", True), ("xla", False),
+                                         ("chunked", True), ("flash", True),
+                                         ("flash", False), ("auto", True)])
+def test_attend_vs_reference(impl, causal):
+    q, k, v, w = _qkv(7, 2, 32, 4, 16)
+    want = _jax_fwd_vjp(lambda a, b, c: jattn.attend(
+        a, b, c, causal=causal, impl=impl), q, k, v, w)
+    got = _torch_fwd_vjp(lambda a, b, c: tattn.attend(
+        a, b, c, causal=causal, impl=impl), q, k, v, w)
+    _close(got, want)
+
+
+def test_chunked_and_masks_vs_reference():
+    """sdpa_chunked with window / offset / valid_len, and the causal
+    mask, as the JAX package builds them."""
+    q, k, v, _ = _qkv(9, 1, 32, 2, 8, S=48)
+    for kw in (dict(chunk=8), dict(chunk=16, window=5),
+               dict(chunk=8, offset=16, valid_len=40)):
+        want = jattn.sdpa_chunked(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), **kw)
+        got = tattn.sdpa_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        tattn._causal_mask(5, 7, offset=2, window=3).numpy(),
+        np.asarray(jattn._causal_mask(5, 7, offset=2, window=3)))
+    with pytest.raises(tattn.FlashUnsupportedError):
+        tattn.attend(*(torch.from_numpy(a) for a in (q, k, v)), window=4,
+                     impl="flash")
+
+
+def test_unserved_attention_paths_raise():
+    x = torch.zeros(1, 4, 8)
+    p = {n: {"w": torch.zeros(8, 8)} for n in ("wq", "wk", "wv", "wo")}
+    kw = dict(n_heads=2, n_kv=2, head_dim=4)
+    for extra in ({"cache": {}}, {"x_kv": x}, {"dp_attn": True}):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tattn.gqa_apply(Tapper(), "attn", p, x, **kw, **extra)

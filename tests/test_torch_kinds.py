@@ -1,4 +1,4 @@
-"""The port's tapper and dense/conv kinds against ``repro.core``.
+"""The port's tapper and layer kinds against ``repro.core``.
 
 A toy CNN's captures come from both packages' capture backward on the
 same params and batch (compared first), then the *same* numpy captures
@@ -8,7 +8,13 @@ kernels' plain versions on the CPU and are held against the JAX
 package's jnp realizations of the same function (``gram`` / ``ghost`` /
 ``fgc``).  Synthetic captures add a strided, a dilated and a grouped
 conv, and a dense layer with a sequence long enough to take the chunked
-Gram.  f32, rtol 1e-5 (sums in another order).
+Gram.  The LM kinds come from a reduced Llama-3.2-1B's captures (JAX
+params, the port's capture checked first, with its stacked ``blocks/*``
+taps): the embedding gather (segsum / gram / pe), the scales, scanned
+dense layers (one stacked layer at a time), the shared transposed head,
+shared scanned layers (folded into the sequence axis, or materialized),
+and the tied embedding/head cross term.  f32, rtol 1e-5 (sums in another
+order).
 """
 import numpy as np
 import pytest
@@ -22,12 +28,16 @@ from repro.core import kinds as jkinds  # noqa: E402
 from repro.core import strategies as jstrat  # noqa: E402
 from repro.core.tapper import LayerMeta as JMeta  # noqa: E402
 from repro.models.cnn import CNN as JCNN  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
 from repro.models.cnn import toy_cnn_config as jtoy  # noqa: E402
+from repro.models.lm import TransformerLM as JLM  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core import kinds as tkinds  # noqa: E402
 from repro_torch.core.tapper import LayerMeta as TMeta  # noqa: E402
 from repro_torch.core.tapper import capture_backward  # noqa: E402
 from repro_torch.models.cnn import CNN as TCNN  # noqa: E402
 from repro_torch.models.cnn import toy_cnn_config as ttoy  # noqa: E402
+from repro_torch.models.lm import TransformerLM as TLM  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 
@@ -170,8 +180,148 @@ def test_kind_parity(toy, name, op, tkw, jkw):
 
 
 def test_unported_kinds_raise(toy):
+    """Segmented (MoE) layers and the attn / local_vjp kinds are not
+    ported yet."""
     fields, cap, dy, psub = _layer(toy, "fc0")
-    for meta in (TMeta(**dict(fields, scanned=1)),
-                 TMeta(**dict(fields, kind="embed"))):
+    for meta in (TMeta(**dict(fields, segmented=True)),
+                 TMeta(**dict(fields, kind="attn")),
+                 TMeta(**dict(fields, kind="local_vjp"))):
         with pytest.raises(NotImplementedError, match="LM slice"):
-            tkinds.apply_kind("norm_sq", meta, _t(cap), _t(dy))
+            tkinds.apply_kind("norm_sq", meta, _t(cap), _t(dy),
+                              params_sub=_t(psub))
+
+
+# ---------------------------------------------------------------------------
+# LM kinds
+
+
+@pytest.fixture(scope="module")
+def lm():
+    """(JAX metas, numpy captures, cotangents, params) of a reduced
+    Llama-3.2-1B (B = 3, T = 12), after checking that the port captures
+    the same (stacked blocks included)."""
+    jm = JLM(jget("llama3.2-1b").reduced().replace(attn_impl="xla"))
+    tm = TLM(tget("llama3.2-1b").reduced().replace(attn_impl="xla"))
+    jparams, _ = jm.init(jax.random.PRNGKey(1))
+    pnp = _np(jparams)
+    rng = np.random.RandomState(1)
+    # repeated ids, so segsum and the Gram's masks have runs to merge
+    batch = {k: rng.randint(0, 40, (3, 12)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jl, jcaps, jdtaps, jmetas = jstrat._capture(
+        jm.apply, jparams, jax.tree.map(jnp.asarray, batch))
+    tparams = params_from_numpy(pnp, like=tm.init(0, device="cpu")[0],
+                                device="cpu")
+    tl, tcaps, tdtaps, tmetas = capture_backward(
+        tm.apply, tparams, _t(batch), with_metas=True)
+    assert list(tmetas) == list(jmetas)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for n, m in jmetas.items():
+        t = tmetas[n]
+        assert (t.kind, t.path, t.param_key, t.bias_key, t.w_transposed,
+                t.scanned, t.shared) == (m.kind, m.path, m.param_key,
+                                         m.bias_key, m.w_transposed,
+                                         m.scanned, m.shared)
+        _close(tcaps[n], _np(jcaps[n]))
+        _close(tdtaps[n], np.asarray(jdtaps[n]))
+    return jmetas, _np(jcaps), _np(jdtaps), pnp
+
+
+def _lm_layer(lm, name):
+    jmetas, caps, dtaps, pnp = lm
+    m = jmetas[name]
+    fields = dict(kind=m.kind, path=m.path, param_key=m.param_key,
+                  bias_key=m.bias_key, w_transposed=m.w_transposed,
+                  scanned=m.scanned, shared=m.shared)
+    sub = pnp
+    for k in m.path:
+        sub = sub[k]
+    return fields, caps[name], dtaps[name], sub
+
+
+def _fold_case(lm, kind):
+    """A shared parameter applied at every stacked layer: the reduced
+    model's stacked captures under a shared (absolute-path) meta."""
+    jmetas, caps, dtaps, pnp = lm
+    src = {"dense": "blocks/mlp/w_up", "scale": "blocks/ln1",
+           "embed": "tok_emb"}[kind]
+    fields, cap, dy, sub = _lm_layer(lm, src)
+    if kind == "embed":       # stack the gather twice
+        cap = {"ids": np.stack([cap["ids"], cap["ids"][::-1]])}
+        dy = np.stack([dy, dy[:, ::-1] * 0.5])
+        return dict(fields, scanned=1, shared=True), cap, dy, sub
+    sub = {k: v[0] for k, v in sub.items()}
+    return dict(fields, shared=True), cap, dy, sub
+
+
+LM_LAYERS = {
+    "tok_emb": [("pe_grad", {}), ("norm_sq", {"embed_method": "segsum"}),
+                ("norm_sq", {"embed_method": "gram"}),
+                ("norm_sq", {"embed_method": "pe"}),
+                ("norm_sq", {"embed_method": "auto"}), ("contrib", {})],
+    "blocks/ln1": [("pe_grad", {}), ("norm_sq", {}), ("contrib", {})],
+    "final_norm": [("pe_grad", {}), ("norm_sq", {}), ("contrib", {})],
+    "blocks/attn/wk": [("pe_grad", {}), ("norm_sq", {"norm_method": "gram"}),
+                       ("norm_sq", {"norm_method": "stream"}),
+                       ("norm_sq", {"norm_method": "auto"}),
+                       ("contrib", {})],
+    "blocks/mlp/w_down": [("norm_sq", {"norm_method": "gram"}),
+                          ("contrib", {})],
+    "~tok_emb": [("pe_grad", {}), ("norm_sq", {"norm_method": "gram"}),
+                 ("norm_sq", {"norm_method": "stream"}), ("contrib", {})],
+    "fold:dense": [("pe_grad", {}), ("norm_sq", {"norm_method": "gram"}),
+                   ("contrib", {})],
+    "fold:scale": [("norm_sq", {}), ("contrib", {})],
+    "fold:embed": [("pe_grad", {}), ("norm_sq", {}), ("contrib", {})],
+}
+LM_CASES = [(n, op, kw) for n, ops_ in LM_LAYERS.items() for op, kw in ops_]
+
+
+@pytest.mark.parametrize("name,op,kw", LM_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'-'.join(c[2].values())}"
+                              for c in LM_CASES])
+def test_lm_kind_parity(lm, name, op, kw):
+    if name.startswith("fold:"):
+        fields, cap, dy, psub = _fold_case(lm, name[5:])
+    else:
+        fields, cap, dy, psub = _lm_layer(lm, name)
+    B = dy.shape[fields["scanned"]]
+    weights = ({"weights": np.random.RandomState(5).rand(B)
+                .astype(np.float32)} if op == "contrib" else {})
+    want = jkinds.apply_kind(
+        op, JMeta(**fields), jax.tree.map(jnp.asarray, cap), jnp.asarray(dy),
+        params_sub=jax.tree.map(jnp.asarray, psub),
+        **{k: jnp.asarray(v) for k, v in weights.items()}, **kw)
+    got = tkinds.apply_kind(
+        op, TMeta(**fields), _t(cap), _t(dy), params_sub=_t(psub),
+        **{k: _t(v) for k, v in weights.items()}, **kw)
+    _close(got, _np(want))
+
+
+def test_tied_cross_term(lm):
+    _, caps, dtaps, _ = lm
+    want = jkinds.tied_embed_head_cross(
+        jax.tree.map(jnp.asarray, caps["tok_emb"]),
+        jnp.asarray(dtaps["tok_emb"]),
+        jax.tree.map(jnp.asarray, caps["~tok_emb"]),
+        jnp.asarray(dtaps["~tok_emb"]))
+    got = tkinds.tied_embed_head_cross(_t(caps["tok_emb"]),
+                                       _t(dtaps["tok_emb"]),
+                                       _t(caps["~tok_emb"]),
+                                       _t(dtaps["~tok_emb"]))
+    _close(got, np.asarray(want))
+
+
+def test_scanned_fused_contrib_refused(lm):
+    """Stale clipping's fused pass over scanned layers is not ported
+    (``clipping.check_served`` refuses the mode before it is reached);
+    the unfused pair runs one stacked layer at a time."""
+    fields, cap, dy, psub = _lm_layer(lm, "blocks/mlp/w_up")
+    w = torch.ones(dy.shape[1])
+    with pytest.raises(NotImplementedError, match="LM slice"):
+        tkinds.apply_norm_contrib(TMeta(**fields), _t(cap), _t(dy),
+                                  weights=w, params_sub=_t(psub))
+    n, c = tkinds.apply_norm_contrib(TMeta(**fields), _t(cap), _t(dy),
+                                     weights=w, params_sub=_t(psub),
+                                     fused=False, norm_method="gram")
+    assert n.shape == (dy.shape[1],) and c["w"].shape == psub["w"].shape

@@ -7,8 +7,8 @@
   and a ledger of another mechanism raises ``LedgerMismatch``.
 * Synthetic batches, configs and the optimizers match the JAX package's.
 * ``DPConfig`` keeps its validation and its legacy-kwarg shim; every
-  knob the planned step reads is honored, and ``NormCfg.embed`` (read
-  only by the LM slice) raises at use when set.
+  knob the planned step reads is honored, ``NormCfg.embed`` included
+  (the embedding kinds read it; ``test_torch_lm.py`` shows its effect).
 """
 import dataclasses
 import warnings
@@ -141,8 +141,10 @@ def test_configs_match_reference():
         assert dataclasses.asdict(t.reduced()) == \
             dataclasses.asdict(j.reduced())
         assert t.torch_dtype == torch.float32
+    assert dataclasses.asdict(tget("llama3.2-1b")) == \
+        dataclasses.asdict(jget("llama3.2-1b"))
     with pytest.raises(NotImplementedError, match="LM slice"):
-        tget("llama3.2-1b")
+        tget("olmo-1b")
 
 
 def test_optimizers_match_reference():
@@ -233,7 +235,8 @@ def _knob_honored(knob, apply_fn, params, batch, cfg):
                                                  mode=cfg.clipping.mode)),
                          device="cpu")
     plan, plan0 = eng.plan(), base.plan()
-    if knob in ("overrides", "NormCfg.mem_budget", "ClipPolicy.fused"):
+    if knob in ("overrides", "NormCfg.mem_budget", "NormCfg.embed",
+                "ClipPolicy.fused"):
         assert plan.fingerprint != plan0.fingerprint
     if knob == "overrides":
         assert plan0.layers["conv0"].norm_method == "pe"
@@ -282,21 +285,16 @@ def _knob_honored(knob, apply_fn, params, batch, cfg):
 ])
 def test_planner_only_knobs_raise_at_use(toy_engine, knob, kw):
     """Under ``strategy="auto"`` every knob the planner and the clipping
-    modes read is honored; only ``NormCfg.embed`` (read by the LM slice's
-    embedding kinds) still raises rather than being ignored."""
+    modes read is honored, none raises and none is ignored:
+    ``NormCfg.embed`` now reaches the planner (its key and fingerprint)
+    and the embedding kinds."""
     eng, params, batch = toy_engine
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         cfg = DPConfig(strategy="auto", l2_clip=0.05, **kw)
     if knob == "NormCfg.embed":
-        with pytest.raises(NotImplementedError, match=knob):
-            dp_gradient(eng.apply_fn, params, batch, cfg=cfg)
-        with pytest.raises(NotImplementedError, match=knob):
-            PrivacyEngine(eng.apply_fn, params, batch, cfg, device="cpu")
-        # At its default the same config runs.
-        dp_gradient(eng.apply_fn, params, batch,
-                    cfg=DPConfig(strategy="auto"))
-        return
+        assert cfg.planner_opts()["embed_method"] == cfg.norm.embed
+        dp_gradient(eng.apply_fn, params, batch, cfg=cfg)
     if knob == "ClipPolicy.fused":
         _knob_honored(knob, *_fused_toy(), cfg)
     else:

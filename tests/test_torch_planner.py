@@ -1,10 +1,12 @@
 """The port's planner (``core/costmodel.py``) against the JAX package's.
 
-For the toy CNN, the AlexNet-structured config at 64 px, and full-width
-AlexNet and VGG16 at B = 32 (by shape only: JAX plans from
-``jax.eval_shape`` params, the port from ``device="meta"`` tensors), the
-two planners must make the same per-layer ``(norm_method, stash, fused)``
-decisions, group ``sum_method``s, ``needs_backward`` and
+For the toy CNN, the AlexNet-structured config at 64 px, full-width
+AlexNet and VGG16 at B = 32, and Llama-3.2-1B reduced and at full width
+(B = 8, T = 1024, bf16) with ``attn_impl="flash"`` (by shape only: JAX
+plans from ``jax.eval_shape`` params, the port from ``device="meta"``
+tensors), the two planners must make the same per-layer
+``(norm_method, stash, fused)`` decisions, group ``norm_mode`` and
+``sum_method``, ``needs_backward``, capture bytes and
 ``microbatches="auto"`` count under flat, per_layer and stale clipping.
 Plans round-trip through JSON, a stale or mismatched plan fails loudly
 naming its field, and a steady stale step is one forward + one backward
@@ -24,12 +26,14 @@ from repro.configs import get_config as jget  # noqa: E402
 from repro.core import costmodel as jcm  # noqa: E402
 from repro.models.cnn import CNN as JCNN  # noqa: E402
 from repro.models.cnn import toy_cnn_config as jtoy  # noqa: E402
+from repro.models.lm import TransformerLM as JLM  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core import costmodel as tcm  # noqa: E402
 from repro_torch.core.tapper import STATS, TensorSpec, probe  # noqa: E402
 from repro_torch.models.cnn import CNN as TCNN  # noqa: E402
 from repro_torch.models.cnn import toy_cnn_config as ttoy  # noqa: E402
+from repro_torch.models.lm import TransformerLM as TLM  # noqa: E402
 
 TOY = dict(n_layers=4, channel_rate=2.0, c0=16, img=32)
 MODES = ("flat", "per_layer", "stale")
@@ -65,7 +69,8 @@ def _decisions(cm, plan, B):
     return {
         "layers": {n: (lp.norm_method, lp.stash, lp.fused)
                    for n, lp in plan.layers.items()},
-        "groups": {"/".join(map(str, g.path)): (g.members, g.sum_method)
+        "groups": {"/".join(map(str, g.path)):
+                   (g.members, g.norm_mode, g.sum_method)
                    for g in plan.groups},
         "needs_backward": plan.needs_backward,
         "microbatches": cm.auto_microbatches(plan, B),
@@ -89,6 +94,56 @@ def test_plan_decisions_match_reference(arch, mode):
     fused = {n for n, lp in plan.layers.items() if lp.fused}
     assert fused == (ARCHS[arch][3] if mode == "stale" else set())
     assert not (mode != "flat" and plan.needs_backward)
+
+
+# LM -> (config transform, batch, sequence length)
+LMS = {"llama_reduced": (lambda c: c.reduced(), 2, 16),
+       "llama": (lambda c: c, 8, 1024)}
+_TORCH_DT = {jnp.dtype(jnp.float32): torch.float32,
+             jnp.dtype(jnp.bfloat16): torch.bfloat16}
+
+
+def _lm_both(lm, **opts):
+    """Plan one LM in both packages, by shape."""
+    fn, B, T = LMS[lm]
+    jm = JLM(fn(jget("llama3.2-1b")).replace(attn_impl="flash"))
+    tm = TLM(fn(tget("llama3.2-1b")).replace(attn_impl="flash"))
+    jp = jax.eval_shape(lambda k: jm.init(k)[0], jax.random.PRNGKey(0))
+    tp = jax.tree.map(lambda s: torch.empty(
+        s.shape, dtype=_TORCH_DT[jnp.dtype(s.dtype)], device="meta"), jp)
+    jb = {k: jax.ShapeDtypeStruct((B, T), jnp.int32)
+          for k in ("tokens", "labels")}
+    tb = {k: torch.empty((B, T), dtype=torch.int32, device="meta")
+          for k in ("tokens", "labels")}
+    jplan = jcm.get_plan(jm.apply, jp, jb, **opts)
+    tplan = tcm.get_plan(tm.apply, tp, tb, **opts)
+    return _decisions(jcm, jplan, B), _decisions(tcm, tplan, B), tplan
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("lm", list(LMS))
+def test_lm_plan_decisions_match_reference(lm, mode):
+    want, got, plan = _lm_both(lm, clip_mode=mode)
+    assert got == want
+    assert plan.metas["blocks/mlp/w_up"].scanned == 1
+    assert plan.metas["~tok_emb"].shared
+    tied = next(g for g in plan.groups if g.path == ("tok_emb",))
+    assert tied.members == ("tok_emb", "~tok_emb")
+    # full width: segsum on the 128 256-row table, so the tied group
+    # takes the cross term; the reduced table is small enough to stash
+    assert tied.norm_mode == ("tied" if lm == "llama" else "group_pe")
+    assert not plan.needs_backward
+
+
+@pytest.mark.parametrize("opts", [
+    dict(embed_method="segsum"),
+    dict(embed_method="gram", clip_mode="per_layer"),
+    dict(overrides={"blocks/mlp/*": "stream", "tok_emb": "gram"}),
+    dict(mem_budget=1 << 16, clip_mode="stale"),
+], ids=["segsum", "gram_per_layer", "overrides", "mem_budget_stale"])
+def test_lm_plan_knobs_match_reference(opts):
+    want, got, _ = _lm_both("llama_reduced", **opts)
+    assert got == want
 
 
 @pytest.mark.parametrize("opts", [
@@ -206,12 +261,15 @@ def test_flat_auto_caches_its_plan():
     for _ in range(2):
         tcore.clipped_grad_sum(m.apply, params, batch, l2_clip=0.1,
                                strategy="auto")
-    plan = tcm.get_plan(m.apply, params, batch)
+    # The knobs of a direct call: embed_method defaults to "segsum" there,
+    # as in the JAX package.
+    knobs = dict(embed_method="segsum")
+    plan = tcm.get_plan(m.apply, params, batch, **knobs)
     passes = 2 if plan.needs_backward else 1
     assert STATS.snapshot() == {"forwards": 2 * passes,
                                 "backwards": 2 * passes, "probes": 1}
     assert plan.fingerprint == tcore.plan_fingerprint(m.apply, params,
-                                                      batch)
+                                                      batch, **knobs)
     assert len(tcore.code_fingerprint()) == 12
 
 
