@@ -41,14 +41,39 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``auto`` flat, step ms, peak memory and one profiled step each.  Each
    step's capture pass must launch every flash kernel once per layer
    (16).
+7. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
+   as in the JAX package): once on Llama-3.2-1B's embedding cotangent
+   shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
+   batch), checked against ``kinds.embed_norm_sq``'s segment sum.
+8. 1-D conv lane: a network of five plain 1-D convs (AlexNet's conv
+   widths at stride 1, ReLU, mean over time, a 10-class dense head, f32),
+   B = 32, T = 4096, σ = 1: 3 ``private_step``s each of crb and ``auto``
+   flat with ``conv_impl="pallas"``; the crb lane must launch
+   ``pe_conv_grad_1d`` 5 times each step; then crb(kernel) against
+   crb(grouped conv) on one batch at σ = 0.
+9. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
+   own, twice per lane, once straight through and once with
+   ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
+   AlexNet ``auto`` flat and stale (B = 32, 6 steps, checkpoint every 2),
+   and Llama-3.2-1B at full width and depth 2 (B = 8, T = 1024, bf16,
+   flash, ``auto``, 4 steps).  The two runs' last checkpoints (params,
+   optimizer state, clip state, ledger) must be bitwise equal.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+The kernel cases of phase 3 include ``pe_conv_grad_1d`` (the JAX kernel
+test's sweep and the 1-D lane's five layer shapes, f32 and bf16, each
+twice to show it bitwise repeatable) and ``gram_norm_tokmask`` (B = 8,
+T = 1024, D = 2048 in bf16 and f32, random and heavily repeated ids, a
+ragged T = 1000; each against the plain version and the segment sum).
+
+The line before the last is a JSON object with one entry per kernel
+(eight); the last line is ``{"ok": true, "device": {...}}``.
 """
 import functools
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -100,6 +125,38 @@ FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
 FLASH_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_ATOL = 1e-5
 FLASH_ULPS = 4
+
+# The 1-D conv lane: five plain 1-D convs with AlexNet's conv widths at
+# stride 1, (name, C, D, K, padding), B = 32, T = 4096, f32, 10 classes.
+C1_B, C1_T, C1_CLASSES = 32, 4096, 10
+C1_LAYERS = [("conv0", 3, 64, 11, 5), ("conv1", 64, 192, 5, 2),
+             ("conv2", 192, 384, 3, 1), ("conv3", 384, 256, 3, 1),
+             ("conv4", 256, 256, 3, 1)]
+# pe_conv_grad_1d's sweep in the JAX kernel tests, (B, C, D, T, K).
+PE1D_SWEEP = [(2, 5, 6, 20, 3), (1, 3, 8, 33, 5), (4, 2, 2, 9, 2)]
+# gram_norm_tokmask at Llama-3.2-1B's embedding cotangent: (case, B, T, D,
+# id range, dtype, on its entry path).  A range of 16 repeats every id
+# about 64 times per example; the vocabulary's 128 256 leaves almost only
+# the diagonal.
+TOK_CASES = [("llama_bf16", LM_B, LM_T, 2048, 128256, "bfloat16", True),
+             ("llama_f32", LM_B, LM_T, 2048, 128256, "float32", False),
+             ("repeated_bf16", LM_B, LM_T, 2048, 16, "bfloat16", False),
+             ("repeated_f32", LM_B, LM_T, 2048, 16, "float32", False),
+             ("ragged_repeated_f32", LM_B, 1000, 2048, 16, "float32", False),
+             ("ragged_bf16", LM_B, 1000, 2048, 128256, "bfloat16", False)]
+# The CLI lanes: (lane, arguments after the module, steps).
+CLI_LANES = [
+    ("cli_alexnet_auto_flat",
+     ["--arch", "alexnet", "--full", "--batch", "32", "--strategy", "auto",
+      "--noise", "1.0"], 6),
+    ("cli_alexnet_auto_stale",
+     ["--arch", "alexnet", "--full", "--batch", "32", "--strategy", "auto",
+      "--clip-mode", "stale", "--noise", "1.0"], 6),
+    ("cli_llama_depth2_auto",
+     ["--arch", "llama3.2-1b", "--full", "--layers", "2", "--batch",
+      str(LM_B), "--seq", str(LM_T), "--strategy", "auto", "--attn-impl",
+      "flash", "--noise", "1.0"], 4)]
+CLI_TIMEOUT_S = 420
 
 
 class SmokeFailure(Exception):
@@ -239,6 +296,8 @@ def kernel_cases(torch):
         del x, dy, got, want
         torch.cuda.empty_cache()
     rows += fused_cases(torch, rnd)
+    rows += pe1d_cases(torch, rnd)
+    rows += tokmask_cases(torch)
     rows += flash_cases(torch, rnd)
     bad = [f"{r['kernel']}@{r['case']}" for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -311,6 +370,123 @@ def fused_cases(torch, rnd):
         log(row)
         del x, dy
         torch.cuda.empty_cache()
+    return rows
+
+
+def pe1d_cases(torch, rnd):
+    """``pe_conv_grad_1d`` at the 1-D lane's five layer shapes (x padded,
+    T' = 4096) in f32 (the lane's dtype) and bf16, the JAX kernel test's
+    sweep in both dtypes and a ragged case (T' not a multiple of the
+    16-deep chunk, D and C·K wider than one 64 tile); each launched twice
+    to show it bitwise repeatable.  Library: the grouped-conv lowering
+    (``convops.pe_conv_grad(impl="fgc")``), one conv call, the route every
+    non-plain conv takes."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import convops
+    cases = [(f"lane_{n}", C1_B, c, d, C1_T + 2 * p, k, dt, dt == "float32")
+             for dt in ("float32", "bfloat16") for n, c, d, k, p in C1_LAYERS]
+    cases += [(f"sweep{i}", b, c, d, t, k, dt, False)
+              for i, (b, c, d, t, k) in enumerate(PE1D_SWEEP)
+              for dt in ("float32", "bfloat16")]
+    cases += [("ragged", 3, 70, 130, 100, 4, "float32", False)]
+    rows = []
+    for name, b, c, d, t, k, dt, main in cases:
+        tdt = getattr(torch, dt)
+        tp = t - k + 1
+        x, dy = rnd(b, c, t, dtype=tdt), rnd(b, d, tp, dtype=tdt)
+        got = ops.pe_conv_grad_1d(x, dy, K=k)
+        again = ops.pe_conv_grad_1d(x, dy, K=k)
+        torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
+        want = ref.pe_conv_grad_1d_ref(x, dy, k)
+        abs_err, rel_err, ok = compare(torch, got, want, dt)
+        del got, again, want
+        flops = 2 * b * d * c * k * tp
+        nbytes = (x.numel() + dy.numel()) * x.element_size() \
+            + b * d * c * k * 4
+        b_ms, b_by = bound(flops, nbytes, dt)
+        row = {"kernel": "pe_conv_grad_1d", "case": name, "dtype": dt,
+               "shape": {"B": b, "C": c, "T": t, "D": d, "K": k},
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "rtol": RTOL[dt], "ok": ok and repeat,
+               "bitwise_repeat": repeat,
+               "kernel_ms": cuda_ms(torch, lambda: ops.pe_conv_grad_1d(
+                   x, dy, K=k), 10),
+               "plain_ms": cuda_ms(torch, lambda: ref.pe_conv_grad_1d_ref(
+                   x, dy, k), 3),
+               "library_ms": cuda_ms(torch, lambda: convops.pe_conv_grad(
+                   x, dy, kernel_spatial=(k,), impl="fgc"), 3),
+               "library": "F.conv2d grouped-conv lowering (fgc)",
+               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+        rows.append(row)
+        log(row)
+        del x, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def embed_segsum(ids, dy):
+    """The port's embedding norm by sorted segment sums
+    (``kinds.embed_norm_sq(method="segsum")``), what the model path runs."""
+    from repro_torch.core import kinds
+    from repro_torch.core.tapper import LayerMeta
+    meta = LayerMeta("embed", ("tok_emb",), param_key="emb")
+    return kinds.embed_norm_sq(meta, {"ids": ids}, dy, method="segsum")
+
+
+def tokmask_cases(torch):
+    """``gram_norm_tokmask`` against its plain version (the id-masked
+    Gram) and against the segment sum, with random and heavily repeated
+    ids and a ragged T; each launched twice to show it bitwise
+    repeatable.  Library: the plain Gram einsum, masked; the segment
+    sum's time stands beside it."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, b, t, d, v, dt, main in TOK_CASES:
+        tdt = getattr(torch, dt)
+        ids = torch.randint(0, v, (b, t), generator=g, device="cuda")
+        dy = torch.randn(b, t, d, generator=g, device="cuda").to(tdt)
+        got = ops.gram_norm_tokmask(ids, dy)
+        again = ops.gram_norm_tokmask(ids, dy)
+        torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
+        want = ref.gram_norm_tokmask_ref(ids, dy)
+        seg = embed_segsum(ids, dy)
+        abs_err, rel_err, ok = compare(torch, got, want, dt, floor=0.0)
+        _, seg_rel, seg_ok = compare(torch, got, seg, dt, floor=0.0)
+        pairs = int((ids[:, :, None] == ids[:, None, :]).sum())
+
+        def library():
+            f = dy.float()
+            m = ids[:, :, None] == ids[:, None, :]
+            return (torch.einsum("btd,bsd->bts", f, f) * m).sum((1, 2))
+
+        # The function needs the cheaper of two routes: the Gram over the
+        # pairs of equal ids (2·D each), or a segment sum of each id's rows
+        # (about 2·T·D per example).
+        flops = min(2 * d * pairs, 2 * b * t * d)
+        nbytes = ids.numel() * ids.element_size() \
+            + dy.numel() * dy.element_size() + b * 4
+        b_ms, b_by = bound(flops, nbytes, dt)
+        row = {"kernel": "gram_norm_tokmask", "case": name, "dtype": dt,
+               "shape": {"B": b, "T": t, "D": d, "id_range": v},
+               "equal_id_pairs": pairs,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "segsum_max_rel_err": seg_rel, "rtol": RTOL[dt],
+               "ok": ok and seg_ok and repeat, "bitwise_repeat": repeat,
+               "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm_tokmask(
+                   ids, dy), 10),
+               "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_tokmask_ref(
+                   ids, dy), 3),
+               "library_ms": cuda_ms(torch, library, 3),
+               "library": "masked Gram einsum (f32)",
+               "segsum_ms": cuda_ms(torch, lambda: embed_segsum(ids, dy), 3),
+               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+        rows.append(row)
+        log(row)
+        del ids, dy, got, again, want, seg
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -519,8 +695,9 @@ def small_lm_parity(torch):
          "strategies": ["bk", "auto"]})
 
 
-def main_path(torch):
-    """Phase 5: full-width AlexNet DP-SGD steps through the engine."""
+def main_path(torch, lanes):
+    """Phase 5: full-width AlexNet DP-SGD steps through the engine; each
+    lane's launches, step by step, go to ``lanes``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import (ClipPolicy, DPConfig, NormCfg,
@@ -586,6 +763,8 @@ def main_path(torch):
         counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
         for k, v in counts.items():
             launches[k] += v
+        lanes[lane] = {k: [c[k] for c in per_step]
+                       for k, v in counts.items() if v}
         prof = profile_step(torch, lambda: eng.private_step(
             p, opt, batches[steps], step=steps))
         check(all(math.isfinite(v) for v in losses),
@@ -668,9 +847,10 @@ def main_path(torch):
     return launches
 
 
-def lm_main_path(torch, launches):
+def lm_main_path(torch, launches, lanes):
     """Phase 6: full-width Llama-3.2-1B DP-SGD steps through the engine,
-    bk and ``auto`` flat; adds the flash launches to ``launches``."""
+    bk and ``auto`` flat; adds the flash launches to ``launches`` and each
+    lane's launches per step to ``lanes``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
@@ -725,6 +905,8 @@ def lm_main_path(torch, launches):
         counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
         for k, v in counts.items():
             launches[k] += v
+        lanes[lane] = {k: [c[k] for c in per_step]
+                       for k, v in counts.items() if v}
         prof = profile_step(torch, lambda: eng.private_step(
             p, opt, batches[steps], step=steps), top=10)
         check(all(math.isfinite(v) for v in losses),
@@ -747,6 +929,230 @@ def lm_main_path(torch, launches):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+
+
+def tokmask_path(torch, launches, lanes):
+    """Phase 7: ``gram_norm_tokmask`` through its entry point,
+    ``ops.gram_norm_tokmask`` (no model path calls it, as in the JAX
+    package), on Llama-3.2-1B's embedding cotangent shape: the token ids
+    of a synthetic batch (B = 8, T = 1024) and a bf16 δy (B, T, 2048) from
+    a seed.  The norms must be finite, one per example, and equal the
+    segment sum the model path runs (rtol 1e-4)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    ds = SyntheticLMDataset(128256, LM_T, n_examples=4096, seed=0)
+    ids = torch.from_numpy(ds.batch(range(LM_B))["tokens"]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dy = torch.randn(LM_B, LM_T, 2048, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    norms = ops.gram_norm_tokmask(ids, dy)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t) * 1e3
+    counts = dict(ops.LAUNCHES)
+    for k, v in counts.items():
+        launches[k] += v
+    lanes["tokmask_entry"] = {k: [v] for k, v in counts.items() if v}
+    check(counts["gram_norm_tokmask"] == 1,
+          f"tokmask path: {counts['gram_norm_tokmask']} launches")
+    check(norms.shape == (LM_B,) and bool(torch.isfinite(norms).all()),
+          "tokmask path: norms not finite or of the wrong shape")
+    seg = embed_segsum(ids, dy)
+    rel = ((norms - seg).abs() / seg).max().item()
+    check(rel <= 1e-4, f"tokmask path vs segsum: rel {rel:.3e}")
+    log({"phase": "tokmask_path", "ok": True, "shape": [LM_B, LM_T, 2048],
+         "dtype": "bfloat16", "call_ms_first": call_ms,
+         "segsum_max_rel_err": rel, "launches": counts})
+
+
+def conv1d_lane(torch, launches, lanes):
+    """Phase 8: DP-SGD on the network of plain 1-D convs (C1_LAYERS),
+    crb and ``auto`` flat with ``conv_impl="pallas"``."""
+    from repro_torch.core import DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init
+
+    def apply(params, batch, tp):
+        h = batch["x"]
+        for name, _, _, _, pad in C1_LAYERS:
+            h = torch.relu(tp.conv(name, h, params[name]["w"],
+                                   params[name]["b"], padding=pad))
+        logits = tp.dense("head", h.mean(dim=2), params["head"]["w"],
+                          params["head"]["b"])
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, 1, batch["label"][:, None])[:, 0]
+
+    gen = torch.Generator().manual_seed(0)
+    params = {}
+    for name, c, d, k, _ in C1_LAYERS:
+        params[name] = {"w": (torch.randn(d, c, k, generator=gen)
+                              * (c * k) ** -0.5).cuda(),
+                        "b": torch.zeros(d, device="cuda")}
+    d = C1_LAYERS[-1][2]
+    params["head"] = {"w": (torch.randn(d, C1_CLASSES, generator=gen)
+                            * d ** -0.5).cuda(),
+                      "b": torch.zeros(C1_CLASSES, device="cuda")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    steps = 3
+    batches = [{"x": torch.randn(C1_B, 3, C1_T, generator=g, device="cuda"),
+                "label": torch.randint(0, C1_CLASSES, (C1_B,), generator=g,
+                                       device="cuda")}
+               for _ in range(steps + 2)]
+    knobs = NormCfg(conv_impl="pallas")
+    for lane, strategy in (("conv1d_crb", "crb"),
+                           ("conv1d_auto_flat", "auto")):
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
+                      norm=knobs)
+        eng = PrivacyEngine(apply, params, batches[0], dp, optimizer="adamw",
+                            lr=1e-3, run_seed=0, sampling_rate=C1_B / 4096,
+                            device="cuda")
+        plan = decisions = None
+        if strategy == "auto":
+            plan = eng.explain()
+            decisions = {n: [lp.norm_method, lp.stash, lp.fused]
+                         for n, lp in eng.plan().layers.items()}
+        p, opt = params, adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, per_step = [], [], []
+        for s in range(steps):
+            ops.reset_launches()
+            t = time.perf_counter()
+            p, opt, loss, aux = eng.private_step(p, opt, batches[s], step=s)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(dict(ops.LAUNCHES))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
+        for k, v in counts.items():
+            launches[k] += v
+        lanes[lane] = {k: [c[k] for c in per_step]
+                       for k, v in counts.items() if v}
+        prof = profile_step(torch, lambda: eng.private_step(
+            p, opt, batches[steps], step=steps))
+        check(all(math.isfinite(v) for v in losses),
+              f"{lane}: non-finite loss {losses}")
+        got = [c["pe_conv_grad_1d"] for c in per_step]
+        if strategy == "crb":
+            check(got == [len(C1_LAYERS)] * steps,
+                  f"{lane}: pe_conv_grad_1d launches per step {got}, "
+                  f"expected {len(C1_LAYERS)}")
+        log({"phase": "conv1d_lane", "lane": lane, "strategy": strategy,
+             "clipping": "flat", "norm": dataclass_dict(knobs),
+             "plan": plan, "plan_layers": decisions, "losses": losses,
+             "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
+             "launches_each_step": per_step, "peak_mem_gb": peak,
+             "profiled_step": prof,
+             "clip_fraction": float(aux["clip_fraction"]),
+             "report": eng.report()})
+        del p, opt, eng, aux
+        torch.cuda.empty_cache()
+
+    # The kernel route against the grouped-conv route on one batch at
+    # σ = 0: per-example norms and clipped sums (f32 sums in another order).
+    b = batches[steps + 1]
+    _, sum_fgc, n_fgc = clipped_grad_sum(apply, params, b, l2_clip=1.0,
+                                         strategy="crb", conv_impl="fgc")
+    _, sum_k, n_k = clipped_grad_sum(apply, params, b, l2_clip=1.0,
+                                     strategy="crb", conv_impl="pallas")
+    check(torch.allclose(n_k, n_fgc, rtol=1e-4), "1-D crb norms differ")
+    tree_close(torch, sum_k, sum_fgc, 1e-4, 1e-6,
+               "1-D crb(kernel) vs crb(fgc) clipped sum")
+    log({"phase": "conv1d_checks", "ok": True,
+         "crb_kernel_vs_fgc_norm_max_rel":
+             ((n_k - n_fgc).abs() / n_fgc).max().item()})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def _bitwise_same(np, a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.reshape(-1).view(np.uint8),
+                               b.reshape(-1).view(np.uint8)))
+
+
+def same_checkpoint(d1, d2, step, stale):
+    """The two runs' checkpoints of ``step``: every array bitwise equal
+    (params, optimizer state, clip state), the same ledger and plan
+    fingerprint.  Returns the number of arrays compared."""
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer
+    m1, m2 = Checkpointer(d1).read_meta(step), Checkpointer(d2).read_meta(step)
+    for key in ("ledger", "plan_fingerprint", "clip_keys", "run_seed",
+                "noise_device"):
+        check(m1[key] == m2[key], f"checkpoints differ in {key}: "
+                                  f"{m1[key]} vs {m2[key]}")
+    check(m1["noise_device"] == "cuda", "noise drawn off the card")
+    name = f"step_{step:09d}"
+    with np.load(os.path.join(d1, name, "arrays.npz")) as za, \
+            np.load(os.path.join(d2, name, "arrays.npz")) as zb:
+        check(sorted(za.files) == sorted(zb.files), "different leaves")
+        for part in ("['params']", "['opt']") + (("['clip']",) if stale
+                                                  else ()):
+            check(any(k.startswith(part) for k in za.files),
+                  f"no {part} leaves in the checkpoint")
+        for k in za.files:
+            check(_bitwise_same(np, za[k], zb[k]),
+                  f"resumed run differs from the straight run at {k}")
+        return len(za.files)
+
+
+def run_cli(args, ckpt_dir):
+    """One ``python -m repro_torch.launch.train`` process; returns (its
+    JSON summary, its stdout, wall seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args,
+           "--ckpt-dir", ckpt_dir]
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"{' '.join(args)}: timed out after "
+                           f"{CLI_TIMEOUT_S} s") from e
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0,
+          f"{' '.join(args)}: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"train_summary"')]
+    check(lines, f"{' '.join(args)}: no summary line")
+    return json.loads(lines[-1])["train_summary"], proc.stdout, wall
+
+
+def cli_lanes():
+    """Phase 9: kill-and-resume through the training CLI, bitwise."""
+    base = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    for lane, args, steps in CLI_LANES:
+        common = args + ["--steps", str(steps), "--ckpt-every", "2"]
+        d_straight, d_killed = str(base / lane / "straight"), \
+            str(base / lane / "killed")
+        s1, _, wall1 = run_cli(common, d_straight)
+        s2, out2, wall2 = run_cli(common + ["--fail-at", "3"], d_killed)
+        check(s1["restarts"] == 0 and s2["restarts"] == 1,
+              f"{lane}: restarts {s1['restarts']}, {s2['restarts']}")
+        check("[restore] resuming from step 2" in out2,
+              f"{lane}: the killed run did not resume from step 2")
+        check(all(math.isfinite(v) for v in s1["losses_last_segment"]
+                  + s2["losses_last_segment"]), f"{lane}: non-finite loss")
+        n = same_checkpoint(d_straight, d_killed, steps - 1,
+                            "stale" in lane)
+        log({"phase": "cli_lane", "lane": lane, "args": common,
+             "bitwise_equal_arrays": n, "ok": True,
+             "straight": {"wall_s": wall1, **s1},
+             "killed_at_3": {"wall_s": wall2, **s2},
+             "disk_free_gb": shutil.disk_usage(base).free / 1e9})
+        shutil.rmtree(base / lane, ignore_errors=True)
+    shutil.rmtree(base, ignore_errors=True)
 
 
 def profile_step(torch, fn, top=8):
@@ -779,17 +1185,22 @@ def dataclass_dict(obj):
     return dataclasses.asdict(obj)
 
 
-def summarize(rows, launches):
+def summarize(rows, launches, lanes):
     """One entry per kernel: sums over the main path's shapes (one step's
     worth of each kernel's calls: a flash row counts once per layer),
-    errors over every case."""
+    errors over every case; launches over the paths' counted steps, and
+    step by step for each lane that launched the kernel."""
     meta = {
         "pe_conv_grad_2d": ("src/repro_torch/kernels/csrc/pe_conv_grad.cu",
                             "src/repro/kernels/pe_conv_grad.py:72"),
+        "pe_conv_grad_1d": ("src/repro_torch/kernels/csrc/pe_conv_grad.cu",
+                            "src/repro/kernels/pe_conv_grad.py:51"),
         "gram_norm": ("src/repro_torch/kernels/csrc/gram_norm.cu",
                       "src/repro/kernels/gram_norm.py:78"),
         "gram_norm_fused": ("src/repro_torch/kernels/csrc/gram_norm.cu",
                             "src/repro/kernels/gram_norm.py:145"),
+        "gram_norm_tokmask": ("src/repro_torch/kernels/csrc/gram_norm.cu",
+                              "src/repro/kernels/gram_norm.py:182"),
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                       "src/repro/kernels/flash_attn.py:160"),
         "flash_dq": ("src/repro_torch/kernels/csrc/flash_attn.cu",
@@ -801,6 +1212,7 @@ def summarize(rows, launches):
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
         main = [r for r in mine if r["main_path"]]
+
         def per_step(key, rows_):
             return sum(r[key] * r.get("calls_per_step", 1) for r in rows_)
 
@@ -808,19 +1220,26 @@ def summarize(rows, launches):
                                       if r["bound_by"] == "operations"])
         t_bytes = per_step("bound_ms", [r for r in main
                                         if r["bound_by"] == "bytes"])
-        out.append({
+        calls = sum(r.get("calls_per_step", 1) for r in main)
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_per_step": {lane: c[name] for lane, c in lanes.items()
+                                  if c.get(name)},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "max_rel_err": max(r["max_rel_err"] for r in mine),
             "ms": per_step("kernel_ms", main),
+            "ms_per_call": per_step("kernel_ms", main) / calls,
             "plain_ms": per_step("plain_ms", main),
             "bound_ms": t_ops + t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": (None if any(r["library_ms"] is None
                                        for r in main)
                            else per_step("library_ms", main)),
-            "cases": [r["case"] for r in main]})
+            "cases": [r["case"] for r in main]}
+        if name == "gram_norm_tokmask":
+            entry["segsum_ms"] = per_step("segsum_ms", main)
+        out.append(entry)
     return out
 
 
@@ -854,15 +1273,24 @@ def main():
     log({"phase": "kernels_done", "seconds": time.perf_counter() - t})
     small_parity(torch)
     small_lm_parity(torch)
+    lanes = {}
     t = time.perf_counter()
-    launches = main_path(torch)
+    launches = main_path(torch, lanes)
     log({"phase": "main_path_done", "seconds": time.perf_counter() - t})
     t = time.perf_counter()
-    lm_main_path(torch, launches)
+    lm_main_path(torch, launches, lanes)
     log({"phase": "lm_main_path_done", "seconds": time.perf_counter() - t})
+    tokmask_path(torch, launches, lanes)
+    t = time.perf_counter()
+    conv1d_lane(torch, launches, lanes)
+    log({"phase": "conv1d_lane_done", "seconds": time.perf_counter() - t})
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli_lanes()
+    log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
-    log({"kernels": summarize(rows, launches)})
+    log({"kernels": summarize(rows, launches, lanes)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

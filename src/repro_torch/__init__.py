@@ -3,17 +3,21 @@
 NVIDIA H100.
 
 The module layout mirrors the JAX package (``core/``, ``kernels/``,
-``models/``, ``configs/``, ``optim/``, ``data/``, ``analysis/``) and so
-do the names, so every function has an obvious counterpart.  Params are
+``models/``, ``configs/``, ``optim/``, ``data/``, ``checkpoint/``,
+``runtime/``, ``launch/``, ``analysis/``) and so do the names, so every
+function has an obvious counterpart.  Params are
 nested dicts of tensors with the JAX package's key paths and layouts
 (conv ``w`` is ``(D, C, K, K)``, dense ``w`` is ``(in, out)`` used as
 ``x @ w``), and models keep ``apply(params, batch, tapper) -> (B,)``.
 
-It covers the DP-SGD step on the paper's CNNs, under the fixed
+It covers the DP-SGD step on one device on the paper's CNNs (and any
+model of plain 1-D or 2-D convs and dense layers), under the fixed
 strategies (naive / multi / crb / ghost / bk) and the planned one
-(``strategy="auto"``), with flat, per-layer and stale clipping on one
-device; checkpointing, calibration, sharding and the LM models come later
-(see ROADMAP.md).  Every entry point takes ``device=`` and defaults to
+(``strategy="auto"``), with flat, per-layer and stale clipping; on
+Llama-3.2-1B under bk and ``auto`` with flat clipping; and the training
+CLI (``python -m repro_torch.launch.train``) with checkpoint/resume.
+Calibration, sharding and the other LM families come later (see
+ROADMAP.md).  Every entry point takes ``device=`` and defaults to
 ``"cuda"``; without a card it raises unless ``device="cpu"`` is passed.
 """
 __version__ = "0.1.0"

@@ -829,9 +829,10 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
              calibration=None) -> ExecPlan:
     """Cached planner entry point.  ``params`` and ``batch`` may be
     tensors on any device, meta tensors included: only their shapes and
-    dtypes are read.  The anchor pinned in the cached plan keeps
-    ``id(apply_fn.__self__)`` alive for the entry's lifetime, so a
-    recycled id can never alias a different model."""
+    dtypes are read.  A fingerprint hit in the plan store (filled by
+    :func:`load_plan_store`) skips the probe.  The anchor pinned in the
+    cached plan keeps ``id(apply_fn.__self__)`` alive for the entry's
+    lifetime, so a recycled id can never alias a different model."""
     _single_device(mesh, calibration)
     opts = _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
                        overrides, clip_mode, clip_fused)
@@ -840,22 +841,64 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     if plan is not None:
         _PLAN_CACHE.move_to_end(key)
         return plan
-    metas, tap_shapes, cap_shapes = probe(apply_fn, params, batch,
-                                          return_captures=True)
-    plan = plan_execution(
-        metas, cap_shapes, tap_shapes, params, norm_method=norm_method,
-        embed_method=embed_method, conv_norm=conv_norm,
-        mem_budget=mem_budget, overrides=opts[4], clip_mode=clip_mode,
-        clip_fused=clip_fused)
-    plan = dataclasses.replace(
-        plan, fingerprint=model_fingerprint(apply_fn, params, batch, opts),
-        batch_sig=_shape_sig(batch))
+    fp = model_fingerprint(apply_fn, params, batch, opts)
+    plan = _PLAN_STORE.get(fp)
+    if plan is None:
+        metas, tap_shapes, cap_shapes = probe(apply_fn, params, batch,
+                                              return_captures=True)
+        plan = plan_execution(
+            metas, cap_shapes, tap_shapes, params, norm_method=norm_method,
+            embed_method=embed_method, conv_norm=conv_norm,
+            mem_budget=mem_budget, overrides=opts[4], clip_mode=clip_mode,
+            clip_fused=clip_fused)
+        plan = dataclasses.replace(plan, fingerprint=fp,
+                                   batch_sig=_shape_sig(batch))
     object.__setattr__(plan, "_anchor", getattr(apply_fn, "__self__",
                                                 apply_fn))
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
         _PLAN_CACHE.popitem(last=False)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Cross-process plan store: fingerprint -> deserialized ExecPlan.  Filled by
+# load_plan_store(); consulted by get_plan() before any probe, so a process
+# that pre-loads its plans never re-runs the model for planning.  The file
+# holds the port's own plan JSON (ExecPlan.to_payload), not the JAX
+# package's, and no calibrations (measured constants come with ROADMAP.md
+# item 13).
+
+_PLAN_STORE: dict[str, ExecPlan] = {}
+
+
+def register_plan(plan: ExecPlan):
+    if not plan.fingerprint:
+        raise ValueError("plan has no fingerprint; build it via get_plan()")
+    _PLAN_STORE[plan.fingerprint] = plan
+
+
+def clear_plan_store():
+    _PLAN_STORE.clear()
+
+
+def save_plan_store(path: str, plans):
+    """Write plans as one JSON document."""
+    doc = {"format": PLAN_FORMAT_VERSION,
+           "plans": [p.to_payload() for p in plans]}
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+
+
+def load_plan_store(path: str) -> int:
+    """Load a plan JSON document into the store; returns the plan count.
+    A plan of another format version raises (``ExecPlan.from_payload``)."""
+    with open(path) as f:
+        doc = json.load(f)
+    plans = doc["plans"] if isinstance(doc, dict) else doc
+    for p in plans:
+        register_plan(ExecPlan.from_payload(p))
+    return len(plans)
 
 
 # ---------------------------------------------------------------------------

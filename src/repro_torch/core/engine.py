@@ -19,9 +19,11 @@ first-class value —
 Steady state executes exactly one forward and one backward per step for
 ``strategy="auto"`` (counters in :data:`repro_torch.core.tapper.STATS`).
 Flat, per-layer and stale clipping thread their cross-step state here
-(:meth:`clip_state_dict`).  Meshes and calibration come with ROADMAP.md
-items 14 and 13 and raise ``NotImplementedError``; so do the on-disk
-plan store (item 10) and the mispredict re-plan loop (item 13).
+(:meth:`clip_state_dict`).  :meth:`save_plan` writes the plans the
+engine executes to the on-disk plan store (``costmodel.load_plan_store``
+reads them back).  Meshes and calibration come with ROADMAP.md items 14
+and 13 and raise ``NotImplementedError``; the mispredict re-plan loop
+(item 13) is not served.
 
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
@@ -175,6 +177,17 @@ class PrivacyEngine:
                     "planner is bypassed; plan below is advisory.\n"
                     + cal + "\n" + self.plan().explain())
         return header + "\n" + cal + "\n" + self.plan().explain()
+
+    def save_plan(self, path: str):
+        """Persist every plan this engine executes with (the full-batch
+        plan and, when microbatching splits the step, the per-microbatch
+        plan too), so a process that loads the store never probes."""
+        plans = [self.plan()]
+        exec_plan = self._exec_plan()
+        if exec_plan is not None \
+                and exec_plan.fingerprint != plans[0].fingerprint:
+            plans.append(exec_plan)
+        costmodel.save_plan_store(path, plans)
 
     def microbatches(self) -> int:
         """The resolved microbatch count (plan-driven for ``"auto"``)."""

@@ -27,11 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source stem -> {C entry point: argtypes}
 ENTRY_POINTS = {
-    "pe_conv_grad": {"repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 10 + [_P]},
+    "pe_conv_grad": {
+        "repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 10 + [_P],
+        "repro_pe_conv_grad_1d": [_P, _P, _P] + [_I] * 7 + [_P]},
     "gram_norm": {
         "repro_gram_norm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
         "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 5
-                                 + [_I] * 7 + [_P]},
+                                 + [_I] * 7 + [_P],
+        "repro_gram_norm_tokmask": [_P] * 4 + [_I] * 4 + [_P]},
     "flash_attn": {
         "repro_flash_fwd": ([_P] + [_L] * 3) * 3 + [_P] * 2 + [_I] * 8
                            + [_P],

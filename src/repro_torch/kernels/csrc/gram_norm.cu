@@ -1,5 +1,6 @@
-// Per-example ghost norms, alone (repro_gram_norm) and fused with the
-// weighted contribution (repro_gram_norm_fused, below), as hand-written
+// Per-example ghost norms, alone (repro_gram_norm), fused with the
+// weighted contribution (repro_gram_norm_fused, below) and for an
+// embedding gather (repro_gram_norm_tokmask, last), as hand-written
 // kernels for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/gram_norm.py : gram_norm
@@ -365,5 +366,119 @@ extern "C" int repro_gram_norm_fused(
   }
   gram_sum_kernel<<<B, NT, 0, s>>>(pf, static_cast<float*>(out),
                                    grid.x * grid.y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Embedding-gather ghost norm.
+//
+// Replaces: src/repro/kernels/gram_norm.py : gram_norm_tokmask
+//           (Pallas body _gram_tokmask_kernel).
+//
+//   out[b] = sum_{t, t' < T} [id_bt == id_bt'] (dy_bt . dy_bt')
+//          = sum_v ||sum_{t: id_bt = v} dy_bt||^2
+//
+// ids is (B, T) int32, dy (B, T, D) f32 or bf16; the output is (B,) f32.
+// The TPU wrapper pads T with id -1 and zero rows; here rows past T are
+// masked inside the kernel (they load as 0 and never match), so any id
+// value, -1 included, is a real token.
+//
+// What bounds it on this card: bytes, for the data it is run on.  The
+// masked Gram route costs 2 T^2 D FLOP per example whatever the ids, but
+// the function needs only the pairs of equal ids: with ids drawn from a
+// large vocabulary that is about the diagonal, 2 T D per example, and the
+// read of dy (B T D values) dominates.  With heavily repeated ids the
+// pairs approach T^2 and the work approaches the Gram's.
+//
+// What the design does about it: gram_norm's blocking, one block per
+// (i-tile, j-tile, example) of 64 x 64 token pairs, with the id mask
+// applied to the dy dy^T tile before the block's fixed-order tree sum; a
+// block first compares its 64 x 64 ids and, if no pair matches, writes a
+// zero partial without touching dy, so random ids cost about the
+// diagonal tiles only.  Partials go to a (B, nT, nT) scratch that
+// gram_sum_kernel adds per example in a fixed order: no atomics, two runs
+// are bitwise equal.  Not yet done: tensor cores, the Gram's symmetry,
+// and a sort-based (segment-sum) route that reads dy once.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(NT) tokmask_partial_kernel(
+    const int* __restrict__ ids, const T* __restrict__ dy,
+    float* __restrict__ partial, int Tn, int D) {
+  const int nT = gridDim.x;
+  const int bj = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  __shared__ float Si[BK][BT + 1];
+  __shared__ float Sj[BK][BT + 1];
+  __shared__ int idi[BT];
+  __shared__ int idj[BT];
+  __shared__ float red[NT];
+
+  const int* idb = ids + (size_t)b * Tn;
+  if (tid < BT) {
+    const int t = bi * BT + tid;
+    idi[tid] = t < Tn ? idb[t] : 0;
+  } else if (tid < 2 * BT) {
+    const int t = bj * BT + tid - BT;
+    idj[tid - BT] = t < Tn ? idb[t] : 0;
+  }
+  __syncthreads();
+  // This thread's 4 x 4 pairs (rows ty + 16 i, columns tx + 16 j).
+  unsigned match = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ri = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cj = tx + 16 * j;
+      if (bi * BT + ri < Tn && bj * BT + cj < Tn && idi[ri] == idj[cj])
+        match |= 1u << (4 * i + j);
+    }
+  }
+  if (!__syncthreads_or(match != 0)) {
+    if (tid == 0) partial[((size_t)b * nT + bi) * nT + bj] = 0.f;
+    return;
+  }
+  float gy[4][4];
+  gram_tile(dy + (size_t)b * Tn * D, Tn, D, bi * BT, bj * BT, Si, Sj, gy);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (match & (1u << (4 * i + j))) s += gy[i][j];
+  red[tid] = s;
+  block_tree_sum(red);
+  if (tid == 0) partial[((size_t)b * nT + bi) * nT + bj] = red[0];
+}
+
+}  // namespace
+
+// ids: (B, T) int32, dy: (B, T, D), contiguous, dy's type by is_bf16;
+// partial: (B, nT, nT) f32 scratch with nT = ceil(T / 64); out: (B,) f32.
+// Returns cudaGetLastError() after both launches (0 = launched).
+extern "C" int repro_gram_norm_tokmask(const void* ids, const void* dy,
+                                       void* partial, void* out, int B,
+                                       int Tn, int D, int is_bf16,
+                                       void* stream) {
+  const int nT = (Tn + BT - 1) / BT;
+  dim3 grid(nT, nT, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* idp = static_cast<const int*>(ids);
+  float* pf = static_cast<float*>(partial);
+  if (is_bf16) {
+    tokmask_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+        idp, static_cast<const __nv_bfloat16*>(dy), pf, Tn, D);
+  } else {
+    tokmask_partial_kernel<float><<<grid, NT, 0, s>>>(
+        idp, static_cast<const float*>(dy), pf, Tn, D);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gram_sum_kernel<<<B, NT, 0, s>>>(pf, static_cast<float*>(out), nT * nT);
   return static_cast<int>(cudaGetLastError());
 }

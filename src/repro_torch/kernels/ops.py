@@ -23,7 +23,9 @@ returns an empty output of the right shape and launches nothing.
 
 The JAX package's TPU tile autotuner (``_autotune_bd``, ``pick_bd``,
 ``vmem_budget``, ``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart
-here; a Hopper tile sweep belongs to calibration (ROADMAP.md item 13).
+here: neither ``pe_conv_grad_2d`` nor ``pe_conv_grad_1d`` takes a ``bd``
+tile, both use fixed 64 x 64 output tiles; a Hopper tile sweep belongs to
+calibration (ROADMAP.md item 13).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"pe_conv_grad_2d": 0, "gram_norm": 0, "gram_norm_fused": 0,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"pe_conv_grad_2d": 0, "pe_conv_grad_1d": 0, "gram_norm": 0,
+            "gram_norm_fused": 0, "gram_norm_tokmask": 0, "flash_fwd": 0,
+            "flash_dq": 0, "flash_dkv": 0}
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
@@ -170,6 +173,87 @@ def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
     return out, c, cb
 
 
+def gram_norm_tokmask(ids, dy):
+    """ids (B, T) integer token ids, dy (B, T, D) -> (B,) f32 embedding
+    ghost norms Σ_{t,t'} [id_t = id_t']·(δy_t·δy_t').  Every one of the T
+    positions is a real token (the kernel masks its ragged last tile
+    itself; no padding id is reserved)."""
+    if ids.ndim != 2 or dy.ndim != 3 or tuple(ids.shape) != tuple(
+            dy.shape[:2]):
+        raise ValueError(f"gram_norm_tokmask: ids {tuple(ids.shape)} and dy "
+                         f"{tuple(dy.shape)} do not fit (B, T), (B, T, D)")
+    if ids.dtype.is_floating_point or ids.dtype.is_complex \
+            or ids.dtype == torch.bool:
+        raise TypeError(f"gram_norm_tokmask: ids must be integers, got "
+                        f"{ids.dtype}")
+    if dy.dtype not in _IN_DTYPES:
+        raise TypeError(f"gram_norm_tokmask: dy must be f32 or bf16, got "
+                        f"{dy.dtype}")
+    if ids.device != dy.device:
+        raise ValueError(f"gram_norm_tokmask: ids on {ids.device}, dy on "
+                         f"{dy.device}")
+    ready = _launch_ready("gram_norm_tokmask", dy)
+    if ids.dtype == torch.int64 and ids.numel() and (
+            ids.min() < -2 ** 31 or ids.max() >= 2 ** 31):
+        raise ValueError("gram_norm_tokmask: ids exceed int32, the kernel's "
+                         "id type")
+    if not ready:
+        return _ref.gram_norm_tokmask_ref(ids, dy)
+    B, T, D = dy.shape
+    nT = -(-T // _GRAM_BT)
+    if B > _GRID_YZ_MAX or nT > _GRID_YZ_MAX:
+        raise ValueError(f"gram_norm_tokmask: grid ({nT}, {nT}, {B}) too "
+                         f"large")
+    out = torch.empty((B,), dtype=torch.float32, device=dy.device)
+    if B == 0:
+        return out
+    if T == 0 or D == 0:
+        return out.zero_()
+    ids32 = ids.to(torch.int32).contiguous()
+    partial = torch.empty((B, nT, nT), dtype=torch.float32, device=dy.device)
+    from repro_torch.kernels import build
+    lib = build.load("gram_norm")
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_gram_norm_tokmask(
+            ids32.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), B, T, D, int(dy.dtype == torch.bfloat16), stream)
+    _raise_on(rc, "gram_norm_tokmask")
+    LAUNCHES["gram_norm_tokmask"] += 1
+    return out
+
+
+def pe_conv_grad_1d(x, dy, *, K: int):
+    """x (B, C, T) already padded, dy (B, D, T-K+1) -> (B, D, C, K) f32.
+    Stride = dilation = 1, groups = 1."""
+    _check_pair("pe_conv_grad_1d", x, dy, 3)
+    B, C, T = x.shape
+    D, Tp = dy.shape[1:]
+    if Tp != T - K + 1 or K < 1:
+        raise ValueError(f"pe_conv_grad_1d: dy length {Tp} does not match x "
+                         f"length {T} and kernel {K}")
+    if not _launch_ready("pe_conv_grad_1d", x, dy):
+        return _ref.pe_conv_grad_1d_ref(x, dy, K)
+    if B > _GRID_YZ_MAX or -(-D // 64) > _GRID_YZ_MAX:
+        raise ValueError(f"pe_conv_grad_1d: grid too large for B={B}, D={D}")
+    out = torch.empty((B, D, C, K), dtype=torch.float32, device=x.device)
+    if out.numel() > _INT_MAX:
+        raise ValueError("pe_conv_grad_1d: output exceeds the kernel's "
+                         "32-bit index range")
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels import build
+    lib = build.load("pe_conv_grad")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_pe_conv_grad_1d(x.data_ptr(), dy.data_ptr(),
+                                       out.data_ptr(), B, C, T, D, Tp, K,
+                                       int(x.dtype == torch.bfloat16), stream)
+    _raise_on(rc, "pe_conv_grad_1d")
+    LAUNCHES["pe_conv_grad_1d"] += 1
+    return out
+
+
 def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
     """x (B, C, H, W) already padded, dy (B, D, H-KH+1, W-KW+1) ->
     (B, D, C, KH, KW) f32.  Stride = dilation = 1, groups = 1."""
@@ -209,24 +293,25 @@ def _as_tuple(v, n):
 
 def pe_conv_grad(x, dy, *, kernel_spatial, stride=1, dilation=1, padding=0,
                  groups: int = 1):
-    """Kernel path for Algorithm 2.  Plain 2-D convs (stride = dilation =
-    1, groups = 1) reach ``pe_conv_grad_2d`` after padding x; every other
-    conv takes the grouped-conv lowering (``convops`` ``impl="fgc"``, still
-    the paper's algorithm), as in the JAX package."""
+    """Kernel path for Algorithm 2.  Plain 1-D and 2-D convs (stride =
+    dilation = 1, groups = 1) reach ``pe_conv_grad_1d`` / ``pe_conv_grad_2d``
+    after padding x; every other conv takes the grouped-conv lowering
+    (``convops`` ``impl="fgc"``, still the paper's algorithm), as in the
+    JAX package."""
     from repro_torch.models import convops
     rank = len(kernel_spatial)
     plain = (groups == 1 and _as_tuple(stride, rank) == (1,) * rank
              and _as_tuple(dilation, rank) == (1,) * rank)
-    if plain and rank == 1:
-        raise NotImplementedError(
-            "pe_conv_grad_1d is not ported yet (ROADMAP.md queue 2 item 4)")
-    if plain and rank == 2:
+    if plain and rank in (1, 2):
         p = _as_tuple(padding, rank)
         if any(p):
-            x = F.pad(x, (p[1], p[1], p[0], p[0]))
-        dy = dy.to(x.dtype)
-        return pe_conv_grad_2d(x.contiguous(), dy.contiguous(),
-                               KH=kernel_spatial[0], KW=kernel_spatial[1])
+            # F.pad pads the last axis first: (W_lo, W_hi, H_lo, H_hi).
+            x = F.pad(x, tuple(v for pi in reversed(p) for v in (pi, pi)))
+        x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+        if rank == 1:
+            return pe_conv_grad_1d(x, dy, K=kernel_spatial[0])
+        return pe_conv_grad_2d(x, dy, KH=kernel_spatial[0],
+                               KW=kernel_spatial[1])
     return convops.pe_conv_grad(x, dy, kernel_spatial=kernel_spatial,
                                 stride=stride, dilation=dilation,
                                 padding=padding, groups=groups, impl="fgc")

@@ -4,8 +4,9 @@ contracts), translated from the JAX package's ``kernels/ref.py``.
 ``ops`` takes these only for tensors on the CPU; on the card they serve
 ``chip_smoke.py`` as the yardstick each kernel is held against.  Each
 repeats its kernel's function in f32: the Gram identity for
-``gram_norm`` and ``gram_norm_fused``'s norm, the shifted products for
-``pe_conv_grad_2d``, the full (T, S) softmax for the flash kernels.
+``gram_norm`` and ``gram_norm_fused``'s norm, the same-id masked Gram for
+``gram_norm_tokmask``, the shifted products for ``pe_conv_grad_2d`` and
+``pe_conv_grad_1d``, the full (T, S) softmax for the flash kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +43,25 @@ def gram_norm_fused_ref(x, dy, w, *, has_bias: bool = False):
         n = n + sy.sum(dim=(1, 2))
         cb = torch.einsum("b,bto->o", wf, gf)
     return n, c, cb
+
+
+def gram_norm_tokmask_ref(ids, dy):
+    """out[b] = Σ_{t,t'} [id_t = id_t'] (δy_t·δy_t'): the embedding
+    gather's ghost norm by the id-masked T×T Gram, in f32."""
+    gf = dy.to(F32)
+    sy = torch.bmm(gf, gf.transpose(1, 2))
+    m = ids[:, :, None] == ids[:, None, :]
+    return (sy * m).sum(dim=(1, 2))
+
+
+def pe_conv_grad_1d_ref(x, dy, K: int):
+    """δh[b,d,c,k] = Σ_t x[b,c,t+k] δy[b,d,t] — x padded, stride =
+    dilation = 1.  Returns (B, D, C, K) f32."""
+    Tp = dy.shape[2]
+    dyf = dy.to(F32)
+    return torch.stack([torch.einsum("bct,bdt->bdc",
+                                     x[:, :, k:k + Tp].to(F32), dyf)
+                        for k in range(K)], dim=-1)
 
 
 def pe_conv_grad_2d_ref(x, dy, KH: int, KW: int):

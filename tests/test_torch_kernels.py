@@ -4,16 +4,20 @@ On the CPU the port's wrappers take their plain PyTorch versions
 (``repro_torch.kernels.ref``); those are held here against the Pallas
 kernels run in interpret mode, exactly as ``tests/test_kernels.py`` runs
 them, over the same shape and dtype sweep.  The CUDA kernels themselves
-run only on the card: ``test_cuda_kernels_match_ref`` checks them there
-and skips elsewhere (``chip_smoke.py`` holds them against the plain
-versions at the main path's shapes).
+run only on the card: ``tests/test_torch_kernels_cuda.py`` (free of JAX,
+so it runs on the machine with the card) checks them there and skips
+elsewhere, and ``chip_smoke.py`` holds them against the plain versions at
+the main path's shapes.
 
 Tolerances: f32 rtol 2e-5 for the Gram norms (sums over up to T² terms
 in another order), 1e-5 for the conv gradients and for the fused
 kernel's norms and contributions (atol 1e-5 on contribution entries near
 zero); bf16 rtol 5e-2 (the Pallas kernel multiplies in bf16 before
-accumulating, the port casts to f32 first).  The tests that need the card
-carry the ``cuda`` marker.
+accumulating, the port casts to f32 first).  ``pe_conv_grad_1d``: f32
+rtol 1e-5, atol 1e-5; bf16 rtol 1e-2 (the inputs are rounded to bf16 once,
+the products and sums run in f32 on both sides).  ``gram_norm_tokmask``:
+rtol 1e-4, as ``tests/test_kernels.py`` holds the Pallas kernel to its
+reference.
 """
 import numpy as np
 import pytest
@@ -25,9 +29,15 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.gram_norm import gram_norm as jax_gram_norm  # noqa: E402
 from repro.kernels.gram_norm import (  # noqa: E402
     gram_norm_fused as jax_gram_norm_fused)
+from repro.kernels.gram_norm import (  # noqa: E402
+    gram_norm_tokmask as jax_gram_norm_tokmask)
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels.pe_conv_grad import (  # noqa: E402
+    pe_conv_grad_1d as jax_pe_conv_grad_1d)
 from repro.kernels.pe_conv_grad import (  # noqa: E402
     pe_conv_grad_2d as jax_pe_conv_grad_2d)
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import convops  # noqa: E402
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -142,9 +152,18 @@ def test_wrappers_reject_bad_inputs():
                       torch.zeros(2, 4, 5, dtype=torch.float64))
     with pytest.raises(ValueError):
         ops.gram_norm(torch.zeros(2, 4, 3), torch.zeros(2, 5, 5))
-    with pytest.raises(NotImplementedError):
-        ops.pe_conv_grad(torch.zeros(2, 3, 8), torch.zeros(2, 4, 6),
-                         kernel_spatial=(3,))
+    with pytest.raises(ValueError):
+        ops.pe_conv_grad_1d(torch.zeros(2, 3, 8), torch.zeros(2, 4, 5), K=3)
+    with pytest.raises(ValueError):
+        ops.gram_norm_tokmask(torch.zeros(2, 5, dtype=torch.long),
+                              torch.zeros(2, 4, 3))
+    with pytest.raises(TypeError):
+        ops.gram_norm_tokmask(torch.zeros(2, 4), torch.zeros(2, 4, 3))
+    with pytest.raises(ValueError, match="int32"):
+        ops.gram_norm_tokmask(torch.full((2, 4), 2 ** 31),
+                              torch.zeros(2, 4, 3))
+    edge = torch.tensor([[2 ** 31 - 1, -2 ** 31]], dtype=torch.int32)
+    assert ops.gram_norm_tokmask(edge, torch.ones(1, 2, 3)).item() == 6.0
     with pytest.raises(ValueError):
         ops.gram_norm_fused(torch.zeros(2, 4, 3), torch.zeros(2, 4, 5),
                             torch.zeros(3))
@@ -158,8 +177,12 @@ def test_wrappers_reject_bad_inputs():
     lambda x, dy: ops.gram_norm(x, dy),
     lambda x, dy: ops.gram_norm_fused(x, dy, torch.ones(2, device="meta")),
     lambda x, dy: ops.pe_conv_grad_2d(x.reshape(2, 1, 4, 3),
-                                      x.reshape(2, 1, 4, 3), KH=1, KW=1)],
-    ids=["gram_norm", "gram_norm_fused", "pe_conv_grad_2d"])
+                                      x.reshape(2, 1, 4, 3), KH=1, KW=1),
+    lambda x, dy: ops.pe_conv_grad_1d(x, x, K=1),
+    lambda x, dy: ops.gram_norm_tokmask(
+        torch.zeros(2, 4, dtype=torch.long, device="meta"), dy)],
+    ids=["gram_norm", "gram_norm_fused", "pe_conv_grad_2d",
+         "pe_conv_grad_1d", "gram_norm_tokmask"])
 def test_wrappers_raise_off_cpu_and_cuda(call):
     """One dispatch rule for every wrapper: a tensor on neither the CPU
     nor a CUDA card has no kernel and no plain fallback."""
@@ -169,57 +192,77 @@ def test_wrappers_raise_off_cpu_and_cuda(call):
         call(x, dy)
 
 
-def _needs_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; chip_smoke.py runs the kernels there")
+@pytest.mark.parametrize("shape", [(2, 5, 6, 20, 3), (1, 3, 8, 33, 5),
+                                   (4, 2, 2, 9, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pe_conv_grad_1d_ref_vs_pallas(shape, dtype):
+    """The JAX kernel test's sweep (``tests/test_kernels.py``)."""
+    B, C, D, T, K = shape
+    rng = np.random.RandomState(sum(shape))
+    xn = rng.randn(B, C, T).astype(np.float32)
+    dyn = rng.randn(B, D, T - K + 1).astype(np.float32)
+    want = jax_pe_conv_grad_1d(jnp.asarray(xn, JAX_DT[dtype]),
+                               jnp.asarray(dyn, JAX_DT[dtype]), K=K,
+                               interpret=True)
+    before = dict(ops.LAUNCHES)
+    got = ops.pe_conv_grad_1d(torch.from_numpy(xn).to(TORCH_DT[dtype]),
+                              torch.from_numpy(dyn).to(TORCH_DT[dtype]), K=K)
+    assert ops.LAUNCHES == before        # CPU tensors never launch
+    assert got.dtype == torch.float32 and got.shape == (B, D, C, K)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=1e-5)
 
 
-@pytest.mark.cuda
-def test_cuda_gram_norm_fused_matches_ref():
-    """Card only: the fused kernel against its plain version on strided
-    (conv) and contiguous (dense) layouts, ragged T, bias on and off, f32
-    and bf16 inputs; two launches are bitwise equal."""
-    _needs_card()
-    g = torch.Generator().manual_seed(0)
-    for dt in (torch.float32, torch.bfloat16):
-        for B, T, Di, Do, strided, bias in ((3, 70, 90, 33, True, True),
-                                            (2, 1, 130, 65, False, False)):
-            if strided:
-                x = torch.randn(B, Di, T, generator=g).to("cuda", dt)
-                dy = torch.randn(B, Do, T, generator=g).to("cuda", dt)
-                x, dy = x.transpose(1, 2), dy.transpose(1, 2)
-            else:
-                x = torch.randn(B, T, Di, generator=g).to("cuda", dt)
-                dy = torch.randn(B, T, Do, generator=g).to("cuda", dt)
-            w = torch.rand(B, generator=g).to("cuda")
-            n0 = ops.LAUNCHES["gram_norm_fused"]
-            got = ops.gram_norm_fused(x, dy, w, has_bias=bias)
-            again = ops.gram_norm_fused(x, dy, w, has_bias=bias)
-            assert ops.LAUNCHES["gram_norm_fused"] == n0 + 2
-            want = ref.gram_norm_fused_ref(x, dy, w, has_bias=bias)
-            for a, b, c in zip(got, again, want):
-                assert torch.equal(a, b)
-                torch.testing.assert_close(a, c, rtol=1e-4,
-                                           atol=1e-4 * c.abs().max().item())
+# Every 1-D case of tests/test_conv_trick.py (B, C, D, T, K, stride,
+# dilation, padding, groups), then a plain padded one.  Only plain convs
+# reach the kernel's plain version; the rest take the grouped-conv
+# lowering in both packages.
+CONV_TRICK_1D = [(3, 4, 6, 16, 3, 1, 1, 0, 1), (2, 4, 6, 17, 5, 2, 1, 2, 1),
+                 (2, 4, 6, 19, 3, 1, 2, 1, 1), (2, 6, 9, 16, 3, 2, 2, 2, 3),
+                 (4, 8, 8, 21, 4, 3, 2, 3, 4), (1, 2, 2, 8, 2, 1, 1, 1, 2),
+                 (2, 4, 6, 17, 5, 1, 1, 2, 1)]
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_match_ref():
-    """Card only: both kernels against their plain versions (f32 exact
-    order is not promised, so rtol 1e-4; bf16 inputs, f32 math)."""
-    _needs_card()
-    g = torch.Generator().manual_seed(0)
-    for dt in (torch.float32, torch.bfloat16):
-        x = torch.randn(3, 5, 12, 12, generator=g).to("cuda", dt)
-        dy = torch.randn(3, 7, 10, 10, generator=g).to("cuda", dt)
-        n0 = ops.LAUNCHES["pe_conv_grad_2d"]
-        got = ops.pe_conv_grad_2d(x, dy, KH=3, KW=3)
-        assert ops.LAUNCHES["pe_conv_grad_2d"] == n0 + 1
-        torch.testing.assert_close(got, ref.pe_conv_grad_2d_ref(x, dy, 3, 3),
-                                   rtol=1e-4, atol=1e-4)
-        x = torch.randn(3, 70, 9, generator=g).to("cuda", dt)
-        dy = torch.randn(3, 70, 4, generator=g).to("cuda", dt)
-        got = ops.gram_norm(x, dy, has_bias=True)
-        torch.testing.assert_close(got, ref.gram_norm_ref(x, dy,
-                                                          has_bias=True),
-                                   rtol=1e-4, atol=0)
+@pytest.mark.parametrize("case", CONV_TRICK_1D)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pe_conv_grad_1d_dispatch_vs_jax(case, dtype):
+    """``convops.pe_conv_grad(impl="pallas")`` against the JAX package's
+    ``kernels.ops.pe_conv_grad`` (Pallas in interpret mode for plain
+    convs, its grouped-conv fallback otherwise), padding done by the
+    wrappers."""
+    B, C, D, T, K, s, r, p, g = case
+    rng = np.random.RandomState(sum(case))
+    Tp = (T + 2 * p - r * (K - 1) - 1) // s + 1
+    xn = rng.randn(B, C, T).astype(np.float32)
+    dyn = rng.randn(B, D, Tp).astype(np.float32)
+    kw = dict(kernel_spatial=(K,), stride=s, dilation=r, padding=p,
+              groups=g)
+    want = jax_ops.pe_conv_grad(jnp.asarray(xn, JAX_DT[dtype]),
+                                jnp.asarray(dyn, JAX_DT[dtype]), **kw)
+    got = convops.pe_conv_grad(torch.from_numpy(xn).to(TORCH_DT[dtype]),
+                               torch.from_numpy(dyn).to(TORCH_DT[dtype]),
+                               impl="pallas", **kw)
+    assert tuple(got.shape) == (B, D, C // g, K)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bt", [8, 16, 64])
+@pytest.mark.parametrize("T,V", [(33, 7), (70, 3), (64, 1000)])
+def test_gram_norm_tokmask_ref_vs_pallas(bt, T, V):
+    """The JAX kernel test's inputs (ids from a range of 7, heavily
+    repeated) and ragged T against every ``bt``, plus a tile-exact T
+    with rarely repeated ids."""
+    rng = np.random.RandomState(bt + T)
+    ids = rng.randint(0, V, (2, T))
+    dyn = rng.randn(2, T, 9).astype(np.float32)
+    want = jax_gram_norm_tokmask(jnp.asarray(ids), jnp.asarray(dyn), bt=bt,
+                                 interpret=True)
+    before = dict(ops.LAUNCHES)
+    got = ops.gram_norm_tokmask(torch.from_numpy(ids), torch.from_numpy(dyn))
+    assert ops.LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
