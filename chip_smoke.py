@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 is switched off for matmuls and cuDNN (f32 parity);
 2. build: every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
-   (in parallel, at first use, into ``build/``);
+   (in parallel, at first use, into ``build/``); ptxas's registers and
+   spills per kernel;
 3. kernels against their plain PyTorch versions at the shapes the main
    path gives them (AlexNet, 256 px, B = 32; Llama-3.2-1B, B = 8,
    T = 1024), plus ragged and bf16 cases: max error, kernel / plain /
@@ -16,8 +17,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    im2col views the conv path hands it, and once on a contiguous copy for
    comparison; the flash forward, dq and dk/dv at the model's
    (8, 1024, 32, 64) with rep 1 in bf16 and f32, at rep 4, full
-   (non-causal) and with a ragged T, each twice to show the backward
-   kernels bitwise repeatable);
+   (non-causal) and with a ragged T, each twice to show all three
+   bitwise repeatable; each flash row names its design, ``wgmma`` for
+   the bf16 forward and dk/dv, ``fma`` for the rest, after the library's
+   ``repro_flash_design`` is checked against ``ops.flash_design``; where
+   the wgmma design takes the main path's call, the fma design is timed
+   on the same inputs as the earlier time; the SDPA yardstick is the
+   fastest backend ``sdpa_kernel`` offers);
 4. small parity: a toy CNN's clipped gradients on the card (kernels) equal
    the port on the CPU (plain versions; the CPU tests hold those against
    the JAX package), under crb / ghost / bk and the planned stale step;
@@ -38,9 +44,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    Llama-3.2-1B (16 layers, d_model 2048, 32/8 heads, vocab 128 256, tied
    embeddings, bf16, ``attn_impl="flash"``; ~1.24 B params), B = 8,
    T = 1024, σ = 1: 3 steps each of bk (the config's strategy) and
-   ``auto`` flat, step ms, peak memory and one profiled step each.  Each
-   step's capture pass must launch every flash kernel once per layer
-   (16).
+   ``auto`` flat, step ms, peak memory and one profiled step each (with
+   each flash kernel's device time a launch).  Each step's capture pass
+   must launch every flash kernel once per layer (16).
 7. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -125,6 +131,7 @@ FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
 FLASH_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_ATOL = 1e-5
 FLASH_ULPS = 4
+FLASH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 
 # The 1-D conv lane: five plain 1-D convs with AlexNet's conv widths at
 # stride 1, (name, C, D, K, padding), B = 32, T = 4096, f32, 10 classes.
@@ -179,6 +186,34 @@ def nvidia_smi_line():
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text):
+    """``nvcc -Xptxas -v``'s log as {kernel: "registers, spills"}, each
+    kernel named by its function and template arguments."""
+    import re
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = part = m.group(1)
+            # _Z<length><name>, or _ZN and <length><name> parts (the
+            # file's anonymous namespace first): the last part
+            i = 3 if mangled.startswith("_ZN") else 2
+            while (d := re.match(r"\d+", mangled[i:])):
+                i += d.end() + int(d.group(0))
+                part = mangled[i - int(d.group(0)):i]
+            args = ("bf16" if "bfloat16" in mangled else "f32") + "".join(
+                "," + a for a in re.findall(r"Li(\d+)E", mangled))
+            name = f"{part}<{args}>"
+            out[name] = ""
+        elif name and "spill" in ln:
+            out[name] = ln.strip()
+        elif name and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out[name] = f"{regs.group(1) if regs else '?'} registers; " \
+                + out[name]
+    return out
 
 
 def cuda_ms(torch, fn, iters):
@@ -515,13 +550,23 @@ def flash_cases(torch, rnd):
     ``F.scaled_dot_product_attention``'s forward and its backward (one
     call giving dq, dk and dv), timed only here."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
+    flib = build.load("flash_attn")
+    for which, kern in enumerate(FLASH_NAMES):
+        for dt in ("float32", "bfloat16"):
+            for hd in (16, 32, 64, 128):
+                want = ops.flash_design(kern, getattr(torch, dt), hd)
+                got = flib.repro_flash_design(which, hd, int(dt == "bfloat16"))
+                check(got == (want == "wgmma"),
+                      f"{kern} {dt} hd {hd}: the library's design ({got}) "
+                      f"is not ops.flash_design's ({want})")
     rows = []
     for name, b, t, h, hkv, hd, causal, dt, main in FLASH_CASES:
         tdt = getattr(torch, dt)
         q, do = rnd(b, t, h, hd, dtype=tdt), rnd(b, t, h, hd, dtype=tdt)
         k, v = rnd(b, t, hkv, hd, dtype=tdt), rnd(b, t, hkv, hd, dtype=tdt)
         o, lse = ops.flash_fwd(q, k, v, causal=causal)
+        o2, lse2 = ops.flash_fwd(q, k, v, causal=causal)
         delta = ops.flash_delta(o, do)
         bwd = (q, k, v, do, lse, delta)
         dq = ops.flash_dq(*bwd, causal=causal)
@@ -529,9 +574,10 @@ def flash_cases(torch, rnd):
         dq2 = ops.flash_dq(*bwd, causal=causal)
         dk2, dv2 = ops.flash_dkv(*bwd, causal=causal)
         torch.cuda.synchronize()
-        repeat = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                  and torch.equal(dv, dv2))
-        del dq2, dk2, dv2
+        repeat = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+                  "flash_dq": torch.equal(dq, dq2),
+                  "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+        del o2, lse2, dq2, dk2, dv2
         ro, rl = ref.flash_fwd_ref(q, k, v, causal=causal)
         rdq = ref.flash_dq_ref(*bwd, causal=causal)
         rdk, rdv = ref.flash_dkv_ref(*bwd, causal=causal)
@@ -543,16 +589,8 @@ def flash_cases(torch, rnd):
                               flash_close(torch, dv, rdv)]}
         del ro, rl, rdq, rdk, rdv
 
-        # library: SDPA on (B, H, T, hd) views, forward and backward
-        qh, kh, vh = (a.detach().transpose(1, 2).requires_grad_(True)
-                      for a in (q, k, v))
-        sdpa = functools.partial(F.scaled_dot_product_attention,
-                                 is_causal=causal, enable_gqa=hkv != h)
-        out = sdpa(qh, kh, vh)
-        lib_fwd = cuda_ms(torch, lambda: sdpa(qh, kh, vh), 5)
-        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True), 5)
-        del out, qh, kh, vh
+        lib_fwd, lib_bwd = sdpa_backends(torch, F, q, k, v, do, causal,
+                                         hkv != h)
         # No PyTorch call computes dq alone: SDPA's backward (dq, dk and
         # dv in one call) stands on the dk/dv row only, so the kernels
         # line counts it once.
@@ -562,8 +600,8 @@ def flash_cases(torch, rnd):
                           lib_fwd, "F.scaled_dot_product_attention forward"),
             "flash_dq": (lambda: ops.flash_dq(*bwd, causal=causal),
                          lambda: ref.flash_dq_ref(*bwd, causal=causal),
-                         None, "none: no PyTorch call computes dq alone "
-                               "(SDPA's backward is on the flash_dkv row)"),
+                         {"ms": None}, "none: no PyTorch call computes dq "
+                         "alone (SDPA's backward is on the flash_dkv row)"),
             "flash_dkv": (lambda: ops.flash_dkv(*bwd, causal=causal),
                           lambda: ref.flash_dkv_ref(*bwd, causal=causal),
                           lib_bwd, "F.scaled_dot_product_attention backward "
@@ -581,27 +619,75 @@ def flash_cases(torch, rnd):
                              + 2 * rows_bhT),
                 "flash_dkv": (8 * hd * pairs, io + q.numel() * es
                               + (k.numel() + v.numel()) * es + 2 * rows_bhT)}
-        for kern, (kfn, pfn, lib_ms, lib_what) in times.items():
+        for kern, (kfn, pfn, lib, lib_what) in times.items():
             flops, nbytes = work[kern]
             b_ms, b_by = bound(flops, nbytes, dt)
             e = errs[kern]
+            k_ms = cuda_ms(torch, kfn, 20)
             row = {"kernel": kern, "case": name, "dtype": dt,
+                   "design": ops.flash_design(kern, tdt, hd),
                    "shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "hd": hd,
                              "causal": causal},
                    "max_abs_err": max(x[0] for x in e),
                    "max_rel_err": max(x[1] for x in e),
-                   "rtol": rtol, "ok": all(x[2] for x in e) and repeat,
-                   "bitwise_repeat": repeat,
-                   "kernel_ms": cuda_ms(torch, kfn, 5),
+                   "rtol": rtol, "ok": all(x[2] for x in e) and repeat[kern],
+                   "bitwise_repeat": repeat[kern],
+                   "kernel_ms": k_ms, "tflops": flops / k_ms / 1e9,
                    "plain_ms": cuda_ms(torch, pfn, 2),
-                   "library_ms": lib_ms, "library": lib_what,
-                   "bound_ms": b_ms, "bound_by": b_by, "main_path": main,
+                   "library_ms": lib["ms"], "library": lib_what,
+                   "library_backend": lib.get("backend"),
+                   "library_backends": lib.get("backends"),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / k_ms, "main_path": main,
                    "calls_per_step": LM_LAYERS if main else 1}
+            if main and row["design"] == "wgmma":
+                # the fma design, which these calls took before, on the
+                # same inputs
+                flib.repro_flash_fma_only(1)
+                try:
+                    row["earlier_ms"] = cuda_ms(torch, kfn, 20)
+                finally:
+                    flib.repro_flash_fma_only(0)
+                row["earlier_design"] = "fma"
             rows.append(row)
             log(row)
         del q, k, v, do, o, lse, delta, bwd, dq, dk, dv
         torch.cuda.empty_cache()
     return rows
+
+
+def sdpa_backends(torch, F, q, k, v, do, causal, gqa):
+    """SDPA's forward and backward (one call for dq, dk and dv) on
+    (B, H, T, hd) views, under each backend ``sdpa_kernel`` offers: the
+    fastest backend that takes these inputs is the yardstick.  Returns
+    ({"ms", "backend", "backends"} for the forward, the same for the
+    backward)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qh, kh, vh = (a.detach().transpose(1, 2).requires_grad_(True)
+                  for a in (q, k, v))
+    dout = do.transpose(1, 2)
+    sdpa = functools.partial(F.scaled_dot_product_attention,
+                             is_causal=causal, enable_gqa=gqa)
+    fwd, bwd = {}, {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(be):
+                out = sdpa(qh, kh, vh)
+                fwd[be.name] = cuda_ms(torch, lambda: sdpa(qh, kh, vh), 5)
+                bwd[be.name] = cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, (qh, kh, vh), dout, retain_graph=True), 5)
+            del out
+        except RuntimeError as err:  # this backend does not take them
+            fwd[be.name] = bwd[be.name] = f"unavailable: {str(err)[:80]}"
+        torch.cuda.empty_cache()
+    res = []
+    for times in (fwd, bwd):
+        ok = {n: ms for n, ms in times.items() if isinstance(ms, float)}
+        check(ok, f"no SDPA backend takes these inputs: {times}")
+        best = min(ok, key=ok.get)
+        res.append({"ms": ok[best], "backend": best, "backends": times})
+    return res
 
 
 def tree_close(torch, got, want, rtol, atol, what):
@@ -850,7 +936,8 @@ def main_path(torch, lanes):
 def lm_main_path(torch, launches, lanes):
     """Phase 6: full-width Llama-3.2-1B DP-SGD steps through the engine,
     bk and ``auto`` flat; adds the flash launches to ``launches`` and each
-    lane's launches per step to ``lanes``."""
+    lane's launches per step to ``lanes``.  Returns each lane's flash
+    kernels' device time in its profiled step."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
@@ -881,8 +968,9 @@ def lm_main_path(torch, launches, lanes):
     log({"phase": "lm_setup", "arch": cfg.name, "params": n_params,
          "batch": LM_B, "seq": LM_T, "init_s": init_s,
          "data_s": time.perf_counter() - t0})
-    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    flash = FLASH_NAMES
     steps = 3
+    profiled = {}
     for lane, strategy in (("llama_bk", "bk"), ("llama_auto_flat", "auto")):
         dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy)
         eng = PrivacyEngine(model.apply, params, batches[0], dp,
@@ -908,7 +996,8 @@ def lm_main_path(torch, launches, lanes):
         lanes[lane] = {k: [c[k] for c in per_step]
                        for k, v in counts.items() if v}
         prof = profile_step(torch, lambda: eng.private_step(
-            p, opt, batches[steps], step=steps), top=10)
+            p, opt, batches[steps], step=steps), top=10, named=flash)
+        profiled[lane] = prof.get("named", {})
         check(all(math.isfinite(v) for v in losses),
               f"{lane}: non-finite loss {losses}")
         for k in flash:
@@ -929,6 +1018,7 @@ def lm_main_path(torch, launches, lanes):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    return profiled
 
 
 def tokmask_path(torch, launches, lanes):
@@ -1155,10 +1245,12 @@ def cli_lanes():
     shutil.rmtree(base, ignore_errors=True)
 
 
-def profile_step(torch, fn, top=8):
+def profile_step(torch, fn, top=8, named=()):
     """One step under ``torch.profiler``: wall ms, summed CUDA kernel ms,
-    the device's busy share (kernel ms / wall ms, one stream) and the
-    kernels that took the most device time."""
+    the device's busy share (kernel ms / wall ms, one stream), the
+    kernels that took the most device time and, for each string in
+    ``named``, the device time and launches of the kernels whose names
+    hold it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1174,10 +1266,16 @@ def profile_step(torch, fn, top=8):
     if busy_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     kernels.sort(key=lambda k: -k[1])
+    found = {}
+    for part in named:
+        ms = sum(m for name, m, _ in kernels if part in name)
+        n = sum(c for name, _, c in kernels if part in name)
+        found[part] = {"ms": ms, "launches": n,
+                       "ms_per_launch": ms / n if n else None}
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "top": [{"kernel": name[:90], "ms": ms, "calls": n}
-                    for name, ms, n in kernels[:top]]}
+                    for name, ms, n in kernels[:top]], "named": found}
 
 
 def dataclass_dict(obj):
@@ -1185,11 +1283,15 @@ def dataclass_dict(obj):
     return dataclasses.asdict(obj)
 
 
-def summarize(rows, launches, lanes):
+def summarize(rows, launches, lanes, profiled):
     """One entry per kernel: sums over the main path's shapes (one step's
     worth of each kernel's calls: a flash row counts once per layer),
     errors over every case; launches over the paths' counted steps, and
-    step by step for each lane that launched the kernel."""
+    step by step for each lane that launched the kernel.  A flash entry
+    also names its design at the main path's shape, the fma design's
+    time a call on the same inputs where the wgmma design took the call,
+    and its device time a launch in each Llama lane's profiled step
+    (``profiled``)."""
     meta = {
         "pe_conv_grad_2d": ("src/repro_torch/kernels/csrc/pe_conv_grad.cu",
                             "src/repro/kernels/pe_conv_grad.py:72"),
@@ -1239,6 +1341,14 @@ def summarize(rows, launches, lanes):
             "cases": [r["case"] for r in main]}
         if name == "gram_norm_tokmask":
             entry["segsum_ms"] = per_step("segsum_ms", main)
+        if name in FLASH_NAMES:
+            entry["design"] = main[0]["design"]
+            if "earlier_ms" in main[0]:
+                entry["earlier_ms_per_call"] = main[0]["earlier_ms"]
+            entry["library_backend"] = main[0]["library_backend"]
+            entry["profiled_ms_per_launch"] = {
+                lane: found[name]["ms_per_launch"]
+                for lane, found in profiled.items() if name in found}
         out.append(entry)
     return out
 
@@ -1262,11 +1372,10 @@ def main():
 
     from repro_torch.kernels import build
     info = build.build_all()
-    regs = {stem: [ln.split("info    : ")[-1] for ln in text.splitlines()
-                   if "registers" in ln]
-            for stem, text in info["ptxas"].items()}
     log({"phase": "build", "seconds": info["seconds"],
-         "built": info["built"], "ptxas": regs})
+         "built": info["built"],
+         "ptxas": {stem: ptxas_summary(text)
+                   for stem, text in info["ptxas"].items()}})
 
     t = time.perf_counter()
     rows = kernel_cases(torch)
@@ -1278,7 +1387,7 @@ def main():
     launches = main_path(torch, lanes)
     log({"phase": "main_path_done", "seconds": time.perf_counter() - t})
     t = time.perf_counter()
-    lm_main_path(torch, launches, lanes)
+    profiled = lm_main_path(torch, launches, lanes)
     log({"phase": "lm_main_path_done", "seconds": time.perf_counter() - t})
     tokmask_path(torch, launches, lanes)
     t = time.perf_counter()
@@ -1290,7 +1399,7 @@ def main():
     log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
-    log({"kernels": summarize(rows, launches, lanes)})
+    log({"kernels": summarize(rows, launches, lanes, profiled)})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

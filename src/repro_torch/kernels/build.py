@@ -39,7 +39,9 @@ ENTRY_POINTS = {
         "repro_flash_fwd": ([_P] + [_L] * 3) * 3 + [_P] * 2 + [_I] * 8
                            + [_P],
         "repro_flash_bwd": [_I] + ([_P] + [_L] * 3) * 4 + [_P] * 5
-                           + [_I] * 8 + [_P]},
+                           + [_I] * 8 + [_P],
+        "repro_flash_design": [_I] * 3,
+        "repro_flash_fma_only": [_I]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

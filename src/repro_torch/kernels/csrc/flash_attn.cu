@@ -3,10 +3,12 @@
 // softmax, without the (T, S) score matrix in device memory.
 //
 // Replaces: src/repro/kernels/flash_attn.py
-//   flash_fwd_kernel  <- _fwd_call / _flash_kernel      (o, lse)
-//   flash_dq_kernel   <- _bwd_call / _flash_dq_kernel   (dq)
-//   flash_dkv_kernel  <- _bwd_call / _flash_dkv_kernel  (dk, dv)
-// launched by repro_flash_fwd and repro_flash_bwd (which = 1 or 2).
+//   flash_fwd_wgmma, flash_fwd_kernel  <- _fwd_call / _flash_kernel  (o, lse)
+//   flash_dq_kernel                    <- _bwd_call / _flash_dq_kernel  (dq)
+//   flash_dkv_wgmma, flash_dkv_kernel  <- _bwd_call / _flash_dkv_kernel
+//                                                              (dk, dv)
+// launched by repro_flash_fwd and repro_flash_bwd (which = 1 or 2);
+// repro_flash_design names the kernel a call takes.
 //
 // q is (B, T, H, hd), k and v are (B, S, Hkv, hd), do is (B, T, H, hd),
 // all f32 or bf16, read through their (b, t, h) strides (the last axis
@@ -24,33 +26,72 @@
 //   dk, dv:   dv = sum P^T.dO, dk = sum dS^T.Q over every query tile of
 //             the rep query heads of one KV head, in order.
 //
-// What bounds it on this card: for f32 inputs, operations (the forward
-// does 2 hd-deep products per (query, key) pair, dq 3, dk/dv 4, over half
-// the pairs under the causal mask).  For
-// bf16 inputs the tensor cores could do that work in about the time it
-// takes to read q, k, v and dO once: at Llama-3.2-1B's shape (B = 8,
-// T = S = 1024, H = 32, hd = 64) the forward is 34 GFLOP against 0.13 GB,
-// 0.035 ms of bf16 operations and 0.040 ms of bytes.
+// Two designs (repro_flash_design; ops.flash_design names the same):
+//   "wgmma"  bf16 inputs at head_dim 64 or 128, forward and dk/dv: the
+//            tensor cores, below;
+//   "fma"    everything else: f32 inputs (the tensor cores would take
+//            them as TF32, which misses the f32 lanes' rtol 1e-4), bf16
+//            at head_dim 16 and 32 (no model here uses them), and dq in
+//            every dtype (not redesigned yet: next in the speed queue).
+//            It is built for every dtype and head_dim, so that
+//            repro_flash_fma_only can time it against the wgmma design.
 //
-// What the design does about it: one block of 256 threads per
-// (query tile, head, example) for the forward and dq, and per (key tile,
-// KV head, example) for dk/dv, with 64 x 64 tiles staged in shared
-// memory as f32 (rows padded by one float, so the column walks are free
-// of bank conflicts) and every product computed in f32 registers, 4 x 4
-// scores or 4 x hd/16 accumulators per thread.  The TPU kernels carry
-// their accumulators across a sequential grid axis; here that axis is a
-// loop inside the block, so each output tile is summed by one block in a
-// fixed order: no atomics, and two runs are bitwise equal.  Under the
-// causal mask the loops skip the tiles that lie wholly past the
-// diagonal, which changes nothing (their P is exactly 0).  The tile
-// sizes (64) differ from the TPU kernel's bq / bk (512); the wrapper
-// keeps the bq / bk contract (query padding, the key-length check).
-// Not yet done: the tensor cores (mma / wgmma), which would lift the
-// f32 FMA ceiling by an order of magnitude.
+// What bounds it on this card.  bf16 at Llama-3.2-1B's shape (B = 8,
+// T = S = 1024, H = 32, hd = 64, causal): the forward is 34 GFLOP of
+// tensor-core work (0.035 ms at 989 TFLOP/s) against 0.13 GB to move
+// (0.040 ms at 3.35 TB/s), so bytes, barely; dk/dv is 69 GFLOP (0.070
+// ms) against 0.2 GB, so operations.  Both sit near the ridge, so the
+// products must run on the tensor cores and the tiles must arrive while
+// the previous tile computes.  f32 inputs are bound by the 67 TFLOP/s
+// of f32 FMAs.
+//
+// The wgmma design (FlashAttention-3's forward, without warp
+// specialisation):
+//   * tiles are bf16 in shared memory with the 128-byte swizzle (the
+//     16-byte chunk c of row r sits at chunk c ^ (r % 8); a 128-column
+//     row is two 64-column halves, each its own block of rows), filled by
+//     cp.async 16 bytes a thread with rows past the end zero-filled,
+//     through a ring of stages (3 in the forward, 2 in dk/dv): tile
+//     i + 1 loads while tile i computes;
+//   * forward: one block of two warpgroups (64 query rows each) per
+//     (128-row query tile, head, example), causal blocks heaviest first
+//     (reversed blockIdx.x).  Q loads once; K and V tiles of 64 keys
+//     go through a 3-stage ring.  S = Q.K^T is wgmma m64n64k16 with both
+//     operands in shared memory; the online softmax runs on the
+//     accumulator in registers (a row's max and sum reduce over the 4
+//     lanes that hold it); P is rounded to bf16 once a tile, against the
+//     running max, and repacked in registers as the A operand of
+//     O += P.V (wgmma with A from registers, V read as an MN-major B).
+//     S of tile j and P.V of tile j - 1 start together, so the
+//     second runs during the softmax of the first.  Only diagonal and
+//     ragged tiles are masked.  64 KB of shared memory at hd 64, 128 KB
+//     at 128;
+//   * dk/dv: one warpgroup per (64-key tile, KV head, example).  K and V
+//     load once; Q, dO and the lse and delta rows of each (query head,
+//     query tile) pair ring.  It computes the transposes directly:
+//     S^T = K.Q^T and dP^T = V.dO^T (both operands in shared memory),
+//     P^T = exp(S^T * scale - lse), dS^T = P^T * (dP^T - delta) * scale,
+//     each rounded to bf16 and repacked as the A operand of
+//     dV += P^T.dO and dK += dS^T.Q (A in registers, Q and dO read
+//     MN-major).  dK and dV stay in registers for the whole walk.
+//   Each output row belongs to one warpgroup and is summed in a fixed
+//   order: no atomics, and two runs are bitwise equal.
+//
+// The fma design (the first port): one block of 256 threads per
+// (64-row tile, head, example), 64 x 64 tiles staged in shared memory
+// as f32 (rows padded by one float, so the column walks are free of
+// bank conflicts), every product in f32 registers; the same loops, in
+// the same order, and no atomics.  Both designs skip the key (query)
+// tiles wholly past a block's causal diagonal, which changes nothing
+// (their P is exactly 0).  The tile sizes differ from the TPU kernel's bq / bk
+// (512); the wrapper keeps the bq / bk contract (query padding, the
+// key-length check).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -129,7 +170,7 @@ __device__ __forceinline__ void tile_dots(const float* A, const float* Bt,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (query tile, head, example).
+// The fma design.  Forward: one block per (query tile, head, example).
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
@@ -420,6 +461,539 @@ constexpr size_t dkv_smem(int hd) {
                                   2 * BM * (BN + 1) + 2 * BM);
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma design: bf16 inputs, head_dim 64 or 128.
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int FWD_BQ = 128;  // query rows of a forward block (2 warpgroups)
+constexpr int FWD_NT = 256;
+constexpr int FWD_STAGES = 3;  // K / V ring of the forward
+constexpr int TILE = 64;     // key rows of a K / V tile; query rows in dk/dv
+constexpr int DKV_NT = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, of which `bytes` (16 or 0) are
+// read and the rest zero-filled; 4 bytes likewise.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// This thread's finished copies become visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7) of row r in a
+// swizzled tile of R rows: 64-column halves of R x 128 bytes each, chunk
+// c % 8 of a row stored at (c % 8) ^ (r % 8).
+template <int R>
+__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
+  return (uint32_t)((c >> 3) * (R * 128) + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// Rows [r0, r0 + R) x HD of a bf16 tensor (row stride ld elements, row 0
+// at src) into the swizzled tile at dst; rows at or past L are zero.
+template <int R, int HD, int NTH>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const bf16* __restrict__ src,
+                                          long long ld, int r0, int L) {
+  constexpr int CPR = HD / 8;
+  static_assert((R * CPR) % NTH == 0, "chunks must divide over threads");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH;
+    const int r = e / CPR, c = e % CPR;
+    const int row = r0 + r;
+    const bf16* g = src + (long long)min(row, L - 1) * ld + c * 8;
+    cp_async16(dst + chunk_off<R>(r, c), g, row < L ? 16 : 0);
+  }
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand in shared
+// memory: start address, leading and stride byte offsets.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// k-step kk (columns 16 kk .. 16 kk + 15) of 64 rows from row0 of a
+// K-major tile of R rows (the contraction runs along the row).
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return desc(tile + (kk >> 2) * (R * 128) + row0 * 128 + (kk & 3) * 32, 16,
+              1024);
+}
+// k-step kk (rows 16 kk .. 16 kk + 15) of an MN-major tile of R rows (the
+// contraction runs down the columns): 8-row groups 1024 bytes apart, the
+// second 64-column half R x 128 bytes on.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of wgmma's registers across
+// the fence / wait around it.
+template <int N> __device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define REPRO_D8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_D32 REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
+#define REPRO_D64 \
+  REPRO_D32, REPRO_D8(32), REPRO_D8(40), REPRO_D8(48), REPRO_D8(56)
+#define REPRO_R32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define REPRO_R64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64, f32) += A.B^T over 16 of K: A (64 x 16) and B (64 x 16)
+// both K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_D32
+      : "l"(a), "l"(b), "r"(1));
+}
+// d (64 x N, f32) += A.B over 16 of K: A (64 x 16) in registers, B
+// (16 x N) MN-major in shared memory; N = 64 or 128.
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef REPRO_D8
+#undef REPRO_D32
+#undef REPRO_D64
+#undef REPRO_R32
+#undef REPRO_R64
+
+// 2^x on the special-function unit (subnormal results flush to 0: a P
+// that small is 0 against the row's max).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A operand of a product over the 64 columns of a 64 x 64
+// accumulator: the accumulator's fragment (rows r, r + 8; columns
+// 8 j + 2 (lane % 4) + {0, 1}) is the A fragment of k-step j / 2, so the
+// repack is a rounding to bf16 in place.
+__device__ __forceinline__ void to_a(const float (&d)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+template <int HD>
+constexpr int fwd_smem() {
+  // Q, the (K, V) ring, alignment
+  return (FWD_BQ + 2 * FWD_STAGES * TILE) * HD * 2 + 1024;
+}
+template <int HD>
+constexpr int dkv_smem() {
+  return 6 * TILE * HD * 2 + 2 * 2 * TILE * 4 + 1024;  // K, V, 2 x (Q, dO),
+}                                                      // 2 x (lse, delta)
+
+// Forward: one block per (128-row query tile, head, example).
+template <int HD>
+__global__ void __launch_bounds__(FWD_NT, HD == 64 ? 2 : 1)
+flash_fwd_wgmma(const bf16* __restrict__ q, long long qb, long long qt,
+                long long qh, const bf16* __restrict__ k, long long kb,
+                long long kt, long long kh, const bf16* __restrict__ v,
+                long long vb, long long vt, long long vh,
+                bf16* __restrict__ o, float* __restrict__ lse, int T_, int S,
+                int H, int rep, int causal, float scale) {
+  constexpr int KT = TILE * HD * 2;  // bytes of a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Ks = Qs + FWD_BQ * HD * 2;  // stage st at Ks + st * KT
+  const uint32_t Vs = Ks + FWD_STAGES * KT;
+  const int qtile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qtile * FWD_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int qw = q0 + 64 * wgi;                // this warpgroup's rows
+  const int row0 = qw + 16 * warp + lane / 4;  // this thread's: row0, +8
+  const int col0 = 2 * (lane % 4);             // columns col0, +1 of 8
+
+  const bf16* kp = k + b * kb + (h / rep) * kh;
+  const bf16* vp = v + b * vb + (h / rep) * vh;
+  load_tile<FWD_BQ, HD, FWD_NT>(Qs, q + b * qb + h * qh, qt, q0, T_);
+  load_tile<TILE, HD, FWD_NT>(Ks, kp, kt, 0, S);
+  load_tile<TILE, HD, FWD_NT>(Vs, vp, vt, 0, S);
+  cp_commit();
+  const int kend = causal ? min(S, q0 + FWD_BQ) : S;
+  const int ntiles = (kend + TILE - 1) / TILE;
+
+  float acc[HD / 2];  // O, unnormalised
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float s[32];        // S of the current tile, then its P in f32
+  uint32_t pa[4][4] = {};  // P of the previous tile, bf16 A fragments
+  // m is the running max of the raw scores q.k (scale > 0 commutes with
+  // max); P = 2^(s * c - m * c) with c = scale * log2(e).
+  const float c = scale * LOG2E;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
+
+  // Tile j has landed for every thread and tile j - 2 is consumed, so
+  // its stage takes tile j + 1.
+  auto ring = [&](int j) {
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (j + 1 < ntiles) {
+      const int nx = (j + 1) % FWD_STAGES;
+      load_tile<TILE, HD, FWD_NT>(Ks + nx * KT, kp, kt, (j + 1) * TILE, S);
+      load_tile<TILE, HD, FWD_NT>(Vs + nx * KT, vp, vt, (j + 1) * TILE, S);
+      cp_commit();
+    }
+  };
+  // Starts S = Q.K_j^T into s.
+  auto start_s = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    reg_fence(s);
+    reg_fence(acc);
+    reg_fence(pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      mma_ss(s, kmajor<FWD_BQ>(Qs, 64 * wgi, kk),
+             kmajor<TILE>(Ks + (j % FWD_STAGES) * KT, 0, kk));
+    wg_commit();
+  };
+  // Starts O += P.V_j from pa.
+  auto start_pv = [&](int j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(acc, pa[kk], mnmajor<TILE>(Vs + (j % FWD_STAGES) * KT, kk));
+    wg_commit();
+  };
+  // The online softmax of tile j on s: (m, l) updated, alpha the factor
+  // that carries O to the new max, P left in s.  `masked` (a
+  // std::bool_constant) is true only for the diagonal tile under the
+  // causal mask and a ragged last tile: the other tiles run no mask code.
+  auto softmax = [&](int j, auto masked) {
+    const int k0 = j * TILE;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      // the last column of the tile that is a key, and (causal) that
+      // this row may see
+      const int last_key = S - 1 - k0, last_seen = row0 + 8 * rr - k0;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& val = s[4 * jj + 2 * rr + e];
+          if constexpr (decltype(masked)::value) {
+            const int col = 8 * jj + col0 + e;
+            if (col > last_key)
+              val = -INFINITY;  // no key: out of max and sum
+            else if (causal && col > last_seen)
+              val = NEG;
+          }
+          mx = fmaxf(mx, val);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      const float mc = m_new * c;
+      alpha[rr] = ex2((m[rr] - m_new) * c);
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(fmaf(s[4 * jj + 2 * rr + e], c, -mc));
+          s[4 * jj + 2 * rr + e] = p;
+          rs += p;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[rr] = l[rr] * alpha[rr] + rs;
+      m[rr] = m_new;
+    }
+  };
+
+  // Step j starts S_j and O += P_{j-1}.V_{j-1} together, so the second
+  // runs on the tensor cores during the softmax of the first.  Both
+  // warpgroups run every tile of the block: the one tile wholly past the
+  // first warpgroup's diagonal is masked to P = 0 and changes nothing,
+  // and no product sits in a branch that could diverge (ptxas would
+  // serialize the wgmma pipeline).
+  auto softmax_tile = [&](int j) {
+    const int k0 = j * TILE;
+    if ((causal && k0 + TILE - 1 > qw) || k0 + TILE > S)
+      softmax(j, std::true_type{});
+    else
+      softmax(j, std::false_type{});
+  };
+  ring(0);
+  start_s(0);
+  wg_wait<0>();
+  reg_fence(s);
+  softmax_tile(0);
+  to_a(s, pa);  // P in bf16, against the running max
+  for (int j = 1; j < ntiles; ++j) {
+    ring(j);
+    start_s(j);
+    start_pv(j - 1);
+    wg_wait<1>();  // S_j is done, P_{j-1}.V_{j-1} may still run
+    reg_fence(s);
+    softmax_tile(j);
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    to_a(s, pa);
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      acc[4 * i] *= alpha[0];
+      acc[4 * i + 1] *= alpha[0];
+      acc[4 * i + 2] *= alpha[1];
+      acc[4 * i + 3] *= alpha[1];
+    }
+  }
+  reg_fence(acc);
+  reg_fence(pa);
+  wg_fence();
+  start_pv(ntiles - 1);
+  wg_wait<0>();
+  reg_fence(acc);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int t = row0 + 8 * rr;
+    if (t >= T_) continue;
+    const float lc = fmaxf(l[rr], 1e-30f);
+    bf16* orow = o + (((long long)b * T_ + t) * H + h) * HD + col0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * rr] / lc,
+                                acc[4 * j + 2 * rr + 1] / lc);
+    if (lane % 4 == 0)
+      lse[((long long)b * H + h) * T_ + t] = m[rr] * scale + logf(lc);
+  }
+}
+
+// dk, dv: one warpgroup per (64-key tile, KV head, example), walking the
+// (query head of the group, query tile) pairs in order.
+template <int HD>
+__global__ void __launch_bounds__(DKV_NT, 1)
+flash_dkv_wgmma(const bf16* __restrict__ q, long long qb, long long qt,
+                long long qh, const bf16* __restrict__ k, long long kb,
+                long long kt, long long kh, const bf16* __restrict__ v,
+                long long vb, long long vt, long long vh,
+                const bf16* __restrict__ dout, long long db, long long dt,
+                long long dh, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int T_, int S, int H, int rep,
+                int causal, float scale) {
+  constexpr int TB = TILE * HD * 2;  // bytes of a 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Ks = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Vs = Ks + TB;
+  const uint32_t Qs = Vs + TB;      // stage st at Qs + st * TB
+  const uint32_t Ds = Qs + 2 * TB;  // dO, stage st at Ds + st * TB
+  const uint32_t Rs = Ds + 2 * TB;  // stage st: lse[64], delta[64]
+  const float* rows =
+      reinterpret_cast<const float*>(smem_raw + (Rs - smem_u32(smem_raw)));
+  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
+  const int Hkv = H / rep;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's: key0, +8
+  const int col0 = 2 * (lane % 4);             // columns col0, +1 of 8
+
+  load_tile<TILE, HD, DKV_NT>(Ks, k + b * kb + hk * kh, kt, k0, S);
+  load_tile<TILE, HD, DKV_NT>(Vs, v + b * vb + hk * vh, vt, k0, S);
+  const int qstart = causal ? k0 : 0;  // the diagonal query tile
+  const int nqt = qstart < T_ ? (T_ - qstart + TILE - 1) / TILE : 0;
+  const int npairs = rep * nqt;
+  // Pair i: query head hk * rep + i / nqt, query tile qstart + 64 (i % nqt).
+  auto load_pair = [&](int i, int st) {
+    const int h = hk * rep + i / nqt, q0 = qstart + TILE * (i % nqt);
+    load_tile<TILE, HD, DKV_NT>(Qs + st * TB, q + b * qb + h * qh, qt, q0,
+                                T_);
+    load_tile<TILE, HD, DKV_NT>(Ds + st * TB, dout + b * db + h * dh, dt, q0,
+                                T_);
+    const int t = q0 + (threadIdx.x & (TILE - 1));
+    const float* src = (threadIdx.x < TILE ? lse : delta) +
+                       ((long long)b * H + h) * T_ + min(t, T_ - 1);
+    cp_async4(Rs + st * 2 * TILE * 4 + threadIdx.x * 4, src,
+              t < T_ ? 4 : 0);
+  };
+  if (npairs > 0) load_pair(0, 0);
+  cp_commit();
+
+  float ak[HD / 2], av[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) ak[i] = av[i] = 0.f;
+  const float c = scale * LOG2E;  // P = 2^(s * c - lse * log2(e))
+  for (int it = 0; it < npairs; ++it) {
+    const int st = it & 1;
+    cp_wait<0>();  // pair it has landed
+    fence_async_smem();
+    __syncthreads();  // ... for every thread, and pair it - 1 is consumed
+    if (it + 1 < npairs) {  // so its stage takes pair it + 1
+      load_pair(it + 1, st ^ 1);
+      cp_commit();
+    }
+    const int q0 = qstart + TILE * (it % nqt);
+    const uint32_t qs = Qs + st * TB, ds = Ds + st * TB;
+    const float* lr = rows + st * 2 * TILE;
+    const float* dr = lr + TILE;
+    float s[32], dp[32];  // S^T and dP^T: rows keys, columns queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      mma_ss(s, kmajor<TILE>(Ks, 0, kk), kmajor<TILE>(qs, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      mma_ss(dp, kmajor<TILE>(Vs, 0, kk), kmajor<TILE>(ds, 0, kk));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // P^T and dS^T into s and dp; `masked` (a std::bool_constant) is
+    // true only for the diagonal query tile under the causal mask and
+    // ragged tiles: the other pairs run no mask code.
+    auto grads = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = 8 * j + col0 + e;  // query within the tile
+          const float lq = lr[qi] * LOG2E, dq_ = dr[qi];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int i = 4 * j + 2 * rr + e;
+            float p;
+            if constexpr (decltype(masked)::value) {
+              const int key = key0 + 8 * rr, t = q0 + qi;
+              const float val = causal && key > t ? NEG : s[i];
+              p = t < T_ && key < S ? ex2(fmaf(val, c, -lq)) : 0.f;
+            } else {
+              p = ex2(fmaf(s[i], c, -lq));
+            }
+            dp[i] = p * (dp[i] - dq_) * scale;
+            s[i] = p;
+          }
+        }
+    };
+    if ((causal && k0 + TILE - 1 > q0) || q0 + TILE > T_ || k0 + TILE > S)
+      grads(std::true_type{});
+    else
+      grads(std::false_type{});
+    uint32_t pa[4][4], da[4][4];
+    to_a(s, pa);   // P^T in bf16
+    to_a(dp, da);  // dS^T in bf16
+    reg_fence(pa);
+    reg_fence(da);
+    reg_fence(av);
+    reg_fence(ak);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(av, pa[kk], mnmajor<TILE>(ds, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(ak, da[kk], mnmajor<TILE>(qs, kk));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(av);
+    reg_fence(ak);
+  }
+  cp_wait<0>();  // K and V, when no query tile reaches this key tile
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key0 + 8 * rr;
+    if (key >= S) continue;
+    const long long off = (((long long)b * S + key) * Hkv + hk) * HD + col0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(ak[4 * j + 2 * rr], ak[4 * j + 2 * rr + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(av[4 * j + 2 * rr], av[4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+}  // namespace wg
+
 struct Args {
   const void *q, *k, *v, *dout;
   long long qs[3], ks[3], vs[3], ds[3];
@@ -478,14 +1052,66 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// which: 0 forward, 1 dq, 2 dk/dv.
+template <int HD>
+int launch_fwd_wgmma(const Args& a) {
+  auto kern = wg::flash_fwd_wgmma<HD>;
+  const int smem = wg::fwd_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Tq + wg::FWD_BQ - 1) / wg::FWD_BQ, a.H, a.B);
+  kern<<<grid, wg::FWD_NT, smem, a.stream>>>(
+      (const wg::bf16*)a.q, a.qs[0], a.qs[1], a.qs[2], (const wg::bf16*)a.k,
+      a.ks[0], a.ks[1], a.ks[2], (const wg::bf16*)a.v, a.vs[0], a.vs[1],
+      a.vs[2], (wg::bf16*)a.o, a.lse_out, a.Tq, a.Sk, a.H, a.rep, a.causal,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv_wgmma(const Args& a) {
+  auto kern = wg::flash_dkv_wgmma<HD>;
+  const int smem = wg::dkv_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Sk + wg::TILE - 1) / wg::TILE, a.H / a.rep, a.B);
+  kern<<<grid, wg::DKV_NT, smem, a.stream>>>(
+      (const wg::bf16*)a.q, a.qs[0], a.qs[1], a.qs[2], (const wg::bf16*)a.k,
+      a.ks[0], a.ks[1], a.ks[2], (const wg::bf16*)a.v, a.vs[0], a.vs[1],
+      a.vs[2], (const wg::bf16*)a.dout, a.ds[0], a.ds[1], a.ds[2],
+      a.lse_in, a.delta, (wg::bf16*)a.dk, (wg::bf16*)a.dv, a.Tq, a.Sk, a.H,
+      a.rep, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma design takes bf16 forward and dk/dv calls at head_dim 64 and
+// 128; every other call takes the fma design.
+bool wgmma_design(int which, int hd, int bf16) {
+  return bf16 && which != 1 && (hd == 64 || hd == 128);
+}
+
+// cp.async moves 16 bytes: rows must start 16-byte aligned.
+bool rows_aligned(const void* p, const long long* st) {
+  return (uintptr_t)p % 16 == 0 && st[0] % 8 == 0 && st[1] % 8 == 0 &&
+         st[2] % 8 == 0;
+}
+
+// The fma design; which: 0 forward, 1 dq, 2 dk/dv.
+template <typename T, int HD>
+int launch_fma(int which, const Args& a) {
+  if (which == 1) return launch_dq<T, HD>(a);
+  return which == 0 ? launch_fwd<T, HD>(a) : launch_dkv<T, HD>(a);
+}
+
+// Set by repro_flash_fma_only: every call takes the fma design.
+bool fma_only = false;
+
 template <typename T>
 int dispatch(int which, int hd, const Args& a) {
-#define REPRO_FLASH_CASE(HD)                                   \
-  case HD:                                                     \
-    return which == 0 ? launch_fwd<T, HD>(a)                   \
-                      : which == 1 ? launch_dq<T, HD>(a)       \
-                                   : launch_dkv<T, HD>(a);
+#define REPRO_FLASH_CASE(HD) \
+  case HD:                   \
+    return launch_fma<T, HD>(which, a);
   switch (hd) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
@@ -499,6 +1125,15 @@ int dispatch(int which, int hd, const Args& a) {
 
 int run(int which, int hd, int bf16, const Args& a) {
   if (a.B == 0 || a.Tq == 0 || a.Sk == 0 || a.H == 0) return 0;
+  if (!fma_only && wgmma_design(which, hd, bf16)) {
+    if (!rows_aligned(a.q, a.qs) || !rows_aligned(a.k, a.ks) ||
+        !rows_aligned(a.v, a.vs) ||
+        (which == 2 && !rows_aligned(a.dout, a.ds)))
+      return (int)cudaErrorMisalignedAddress;
+    if (which == 0)
+      return hd == 64 ? launch_fwd_wgmma<64>(a) : launch_fwd_wgmma<128>(a);
+    return hd == 64 ? launch_dkv_wgmma<64>(a) : launch_dkv_wgmma<128>(a);
+  }
   return bf16 ? dispatch<__nv_bfloat16>(which, hd, a)
               : dispatch<float>(which, hd, a);
 }
@@ -506,6 +1141,20 @@ int run(int which, int hd, int bf16, const Args& a) {
 }  // namespace
 
 extern "C" {
+
+// 1 if a call (which: 0 forward, 1 dq, 2 dk/dv) takes the wgmma design,
+// 0 if the fma design.
+int repro_flash_design(int which, int hd, int bf16) {
+  return wgmma_design(which, hd, bf16) ? 1 : 0;
+}
+
+// on = 1: every later call takes the fma design, until a call with
+// on = 0.  It times the fma design against the wgmma design on the same
+// inputs (chip_smoke.py); the wrappers in ops.py never set it.
+int repro_flash_fma_only(int on) {
+  fma_only = on != 0;
+  return 0;
+}
 
 // o (B, T, H, hd) and lse (B, H, T) f32 from q, k, v.
 int repro_flash_fwd(const void* q, long long qb, long long qt, long long qh,

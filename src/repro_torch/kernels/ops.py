@@ -14,6 +14,10 @@ on PyTorch's current stream, and adds one to ``LAUNCHES[<kernel>]`` per
 launch.  ``chip_smoke.py`` reads the counts to show that the main path
 went through the kernels.
 
+The flash forward and dk/dv kernels have two designs, chosen by dtype
+and head_dim (:func:`flash_design`): bf16 on the tensor cores (``wgmma``)
+and f32 FMAs (``fma``); dq has the second only.
+
 ``flash_attention`` is differentiable: a ``torch.autograd.Function``
 runs the forward wrapper and, in its backward, the dq and dk/dv
 wrappers, which recompute P from the saved lse (on the CPU each wrapper
@@ -321,6 +325,36 @@ def pe_conv_grad(x, dy, *, kernel_spatial, stride=1, dilation=1, padding=0,
 # Flash attention (csrc/flash_attn.cu)
 
 _FLASH_HD = (16, 32, 64, 128)   # head dims the kernels are built for
+_FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def flash_design(which: str, dtype, hd: int) -> str:
+    """The kernel design that a call of ``which`` (one of "flash_fwd",
+    "flash_dq", "flash_dkv") takes on the card for ``dtype`` inputs at
+    head_dim ``hd``: "wgmma" for bf16 forward and dk/dv calls at head_dim
+    64 and 128 (bf16 tensor cores, swizzled tiles through a cp.async
+    ring), "fma" for every other call (f32 FMAs from shared memory: f32
+    inputs, bf16 at head_dim 16 and 32, and dq).  ``repro_flash_design``
+    in ``csrc/flash_attn.cu`` makes the same choice."""
+    if which not in _FLASH_KERNELS:
+        raise ValueError(f"flash_design: {which!r} is not one of "
+                         f"{_FLASH_KERNELS}")
+    if dtype not in _IN_DTYPES:
+        raise TypeError(f"flash_design: no kernel for {dtype}")
+    if hd not in _FLASH_HD:
+        raise NotImplementedError(f"flash_design: head_dim {hd} not in "
+                                  f"{_FLASH_HD}")
+    wgmma = (dtype == torch.bfloat16 and which != "flash_dq"
+             and hd in (64, 128))
+    return "wgmma" if wgmma else "fma"
+
+
+def _rows16(t):
+    """``t`` when each of its (b, t, h) rows starts 16-byte aligned, as the
+    wgmma design's 16-byte copies need; else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides3(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 class FlashShapeError(ValueError):
@@ -380,13 +414,16 @@ def _flash_ready(name: str, *tensors) -> bool:
 
 def flash_fwd(q, k, v, *, causal: bool = True):
     """One forward kernel launch: q (B, T, H, hd), k/v (B, S, Hkv, hd) ->
-    (o (B, T, H, hd) in q's dtype, lse (B, H, T) f32).  No padding and no
-    block contract here: see :func:`flash_attention`."""
+    (o (B, T, H, hd) in q's dtype, lse (B, H, T) f32), by the design
+    :func:`flash_design` names.  No padding and no block contract here:
+    see :func:`flash_attention`."""
     _check_qkv("flash_fwd", q, k, v)
     if not _flash_ready("flash_fwd", q, k, v):
         return _ref.flash_fwd_ref(q, k, v, causal=causal)
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    if flash_design("flash_fwd", q.dtype, hd) == "wgmma":
+        q, k, v = _rows16(q), _rows16(k), _rows16(v)
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     from repro_torch.kernels import build
@@ -418,6 +455,8 @@ def _flash_bwd(which: int, q, k, v, do, lse, delta, causal):
                 or tuple(t.shape) != (B, H, T) or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous (B, H, T) "
                              f"f32 tensor on {dev}")
+    if flash_design(name, q.dtype, hd) == "wgmma":
+        q, k, v, do = _rows16(q), _rows16(k), _rows16(v), _rows16(do)
     dq = dk = dv = None
     if which == 1:
         dq = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
@@ -450,7 +489,8 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True):
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
     """One dk/dv kernel launch -> (dk, dv), each (B, S, Hkv, hd), summed
-    over the rep query heads of each KV head."""
+    over the rep query heads of each KV head, by the design
+    :func:`flash_design` names."""
     return _flash_bwd(2, q, k, v, do, lse, delta, causal)
 
 

@@ -46,13 +46,21 @@ def _close(got, want):
                         f"({'bf16' if got.dtype == torch.bfloat16 else 'f32'})")
 
 
-def _tiled_fwd(q, k, v, fault=None, tile=64):
+def _tiled_fwd(q, k, v, fault=None, design="fma"):
     """The forward kernel's arithmetic in plain PyTorch (causal, rep 1):
-    online softmax over key tiles, P cast to v's dtype against the running
-    max.  ``fault`` breaks it: "drop_last" skips the last key tile,
-    "rescale" puts 3 % on the fourth tile's P."""
+    online softmax over 64-key tiles, P cast to v's dtype against the
+    running max.  ``design`` "fma" takes the max of the scaled scores and
+    P = exp(s * scale - m); "wgmma" takes the max of the raw scores and
+    P = 2^(s * c - m * c) with c = scale * log2(e).  ``fault`` breaks it:
+    "drop_last" skips the last key tile, "rescale" puts 3 % on the fourth
+    tile's P."""
     B, T, H, hd = q.shape
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * hd ** -0.5
+    tile, scale = 64, hd ** -0.5
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    if design == "fma":
+        s, c = s * scale, None
+    else:
+        c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
     s = s.masked_fill(torch.arange(T)[None] > torch.arange(T)[:, None],
                       -1e30)
     m = torch.full((B, H, T, 1), -1e30)
@@ -63,7 +71,10 @@ def _tiled_fwd(q, k, v, fault=None, tile=64):
             continue
         st = s[..., k0:k0 + tile]
         mn = torch.maximum(m, st.amax(-1, keepdim=True))
-        a, p = torch.exp(m - mn), torch.exp(st - mn)
+        if c is None:
+            a, p = torch.exp(m - mn), torch.exp(st - mn)
+        else:
+            a, p = torch.exp2((m - mn) * c), torch.exp2(st * c - mn * c)
         l = l * a + p.sum(-1, keepdim=True)
         pv = p * 1.03 if (fault == "rescale" and i == 3) else p
         acc = acc * a + torch.einsum("bhts,bshd->bhtd",
@@ -73,17 +84,48 @@ def _tiled_fwd(q, k, v, fault=None, tile=64):
     return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
 
 
-def test_bf16_bound_admits_tile_rounding_and_rejects_faults():
+# Both designs of the forward walk 64-key tiles and round P to bf16 once
+# a tile; they differ in where the scale enters the exponent.
+@pytest.mark.parametrize("design", ["fma", "wgmma"])
+def test_bf16_bound_admits_tile_rounding_and_rejects_faults(design):
     """CPU: the bf16 bound above passes the forward kernel's own rounding
-    against the plain version, with room to spare, and fails a forward
-    that drops a key tile or mis-scales one tile's P by 3 %."""
+    (P rounded to bf16 once a key tile, against the running max) against
+    the plain version, with room to spare, and fails a forward that drops
+    a key tile or mis-scales one tile's P by 3 %."""
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 512, 4, 64, generator=g).bfloat16()
                for _ in range(3))
     want = ref.flash_fwd_ref(q, k, v, causal=True)[0]
-    assert _worst(_tiled_fwd(q, k, v), want) <= 0.6
-    assert _worst(_tiled_fwd(q, k, v, "drop_last"), want) > 10
-    assert _worst(_tiled_fwd(q, k, v, "rescale"), want) > 1.5
+    assert _worst(_tiled_fwd(q, k, v, design=design), want) <= 0.6
+    assert _worst(_tiled_fwd(q, k, v, "drop_last", design), want) > 10
+    assert _worst(_tiled_fwd(q, k, v, "rescale", design), want) > 1.5
+
+
+# The calls csrc/flash_attn.cu runs on the tensor cores: bf16 forward and
+# dk/dv at head_dim 64 and 128.  Every other call takes the fma design.
+WGMMA_CALLS = {("flash_fwd", 64), ("flash_fwd", 128), ("flash_dkv", 64),
+               ("flash_dkv", 128)}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_flash_design_names_the_route(which, dtype, hd):
+    """CPU: ``flash_design`` over every (kernel, dtype, head_dim) the
+    wrappers admit."""
+    dt = getattr(torch, dtype)
+    want = ("wgmma" if dt == torch.bfloat16 and (which, hd) in WGMMA_CALLS
+            else "fma")
+    assert ops.flash_design(which, dt, hd) == want
+
+
+def test_flash_design_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        ops.flash_design("flash_bwd", torch.bfloat16, 64)
+    with pytest.raises(TypeError):
+        ops.flash_design("flash_fwd", torch.float16, 64)
+    with pytest.raises(NotImplementedError):
+        ops.flash_design("flash_fwd", torch.bfloat16, 96)
 
 
 @pytest.mark.cuda
@@ -119,3 +161,110 @@ def test_cuda_flash_kernels_match_ref():
             assert {n: ops.LAUNCHES[n] - n0[n] for n in
                     ("flash_fwd", "flash_dq", "flash_dkv")} == \
                 {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+# (B, T, H, Hkv, hd, causal) of the wgmma cases: T a multiple of the
+# forward's 128-row query tile and ragged (130, 1000), causal and full,
+# rep 1 and 4, head_dim 64 and 128, and one case with enough (B, H)
+# blocks to fill the card.
+WGMMA_CASES = [(2, 256, 4, 4, 64, True), (2, 256, 8, 2, 64, False),
+               (2, 130, 4, 1, 64, True), (1, 1000, 4, 4, 64, False),
+               (1, 1000, 8, 2, 64, True), (2, 256, 4, 4, 128, True),
+               (2, 130, 4, 1, 128, False), (1, 1000, 4, 1, 128, True),
+               (4, 1024, 32, 32, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "B{}_T{}_H{}_Hkv{}_hd{}_{}".format(
+                             *c[:5], "causal" if c[5] else "full"))
+def test_cuda_wgmma_kernels_match_ref(case):
+    """Card only: the bf16 forward and dk/dv on the tensor cores against
+    their plain versions, to ``_close``'s bound; both bitwise repeatable;
+    the library names the design the wrapper does."""
+    _needs_card()
+    from repro_torch.kernels import build
+    B, T, H, Hkv, hd, causal = case
+    lib = build.load("flash_attn")
+    for which, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):
+        for dt in (torch.float32, torch.bfloat16):
+            design = ops.flash_design(name, dt, hd)
+            assert lib.repro_flash_design(which, hd, int(
+                dt == torch.bfloat16)) == (design == "wgmma")
+    assert ops.flash_design("flash_fwd", torch.bfloat16, hd) == "wgmma"
+    assert ops.flash_design("flash_dkv", torch.bfloat16, hd) == "wgmma"
+    assert ops.flash_design("flash_fwd", torch.float32, hd) == "fma"
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(*s, generator=g).to("cuda", torch.bfloat16)
+                   for s in ((B, T, H, hd), (B, T, Hkv, hd), (B, T, Hkv, hd),
+                             (B, T, H, hd)))
+    o, lse = ops.flash_fwd(q, k, v, causal=causal)
+    o2, lse2 = ops.flash_fwd(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rl = ref.flash_fwd_ref(q, k, v, causal=causal)
+    _close(o, ro)
+    _close(lse, rl)
+    del ro, rl
+    bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+    dk, dv = ops.flash_dkv(*bwd, causal=causal)
+    dk2, dv2 = ops.flash_dkv(*bwd, causal=causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rdk, rdv = ref.flash_dkv_ref(*bwd, causal=causal)
+    _close(dk, rdk)
+    _close(dv, rdv)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_reads_unaligned_rows():
+    """Card only: inputs whose rows do not start 16-byte aligned (a view
+    at an odd offset) reach the wgmma kernels through an aligned copy and
+    give the same outputs."""
+    _needs_card()
+    g = torch.Generator().manual_seed(2)
+    B, T, H, hd = 1, 192, 2, 64
+    flat = torch.randn(4 * B * T * H * hd + 1, generator=g).to(
+        "cuda", torch.bfloat16)
+    q, k, v, do = (flat[1 + i * B * T * H * hd:
+                        1 + (i + 1) * B * T * H * hd].view(B, T, H, hd)
+                   for i in range(4))
+    assert q.data_ptr() % 16
+    o, lse = ops.flash_fwd(q, k, v, causal=True)
+    qc, kc, vc, dc = (t.clone() for t in (q, k, v, do))
+    oc, lc = ops.flash_fwd(qc, kc, vc, causal=True)
+    assert torch.equal(o, oc) and torch.equal(lse, lc)
+    delta = ops.flash_delta(o, do)
+    got = ops.flash_dkv(q, k, v, do, lse, delta, causal=True)
+    want = ops.flash_dkv(qc, kc, vc, dc, lse, delta, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_fma_only_times_the_fma_design():
+    """Card only: while ``repro_flash_fma_only`` is set, bf16 forward and
+    dk/dv calls at head_dim 64 take the fma design (chip_smoke.py times
+    it as the earlier design), which also passes ``_close``'s bound; the
+    wgmma design takes them again once it is cleared."""
+    _needs_card()
+    from repro_torch.kernels import build
+    lib = build.load("flash_attn")
+    g = torch.Generator().manual_seed(3)
+    B, T, H, hd = 2, 256, 4, 64
+    q, k, v, do = (torch.randn(B, T, H, hd, generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    o, lse = ops.flash_fwd(q, k, v, causal=True)
+    bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+    dk, dv = ops.flash_dkv(*bwd, causal=True)
+    lib.repro_flash_fma_only(1)
+    try:
+        fo, fl = ops.flash_fwd(q, k, v, causal=True)
+        fdk, fdv = ops.flash_dkv(*bwd, causal=True)
+    finally:
+        lib.repro_flash_fma_only(0)
+    ro, rl = ref.flash_fwd_ref(q, k, v, causal=True)
+    rdk, rdv = ref.flash_dkv_ref(*bwd, causal=True)
+    for got, want in ((fo, ro), (fl, rl), (fdk, rdk), (fdv, rdv)):
+        _close(got, want)
+    o2, lse2 = ops.flash_fwd(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in
+               zip((dk, dv), ops.flash_dkv(*bwd, causal=True)))
