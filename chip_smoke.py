@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 3. kernels against their plain PyTorch versions at the shapes the main
    path gives them (AlexNet, 256 px, B = 32; Llama-3.2-1B, B = 8,
    T = 1024), plus ragged and bf16 cases: max error, kernel / plain /
-   library time, and the bound (``gram_norm_fused`` on the transposed
-   im2col views the conv path hands it, and once on a contiguous copy for
-   comparison; the flash forward, dq and dk/dv at the model's
+   library time, and the bound (``gram_norm`` and ``gram_norm_fused`` on
+   the transposed im2col views the conv path hands them, each twice to
+   show it bitwise repeatable, ``gram_norm_fused`` once more on a
+   contiguous copy for comparison; each ``gram_norm`` row names its route,
+   ``ops.gram_route``; the flash forward, dq and dk/dv at the model's
    (8, 1024, 32, 64) with rep 1 in bf16 and f32, at rep 4, full
    (non-causal) and with a ragged T, each twice to show all three
    bitwise repeatable; each flash row names its design, ``wgmma`` for
@@ -33,9 +35,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    kernel knobs and of the planned step (``strategy="auto"``) under flat
    and stale clipping, σ = 1; launch counts are reset before and read
    after each step, and one more step runs under ``torch.profiler``
-   (device busy share, top kernels).  The stale lane's first step is the
-   flat bootstrap; each later step must launch ``gram_norm_fused`` once
-   per fused layer (conv2-4).  Then, on one batch at σ = 0, the
+   (device busy share, top kernels).  ghost and bk must launch
+   ``gram_norm`` once a layer (8) each step.  The stale lane's first step
+   is the flat bootstrap; each later step must launch ``gram_norm_fused``
+   once per fused layer (conv2-4).  Then, on one batch at σ = 0, the
    ghost(kernel) norms must equal the crb(grouped-conv) norms, the
    crb(kernel) clipped sum the crb(grouped-conv) one, the fused stale
    step the unfused one on the same lagged norms, and two fused stale
@@ -204,7 +207,7 @@ def ptxas_summary(text):
                 i += d.end() + int(d.group(0))
                 part = mangled[i - int(d.group(0)):i]
             args = ("bf16" if "bfloat16" in mangled else "f32") + "".join(
-                "," + a for a in re.findall(r"Li(\d+)E", mangled))
+                "," + a for a in re.findall(r"L[ib](\d+)E", mangled))
             name = f"{part}<{args}>"
             out[name] = ""
         elif name and "spill" in ln:
@@ -292,33 +295,46 @@ def kernel_cases(torch):
         log(row)
         del x, dy
 
+    # The conv layers' operands as the conv path hands them over:
+    # transposed views of the (B, C·K, T) patches and (B, D, T)
+    # cotangents, read in place; the fc layers' (B, 1, F) rows.
     gram_cases = [(n, 32, t, di, do, "float32", True)
                   for n, t, di, do in GRAM_CASES]
     gram_cases += [("ragged", 3, 100, 70, 33, "float32", False),
+                   ("conv1_bf16", 32, 961, 1600, 192, "bfloat16", False),
                    ("conv2_bf16", 32, 225, 1728, 384, "bfloat16", False)]
     for name, b, t, di, do, dt, main in gram_cases:
         tdt = getattr(torch, dt)
-        x, dy = rnd(b, t, di, dtype=tdt), rnd(b, t, do, dtype=tdt)
+        if t > 1:
+            x = rnd(b, di, t, dtype=tdt).transpose(1, 2)
+            dy = rnd(b, do, t, dtype=tdt).transpose(1, 2)
+        else:
+            x, dy = rnd(b, t, di, dtype=tdt), rnd(b, t, do, dtype=tdt)
         got = ops.gram_norm(x, dy, has_bias=True)
+        again = ops.gram_norm(x, dy, has_bias=True)
         torch.cuda.synchronize()
         want = ref.gram_norm_ref(x, dy, has_bias=True)
         abs_err, rel_err, ok = compare(torch, got, want, dt)
+        ok = ok and bool(torch.equal(got, again))
 
         def library():
             pe = torch.bmm(x.transpose(1, 2).float(), dy.float())
             return pe.square().sum((1, 2)) + dy.float().sum(1).square().sum(1)
 
         # ‖δy_bᵀx_b‖²_F needs the cheaper of its two contractions: the
-        # Grams (2·T²·(Di+Do) per example, the kernel's route) or the
-        # direct product δy_bᵀx_b (2·T·Di·Do), which is far less at
-        # conv0 and conv1.
-        flops = 2 * b * t * min(t * (di + do), di * do)
+        # symmetric Gram pair over the token pairs t ≤ t' (T·(T+1)·(Di+Do)
+        # per example) or the direct product δy_bᵀx_b (2·T·Di·Do); at
+        # T = 1 it is rank-1 and the bytes bound it.
+        flops = 2 * b * min(t * (t + 1) * (di + do) // 2, t * di * do)
         nbytes = (x.numel() + dy.numel()) * x.element_size() + b * 4
         b_ms, b_by = bound(flops, nbytes, dt)
         row = {"kernel": "gram_norm", "case": name, "dtype": dt,
                "shape": {"B": b, "T": t, "Di": di, "Do": do},
+               "route": ops.gram_route(t, di, do),
+               "layout": "contiguous" if x.is_contiguous() else
+               "strided views",
                "max_abs_err": abs_err, "max_rel_err": rel_err,
-               "rtol": RTOL[dt], "ok": ok,
+               "rtol": RTOL[dt], "ok": ok, "bitwise_repeat": ok,
                "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm(
                    x, dy, has_bias=True), 5),
                "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_ref(
@@ -364,6 +380,7 @@ def fused_cases(torch, rnd):
             x, dy = x.contiguous(), dy.contiguous()
         w = torch.rand(b, device="cuda")
         got = ops.gram_norm_fused(x, dy, w, has_bias=True)
+        again = ops.gram_norm_fused(x, dy, w, has_bias=True)
         torch.cuda.synchronize()
         want = ref.gram_norm_fused_ref(x, dy, w, has_bias=True)
         # The norms are sums of squares; the contributions are signed sums
@@ -371,7 +388,8 @@ def fused_cases(torch, rnd):
         # error is held against rtol times the largest entry.
         errs = [compare(torch, a, c, dt, floor=f)
                 for a, c, f in zip(got, want, (1e-3, 1.0, 1.0))]
-        del got, want
+        same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+        del got, again, want
 
         def library():
             pe = torch.bmm(x.transpose(1, 2).float(), dy.float())
@@ -391,7 +409,8 @@ def fused_cases(torch, rnd):
                "strided views",
                "max_abs_err": max(e[0] for e in errs),
                "max_rel_err": max(e[1] for e in errs),
-               "rtol": RTOL[dt], "ok": all(e[2] for e in errs),
+               "rtol": RTOL[dt], "ok": all(e[2] for e in errs) and same,
+               "bitwise_repeat": same,
                "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm_fused(
                    x, dy, w, has_bias=True), 5),
                "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_fused_ref(
@@ -813,20 +832,23 @@ def main_path(torch, lanes):
          "data_s": time.perf_counter() - t0})
 
     auto = NormCfg(conv_impl="pallas")
+    steps = 3
     # (lane, strategy, clipping, norm knobs, kernels each step launches:
-    # a count per step, or None for "at least once")
+    # the count of each step, or None for "at least once").  ghost and bk
+    # take gram_norm once a layer (8); the stale lane's step 0 is the
+    # flat bootstrap (no fused pass), each later step fuses conv2-4 once.
     runs = [("crb", "crb", "flat", NormCfg(conv_impl="pallas"),
              {"pe_conv_grad_2d": None}),
             ("ghost", "ghost", "flat", NormCfg(dense="pallas", conv="pallas"),
-             {"gram_norm": None}),
+             {"gram_norm": [len(GRAM_CASES)] * steps}),
             ("bk", "bk", "flat", NormCfg(dense="pallas", conv="pallas",
                                          conv_impl="pallas"),
-             {"gram_norm": None}),
+             {"gram_norm": [len(GRAM_CASES)] * steps}),
             ("auto_flat", "auto", "flat", auto, {"pe_conv_grad_2d": None}),
             ("auto_stale", "auto", "stale", auto,
-             {"pe_conv_grad_2d": None, "gram_norm_fused": len(FUSED_CASES)})]
+             {"pe_conv_grad_2d": None,
+              "gram_norm_fused": [0] + [len(FUSED_CASES)] * (steps - 1)})]
     launches = {k: 0 for k in ops.LAUNCHES}
-    steps = 3
     for lane, strategy, clipping, norm, needs in runs:
         dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
                       norm=norm, clipping=clipping)
@@ -855,15 +877,11 @@ def main_path(torch, lanes):
             p, opt, batches[steps], step=steps))
         check(all(math.isfinite(v) for v in losses),
               f"{lane}: non-finite loss {losses}")
-        for k, n in needs.items():
+        for k, want in needs.items():
             check(counts[k] > 0, f"{lane}: kernel {k} never launched")
-            if n is not None:
-                # The stale lane's step 0 is the flat bootstrap (no fused
-                # pass); every later step fuses each planned layer once.
-                got = [c[k] for c in per_step]
-                check(got == [0] + [n] * (steps - 1),
-                      f"{lane}: {k} launches per step {got}, expected "
-                      f"0 then {n}")
+            got = [c[k] for c in per_step]
+            check(want is None or got == want,
+                  f"{lane}: {k} launches per step {got}, expected {want}")
         log({"phase": "main_path", "lane": lane, "strategy": strategy,
              "clipping": clipping, "norm": dataclass_dict(norm),
              "plan": plan, "losses": losses,
@@ -1341,6 +1359,14 @@ def summarize(rows, launches, lanes, profiled):
             "cases": [r["case"] for r in main]}
         if name == "gram_norm_tokmask":
             entry["segsum_ms"] = per_step("segsum_ms", main)
+        if name in ("gram_norm", "gram_norm_fused"):
+            entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        if name == "gram_norm":
+            entry["routes"] = {r["case"]: r["route"] for r in main}
+            entry["ms_by_route"] = {
+                route: sum(r["kernel_ms"] for r in main
+                           if r["route"] == route)
+                for route in ("direct", "gram", "rank1")}
         if name in FLASH_NAMES:
             entry["design"] = main[0]["design"]
             if "earlier_ms" in main[0]:
@@ -1368,6 +1394,7 @@ def main():
          "count": torch.cuda.device_count()})
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build

@@ -24,7 +24,9 @@ layer at a time, as the JAX package's ``lax.map`` does, so the scratch
 of a kind's realization is one layer's worth; shared scanned dense and
 scale layers fold their applications into the sequence axis instead.
 
-All reductions accumulate in float32 regardless of capture dtype.
+All reductions accumulate in float32 regardless of capture dtype; on the
+card, products of two bf16 captures are bf16 GEMMs with f32 output
+(:func:`_ee2`), as the JAX package's ``preferred_element_type`` is.
 
 The method string ``"pallas"`` keeps the JAX package's spelling so that
 ``NormCfg`` and configs stay one-to-one; here it means this repo's own
@@ -65,6 +67,25 @@ def _ee(eq, *args):
     return torch.einsum(eq, *(a.to(F32) for a in args))
 
 
+# The two-operand contractions of the kinds, each as one batched matrix
+# product: (a, b) -> (B, M, N).
+_BMM = {"bti,bto->bio": lambda a, b: (a.transpose(1, 2), b),
+        "bto,bti->boi": lambda a, b: (a.transpose(1, 2), b),
+        "btd,bsd->bts": lambda a, b: (a, b.transpose(1, 2))}
+
+
+def _ee2(eq, a, b):
+    """Two-operand einsum with a float32 result.  On the card, two bf16
+    operands multiply as one bf16 GEMM with f32 output
+    (``aten::bmm.dtype``), as the reference's
+    ``preferred_element_type=F32`` does: a product of two bf16 numbers is
+    exact in f32, so only the summation order differs from widening them
+    first.  Every other call, the CPU's included, widens to f32 first."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(*_BMM[eq](a, b), out_dtype=F32)
+    return _ee(eq, a, b)
+
+
 def _sumsq(tree):
     """Σ leaf² per example: every leaf has leading B."""
     tot = 0.0
@@ -89,9 +110,9 @@ def _flatten_seq(x):
 def dense_pe_grad(meta: LayerMeta, cap, dy):
     x, g = _flatten_seq(cap["x"]), _flatten_seq(dy)
     if meta.w_transposed:
-        w_grad = _ee("bto,bti->boi", g, x)
+        w_grad = _ee2("bto,bti->boi", g, x)
     else:
-        w_grad = _ee("bti,bto->bio", x, g)
+        w_grad = _ee2("bti,bto->bio", x, g)
     out = {meta.param_key: w_grad}
     if meta.bias_key:
         out[meta.bias_key] = g.to(F32).sum(dim=1)
@@ -108,8 +129,7 @@ def dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
         method = "gram"
     if method == "pallas":
         from repro_torch.kernels import ops as kops
-        return _realized(kops.gram_norm(x.contiguous(), g.contiguous(),
-                                        has_bias=bool(meta.bias_key)),
+        return _realized(kops.gram_norm(x, g, has_bias=bool(meta.bias_key)),
                          meta, "pallas")
     if method == "rank1":
         n = _ee("bti,bti->b", x, x) * _ee("bto,bto->b", g, g)
@@ -122,14 +142,18 @@ def dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
     if method != "gram":
         raise ValueError(f"unknown dense norm method {method!r}")
     # gram, chunked over rows to bound the (B, chunk, T) intermediate;
-    # the f32 copies of x and δy are made once, not per chunk
+    # the f32 copies of x and δy are made once, not per chunk (none for
+    # bf16 on the card: the Grams are bf16 GEMMs with f32 output, _ee2)
     chunk = costmodel.GRAM_CHUNK
     need_bias = bool(meta.bias_key)
-    xf, gf = x.to(F32), g.to(F32)
+    if x.is_cuda and x.dtype == g.dtype == torch.bfloat16:
+        xf, gf = x, g
+    else:
+        xf, gf = x.to(F32), g.to(F32)
 
     def chunk_norm(xc, gc):
-        sx = torch.einsum("bci,bti->bct", xc, xf)
-        sy = torch.einsum("bco,bto->bct", gc, gf)
+        sx = _ee2("btd,bsd->bts", xc, xf)
+        sy = _ee2("btd,bsd->bts", gc, gf)
         n = torch.einsum("bct,bct->b", sx, sy)
         if need_bias:
             n = n + sy.sum(dim=(1, 2))
@@ -208,7 +232,7 @@ def embed_norm_sq(meta: LayerMeta, cap, dy, method: str = "segsum",
         return _realized(_sumsq(embed_pe_grad(meta, cap, dy, vocab)),
                          meta, "pe")
     if method == "gram":
-        sy = _ee("btd,bsd->bts", g2, g2)
+        sy = _ee2("btd,bsd->bts", g2, g2)
         m = (ids2[:, :, None] == ids2[:, None, :]).to(F32)
         return _realized(torch.einsum("bts,bts->b", m, sy), meta, "gram")
     if method != "segsum":
@@ -595,7 +619,7 @@ def tied_embed_head_cross(cap_e, dy_e, cap_d, dy_d):
     h = _flatten_seq(cap_d["x"])                          # (B, S, D)
     S = h.shape[1]
     dl = dy_d.reshape(B, S, -1)                           # (B, S, V)
-    a = _ee("btd,bsd->bts", de, h)                        # (B, T, S)
+    a = _ee2("btd,bsd->bts", de, h)                       # (B, T, S)
     dl_at = torch.gather(dl, 2, ids2[:, None, :].expand(B, S, T))
     inner = torch.einsum("bts,bst->b", a, dl_at.to(F32))
     return 2.0 * inner

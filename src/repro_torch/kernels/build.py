@@ -3,11 +3,13 @@
 Each ``.cu`` file has a plain C interface and becomes its own shared
 library: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``,
 one ``nvcc`` per source, all started together.  Libraries are keyed by
-a hash of their source and flags and land in ``build/repro_torch_kernels/``
-at the root of the checkout (ignored by git), so a rebuilt checkout and
-an edited kernel both rebuild, and nothing stale is ever loaded.  They
-are loaded with ``ctypes``; every pointer and the stream pass as
-``c_void_p`` (a bare int would be cut to 32 bits).
+a hash of their source, every ``csrc`` header it includes (``#include
+"..."``, followed recursively) and the flags, and land in
+``build/repro_torch_kernels/`` at the root of the checkout (ignored by
+git), so a rebuilt checkout and an edited kernel or header all rebuild,
+and nothing stale is ever loaded.  They are loaded with ``ctypes``;
+every pointer and the stream pass as ``c_void_p`` (a bare int would be
+cut to 32 bits).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import time
 
@@ -31,9 +34,10 @@ ENTRY_POINTS = {
         "repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 10 + [_P],
         "repro_pe_conv_grad_1d": [_P, _P, _P] + [_I] * 7 + [_P]},
     "gram_norm": {
-        "repro_gram_norm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-        "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 5
-                                 + [_I] * 7 + [_P],
+        "repro_gram_norm": ([_P] + [_L] * 3) * 2 + [_P] * 4 + [_I] * 13
+                           + [_P],
+        "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 7
+                                 + [_I] * 11 + [_P],
         "repro_gram_norm_tokmask": [_P] * 4 + [_I] * 4 + [_P]},
     "flash_attn": {
         "repro_flash_fwd": ([_P] + [_L] * 3) * 3 + [_P] * 2 + [_I] * 8
@@ -55,9 +59,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(stem: str) -> list[pathlib.Path]:
+    """``csrc/<stem>.cu`` and every header it includes with quotes,
+    recursively, in first-seen order."""
+    seen, todo = [], [CSRC / f"{stem}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _lib_path(stem: str) -> pathlib.Path:
     h = hashlib.sha256()
-    h.update((CSRC / f"{stem}.cu").read_bytes())
+    for path in sources(stem):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,312 +1,668 @@
 // Per-example ghost norms, alone (repro_gram_norm), fused with the
-// weighted contribution (repro_gram_norm_fused, below) and for an
-// embedding gather (repro_gram_norm_tokmask, last), as hand-written
-// kernels for Hopper (sm_90a).
+// weighted contribution (repro_gram_norm_fused) and for an embedding
+// gather (repro_gram_norm_tokmask, last), as hand-written kernels for
+// Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/gram_norm.py : gram_norm
-//           (Pallas body _gram_kernel).
+//           (Pallas body _gram_kernel), and gram_norm_fused
+//           (Pallas body _gram_fused_kernel).
 //
-//   out[b] = sum_{t, t'} (x_bt . x_bt') (dy_bt . dy_bt')
-//            [+ sum_{t, t'} dy_bt . dy_bt'   with a bias]
-//          = ||dy_b^T x_b||_F^2 [+ ||sum_t dy_bt||^2]
+//   n[b] = ||dy_b^T x_b||_F^2        [+ ||sum_t dy_bt||^2   with a bias]
+//        = sum_{t, t'} (x_bt . x_bt') (dy_bt . dy_bt') [+ ...]
+//   c    = sum_b w_b x_b^T dy_b      (Di x Do, row-major; fused only)
+//   cb   = sum_b w_b sum_t dy_bt     (Do; zeros without a bias; fused only)
 //
-// x is (B, T, Di), dy is (B, T, Do), f32 or bf16; the output is (B,) f32.
-// The per-example gradient (Di x Do) and the T x T Gram matrices never
-// reach device memory.
+// x is (B, T, Di) and dy (B, T, Do), f32 or bf16, each read through its
+// own three strides with 64-bit offsets, so the transposed im2col view of
+// a conv layer, (B, C K, T) seen as (B, T, C K), is read in place; w is
+// (B,) f32.  The per-example gradient never reaches device memory.
 //
-// What bounds it on this card: operations.  The Gram tiles cost
-// 2 B T^2 (Di + Do) FLOP for B T (Di + Do) values read, so T FLOP per
-// value: at AlexNet's conv0 (B = 32, T = 3969) that is 4.3e11 FLOP
-// against 0.2 GB.  Only the fc layers (T = 1) are bound by bytes.
+// What bounds it on this card: operations, except at T = 1.  The norm
+// needs the cheaper of two contractions per example: the per-example
+// product x_b^T dy_b (2 T Di Do FLOP) or the Gram pair x_b x_b^T,
+// dy_b dy_b^T over the token pairs t <= t' (T (T + 1) (Di + Do) FLOP).
+// At AlexNet's conv0 (T = 3969, Di = 363, Do = 64) the product is 37x
+// cheaper; at conv2-4 (T = 225) the symmetric Gram is 1.5-3x cheaper.
+// At T = 1 (the fc layers) the norm is rank-1, ||x_b||^2 ||dy_b||^2, and
+// bytes bound it.  The fused outputs need the product itself.
 //
-// What the design does about it: one block per (i-tile, j-tile, example)
-// with 64 x 64 tiles of x x^T and dy dy^T built in registers (4 x 4 per
-// thread, f32 FMA) from 16-deep chunks staged in shared memory, then
-// sum(gx * gy) reduced inside the block by a fixed tree.  Blocks write
-// one partial each to a (B, nT, nT) scratch, and a second kernel sums
-// each example's partials in a fixed order: no fp32 atomics, so the
-// result is deterministic.  T needs no padding (rows past T load as 0),
-// so T = 1 runs as one tile.  Not yet done: the symmetry of the Gram
-// (only j >= i tiles, off-diagonal ones twice) would halve the work, and
-// the tensor cores are unused (PERF.md).
+// What the design does about it.  ops.gram_route picks the route per call
+// (route below: 0 rank-1, 1 direct product, 2 symmetric Gram):
+//   * the per-example product core (direct_kernel, direct_wgmma_kernel):
+//     one block of 256 threads per 128 x 64 tile of x_b^T dy_b (Di rows,
+//     Do columns) and z-slice, walking t in stages (a last, partial stage
+//     multiplies only its rows).  A z-slice is one
+//     example and one chunk of T for the norm (T is cut into S chunks
+//     where the tiles alone would leave SMs idle, as at conv0: each chunk
+//     writes its tile, and split_sum_kernel adds the chunks in order
+//     before squaring), or one group of examples for the fused pass
+//     (each group writes its own slot of c, summed in order by
+//     sum_groups_kernel).  The tile's square-sum goes to a per-(b, tile)
+//     partial; with w, w_b times the tile accumulates in registers.
+//       f32: CUDA-core FMAs (TF32 would miss rtol 1e-4), an 8 x 4
+//       register tile per thread fed by 16-byte shared-memory reads
+//       along the tile's rows, the operands staged 32 deep through a
+//       3-stage cp.async ring that runs on from one example into the
+//       next: 16-byte copies where the feature axis is contiguous and
+//       16-byte aligned, else 4-byte copies along the contiguous axis,
+//       transposed into the tile (AlexNet's im2col views are t-major
+//       with T odd, so they take these);
+//       bf16: wgmma m64n64k16 with f32 accumulators, two warpgroups each
+//       owning 64 rows, x_b^T as a K-major (t contiguous) or MN-major
+//       (Di contiguous) A operand and dy_b as a K-major or MN-major B,
+//       from 128-byte-swizzled tiles 64 deep through a 2-stage ring
+//       (16-byte cp.async where aligned, plain loads otherwise);
+//   * the symmetric Gram (gram_kernel): one block per tile pair j >= i of
+//     64 token rows and example, both Grams formed in registers (4 x 4 a
+//     thread) with the same staging and ring (16-byte copies where t is
+//     contiguous and aligned), the off-diagonal pairs counted twice.
+//     bf16 stays on FMAs here (plain loads, f32 arithmetic);
+//   * rank-1 (rank1_kernel): one block per example reads x_b and dy_b
+//     once.
+// The bias terms come from the column sums sum_t dy_bt (colsum_kernel),
+// one read of dy.  Every sum is taken in a fixed order (register tiles
+// in t order, a warp butterfly and then warp 0 over the warps, partials
+// per example in order): no fp32 atomics, and two runs on the same inputs
+// are bitwise equal.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BT = 64;   // rows (t) of a Gram tile
-constexpr int BK = 16;   // depth of one staged chunk of features
-constexpr int NT = 256;  // threads per block (16 x 16, 4 x 4 entries each)
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 256;      // threads of every block here
+constexpr int BK = 32;       // contraction depth of an FMA stage
+constexpr int STAGES = 3;    // cp.async ring of the FMA cores
+constexpr int DBM = 128;     // direct tile: Di rows
+constexpr int DBN = 64;      //              Do columns
+constexpr int TILE_E = DBM * DBN;
+constexpr int GT = 64;       // Gram tile: GT x GT token pairs
+constexpr int WK = 64;       // t depth of a wgmma stage
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// acc[i][j] = sum_k A[i0 + ty + 16 i, k] * A[j0 + tx + 16 j, k] for a
-// (Tn, F) row-major A; rows past Tn count as zero.
-template <typename T>
-__device__ __forceinline__ void gram_tile(const T* __restrict__ A, int Tn,
-                                          int F, int i0, int j0,
-                                          float (*Si)[BT + 1],
-                                          float (*Sj)[BT + 1],
-                                          float acc[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int lk = tid % BK;
-  const int lm0 = tid / BK;  // 0..15
+// Sum of v over the block in a fixed order: a butterfly inside each warp,
+// then thread 0 adds the warps' sums in order.  Valid in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < F; k0 += BK) {
-    const int k = k0 + lk;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int m = lm0 + 16 * q;
-      const int ti = i0 + m;
-      const int tj = j0 + m;
-      Si[lk][m] = (k < F && ti < Tn) ? to_f32(A[(size_t)ti * F + k]) : 0.f;
-      Sj[lk][m] = (k < F && tj < Tn) ? to_f32(A[(size_t)tj * F + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Si[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Sj[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Fixed-order tree sum of red[0..NT) into red[0].
-__device__ __forceinline__ void block_tree_sum(float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red may still be read by a previous call
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
-#pragma unroll
-  for (int stride = NT / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) gram_partial_kernel(
-    const T* __restrict__ x, const T* __restrict__ dy,
-    float* __restrict__ partial, int Tn, int Di, int Do, int has_bias) {
-  const int nT = gridDim.x;
-  const int bj = blockIdx.x;
-  const int bi = blockIdx.y;
-  const int b = blockIdx.z;
-  __shared__ float Si[BK][BT + 1];
-  __shared__ float Sj[BK][BT + 1];
-  __shared__ float red[NT];
-
-  float gx[4][4], gy[4][4];
-  gram_tile(x + (size_t)b * Tn * Di, Tn, Di, bi * BT, bj * BT, Si, Sj, gx);
-  gram_tile(dy + (size_t)b * Tn * Do, Tn, Do, bi * BT, bj * BT, Si, Sj, gy);
   float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      s += has_bias ? fmaf(gx[i][j], gy[i][j], gy[i][j]) : gx[i][j] * gy[i][j];
-  red[threadIdx.x] = s;
-  block_tree_sum(red);
-  if (threadIdx.x == 0) partial[((size_t)b * nT + bi) * nT + bj] = red[0];
-}
-
-// out[b] = sum of example b's n partials, in a fixed order.
-__global__ void __launch_bounds__(NT) gram_sum_kernel(
-    const float* __restrict__ partial, float* __restrict__ out, int n) {
-  __shared__ float red[NT];
-  const float* pb = partial + (size_t)blockIdx.x * n;
-  float s = 0.f;
-  for (int t = threadIdx.x; t < n; t += NT) s += pb[t];
-  red[threadIdx.x] = s;
-  block_tree_sum(red);
-  if (threadIdx.x == 0) out[blockIdx.x] = red[0];
-}
-
-}  // namespace
-
-// x: (B, T, Di), dy: (B, T, Do), contiguous, same type (is_bf16);
-// partial: (B, nT, nT) f32 scratch with nT = ceil(T / 64); out: (B,) f32.
-// Returns cudaGetLastError() after both launches (0 = launched).
-extern "C" int repro_gram_norm(const void* x, const void* dy, void* partial,
-                               void* out, int B, int Tn, int Di, int Do,
-                               int has_bias, int is_bf16, void* stream) {
-  const int nT = (Tn + BT - 1) / BT;
-  dim3 grid(nT, nT, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    gram_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(partial),
-        Tn, Di, Do, has_bias);
-  } else {
-    gram_partial_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(partial), Tn, Di, Do, has_bias);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gram_sum_kernel<<<B, NT, 0, s>>>(static_cast<const float*>(partial),
-                                   static_cast<float*>(out), nT * nT);
-  return static_cast<int>(cudaGetLastError());
+  if (threadIdx.x == 0)
+    for (int w = 0; w < NT / 32; ++w) s += red[w];
+  return s;
 }
 
 // ---------------------------------------------------------------------------
-// Fused ghost norm + weighted contribution.
-//
-// Replaces: src/repro/kernels/gram_norm.py : gram_norm_fused
-//           (Pallas body _gram_fused_kernel).
-//
-//   n[b] = ||x_b^T dy_b||_F^2   [+ ||sum_t dy_bt||^2   with a bias]
-//   c    = sum_b w_b x_b^T dy_b                (Di x Do, row-major)
-//   cb   = sum_b w_b sum_t dy_bt               (Do; zeros without a bias)
-//
-// x is (B, T, Di) and dy (B, T, Do), f32 or bf16, each read through its
-// own three strides, so the transposed im2col view of a conv layer,
-// (B, C K, T) seen as (B, T, C K), is read in place; w is (B,) f32.
-//
-// What bounds it on this card: operations.  Both outputs come from the
-// per-example products x_b^T dy_b, 2 B T Di Do FLOP (at AlexNet's conv3,
-// B = 32, T = 225, Di = 3456, Do = 256: 1.3e10 FLOP for 0.11 GB read).
-// The TPU kernel's Gram route would cost 2 B T^2 (Di + Do) more.
-//
-// What the design does about it: the work is exactly those products.
-// One block owns one 64 x 64 tile of the contribution (Di-tile, Do-tile)
-// for one group of examples, and walks that group in order.  For example
-// b it forms its tile of x_b^T dy_b in registers (4 x 4 per thread, f32
-// FMA) from 16-row chunks of t staged in shared memory, adds the tile's
-// square-sum to a per-(b, tile) partial (fixed tree inside the block),
-// and adds w_b times the tile to a register accumulator that it writes
-// once at the end.  The blocks of Di-tile 0 also sum their dy columns
-// over t, for the bias terms.  The (Di, Do) tiles alone are 144-216
-// blocks at AlexNet's conv2-4, about one per SM, too few to hide the
-// load latency; so the batch is split into G groups (the wrapper picks
-// G from the tile count and the SM count), each group's contribution
-// goes to its own slot, and sum_groups_kernel adds the G slots in order.
-// The norm partials are summed per example by gram_sum_kernel in a fixed
-// order.  No fp32 atomics: two runs on the same inputs are bitwise
-// equal.  Not yet done: tensor cores.
-namespace {
+// The FMA cores.  Shared tiles hold f32 in one layout: an operand A(k, m)
+// (k the contraction, m the tile's BM rows) at s[k * (BM + 4) + m], so a
+// thread reads its rows as 16-byte vectors along m; with the 4 floats of
+// padding, a warp's 4-byte copies along k (8 k by 4 m, below) land in 32
+// distinct banks.
+template <int BM>
+__host__ __device__ constexpr int pitch() {
+  return BM + 4;
+}
 
-constexpr int FT = 64;  // rows (Di) and columns (Do) of a contribution tile
+// One operand's staging.  Copies A(k, m) = base[k sk + m sm] for k in
+// [k0, K) and m in [m0, min(m0 + BM, M)), BK values of k a stage, for
+// consecutive examples bstep apart; entries outside are 0.  mode 16:
+// 16-byte cp.async, 4 m a copy (sm = 1, rows 16-byte aligned); 4: 4-byte
+// cp.async (f32), consecutive threads along the operand's contiguous
+// axis (k when sk = 1, else m); 0: plain loads (bf16), as 4.  The
+// addresses are formed once; a stage adds one offset.
+template <int BM, typename T>
+struct Stager {
+  const T* base;  // a valid address, for empty copies
+  const T* p;     // this thread's first copy at stage 0
+  long long step, di, bstep;
+  int soff, sdi, k, kdi, m, mdi, K, M, mode;
 
-// Stage rows t0 .. t0+BK of columns f0 .. f0+FT of a (T, F) operand read
-// through strides (st, sf) into S[t][f]; out-of-range entries are 0.
-// Threads walk the operand's contiguous axis fastest.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ A, long long st,
-                                      long long sf, int Tn, int F, int t0,
-                                      int f0, float (*S)[FT + 1]) {
-  const bool t_fast = (st == 1 && sf != 1);
-  for (int e = threadIdx.x; e < BK * FT; e += NT) {
-    const int kt = t_fast ? e % BK : e / FT;
-    const int kf = t_fast ? e / BK : e % FT;
-    const int t = t0 + kt;
-    const int f = f0 + kf;
-    S[kt][kf] = (t < Tn && f < F) ? to_f32(A[t * st + f * sf]) : 0.f;
+  __device__ __forceinline__ Stager(const T* base_, long long sk,
+                                    long long sm, long long bstep_, int K_,
+                                    int M_, int k0, int m0, int mode_)
+      : base(base_), bstep(bstep_), K(K_), M(M_) {
+    const int tid = threadIdx.x;
+    mode = !std::is_same<T, float>::value ? 0
+           : (mode_ == 16 && sm != 1) ? 4
+                                      : mode_;
+    if (mode == 16) {
+      kdi = NT / (BM / 4), mdi = 0;
+      k = tid / (BM / 4), m = 4 * (tid % (BM / 4));
+    } else if (sk == 1) {
+      // A warp covers 8 k by 4 m: 32-byte runs along k, and the copies
+      // land in 32 distinct banks.
+      const int lane = tid % 32, warp = tid / 32;
+      kdi = 0, mdi = NT / BK;
+      k = lane % 8 + 8 * (warp % (BK / 8));
+      m = lane / 8 + 4 * (warp / (BK / 8));
+    } else {
+      kdi = NT / BM, mdi = 0, k = tid / BM, m = tid % BM;
+    }
+    soff = k * pitch<BM>() + m;
+    sdi = kdi * pitch<BM>() + mdi;
+    k += k0;
+    m += m0;
+    p = base + (long long)k * sk + (long long)m * sm;
+    step = (long long)BK * sk;
+    di = (long long)kdi * sk + (long long)mdi * sm;
+  }
+
+  // Stage c of example e (counted from the first) into the tile s.
+  __device__ __forceinline__ void operator()(float* s, int e, int c) const {
+    const T* pc = p + e * bstep + c * step;
+    const int kc = k + c * BK;
+    if (mode == 16) {
+      const uint32_t sb = smem_u32(s + soff);
+#pragma unroll
+      for (int i = 0; i < BK * BM / 4 / NT; ++i) {
+        const int n = kc + i * kdi < K ? min(max(M - m, 0), 4) : 0;
+        cp_async16(sb + 4 * i * sdi, n ? pc + i * di : base, 4 * n);
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BM / NT; ++i) {
+      const bool ok = kc + i * kdi < K && m + i * mdi < M;
+      if constexpr (std::is_same<T, float>::value)
+        cp_async4(smem_u32(s + soff + i * sdi), ok ? pc + i * di : base,
+                  ok ? 4 : 0);
+      else
+        s[soff + i * sdi] = ok ? to_f32(pc[i * di]) : 0.f;
+    }
+  }
+};
+
+// The thread's coordinates (tx, ty) in the 16 x 16 grid of a block: a
+// warp covers 4 tx by 8 ty, so its fragment reads touch 8 rows of A and
+// 4 of B, one shared-memory wavefront each.
+__device__ __forceinline__ int tile_tx() {
+  return (threadIdx.x / 32) % 4 * 4 + threadIdx.x % 4;
+}
+__device__ __forceinline__ int tile_ty() {
+  return (threadIdx.x / 128) * 8 + (threadIdx.x % 32) / 4;
+}
+
+// Row of the tile held at fragment row r by thread coordinate q (ty for
+// A, tx for B): two 16-byte vectors of 4 rows, 64 rows apart.
+__device__ __forceinline__ int frag_row(int q, int r) {
+  return 64 * (r / 4) + 4 * q + r % 4;
+}
+
+// Runs nb examples' products one after another through one STAGES-deep
+// ring, klen rows of k each: acc[r][c] = sum over k of
+// A(k, frag_row(ty, r)) * B(k, frag_row(tx, c)), in k order, then
+// epi(e, acc) at the end of example e; acc keeps the last example's
+// product.  The next example's stages load while the current one
+// finishes; an example's last stage multiplies only its rows (AlexNet's
+// T = 225 and 961 leave 1 of 32).  Every thread of the block calls it;
+// the ring is free again when it returns.
+template <int TM, int TN, typename T, typename Epi>
+__device__ __forceinline__ void tile_stream(const Stager<16 * TM, T>& sa,
+                                            const Stager<16 * TN, T>& sb,
+                                            int nb, int klen, float* As,
+                                            float* Bs, float (&acc)[TM][TN],
+                                            Epi epi) {
+  constexpr int PA = pitch<16 * TM>(), PB = pitch<16 * TN>();
+  constexpr int SA = BK * PA, SB = BK * PB;
+  const int tx = tile_tx(), ty = tile_ty();
+  const int nk = (klen + BK - 1) / BK;
+  const int rem = klen - (nk - 1) * BK;  // rows of an example's last stage
+  const int n = nb * nk;
+  int le = 0, lc = 0;  // the next stage to load: example, stage
+  auto load = [&](int slot) {
+    sa(As + slot * SA, le, lc);
+    sb(Bs + slot * SB, le, lc);
+    if (++lc == nk) lc = 0, ++le;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s);
+    cp_commit();
+  }
+  int ce = 0, cc = 0;  // the stage to compute
+  for (int s = 0; s < n; ++s) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed; stage s - 1 is consumed
+    if (s + STAGES - 1 < n) load((s + STAGES - 1) % STAGES);
+    cp_commit();
+    if (cc == 0) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+    }
+    const float* as = As + (s % STAGES) * SA + 4 * ty;
+    const float* bs = Bs + (s % STAGES) * SB + 4 * tx;
+    // Fragments of step kk + 1 load while step kk multiplies.
+    float av[2][TM], bv[2][TN];
+    auto frags = [&](int kk, float* a, float* b) {
+#pragma unroll
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(as + kk * PA + 64 * g);
+        a[4 * g] = f.x, a[4 * g + 1] = f.y, a[4 * g + 2] = f.z,
+        a[4 * g + 3] = f.w;
+      }
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(bs + kk * PB + 64 * g);
+        b[4 * g] = f.x, b[4 * g + 1] = f.y, b[4 * g + 2] = f.z,
+        b[4 * g + 3] = f.w;
+      }
+    };
+    auto fma_step = [&](const float* a, const float* b) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    };
+    if (cc < nk - 1 || rem == BK) {
+      frags(0, av[0], bv[0]);
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        if (kk + 1 < BK) frags(kk + 1, av[(kk + 1) % 2], bv[(kk + 1) % 2]);
+        fma_step(av[kk % 2], bv[kk % 2]);
+      }
+    } else {
+      for (int kk = 0; kk < rem; ++kk) {
+        frags(kk, av[0], bv[0]);
+        fma_step(av[0], bv[0]);
+      }
+    }
+    if (++cc == nk) {
+      epi(ce, acc);
+      cc = 0;
+      ++ce;
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// The z-slice of a product-core block: examples [b0, b1), t in [t0, t1).
+// Norm only (w == null): z = b S + s, chunk s of T; fused: z = group.
+struct Slice {
+  int b0, b1, t0, t1;
+};
+__device__ __forceinline__ Slice slice_of(int z, const float* w, int B,
+                                          int Tn, int Bg, int S,
+                                          int tchunk) {
+  if (w) return {z * Bg, min(B, (z + 1) * Bg), 0, Tn};
+  const int t0 = (z % S) * tchunk;
+  return {z / S, z / S + 1, t0, min(Tn, t0 + tchunk)};
+}
+
+// Per-example product core on f32 FMAs.  Grid (Di-tiles x Do-tiles,
+// z-slices).  W: the fused pass (w given).  (A 128 x 128 tile, 8 x 8 a
+// thread, needs about 190 registers and so runs one block an SM; it
+// measured slower than this one.)
+template <bool W>
+__global__ void __launch_bounds__(NT, 2) direct_kernel(
+    const float* __restrict__ x, long long sxb, long long sxt, long long sxi,
+    const float* __restrict__ dy, long long syb, long long syt,
+    long long syo, int B, int Tn, int Di, int Do, int Bg, int S, int tchunk,
+    int xmode, int ymode, const float* __restrict__ w,
+    float* __restrict__ partial, float* __restrict__ split,
+    float* __restrict__ cc) {
+  constexpr int TN = 4, BN = DBN;
+  extern __shared__ __align__(16) float ring[];
+  float* As = ring;
+  float* Bs = ring + STAGES * BK * pitch<DBM>();
+  __shared__ float red[NT / 32];
+  const int tx = tile_tx(), ty = tile_ty();
+  const int n_tiles = gridDim.x, tile = blockIdx.x;
+  const int nO = (Do + BN - 1) / BN;
+  const int i0 = (tile / nO) * DBM, o0 = (tile % nO) * BN;
+  const Slice sl = slice_of(blockIdx.y, w, B, Tn, Bg, S, tchunk);
+  // A(k = t, m = i) = x[b, t, i]; B(k = t, n = o) = dy[b, t, o].
+  const Stager<DBM, float> sx(x + sl.b0 * sxb, sxt, sxi, sxb, sl.t1, Di,
+                              sl.t0, i0, xmode);
+  const Stager<BN, float> sy(dy + sl.b0 * syb, syt, syo, syb, sl.t1, Do,
+                             sl.t0, o0, ymode);
+  float acc[8][TN], cacc[8][TN] = {};
+  tile_stream<8, TN>(
+      sx, sy, sl.b1 - sl.b0, sl.t1 - sl.t0, As, Bs, acc,
+      [&](int e, float (&a)[8][TN]) {
+        const int b = sl.b0 + e;
+        if (S == 1) {
+          float sq = 0.f;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < TN; ++c) sq = fmaf(a[r][c], a[r][c], sq);
+          sq = block_sum(sq, red);
+          if (threadIdx.x == 0) partial[(size_t)b * n_tiles + tile] = sq;
+        } else {
+          float* dst =
+              split + ((size_t)blockIdx.y * n_tiles + tile) * TILE_E;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < TN; ++c)
+              dst[frag_row(ty, r) * BN + frag_row(tx, c)] = a[r][c];
+        }
+        if constexpr (W) {
+          const float wb = w[b];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < TN; ++c)
+              cacc[r][c] = fmaf(wb, a[r][c], cacc[r][c]);
+        }
+      });
+  if constexpr (W) {
+    float* c = cc + (size_t)blockIdx.y * Di * Do;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = i0 + frag_row(ty, r);
+#pragma unroll
+      for (int q = 0; q < TN; ++q) {
+        const int o = o0 + frag_row(tx, q);
+        if (i < Di && o < Do) c[(size_t)i * Do + o] = cacc[r][q];
+      }
+    }
   }
 }
 
+// Symmetric Gram pair.  Grid (tile pairs j >= i of GT token rows, B).
+// The contraction runs over features: A(k = f, m = t) = x[b, t, f].
 template <typename T>
-__global__ void __launch_bounds__(NT) gram_fused_kernel(
+__global__ void __launch_bounds__(NT, 2) gram_kernel(
     const T* __restrict__ x, long long sxb, long long sxt, long long sxi,
     const T* __restrict__ dy, long long syb, long long syt, long long syo,
-    const float* __restrict__ w, float* __restrict__ partial,
-    float* __restrict__ cc, int B, int Bg, int Tn, int Di, int Do,
-    int has_bias) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int o0 = blockIdx.x * FT;
-  const int i0 = blockIdx.y * FT;
-  const int n_tiles = gridDim.x * gridDim.y;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const bool bias_block = has_bias && blockIdx.y == 0 && tid < FT;
-  __shared__ float Xs[BK][FT + 1];
-  __shared__ float Ys[BK][FT + 1];
-  __shared__ float red[NT];
-
-  float cacc[4][4];
+    int Tn, int Di, int Do, int xmode, int ymode,
+    float* __restrict__ partial) {
+  extern __shared__ __align__(16) float ring[];
+  float* As = ring;
+  float* Bs = ring + STAGES * BK * pitch<GT>();
+  __shared__ float red[NT / 32];
+  const int nT = (Tn + GT - 1) / GT;
+  int p = blockIdx.x, i = 0;
+  while (p >= nT - i) {
+    p -= nT - i;
+    ++i;
+  }
+  const int j = i + p, b = blockIdx.y;
+  const T* xb = x + b * sxb;
+  const T* yb = dy + b * syb;
+  auto none = [](int, float (&)[4][4]) {};
+  float gx[4][4], gy[4][4];
+  tile_stream<4, 4>(Stager<GT, T>(xb, sxi, sxt, 0, Di, Tn, 0, i * GT, xmode),
+                    Stager<GT, T>(xb, sxi, sxt, 0, Di, Tn, 0, j * GT, xmode),
+                    1, Di, As, Bs, gx, none);
+  tile_stream<4, 4>(Stager<GT, T>(yb, syo, syt, 0, Do, Tn, 0, i * GT, ymode),
+                    Stager<GT, T>(yb, syo, syt, 0, Do, Tn, 0, j * GT, ymode),
+                    1, Do, As, Bs, gy, none);
+  float s = 0.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) cacc[r][q] = 0.f;
-  float cbacc = 0.f;
+    for (int c = 0; c < 4; ++c) s = fmaf(gx[r][c], gy[r][c], s);
+  s = block_sum(s, red);
+  if (threadIdx.x == 0)
+    partial[(size_t)b * gridDim.x + blockIdx.x] = (i == j ? 1.f : 2.f) * s;
+}
 
-  const int b1 = min(B, (blockIdx.z + 1) * Bg);
-  for (int b = blockIdx.z * Bg; b < b1; ++b) {
-    const T* xb = x + b * sxb;
-    const T* yb = dy + b * syb;
-    float acc[4][4];
+// ---------------------------------------------------------------------------
+// The per-example product core on the tensor cores (bf16).
+constexpr int WX = DBM * WK * 2;  // bytes of an x tile (128 x 64 bf16)
+constexpr int WY = DBN * WK * 2;  // bytes of a dy tile (64 x 64)
+constexpr int WSMEM = 2 * (WX + WY) + 1024;
+
+// The row-major view V(r, c) = src[r sr + c sc], rows [r0, r0 + R) and
+// columns [c0, c0 + C), into the swizzled tile at dst; entries with
+// r >= Rn or c >= Cn are 0.  vec: 16-byte cp.async (sc = 1; sr, c0 and
+// src 16-byte aligned); else plain loads and a 16-byte shared store.
+template <int R, int C>
+__device__ __forceinline__ void load_sw(uint32_t dst,
+                                        const bf16* __restrict__ src,
+                                        long long sr, long long sc, int r0,
+                                        int Rn, int c0, int Cn, bool vec) {
+  constexpr int CPR = C / 8, N = R * CPR;
+  static_assert(N % NT == 0, "chunks must divide over threads");
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < N / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / CPR, c = e % CPR;
+    const int row = r0 + r, col = c0 + 8 * c;
+    const uint32_t d = dst + chunk_off<R>(r, c);
+    if (vec) {
+      const int valid = row < Rn ? min(max(Cn - col, 0), 8) : 0;
+      cp_async16(d, valid ? src + (long long)row * sr + col : src,
+                 2 * valid);
+    } else {
+      const bf16* rp = src + (long long)row * sr + (long long)col * sc;
+      const int n = row < Rn ? min(max(Cn - col, 0), 8) : 0;
+      uint32_t v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-    float colsum = 0.f;
-    for (int t0 = 0; t0 < Tn; t0 += BK) {
-      stage(xb, sxt, sxi, Tn, Di, t0, i0, Xs);
-      stage(yb, syt, syo, Tn, Do, t0, o0, Ys);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = Xs[kk][ty + 16 * r];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = Ys[kk][tx + 16 * q];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], v[q], acc[r][q]);
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t lo =
+            2 * q < n ? __bfloat16_as_ushort(rp[2 * q * sc]) : 0;
+        const uint32_t hi =
+            2 * q + 1 < n ? __bfloat16_as_ushort(rp[(2 * q + 1) * sc]) : 0;
+        v[q] = lo | (hi << 16);
       }
-      if (bias_block) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) colsum += Ys[kk][tid];
-      }
-      __syncthreads();
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
+                   "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                   : "memory");
     }
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s = fmaf(acc[r][q], acc[r][q], s);
-    if (bias_block) s = fmaf(colsum, colsum, s);
-    red[tid] = s;
-    block_tree_sum(red);
-    if (tid == 0) partial[(size_t)b * n_tiles + tile] = red[0];
-    const float wb = w[b];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) cacc[r][q] = fmaf(wb, acc[r][q], cacc[r][q]);
-    cbacc = fmaf(wb, colsum, cbacc);
   }
+}
 
-  // This group's slot: c (Di x Do), then cb (Do).
-  float* c = cc + (size_t)blockIdx.z * ((size_t)Di * Do + Do);
+// Grid and outputs as direct_kernel.  XT / YT: x's / dy's t axis is the
+// contiguous one, so its tile is [feature][t] and a K-major operand; else
+// [t][feature], MN-major.  Warpgroup g owns rows 64 g .. 64 g + 63; a
+// thread holds rows row0, row0 + 8 and columns 8 j + col0 + {0, 1} of
+// them (wgmma's accumulator fragment).
+template <bool XT, bool YT>
+__global__ void __launch_bounds__(NT) direct_wgmma_kernel(
+    const bf16* __restrict__ x, long long sxb, long long sxt, long long sxi,
+    const bf16* __restrict__ dy, long long syb, long long syt, long long syo,
+    int B, int Tn, int Di, int Do, int Bg, int S, int tchunk, int xvec,
+    int yvec, const float* __restrict__ w, float* __restrict__ partial,
+    float* __restrict__ split, float* __restrict__ cc) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float red[NT / 32];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n_tiles = gridDim.x, tile = blockIdx.x;
+  const int nO = (Do + DBN - 1) / DBN;
+  const int i0 = (tile / nO) * DBM, o0 = (tile % nO) * DBN;
+  const Slice sl = slice_of(blockIdx.y, w, B, Tn, Bg, S, tchunk);
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int row0 = 64 * wgi + 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float cacc[32] = {};
+  for (int b = sl.b0; b < sl.b1; ++b) {
+    const bf16* xb = x + b * sxb;
+    const bf16* yb = dy + b * syb;
+    float acc[32];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
+    for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+    const int nk = (sl.t1 - sl.t0 + WK - 1) / WK;
+    auto load = [&](int c) {
+      const uint32_t xs = base + (c % 2) * (WX + WY), ys = xs + WX;
+      const int tc = sl.t0 + c * WK;
+      if (XT)
+        load_sw<DBM, WK>(xs, xb, sxi, sxt, i0, Di, tc, sl.t1, xvec);
+      else
+        load_sw<WK, DBM>(xs, xb, sxt, sxi, tc, sl.t1, i0, Di, xvec);
+      if (YT)
+        load_sw<DBN, WK>(ys, yb, syo, syt, o0, Do, tc, sl.t1, yvec);
+      else
+        load_sw<WK, DBN>(ys, yb, syt, syo, tc, sl.t1, o0, Do, yvec);
+      cp_commit();
+    };
+    load(0);
+    for (int c = 0; c < nk; ++c) {
+      if (c + 1 < nk) {
+        load(c + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      fence_async_smem();
+      __syncthreads();
+      const uint32_t xs = base + (c % 2) * (WX + WY), ys = xs + WX;
+      wg_fence();
 #pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) {
+        const uint64_t da = XT ? kmajor<DBM>(xs, 64 * wgi, kk)
+                               : mnmajor<WK>(xs + wgi * (WK * 128), kk);
+        const uint64_t db = YT ? kmajor<DBN>(ys, 0, kk) : mnmajor<WK>(ys, kk);
+        mma_ss<XT ? 0 : 1, YT ? 0 : 1>(acc, da, db);
+      }
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      __syncthreads();  // both warpgroups are done with this stage
+    }
+    if (S == 1) {
+      float sq = 0.f;
+#pragma unroll
+      for (int q = 0; q < 32; ++q) sq = fmaf(acc[q], acc[q], sq);
+      sq = block_sum(sq, red);
+      if (threadIdx.x == 0) partial[(size_t)b * n_tiles + tile] = sq;
+    } else {
+      float* dst = split + ((size_t)blockIdx.y * n_tiles + tile) * TILE_E;
+#pragma unroll
+      for (int q = 0; q < 32; ++q)
+        dst[(row0 + 8 * ((q / 2) % 2)) * DBN + 8 * (q / 4) + col0 + q % 2] =
+            acc[q];
+    }
+    if (w) {
+      const float wb = w[b];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) cacc[q] = fmaf(wb, acc[q], cacc[q]);
+    }
+  }
+  if (w) {
+    float* c = cc + (size_t)blockIdx.y * Di * Do;
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int i = i0 + row0 + 8 * ((q / 2) % 2);
+      const int o = o0 + 8 * (q / 4) + col0 + q % 2;
+      if (i < Di && o < Do) c[(size_t)i * Do + o] = cacc[q];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Small passes.
+
+// partial[b][tile] = sum_e (sum_{s < S} split[b S + s][tile][e])^2.
+// Grid (n_tiles, B).
+__global__ void __launch_bounds__(NT) split_sum_kernel(
+    const float* __restrict__ split, float* __restrict__ partial, int S) {
+  __shared__ float red[NT / 32];
+  const int tile = blockIdx.x, b = blockIdx.y, n_tiles = gridDim.x;
+  float sq = 0.f;
+  for (int e = threadIdx.x; e < TILE_E; e += NT) {
+    float v = 0.f;
+    for (int s = 0; s < S; ++s)
+      v += split[((size_t)(b * S + s) * n_tiles + tile) * TILE_E + e];
+    sq = fmaf(v, v, sq);
+  }
+  sq = block_sum(sq, red);
+  if (threadIdx.x == 0) partial[(size_t)b * n_tiles + tile] = sq;
+}
+
+// colsum[b][o] = sum_t dy[b, t, o], in t order per lane.  Grid
+// (ceil(Do / 32), B).
+template <typename T>
+__global__ void __launch_bounds__(NT) colsum_kernel(
+    const T* __restrict__ dy, long long syb, long long syt, long long syo,
+    int Tn, int Do, float* __restrict__ colsum) {
+  __shared__ float red[NT / 32][33];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y, ob = blockIdx.x * 32;
+  const T* yb = dy + b * syb;
+  if (syt == 1) {  // t contiguous: a warp sums 4 columns, lanes along t
     for (int q = 0; q < 4; ++q) {
-      const int o = o0 + tx + 16 * q;
-      if (i < Di && o < Do) c[(size_t)i * Do + o] = cacc[r][q];
+      const int o = ob + 4 * warp + q;
+      if (o >= Do) break;
+      float s = 0.f;
+      for (int t = lane; t < Tn; t += 32) s += to_f32(yb[t + o * syo]);
+#pragma unroll
+      for (int k = 16; k > 0; k >>= 1) s += __shfl_xor_sync(0xffffffffu, s, k);
+      if (lane == 0) colsum[(size_t)b * Do + o] = s;
+    }
+    return;
+  }
+  const int o = ob + lane;  // lanes along columns, warps along t
+  float s = 0.f;
+  if (o < Do)
+    for (int t = warp; t < Tn; t += NT / 32) s += to_f32(yb[t * syt + o * syo]);
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && o < Do) {
+    float v = 0.f;
+    for (int k = 0; k < NT / 32; ++k) v += red[k][lane];
+    colsum[(size_t)b * Do + o] = v;
+  }
+}
+
+// out[b] = sum_j partial[b][j] [+ ||colsum[b]||^2], in a fixed order.
+// Grid B.
+__global__ void __launch_bounds__(NT) finish_kernel(
+    const float* __restrict__ partial, int n, const float* __restrict__ colsum,
+    int Do, float* __restrict__ out) {
+  __shared__ float red[NT / 32];
+  const int b = blockIdx.x;
+  float s = 0.f;
+  for (int j = threadIdx.x; j < n; j += NT) s += partial[(size_t)b * n + j];
+  if (colsum)
+    for (int o = threadIdx.x; o < Do; o += NT) {
+      const float v = colsum[(size_t)b * Do + o];
+      s = fmaf(v, v, s);
+    }
+  s = block_sum(s, red);
+  if (threadIdx.x == 0) out[b] = s;
+}
+
+// This thread's part of sum_i v[i s]^2, i < n: 8 loads in flight, summed
+// in a fixed order.
+template <typename T>
+__device__ __forceinline__ float sumsq(const T* __restrict__ v, long long s,
+                                       int n) {
+  float acc[8] = {};
+  for (int i0 = threadIdx.x; i0 < n; i0 += 8 * NT) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * NT;
+      const float f = i < n ? to_f32(v[i * s]) : 0.f;
+      acc[u] = fmaf(f, f, acc[u]);
     }
   }
-  if (blockIdx.y == 0 && tid < FT && o0 + tid < Do)
-    c[(size_t)Di * Do + o0 + tid] = cbacc;
+  float t = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) t += acc[u];
+  return t;
+}
+
+// out[b] = ||x_b||^2 ||dy_b||^2 [+ ||dy_b||^2] at T = 1.  Grid B.
+template <typename T>
+__global__ void __launch_bounds__(NT) rank1_kernel(
+    const T* __restrict__ x, long long sxb, long long sxi,
+    const T* __restrict__ dy, long long syb, long long syo, int Di, int Do,
+    int has_bias, float* __restrict__ out) {
+  __shared__ float red[NT / 32];
+  const int b = blockIdx.x;
+  const float sx = block_sum(sumsq(x + b * sxb, sxi, Di), red);
+  const float sy = block_sum(sumsq(dy + b * syb, syo, Do), red);
+  if (threadIdx.x == 0) out[b] = has_bias ? fmaf(sx, sy, sy) : sx * sy;
 }
 
 // out[e] = sum over g = 0 .. G-1, in order, of part[g * n + e].
@@ -321,51 +677,206 @@ __global__ void __launch_bounds__(NT) sum_groups_kernel(
   }
 }
 
+// cb[o] = sum_b w[b] colsum[b][o], in b order.
+__global__ void __launch_bounds__(NT) bias_contrib_kernel(
+    const float* __restrict__ colsum, const float* __restrict__ w,
+    float* __restrict__ cb, int B, int Do) {
+  const int o = blockIdx.x * NT + threadIdx.x;
+  if (o >= Do) return;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) s = fmaf(w[b], colsum[(size_t)b * Do + o], s);
+  cb[o] = s;
+}
+
+// ---------------------------------------------------------------------------
+// Launchers.
+
+struct Operands {
+  const void* x;
+  long long sxb, sxt, sxi;
+  const void* dy;
+  long long syb, syt, syo;
+  int B, Tn, Di, Do;
+  int x_tmajor, y_tmajor, xmode, ymode, is_bf16;
+  cudaStream_t s;
+};
+
+int launch_colsum(const Operands& a, float* colsum) {
+  dim3 grid((a.Do + 31) / 32, a.B);
+  if (a.is_bf16)
+    colsum_kernel<bf16><<<grid, NT, 0, a.s>>>(
+        static_cast<const bf16*>(a.dy), a.syb, a.syt, a.syo, a.Tn, a.Do,
+        colsum);
+  else
+    colsum_kernel<float><<<grid, NT, 0, a.s>>>(
+        static_cast<const float*>(a.dy), a.syb, a.syt, a.syo, a.Tn, a.Do,
+        colsum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool XT, bool YT>
+int launch_wgmma(const Operands& a, dim3 grid, int Bg, int S, int tchunk,
+                 const float* w, float* partial, float* split, float* cc) {
+  auto kern = direct_wgmma_kernel<XT, YT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NT, WSMEM, a.s>>>(
+      static_cast<const bf16*>(a.x), a.sxb, a.sxt, a.sxi,
+      static_cast<const bf16*>(a.dy), a.syb, a.syt, a.syo, a.B, a.Tn, a.Di,
+      a.Do, Bg, S, tchunk, a.xmode == 16, a.ymode == 16, w, partial, split,
+      cc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the FMA cores' rings.
+constexpr int DIRECT_SMEM = STAGES * BK * (pitch<DBM>() + pitch<DBN>()) * 4;
+constexpr int GRAM_SMEM = STAGES * BK * 2 * pitch<GT>() * 4;
+
+int launch_fma(const Operands& a, dim3 grid, int Bg, int S, int tchunk,
+               const float* w, float* partial, float* split, float* cc) {
+  auto kern = w ? direct_kernel<true> : direct_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DIRECT_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NT, DIRECT_SMEM, a.s>>>(
+      static_cast<const float*>(a.x), a.sxb, a.sxt, a.sxi,
+      static_cast<const float*>(a.dy), a.syb, a.syt, a.syo, a.B, a.Tn, a.Di,
+      a.Do, Bg, S, tchunk, a.xmode, a.ymode, w, partial, split, cc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-example product core over grid (n_tiles, z-slices): bf16 on
+// wgmma (instantiated for its operands' layouts), f32 on FMAs.
+int launch_direct(const Operands& a, dim3 grid, int Bg, int S, int tchunk,
+                  const float* w, float* partial, float* split, float* cc) {
+  const int xt = a.x_tmajor != 0, yt = a.y_tmajor != 0;
+#define REPRO_ARGS a, grid, Bg, S, tchunk, w, partial, split, cc
+  if (!a.is_bf16) return launch_fma(REPRO_ARGS);
+  if (xt && yt) return launch_wgmma<true, true>(REPRO_ARGS);
+  if (xt) return launch_wgmma<true, false>(REPRO_ARGS);
+  if (yt) return launch_wgmma<false, true>(REPRO_ARGS);
+  return launch_wgmma<false, false>(REPRO_ARGS);
+#undef REPRO_ARGS
+}
+
+template <typename T>
+int launch_gram(const Operands& a, float* partial) {
+  const int nT = (a.Tn + GT - 1) / GT;
+  dim3 grid(nT * (nT + 1) / 2, a.B);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, GRAM_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gram_kernel<T><<<grid, NT, GRAM_SMEM, a.s>>>(
+      static_cast<const T*>(a.x), a.sxb, a.sxt, a.sxi,
+      static_cast<const T*>(a.dy), a.syb, a.syt, a.syo, a.Tn, a.Di, a.Do,
+      a.xmode, a.ymode, partial);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (B, T, Di) with element strides (sxb, sxt, sxi); dy: (B, T, Do) with
-// (syb, syt, syo); both the same type (is_bf16); w: (B,) f32; partial:
-// (B, ceil(Di / 64) * ceil(Do / 64)) f32 scratch; out: (B,) f32 norms;
-// cc: (Di * Do + Do,) f32, the contribution c (Di, Do) then cb (Do,);
-// groups: G >= 1 groups of ceil(B / G) examples, G <= B; cpart:
-// (G, Di * Do + Do) f32 scratch, or cc itself when G = 1.  B, Di and Do
-// must be positive.  Returns cudaGetLastError() after the launches
-// (0 = launched).
+// (syb, syt, syo); the same type (is_bf16).  x_tmajor / y_tmajor: t is
+// the operand's contiguous axis (else its feature axis, or neither);
+// xmode / ymode: 16 where 16-byte copies along that axis are aligned,
+// else 4 (f32) or 0 (bf16).  route: 0 rank-1 (T = 1), 1 direct, 2 Gram.
+// Direct: partial (B, n_tiles) f32 with n_tiles = ceil(Di / 128) *
+// ceil(Do / 64); T cut into `splits` chunks of `tchunk` rows, and with
+// splits > 1 split is (B * splits, n_tiles, 128 * 64) f32 scratch.  Gram:
+// partial (B, nT (nT + 1) / 2) with nT = ceil(T / 64).  colsum: (B, Do) f32
+// scratch with a bias (routes 1 and 2), else null.  out: (B,) f32.  B, T,
+// Di and Do must be positive.  Returns cudaGetLastError() after the
+// launches (0 = launched).
+extern "C" int repro_gram_norm(
+    const void* x, long long sxb, long long sxt, long long sxi,
+    const void* dy, long long syb, long long syt, long long syo,
+    void* partial, void* split, void* colsum, void* out, int B, int Tn,
+    int Di, int Do, int route, int splits, int tchunk, int x_tmajor,
+    int y_tmajor, int xmode, int ymode, int has_bias, int is_bf16,
+    void* stream) {
+  const Operands a{x,  sxb, sxt, sxi, dy, syb, syt, syo, B,
+                   Tn, Di,  Do,  x_tmajor, y_tmajor, xmode, ymode, is_bf16,
+                   static_cast<cudaStream_t>(stream)};
+  float* pf = static_cast<float*>(partial);
+  float* of = static_cast<float*>(out);
+  if (route == 0) {
+    if (is_bf16)
+      rank1_kernel<bf16><<<B, NT, 0, a.s>>>(
+          static_cast<const bf16*>(x), sxb, sxi, static_cast<const bf16*>(dy),
+          syb, syo, Di, Do, has_bias, of);
+    else
+      rank1_kernel<float><<<B, NT, 0, a.s>>>(
+          static_cast<const float*>(x), sxb, sxi,
+          static_cast<const float*>(dy), syb, syo, Di, Do, has_bias, of);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* cs = has_bias ? static_cast<float*>(colsum) : nullptr;
+  int rc = 0;
+  if (cs && (rc = launch_colsum(a, cs))) return rc;
+  int n;
+  if (route == 1) {
+    const int n_tiles = ((Di + DBM - 1) / DBM) * ((Do + DBN - 1) / DBN);
+    float* sp = static_cast<float*>(split);
+    rc = launch_direct(a, dim3(n_tiles, B * splits), 1, splits, tchunk,
+                       nullptr, pf, sp, nullptr);
+    if (rc) return rc;
+    if (splits > 1) {
+      split_sum_kernel<<<dim3(n_tiles, B), NT, 0, a.s>>>(sp, pf, splits);
+      if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+    }
+    n = n_tiles;
+  } else {
+    rc = is_bf16 ? launch_gram<bf16>(a, pf) : launch_gram<float>(a, pf);
+    if (rc) return rc;
+    const int nT = (Tn + GT - 1) / GT;
+    n = nT * (nT + 1) / 2;
+  }
+  finish_kernel<<<B, NT, 0, a.s>>>(pf, n, cs, Do, of);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Operands as repro_gram_norm; w: (B,) f32; partial: (B, n_tiles) f32
+// scratch; colsum: (B, Do) f32 scratch with a bias, else null; out: (B,)
+// f32 norms; c: (Di, Do) f32; cb: (Do,) f32, written with a bias; groups:
+// G >= 1 groups of ceil(B / G) examples, none empty; cpart: (G, Di * Do)
+// f32 scratch, or c itself when G = 1.  B, T, Di and Do must be positive.
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int repro_gram_norm_fused(
     const void* x, long long sxb, long long sxt, long long sxi,
     const void* dy, long long syb, long long syt, long long syo,
-    const void* w, void* partial, void* out, void* cc, void* cpart, int B,
-    int Tn, int Di, int Do, int groups, int has_bias, int is_bf16,
-    void* stream) {
-  const int Bg = (B + groups - 1) / groups;
-  dim3 grid((Do + FT - 1) / FT, (Di + FT - 1) / FT, groups);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const void* w, void* partial, void* colsum, void* out, void* c,
+    void* cb, void* cpart, int B, int Tn, int Di, int Do, int groups,
+    int x_tmajor, int y_tmajor, int xmode, int ymode, int has_bias,
+    int is_bf16, void* stream) {
+  const Operands a{x,  sxb, sxt, sxi, dy, syb, syt, syo, B,
+                   Tn, Di,  Do,  x_tmajor, y_tmajor, xmode, ymode, is_bf16,
+                   static_cast<cudaStream_t>(stream)};
   const float* wf = static_cast<const float*>(w);
   float* pf = static_cast<float*>(partial);
-  float* dst = static_cast<float*>(groups > 1 ? cpart : cc);
-  if (is_bf16) {
-    gram_fused_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), sxb, sxt, sxi,
-        static_cast<const __nv_bfloat16*>(dy), syb, syt, syo, wf, pf, dst,
-        B, Bg, Tn, Di, Do, has_bias);
-  } else {
-    gram_fused_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), sxb, sxt, sxi,
-        static_cast<const float*>(dy), syb, syt, syo, wf, pf, dst, B, Bg,
-        Tn, Di, Do, has_bias);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  float* cs = has_bias ? static_cast<float*>(colsum) : nullptr;
+  float* dst = static_cast<float*>(groups > 1 ? cpart : c);
+  int rc = 0;
+  if (cs && (rc = launch_colsum(a, cs))) return rc;
+  const int n_tiles = ((Di + DBM - 1) / DBM) * ((Do + DBN - 1) / DBN);
+  const int Bg = (B + groups - 1) / groups;
+  rc = launch_direct(a, dim3(n_tiles, groups), Bg, 1, Tn, wf, pf, nullptr,
+                     dst);
+  if (rc) return rc;
   if (groups > 1) {
-    const long long n = (long long)Di * Do + Do;
+    const long long n = (long long)Di * Do;
     const long long blocks = (n + NT - 1) / NT;
-    sum_groups_kernel<<<blocks < 4096 ? blocks : 4096, NT, 0, s>>>(
-        dst, static_cast<float*>(cc), n, groups);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    sum_groups_kernel<<<blocks < 4096 ? blocks : 4096, NT, 0, a.s>>>(
+        dst, static_cast<float*>(c), n, groups);
+    if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
   }
-  gram_sum_kernel<<<B, NT, 0, s>>>(pf, static_cast<float*>(out),
-                                   grid.x * grid.y);
+  if (cs) {
+    bias_contrib_kernel<<<(Do + NT - 1) / NT, NT, 0, a.s>>>(
+        cs, wf, static_cast<float*>(cb), B, Do);
+    if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  }
+  finish_kernel<<<B, NT, 0, a.s>>>(pf, n_tiles, cs, Do,
+                                   static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -390,16 +901,62 @@ extern "C" int repro_gram_norm_fused(
 // read of dy (B T D values) dominates.  With heavily repeated ids the
 // pairs approach T^2 and the work approaches the Gram's.
 //
-// What the design does about it: gram_norm's blocking, one block per
-// (i-tile, j-tile, example) of 64 x 64 token pairs, with the id mask
-// applied to the dy dy^T tile before the block's fixed-order tree sum; a
-// block first compares its 64 x 64 ids and, if no pair matches, writes a
+// What the design does about it: the Gram blocking of the TPU kernel,
+// one block per (i-tile, j-tile, example) of 64 x 64 token pairs, with
+// the id mask applied to the dy dy^T tile before the block's fixed-order
+// sum; a block first compares its 64 x 64 ids and, if no pair matches, writes a
 // zero partial without touching dy, so random ids cost about the
 // diagonal tiles only.  Partials go to a (B, nT, nT) scratch that
-// gram_sum_kernel adds per example in a fixed order: no atomics, two runs
+// finish_kernel adds per example in a fixed order: no atomics, two runs
 // are bitwise equal.  Not yet done: tensor cores, the Gram's symmetry,
 // and a sort-based (segment-sum) route that reads dy once.
 namespace {
+
+constexpr int TBK = 16;  // depth of a staged chunk of features
+
+// acc[i][j] = sum_k A[i0 + ty + 16 i, k] * A[j0 + tx + 16 j, k] for a
+// (Tn, F) row-major A; rows past Tn count as zero.
+template <typename T>
+__device__ __forceinline__ void gram_tile(const T* __restrict__ A, int Tn,
+                                          int F, int i0, int j0,
+                                          float (*Si)[GT + 1],
+                                          float (*Sj)[GT + 1],
+                                          float acc[4][4]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int lk = tid % TBK;
+  const int lm0 = tid / TBK;  // 0..15
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < F; k0 += TBK) {
+    const int k = k0 + lk;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = lm0 + 16 * q;
+      const int ti = i0 + m;
+      const int tj = j0 + m;
+      Si[lk][m] = (k < F && ti < Tn) ? to_f32(A[(size_t)ti * F + k]) : 0.f;
+      Sj[lk][m] = (k < F && tj < Tn) ? to_f32(A[(size_t)tj * F + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TBK; ++kk) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Si[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Sj[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) tokmask_partial_kernel(
@@ -412,19 +969,19 @@ __global__ void __launch_bounds__(NT) tokmask_partial_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  __shared__ float Si[BK][BT + 1];
-  __shared__ float Sj[BK][BT + 1];
-  __shared__ int idi[BT];
-  __shared__ int idj[BT];
-  __shared__ float red[NT];
+  __shared__ float Si[TBK][GT + 1];
+  __shared__ float Sj[TBK][GT + 1];
+  __shared__ int idi[GT];
+  __shared__ int idj[GT];
+  __shared__ float red[NT / 32];
 
   const int* idb = ids + (size_t)b * Tn;
-  if (tid < BT) {
-    const int t = bi * BT + tid;
+  if (tid < GT) {
+    const int t = bi * GT + tid;
     idi[tid] = t < Tn ? idb[t] : 0;
-  } else if (tid < 2 * BT) {
-    const int t = bj * BT + tid - BT;
-    idj[tid - BT] = t < Tn ? idb[t] : 0;
+  } else if (tid < 2 * GT) {
+    const int t = bj * GT + tid - GT;
+    idj[tid - GT] = t < Tn ? idb[t] : 0;
   }
   __syncthreads();
   // This thread's 4 x 4 pairs (rows ty + 16 i, columns tx + 16 j).
@@ -435,7 +992,7 @@ __global__ void __launch_bounds__(NT) tokmask_partial_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int cj = tx + 16 * j;
-      if (bi * BT + ri < Tn && bj * BT + cj < Tn && idi[ri] == idj[cj])
+      if (bi * GT + ri < Tn && bj * GT + cj < Tn && idi[ri] == idj[cj])
         match |= 1u << (4 * i + j);
     }
   }
@@ -444,16 +1001,15 @@ __global__ void __launch_bounds__(NT) tokmask_partial_kernel(
     return;
   }
   float gy[4][4];
-  gram_tile(dy + (size_t)b * Tn * D, Tn, D, bi * BT, bj * BT, Si, Sj, gy);
+  gram_tile(dy + (size_t)b * Tn * D, Tn, D, bi * GT, bj * GT, Si, Sj, gy);
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (match & (1u << (4 * i + j))) s += gy[i][j];
-  red[tid] = s;
-  block_tree_sum(red);
-  if (tid == 0) partial[((size_t)b * nT + bi) * nT + bj] = red[0];
+  s = block_sum(s, red);
+  if (tid == 0) partial[((size_t)b * nT + bi) * nT + bj] = s;
 }
 
 }  // namespace
@@ -465,7 +1021,7 @@ extern "C" int repro_gram_norm_tokmask(const void* ids, const void* dy,
                                        void* partial, void* out, int B,
                                        int Tn, int D, int is_bf16,
                                        void* stream) {
-  const int nT = (Tn + BT - 1) / BT;
+  const int nT = (Tn + GT - 1) / GT;
   dim3 grid(nT, nT, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* idp = static_cast<const int*>(ids);
@@ -479,6 +1035,7 @@ extern "C" int repro_gram_norm_tokmask(const void* ids, const void* dy,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gram_sum_kernel<<<B, NT, 0, s>>>(pf, static_cast<float*>(out), nT * nT);
+  finish_kernel<<<B, NT, 0, s>>>(pf, nT * nT, nullptr, 0,
+                                static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

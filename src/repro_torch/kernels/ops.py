@@ -8,11 +8,15 @@ The rule, for every wrapper:
   * nothing falls back from one to the other.
 
 Each wrapper checks types (f32 or bf16 in), contiguity (except
-``gram_norm_fused`` and the flash kernels, which read through strides)
-and shapes, allocates outputs and scratch with ``torch.empty``, launches
-on PyTorch's current stream, and adds one to ``LAUNCHES[<kernel>]`` per
-launch.  ``chip_smoke.py`` reads the counts to show that the main path
+``gram_norm``, ``gram_norm_fused`` and the flash kernels, which read
+through strides) and shapes, allocates outputs and scratch with
+``torch.empty``, launches on PyTorch's current stream, and adds one to
+``LAUNCHES[<kernel>]`` per launch.  ``chip_smoke.py`` reads the counts to show that the main path
 went through the kernels.
+
+``gram_norm`` runs one of three routes, picked by shape
+(:func:`gram_route`): rank-1 at T = 1, the per-example product (the core
+``gram_norm_fused`` shares), or the symmetric Gram.
 
 The flash forward and dk/dv kernels have two designs, chosen by dtype
 and head_dim (:func:`flash_design`): bf16 on the tensor cores (``wgmma``)
@@ -45,8 +49,14 @@ LAUNCHES = {"pe_conv_grad_2d": 0, "pe_conv_grad_1d": 0, "gram_norm": 0,
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65535
-_GRAM_BT = 64      # Gram tile rows in csrc/gram_norm.cu
-_FUSED_TILE = 64   # contribution tile (Di and Do) of gram_norm_fused
+# Tiles of csrc/gram_norm.cu: the per-example product (Di x Do), the
+# symmetric Gram (token rows), the FMA cores' contraction step, and
+# gram_norm_tokmask's token tiles.
+_DIRECT_BM, _DIRECT_BN = 128, 64
+_GRAM_T = 64
+_GRAM_BK = 32
+_GRAM_BT = 64
+_ROUTES = ("rank1", "direct", "gram")   # repro_gram_norm's route codes
 
 
 def reset_launches():
@@ -95,31 +105,150 @@ def _raise_on(rc: int, name: str):
                            f"{rc} ({torch.cuda.get_device_name()})")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gram_route(T: int, Di: int, Do: int) -> str:
+    """The route ``gram_norm`` takes on the card for x (B, T, Di) and
+    dy (B, T, Do): "rank1" at T = 1 (‖x_b‖²·‖δy_b‖²); otherwise the
+    cheaper, in multiply-adds on the kernels' padded tiles, of "direct"
+    (the per-example product x_bᵀδy_b: 128 x 64 tiles of Di x Do, 32-deep
+    steps of T) and "gram" (the symmetric Gram pair: 64 x 64 token tiles
+    j ≥ i, 32-deep steps of Di and of Do).  ``csrc/gram_norm.cu`` runs
+    the route it is given."""
+    if min(T, Di, Do) < 1:
+        raise ValueError(f"gram_route: T={T}, Di={Di}, Do={Do} must be "
+                         f"positive")
+    if T == 1:
+        return "rank1"
+    n_t = _cdiv(T, _GRAM_T)
+    gram = (n_t * (n_t + 1) // 2 * _GRAM_T ** 2
+            * (_cdiv(Di, _GRAM_BK) + _cdiv(Do, _GRAM_BK)) * _GRAM_BK)
+    direct = (_cdiv(Di, _DIRECT_BM) * _DIRECT_BM * _cdiv(Do, _DIRECT_BN)
+              * _DIRECT_BN * _cdiv(T, _GRAM_BK) * _GRAM_BK)
+    return "direct" if direct <= gram else "gram"
+
+
+def _waves(blocks: int, sms: int) -> int:
+    """Waves of the FMA cores' blocks, two resident an SM."""
+    return _cdiv(blocks, 2 * sms)
+
+
+def direct_splits(B: int, T: int, n_tiles: int, sms: int):
+    """(S, chunk): the direct route cuts T into S chunks of ``chunk``
+    rows (a multiple of 64, at least 256 rows a chunk once cut), each
+    chunk's tile written out and summed in order before it is squared.
+    T is cut only where the B·n_tiles blocks leave SMs idle (less than
+    one wave); S is then the cut with the least (waves of B·S·n_tiles
+    blocks on ``sms`` SMs) x chunk, the fewest chunks among equals."""
+    if B * n_tiles >= 2 * sms:
+        return 1, _cdiv(T, 64) * 64
+    best = None
+    for cut in range(1, _cdiv(T, 256) + 1):
+        chunk = _cdiv(_cdiv(T, cut), 64) * 64
+        s = _cdiv(T, chunk)
+        cost = _waves(B * s * n_tiles, sms) * chunk
+        if best is None or cost < best[0]:
+            best = (cost, s, chunk)
+    return best[1], best[2]
+
+
+def fused_groups(B: int, n_tiles: int, sms: int) -> int:
+    """G: ``gram_norm_fused`` splits the batch into G groups of
+    ceil(B / G) examples, none empty, each block walking one group
+    through one tile; G is the split with the least (waves of
+    G·n_tiles blocks on ``sms`` SMs) x (examples a group), the fewest
+    groups among equals (each group adds a Di x Do slot to sum)."""
+    best = None
+    for split in range(1, B + 1):
+        bg = _cdiv(B, split)
+        g = _cdiv(B, bg)
+        cost = _waves(g * n_tiles, sms) * bg
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+def _staging(t):
+    """(tmajor, mode) for operand ``t`` (B, T, F): tmajor when its T axis
+    is the contiguous one (else its F axis, or neither); mode 16 when
+    16-byte copies along that axis are aligned, else 4 (f32: 4-byte
+    copies) or 0 (bf16: plain loads).  A size-1 axis counts as
+    contiguous."""
+    sb, st, sf = (s if n > 1 else 0 for s, n in zip(t.stride(), t.shape))
+    per = 16 // t.element_size()
+    if sf in (0, 1):
+        tmajor, other = False, st
+    elif st in (0, 1):
+        tmajor, other = True, sf
+    else:
+        tmajor, other = st < sf, None
+    aligned = (other is not None and other % per == 0 and sb % per == 0
+               and t.data_ptr() % 16 == 0)
+    return tmajor, (16 if aligned else
+                    4 if t.dtype == torch.float32 else 0)
+
+
+def _check_grid(name, x, dy, zs):
+    if max(*x.shape, dy.shape[2]) > _INT_MAX or zs > _GRID_YZ_MAX:
+        raise ValueError(f"{name}: {tuple(x.shape)} x {tuple(dy.shape)} "
+                         f"exceeds the kernel's grid")
+
+
 def gram_norm(x, dy, *, has_bias: bool = False):
     """x (B, T, Di), dy (B, T, Do) -> (B,) f32 squared per-example norms
-    ‖δy_bᵀ x_b‖²_F (+ ‖Σ_t δy_bt‖² with a bias)."""
+    ‖δy_bᵀ x_b‖²_F (+ ‖Σ_t δy_bt‖² with a bias), by the route
+    :func:`gram_route` picks.  The kernel reads x and dy through their
+    strides, so a transposed view (the conv path's im2col patches) needs
+    no copy."""
     _check_pair("gram_norm", x, dy, 3)
     B, T, Di = x.shape
     Do = dy.shape[2]
     if dy.shape[1] != T:
         raise ValueError(f"gram_norm: x has T={T}, dy has T={dy.shape[1]}")
-    if not _launch_ready("gram_norm", x, dy):
+    if not _launch_ready("gram_norm", x, dy, strided=True):
         return _ref.gram_norm_ref(x, dy, has_bias=has_bias)
-    nT = -(-T // _GRAM_BT)
-    if B > _GRID_YZ_MAX or nT > _GRID_YZ_MAX:
-        raise ValueError(f"gram_norm: grid ({nT}, {nT}, {B}) too large")
-    out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    dev = x.device
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    partial = torch.empty((B, nT, nT), dtype=torch.float32, device=x.device)
+    if T == 0:
+        return out.zero_()
+    if Di == 0 or Do == 0:
+        raise ValueError(f"gram_norm: empty feature axis in {tuple(x.shape)} "
+                         f"x {tuple(dy.shape)}")
+    route = gram_route(T, Di, Do)
+    splits, chunk, zs = 1, T, B
+    f32 = dict(dtype=torch.float32, device=dev)
+    partial = split = colsum = None
+    if route == "direct":
+        n_tiles = _cdiv(Di, _DIRECT_BM) * _cdiv(Do, _DIRECT_BN)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, chunk = direct_splits(B, T, n_tiles, sms)
+        zs = B * splits
+        partial = torch.empty((B, n_tiles), **f32)
+        if splits > 1:
+            split = torch.empty((zs, n_tiles, _DIRECT_BM * _DIRECT_BN),
+                                **f32)
+    elif route == "gram":
+        n_t = _cdiv(T, _GRAM_T)
+        partial = torch.empty((B, n_t * (n_t + 1) // 2), **f32)
+    _check_grid("gram_norm", x, dy, zs)
+    if has_bias and route != "rank1":
+        colsum = torch.empty((B, Do), **f32)
+    (xt, xmode), (yt, ymode) = _staging(x), _staging(dy)
     from repro_torch.kernels import build
     lib = build.load("gram_norm")
-    with torch.cuda.device(x.device):
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.repro_gram_norm(x.data_ptr(), dy.data_ptr(),
-                                 partial.data_ptr(), out.data_ptr(), B, T,
-                                 Di, Do, int(has_bias),
-                                 int(x.dtype == torch.bfloat16), stream)
+        rc = lib.repro_gram_norm(
+            x.data_ptr(), *x.stride(), dy.data_ptr(), *dy.stride(),
+            ptr(partial), ptr(split), ptr(colsum), out.data_ptr(), B, T, Di,
+            Do, _ROUTES.index(route), splits, chunk, int(xt), int(yt),
+            xmode, ymode, int(has_bias), int(x.dtype == torch.bfloat16),
+            stream)
     _raise_on(rc, "gram_norm")
     LAUNCHES["gram_norm"] += 1
     return out
@@ -130,8 +259,9 @@ def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
     Σ_b w_b·x_bᵀδy_b (Di, Do), bias contribution Σ_b w_b·Σ_t δy_bt (Do,)),
     all f32; the bias contribution is zeros without a bias.
 
-    The kernel reads x and dy through their strides, so a transposed view
-    (the conv path's im2col patches) needs no copy."""
+    One pass of the per-example product core (``gram_norm``'s direct
+    route) with the weights; it reads x and dy through their strides, so
+    a transposed view (the conv path's im2col patches) needs no copy."""
     _check_pair("gram_norm_fused", x, dy, 3)
     B, T, Di = x.shape
     Do = dy.shape[2]
@@ -143,34 +273,38 @@ def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
         return _ref.gram_norm_fused_ref(x, dy, w, has_bias=has_bias)
     if w.device != x.device:
         raise ValueError(f"gram_norm_fused: w on {w.device}, x on {x.device}")
-    n_tiles = -(-Di // _FUSED_TILE) * -(-Do // _FUSED_TILE)
-    if max(B, T, Di, Do, B * n_tiles) > _INT_MAX \
-            or -(-Di // _FUSED_TILE) > _GRID_YZ_MAX:
-        raise ValueError(f"gram_norm_fused: {tuple(x.shape)} x "
-                         f"{tuple(dy.shape)} exceeds the kernel's grid")
     dev = x.device
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
-    cc = torch.empty((Di * Do + Do,), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((B,), **f32)
+    cc = torch.empty((Di * Do + Do,), **f32)
     c, cb = cc[:Di * Do].view(Di, Do), cc[Di * Do:]
-    if B == 0 or Di == 0 or Do == 0:
+    if min(B, T, Di, Do) == 0:
         return out.zero_(), c.zero_(), cb.zero_()
-    wf = w.to(torch.float32).contiguous()
-    partial = torch.empty((B, n_tiles), dtype=torch.float32, device=dev)
-    # Split the batch into G groups so that about two waves of blocks
-    # (three resident per SM) cover the card; each group's contribution
-    # has its own slot in cpart, summed in order by the kernel pair.
+    n_tiles = _cdiv(Di, _DIRECT_BM) * _cdiv(Do, _DIRECT_BN)
+    if B * n_tiles > _INT_MAX:
+        raise ValueError(f"gram_norm_fused: {B} x {n_tiles} tiles exceed the "
+                         f"kernel's index range")
+    # Each group's contribution has its own slot in cpart, summed in order.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = max(1, min(B, -(-6 * sms // n_tiles)))
-    cpart = (torch.empty((groups, cc.numel()), dtype=torch.float32,
-                         device=dev) if groups > 1 else cc)
+    groups = fused_groups(B, n_tiles, sms)
+    _check_grid("gram_norm_fused", x, dy, groups)
+    wf = w.to(torch.float32).contiguous()
+    partial = torch.empty((B, n_tiles), **f32)
+    colsum = torch.empty((B, Do), **f32) if has_bias else None
+    if not has_bias:
+        cb.zero_()
+    cpart = torch.empty((groups, Di * Do), **f32) if groups > 1 else c
+    (xt, xmode), (yt, ymode) = _staging(x), _staging(dy)
     from repro_torch.kernels import build
     lib = build.load("gram_norm")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.repro_gram_norm_fused(
             x.data_ptr(), *x.stride(), dy.data_ptr(), *dy.stride(),
-            wf.data_ptr(), partial.data_ptr(), out.data_ptr(), cc.data_ptr(),
-            cpart.data_ptr(), B, T, Di, Do, groups, int(has_bias),
+            wf.data_ptr(), partial.data_ptr(),
+            None if colsum is None else colsum.data_ptr(), out.data_ptr(),
+            c.data_ptr(), cb.data_ptr(), cpart.data_ptr(), B, T, Di, Do,
+            groups, int(xt), int(yt), xmode, ymode, int(has_bias),
             int(x.dtype == torch.bfloat16), stream)
     _raise_on(rc, "gram_norm_fused")
     LAUNCHES["gram_norm_fused"] += 1

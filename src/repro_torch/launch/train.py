@@ -78,22 +78,25 @@ def to_device(batch: dict, device) -> dict:
 
 @contextlib.contextmanager
 def deterministic_step():
-    """Deterministic algorithms, cuBLAS's fixed workspace and no TF32 for
-    the duration of a run; the previous settings come back after it (the
-    tests call :func:`main` in-process)."""
+    """Deterministic algorithms, cuBLAS's fixed workspace, no TF32 and no
+    reduced-precision reductions in bf16 GEMMs for the duration of a run;
+    the previous settings come back after it (the tests call :func:`main`
+    in-process)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.backends.cuda.matmul.allow_tf32,
+    mm = torch.backends.cuda.matmul
+    prev = (torch.are_deterministic_algorithms_enabled(), mm.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction,
             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
     torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(prev[0])
-        (torch.backends.cuda.matmul.allow_tf32,
+        (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.benchmark) = prev[1:]
 

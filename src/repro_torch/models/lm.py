@@ -9,9 +9,10 @@ the final norm and the head — with tied embeddings the head is the
 transposed table, tapped as ``"~tok_emb"`` so the two uses of one
 parameter form one group.  Params and tap names are the JAX package's.
 
-The other families (MoE, SSM, hybrid, VLM), MLA and the serving paths
-(``prefill``, ``decode_step``, ``init_cache``) come with the rest of the
-LM slice (ROADMAP.md item 11) and raise ``NotImplementedError``.
+The other families (MoE, SSM, hybrid, VLM), MLA, ``remat=True`` and the
+serving paths (``prefill``, ``decode_step``, ``init_cache``) come with
+the rest of the LM slice (ROADMAP.md item 11) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -93,6 +94,13 @@ class TransformerLM:
 
     def _backbone_train(self, params, h, tp: Tapper):
         c = self.cfg
+        if c.remat:
+            # The reference wraps each scanned block in jax.checkpoint;
+            # running without it would change the memory a config was
+            # sized for, so the knob is refused until it is served.
+            raise NotImplementedError(
+                "remat=True (per-layer torch.utils.checkpoint with the "
+                "captures intact) comes with ROADMAP.md item 11c")
 
         def body(stp, hh, p_l):
             a, _ = attn.gqa_apply(

@@ -152,3 +152,142 @@ def test_cuda_gram_norm_tokmask_matches_ref(shape, dtype):
     assert torch.equal(got, again)
     torch.testing.assert_close(got, ref.gram_norm_tokmask_ref(ids, dy),
                                rtol=1e-4, atol=0)
+
+
+def _gram_inputs(B, T, Di, Do, layout, dtype, seed):
+    """x (B, T, Di), dy (B, T, Do) on the card in one of three layouts:
+    "contiguous"; "strided", the transposed views of (B, F, T) tensors the
+    conv path hands over (t contiguous); "sliced", every other feature of
+    a wider tensor (neither axis contiguous)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def make(F):
+        if layout == "strided":
+            return torch.randn(B, F, T, generator=g).to("cuda",
+                                                        dtype).transpose(1, 2)
+        if layout == "sliced":
+            return torch.randn(B, T, 2 * F, generator=g).to("cuda",
+                                                            dtype)[..., ::2]
+        return torch.randn(B, T, F, generator=g).to("cuda", dtype)
+
+    return make(Di), make(Do)
+
+
+# (B, T, Di, Do, layout, the route gram_route picks): T = 1 (rank-1), 64,
+# 65 and 225 (both sides of the 64-row tiles), Di and Do off the tiles'
+# multiples, long Ts that the direct route cuts into chunks (T-split),
+# and the three layouts.
+GRAM_ROUTE_CASES = [(3, 1, 130, 65, "contiguous", "rank1"),
+                    (3, 1, 70, 33, "sliced", "rank1"),
+                    (3, 64, 70, 33, "strided", "direct"),
+                    (3, 65, 90, 100, "contiguous", "direct"),
+                    (2, 65, 500, 300, "contiguous", "gram"),
+                    (2, 225, 1000, 200, "strided", "gram"),
+                    (2, 225, 1000, 200, "sliced", "gram"),
+                    (2, 3000, 100, 60, "strided", "direct"),
+                    (2, 1000, 100, 250, "strided", "direct"),
+                    (2, 100, 70, 33, "sliced", "direct")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", (True, False), ids=("bias", "nobias"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", GRAM_ROUTE_CASES)
+def test_cuda_gram_norm_routes_match_ref(case, dtype, bias):
+    """Card only: every route of ``gram_norm`` against its plain version
+    (rtol 1e-4: f32 sums in another order; bf16 inputs, f32 arithmetic),
+    two launches bitwise equal, one count a call."""
+    _needs_card()
+    B, T, Di, Do, layout, route = case
+    assert ops.gram_route(T, Di, Do) == route
+    x, dy = _gram_inputs(B, T, Di, Do, layout, dtype, T + Di + Do)
+    n0 = ops.LAUNCHES["gram_norm"]
+    got = ops.gram_norm(x, dy, has_bias=bias)
+    again = ops.gram_norm(x, dy, has_bias=bias)
+    assert ops.LAUNCHES["gram_norm"] == n0 + 2
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.gram_norm_ref(x, dy, has_bias=bias),
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_norm_splits_t():
+    """The T-split case above is one: its blocks cover the card only when
+    T is cut into chunks."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.direct_splits(2, 3000, 1, sms)[0] > 1
+
+
+# (B, T, Di, Do, layout): ragged tiles, T = 1, a batch of several groups
+# (AlexNet conv2's widths at a small batch), and the three layouts.
+FUSED_CASES = [(3, 70, 90, 33, "strided"), (2, 1, 130, 65, "contiguous"),
+               (8, 225, 1728, 384, "strided"), (4, 65, 200, 70, "sliced"),
+               (5, 225, 300, 130, "contiguous"),
+               (3, 100, 200, 250, "sliced")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", (True, False), ids=("bias", "nobias"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_cuda_gram_norm_fused_core_matches_ref(case, dtype, bias):
+    """Card only: ``gram_norm_fused`` on the per-example product core
+    against its plain version; the contributions are signed sums, held to
+    rtol 1e-4 of their largest entry; bitwise repeat and one count a
+    call."""
+    _needs_card()
+    B, T, Di, Do, layout = case
+    x, dy = _gram_inputs(B, T, Di, Do, layout, dtype, B + T + Di)
+    w = torch.rand(B, generator=torch.Generator().manual_seed(B)).cuda()
+    n0 = ops.LAUNCHES["gram_norm_fused"]
+    got = ops.gram_norm_fused(x, dy, w, has_bias=bias)
+    again = ops.gram_norm_fused(x, dy, w, has_bias=bias)
+    assert ops.LAUNCHES["gram_norm_fused"] == n0 + 2
+    want = ref.gram_norm_fused_ref(x, dy, w, has_bias=bias)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4,
+                                   atol=1e-4 * c.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_transposed", (False, True), ids=("io", "oi"))
+def test_cuda_kinds_bf16_products_are_bf16_gemms(monkeypatch, w_transposed):
+    """Card only (F1): the kinds' Gram norm and per-example gradient on
+    bf16 captures run as bf16 GEMMs with f32 output (``bmm`` with
+    ``out_dtype``) and equal the same calls on f32-widened captures
+    (rtol 1e-5: exact products, f32 sums in another order)."""
+    _needs_card()
+    from repro_torch.core import kinds
+    from repro_torch.core.tapper import LayerMeta
+
+    calls = []
+    real_bmm = torch.bmm
+
+    def spy(a, b, **kw):
+        calls.append((a.dtype, b.dtype, kw.get("out_dtype")))
+        return real_bmm(a, b, **kw)
+
+    monkeypatch.setattr(torch, "bmm", spy)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 96, 48, generator=g).to("cuda", torch.bfloat16)
+    dy = torch.randn(4, 96, 40, generator=g).to("cuda", torch.bfloat16)
+    meta = LayerMeta("dense", ("l",), param_key="w", bias_key="b",
+                     w_transposed=w_transposed)
+
+    def both(fn):
+        calls.clear()
+        got = fn({"x": x}, dy)
+        assert calls and all(c == (torch.bfloat16, torch.bfloat16,
+                                   torch.float32) for c in calls), calls
+        return got, fn({"x": x.float()}, dy.float())
+
+    got, want = both(lambda c, d: kinds.dense_norm_sq(meta, c, d,
+                                                      method="gram"))
+    _close(got, want, rtol=1e-5)
+    got, want = both(lambda c, d: kinds.dense_pe_grad(meta, c, d))
+    for k in want:
+        _close(got[k], want[k], rtol=1e-5)

@@ -262,6 +262,22 @@ def test_non_flat_clipping_raises(lm, strategy, mode):
         tcore.dp_gradient(tm.apply, tparams, _t(batches[0]), cfg=dp)
 
 
+def test_remat_is_refused_by_name():
+    """``remat=True`` is not served yet (the reference checkpoints each
+    scanned block; the port would need per-layer ``torch.utils.checkpoint``
+    with the captures intact), so the training apply refuses it, naming
+    its ROADMAP item, instead of running without it."""
+    cfg = tget("llama3.2-1b").reduced().replace(remat=True)
+    tm = TLM(cfg)
+    params = tm.init(0, device="cpu")[0]
+    batch = _t(TSyntheticLM(cfg.vocab, T, n_examples=4).batch(range(2)))
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        capture_backward(tm.apply, params, batch)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        tcore.dp_gradient(tm.apply, params, batch,
+                          cfg=tcore.DPConfig(strategy="bk"))
+
+
 def test_params_from_numpy_checks_the_lm_tree(lm):
     jm, tm, jparams, _, _ = lm
     like = tm.init(0, device="cpu")[0]
