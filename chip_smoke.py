@@ -21,11 +21,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (8, 1024, 32, 64) with rep 1 in bf16 and f32, at rep 4, full
    (non-causal) and with a ragged T, each twice to show all three
    bitwise repeatable; each flash row names its design, ``wgmma`` for
-   the bf16 forward and dk/dv, ``fma`` for the rest, after the library's
-   ``repro_flash_design`` is checked against ``ops.flash_design``; where
-   the wgmma design takes the main path's call, the fma design is timed
-   on the same inputs as the earlier time; the SDPA yardstick is the
-   fastest backend ``sdpa_kernel`` offers);
+   the bf16 calls (forward, dq and dk/dv), ``fma`` for the f32 ones,
+   after the library's ``repro_flash_design`` is checked against
+   ``ops.flash_design``; where the wgmma design takes the main path's
+   call, the fma design is timed on the same inputs as the earlier time;
+   each dq row also holds dq + dk/dv beside SDPA's backward; the SDPA
+   yardstick is the fastest backend ``sdpa_kernel`` offers);
 4. small parity: a toy CNN's clipped gradients on the card (kernels) equal
    the port on the CPU (plain versions; the CPU tests hold those against
    the JAX package), under crb / ghost / bk and the planned stale step;
@@ -70,12 +71,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 The kernel cases of phase 3 include ``pe_conv_grad_1d`` (the JAX kernel
 test's sweep and the 1-D lane's five layer shapes, f32 and bf16, each
-twice to show it bitwise repeatable) and ``gram_norm_tokmask`` (B = 8,
-T = 1024, D = 2048 in bf16 and f32, random and heavily repeated ids, a
-ragged T = 1000; each against the plain version and the segment sum).
+twice to show it bitwise repeatable; per layer its time, its bound at
+its dtype's peak and its share of it, and for bf16 the bound at the f32
+FMA peak its route runs on) and ``gram_norm_tokmask`` (B = 8, T = 1024,
+D = 2048 in bf16 and f32, random and heavily repeated ids, a ragged
+T = 1000; each against the plain version and the segment sum).
 
 The line before the last is a JSON object with one entry per kernel
-(eight); the last line is ``{"ok": true, "device": {...}}``.
+(eight, each with its share of its bound); the last line is
+``{"ok": true, "device": {...}}``.
 """
 import functools
 import json
@@ -234,6 +238,8 @@ def cuda_ms(torch, fn, iters):
 
 
 def bound(flops, nbytes, dtype):
+    """(least ms, "operations" or "bytes"): ``flops`` at the peak of
+    ``dtype`` (a key of PEAK_FLOPS) against ``nbytes`` at HBM's rate."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -431,10 +437,13 @@ def pe1d_cases(torch, rnd):
     """``pe_conv_grad_1d`` at the 1-D lane's five layer shapes (x padded,
     T' = 4096) in f32 (the lane's dtype) and bf16, the JAX kernel test's
     sweep in both dtypes and a ragged case (T' not a multiple of the
-    16-deep chunk, D and C·K wider than one 64 tile); each launched twice
-    to show it bitwise repeatable.  Library: the grouped-conv lowering
-    (``convops.pe_conv_grad(impl="fgc")``), one conv call, the route every
-    non-plain conv takes."""
+    32-deep stage, D and C·K wider than one tile); each launched twice
+    to show it bitwise repeatable.  Each row's bound is at its dtype's
+    peak; the kernel runs on f32 FMAs (the per-example product core) in
+    both dtypes, so a bf16 row also holds ``fma_bound_ms``, its bound at
+    the f32 FMA peak.  Library: the grouped-conv lowering
+    (``convops.pe_conv_grad(impl="fgc")``), one conv call, the route
+    every non-plain conv takes."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import convops
     cases = [(f"lane_{n}", C1_B, c, d, C1_T + 2 * p, k, dt, dt == "float32")
@@ -454,27 +463,30 @@ def pe1d_cases(torch, rnd):
         repeat = torch.equal(got, again)
         want = ref.pe_conv_grad_1d_ref(x, dy, k)
         abs_err, rel_err, ok = compare(torch, got, want, dt)
-        del got, again, want
         flops = 2 * b * d * c * k * tp
         nbytes = (x.numel() + dy.numel()) * x.element_size() \
             + b * d * c * k * 4
         b_ms, b_by = bound(flops, nbytes, dt)
+        k_ms = cuda_ms(torch, lambda: ops.pe_conv_grad_1d(x, dy, K=k), 10)
         row = {"kernel": "pe_conv_grad_1d", "case": name, "dtype": dt,
                "shape": {"B": b, "C": c, "T": t, "D": d, "K": k},
+               "route": "fma (per-example product core)",
                "max_abs_err": abs_err, "max_rel_err": rel_err,
                "rtol": RTOL[dt], "ok": ok and repeat,
-               "bitwise_repeat": repeat,
-               "kernel_ms": cuda_ms(torch, lambda: ops.pe_conv_grad_1d(
-                   x, dy, K=k), 10),
+               "bitwise_repeat": repeat, "kernel_ms": k_ms,
+               "tflops": flops / k_ms / 1e9,
                "plain_ms": cuda_ms(torch, lambda: ref.pe_conv_grad_1d_ref(
                    x, dy, k), 3),
                "library_ms": cuda_ms(torch, lambda: convops.pe_conv_grad(
                    x, dy, kernel_spatial=(k,), impl="fgc"), 3),
                "library": "F.conv2d grouped-conv lowering (fgc)",
-               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / k_ms, "main_path": main}
+        if dt == "bfloat16":
+            row["fma_bound_ms"] = bound(flops, nbytes, "float32")[0]
         rows.append(row)
         log(row)
-        del x, dy
+        del x, dy, got, again, want
     torch.cuda.empty_cache()
     return rows
 
@@ -611,8 +623,9 @@ def flash_cases(torch, rnd):
         lib_fwd, lib_bwd = sdpa_backends(torch, F, q, k, v, do, causal,
                                          hkv != h)
         # No PyTorch call computes dq alone: SDPA's backward (dq, dk and
-        # dv in one call) stands on the dk/dv row only, so the kernels
-        # line counts it once.
+        # dv in one call) stands as the library on the dk/dv row only, so
+        # the kernels line counts it once (the dq row holds it beside
+        # dq + dk/dv).
         times = {
             "flash_fwd": (lambda: ops.flash_fwd(q, k, v, causal=causal),
                           lambda: ref.flash_fwd_ref(q, k, v, causal=causal),
@@ -638,6 +651,7 @@ def flash_cases(torch, rnd):
                              + 2 * rows_bhT),
                 "flash_dkv": (8 * hd * pairs, io + q.numel() * es
                               + (k.numel() + v.numel()) * es + 2 * rows_bhT)}
+        case_rows = {}
         for kern, (kfn, pfn, lib, lib_what) in times.items():
             flops, nbytes = work[kern]
             b_ms, b_by = bound(flops, nbytes, dt)
@@ -668,6 +682,14 @@ def flash_cases(torch, rnd):
                 finally:
                     flib.repro_flash_fma_only(0)
                 row["earlier_design"] = "fma"
+            case_rows[kern] = row
+        # The backward's two kernels together, beside SDPA's one call for
+        # dq, dk and dv.
+        case_rows["flash_dq"]["bwd_sum_ms"] = (
+            case_rows["flash_dq"]["kernel_ms"]
+            + case_rows["flash_dkv"]["kernel_ms"])
+        case_rows["flash_dq"]["sdpa_bwd_ms"] = lib_bwd["ms"]
+        for row in case_rows.values():
             rows.append(row)
             log(row)
         del q, k, v, do, o, lse, delta, bwd, dq, dk, dv
@@ -1357,10 +1379,12 @@ def summarize(rows, launches, lanes, profiled):
                                        for r in main)
                            else per_step("library_ms", main)),
             "cases": [r["case"] for r in main]}
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         if name == "gram_norm_tokmask":
             entry["segsum_ms"] = per_step("segsum_ms", main)
-        if name in ("gram_norm", "gram_norm_fused"):
-            entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        if name == "pe_conv_grad_1d":
+            entry["route"] = main[0]["route"]
+            entry["ms_by_layer"] = {r["case"]: r["kernel_ms"] for r in main}
         if name == "gram_norm":
             entry["routes"] = {r["case"]: r["route"] for r in main}
             entry["ms_by_route"] = {
@@ -1372,6 +1396,9 @@ def summarize(rows, launches, lanes, profiled):
             if "earlier_ms" in main[0]:
                 entry["earlier_ms_per_call"] = main[0]["earlier_ms"]
             entry["library_backend"] = main[0]["library_backend"]
+            if name == "flash_dq":
+                entry["bwd_sum_ms_per_call"] = main[0]["bwd_sum_ms"]
+                entry["sdpa_bwd_ms_per_call"] = main[0]["sdpa_bwd_ms"]
             entry["profiled_ms_per_launch"] = {
                 lane: found[name]["ms_per_launch"]
                 for lane, found in profiled.items() if name in found}

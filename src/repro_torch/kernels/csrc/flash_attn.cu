@@ -4,7 +4,7 @@
 //
 // Replaces: src/repro/kernels/flash_attn.py
 //   flash_fwd_wgmma, flash_fwd_kernel  <- _fwd_call / _flash_kernel  (o, lse)
-//   flash_dq_kernel                    <- _bwd_call / _flash_dq_kernel  (dq)
+//   flash_dq_wgmma, flash_dq_kernel    <- _bwd_call / _flash_dq_kernel  (dq)
 //   flash_dkv_wgmma, flash_dkv_kernel  <- _bwd_call / _flash_dkv_kernel
 //                                                              (dk, dv)
 // launched by repro_flash_fwd and repro_flash_bwd (which = 1 or 2);
@@ -27,23 +27,23 @@
 //             the rep query heads of one KV head, in order.
 //
 // Two designs (repro_flash_design; ops.flash_design names the same):
-//   "wgmma"  bf16 inputs at head_dim 64 or 128, forward and dk/dv: the
+//   "wgmma"  bf16 inputs at head_dim 64 or 128, all three kernels: the
 //            tensor cores, below;
 //   "fma"    everything else: f32 inputs (the tensor cores would take
-//            them as TF32, which misses the f32 lanes' rtol 1e-4), bf16
-//            at head_dim 16 and 32 (no model here uses them), and dq in
-//            every dtype (not redesigned yet: next in the speed queue).
-//            It is built for every dtype and head_dim, so that
+//            them as TF32, which misses the f32 lanes' rtol 1e-4) and
+//            bf16 at head_dim 16 and 32 (no model here uses them).  It is
+//            built for every dtype and head_dim, so that
 //            repro_flash_fma_only can time it against the wgmma design.
 //
 // What bounds it on this card.  bf16 at Llama-3.2-1B's shape (B = 8,
 // T = S = 1024, H = 32, hd = 64, causal): the forward is 34 GFLOP of
 // tensor-core work (0.035 ms at 989 TFLOP/s) against 0.13 GB to move
-// (0.040 ms at 3.35 TB/s), so bytes, barely; dk/dv is 69 GFLOP (0.070
-// ms) against 0.2 GB, so operations.  Both sit near the ridge, so the
-// products must run on the tensor cores and the tiles must arrive while
-// the previous tile computes.  f32 inputs are bound by the 67 TFLOP/s
-// of f32 FMAs.
+// (0.040 ms at 3.35 TB/s), so bytes, barely; dq is 52 GFLOP (0.052 ms)
+// against 0.17 GB (0.050 ms), and dk/dv 69 GFLOP (0.070 ms) against
+// 0.2 GB, so operations.  All three sit near the ridge, so the products
+// must run on the tensor cores and the tiles must arrive while the
+// previous tile computes.  f32 inputs are bound by the 67 TFLOP/s of f32
+// FMAs.
 //
 // The wgmma design (FlashAttention-3's forward, without warp
 // specialisation):
@@ -66,6 +66,19 @@
 //     second runs during the softmax of the first.  Only diagonal and
 //     ragged tiles are masked.  64 KB of shared memory at hd 64, 128 KB
 //     at 128;
+//   * dq: the forward's skeleton without the online softmax.  One block
+//     of two warpgroups per (128-row query tile, head, example), causal
+//     blocks heaviest first; Q and dO load once, the thread's lse and
+//     delta rows stay in registers, K and V tiles of 64 keys ring through
+//     3 stages.  S = Q.K^T and dP = dO.V^T (both operands in shared
+//     memory), P = exp(S * scale - lse) straight from the saved lse,
+//     dS = P * (dP - delta) * scale rounded to bf16 and repacked as the
+//     A operand of dQ += dS.K (K read as an MN-major B, as the forward
+//     reads V).  S and dP of tile j start together with dS.K of tile
+//     j - 1, so dS.K runs on the tensor cores during tile j's
+//     elementwise work.  dQ stays in f32 registers for the whole walk
+//     and is written once.  80 KB of shared memory at hd 64, 160 KB at
+//     128;
 //   * dk/dv: one warpgroup per (64-key tile, KV head, example).  K and V
 //     load once; Q, dO and the lse and delta rows of each (query head,
 //     query tile) pair ring.  It computes the transposes directly:
@@ -528,6 +541,11 @@ constexpr int fwd_smem() {
   return (FWD_BQ + 2 * FWD_STAGES * TILE) * HD * 2 + 1024;
 }
 template <int HD>
+constexpr int dq_smem() {
+  // Q, dO, the (K, V) ring, alignment
+  return (2 * FWD_BQ + 2 * FWD_STAGES * TILE) * HD * 2 + 1024;
+}
+template <int HD>
 constexpr int dkv_smem() {
   return 6 * TILE * HD * 2 + 2 * 2 * TILE * 4 + 1024;  // K, V, 2 x (Q, dO),
 }                                                      // 2 x (lse, delta)
@@ -711,6 +729,176 @@ flash_fwd_wgmma(const bf16* __restrict__ q, long long qb, long long qt,
                                 acc[4 * j + 2 * rr + 1] / lc);
     if (lane % 4 == 0)
       lse[((long long)b * H + h) * T_ + t] = m[rr] * scale + logf(lc);
+  }
+}
+
+// dq: one block per (128-row query tile, head, example), walking the key
+// tiles in order.
+template <int HD>
+__global__ void __launch_bounds__(FWD_NT, 1)
+flash_dq_wgmma(const bf16* __restrict__ q, long long qb, long long qt,
+               long long qh, const bf16* __restrict__ k, long long kb,
+               long long kt, long long kh, const bf16* __restrict__ v,
+               long long vb, long long vt, long long vh,
+               const bf16* __restrict__ dout, long long db, long long dt,
+               long long dh, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dq, int T_,
+               int S, int H, int rep, int causal, float scale) {
+  constexpr int KT = TILE * HD * 2;  // bytes of a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Ds = Qs + FWD_BQ * HD * 2;  // dO
+  const uint32_t Ks = Ds + FWD_BQ * HD * 2;  // stage st at Ks + st * KT
+  const uint32_t Vs = Ks + FWD_STAGES * KT;
+  const int qtile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qtile * FWD_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int qw = q0 + 64 * wgi;                // this warpgroup's rows
+  const int row0 = qw + 16 * warp + lane / 4;  // this thread's: row0, +8
+  const int col0 = 2 * (lane % 4);             // columns col0, +1 of 8
+
+  const bf16* kp = k + b * kb + (h / rep) * kh;
+  const bf16* vp = v + b * vb + (h / rep) * vh;
+  load_tile<FWD_BQ, HD, FWD_NT>(Qs, q + b * qb + h * qh, qt, q0, T_);
+  load_tile<FWD_BQ, HD, FWD_NT>(Ds, dout + b * db + h * dh, dt, q0, T_);
+  load_tile<TILE, HD, FWD_NT>(Ks, kp, kt, 0, S);
+  load_tile<TILE, HD, FWD_NT>(Vs, vp, vt, 0, S);
+  cp_commit();
+  const int kend = causal ? min(S, q0 + FWD_BQ) : S;
+  const int ntiles = (kend + TILE - 1) / TILE;
+
+  // P = 2^(s * c - lse * log2(e)) with c = scale * log2(e); rows past T
+  // have Q = dO = 0 and lse = delta = 0, so their dS is 0.
+  const float c = scale * LOG2E;
+  float lq[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int t = row0 + 8 * rr;
+    const long long row = ((long long)b * H + h) * T_ + t;
+    lq[rr] = t < T_ ? lse[row] * LOG2E : 0.f;
+    dl[rr] = t < T_ ? delta[row] : 0.f;
+  }
+  float acc[HD / 2];  // dQ
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];     // S and dP of the current tile, then P and dS
+  uint32_t da[4][4] = {};  // dS of the previous tile, bf16 A fragments
+
+  // Tile j has landed for every thread and tile j - 2 is consumed, so
+  // its stage takes tile j + 1.
+  auto ring = [&](int j) {
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (j + 1 < ntiles) {
+      const int nx = (j + 1) % FWD_STAGES;
+      load_tile<TILE, HD, FWD_NT>(Ks + nx * KT, kp, kt, (j + 1) * TILE, S);
+      load_tile<TILE, HD, FWD_NT>(Vs + nx * KT, vp, vt, (j + 1) * TILE, S);
+      cp_commit();
+    }
+  };
+  // Starts S = Q.K_j^T into s and dP = dO.V_j^T into dp.
+  auto start_sdp = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(acc);
+    reg_fence(da);
+    wg_fence();
+    const uint32_t ks = Ks + (j % FWD_STAGES) * KT;
+    const uint32_t vs = Vs + (j % FWD_STAGES) * KT;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      mma_ss(s, kmajor<FWD_BQ>(Qs, 64 * wgi, kk), kmajor<TILE>(ks, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      mma_ss(dp, kmajor<FWD_BQ>(Ds, 64 * wgi, kk), kmajor<TILE>(vs, 0, kk));
+    wg_commit();
+  };
+  // Starts dQ += dS.K_j from da.
+  auto start_dq = [&](int j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(acc, da[kk], mnmajor<TILE>(Ks + (j % FWD_STAGES) * KT, kk));
+    wg_commit();
+  };
+  // P and dS of tile j into s and dp.  `masked` (a std::bool_constant) is
+  // true only for the diagonal tile under the causal mask and a ragged
+  // last tile: the other tiles run no mask code.
+  auto grads = [&](int j, auto masked) {
+    const int k0 = j * TILE;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      // the last column of the tile that is a key, and (causal) that
+      // this row may see
+      const int last_key = S - 1 - k0, last_seen = row0 + 8 * rr - k0;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * rr + e;
+          float p;
+          if constexpr (decltype(masked)::value) {
+            const int col = 8 * jj + col0 + e;
+            const float val = causal && col > last_seen ? NEG : s[i];
+            p = col > last_key ? 0.f : ex2(fmaf(val, c, -lq[rr]));
+          } else {
+            p = ex2(fmaf(s[i], c, -lq[rr]));
+          }
+          dp[i] = p * (dp[i] - dl[rr]) * scale;
+        }
+    }
+  };
+  auto grads_tile = [&](int j) {
+    const int k0 = j * TILE;
+    if ((causal && k0 + TILE - 1 > qw) || k0 + TILE > S)
+      grads(j, std::true_type{});
+    else
+      grads(j, std::false_type{});
+  };
+
+  // Step j starts S_j, dP_j and dQ += dS_{j-1}.K_{j-1} together, so the
+  // third runs on the tensor cores during the elementwise work of the
+  // first two.  As in the forward, both warpgroups run every tile of the
+  // block (the one tile wholly past the first warpgroup's diagonal gives
+  // dS = 0).
+  ring(0);
+  start_sdp(0);
+  wg_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+  grads_tile(0);
+  to_a(dp, da);  // dS in bf16
+  for (int j = 1; j < ntiles; ++j) {
+    ring(j);
+    start_sdp(j);
+    start_dq(j - 1);
+    wg_wait<1>();  // S_j and dP_j are done, dS_{j-1}.K_{j-1} may still run
+    reg_fence(s);
+    reg_fence(dp);
+    grads_tile(j);
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(da);
+    to_a(dp, da);
+  }
+  reg_fence(acc);
+  reg_fence(da);
+  wg_fence();
+  start_dq(ntiles - 1);
+  wg_wait<0>();
+  reg_fence(acc);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int t = row0 + 8 * rr;
+    if (t >= T_) continue;
+    bf16* row = dq + (((long long)b * T_ + t) * H + h) * HD + col0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
   }
 }
 
@@ -936,6 +1124,23 @@ int launch_fwd_wgmma(const Args& a) {
 }
 
 template <int HD>
+int launch_dq_wgmma(const Args& a) {
+  auto kern = wg::flash_dq_wgmma<HD>;
+  const int smem = wg::dq_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Tq + wg::FWD_BQ - 1) / wg::FWD_BQ, a.H, a.B);
+  kern<<<grid, wg::FWD_NT, smem, a.stream>>>(
+      (const wg::bf16*)a.q, a.qs[0], a.qs[1], a.qs[2], (const wg::bf16*)a.k,
+      a.ks[0], a.ks[1], a.ks[2], (const wg::bf16*)a.v, a.vs[0], a.vs[1],
+      a.vs[2], (const wg::bf16*)a.dout, a.ds[0], a.ds[1], a.ds[2],
+      a.lse_in, a.delta, (wg::bf16*)a.dq, a.Tq, a.Sk, a.H, a.rep, a.causal,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
 int launch_dkv_wgmma(const Args& a) {
   auto kern = wg::flash_dkv_wgmma<HD>;
   const int smem = wg::dkv_smem<HD>();
@@ -952,10 +1157,10 @@ int launch_dkv_wgmma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// The wgmma design takes bf16 forward and dk/dv calls at head_dim 64 and
+// The wgmma design takes bf16 calls of every kernel at head_dim 64 and
 // 128; every other call takes the fma design.
-bool wgmma_design(int which, int hd, int bf16) {
-  return bf16 && which != 1 && (hd == 64 || hd == 128);
+bool wgmma_design(int hd, int bf16) {
+  return bf16 && (hd == 64 || hd == 128);
 }
 
 // cp.async moves 16 bytes: rows must start 16-byte aligned.
@@ -992,13 +1197,15 @@ int dispatch(int which, int hd, const Args& a) {
 
 int run(int which, int hd, int bf16, const Args& a) {
   if (a.B == 0 || a.Tq == 0 || a.Sk == 0 || a.H == 0) return 0;
-  if (!fma_only && wgmma_design(which, hd, bf16)) {
+  if (!fma_only && wgmma_design(hd, bf16)) {
     if (!rows_aligned(a.q, a.qs) || !rows_aligned(a.k, a.ks) ||
         !rows_aligned(a.v, a.vs) ||
-        (which == 2 && !rows_aligned(a.dout, a.ds)))
+        (which != 0 && !rows_aligned(a.dout, a.ds)))
       return (int)cudaErrorMisalignedAddress;
     if (which == 0)
       return hd == 64 ? launch_fwd_wgmma<64>(a) : launch_fwd_wgmma<128>(a);
+    if (which == 1)
+      return hd == 64 ? launch_dq_wgmma<64>(a) : launch_dq_wgmma<128>(a);
     return hd == 64 ? launch_dkv_wgmma<64>(a) : launch_dkv_wgmma<128>(a);
   }
   return bf16 ? dispatch<__nv_bfloat16>(which, hd, a)
@@ -1012,7 +1219,8 @@ extern "C" {
 // 1 if a call (which: 0 forward, 1 dq, 2 dk/dv) takes the wgmma design,
 // 0 if the fma design.
 int repro_flash_design(int which, int hd, int bf16) {
-  return wgmma_design(which, hd, bf16) ? 1 : 0;
+  (void)which;  // every kernel has both designs
+  return wgmma_design(hd, bf16) ? 1 : 0;
 }
 
 // on = 1: every later call takes the fma design, until a call with

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // cp.async copies into shared memory, the 128-byte-swizzled tile layout,
 // wgmma descriptors, fences and the bf16 wgmma products (f32
-// accumulators).  Included by flash_attn.cu and gram_norm.cu; build.py
-// hashes it with every source that includes it.
+// accumulators).  Included by flash_attn.cu, gram_norm.cu and
+// fma_core.cuh; build.py hashes it with every source that includes it.
 #pragma once
 
 #include <cuda_runtime.h>

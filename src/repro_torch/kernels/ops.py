@@ -18,9 +18,9 @@ went through the kernels.
 (:func:`gram_route`): rank-1 at T = 1, the per-example product (the core
 ``gram_norm_fused`` shares), or the symmetric Gram.
 
-The flash forward and dk/dv kernels have two designs, chosen by dtype
-and head_dim (:func:`flash_design`): bf16 on the tensor cores (``wgmma``)
-and f32 FMAs (``fma``); dq has the second only.
+The three flash kernels (forward, dq, dk/dv) have two designs, chosen
+by dtype and head_dim (:func:`flash_design`): bf16 on the tensor cores
+(``wgmma``) and f32 FMAs (``fma``).
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function``
 runs the forward wrapper and, in its backward, the dq and dk/dv
@@ -32,8 +32,10 @@ returns an empty output of the right shape and launches nothing.
 The JAX package's TPU tile autotuner (``_autotune_bd``, ``pick_bd``,
 ``vmem_budget``, ``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart
 here: neither ``pe_conv_grad_2d`` nor ``pe_conv_grad_1d`` takes a ``bd``
-tile, both use fixed 64 x 64 output tiles; a Hopper tile sweep belongs to
-calibration (ROADMAP.md item 13).
+tile (the 2-D kernel's output tiles are 64 x 64; the 1-D kernel picks
+64 x 64, or 128 x 128 in f32 and 128 x 64 in bf16, by shape in
+``csrc/pe_conv_grad.cu``); a
+Hopper tile sweep belongs to calibration (ROADMAP.md item 13).
 """
 from __future__ import annotations
 
@@ -372,14 +374,16 @@ def pe_conv_grad_1d(x, dy, *, K: int):
                          f"length {T} and kernel {K}")
     if not _launch_ready("pe_conv_grad_1d", x, dy):
         return _ref.pe_conv_grad_1d_ref(x, dy, K)
-    if B > _GRID_YZ_MAX or -(-D // 64) > _GRID_YZ_MAX:
-        raise ValueError(f"pe_conv_grad_1d: grid too large for B={B}, D={D}")
+    if B > _GRID_YZ_MAX:
+        raise ValueError(f"pe_conv_grad_1d: batch {B} too large for the grid")
     out = torch.empty((B, D, C, K), dtype=torch.float32, device=x.device)
     if out.numel() > _INT_MAX:
         raise ValueError("pe_conv_grad_1d: output exceeds the kernel's "
                          "32-bit index range")
     if out.numel() == 0:
         return out
+    if Tp == 0:
+        return out.zero_()
     from repro_torch.kernels import build
     lib = build.load("pe_conv_grad")
     with torch.cuda.device(x.device):
@@ -465,11 +469,11 @@ _FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 def flash_design(which: str, dtype, hd: int) -> str:
     """The kernel design that a call of ``which`` (one of "flash_fwd",
     "flash_dq", "flash_dkv") takes on the card for ``dtype`` inputs at
-    head_dim ``hd``: "wgmma" for bf16 forward and dk/dv calls at head_dim
-    64 and 128 (bf16 tensor cores, swizzled tiles through a cp.async
-    ring), "fma" for every other call (f32 FMAs from shared memory: f32
-    inputs, bf16 at head_dim 16 and 32, and dq).  ``repro_flash_design``
-    in ``csrc/flash_attn.cu`` makes the same choice."""
+    head_dim ``hd``: "wgmma" for bf16 calls at head_dim 64 and 128 (bf16
+    tensor cores, swizzled tiles through a cp.async ring), "fma" for
+    every other call (f32 FMAs from shared memory: f32 inputs, bf16 at
+    head_dim 16 and 32).  ``repro_flash_design`` in ``csrc/flash_attn.cu``
+    makes the same choice."""
     if which not in _FLASH_KERNELS:
         raise ValueError(f"flash_design: {which!r} is not one of "
                          f"{_FLASH_KERNELS}")
@@ -478,9 +482,7 @@ def flash_design(which: str, dtype, hd: int) -> str:
     if hd not in _FLASH_HD:
         raise NotImplementedError(f"flash_design: head_dim {hd} not in "
                                   f"{_FLASH_HD}")
-    wgmma = (dtype == torch.bfloat16 and which != "flash_dq"
-             and hd in (64, 128))
-    return "wgmma" if wgmma else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "fma"
 
 
 def _rows16(t):

@@ -101,10 +101,53 @@ def test_bf16_bound_admits_tile_rounding_and_rejects_faults(design):
     assert _worst(_tiled_fwd(q, k, v, "rescale", design), want) > 1.5
 
 
-# The calls csrc/flash_attn.cu runs on the tensor cores: bf16 forward and
-# dk/dv at head_dim 64 and 128.  Every other call takes the fma design.
-WGMMA_CALLS = {("flash_fwd", 64), ("flash_fwd", 128), ("flash_dkv", 64),
-               ("flash_dkv", 128)}
+def _tiled_dq(q, k, v, do, lse, delta, fault=None):
+    """The dq kernel's arithmetic in plain PyTorch (rep 1): dS of each
+    64-key tile from the saved lse as P = 2^(s * c - lse * log2(e)),
+    rounded to k's dtype, and dq summed over the tiles in order.
+    ``fault`` breaks it: "drop_last" skips the last key tile the causal
+    mask reaches, "diagonal" puts the causal diagonal one key late (each
+    query also sees the next key)."""
+    B, T, H, hd = q.shape
+    tile, scale = 64, hd ** -0.5
+    c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    shift = 1 if fault == "diagonal" else 0
+    masked = torch.arange(T)[None] > torch.arange(T)[:, None] + shift
+    s = s.masked_fill(masked, -1e30)
+    p = torch.exp2(s * c - lse[..., None] * 1.4426950408889634)
+    ds = (p * (dp - delta[..., None]) * scale).to(k.dtype).float()
+    dq = torch.zeros(B, H, T, hd)
+    for k0 in range(0, T, tile):
+        if fault == "drop_last" and k0 + tile >= T:
+            continue
+        dq = dq + torch.einsum("bhts,bshd->bhtd", ds[..., k0:k0 + tile],
+                               k[:, k0:k0 + tile].float())
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def test_dq_bound_admits_tile_order_and_rejects_faults():
+    """CPU: the bound above passes the dq kernel's own arithmetic (P from
+    the saved lse in base 2, dS rounded to bf16, dq summed over 64-key
+    tiles in order) against the plain version, and fails a dq walk that
+    drops a key tile or misplaces the causal diagonal."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn(1, 512, 4, 64, generator=g).bfloat16()
+                   for _ in range(4))
+    o, lse = ref.flash_fwd_ref(q, k, v, causal=True)
+    delta = ref.flash_delta(o, do)
+    want = ref.flash_dq_ref(q, k, v, do, lse, delta, causal=True)
+    assert _worst(_tiled_dq(q, k, v, do, lse, delta), want) <= 0.6
+    assert _worst(_tiled_dq(q, k, v, do, lse, delta, "drop_last"),
+                  want) > 10
+    assert _worst(_tiled_dq(q, k, v, do, lse, delta, "diagonal"), want) > 10
+
+
+# The calls csrc/flash_attn.cu runs on the tensor cores: bf16 forward, dq
+# and dk/dv at head_dim 64 and 128.  Every other call takes the fma design.
+WGMMA_CALLS = {("flash_fwd", 64), ("flash_fwd", 128), ("flash_dq", 64),
+               ("flash_dq", 128), ("flash_dkv", 64), ("flash_dkv", 128)}
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -179,9 +222,10 @@ WGMMA_CASES = [(2, 256, 4, 4, 64, True), (2, 256, 8, 2, 64, False),
                          ids=lambda c: "B{}_T{}_H{}_Hkv{}_hd{}_{}".format(
                              *c[:5], "causal" if c[5] else "full"))
 def test_cuda_wgmma_kernels_match_ref(case):
-    """Card only: the bf16 forward and dk/dv on the tensor cores against
-    their plain versions, to ``_close``'s bound; both bitwise repeatable;
-    the library names the design the wrapper does."""
+    """Card only: the bf16 forward, dq and dk/dv on the tensor cores
+    against their plain versions, to ``_close``'s bound; all three bitwise
+    repeatable, one count a call; the library names the design the
+    wrapper does."""
     _needs_card()
     from repro_torch.kernels import build
     B, T, H, Hkv, hd, causal = case
@@ -192,6 +236,7 @@ def test_cuda_wgmma_kernels_match_ref(case):
             assert lib.repro_flash_design(which, hd, int(
                 dt == torch.bfloat16)) == (design == "wgmma")
     assert ops.flash_design("flash_fwd", torch.bfloat16, hd) == "wgmma"
+    assert ops.flash_design("flash_dq", torch.bfloat16, hd) == "wgmma"
     assert ops.flash_design("flash_dkv", torch.bfloat16, hd) == "wgmma"
     assert ops.flash_design("flash_fwd", torch.float32, hd) == "fma"
     g = torch.Generator().manual_seed(1)
@@ -206,6 +251,12 @@ def test_cuda_wgmma_kernels_match_ref(case):
     _close(lse, rl)
     del ro, rl
     bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+    n0 = ops.LAUNCHES["flash_dq"]
+    dq = ops.flash_dq(*bwd, causal=causal)
+    dq2 = ops.flash_dq(*bwd, causal=causal)
+    assert ops.LAUNCHES["flash_dq"] == n0 + 2
+    assert torch.equal(dq, dq2)
+    _close(dq, ref.flash_dq_ref(*bwd, causal=causal))
     dk, dv = ops.flash_dkv(*bwd, causal=causal)
     dk2, dv2 = ops.flash_dkv(*bwd, causal=causal)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
@@ -218,32 +269,35 @@ def test_cuda_wgmma_kernels_match_ref(case):
 def test_cuda_wgmma_reads_unaligned_rows():
     """Card only: inputs whose rows do not start 16-byte aligned (a view
     at an odd offset) reach the wgmma kernels through an aligned copy and
-    give the same outputs."""
+    give the same outputs, at head_dim 64 and 128."""
     _needs_card()
     g = torch.Generator().manual_seed(2)
-    B, T, H, hd = 1, 192, 2, 64
-    flat = torch.randn(4 * B * T * H * hd + 1, generator=g).to(
-        "cuda", torch.bfloat16)
-    q, k, v, do = (flat[1 + i * B * T * H * hd:
-                        1 + (i + 1) * B * T * H * hd].view(B, T, H, hd)
-                   for i in range(4))
-    assert q.data_ptr() % 16
-    o, lse = ops.flash_fwd(q, k, v, causal=True)
-    qc, kc, vc, dc = (t.clone() for t in (q, k, v, do))
-    oc, lc = ops.flash_fwd(qc, kc, vc, causal=True)
-    assert torch.equal(o, oc) and torch.equal(lse, lc)
-    delta = ops.flash_delta(o, do)
-    got = ops.flash_dkv(q, k, v, do, lse, delta, causal=True)
-    want = ops.flash_dkv(qc, kc, vc, dc, lse, delta, causal=True)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for hd in (64, 128):
+        B, T, H = 1, 192, 2
+        flat = torch.randn(4 * B * T * H * hd + 1, generator=g).to(
+            "cuda", torch.bfloat16)
+        q, k, v, do = (flat[1 + i * B * T * H * hd:
+                            1 + (i + 1) * B * T * H * hd].view(B, T, H, hd)
+                       for i in range(4))
+        assert q.data_ptr() % 16 and do.data_ptr() % 16
+        o, lse = ops.flash_fwd(q, k, v, causal=True)
+        qc, kc, vc, dc = (t.clone() for t in (q, k, v, do))
+        oc, lc = ops.flash_fwd(qc, kc, vc, causal=True)
+        assert torch.equal(o, oc) and torch.equal(lse, lc)
+        delta = ops.flash_delta(o, do)
+        got = (ops.flash_dq(q, k, v, do, lse, delta, causal=True),
+               *ops.flash_dkv(q, k, v, do, lse, delta, causal=True))
+        want = (ops.flash_dq(qc, kc, vc, dc, lse, delta, causal=True),
+                *ops.flash_dkv(qc, kc, vc, dc, lse, delta, causal=True))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
 def test_cuda_fma_only_times_the_fma_design():
-    """Card only: while ``repro_flash_fma_only`` is set, bf16 forward and
-    dk/dv calls at head_dim 64 take the fma design (chip_smoke.py times
-    it as the earlier design), which also passes ``_close``'s bound; the
-    wgmma design takes them again once it is cleared."""
+    """Card only: while ``repro_flash_fma_only`` is set, bf16 forward, dq
+    and dk/dv calls at head_dim 64 take the fma design (chip_smoke.py
+    times it as the earlier design), which also passes ``_close``'s
+    bound; the wgmma design takes them again once it is cleared."""
     _needs_card()
     from repro_torch.kernels import build
     lib = build.load("flash_attn")
@@ -253,18 +307,23 @@ def test_cuda_fma_only_times_the_fma_design():
         "cuda", torch.bfloat16) for _ in range(4))
     o, lse = ops.flash_fwd(q, k, v, causal=True)
     bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+    dq = ops.flash_dq(*bwd, causal=True)
     dk, dv = ops.flash_dkv(*bwd, causal=True)
     lib.repro_flash_fma_only(1)
     try:
         fo, fl = ops.flash_fwd(q, k, v, causal=True)
+        fdq = ops.flash_dq(*bwd, causal=True)
         fdk, fdv = ops.flash_dkv(*bwd, causal=True)
     finally:
         lib.repro_flash_fma_only(0)
     ro, rl = ref.flash_fwd_ref(q, k, v, causal=True)
+    rdq = ref.flash_dq_ref(*bwd, causal=True)
     rdk, rdv = ref.flash_dkv_ref(*bwd, causal=True)
-    for got, want in ((fo, ro), (fl, rl), (fdk, rdk), (fdv, rdv)):
+    for got, want in ((fo, ro), (fl, rl), (fdq, rdq), (fdk, rdk),
+                      (fdv, rdv)):
         _close(got, want)
     o2, lse2 = ops.flash_fwd(q, k, v, causal=True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, ops.flash_dq(*bwd, causal=True))
     assert all(torch.equal(a, b) for a, b in
                zip((dk, dv), ops.flash_dkv(*bwd, causal=True)))

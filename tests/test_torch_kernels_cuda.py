@@ -85,10 +85,19 @@ def test_cuda_kernels_match_ref():
 
 
 # (B, C, D, T, K): the JAX kernel test's sweep, then a ragged case (T'
-# not a multiple of the 16-deep chunk, D and C·K wider than one 64 tile)
-# and the 1-D lane's first layer (C·K = 33 of a 64-wide tile).
+# not a multiple of the 32-deep stage, D and C·K wider than one tile)
+# and the 1-D lane's first layer (C·K = 33 of a 64-wide tile); then the
+# 1-D lane's five layers (B = 32, T' = 4096; chip_smoke.py's C1_LAYERS):
+# D = 64 and 192 take the kernel's 64 x 64 output tiles, conv2-4
+# 128 x 128 in f32 and 128 x 64 in bf16; then two ragged cases (D = 300,
+# T' = 1097 odd), C·K = 28 and C·K = 500, on 128 x 128 tiles in f32 and
+# 128 x 64 in bf16.
 PE1D_SHAPES = [(2, 5, 6, 20, 3), (1, 3, 8, 33, 5), (4, 2, 2, 9, 2),
-               (3, 70, 130, 100, 4), (2, 3, 64, 300, 11)]
+               (3, 70, 130, 100, 4), (2, 3, 64, 300, 11),
+               (32, 3, 64, 4106, 11), (32, 64, 192, 4100, 5),
+               (32, 192, 384, 4098, 3), (32, 384, 256, 4098, 3),
+               (32, 256, 256, 4098, 3), (2, 7, 300, 1100, 4),
+               (2, 125, 300, 1100, 4)]
 
 
 @pytest.mark.cuda
@@ -107,6 +116,20 @@ def test_cuda_pe_conv_grad_1d_matches_ref(shape, dtype):
     assert got.dtype == torch.float32 and got.shape == (B, D, C, K)
     assert torch.equal(got, again)
     _close(got, ref.pe_conv_grad_1d_ref(x, dy, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+def test_cuda_pe_conv_grad_1d_empty_t(dtype):
+    """Card only: with T' = 0 (T = K - 1) the gradient is zeros, and no
+    kernel launches."""
+    _needs_card()
+    x = torch.randn(2, 3, 3, device="cuda").to(dtype)
+    dy = torch.randn(2, 5, 0, device="cuda").to(dtype)
+    n0 = ops.LAUNCHES["pe_conv_grad_1d"]
+    got = ops.pe_conv_grad_1d(x, dy, K=4)
+    assert ops.LAUNCHES["pe_conv_grad_1d"] == n0
+    assert got.shape == (2, 5, 3, 4) and not got.any()
 
 
 @pytest.mark.cuda
