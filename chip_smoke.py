@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 3. kernels against their plain PyTorch versions at the shapes the main
    path gives them (AlexNet, 256 px, B = 32; Llama-3.2-1B, B = 8,
    T = 1024), plus ragged and bf16 cases: max error, kernel / plain /
-   library time, and the bound (``gram_norm`` and ``gram_norm_fused`` on
+   library time, and the bound (``pe_conv_grad_2d`` on the tensor cores,
+   each case twice to show it bitwise repeatable, its design named,
+   ``ops.pe_conv_design``; both conv gradients, kernel and plain f32
+   version, held to the f32 sum bound of ``kernels/bounds.py`` against an
+   f64 product, every other kernel to rtol 1e-4 of its plain version
+   (``compare``); ``gram_norm`` and ``gram_norm_fused`` on
    the transposed im2col views the conv path hands them, each twice to
    show it bitwise repeatable, ``gram_norm_fused`` once more on a
    contiguous copy for comparison; each ``gram_norm`` row names its route,
@@ -71,11 +76,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 The kernel cases of phase 3 include ``pe_conv_grad_1d`` (the JAX kernel
 test's sweep and the 1-D lane's five layer shapes, f32 and bf16, each
-twice to show it bitwise repeatable; per layer its time, its bound at
-its dtype's peak and its share of it, and for bf16 the bound at the f32
-FMA peak its route runs on) and ``gram_norm_tokmask`` (B = 8, T = 1024,
-D = 2048 in bf16 and f32, random and heavily repeated ids, a ragged
-T = 1000; each against the plain version and the segment sum).
+twice to show it bitwise repeatable; per layer its time, its bound (3 x
+FLOP at the TF32 rate for f32, the bf16 peak for bf16) and its share of
+it, and the bound at the f32 FMA peak its route runs on) and
+``gram_norm_tokmask`` (B = 8, T = 1024, D = 2048 in bf16 and f32, random
+and heavily repeated ids, a ragged T = 1000; each against the plain
+version and the segment sum; each row names its route,
+``ops.tokmask_route``).
 
 The line before the last is a JSON object with one entry per kernel
 (eight, each with its share of its bound); the last line is
@@ -94,12 +101,18 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, bf16 on them, and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# tensor cores, TF32 and bf16 on them, and HBM3 bandwidth.  The f32 rows
+# of the product-sum kernels (both conv gradients, gram_norm,
+# gram_norm_fused) are bounded at 3 x FLOP at the TF32 rate, the least
+# an error-compensated (3xTF32) tensor-core sum needs, which the f32 sum
+# bound (kernels/bounds.py) admits; each keeps its bound at the f32 FMA
+# rate beside it (fma_bound_ms).
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 # A bf16 case feeds bf16 inputs, but every kernel and its plain version do
 # their arithmetic in f32, so it is held to the f32 tolerance: a kernel
-# that multiplied or accumulated in bf16 fails it.
+# that multiplied or accumulated in bf16 fails it.  The conv gradients
+# are held to the f32 sum bound instead (sum_rule).
 RTOL = {"float32": 1e-4, "bfloat16": 1e-4}
 
 B = 32
@@ -151,13 +164,15 @@ PE1D_SWEEP = [(2, 5, 6, 20, 3), (1, 3, 8, 33, 5), (4, 2, 2, 9, 2)]
 # gram_norm_tokmask at Llama-3.2-1B's embedding cotangent: (case, B, T, D,
 # id range, dtype, on its entry path).  A range of 16 repeats every id
 # about 64 times per example; the vocabulary's 128 256 leaves almost only
-# the diagonal.
+# the diagonal.  The last case is one token past the sort's cap of 16 384
+# (ops.tokmask_route), where the masked-Gram route runs.
 TOK_CASES = [("llama_bf16", LM_B, LM_T, 2048, 128256, "bfloat16", True),
              ("llama_f32", LM_B, LM_T, 2048, 128256, "float32", False),
              ("repeated_bf16", LM_B, LM_T, 2048, 16, "bfloat16", False),
              ("repeated_f32", LM_B, LM_T, 2048, 16, "float32", False),
              ("ragged_repeated_f32", LM_B, 1000, 2048, 16, "float32", False),
-             ("ragged_bf16", LM_B, 1000, 2048, 128256, "bfloat16", False)]
+             ("ragged_bf16", LM_B, 1000, 2048, 128256, "bfloat16", False),
+             ("past_sort_cap_f32", 1, 16385, 64, 128256, "float32", False)]
 # The CLI lanes: (lane, arguments after the module, steps).
 CLI_LANES = [
     ("cli_alexnet_auto_flat",
@@ -246,6 +261,30 @@ def bound(flops, nbytes, dtype):
                                  else "bytes")
 
 
+def product_bound(flops, nbytes, dtype):
+    """(least ms, "operations" or "bytes", least ms at the f32 FMA rate) of
+    a product-sum kernel: f32 inputs at 3 x ``flops`` at the TF32 rate,
+    bf16 inputs at the bf16 rate."""
+    fma_ms = bound(flops, nbytes, "float32")[0]
+    if dtype == "float32":
+        return (*bound(3 * flops, nbytes, "tf32"), fma_ms)
+    return (*bound(flops, nbytes, dtype), fma_ms)
+
+
+def sum_rule(got, plain, fn, x, dy, n):
+    """The conv gradients' check (``kernels/bounds.py``): the kernel's and
+    the plain f32 version's largest error against the f64 product ``fn``
+    of f64 inputs, as multiples of 2^-24·√n·Σ|x|·|δy| over the n terms
+    of each sum.  Both must be at most 1: a bound that failed the plain
+    version would be wrong.  Returns (kernel's, plain's, ok)."""
+    from repro_torch.kernels import bounds
+    exact = fn(x.double(), dy.double())
+    absprod = fn(x.double().abs(), dy.double().abs())
+    k_mult, k_ok = bounds.sum_bound(got, exact, absprod, n)
+    p_mult, p_ok = bounds.sum_bound(plain, exact, absprod, n)
+    return k_mult, p_mult, k_ok and p_ok
+
+
 def compare(torch, got, want, dtype, floor=1e-3, rtol=None):
     """Max abs error, and whether every entry is within rtol of the
     plain version (relative to the entry, with an absolute floor of
@@ -277,29 +316,40 @@ def kernel_cases(torch):
         hp = h - k + 1
         x, dy = rnd(b, c, h, h, dtype=tdt), rnd(b, d, hp, hp, dtype=tdt)
         got = ops.pe_conv_grad_2d(x, dy, KH=k, KW=k)
+        again = ops.pe_conv_grad_2d(x, dy, KH=k, KW=k)
         torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
         want = ref.pe_conv_grad_2d_ref(x, dy, k, k)
-        abs_err, rel_err, ok = compare(torch, got, want, dt)
-        del got, want
+        abs_err, rel_err, _ = compare(torch, got, want, dt)
+        mult, plain_mult, rule_ok = sum_rule(
+            got, want, lambda a, g_: ref.pe_conv_grad_2d_ref(a, g_, k, k),
+            x, dy, hp * hp)
+        del got, again, want
         flops = 2 * b * d * c * k * k * hp * hp
         nbytes = (x.numel() + dy.numel()) * x.element_size() \
             + b * d * c * k * k * 4
-        b_ms, b_by = bound(flops, nbytes, dt)
+        b_ms, b_by, fma_ms = product_bound(flops, nbytes, dt)
+        k_ms = cuda_ms(torch, lambda: ops.pe_conv_grad_2d(x, dy, KH=k, KW=k),
+                       10)
         row = {"kernel": "pe_conv_grad_2d", "case": name, "dtype": dt,
                "shape": {"B": b, "C": c, "H": h, "D": d, "K": k},
+               "route": ops.pe_conv_design(tdt),
+               "check": "f32 sum bound (kernels/bounds.py), n = H'W'",
+               "bound_multiple": mult, "plain_bound_multiple": plain_mult,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
-               "rtol": RTOL[dt], "ok": ok,
-               "kernel_ms": cuda_ms(torch, lambda: ops.pe_conv_grad_2d(
-                   x, dy, KH=k, KW=k), 10),
+               "ok": rule_ok and repeat, "bitwise_repeat": repeat,
+               "kernel_ms": k_ms, "tflops": flops / k_ms / 1e9,
                "plain_ms": cuda_ms(torch, lambda: ref.pe_conv_grad_2d_ref(
                    x, dy, k, k), 3),
                "library_ms": cuda_ms(torch, lambda: convops.pe_conv_grad(
                    x, dy, kernel_spatial=(k, k), impl="fgc"), 3),
                "library": "F.conv3d grouped-conv lowering (fgc)",
-               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+               "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
+               "bound_share": b_ms / k_ms, "main_path": main}
         rows.append(row)
         log(row)
         del x, dy
+        torch.cuda.empty_cache()
 
     # The conv layers' operands as the conv path hands them over:
     # transposed views of the (B, C·K, T) patches and (B, D, T)
@@ -333,7 +383,7 @@ def kernel_cases(torch):
         # T = 1 it is rank-1 and the bytes bound it.
         flops = 2 * b * min(t * (t + 1) * (di + do) // 2, t * di * do)
         nbytes = (x.numel() + dy.numel()) * x.element_size() + b * 4
-        b_ms, b_by = bound(flops, nbytes, dt)
+        b_ms, b_by, fma_ms = product_bound(flops, nbytes, dt)
         row = {"kernel": "gram_norm", "case": name, "dtype": dt,
                "shape": {"B": b, "T": t, "Di": di, "Do": do},
                "route": ops.gram_route(t, di, do),
@@ -347,7 +397,8 @@ def kernel_cases(torch):
                    x, dy, has_bias=True), 3),
                "library_ms": cuda_ms(torch, library, 3),
                "library": "bmm materialize + square-sum (several calls)",
-               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+               "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
+               "main_path": main}
         rows.append(row)
         log(row)
         del x, dy, got, want
@@ -408,7 +459,7 @@ def fused_cases(torch, rnd):
         flops = 2 * b * t * di * do
         nbytes = (x.numel() + dy.numel()) * x.element_size() \
             + (2 * b + di * do + do) * 4
-        b_ms, b_by = bound(flops, nbytes, dt)
+        b_ms, b_by, fma_ms = product_bound(flops, nbytes, dt)
         row = {"kernel": "gram_norm_fused", "case": name, "dtype": dt,
                "shape": {"B": b, "T": t, "Di": di, "Do": do},
                "layout": "contiguous" if x.is_contiguous() else
@@ -423,7 +474,8 @@ def fused_cases(torch, rnd):
                    x, dy, w, has_bias=True), 3),
                "library_ms": cuda_ms(torch, library, 3),
                "library": "bmm materialize + square-sum + einsum with w",
-               "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
+               "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
+               "main_path": main}
         if copy_ms is not None:
             row["copy_ms"] = copy_ms
         rows.append(row)
@@ -438,10 +490,11 @@ def pe1d_cases(torch, rnd):
     T' = 4096) in f32 (the lane's dtype) and bf16, the JAX kernel test's
     sweep in both dtypes and a ragged case (T' not a multiple of the
     32-deep stage, D and C·K wider than one tile); each launched twice
-    to show it bitwise repeatable.  Each row's bound is at its dtype's
-    peak; the kernel runs on f32 FMAs (the per-example product core) in
-    both dtypes, so a bf16 row also holds ``fma_bound_ms``, its bound at
-    the f32 FMA peak.  Library: the grouped-conv lowering
+    to show it bitwise repeatable, and held to the f32 sum bound with
+    n = T'.  Each row's bound is at 3xTF32 (f32) or the bf16 peak; the
+    kernel runs on f32 FMAs (the per-example product core) in both
+    dtypes, and ``fma_bound_ms`` is its bound at the f32 FMA peak.
+    Library: the grouped-conv lowering
     (``convops.pe_conv_grad(impl="fgc")``), one conv call, the route
     every non-plain conv takes."""
     from repro_torch.kernels import ops, ref
@@ -462,17 +515,22 @@ def pe1d_cases(torch, rnd):
         torch.cuda.synchronize()
         repeat = torch.equal(got, again)
         want = ref.pe_conv_grad_1d_ref(x, dy, k)
-        abs_err, rel_err, ok = compare(torch, got, want, dt)
+        abs_err, rel_err, _ = compare(torch, got, want, dt)
+        mult, plain_mult, rule_ok = sum_rule(
+            got, want, lambda a, g_: ref.pe_conv_grad_1d_ref(a, g_, k), x, dy,
+            tp)
         flops = 2 * b * d * c * k * tp
         nbytes = (x.numel() + dy.numel()) * x.element_size() \
             + b * d * c * k * 4
-        b_ms, b_by = bound(flops, nbytes, dt)
+        b_ms, b_by, fma_ms = product_bound(flops, nbytes, dt)
         k_ms = cuda_ms(torch, lambda: ops.pe_conv_grad_1d(x, dy, K=k), 10)
         row = {"kernel": "pe_conv_grad_1d", "case": name, "dtype": dt,
                "shape": {"B": b, "C": c, "T": t, "D": d, "K": k},
                "route": "fma (per-example product core)",
+               "check": "f32 sum bound (kernels/bounds.py), n = T'",
+               "bound_multiple": mult, "plain_bound_multiple": plain_mult,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
-               "rtol": RTOL[dt], "ok": ok and repeat,
+               "ok": rule_ok and repeat,
                "bitwise_repeat": repeat, "kernel_ms": k_ms,
                "tflops": flops / k_ms / 1e9,
                "plain_ms": cuda_ms(torch, lambda: ref.pe_conv_grad_1d_ref(
@@ -480,10 +538,8 @@ def pe1d_cases(torch, rnd):
                "library_ms": cuda_ms(torch, lambda: convops.pe_conv_grad(
                    x, dy, kernel_spatial=(k,), impl="fgc"), 3),
                "library": "F.conv2d grouped-conv lowering (fgc)",
-               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
                "bound_share": b_ms / k_ms, "main_path": main}
-        if dt == "bfloat16":
-            row["fma_bound_ms"] = bound(flops, nbytes, "float32")[0]
         rows.append(row)
         log(row)
         del x, dy, got, again, want
@@ -504,14 +560,18 @@ def tokmask_cases(torch):
     """``gram_norm_tokmask`` against its plain version (the id-masked
     Gram) and against the segment sum, with random and heavily repeated
     ids and a ragged T; each launched twice to show it bitwise
-    repeatable.  Library: the plain Gram einsum, masked; the segment
-    sum's time stands beside it."""
+    repeatable.  The ids are int32, as the model's token batches are;
+    ``int64_ids_ms`` times the call on the same ids in int64, which adds
+    the wrapper's int32 range check (one reduction and one copy to the
+    host).  Library: the plain Gram einsum, masked; the segment sum's
+    time stands beside it."""
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for name, b, t, d, v, dt, main in TOK_CASES:
         tdt = getattr(torch, dt)
-        ids = torch.randint(0, v, (b, t), generator=g, device="cuda")
+        ids64 = torch.randint(0, v, (b, t), generator=g, device="cuda")
+        ids = ids64.to(torch.int32)
         dy = torch.randn(b, t, d, generator=g, device="cuda").to(tdt)
         got = ops.gram_norm_tokmask(ids, dy)
         again = ops.gram_norm_tokmask(ids, dy)
@@ -521,6 +581,7 @@ def tokmask_cases(torch):
         seg = embed_segsum(ids, dy)
         abs_err, rel_err, ok = compare(torch, got, want, dt, floor=0.0)
         _, seg_rel, seg_ok = compare(torch, got, seg, dt, floor=0.0)
+        route = ops.tokmask_route(t)
         pairs = int((ids[:, :, None] == ids[:, None, :]).sum())
 
         def library():
@@ -537,12 +598,14 @@ def tokmask_cases(torch):
         b_ms, b_by = bound(flops, nbytes, dt)
         row = {"kernel": "gram_norm_tokmask", "case": name, "dtype": dt,
                "shape": {"B": b, "T": t, "D": d, "id_range": v},
-               "equal_id_pairs": pairs,
+               "route": route, "equal_id_pairs": pairs,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
                "segsum_max_rel_err": seg_rel, "rtol": RTOL[dt],
                "ok": ok and seg_ok and repeat, "bitwise_repeat": repeat,
                "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm_tokmask(
                    ids, dy), 10),
+               "int64_ids_ms": cuda_ms(torch, lambda: ops.gram_norm_tokmask(
+                   ids64, dy), 10),
                "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_tokmask_ref(
                    ids, dy), 3),
                "library_ms": cuda_ms(torch, library, 3),
@@ -551,7 +614,7 @@ def tokmask_cases(torch):
                "bound_ms": b_ms, "bound_by": b_by, "main_path": main}
         rows.append(row)
         log(row)
-        del ids, dy, got, again, want, seg
+        del ids, ids64, dy, got, again, want, seg
     torch.cuda.empty_cache()
     return rows
 
@@ -856,19 +919,23 @@ def main_path(torch, lanes):
     auto = NormCfg(conv_impl="pallas")
     steps = 3
     # (lane, strategy, clipping, norm knobs, kernels each step launches:
-    # the count of each step, or None for "at least once").  ghost and bk
-    # take gram_norm once a layer (8); the stale lane's step 0 is the
-    # flat bootstrap (no fused pass), each later step fuses conv2-4 once.
+    # the count of each step).  crb takes pe_conv_grad_2d once a plain
+    # conv (conv1-4), auto flat and stale once (conv1, planned pe; conv0's
+    # stride 4 takes the grouped-conv lowering); ghost
+    # and bk take gram_norm once a layer (8); the stale lane's step 0 is
+    # the flat bootstrap (no fused pass), each later step fuses conv2-4
+    # once.
     runs = [("crb", "crb", "flat", NormCfg(conv_impl="pallas"),
-             {"pe_conv_grad_2d": None}),
+             {"pe_conv_grad_2d": [len(PE_CASES)] * steps}),
             ("ghost", "ghost", "flat", NormCfg(dense="pallas", conv="pallas"),
              {"gram_norm": [len(GRAM_CASES)] * steps}),
             ("bk", "bk", "flat", NormCfg(dense="pallas", conv="pallas",
                                          conv_impl="pallas"),
              {"gram_norm": [len(GRAM_CASES)] * steps}),
-            ("auto_flat", "auto", "flat", auto, {"pe_conv_grad_2d": None}),
+            ("auto_flat", "auto", "flat", auto,
+             {"pe_conv_grad_2d": [1] * steps}),
             ("auto_stale", "auto", "stale", auto,
-             {"pe_conv_grad_2d": None,
+             {"pe_conv_grad_2d": [1] * steps,
               "gram_norm_fused": [0] + [len(FUSED_CASES)] * (steps - 1)})]
     launches = {k: 0 for k in ops.LAUNCHES}
     for lane, strategy, clipping, norm, needs in runs:
@@ -902,7 +969,7 @@ def main_path(torch, lanes):
         for k, want in needs.items():
             check(counts[k] > 0, f"{lane}: kernel {k} never launched")
             got = [c[k] for c in per_step]
-            check(want is None or got == want,
+            check(got == want,
                   f"{lane}: {k} launches per step {got}, expected {want}")
         log({"phase": "main_path", "lane": lane, "strategy": strategy,
              "clipping": clipping, "norm": dataclass_dict(norm),
@@ -1381,9 +1448,18 @@ def summarize(rows, launches, lanes, profiled):
             "cases": [r["case"] for r in main]}
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         if name == "gram_norm_tokmask":
+            entry["design"] = main[0]["route"]
             entry["segsum_ms"] = per_step("segsum_ms", main)
-        if name == "pe_conv_grad_1d":
-            entry["route"] = main[0]["route"]
+        if "fma_bound_ms" in main[0]:
+            entry["fma_bound_ms"] = per_step("fma_bound_ms", main)
+        if "bound_multiple" in main[0]:
+            entry["bound_multiple"] = max(r["bound_multiple"] for r in mine)
+            entry["plain_bound_multiple"] = max(r["plain_bound_multiple"]
+                                                for r in mine)
+        if name in ("pe_conv_grad_1d", "pe_conv_grad_2d"):
+            entry["design"] = main[0]["route"]
+            entry["tflops"] = (sum(r["kernel_ms"] * r["tflops"] for r in main)
+                               / sum(r["kernel_ms"] for r in main))
             entry["ms_by_layer"] = {r["case"]: r["kernel_ms"] for r in main}
         if name == "gram_norm":
             entry["routes"] = {r["case"]: r["route"] for r in main}

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
                            + [_P],
         "repro_gram_norm_fused": ([_P] + [_L] * 3) * 2 + [_P] * 7
                                  + [_I] * 11 + [_P],
-        "repro_gram_norm_tokmask": [_P] * 4 + [_I] * 4 + [_P]},
+        "repro_gram_norm_tokmask": [_P] * 5 + [_I] * 6 + [_P]},
     "flash_attn": {
         "repro_flash_fwd": ([_P] + [_L] * 3) * 3 + [_P] * 2 + [_I] * 8
                            + [_P],

@@ -88,6 +88,8 @@ constexpr int WK = 64;       // t depth of a wgmma stage
 
 // Sum of v over the block in a fixed order: a butterfly inside each warp,
 // then thread 0 adds the warps' sums in order.  Valid in thread 0.
+// NTH: the block's threads.
+template <int NTH = NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -96,7 +98,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.f;
   if (threadIdx.x == 0)
-    for (int w = 0; w < NT / 32; ++w) s += red[w];
+    for (int w = 0; w < NTH / 32; ++w) s += red[w];
   return s;
 }
 
@@ -702,28 +704,202 @@ extern "C" int repro_gram_norm_fused(
 //          = sum_v ||sum_{t: id_bt = v} dy_bt||^2
 //
 // ids is (B, T) int32, dy (B, T, D) f32 or bf16; the output is (B,) f32.
-// The TPU wrapper pads T with id -1 and zero rows; here rows past T are
-// masked inside the kernel (they load as 0 and never match), so any id
-// value, -1 included, is a real token.
+// The TPU wrapper pads T with id -1 and zero rows; here every one of the
+// T positions is a real token, so any id value, -1 included, counts.
 //
-// What bounds it on this card: bytes, for the data it is run on.  The
-// masked Gram route costs 2 T^2 D FLOP per example whatever the ids, but
-// the function needs only the pairs of equal ids: with ids drawn from a
-// large vocabulary that is about the diagonal, 2 T D per example, and the
-// read of dy (B T D values) dominates.  With heavily repeated ids the
-// pairs approach T^2 and the work approaches the Gram's.
+// What bounds it on this card: bytes.  The right-hand side needs one
+// read of dy (B T D values) and about 2 T D FLOP per example, whatever
+// the ids: 33.5 MB and 0.010 ms at Llama-3.2-1B's embedding cotangent
+// (B = 8, T = 1024, D = 2048, bf16).  The TPU kernel's masked Gram does
+// 2 T^2 D FLOP per example instead.
 //
-// What the design does about it: the Gram blocking of the TPU kernel,
-// one block per (i-tile, j-tile, example) of 64 x 64 token pairs, with
-// the id mask applied to the dy dy^T tile before the block's fixed-order
-// sum; a block first compares its 64 x 64 ids and, if no pair matches, writes a
-// zero partial without touching dy, so random ids cost about the
-// diagonal tiles only.  Partials go to a (B, nT, nT) scratch that
-// finish_kernel adds per example in a fixed order: no atomics, two runs
-// are bitwise equal.  Not yet done: tensor cores, the Gram's symmetry,
-// and a sort-based (segment-sum) route that reads dy once.
+// What the design does about it: the right-hand side, as a sorted
+// segment sum (route "sorted", ops.tokmask_route, T up to 16 384):
+//   * tokmask_sort_kernel, one block of 1024 threads an example, sorts
+//     the (id, t) pairs by id, then t, with a bitonic sort of 64-bit keys
+//     in shared memory (8 bytes a pair: 128 KB at the cap), and writes
+//     the order to a (B, T) scratch, bit 31 marking each segment's last
+//     token (a segment: the tokens of one id);
+//   * tokmask_segsum_kernel, grid (slices of 64 sorted tokens x chunks of
+//     1024 features, B), 128 threads a block, 8 features a thread read as
+//     16-byte vectors: a block owns the segments that start in its slice
+//     and runs past the slice's end to finish its last one, so no
+//     segment is split and no host-side plan is needed; it adds a
+//     segment's rows in f32 in t order (8 rows' loads in flight), adds
+//     the square of that sum to a running total, and writes one partial
+//     per (example, slice, chunk) after a fixed-order block sum;
+//   * finish_kernel adds each example's partials in a fixed order.
+// dy is read once; no atomics, and two launches are bitwise equal.  The
+// time does not depend on how often ids repeat, except that one id
+// repeated through a whole example leaves the work to one slice.
+//
+// Above the sort's cap (route "gram") the masked-Gram tiles of the TPU
+// kernel remain: one block per (i-tile, j-tile, example) of 64 x 64 token
+// pairs, the id mask applied to the dy dy^T tile before the block's
+// fixed-order sum; a block whose ids never match writes a zero partial
+// without reading dy.  Partials go to a (B, nT, nT) scratch that
+// finish_kernel adds per example in a fixed order.
 namespace {
 
+constexpr int TOK_SORT_NT = 1024;    // threads of a sort block
+constexpr int TOK_SORT_CAP = 16384;  // pairs a sort block takes (128 KB)
+constexpr int TOK_SLICE = 64;        // sorted tokens a segment block starts
+constexpr int TOK_NT = 128;          // threads of a segment block
+constexpr int TOK_CHUNK = 8 * TOK_NT;  // features of a segment block
+constexpr int TOK_U = 8;             // rows in flight in a segment block
+
+// order[b][i] = t of example b's i-th (id, t) pair in ascending order,
+// bit 31 set where pair i is the last of its id.  Grid B; Tp2 is the
+// power of two at or above T, at least 32 and at most TOK_SORT_CAP.  The
+// bitonic network's exchanges across 32 or more positions go through
+// shared memory, one barrier each; the rest stay in a warp (shuffles).
+__global__ void __launch_bounds__(TOK_SORT_NT) tokmask_sort_kernel(
+    const int* __restrict__ ids, int* __restrict__ order, int Tn, int Tp2) {
+  extern __shared__ unsigned long long keys[];
+  const int b = blockIdx.x;
+  const int* idb = ids + (size_t)b * Tn;
+  for (int i = threadIdx.x; i < Tp2; i += TOK_SORT_NT)
+    keys[i] = i < Tn ? ((unsigned long long)((unsigned)idb[i] ^ 0x80000000u)
+                        << 32) | (unsigned)i
+                     : ~0ull;  // past T: after every real pair
+  __syncthreads();
+  for (int k = 2; k <= Tp2; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
+      for (int i = threadIdx.x; i < Tp2; i += TOK_SORT_NT) {
+        const int l = i ^ j;
+        if (l > i) {
+          const unsigned long long a = keys[i], c = keys[l];
+          if ((a > c) == ((i & k) == 0)) keys[i] = c, keys[l] = a;
+        }
+      }
+      __syncthreads();
+    }
+    // Tp2 is a multiple of 32, so whole warps run this loop.
+    for (int i = threadIdx.x; i < Tp2; i += TOK_SORT_NT) {
+      unsigned long long key = keys[i];
+      for (int j = min(k >> 1, 16); j > 0; j >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, j);
+        // The lower position of a pair keeps the smaller key in an
+        // ascending run ((i & k) == 0), the larger in a descending one.
+        key = (((i & j) == 0) == ((i & k) == 0)) ? min(key, other)
+                                                 : max(key, other);
+      }
+      keys[i] = key;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < Tn; i += TOK_SORT_NT) {
+    const unsigned long long key = keys[i];
+    const bool last = i + 1 == Tn || (keys[i + 1] >> 32) != (key >> 32);
+    order[(size_t)b * Tn + i] =
+        (int)(key & 0x7fffffffu) | (last ? (int)0x80000000u : 0);
+  }
+}
+
+// Row t's features f0 .. f0 + 7 of dy_b, as f32 (0 past D).  VEC: 16-byte
+// loads (D a multiple of 8 for bf16, of 4 for f32, and dy 16-byte
+// aligned).
+template <typename T, bool VEC>
+__device__ __forceinline__ void tok_row(const T* __restrict__ row, int f0,
+                                        int D, float (&v)[8]) {
+  if constexpr (VEC && std::is_same<T, bf16>::value) {
+    if (f0 < D) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + f0));
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[2 * e] = __uint_as_float(w[e] << 16);
+        v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    }
+  } else if constexpr (VEC) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (f0 + 4 * h < D)
+        q = __ldg(reinterpret_cast<const float4*>(row + f0 + 4 * h));
+      v[4 * h] = q.x, v[4 * h + 1] = q.y, v[4 * h + 2] = q.z,
+      v[4 * h + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = f0 + e < D ? to_f32(row[f0 + e]) : 0.f;
+  }
+}
+
+// partial[(b nS + s) nC + c] = the sum, over the segments that start at
+// sorted positions [s TOK_SLICE, (s + 1) TOK_SLICE) of example b, of the
+// squared norm of the segment's summed rows, features of chunk c.  Grid
+// (nS nC, B).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(TOK_NT) tokmask_segsum_kernel(
+    const int* __restrict__ order, const T* __restrict__ dy,
+    float* __restrict__ partial, int Tn, int D) {
+  __shared__ float red[TOK_NT / 32];
+  const int b = blockIdx.y, nC = (D + TOK_CHUNK - 1) / TOK_CHUNK;
+  const int sl = blockIdx.x / nC, c = blockIdx.x % nC;
+  const int* ob = order + (size_t)b * Tn;
+  const T* yb = dy + (size_t)b * Tn * D;
+  const int f0 = c * TOK_CHUNK + 8 * threadIdx.x;
+  const int i1 = min(Tn, (sl + 1) * TOK_SLICE);
+  // The first segment that starts in the slice (a position whose
+  // predecessor ended a segment); the tail of an earlier one is skipped.
+  int i = sl * TOK_SLICE;
+  while (i < i1 && i > 0 && ob[i - 1] >= 0) ++i;
+  bool done = i >= i1;
+  float seg[8] = {}, tot[8] = {};
+  // The order entries of the next TOK_U positions load while this step's
+  // rows do.
+  int nxt[TOK_U];
+  auto entries = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < TOK_U; ++u)
+      nxt[u] = i0 + u < Tn ? ob[i0 + u] : (int)0x80000000u;
+  };
+  if (!done) entries(i);
+  while (!done) {
+    int t[TOK_U];
+    bool last[TOK_U];
+    float v[TOK_U][8];
+#pragma unroll
+    for (int u = 0; u < TOK_U; ++u) {
+      t[u] = nxt[u] & 0x7fffffff;
+      last[u] = nxt[u] < 0;
+    }
+#pragma unroll
+    for (int u = 0; u < TOK_U; ++u)
+      tok_row<T, VEC>(yb + (size_t)t[u] * D, i + u < Tn ? f0 : D, D, v[u]);
+    entries(i + TOK_U);
+    // In sorted order, which is t order within a segment; the block stops
+    // after the last token of the last segment that started in the slice.
+#pragma unroll
+    for (int u = 0; u < TOK_U; ++u) {
+      if (done) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) seg[e] += v[u][e];
+      if (last[u]) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          tot[e] = fmaf(seg[e], seg[e], tot[e]);
+          seg[e] = 0.f;
+        }
+        done = i + u + 1 >= i1;
+      }
+    }
+    i += TOK_U;
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s += tot[e];
+  s = block_sum<TOK_NT>(s, red);
+  if (threadIdx.x == 0) partial[(size_t)b * gridDim.x + blockIdx.x] = s;
+}
+
+// The "gram" route, above the sort's cap.
 constexpr int TBK = 16;  // depth of a staged chunk of features
 
 // acc[i][j] = sum_k A[i0 + ty + 16 i, k] * A[j0 + tx + 16 j, k] for a
@@ -824,30 +1000,75 @@ __global__ void __launch_bounds__(NT) tokmask_partial_kernel(
   if (tid == 0) partial[((size_t)b * nT + bi) * nT + bj] = s;
 }
 
+template <typename T>
+int launch_tok_sorted(const int* ids, const T* dy, int* order, float* pf,
+                      int B, int Tn, int D, bool vec, cudaStream_t s) {
+  if (Tn > TOK_SORT_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  int tp2 = 32;
+  while (tp2 < Tn) tp2 <<= 1;
+  const int smem = tp2 * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      tokmask_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tokmask_sort_kernel<<<B, TOK_SORT_NT, smem, s>>>(ids, order, Tn, tp2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int nS = (Tn + TOK_SLICE - 1) / TOK_SLICE;
+  const int nC = (D + TOK_CHUNK - 1) / TOK_CHUNK;
+  dim3 grid(nS * nC, B);
+  if (vec)
+    tokmask_segsum_kernel<T, true><<<grid, TOK_NT, 0, s>>>(order, dy, pf,
+                                                          Tn, D);
+  else
+    tokmask_segsum_kernel<T, false><<<grid, TOK_NT, 0, s>>>(order, dy, pf,
+                                                           Tn, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tok_gram(const int* ids, const T* dy, float* pf, int B, int Tn,
+                    int D, cudaStream_t s) {
+  const int nT = (Tn + GT - 1) / GT;
+  tokmask_partial_kernel<T><<<dim3(nT, nT, B), NT, 0, s>>>(ids, dy, pf, Tn,
+                                                           D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// ids: (B, T) int32, dy: (B, T, D), contiguous, dy's type by is_bf16;
-// partial: (B, nT, nT) f32 scratch with nT = ceil(T / 64); out: (B,) f32.
-// Returns cudaGetLastError() after both launches (0 = launched).
+// ids: (B, T) int32, dy: (B, T, D), contiguous, dy's type by is_bf16; out:
+// (B,) f32.  route 0 ("sorted", T <= 16 384): order is a (B, T) int32
+// scratch and partial (B, ceil(T / 64) * ceil(D / 1024)) f32; vec: dy's
+// rows take 16-byte loads (D a multiple of 8 for bf16, of 4 for f32, dy
+// 16-byte aligned).  route 1 ("gram"): partial (B, nT, nT) f32 with
+// nT = ceil(T / 64); order unused.  B, T and D positive.  Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int repro_gram_norm_tokmask(const void* ids, const void* dy,
-                                       void* partial, void* out, int B,
-                                       int Tn, int D, int is_bf16,
+                                       void* order, void* partial,
+                                       void* out, int B, int Tn, int D,
+                                       int route, int vec, int is_bf16,
                                        void* stream) {
-  const int nT = (Tn + GT - 1) / GT;
-  dim3 grid(nT, nT, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* idp = static_cast<const int*>(ids);
   float* pf = static_cast<float*>(partial);
-  if (is_bf16) {
-    tokmask_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        idp, static_cast<const __nv_bfloat16*>(dy), pf, Tn, D);
+  int* op = static_cast<int*>(order);
+  int rc, n;
+  if (route == 0) {
+    rc = is_bf16 ? launch_tok_sorted(idp, static_cast<const bf16*>(dy), op,
+                                     pf, B, Tn, D, vec != 0, s)
+                 : launch_tok_sorted(idp, static_cast<const float*>(dy), op,
+                                     pf, B, Tn, D, vec != 0, s);
+    n = ((Tn + TOK_SLICE - 1) / TOK_SLICE) *
+        ((D + TOK_CHUNK - 1) / TOK_CHUNK);
   } else {
-    tokmask_partial_kernel<float><<<grid, NT, 0, s>>>(
-        idp, static_cast<const float*>(dy), pf, Tn, D);
+    rc = is_bf16 ? launch_tok_gram(idp, static_cast<const bf16*>(dy), pf, B,
+                                   Tn, D, s)
+                 : launch_tok_gram(idp, static_cast<const float*>(dy), pf, B,
+                                   Tn, D, s);
+    const int nT = (Tn + GT - 1) / GT;
+    n = nT * nT;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_kernel<<<B, NT, 0, s>>>(pf, nT * nT, nullptr, 0,
-                                static_cast<float*>(out));
+  if (rc) return rc;
+  finish_kernel<<<B, NT, 0, s>>>(pf, n, nullptr, 0, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // cp.async copies into shared memory, the 128-byte-swizzled tile layout,
-// wgmma descriptors, fences and the bf16 wgmma products (f32
-// accumulators).  Included by flash_attn.cu, gram_norm.cu and
-// fma_core.cuh; build.py hashes it with every source that includes it.
+// wgmma descriptors, fences and the bf16 and TF32 wgmma products (f32
+// accumulators).  Included by flash_attn.cu, gram_norm.cu, pe_conv_grad.cu
+// and fma_core.cuh; build.py hashes it with every source that includes
+// it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -143,6 +144,27 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : REPRO_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// d (64 x 64, f32) = scale_d * d + A.B over one 32-byte k-step, both
+// operands K-major in shared memory (A and B 64 rows each): 8 of K in
+// TF32 (each operand's top 19 bits are read), or 16 of K in bf16.
+__device__ __forceinline__ void mma_ss64_tf32(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " REPRO_R32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : REPRO_D32
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void mma_ss64_bf16(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_D32
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 #undef REPRO_D8
 #undef REPRO_D32

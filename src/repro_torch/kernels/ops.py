@@ -29,13 +29,18 @@ takes its plain version, so both devices run one backward
 formulation).  On ``device="meta"`` (the planner's shape-only probe) it
 returns an empty output of the right shape and launches nothing.
 
+``pe_conv_grad_2d`` runs on the tensor cores (``wgmma``) in both dtypes
+(:func:`pe_conv_design`); ``gram_norm_tokmask`` takes a sorted segment
+sum up to 16 384 tokens and the masked-Gram tiles above
+(:func:`tokmask_route`).
+
 The JAX package's TPU tile autotuner (``_autotune_bd``, ``pick_bd``,
 ``vmem_budget``, ``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart
 here: neither ``pe_conv_grad_2d`` nor ``pe_conv_grad_1d`` takes a ``bd``
-tile (the 2-D kernel's output tiles are 64 x 64; the 1-D kernel picks
-64 x 64, or 128 x 128 in f32 and 128 x 64 in bf16, by shape in
-``csrc/pe_conv_grad.cu``); a
-Hopper tile sweep belongs to calibration (ROADMAP.md item 13).
+tile (the 2-D kernel picks 128 x 64 or 64 x 128 output tiles, the 1-D
+kernel 64 x 64, or 128 x 128 in f32 and 128 x 64 in bf16, by shape in
+``csrc/pe_conv_grad.cu``); a Hopper tile sweep belongs to calibration
+(ROADMAP.md item 13).
 """
 from __future__ import annotations
 
@@ -59,6 +64,12 @@ _GRAM_T = 64
 _GRAM_BK = 32
 _GRAM_BT = 64
 _ROUTES = ("rank1", "direct", "gram")   # repro_gram_norm's route codes
+# gram_norm_tokmask's sorted route: the most (id, t) pairs its block-wide
+# sort takes in shared memory, its slices of sorted tokens and its chunks
+# of features; its route codes.
+_TOK_SORT_CAP = 16384
+_TOK_SLICE, _TOK_CHUNK = 64, 1024
+_TOK_ROUTES = ("sorted", "gram")
 
 
 def reset_launches():
@@ -313,11 +324,22 @@ def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
     return out, c, cb
 
 
+def tokmask_route(T: int) -> str:
+    """The route ``gram_norm_tokmask`` takes on the card for T tokens an
+    example: "sorted" (a block-wide sort of the (id, t) pairs, then one
+    segment sum a run of equal ids, reading δy once) up to the sort's
+    cap of 16 384 pairs, "gram" (the TPU kernel's id-masked Gram tiles,
+    2·T²·D FLOP an example) above it."""
+    if T < 1:
+        raise ValueError(f"tokmask_route: T={T} must be positive")
+    return "sorted" if T <= _TOK_SORT_CAP else "gram"
+
+
 def gram_norm_tokmask(ids, dy):
     """ids (B, T) integer token ids, dy (B, T, D) -> (B,) f32 embedding
-    ghost norms Σ_{t,t'} [id_t = id_t']·(δy_t·δy_t').  Every one of the T
-    positions is a real token (the kernel masks its ragged last tile
-    itself; no padding id is reserved)."""
+    ghost norms Σ_{t,t'} [id_t = id_t']·(δy_t·δy_t') = Σ_v ‖Σ_{t: id_t = v}
+    δy_t‖², by the route :func:`tokmask_route` picks.  Every one of the T
+    positions is a real token (no padding id is reserved)."""
     if ids.ndim != 2 or dy.ndim != 3 or tuple(ids.shape) != tuple(
             dy.shape[:2]):
         raise ValueError(f"gram_norm_tokmask: ids {tuple(ids.shape)} and dy "
@@ -333,31 +355,48 @@ def gram_norm_tokmask(ids, dy):
         raise ValueError(f"gram_norm_tokmask: ids on {ids.device}, dy on "
                          f"{dy.device}")
     ready = _launch_ready("gram_norm_tokmask", dy)
-    if ids.dtype == torch.int64 and ids.numel() and (
-            ids.min() < -2 ** 31 or ids.max() >= 2 ** 31):
-        raise ValueError("gram_norm_tokmask: ids exceed int32, the kernel's "
-                         "id type")
+    if ids.dtype == torch.int64 and ids.numel():
+        # one reduction and one copy to the host
+        lo, hi = torch.stack(torch.aminmax(ids)).tolist()
+        if lo < -2 ** 31 or hi >= 2 ** 31:
+            raise ValueError("gram_norm_tokmask: ids exceed int32, the "
+                             "kernel's id type")
     if not ready:
         return _ref.gram_norm_tokmask_ref(ids, dy)
     B, T, D = dy.shape
-    nT = -(-T // _GRAM_BT)
-    if B > _GRID_YZ_MAX or nT > _GRID_YZ_MAX:
-        raise ValueError(f"gram_norm_tokmask: grid ({nT}, {nT}, {B}) too "
-                         f"large")
     out = torch.empty((B,), dtype=torch.float32, device=dy.device)
     if B == 0:
         return out
     if T == 0 or D == 0:
         return out.zero_()
+    route = tokmask_route(T)
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    order = None
+    if route == "sorted":
+        blocks = _cdiv(T, _TOK_SLICE) * _cdiv(D, _TOK_CHUNK)
+        if B > _GRID_YZ_MAX or B * blocks > _INT_MAX:
+            raise ValueError(f"gram_norm_tokmask: grid ({blocks}, {B}) too "
+                             f"large")
+        order = torch.empty((B, T), dtype=torch.int32, device=dy.device)
+        partial = torch.empty((B, blocks), **f32)
+    else:
+        nT = _cdiv(T, _GRAM_BT)
+        if B > _GRID_YZ_MAX or nT > _GRID_YZ_MAX:
+            raise ValueError(f"gram_norm_tokmask: grid ({nT}, {nT}, {B}) "
+                             f"too large")
+        partial = torch.empty((B, nT, nT), **f32)
+    per = 16 // dy.element_size()
+    vec = D % per == 0 and dy.data_ptr() % 16 == 0
     ids32 = ids.to(torch.int32).contiguous()
-    partial = torch.empty((B, nT, nT), dtype=torch.float32, device=dy.device)
     from repro_torch.kernels import build
     lib = build.load("gram_norm")
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.repro_gram_norm_tokmask(
-            ids32.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), B, T, D, int(dy.dtype == torch.bfloat16), stream)
+            ids32.data_ptr(), dy.data_ptr(),
+            None if order is None else order.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), B, T, D, _TOK_ROUTES.index(route), int(vec),
+            int(dy.dtype == torch.bfloat16), stream)
     _raise_on(rc, "gram_norm_tokmask")
     LAUNCHES["gram_norm_tokmask"] += 1
     return out
@@ -396,9 +435,20 @@ def pe_conv_grad_1d(x, dy, *, K: int):
     return out
 
 
+def pe_conv_design(dtype) -> str:
+    """The product core ``pe_conv_grad_2d`` runs on the card for
+    ``dtype`` inputs: "3xtf32-wgmma" for f32 (three TF32 tensor-core
+    products of the split operands a stage, summed in f32), "bf16-wgmma"
+    for bf16 (one bf16 product, exact in f32)."""
+    if dtype not in _IN_DTYPES:
+        raise TypeError(f"pe_conv_design: no kernel for {dtype}")
+    return "3xtf32-wgmma" if dtype == torch.float32 else "bf16-wgmma"
+
+
 def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
     """x (B, C, H, W) already padded, dy (B, D, H-KH+1, W-KW+1) ->
-    (B, D, C, KH, KW) f32.  Stride = dilation = 1, groups = 1."""
+    (B, D, C, KH, KW) f32, by the design :func:`pe_conv_design` names.
+    Stride = dilation = 1, groups = 1."""
     _check_pair("pe_conv_grad_2d", x, dy, 4)
     B, C, H, W = x.shape
     D, Hp, Wp = dy.shape[1:]
@@ -416,6 +466,8 @@ def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
                          "32-bit index range")
     if out.numel() == 0:
         return out
+    if Hp * Wp == 0:
+        return out.zero_()
     from repro_torch.kernels import build
     lib = build.load("pe_conv_grad")
     with torch.cuda.device(x.device):

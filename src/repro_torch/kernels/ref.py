@@ -6,7 +6,8 @@ contracts), translated from the JAX package's ``kernels/ref.py``.
 repeats its kernel's function in f32: the Gram identity for
 ``gram_norm`` and ``gram_norm_fused``'s norm, the same-id masked Gram for
 ``gram_norm_tokmask``, the shifted products for ``pe_conv_grad_2d`` and
-``pe_conv_grad_1d``, the full (T, S) softmax for the flash kernels.
+``pe_conv_grad_1d`` (which keep f64 inputs in f64), the full (T, S)
+softmax for the flash kernels.
 """
 from __future__ import annotations
 
@@ -56,24 +57,28 @@ def gram_norm_tokmask_ref(ids, dy):
 
 def pe_conv_grad_1d_ref(x, dy, K: int):
     """δh[b,d,c,k] = Σ_t x[b,c,t+k] δy[b,d,t] — x padded, stride =
-    dilation = 1.  Returns (B, D, C, K) f32."""
+    dilation = 1.  Returns (B, D, C, K) in f32, or f64 for f64 inputs
+    (the exact sum ``bounds.sum_bound`` holds a kernel to)."""
     Tp = dy.shape[2]
-    dyf = dy.to(F32)
+    dt = torch.promote_types(dy.dtype, F32)
+    dyf = dy.to(dt)
     return torch.stack([torch.einsum("bct,bdt->bdc",
-                                     x[:, :, k:k + Tp].to(F32), dyf)
+                                     x[:, :, k:k + Tp].to(dt), dyf)
                         for k in range(K)], dim=-1)
 
 
 def pe_conv_grad_2d_ref(x, dy, KH: int, KW: int):
     """δh[b,d,c,kh,kw] = Σ_{h,w} x[b,c,h+kh,w+kw] δy[b,d,h,w] — x padded,
-    stride = dilation = 1.  Returns (B, D, C, KH, KW) f32."""
+    stride = dilation = 1.  Returns (B, D, C, KH, KW) in f32, or f64 for
+    f64 inputs (the exact sum ``bounds.sum_bound`` holds a kernel to)."""
     Hp, Wp = dy.shape[2], dy.shape[3]
-    dyf = dy.to(F32)
+    dt = torch.promote_types(dy.dtype, F32)
+    dyf = dy.to(dt)
     rows = []
     for kh in range(KH):
         row = []
         for kw in range(KW):
-            xs = x[:, :, kh:kh + Hp, kw:kw + Wp].to(F32)
+            xs = x[:, :, kh:kh + Hp, kw:kw + Wp].to(dt)
             row.append(torch.einsum("bchw,bdhw->bdc", xs, dyf))
         rows.append(torch.stack(row, dim=-1))
     return torch.stack(rows, dim=-2)

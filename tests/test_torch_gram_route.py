@@ -149,3 +149,25 @@ def test_kinds_bmm_forms_equal_their_einsums(eq):
                                atol=1e-6)
     torch.testing.assert_close(kinds._ee2(eq, a, b), kinds._ee(eq, a, b),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t, want", [(1, "sorted"), (1024, "sorted"),
+                                     (16384, "sorted"), (16385, "gram"),
+                                     (32768, "gram")])
+def test_tokmask_route_by_the_sort_cap(t, want):
+    """``gram_norm_tokmask`` sorts up to 16 384 (id, t) pairs an example
+    in shared memory (the segment-sum route); above, it keeps the
+    masked-Gram tiles, so no T it took before is refused."""
+    assert ops.tokmask_route(t) == want
+
+
+def test_tokmask_route_rejects_empty_t():
+    with pytest.raises(ValueError):
+        ops.tokmask_route(0)
+
+
+def test_pe_conv_design_by_dtype():
+    assert ops.pe_conv_design(torch.float32) == "3xtf32-wgmma"
+    assert ops.pe_conv_design(torch.bfloat16) == "bf16-wgmma"
+    with pytest.raises(TypeError):
+        ops.pe_conv_design(torch.float16)

@@ -9,16 +9,18 @@ machine that has only PyTorch and a card:
 
 (``--noconftest``: the suite's ``conftest.py`` imports JAX).  The plain
 versions are themselves held against the JAX package's Pallas kernels in
-``tests/test_torch_kernels.py``.  Tolerance: rtol 1e-4 (f32 sums in
-another order than the plain version's; bf16 inputs, f32 arithmetic), with
-an absolute floor of 1e-4 of the largest entry for the conv gradients'
-entries near zero.  Every kernel must repeat bitwise.
+``tests/test_torch_kernels.py``.  Tolerance: the conv gradients are held
+to ``kernels/bounds.py``'s rule, |got − exact| ≤ 2⁻²⁴·√n·Σ|x|·|δy| entry
+by entry against the f64 product over the n = H′W′ or T′ terms of the
+sum (the plain versions compute ``exact`` and Σ|x|·|δy| from f64
+inputs); the norms to rtol 1e-4 of the plain version (f32 sums in another
+order; bf16 inputs, f32 arithmetic).  Every kernel must repeat bitwise.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import bounds, ops, ref  # noqa: E402
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -31,6 +33,16 @@ def _needs_card():
 def _close(got, want, rtol=1e-4):
     torch.testing.assert_close(got, want, rtol=rtol,
                                atol=rtol * want.abs().max().item())
+
+
+def _meets_rule(got, fn, x, dy, n):
+    """``got`` against ``fn`` (a conv gradient's plain version) under
+    ``bounds.sum_bound``: the exact sum and Σ|x|·|δy| in f64 over n
+    terms."""
+    exact = fn(x.double(), dy.double())
+    absprod = fn(x.double().abs(), dy.double().abs())
+    worst, ok = bounds.sum_bound(got, exact, absprod, n)
+    assert ok, f"{worst:.3f}x the f32 sum bound"
 
 
 @pytest.mark.cuda
@@ -64,8 +76,9 @@ def test_cuda_gram_norm_fused_matches_ref():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_ref():
-    """Card only: both kernels against their plain versions (f32 exact
-    order is not promised, so rtol 1e-4; bf16 inputs, f32 math)."""
+    """Card only: both kernels against their plain versions (the conv
+    gradient under the f32 sum bound; the norm to rtol 1e-4; bf16 inputs,
+    f32 math)."""
     _needs_card()
     g = torch.Generator().manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
@@ -74,14 +87,48 @@ def test_cuda_kernels_match_ref():
         n0 = ops.LAUNCHES["pe_conv_grad_2d"]
         got = ops.pe_conv_grad_2d(x, dy, KH=3, KW=3)
         assert ops.LAUNCHES["pe_conv_grad_2d"] == n0 + 1
-        torch.testing.assert_close(got, ref.pe_conv_grad_2d_ref(x, dy, 3, 3),
-                                   rtol=1e-4, atol=1e-4)
+        _meets_rule(got, lambda a, b: ref.pe_conv_grad_2d_ref(a, b, 3, 3),
+                    x, dy, 100)
         x = torch.randn(3, 70, 9, generator=g).to("cuda", dt)
         dy = torch.randn(3, 70, 4, generator=g).to("cuda", dt)
         got = ops.gram_norm(x, dy, has_bias=True)
         torch.testing.assert_close(got, ref.gram_norm_ref(x, dy,
                                                           has_bias=True),
                                    rtol=1e-4, atol=0)
+
+
+# (B, C, H, D, K) with square images: AlexNet's conv1-4 at B = 32 (x
+# padded, H'W' = 961 and 225; D = 192 takes the 64 x 256 tiles, the rest
+# 128 x 128), a ragged case (H'W' = 121, not a multiple of the 32-deep
+# stage; D = 70 and C·K² = 27 off the tiles, C·K² not a multiple of 4),
+# C·K² = 1000 over several 256-wide tiles with D = 130 on 128-row tiles,
+# and the small shape above.
+PE2D_SHAPES = [(32, 64, 35, 192, 5), (32, 192, 17, 384, 3),
+               (32, 384, 17, 256, 3), (32, 256, 17, 256, 3),
+               (3, 3, 13, 70, 3), (2, 40, 12, 130, 5), (3, 5, 12, 7, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", PE2D_SHAPES)
+def test_cuda_pe_conv_grad_2d_matches_ref(shape, dtype):
+    """Card only: the tensor-core kernel under the f32 sum bound (3xTF32
+    for f32, bf16 products for bf16), two launches bitwise equal, one
+    count a call."""
+    _needs_card()
+    B, C, H, D, K = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(B, C, H, H, generator=g).to("cuda", dtype)
+    dy = torch.randn(B, D, H - K + 1, H - K + 1, generator=g).to("cuda",
+                                                                 dtype)
+    n0 = ops.LAUNCHES["pe_conv_grad_2d"]
+    got = ops.pe_conv_grad_2d(x, dy, KH=K, KW=K)
+    again = ops.pe_conv_grad_2d(x, dy, KH=K, KW=K)
+    assert ops.LAUNCHES["pe_conv_grad_2d"] == n0 + 2
+    assert got.dtype == torch.float32 and got.shape == (B, D, C, K, K)
+    assert torch.equal(got, again)
+    _meets_rule(got, lambda a, b: ref.pe_conv_grad_2d_ref(a, b, K, K), x, dy,
+                (H - K + 1) ** 2)
 
 
 # (B, C, D, T, K): the JAX kernel test's sweep, then a ragged case (T'
@@ -115,7 +162,8 @@ def test_cuda_pe_conv_grad_1d_matches_ref(shape, dtype):
     assert ops.LAUNCHES["pe_conv_grad_1d"] == n0 + 2
     assert got.dtype == torch.float32 and got.shape == (B, D, C, K)
     assert torch.equal(got, again)
-    _close(got, ref.pe_conv_grad_1d_ref(x, dy, K))
+    _meets_rule(got, lambda a, b: ref.pe_conv_grad_1d_ref(a, b, K), x, dy,
+                T - K + 1)
 
 
 @pytest.mark.cuda
@@ -144,18 +192,23 @@ def test_cuda_pe_conv_grad_dispatch_1d_padded():
     n0 = ops.LAUNCHES["pe_conv_grad_1d"]
     got = ops.pe_conv_grad(x, dy, kernel_spatial=(5,), padding=2)
     assert ops.LAUNCHES["pe_conv_grad_1d"] == n0 + 1
-    want = ref.pe_conv_grad_1d_ref(torch.nn.functional.pad(x, (2, 2)), dy, 5)
-    _close(got, want)
+    _meets_rule(got, lambda a, b: ref.pe_conv_grad_1d_ref(
+        torch.nn.functional.pad(a, (2, 2)), b, 5), x, dy, 17)
     dys = torch.randn(2, 6, 8, generator=g).cuda()
     ops.pe_conv_grad(x, dys, kernel_spatial=(3,), stride=2)
     assert ops.LAUNCHES["pe_conv_grad_1d"] == n0 + 1
 
 
 # (B, T, D, id range): heavily repeated ids (small ranges), ragged T
-# against the 64-row tiles, and ids from a 128 256 vocabulary (almost only
-# the diagonal matches).
+# against the 64-token slices, and ids from a 128 256 vocabulary (almost
+# only the diagonal matches); one id repeated T times (one segment: the
+# first slice walks all of it); T = 4096 over two 1024-feature chunks;
+# T just below and above the sort's cap of 16 384 pairs
+# (ops.tokmask_route: the sorted route, then the masked-Gram tiles).
 TOKMASK_SHAPES = [(2, 33, 9, 7), (3, 70, 5, 3), (2, 1000, 64, 16),
-                  (2, 256, 128, 128256), (1, 1, 8, 4)]
+                  (2, 256, 128, 128256), (1, 1, 8, 4), (2, 300, 40, 1),
+                  (2, 4096, 2048, 128256), (1, 16384, 8, 1000),
+                  (1, 16385, 8, 1000)]
 
 
 @pytest.mark.cuda
@@ -164,6 +217,7 @@ TOKMASK_SHAPES = [(2, 33, 9, 7), (3, 70, 5, 3), (2, 1000, 64, 16),
 def test_cuda_gram_norm_tokmask_matches_ref(shape, dtype):
     _needs_card()
     B, T, D, V = shape
+    assert ops.tokmask_route(T) == ("sorted" if T <= 16384 else "gram")
     g = torch.Generator().manual_seed(T + D)
     ids = torch.randint(0, V, (B, T), generator=g).cuda()
     dy = torch.randn(B, T, D, generator=g).to("cuda", dtype)

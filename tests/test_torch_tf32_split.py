@@ -1,19 +1,22 @@
-"""Error-compensated TF32 ("3xTF32") against the f32 tolerance, on the
+"""Error-compensated TF32 ("3xTF32") against the bound before F3, on the
 CPU: TF32 rounding is emulated in torch by bit masking on an int32 view.
 
-``chip_smoke.py`` holds the 1-D conv-gradient kernel to rtol 1e-4 with an
-absolute floor of 1e-7 of the largest entry (``compare``).  Over T' = 4096
-(the 1-D lane's length):
+Before fault F3 was repaired, ``chip_smoke.py`` held the conv-gradient
+kernels to rtol 1e-4 with an absolute floor of 1e-7 of the largest entry
+against the plain f32 version (``compare``).  These tests document why
+that bound failed, over T' = 4096 (the 1-D lane's length):
 
 * the three split products lo.hi + hi.lo + hi.hi, summed exactly, meet
-  that bound against an f64 product, and one TF32 product misses it by
-  two orders of magnitude: the bound catches a kernel that forgot the
-  split;
+  the bound before F3 against an f64 product, and one TF32 product
+  misses it by two orders of magnitude;
 * two f32 sums of the same exact products, in two orders, differ by more
-  than the bound: a tensor-core kernel, which sums 8 or 16 products at a
-  time, cannot meet it against the sequential f32 sum of the plain
-  version, whatever the accuracy of its products (why
-  ``csrc/pe_conv_grad.cu`` keeps the 1-D kernel on FMAs).
+  than the bound before F3: a tensor-core kernel, which sums 8 or 16
+  products at a time, could not meet it against the sequential f32 sum
+  of the plain version, whatever the accuracy of its products.
+
+The bound that replaced it (``repro_torch.kernels.bounds.sum_bound``, an
+f64 product scaled with the sum's length) is tested in
+``tests/test_torch_sum_bound.py``.
 """
 import pytest
 
@@ -28,7 +31,7 @@ def _tf32(v):
 
 
 def _worst(got, want):
-    """The largest error of ``got`` as a multiple of compare's bound:
+    """The largest error of ``got`` as a multiple of the bound before F3:
     rtol 1e-4 of the entry plus 1e-4 * 1e-3 of the largest entry."""
     err = (got.double() - want.double()).abs()
     bound = 1e-4 * want.abs() + 1e-7 * want.abs().max()
