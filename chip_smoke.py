@@ -32,48 +32,80 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    call, the fma design is timed on the same inputs as the earlier time;
    each dq row also holds dq + dk/dv beside SDPA's backward; the SDPA
    yardstick is the fastest backend ``sdpa_kernel`` offers);
-4. small parity: a toy CNN's clipped gradients on the card (kernels) equal
+4. calibrate: ``repro_torch.calibrate.measure()`` on the card (f32 matmul
+   at n = 8192 with TF32 off, a 1 GiB stream, ``pe_conv_grad_2d``'s tile
+   sweep over AlexNet's conv1-4 and VGG16's conv0, conv1, conv7, conv12 at
+   B = 4, ``gram_norm_fused``'s time): the FLOP rate, the HBM bandwidth
+   (at most the data sheet's 3.35 TB/s, or the stream read the L2), FLOP
+   per HBM byte, the sweep and its winner, the digest, beside the card's
+   name and power limit; every tile at every swept shape, and the plain
+   version, within the f32 sum bound; the blob saved under ``build/``
+   and loaded back strictly;
+5. small parity: a toy CNN's clipped gradients on the card (kernels) equal
    the port on the CPU (plain versions; the CPU tests hold those against
    the JAX package), under crb / ghost / bk and the planned stale step;
    and a reduced Llama-3.2-1B's (flash kernels) under bk and ``auto``;
-5. main path: ``PrivacyEngine.private_step`` on full-width AlexNet
+6. main path: ``PrivacyEngine.private_step`` on full-width AlexNet
    (1000 classes, ~74.7 M params), 3 steps each of crb / ghost / bk with the
-   kernel knobs and of the planned step (``strategy="auto"``) under flat
-   and stale clipping, σ = 1; launch counts are reset before and read
+   kernel knobs and of the planned step (``strategy="auto"``) under flat,
+   stale and per_layer (uniform and auto budgets) clipping, σ = 1; launch
+   counts are reset before and read
    after each step, and one more step runs under ``torch.profiler``
    (device busy share, top kernels).  ghost and bk must launch
    ``gram_norm`` once a layer (8) each step.  The stale lane's first step
    is the flat bootstrap; each later step must launch ``gram_norm_fused``
-   once per fused layer (conv2-4).  Then, on one batch at σ = 0, the
+   once per fused layer (conv2-4); a per_layer lane launches what its plan
+   says.  Then, on one batch at σ = 0, the
    ghost(kernel) norms must equal the crb(grouped-conv) norms, the
    crb(kernel) clipped sum the crb(grouped-conv) one, the fused stale
    step the unfused one on the same lagged norms, and two fused stale
    steps must be bitwise equal.
-6. LM main path: ``PrivacyEngine.private_step`` on full-width
+7. VGG16: the same on full-width VGG16 (169 814 824 params), B = 32: crb
+   (``pe_conv_grad_2d`` at all 13 convs; B = 16 for this lane alone, with
+   the reason printed, if B = 32 does not fit), ghost and bk (``gram_norm``
+   once a layer, 16), ``auto`` flat, per_layer and stale (the launches the
+   plan says); every lane's step-0 per-example norms equal crb's.
+8. the paper's toy CNNs (Figs 1-3) at ``toy_cnn_config``'s defaults
+   (c0 = 25, 256 px, 10 classes): L = 4 at rate 2 with kernels 3 and 5,
+   and L = 3 at rate 1, c0 = 32, kernel 5; B = 32 under crb, ghost, bk
+   and ``auto`` flat, as for VGG16.
+9. LM main path: ``PrivacyEngine.private_step`` on full-width
    Llama-3.2-1B (16 layers, d_model 2048, 32/8 heads, vocab 128 256, tied
    embeddings, bf16, ``attn_impl="flash"``; ~1.24 B params), B = 8,
    T = 1024, σ = 1: 3 steps each of bk (the config's strategy) and
    ``auto`` flat, step ms, peak memory and one profiled step each (with
    each flash kernel's device time a launch).  Each step's capture pass
    must launch every flash kernel once per layer (16).
-7. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
+10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
    batch), checked against ``kinds.embed_norm_sq``'s segment sum.
-8. 1-D conv lane: a network of five plain 1-D convs (AlexNet's conv
+11. 1-D conv lane: a network of five plain 1-D convs (AlexNet's conv
    widths at stride 1, ReLU, mean over time, a 10-class dense head, f32),
    B = 32, T = 4096, σ = 1: 3 ``private_step``s each of crb and ``auto``
    flat with ``conv_impl="pallas"``; the crb lane must launch
    ``pe_conv_grad_1d`` 5 times each step; then crb(kernel) against
    crb(grouped conv) on one batch at σ = 0.
-9. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
+12. calibrated plans: full-width AlexNet and VGG16 ``auto`` flat and
+   stale, planned under the measured calibration beside the analytic
+   plan: both fingerprints, the layers whose realization differs, and
+   ``predicted_step_seconds`` against the lane's measured step.
+13. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
    own, twice per lane, once straight through and once with
    ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
    AlexNet ``auto`` flat and stale (B = 32, 6 steps, checkpoint every 2),
-   and Llama-3.2-1B at full width and depth 2 (B = 8, T = 1024, bf16,
-   flash, ``auto``, 4 steps).  The two runs' last checkpoints (params,
-   optimizer state, clip state, ledger) must be bitwise equal.
+   AlexNet ``auto`` stale with ``--calibration`` the blob of phase 4 (its
+   ``[calibrate]`` and ``[replan]`` lines printed; it must end bitwise
+   equal to the uncalibrated stale lane where the calibrated tile is the
+   shape rule, within f32 tolerance where it forces another), and
+   Llama-3.2-1B at full width and depth 2 (B = 8, T = 1024, bf16, flash,
+   ``auto``, 4 steps).  The two runs' last checkpoints (params, optimizer
+   state, clip state, ledger) must be bitwise equal.
 
+Each phase prints its seconds.  The kernel cases of phase 3 hold the
+conv gradients at VGG16's conv shapes and ``gram_norm`` at its Grams too
+(B = 4; conv1's also at B = 32, where x holds 56 % of the 32-bit range;
+past T = 16 384 against the plain version's product form in f64).
 The kernel cases of phase 3 include ``pe_conv_grad_1d`` (the JAX kernel
 test's sweep and the 1-D lane's five layer shapes, f32 and bf16, each
 twice to show it bitwise repeatable; per layer its time, its bound (3 x
@@ -128,6 +160,34 @@ GRAM_CASES = [("conv0", 3969, 363, 64), ("conv1", 961, 1600, 192),
 # The layers a stale plan fuses on full-width AlexNet at B = 32.
 FUSED_CASES = GRAM_CASES[2:5]
 
+# Full-width VGG16 (paper Table 1, 3x256x256, 1000 classes), and its
+# kernel cases at a small batch: (name, C, H padded, D, K) of its distinct
+# conv shapes, and (name, T, Di, Do) of its Grams (conv im2col, then fc).
+VGG16_PARAMS = 169_814_824
+VGG_B = 4
+VGG_PE_CASES = [("vgg16_conv0", 3, 258, 64, 3), ("vgg16_conv1", 64, 258, 64, 3),
+                ("vgg16_conv2", 64, 130, 128, 3),
+                ("vgg16_conv3", 128, 130, 128, 3),
+                ("vgg16_conv4", 128, 66, 256, 3),
+                ("vgg16_conv5", 256, 66, 256, 3),
+                ("vgg16_conv7", 256, 34, 512, 3),
+                ("vgg16_conv8", 512, 34, 512, 3),
+                ("vgg16_conv10", 512, 18, 512, 3)]
+VGG_GRAM_CASES = [("vgg16_conv0", 65536, 27, 64),
+                  ("vgg16_conv1", 65536, 576, 64),
+                  ("vgg16_conv2", 16384, 576, 128),
+                  ("vgg16_conv3", 16384, 1152, 128),
+                  ("vgg16_conv4", 4096, 1152, 256),
+                  ("vgg16_conv5", 4096, 2304, 256),
+                  ("vgg16_conv7", 1024, 2304, 512),
+                  ("vgg16_conv8", 1024, 4608, 512),
+                  ("vgg16_conv10", 256, 4608, 512),
+                  ("vgg16_fc0", 1, 32768, 4096), ("vgg16_fc1", 1, 4096, 4096),
+                  ("vgg16_fc2", 1, 4096, 1000)]
+# Past this T the plain gram_norm's T x T Grams do not fit (17 GB an
+# example at T = 65 536): its product form, in f64, is the check there.
+GRAM_T_PLAIN_MAX = 16384
+
 # Llama-3.2-1B's main-path batch.  gqa_apply repeats K and V to all 32
 # query heads before attention (as the JAX package does), so the model
 # path runs the flash kernels at rep 1; rep 4 (32 / 8) is checked alone.
@@ -173,18 +233,25 @@ TOK_CASES = [("llama_bf16", LM_B, LM_T, 2048, 128256, "bfloat16", True),
              ("ragged_repeated_f32", LM_B, 1000, 2048, 16, "float32", False),
              ("ragged_bf16", LM_B, 1000, 2048, 128256, "bfloat16", False),
              ("past_sort_cap_f32", 1, 16385, 64, 128256, "float32", False)]
-# The CLI lanes: (lane, arguments after the module, steps).
+# The calibration blob the calibrate phase saves (ignored by git).
+CALIB_BLOB = ROOT / "build" / "chip_smoke_calibration.json"
+# The CLI lanes: (lane, arguments after the module, steps, the lane whose
+# final checkpoint this one's is held to, or None).  The calibrated lane
+# plans under the calibrate phase's blob and runs the mispredict loop.
+_ALEX_STALE = ["--arch", "alexnet", "--full", "--batch", "32", "--strategy",
+               "auto", "--clip-mode", "stale", "--noise", "1.0"]
 CLI_LANES = [
     ("cli_alexnet_auto_flat",
      ["--arch", "alexnet", "--full", "--batch", "32", "--strategy", "auto",
-      "--noise", "1.0"], 6),
-    ("cli_alexnet_auto_stale",
-     ["--arch", "alexnet", "--full", "--batch", "32", "--strategy", "auto",
-      "--clip-mode", "stale", "--noise", "1.0"], 6),
+      "--noise", "1.0"], 6, None),
+    ("cli_alexnet_auto_stale", _ALEX_STALE, 6, None),
+    ("cli_alexnet_auto_stale_calibrated",
+     _ALEX_STALE + ["--calibration", str(CALIB_BLOB.relative_to(ROOT))], 6,
+     "cli_alexnet_auto_stale"),
     ("cli_llama_depth2_auto",
      ["--arch", "llama3.2-1b", "--full", "--layers", "2", "--batch",
       str(LM_B), "--seq", str(LM_T), "--strategy", "auto", "--attn-impl",
-      "flash", "--noise", "1.0"], 4)]
+      "flash", "--noise", "1.0"], 4, None)]
 CLI_TIMEOUT_S = 420
 
 
@@ -311,6 +378,8 @@ def kernel_cases(torch):
                 for n, c, h, d, k in PE_CASES]
     pe_cases += [("ragged", 3, 5, 13, 70, 3, "float32", False),
                  ("conv2_bf16", 32, 192, 17, 384, 3, "bfloat16", False)]
+    pe_cases += [(n, VGG_B, c, h, d, k, "float32", False)
+                 for n, c, h, d, k in VGG_PE_CASES]
     for name, b, c, h, d, k, dt, main in pe_cases:
         tdt = getattr(torch, dt)
         hp = h - k + 1
@@ -359,6 +428,12 @@ def kernel_cases(torch):
     gram_cases += [("ragged", 3, 100, 70, 33, "float32", False),
                    ("conv1_bf16", 32, 961, 1600, 192, "bfloat16", False),
                    ("conv2_bf16", 32, 225, 1728, 384, "bfloat16", False)]
+    # VGG16's at a small batch, and conv1 at the main path's B = 32
+    # (x holds 1.21e9 entries, 56 % of the 32-bit range).
+    gram_cases += [(n, VGG_B, t, di, do, "float32", False)
+                   for n, t, di, do in VGG_GRAM_CASES]
+    gram_cases += [("vgg16_conv1_b32", 32, 65536, 576, 64, "float32",
+                    False)]
     for name, b, t, di, do, dt, main in gram_cases:
         tdt = getattr(torch, dt)
         if t > 1:
@@ -369,7 +444,13 @@ def kernel_cases(torch):
         got = ops.gram_norm(x, dy, has_bias=True)
         again = ops.gram_norm(x, dy, has_bias=True)
         torch.cuda.synchronize()
-        want = ref.gram_norm_ref(x, dy, has_bias=True)
+        if t <= GRAM_T_PLAIN_MAX:
+            plain = functools.partial(ref.gram_norm_ref, x, dy)
+            want = plain(has_bias=True)
+        else:
+            plain = functools.partial(ref.gram_norm_product_ref, x, dy)
+            want = ref.gram_norm_product_ref(x.double(), dy.double(),
+                                             has_bias=True)
         abs_err, rel_err, ok = compare(torch, got, want, dt)
         ok = ok and bool(torch.equal(got, again))
 
@@ -393,15 +474,15 @@ def kernel_cases(torch):
                "rtol": RTOL[dt], "ok": ok, "bitwise_repeat": ok,
                "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm(
                    x, dy, has_bias=True), 5),
-               "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_ref(
-                   x, dy, has_bias=True), 3),
+               "plain": plain.func.__name__,
+               "plain_ms": cuda_ms(torch, lambda: plain(has_bias=True), 3),
                "library_ms": cuda_ms(torch, library, 3),
                "library": "bmm materialize + square-sum (several calls)",
                "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
                "main_path": main}
         rows.append(row)
         log(row)
-        del x, dy, got, want
+        del x, dy, got, want, plain
         torch.cuda.empty_cache()
     rows += fused_cases(torch, rnd)
     rows += pe1d_cases(torch, rnd)
@@ -805,7 +886,7 @@ def tree_close(torch, got, want, rtol, atol, what):
 
 
 def small_parity(torch):
-    """Phase 4: the toy CNN's clipped sums on the card equal the CPU's."""
+    """Phase 5: the toy CNN's clipped sums on the card equal the CPU's."""
     from repro_torch.core import ClipPolicy, clipped_grad_sum
     from repro_torch.models.cnn import CNN, toy_cnn_config
     from repro_torch.tree import tree_map
@@ -849,7 +930,7 @@ def small_parity(torch):
 
 
 def small_lm_parity(torch):
-    """Phase 4 (LM): a reduced Llama-3.2-1B (2 layers, head_dim 16, f32,
+    """Phase 5 (LM): a reduced Llama-3.2-1B (2 layers, head_dim 16, f32,
     ``attn_impl="flash"``) gives the same clipped sums on the card (the
     flash kernels) as on the CPU, under bk and ``auto``."""
     from repro_torch.configs import get_config
@@ -885,17 +966,134 @@ def small_lm_parity(torch):
          "strategies": ["bk", "auto"]})
 
 
-def main_path(torch, lanes):
-    """Phase 5: full-width AlexNet DP-SGD steps through the engine; each
-    lane's launches, step by step, go to ``lanes``."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core import (ClipPolicy, DPConfig, NormCfg,
-                                  PrivacyEngine, clipped_grad_sum)
-    from repro_torch.data import SyntheticImageDataset
+def planned_needs(eng, steps):
+    """The launches each step of a planned lane must make, read off its
+    plan: ``pe_conv_grad_2d`` once per plain conv (stride and dilation 1,
+    one group) the plan materializes (``pe``), ``gram_norm_fused`` once
+    per fused layer.  A stale lane's step 0 is the flat bootstrap, under
+    the flat plan."""
+    from repro_torch.core import costmodel
+
+    def count(plan):
+        pe = 0
+        for n, lp in plan.layers.items():
+            st = plan.metas[n].static
+            plain = (st.get("groups", 1) == 1
+                     and all(v == 1 for v in _pair(st.get("stride", 1)))
+                     and all(v == 1 for v in _pair(st.get("dilation", 1))))
+            pe += lp.kind == "conv" and lp.norm_method == "pe" and plain
+        return pe, sum(lp.fused for lp in plan.layers.values())
+
+    pe, fused = count(eng.plan())
+    if eng.dp.clipping.mode != "stale":
+        return {"pe_conv_grad_2d": [pe] * steps,
+                "gram_norm_fused": [0] * steps}
+    flat = costmodel.get_plan(
+        eng.apply_fn, eng._params_spec, eng._batch_spec,
+        **dict(eng._planner_opts(), clip_mode="flat"))
+    return {"pe_conv_grad_2d": [count(flat)[0]] + [pe] * (steps - 1),
+            "gram_norm_fused": [0] + [fused] * (steps - 1)}
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,)
+
+
+def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
+              steps=3, n_examples=4096):
+    """Each lane of ``runs`` — (lane, strategy, clipping, norm knobs, the
+    launches each step must make: a dict, or ``"plan"`` to read them off
+    the lane's plan, ``planned_needs``) — through ``PrivacyEngine``, σ = 1,
+    C = 1, AdamW: ``steps`` timed ``private_step``s with the launch counts
+    set to 0 before each step and read after it, then one profiled step.
+    Adds the counts to ``launches`` and each lane's, step by step, to
+    ``lanes``.  Returns {lane: {"step_ms", "norms0" (step 0's per-example
+    norms), "plan" (the realizations of a planned lane)}}."""
+    from repro_torch.core import DPConfig, PrivacyEngine
     from repro_torch.kernels import ops
-    from repro_torch.models.cnn import CNN
     from repro_torch.optim import adamw_init
+    out = {}
+    for lane, strategy, clipping, norm, needs in runs:
+        B = int(batches[0]["label"].shape[0])
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
+                      norm=norm, clipping=clipping)
+        eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                            optimizer="adamw", lr=1e-3, run_seed=0,
+                            sampling_rate=B / n_examples, device="cuda")
+        plan = realized = None
+        if strategy == "auto":
+            plan = eng.explain()
+            realized = eng.plan().realizations()
+        if needs == "plan":
+            needs = planned_needs(eng, steps)
+        p, opt = params, adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, per_step = [], [], []
+        for s in range(steps):
+            ops.reset_launches()
+            t = time.perf_counter()
+            p, opt, loss, aux = eng.private_step(p, opt, batches[s], step=s)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(dict(ops.LAUNCHES))
+            losses.append(float(loss))
+            if s == 0:
+                norms0 = aux["per_example_norms"].detach().clone()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
+        for k, v in counts.items():
+            launches[k] += v
+        lanes[lane] = {k: [c[k] for c in per_step]
+                       for k, v in counts.items() if v}
+        prof = profile_step(torch, lambda: eng.private_step(
+            p, opt, batches[steps], step=steps))
+        check(all(math.isfinite(v) for v in losses),
+              f"{lane}: non-finite loss {losses}")
+        for k, want in needs.items():
+            got = [c[k] for c in per_step]
+            check(got == want,
+                  f"{lane}: {k} launches per step {got}, expected {want}")
+        check(any(sum(w) for w in needs.values()),
+              f"{lane}: no kernel of the lane launched")
+        log({"phase": phase, "lane": lane, "strategy": strategy,
+             "clipping": dataclass_dict(clipping) if not isinstance(
+                 clipping, str) else clipping,
+             "norm": dataclass_dict(norm), "batch": B, "plan": plan,
+             "plan_realizations": realized, "losses": losses,
+             "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
+             "launches": counts, "launches_each_step": per_step,
+             "launches_per_step": {k: v / steps for k, v in counts.items()},
+             "peak_mem_gb": peak, "profiled_step": prof,
+             "clip_fraction": float(aux["clip_fraction"]),
+             "report": eng.report()})
+        out[lane] = {"step_ms": step_ms, "norms0": norms0, "plan": realized}
+        del p, opt, eng, aux
+        torch.cuda.empty_cache()
+    return out
+
+
+def image_batches(torch, img, classes, B, n, n_examples=4096):
+    """``n`` synthetic image batches of ``B`` on the card, from seed 0."""
+    import numpy as np
+    from repro_torch.data import SyntheticImageDataset
+    ds = SyntheticImageDataset(img, classes, n_examples=n_examples, seed=0)
+    out = []
+    for s in range(n):
+        b = ds.batch(range(s * B, (s + 1) * B))
+        out.append({"img": torch.from_numpy(b["img"]).cuda(),
+                    "label": torch.from_numpy(
+                        b["label"].astype(np.int64)).cuda()})
+    return out
+
+
+def main_path(torch, lanes, launches, timings):
+    """Phase 6: full-width AlexNet DP-SGD steps through the engine; each
+    lane's launches, step by step, go to ``lanes``, its step ms to
+    ``timings``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, NormCfg, clipped_grad_sum
+    from repro_torch.models.cnn import CNN
 
     cfg = get_config("alexnet")
     check(cfg.img_size == IMG and cfg.n_classes == 1000, "alexnet config")
@@ -904,14 +1102,7 @@ def main_path(torch, lanes):
     n_params = sum(v.numel() for layer in params.values()
                    for v in layer.values())
     t0 = time.perf_counter()
-    n_examples = 4096
-    ds = SyntheticImageDataset(IMG, 1000, n_examples=n_examples, seed=0)
-    batches = []
-    for s in range(5):
-        b = ds.batch(range(s * B, (s + 1) * B))
-        batches.append({"img": torch.from_numpy(b["img"]).cuda(),
-                        "label": torch.from_numpy(
-                            b["label"].astype(np.int64)).cuda()})
+    batches = image_batches(torch, IMG, 1000, B, 5)
     log({"phase": "main_path_setup", "arch": "alexnet", "img": IMG,
          "classes": 1000, "params": n_params, "batch": B,
          "data_s": time.perf_counter() - t0})
@@ -937,51 +1128,11 @@ def main_path(torch, lanes):
             ("auto_stale", "auto", "stale", auto,
              {"pe_conv_grad_2d": [1] * steps,
               "gram_norm_fused": [0] + [len(FUSED_CASES)] * (steps - 1)})]
-    launches = {k: 0 for k in ops.LAUNCHES}
-    for lane, strategy, clipping, norm, needs in runs:
-        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
-                      norm=norm, clipping=clipping)
-        eng = PrivacyEngine(model.apply, params, batches[0], dp,
-                            optimizer="adamw", lr=1e-3, run_seed=0,
-                            sampling_rate=B / n_examples, device="cuda")
-        plan = eng.explain() if strategy == "auto" else None
-        p, opt = params, adamw_init(params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_ms, losses, per_step = [], [], []
-        for s in range(steps):
-            ops.reset_launches()
-            t = time.perf_counter()
-            p, opt, loss, aux = eng.private_step(p, opt, batches[s], step=s)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            per_step.append(dict(ops.LAUNCHES))
-            losses.append(float(loss))
-        counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
-        for k, v in counts.items():
-            launches[k] += v
-        lanes[lane] = {k: [c[k] for c in per_step]
-                       for k, v in counts.items() if v}
-        prof = profile_step(torch, lambda: eng.private_step(
-            p, opt, batches[steps], step=steps))
-        check(all(math.isfinite(v) for v in losses),
-              f"{lane}: non-finite loss {losses}")
-        for k, want in needs.items():
-            check(counts[k] > 0, f"{lane}: kernel {k} never launched")
-            got = [c[k] for c in per_step]
-            check(got == want,
-                  f"{lane}: {k} launches per step {got}, expected {want}")
-        log({"phase": "main_path", "lane": lane, "strategy": strategy,
-             "clipping": clipping, "norm": dataclass_dict(norm),
-             "plan": plan, "losses": losses,
-             "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
-             "launches": counts, "launches_each_step": per_step,
-             "launches_per_step": {k: v / steps for k, v in counts.items()},
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "profiled_step": prof,
-             "clip_fraction": float(aux["clip_fraction"]),
-             "report": eng.report()})
-        del p, opt, eng
+    out = run_lanes(torch, "main_path", model, params, batches, runs, lanes,
+                    launches, steps)
+    timings["alexnet"] = {k: v["step_ms"] for k, v in out.items()}
+    alexnet_per_layer(torch, model, params, batches, lanes, launches,
+                      timings)
 
     # Kernel realizations against the grouped-conv (library) route on one
     # batch at σ = 0: norms and clipped sums (f32 sums in another order).
@@ -991,10 +1142,10 @@ def main_path(torch, lanes):
     def run(name, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = clipped_grad_sum(model.apply, params, b, l2_clip=1.0, **kw)
+        res = clipped_grad_sum(model.apply, params, b, l2_clip=1.0, **kw)
         torch.cuda.synchronize()
         timed[name] = (time.perf_counter() - t) * 1e3
-        return out
+        return res
 
     _, sum_fgc, n_fgc = run("crb_fgc", strategy="crb", conv_impl="fgc")
     _, sum_k, n_k = run("crb_kernel", strategy="crb", conv_impl="pallas")
@@ -1037,11 +1188,261 @@ def main_path(torch, lanes):
              ((n_f1 - n_u).abs() / n_u).max().item(),
          "stale_fused_bitwise_repeatable": True,
          "call_ms_one_batch": timed})
-    return launches
+    del sum_f1, sum_f2, sum_u, sum_fgc, params, batches
+    torch.cuda.empty_cache()
+
+
+def alexnet_per_layer(torch, model, params, batches, lanes, launches,
+                      timings):
+    """Phase 6 (alexnet_per_layer): full-width AlexNet, ``auto`` under
+    per_layer clipping with uniform and auto (tracked-quantile) budgets;
+    each step launches what the plan says (``planned_needs``: conv1's
+    ``pe_conv_grad_2d``)."""
+    from repro_torch.core import ClipPolicy, NormCfg
+    t = time.perf_counter()
+    auto = NormCfg(conv_impl="pallas")
+    runs = [("auto_per_layer_uniform", "auto", ClipPolicy(mode="per_layer"),
+             auto, "plan"),
+            ("auto_per_layer_auto", "auto",
+             ClipPolicy(mode="per_layer", budgets="auto"), auto, "plan")]
+    out = run_lanes(torch, "alexnet_per_layer", model, params, batches, runs,
+                    lanes, launches)
+    timings["alexnet"].update({k: v["step_ms"] for k, v in out.items()})
+    log({"phase": "alexnet_per_layer_done",
+         "seconds": time.perf_counter() - t})
+
+
+def vgg16_main_path(torch, lanes, launches, timings):
+    """Phase 7 (vgg16_main_path): full-width VGG16 (3x256x256, 1000 classes,
+    169 814 824 params, not cut), B = 32: crb with the conv kernel
+    (``pe_conv_grad_2d`` at all 13 convs), ghost and bk with the kernel
+    norms (``gram_norm`` once a layer, 16), ``auto`` flat, per_layer and
+    stale (the launches the plan says).  crb falls back to B = 16 alone
+    if B = 32 does not fit the card, and says so.  Step 0's per-example
+    norms of every lane (the same params and batch) must equal crb's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, NormCfg
+    from repro_torch.models.cnn import CNN, VGG16
+
+    t0 = time.perf_counter()
+    cfg = get_config("vgg16")
+    check(cfg.img_size == IMG and cfg.n_classes == 1000, "vgg16 config")
+    model = CNN(cfg)
+    params, _ = model.init(0, device="cuda")
+    n_params = sum(v.numel() for layer in params.values()
+                   for v in layer.values())
+    check(n_params == VGG16_PARAMS, f"vgg16 params {n_params}")
+    batches = image_batches(torch, IMG, 1000, B, 4)
+    log({"phase": "vgg16_setup", "arch": "vgg16", "img": IMG,
+         "classes": 1000, "params": n_params, "batch": B,
+         "setup_s": time.perf_counter() - t0})
+    n_conv, n_layers = len(VGG16), len(VGG16) + 3
+    steps = 3
+    kern = NormCfg(dense="pallas", conv="pallas")
+    auto = NormCfg(conv_impl="pallas")
+    crb = [("vgg16_crb", "crb", "flat", NormCfg(conv_impl="pallas"),
+            {"pe_conv_grad_2d": [n_conv] * steps})]
+    try:
+        out = run_lanes(torch, "vgg16_main_path", model, params, batches,
+                        crb, lanes, launches, steps)
+        crb_batch = B
+    except torch.cuda.OutOfMemoryError as e:
+        oom, crb_batch = str(e).splitlines()[0], B // 2
+    if crb_batch != B:
+        # outside the except clause, so the failed lane's tensors are free
+        torch.cuda.empty_cache()
+        log({"phase": "vgg16_main_path", "lane": "vgg16_crb",
+             "note": f"crb at B = {B} does not fit the card ({oom}); "
+                     f"B = {crb_batch} for this lane alone"})
+        half = [{k: v[:crb_batch] for k, v in b.items()} for b in batches]
+        out = run_lanes(torch, "vgg16_main_path", model, params, half, crb,
+                        lanes, launches, steps)
+    runs = [("vgg16_ghost", "ghost", "flat", kern,
+             {"gram_norm": [n_layers] * steps}),
+            ("vgg16_bk", "bk", "flat", NormCfg(dense="pallas", conv="pallas",
+                                               conv_impl="pallas"),
+             {"gram_norm": [n_layers] * steps}),
+            ("vgg16_auto_flat", "auto", "flat", auto, "plan"),
+            ("vgg16_auto_per_layer", "auto", ClipPolicy(mode="per_layer"),
+             auto, "plan"),
+            ("vgg16_auto_stale", "auto", "stale", auto, "plan")]
+    out.update(run_lanes(torch, "vgg16_main_path", model, params, batches,
+                         runs, lanes, launches, steps))
+    ref_norms = out["vgg16_crb"]["norms0"]
+    rel = {}
+    for lane, o in out.items():
+        n = o["norms0"][:crb_batch]
+        rel[lane] = ((n - ref_norms).abs() / ref_norms).max().item()
+        check(rel[lane] <= 1e-4,
+              f"{lane}: step-0 norms vs crb's, rel {rel[lane]:.3e}")
+    timings["vgg16"] = {k: v["step_ms"] for k, v in out.items()}
+    log({"phase": "vgg16_checks", "ok": True, "crb_batch": crb_batch,
+         "step0_norms_max_rel_vs_crb": rel,
+         "seconds": time.perf_counter() - t0})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+# The paper's toy CNNs (Figs 1-3) at toy_cnn_config's defaults (c0 = 25,
+# 256 px, 10 classes): (name, L, channel rate, kernel, c0).
+TOY_CNNS = [("toy_L4_r2_k3", 4, 2.0, 3, 25), ("toy_L4_r2_k5", 4, 2.0, 5, 25),
+            ("toy_L3_r1_k5_c32", 3, 1.0, 5, 32)]
+
+
+def toy_cnns(torch, lanes, launches):
+    """Phase 8 (toy_cnns): the toy CNNs of TOY_CNNS, B = 32, under crb (the
+    conv kernel at every conv), ghost and bk (the kernel norms, once a
+    layer) and ``auto`` flat (what the plan says)."""
+    from repro_torch.core import NormCfg
+    from repro_torch.models.cnn import CNN, toy_cnn_config
+    t0 = time.perf_counter()
+    steps = 3
+    for name, L, rate, k, c0 in TOY_CNNS:
+        cfg = toy_cnn_config(L, rate, kernel=k, c0=c0)
+        check(cfg.img_size == IMG and cfg.n_classes == 10, "toy config")
+        model = CNN(cfg)
+        params, _ = model.init(0, device="cuda")
+        batches = image_batches(torch, IMG, 10, B, steps + 1)
+        runs = [(f"{name}_crb", "crb", "flat", NormCfg(conv_impl="pallas"),
+                 {"pe_conv_grad_2d": [L] * steps}),
+                (f"{name}_ghost", "ghost", "flat",
+                 NormCfg(dense="pallas", conv="pallas"),
+                 {"gram_norm": [L + 1] * steps}),
+                (f"{name}_bk", "bk", "flat",
+                 NormCfg(dense="pallas", conv="pallas", conv_impl="pallas"),
+                 {"gram_norm": [L + 1] * steps}),
+                (f"{name}_auto_flat", "auto", "flat",
+                 NormCfg(conv_impl="pallas"), "plan")]
+        out = run_lanes(torch, "toy_cnns", model, params, batches, runs,
+                        lanes, launches, steps)
+        ref_norms = out[f"{name}_crb"]["norms0"]
+        for lane, o in out.items():
+            rel = ((o["norms0"] - ref_norms).abs() / ref_norms).max().item()
+            check(rel <= 1e-4, f"{lane}: step-0 norms vs crb's, rel "
+                               f"{rel:.3e}")
+        log({"phase": "toy_cnn_setup", "model": name,
+             "channels": list(cfg.cnn_channels), "kernel": k,
+             "params": sum(v.numel() for layer in params.values()
+                           for v in layer.values())})
+        del params, batches
+        torch.cuda.empty_cache()
+    log({"phase": "toy_cnns_done", "seconds": time.perf_counter() - t0})
+
+
+def calibrate_phase(torch):
+    """Phase 4 (calibrate): ``calibrate.measure()`` on the card at full sizes
+    (f32 matmul at n = 8192 with TF32 off, a 1 GiB stream, the
+    ``pe_conv_grad_2d`` tile sweep, ``gram_norm_fused``'s time); every
+    tile candidate at every swept shape, and the plain version, held to
+    the f32 sum bound; the blob saved under ``build/`` and loaded back
+    strictly.  The HBM reading must not exceed the data sheet's rate (a
+    higher one would have come from the L2)."""
+    from repro_torch import calibrate
+    from repro_torch.calibrate import harness
+    from repro_torch.core import costmodel
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    calib = calibrate.measure()
+    measure_s = time.perf_counter() - t0
+    check(calib.hbm_bytes_per_second <= PEAK_BYTES,
+          f"HBM {calib.hbm_bytes_per_second:.4g} B/s exceeds the data "
+          f"sheet's {PEAK_BYTES:.4g}: the stream read the L2")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    held = {}
+    for name, C, H, D, K in harness.PE_TILE_SHAPES:
+        Bt, hp = harness.PE_TILE_BATCH, H - K + 1
+        x = torch.randn(Bt, C, H, H, generator=g, device="cuda")
+        dy = torch.randn(Bt, D, hp, hp, generator=g, device="cuda")
+        want = ref.pe_conv_grad_2d_ref(x, dy, K, K)
+        outs, mults = {}, {}
+        for rows in ops.PE_TILE_ROWS:
+            outs[rows] = ops.pe_conv_grad_2d(x, dy, KH=K, KW=K,
+                                             tile_rows=rows)
+            mults[str(rows)], p_mult, ok = sum_rule(
+                outs[rows], want,
+                lambda a, b_, K=K: ref.pe_conv_grad_2d_ref(a, b_, K, K),
+                x, dy, hp * hp)
+            check(ok, f"calibrate: tile_rows {rows} at {name}: "
+                      f"{mults[str(rows)]:.3f}x (plain {p_mult:.3f}x) the "
+                      f"f32 sum bound")
+        held[name] = {"bound_multiple": mults, "plain_bound_multiple": p_mult,
+                      "rule_rows": ops.pe_conv_tile_rule(D),
+                      "tiles_bitwise_equal": all(
+                          torch.equal(outs[0], o) for o in outs.values())}
+        del x, dy, want, outs
+    torch.cuda.empty_cache()
+    CALIB_BLOB.parent.mkdir(parents=True, exist_ok=True)
+    calibrate.save_calibration(str(CALIB_BLOB), calib)
+    check(calibrate.load_calibration(str(CALIB_BLOB)) == calib,
+          "the saved calibration did not load back equal")
+    pe = calib.kernels["pe_conv_grad"]
+    log({"phase": "calibrate", "card": nvidia_smi_line(),
+         "hardware": calib.hardware,
+         "flops_per_second": calib.flops_per_second,
+         "hbm_bytes_per_second": calib.hbm_bytes_per_second,
+         "hbm_flops_per_byte": calib.hbm_flops_per_byte(),
+         "analytic": costmodel.ANALYTIC_FALLBACK,
+         "pe_conv_grad_tile_rows": pe["tile_rows"], "sweep": pe["sweep"],
+         "sweep_by_shape": pe["by_shape"], "sweep_batch": pe["batch"],
+         "gram_norm_fused": calib.kernels["gram_norm_fused"],
+         "digest": calib.digest(), "blob": str(CALIB_BLOB.relative_to(ROOT)),
+         "tiles_held_to_sum_bound": held, "measure_s": measure_s,
+         "seconds": time.perf_counter() - t0})
+    return calib
+
+
+def calibrated_plans(torch, calib, timings):
+    """Phase 12 (calibrated_plans): full-width AlexNet and VGG16 (B = 32, by
+    shape on the meta device) ``auto`` flat and stale, planned under the
+    measured calibration beside the analytic plan: both fingerprints,
+    every layer whose realization differs, and each plan's
+    ``predicted_step_seconds`` against the step its lane measured (mean
+    of steps 1-2; the ratio the mispredict loop reads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel
+    from repro_torch.models.cnn import CNN
+    t0 = time.perf_counter()
+    out = []
+    for arch, lane_of in (("alexnet", {"flat": "auto_flat",
+                                       "stale": "auto_stale"}),
+                          ("vgg16", {"flat": "vgg16_auto_flat",
+                                     "stale": "vgg16_auto_stale"})):
+        model = CNN(get_config(arch))
+        params, _ = model.init(0, device="meta")
+        batch = {"img": torch.empty(B, 3, IMG, IMG, device="meta"),
+                 "label": torch.empty(B, dtype=torch.int64, device="meta")}
+        for mode, lane in lane_of.items():
+            ana = costmodel.get_plan(model.apply, params, batch,
+                                     clip_mode=mode, calibration="analytic")
+            cal = costmodel.get_plan(model.apply, params, batch,
+                                     clip_mode=mode, calibration=calib)
+            r_a, r_c = ana.realizations(), cal.realizations()
+            measured_ms = sum(timings[arch][lane][1:]) / (
+                len(timings[arch][lane]) - 1)
+            pred_a = costmodel.predicted_step_seconds(ana, "analytic") * 1e3
+            pred_c = costmodel.predicted_step_seconds(cal, calib) * 1e3
+            out.append({"arch": arch, "mode": mode, "lane": lane,
+                        "analytic_fingerprint": ana.fingerprint,
+                        "calibrated_fingerprint": cal.fingerprint,
+                        "differing_layers": {
+                            n: {"analytic": r_a[n], "calibrated": r_c[n]}
+                            for n in r_a if r_a[n] != r_c[n]},
+                        "predicted_ms_analytic": pred_a,
+                        "predicted_ms_calibrated": pred_c,
+                        "measured_ms": measured_ms,
+                        "ratio_measured_over_calibrated": measured_ms / pred_c,
+                        "ratio_measured_over_analytic": measured_ms / pred_a})
+            check(cal.calibration == calib.digest()
+                  and ana.fingerprint != cal.fingerprint,
+                  f"{arch} {mode}: the calibrated plan is not keyed by the "
+                  f"calibration")
+    log({"phase": "calibrated_plans", "calibration": calib.digest(),
+         "hbm_flops_per_byte": calib.hbm_flops_per_byte(), "plans": out,
+         "seconds": time.perf_counter() - t0})
 
 
 def lm_main_path(torch, launches, lanes):
-    """Phase 6: full-width Llama-3.2-1B DP-SGD steps through the engine,
+    """Phase 9: full-width Llama-3.2-1B DP-SGD steps through the engine,
     bk and ``auto`` flat; adds the flash launches to ``launches`` and each
     lane's launches per step to ``lanes``.  Returns each lane's flash
     kernels' device time in its profiled step."""
@@ -1129,7 +1530,7 @@ def lm_main_path(torch, launches, lanes):
 
 
 def tokmask_path(torch, launches, lanes):
-    """Phase 7: ``gram_norm_tokmask`` through its entry point,
+    """Phase 10: ``gram_norm_tokmask`` through its entry point,
     ``ops.gram_norm_tokmask`` (no model path calls it, as in the JAX
     package), on Llama-3.2-1B's embedding cotangent shape: the token ids
     of a synthetic batch (B = 8, T = 1024) and a bf16 δy (B, T, 2048) from
@@ -1137,6 +1538,7 @@ def tokmask_path(torch, launches, lanes):
     segment sum the model path runs (rtol 1e-4)."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import ops
+    t0 = time.perf_counter()
     ds = SyntheticLMDataset(128256, LM_T, n_examples=4096, seed=0)
     ids = torch.from_numpy(ds.batch(range(LM_B))["tokens"]).cuda()
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1161,11 +1563,12 @@ def tokmask_path(torch, launches, lanes):
     check(rel <= 1e-4, f"tokmask path vs segsum: rel {rel:.3e}")
     log({"phase": "tokmask_path", "ok": True, "shape": [LM_B, LM_T, 2048],
          "dtype": "bfloat16", "call_ms_first": call_ms,
-         "segsum_max_rel_err": rel, "launches": counts})
+         "segsum_max_rel_err": rel, "launches": counts,
+         "seconds": time.perf_counter() - t0})
 
 
 def conv1d_lane(torch, launches, lanes):
-    """Phase 8: DP-SGD on the network of plain 1-D convs (C1_LAYERS),
+    """Phase 11: DP-SGD on the network of plain 1-D convs (C1_LAYERS),
     crb and ``auto`` flat with ``conv_impl="pallas"``."""
     from repro_torch.core import DPConfig, NormCfg, PrivacyEngine
     from repro_torch.core import clipped_grad_sum
@@ -1325,15 +1728,37 @@ def run_cli(args, ckpt_dir):
     return json.loads(lines[-1])["train_summary"], proc.stdout, wall
 
 
-def cli_lanes():
-    """Phase 9: kill-and-resume through the training CLI, bitwise."""
+def close_checkpoint(d1, d2, step):
+    """The two runs' checkpoints of ``step``, every array within rtol 1e-4
+    / atol 1e-6 (f32 sums in another order).  Returns (arrays compared,
+    whether they were bitwise equal all the same)."""
+    import numpy as np
+    name = f"step_{step:09d}"
+    with np.load(os.path.join(d1, name, "arrays.npz")) as za, \
+            np.load(os.path.join(d2, name, "arrays.npz")) as zb:
+        check(sorted(za.files) == sorted(zb.files), "different leaves")
+        for k in za.files:
+            check(np.allclose(za[k], zb[k], rtol=1e-4, atol=1e-6),
+                  f"calibrated run differs from the uncalibrated one at {k}")
+        return len(za.files), all(_bitwise_same(np, za[k], zb[k])
+                                  for k in za.files)
+
+
+def cli_lanes(calib):
+    """Phase 13: kill-and-resume through the training CLI, bitwise.  The
+    calibrated lane must print its ``[calibrate]`` line and end, where the
+    calibrated tile is the shape rule (0), bitwise equal to the
+    uncalibrated lane; where it forces another tile, within f32
+    tolerance of it."""
     base = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(base, ignore_errors=True)
-    for lane, args, steps in CLI_LANES:
+    refs = {r for *_, r in CLI_LANES if r}
+    tile = calib.kernels["pe_conv_grad"]["tile_rows"]
+    for lane, args, steps, ref_lane in CLI_LANES:
         common = args + ["--steps", str(steps), "--ckpt-every", "2"]
         d_straight, d_killed = str(base / lane / "straight"), \
             str(base / lane / "killed")
-        s1, _, wall1 = run_cli(common, d_straight)
+        s1, out1, wall1 = run_cli(common, d_straight)
         s2, out2, wall2 = run_cli(common + ["--fail-at", "3"], d_killed)
         check(s1["restarts"] == 0 and s2["restarts"] == 1,
               f"{lane}: restarts {s1['restarts']}, {s2['restarts']}")
@@ -1343,12 +1768,34 @@ def cli_lanes():
                   + s2["losses_last_segment"]), f"{lane}: non-finite loss")
         n = same_checkpoint(d_straight, d_killed, steps - 1,
                             "stale" in lane)
-        log({"phase": "cli_lane", "lane": lane, "args": common,
-             "bitwise_equal_arrays": n, "ok": True,
-             "straight": {"wall_s": wall1, **s1},
-             "killed_at_3": {"wall_s": wall2, **s2},
-             "disk_free_gb": shutil.disk_usage(base).free / 1e9})
-        shutil.rmtree(base / lane, ignore_errors=True)
+        entry = {"phase": "cli_lane", "lane": lane, "args": common,
+                 "bitwise_equal_arrays": n, "ok": True,
+                 "straight": {"wall_s": wall1, **s1},
+                 "killed_at_3": {"wall_s": wall2, **s2},
+                 "disk_free_gb": shutil.disk_usage(base).free / 1e9}
+        if ref_lane:
+            check(all(f"[calibrate] {calib.digest()} " in out
+                      for out in (out1, out2)),
+                  f"{lane}: planned without the calibration")
+            entry["calibrate_and_replan_lines"] = [
+                ln for ln in (out1 + out2).splitlines()
+                if ln.startswith(("[calibrate]", "[replan]"))]
+            d_ref = str(base / ref_lane / "straight")
+            if tile == 0:
+                entry["vs_uncalibrated"] = {
+                    "tile_rows": 0, "bitwise_equal_arrays":
+                        same_checkpoint(d_straight, d_ref, steps - 1, True)}
+            else:
+                m, bitwise = close_checkpoint(d_straight, d_ref, steps - 1)
+                entry["vs_uncalibrated"] = {
+                    "tile_rows": tile, "arrays_within_f32_tolerance": m,
+                    "bitwise_equal_all_the_same": bitwise}
+        log(entry)
+        shutil.rmtree(base / lane / "killed", ignore_errors=True)
+        if lane not in refs:
+            shutil.rmtree(base / lane, ignore_errors=True)
+        if ref_lane:
+            shutil.rmtree(base / ref_lane, ignore_errors=True)
     shutil.rmtree(base, ignore_errors=True)
 
 
@@ -1507,15 +1954,22 @@ def main():
          "ptxas": {stem: ptxas_summary(text)
                    for stem, text in info["ptxas"].items()}})
 
+    from repro_torch.kernels import ops
     t = time.perf_counter()
     rows = kernel_cases(torch)
     log({"phase": "kernels_done", "seconds": time.perf_counter() - t})
+    calib = calibrate_phase(torch)
+    t = time.perf_counter()
     small_parity(torch)
     small_lm_parity(torch)
-    lanes = {}
+    log({"phase": "small_parity_done", "seconds": time.perf_counter() - t})
+    lanes, timings = {}, {}
+    launches = {k: 0 for k in ops.LAUNCHES}
     t = time.perf_counter()
-    launches = main_path(torch, lanes)
+    main_path(torch, lanes, launches, timings)
     log({"phase": "main_path_done", "seconds": time.perf_counter() - t})
+    vgg16_main_path(torch, lanes, launches, timings)
+    toy_cnns(torch, lanes, launches)
     t = time.perf_counter()
     profiled = lm_main_path(torch, launches, lanes)
     log({"phase": "lm_main_path_done", "seconds": time.perf_counter() - t})
@@ -1524,8 +1978,9 @@ def main():
     conv1d_lane(torch, launches, lanes)
     log({"phase": "conv1d_lane_done", "seconds": time.perf_counter() - t})
     torch.cuda.empty_cache()
+    calibrated_plans(torch, calib, timings)
     t = time.perf_counter()
-    cli_lanes()
+    cli_lanes(calib)
     log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())

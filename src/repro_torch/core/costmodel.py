@@ -39,12 +39,17 @@ groups are marked ``fused``: their norm and contribution come from one
 ``gram_norm_fused`` pass.
 
 The decision rules and constants are the JAX package's
-(``repro.core.costmodel``), so the two packages plan alike.  Only the
-single-device planner is ported: ``mesh=`` and ``calibration=`` raise
-(ROADMAP.md items 14 and 13), and the on-disk plan store and the
-mispredict loop come with items 10 and 13.  Plans are cached on (model
-identity, batch/param shapes, knobs): steady-state training re-plans
-nothing and never re-probes (:func:`get_plan`).
+(``repro.core.costmodel``), so the two packages plan alike under the same
+constants.  Only the single-device planner is ported: ``mesh=`` raises
+(ROADMAP.md item 14).  ``calibration=`` prices with measured constants
+(:mod:`repro_torch.calibrate`; ``None`` takes the calibration registered
+for this process's device, ``"analytic"`` the analytic table), and the
+calibration's digest is part of every plan's identity: the cache key,
+the fingerprint and the plan store.  :func:`predicted_step_seconds` is
+what the engine's mispredict loop compares measured step times against.
+Plans are cached on (model identity, batch/param shapes, knobs,
+calibration): steady-state training re-plans nothing and never
+re-probes (:func:`get_plan`).
 """
 from __future__ import annotations
 
@@ -72,11 +77,12 @@ BYTES = 4
 BACKWARD_FIXED_FACTOR = 2.0
 
 # The JAX package's analytic fallback table, verbatim: it prices its TPU,
-# not the H100, and is kept so that the port's plans equal the reference's
-# until calibration (ROADMAP.md item 13) measures this card.  Of the three
-# only ``hbm_flops_per_byte`` moves a single-device decision (the fused
-# credit under stale clipping); the wire price needs a mesh and the FLOP
-# rate only converts FLOP-equivalents into predicted seconds.
+# not the H100, and is what the port plans with when no calibration
+# (repro_torch.calibrate) is given or registered, so that uncalibrated
+# plans equal the reference's.  Of the three only ``hbm_flops_per_byte``
+# moves a single-device decision (the fused credit under stale clipping);
+# the wire price needs a mesh and the FLOP rate only converts
+# FLOP-equivalents into predicted seconds.
 ANALYTIC_FALLBACK = {
     "collective_flops_per_byte": 512.0,
     "hbm_flops_per_byte": 128.0,
@@ -105,14 +111,73 @@ ANALYTIC_CONSTANTS = CostConstants(
 PLAN_CACHE_SIZE = 16
 
 
-def _single_device(mesh=None, calibration=None):
+def _single_device(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "mesh-aware planning comes with sharding (ROADMAP.md item 14)")
+
+
+def mesh_axes(mesh) -> tuple:
+    """Normalize a mesh spec (``"data:8,model:2"``, an axes mapping, or an
+    ``(("data", 8), ...)`` tuple) to the tuple form, dropping size-1
+    axes: the JAX package's rule, which calibration blobs are keyed by."""
+    if mesh is None:
+        return ()
+    if isinstance(mesh, str):
+        out = []
+        for part in mesh.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, sep, size = part.partition(":")
+            if not sep or not size.strip().isdigit():
+                raise ValueError(
+                    f"bad mesh spec {mesh!r}; expected 'data:8' or "
+                    f"'data:4,model:2'")
+            out.append((name.strip(), int(size)))
+        pairs = out
+    elif isinstance(mesh, Mapping):
+        pairs = mesh.items()
+    else:
+        pairs = mesh
+    return tuple((str(n), int(s)) for n, s in pairs if int(s) != 1)
+
+
+def format_mesh(axes: tuple) -> str:
+    return ("x".join(f"{n}={s}" for n, s in axes)) if axes else "(no mesh)"
+
+
+def _resolve_calibration(calibration):
+    """An explicit Calibration wins; ``None`` consults the registry for
+    this process's device; ``"analytic"`` asks for the analytic table.
+    Imported lazily — repro_torch.calibrate imports this module."""
+    if isinstance(calibration, str):
+        if calibration == "analytic":
+            return None
+        raise TypeError(
+            f"calibration={calibration!r}: the planner takes a Calibration, "
+            f"None or 'analytic' (PrivacyEngine resolves paths and "
+            f"'measure')")
     if calibration is not None:
-        raise NotImplementedError(
-            "measured cost constants come with calibration (ROADMAP.md "
-            "item 13)")
+        return calibration
+    from repro_torch.calibrate import table
+    return table.lookup()
+
+
+def resolve_cost_constants(calibration=None) -> CostConstants:
+    """The :class:`CostConstants` a planning pass prices against: the
+    given (or registered) calibration's measured rates, or
+    :data:`ANALYTIC_CONSTANTS`.  One device measures no wire, so the wire
+    price stays analytic."""
+    calib = _resolve_calibration(calibration)
+    if calib is None:
+        return ANALYTIC_CONSTANTS
+    return CostConstants(
+        collective_flops_per_byte=ANALYTIC_FALLBACK[
+            "collective_flops_per_byte"],
+        hbm_flops_per_byte=calib.hbm_flops_per_byte(),
+        flops_per_second=calib.flops_per_second,
+        source=calib.source, calibration=calib.digest())
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +319,14 @@ class ExecPlan:
 
     def sum_methods(self) -> dict:
         return {n: g.sum_method for g in self.groups for n in g.members}
+
+    def realizations(self) -> dict:
+        """name -> (norm method, sum method or "fused"): what a step
+        executes, which two plans priced under different constants may
+        share (the mispredict loop's ``plan_changed``)."""
+        sums = self.sum_methods()
+        return {n: (lp.norm_method, "fused" if lp.fused else sums[n])
+                for n, lp in self.layers.items()}
 
     def peak_stash_bytes(self) -> float:
         """Stashes coexist from the norm phase to the sum phase; a group's
@@ -572,9 +645,10 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
                    embed_method: str = "auto", conv_norm: str = "auto",
                    mem_budget: int = STREAM_MEM_BUDGET,
                    overrides=None, clip_mode: str = "flat",
-                   clip_fused: bool = True) -> ExecPlan:
+                   clip_fused: bool = True, calibration=None) -> ExecPlan:
     """Build the per-layer plan from probed shapes (``params``: the tree
-    or its specs, read for the embedding tables' vocabulary sizes).
+    or its specs, read for the embedding tables' vocabulary sizes),
+    priced under ``calibration`` (see :func:`resolve_cost_constants`).
 
     Fixed ``norm_method`` / ``embed_method`` / ``conv_norm`` override the
     analytic choice uniformly (the planner still fills in cost estimates);
@@ -590,7 +664,7 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
     single-pass ``gram_norm_fused`` norm+contrib.
     """
     overrides = normalize_overrides(overrides)
-    cc = ANALYTIC_CONSTANTS
+    cc = resolve_cost_constants(calibration)
     layers: dict[str, LayerPlan] = {}
     by_path: dict[tuple, list] = {}
     for name, meta in metas.items():
@@ -768,18 +842,24 @@ def _sig_summary(sig) -> str:
 
 def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
                        batch_sig=None, clip_mode: str | None = None,
-                       calibration: str | None = None):
+                       calibration=None):
     """Validate a deserialized/injected plan against the live context,
     naming the offending field — calibration, clipping mode, batch shape
     or fingerprint — so a stale plan fails loudly instead of executing a
-    stale layout.  ``calibration`` is a digest string ("" asserts the
-    analytic constants)."""
-    if calibration is not None and plan.calibration != calibration:
-        raise ValueError(
-            f"stale ExecPlan: calibration mismatch — plan "
-            f"{plan.fingerprint or '<unfingerprinted>'} was priced under "
-            f"{plan.calibration or 'analytic constants'!r}, this process "
-            f"plans under {calibration or 'analytic constants'!r}; re-plan")
+    stale layout.  ``calibration`` is a Calibration or its digest ("" asserts
+    the analytic constants)."""
+    if calibration is not None:
+        want = (calibration if isinstance(calibration, str)
+                else calibration.digest())
+        if plan.calibration != want:
+            def _label(d):
+                return (f"measured constants {d}" if d
+                        else "analytic constants")
+            raise ValueError(
+                f"stale ExecPlan: calibration mismatch — plan "
+                f"{plan.fingerprint or '<unfingerprinted>'} was priced "
+                f"under {_label(plan.calibration)}, this process plans "
+                f"under {_label(want)}; re-calibrate or re-plan")
     if clip_mode is not None and plan.clip_mode != clip_mode:
         raise ValueError(
             f"stale ExecPlan: clipping mode mismatch — plan "
@@ -801,10 +881,13 @@ def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
 
 
 def _opts_tuple(norm_method, embed_method, conv_norm, mem_budget, overrides,
-                clip_mode="flat", clip_fused=True) -> tuple:
+                clip_mode="flat", clip_fused=True, calib=None) -> tuple:
+    """The planner knobs as a hashable tuple, ending with the digest of
+    the (resolved) calibration the plan is priced under ("" analytic)."""
     return (norm_method, embed_method, conv_norm, mem_budget,
             normalize_overrides(overrides),
-            (str(clip_mode), bool(clip_fused)))
+            (str(clip_mode), bool(clip_fused)),
+            "" if calib is None else calib.digest())
 
 
 def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
@@ -814,11 +897,12 @@ def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
                      mesh=None, calibration=None) -> str:
     """The fingerprint :func:`get_plan` would key this request on — same
     knob normalization, no probe."""
-    _single_device(mesh, calibration)
+    _single_device(mesh)
     return model_fingerprint(
         apply_fn, params, batch,
         _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
-                    overrides, clip_mode, clip_fused))
+                    overrides, clip_mode, clip_fused,
+                    _resolve_calibration(calibration)))
 
 
 def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
@@ -832,10 +916,14 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     dtypes are read.  A fingerprint hit in the plan store (filled by
     :func:`load_plan_store`) skips the probe.  The anchor pinned in the
     cached plan keeps ``id(apply_fn.__self__)`` alive for the entry's
-    lifetime, so a recycled id can never alias a different model."""
-    _single_device(mesh, calibration)
+    lifetime, so a recycled id can never alias a different model.
+    ``calibration`` (explicit, or the registered one) keys the cache and
+    the fingerprint by its digest, so a plan priced under other constants
+    is never handed back."""
+    _single_device(mesh)
+    calib = _resolve_calibration(calibration)
     opts = _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
-                       overrides, clip_mode, clip_fused)
+                       overrides, clip_mode, clip_fused, calib)
     key = (_fn_ident(apply_fn), _shape_sig(batch), _shape_sig(params), opts)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -850,7 +938,8 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
             metas, cap_shapes, tap_shapes, params, norm_method=norm_method,
             embed_method=embed_method, conv_norm=conv_norm,
             mem_budget=mem_budget, overrides=opts[4], clip_mode=clip_mode,
-            clip_fused=clip_fused)
+            clip_fused=clip_fused,
+            calibration="analytic" if calib is None else calib)
         plan = dataclasses.replace(plan, fingerprint=fp,
                                    batch_sig=_shape_sig(batch))
     object.__setattr__(plan, "_anchor", getattr(apply_fn, "__self__",
@@ -866,8 +955,8 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
 # load_plan_store(); consulted by get_plan() before any probe, so a process
 # that pre-loads its plans never re-runs the model for planning.  The file
 # holds the port's own plan JSON (ExecPlan.to_payload), not the JAX
-# package's, and no calibrations (measured constants come with ROADMAP.md
-# item 13).
+# package's, and the calibrations its plans were priced under (the JAX
+# package's calibration format).
 
 _PLAN_STORE: dict[str, ExecPlan] = {}
 
@@ -882,19 +971,39 @@ def clear_plan_store():
     _PLAN_STORE.clear()
 
 
-def save_plan_store(path: str, plans):
-    """Write plans as one JSON document."""
+def save_plan_store(path: str, plans, calibrations=None):
+    """Write plans as one JSON document, with the calibrations they were
+    priced under: ``calibrations=None`` collects every registered
+    calibration whose digest some plan carries, so a store written after
+    calibrated planning round-trips the constants it depends on."""
+    plans = list(plans)
+    if calibrations is None:
+        from repro_torch.calibrate import table
+        used = {p.calibration for p in plans if p.calibration}
+        calibrations = [c for c in table.registered()
+                        if c.digest() in used]
     doc = {"format": PLAN_FORMAT_VERSION,
            "plans": [p.to_payload() for p in plans]}
+    calibrations = list(calibrations)
+    if calibrations:
+        doc["calibrations"] = [c.to_payload() for c in calibrations]
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)
 
 
 def load_plan_store(path: str) -> int:
     """Load a plan JSON document into the store; returns the plan count.
-    A plan of another format version raises (``ExecPlan.from_payload``)."""
+    Its calibrations are validated (a tampered one raises a named
+    ``CalibrationError`` before any plan is stored; hardware is checked
+    at use) and registered first, so calibrated fingerprints resolve.  A
+    plan of another format version raises (``ExecPlan.from_payload``)."""
     with open(path) as f:
         doc = json.load(f)
+    if isinstance(doc, dict) and doc.get("calibrations"):
+        from repro_torch.calibrate import table
+        for c in [table.Calibration.from_payload(cp)
+                  for cp in doc["calibrations"]]:
+            table.register(c)
     plans = doc["plans"] if isinstance(doc, dict) else doc
     for p in plans:
         register_plan(ExecPlan.from_payload(p))
@@ -925,3 +1034,29 @@ def auto_microbatches(plan: ExecPlan, batch_size: int,
         while B % m and m < B:
             m += 1
     return m
+
+
+# ---------------------------------------------------------------------------
+# Predicted step cost: what the mispredict loop compares measurements
+# against.  Priced in the FLOP-equivalents the planner selects by, then
+# converted to seconds through the calibrated (or analytic) rate.
+
+
+def predicted_step_flops(plan: ExecPlan) -> float:
+    """FLOP-equivalents of one private step under this plan: forward +
+    backward (≈ 2 wgrad shares) + wgrad + the plan's norm and contraction
+    phases + the weighted second backward when taken.  One device moves
+    no collective bytes."""
+    total_wgrad = sum(lp.wgrad_flops for lp in plan.layers.values())
+    flops = 3.0 * total_wgrad \
+        + plan.total_norm_flops + plan.total_contrib_flops
+    if plan.needs_backward:
+        flops += (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad
+    return flops
+
+
+def predicted_step_seconds(plan: ExecPlan, calibration=None) -> float:
+    """Predicted wall-clock of one step: :func:`predicted_step_flops` over
+    the (calibrated or analytic) FLOP rate."""
+    cc = resolve_cost_constants(calibration)
+    return predicted_step_flops(plan) / cc.flops_per_second

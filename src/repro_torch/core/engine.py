@@ -21,9 +21,12 @@ Steady state executes exactly one forward and one backward per step for
 Flat, per-layer and stale clipping thread their cross-step state here
 (:meth:`clip_state_dict`).  :meth:`save_plan` writes the plans the
 engine executes to the on-disk plan store (``costmodel.load_plan_store``
-reads them back).  Meshes and calibration come with ROADMAP.md items 14
-and 13 and raise ``NotImplementedError``; the mispredict re-plan loop
-(item 13) is not served.
+reads them back).  Plans are priced under the engine's calibration
+(measured constants of its device, :mod:`repro_torch.calibrate`) or the
+analytic table; :meth:`observe_step_time` feeds measured step times to
+the mispredict loop, which retimes the calibration and re-plans when the
+prediction is off.  Meshes come with ROADMAP.md item 14 and raise
+``NotImplementedError``.
 
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
@@ -50,6 +53,25 @@ from repro_torch.tree import tree_map
 class KeyProvenanceError(ValueError):
     """An explicit noise generator contradicts the engine's deterministic
     noise stream (the seed of ``(run_seed, step)``)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplanEvent:
+    """One firing of the engine's mispredict loop: measured step time
+    diverged from the calibrated prediction beyond the threshold, the
+    calibration was retimed from the observation, and the plan was
+    rebuilt under the new constants.  Surfaced in :meth:`explain` and
+    (when a monitor is attached) in ``StepMonitor.replans``."""
+
+    step: int                 # step the divergence was confirmed at (-1 unknown)
+    ratio: float              # measured / predicted at trigger time
+    predicted_s: float
+    measured_s: float
+    old_calibration: str      # digests
+    new_calibration: str
+    old_fingerprint: str
+    new_fingerprint: str
+    plan_changed: bool        # did any layer's realization actually flip
 
 
 def _resolve_optimizer(optimizer) -> Callable:
@@ -90,10 +112,28 @@ class PrivacyEngine:
       device:     where the step runs; ``"cuda"`` unless the caller asks
                   for ``"cpu"``.
       plan:       inject a pre-built or deserialized ExecPlan (must match
-                  the model, shapes, clipping mode and planner knobs;
-                  validated up front with named-field errors and again at
-                  execution).
-      mesh, calibration: not served yet (raise).
+                  the model, shapes, clipping mode, planner knobs and
+                  calibration; validated up front with named-field errors
+                  and again at execution).
+      mesh:       not served yet (raises; ROADMAP.md item 14).
+      calibration: measured cost constants for planning.  ``None`` takes
+                  the calibration registered for the engine's device, if
+                  any; ``"analytic"`` plans from the analytic constants;
+                  a :class:`repro_torch.calibrate.Calibration` is
+                  validated strictly against the device (named errors on
+                  mismatch); a path loads a stored blob *softly* (an
+                  unusable blob degrades to the analytic constants with a
+                  ``CalibrationFallbackWarning``); ``"measure"`` runs the
+                  harness once per device and process (full sizes on the
+                  card, quick ones on the CPU).  The calibration the
+                  engine plans under is registered for its device, so
+                  its kernel sweep winners reach the kernel wrappers
+                  (``ops.pe_conv_tile_rows``).
+      mispredict_threshold: relative divergence of measured vs predicted
+                  step time that triggers a re-plan (``0.5`` = beyond
+                  ±50 %); ``None`` disables the loop.  Feed measured step
+                  times to :meth:`observe_step_time`.
+      monitor:    a ``runtime.StepMonitor`` to record re-plans in.
     """
 
     def __init__(self, apply_fn: Callable, params, batch_spec,
@@ -102,15 +142,13 @@ class PrivacyEngine:
                  sampling_rate: float | None = None,
                  accountant: PrivacyAccountant | None = None,
                  plan=None, mesh=None, calibration=None,
+                 mispredict_threshold: float | None = 0.5, monitor=None,
                  run_seed: int | None = None, device="cuda"):
         self.device = resolve_device(device)
         self.dp = dp if dp is not None else DPConfig()
         if mesh is not None:
             raise NotImplementedError(
                 "sharded execution comes with ROADMAP.md item 14")
-        if calibration is not None:
-            raise NotImplementedError(
-                "calibration comes with ROADMAP.md item 13")
         self.apply_fn = apply_fn
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
@@ -122,6 +160,12 @@ class PrivacyEngine:
                 sampling_rate=sampling_rate,
                 noise_multiplier=self.dp.noise_multiplier)
         self.accountant = accountant
+        self._calibration = self._resolve_calibration_arg(calibration)
+        self.mispredict_threshold = mispredict_threshold
+        self._monitor = monitor
+        self.replan_events: list[ReplanEvent] = []
+        self._step_ema: float | None = None
+        self._step_obs = 0
         if plan is not None and self.dp.strategy == "auto":
             # Fail loudly *now* on a stale injected plan, naming the
             # offending field (batch / clip mode / calibration /
@@ -129,7 +173,8 @@ class PrivacyEngine:
             costmodel.check_plan_matches(
                 plan, batch_sig=costmodel._shape_sig(self._batch_spec),
                 fingerprint=self.fingerprint(),
-                clip_mode=self.dp.clipping.mode, calibration="")
+                clip_mode=self.dp.clipping.mode,
+                calibration=self._calibration or "")
         self._plan = plan
         if self.dp.clipping.mode != "flat":
             # Refuse an unserved mode now, not at the first step.
@@ -144,23 +189,146 @@ class PrivacyEngine:
 
     # -- planning ------------------------------------------------------------
 
-    def fingerprint(self) -> str:
-        """The plan fingerprint for this engine's (model, shapes, config)."""
+    def _resolve_calibration_arg(self, calibration):
+        """See ``calibration`` in the class docstring."""
+        from repro_torch import calibrate
+        if calibration == "analytic":
+            return None
+        if calibration is None:
+            calib = calibrate.lookup(self.device)
+        elif isinstance(calibration, calibrate.Calibration):
+            calibration.validate_for(
+                calibrate.hardware_signature(self.device))
+            calib = calibration
+        elif calibration == "measure":
+            calib = calibrate.get_or_measure(
+                quick=self.device.type != "cuda", device=self.device)
+        else:
+            calib = calibrate.load_or_fallback(str(calibration),
+                                               device=self.device)
+        return None if calib is None else calibrate.register(calib)
+
+    @property
+    def calibration(self):
+        """The calibration this engine plans under (``None`` = analytic
+        fallback constants)."""
+        return self._calibration
+
+    def _planner_opts(self) -> dict:
+        return dict(self.dp.planner_opts(),
+                    calibration=self._calibration or "analytic")
+
+    def fingerprint(self, calibration=None) -> str:
+        """The plan fingerprint for this engine's (model, shapes, config,
+        calibration); ``calibration=`` re-keys it under other constants
+        (``"analytic"``: what identifies the mechanism alone, which a
+        checkpoint pins, since a re-plan re-prices without changing what
+        a step computes)."""
+        opts = self._planner_opts()
+        if calibration is not None:
+            opts["calibration"] = calibration
         return costmodel.plan_fingerprint(
-            self.apply_fn, self._params_spec, self._batch_spec,
-            **self.dp.planner_opts())
+            self.apply_fn, self._params_spec, self._batch_spec, **opts)
 
     def plan(self) -> costmodel.ExecPlan:
         """The full-batch ExecPlan (built once; cache hits are free)."""
         if self._plan is None:
             self._plan = costmodel.get_plan(
                 self.apply_fn, self._params_spec, self._batch_spec,
-                **self.dp.planner_opts())
+                **self._planner_opts())
         return self._plan
+
+    # -- measured-cost feedback (the mispredict loop) ------------------------
+
+    def predicted_step_seconds(self) -> float:
+        """Calibrated prediction of one step's wall-clock under the
+        current plan — what :meth:`observe_step_time` compares against."""
+        return costmodel.predicted_step_seconds(
+            self.plan(), self._calibration or "analytic")
+
+    def observe_step_time(self, seconds: float,
+                          step: int | None = None) -> ReplanEvent | None:
+        """Record one executed step's measured wall-clock.  An EMA of the
+        observations is compared against :meth:`predicted_step_seconds`;
+        when the relative divergence exceeds ``mispredict_threshold``
+        (after ≥ 2 observations, so one build-tainted step can't
+        trigger), the calibration is retimed from the observation, the
+        plan is rebuilt under the new constants, and the returned
+        :class:`ReplanEvent` is appended to :attr:`replan_events` (and
+        the attached monitor).  Returns ``None`` when no re-plan fired.
+        Inert without a calibration, with ``mispredict_threshold=None``
+        or under a fixed strategy."""
+        if (self.mispredict_threshold is None or self._calibration is None
+                or self.dp.strategy != "auto"):
+            return None
+        seconds = float(seconds)
+        self._step_obs += 1
+        self._step_ema = (seconds if self._step_ema is None
+                          else 0.5 * self._step_ema + 0.5 * seconds)
+        if self._step_obs < 2:
+            return None
+        predicted = self.predicted_step_seconds()
+        ratio = self._step_ema / max(predicted, 1e-12)
+        if abs(ratio - 1.0) <= self.mispredict_threshold:
+            return None
+        return self._replan(step, ratio, predicted, self._step_ema)
+
+    def _replan(self, step, ratio, predicted_s, measured_s) -> ReplanEvent:
+        """Retime the calibration from the observed divergence and
+        rebuild the plan under the new constants."""
+        from repro_torch import calibrate
+        old = self._calibration
+        old_plan = self.plan()
+        new = calibrate.register(old.retimed(predicted_s=predicted_s,
+                                             measured_s=measured_s))
+        self._calibration = new
+        self._plan = None
+        self._step_ema = None
+        self._step_obs = 0
+        new_plan = self.plan()
+        event = ReplanEvent(
+            step=-1 if step is None else int(step), ratio=float(ratio),
+            predicted_s=float(predicted_s), measured_s=float(measured_s),
+            old_calibration=old.digest(), new_calibration=new.digest(),
+            old_fingerprint=old_plan.fingerprint,
+            new_fingerprint=new_plan.fingerprint,
+            plan_changed=old_plan.realizations() != new_plan.realizations())
+        self.replan_events.append(event)
+        if self._monitor is not None:
+            self._monitor.record_replan(event.step, event.ratio)
+        return event
+
+    def _explain_calibration(self) -> str:
+        if self._calibration is None:
+            lines = ["calibration: none — planning with the analytic "
+                     "fallback constants (costmodel.ANALYTIC_FALLBACK)"]
+        else:
+            c = self._calibration
+            lines = [
+                f"calibration: {c.digest()} (source={c.source}, hw="
+                f"{c.hardware}) flops/s={c.flops_per_second:.3g} "
+                f"hbm={c.hbm_bytes_per_second / 1e9:.1f} GB/s",
+                f"predicted step: {self.predicted_step_seconds() * 1e6:.0f}"
+                f" us; mispredict threshold: "
+                + (f"±{self.mispredict_threshold:g}"
+                   if self.mispredict_threshold is not None
+                   else "disabled")]
+        for ev in self.replan_events:
+            lines.append(
+                f"re-plan @ step {ev.step}: measured/predicted = "
+                f"{ev.ratio:.2f}x ({ev.measured_s * 1e6:.0f} us vs "
+                f"{ev.predicted_s * 1e6:.0f} us), calibration "
+                f"{ev.old_calibration} -> {ev.new_calibration}, plan "
+                + ("changed" if ev.plan_changed else "unchanged")
+                + f" ({ev.old_fingerprint} -> {ev.new_fingerprint})")
+        return "\n".join(lines)
 
     def explain(self) -> str:
         """Human-readable per-layer plan table (see ExecPlan.explain)
-        under a header with the engine's configuration."""
+        under a header with the engine's configuration and the
+        calibration block: the active measured constants (or the analytic
+        fallback), the predicted step time, the mispredict threshold, and
+        every re-plan fired so far."""
         clip = self.dp.clipping
         header = (f"PrivacyEngine: strategy={self.dp.strategy} "
                   f"C={self.dp.l2_clip} sigma={self.dp.noise_multiplier} "
@@ -170,8 +338,7 @@ class PrivacyEngine:
                   + f" microbatches={self.microbatches()}"
                   + ("" if self.dp.microbatches != "auto" else " (auto)")
                   + f" device={self.device}")
-        cal = ("calibration: none — planning with the analytic fallback "
-               "constants (costmodel.ANALYTIC_FALLBACK)")
+        cal = self._explain_calibration()
         if self.dp.strategy != "auto":
             return (header + f"\nfixed strategy {self.dp.strategy!r}: the "
                     "planner is bypassed; plan below is advisory.\n"
@@ -209,7 +376,7 @@ class PrivacyEngine:
                                  s.dtype)
                    for k, s in self._batch_spec.items()}
         return costmodel.get_plan(self.apply_fn, self._params_spec, mb_spec,
-                                  **self.dp.planner_opts())
+                                  **self._planner_opts())
 
     # -- noise ---------------------------------------------------------------
 

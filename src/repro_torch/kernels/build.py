@@ -31,7 +31,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source stem -> {C entry point: argtypes}
 ENTRY_POINTS = {
     "pe_conv_grad": {
-        "repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 10 + [_P],
+        "repro_pe_conv_grad_2d": [_P, _P, _P] + [_I] * 11 + [_P],
         "repro_pe_conv_grad_1d": [_P, _P, _P] + [_I] * 7 + [_P]},
     "gram_norm": {
         "repro_gram_norm": ([_P] + [_L] * 3) * 2 + [_P] * 4 + [_I] * 13

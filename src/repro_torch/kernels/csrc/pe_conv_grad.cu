@@ -44,7 +44,9 @@
 //   of a 2-stage ring; no patch matrix reaches device memory.
 //   Tiles: 128 x 64 (two warpgroups of 64 rows), or 64 x 128 (two
 //   warpgroups of 64 columns) where D leaves a 128-row tile a quarter
-//   empty (conv1's D = 192); at 128 registers and 97 KB of shared memory
+//   empty (conv1's D = 192), unless the caller forces one of the two
+//   (calibration's tile sweep, ops.pe_conv_tile_rows); at 128 registers
+//   and 97 KB of shared memory
 //   two blocks share an SM, so one block's stage boundary (wait, add,
 //   barrier) and its first loads and last stores run under the other's
 //   products.  (128 x 128 and 64 x 256 tiles, one block an SM, and a
@@ -306,10 +308,14 @@ int launch_2d(const void* x, const void* dy, void* out, int B, int C, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows: the output tile's rows, 64 or 128; 0 takes tile_rows(D).
 template <typename T>
 int launch_2d(const void* x, const void* dy, void* out, int B, int C, int H,
-              int W, int D, int Hp, int Wp, int KH, int KW, cudaStream_t s) {
-  if (tile_rows(D) == 64)
+              int W, int D, int Hp, int Wp, int KH, int KW, int rows,
+              cudaStream_t s) {
+  if (rows != 0 && rows != 64 && rows != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((rows ? rows : tile_rows(D)) == 64)
     return launch_2d<T, 64>(x, dy, out, B, C, H, W, D, Hp, Wp, KH, KW, s);
   return launch_2d<T, 128>(x, dy, out, B, C, H, W, D, Hp, Wp, KH, KW, s);
 }
@@ -318,17 +324,18 @@ int launch_2d(const void* x, const void* dy, void* out, int B, int C, int H,
 
 // x: (B, C, H, W) padded, dy: (B, D, Hp, Wp), out: (B, D, C, KH, KW) f32,
 // all contiguous on the current device, every size positive.  is_bf16
-// selects the input type.  Returns cudaGetLastError() after the launch
-// (0 = launched).
+// selects the input type; rows forces the output tile's rows (64 or 128;
+// 0 keeps the shape rule, tile_rows(D); calibration's sweep picks).
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_pe_conv_grad_2d(const void* x, const void* dy, void* out,
                                      int B, int C, int H, int W, int D,
                                      int Hp, int Wp, int KH, int KW,
-                                     int is_bf16, void* stream) {
+                                     int is_bf16, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_2d<bf16>(x, dy, out, B, C, H, W, D, Hp, Wp, KH,
-                                   KW, s)
+                                   KW, rows, s)
                  : launch_2d<float>(x, dy, out, B, C, H, W, D, Hp, Wp, KH,
-                                    KW, s);
+                                    KW, rows, s);
 }
 
 // ---------------------------------------------------------------------------

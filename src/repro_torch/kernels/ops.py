@@ -35,12 +35,14 @@ sum up to 16 384 tokens and the masked-Gram tiles above
 (:func:`tokmask_route`).
 
 The JAX package's TPU tile autotuner (``_autotune_bd``, ``pick_bd``,
-``vmem_budget``, ``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart
-here: neither ``pe_conv_grad_2d`` nor ``pe_conv_grad_1d`` takes a ``bd``
-tile (the 2-D kernel picks 128 x 64 or 64 x 128 output tiles, the 1-D
-kernel 64 x 64, or 128 x 128 in f32 and 128 x 64 in bf16, by shape in
-``csrc/pe_conv_grad.cu``); a Hopper tile sweep belongs to calibration
-(ROADMAP.md item 13).
+``REPRO_PE_CONV_BD``) plans VMEM and has no counterpart here.  Its
+``vmem_budget`` (the calibrated VMEM sweep winner) has one:
+:func:`pe_conv_tile_rows`, the output tile rows that calibration's sweep
+found fastest for ``pe_conv_grad_2d`` on this card (0 keeps the shape
+rule, :func:`pe_conv_tile_rule`: 128 x 64 tiles, or 64 x 128 where D
+leaves a 128-row tile a quarter empty).  The 1-D kernel picks 64 x 64,
+or 128 x 128 in f32 and 128 x 64 in bf16, by shape in
+``csrc/pe_conv_grad.cu``.
 """
 from __future__ import annotations
 
@@ -445,10 +447,40 @@ def pe_conv_design(dtype) -> str:
     return "3xtf32-wgmma" if dtype == torch.float32 else "bf16-wgmma"
 
 
-def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
+PE_TILE_ROWS = (0, 64, 128)
+
+
+def pe_conv_tile_rule(D: int) -> int:
+    """Rows of ``pe_conv_grad_2d``'s output tile by the shape rule of
+    ``csrc/pe_conv_grad.cu`` (``tile_rows``): 64 where D leaves at least
+    a quarter of the 128-row tiles' rows empty, else 128."""
+    pd = _cdiv(D, 128) * 128
+    return 64 if 4 * (pd - D) >= pd else 128
+
+
+def pe_conv_tile_rows(device=None) -> int:
+    """The output tile rows ``pe_conv_grad_2d`` runs at on ``device``
+    (the one this process would run on by default): the winner of the
+    tile sweep in the calibration registered for its hardware
+    (``calibrate.harness.sweep_pe_conv_tiles``), else 0, the shape rule.
+    Read per call, so registering a calibration mid-process takes
+    effect."""
+    from repro_torch.calibrate import table
+    calib = table.lookup(device)
+    if calib is None:
+        return 0
+    return int(calib.kernels.get("pe_conv_grad", {}).get("tile_rows", 0))
+
+
+def pe_conv_grad_2d(x, dy, *, KH: int, KW: int, tile_rows=None):
     """x (B, C, H, W) already padded, dy (B, D, H-KH+1, W-KW+1) ->
     (B, D, C, KH, KW) f32, by the design :func:`pe_conv_design` names.
-    Stride = dilation = 1, groups = 1."""
+    Stride = dilation = 1, groups = 1.  ``tile_rows`` forces the output
+    tile's rows on the card (64 or 128; 0 the shape rule); ``None``
+    takes :func:`pe_conv_tile_rows`."""
+    if tile_rows is not None and tile_rows not in PE_TILE_ROWS:
+        raise ValueError(f"pe_conv_grad_2d: tile_rows {tile_rows!r} not in "
+                         f"{PE_TILE_ROWS}")
     _check_pair("pe_conv_grad_2d", x, dy, 4)
     B, C, H, W = x.shape
     D, Hp, Wp = dy.shape[1:]
@@ -468,6 +500,11 @@ def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
         return out
     if Hp * Wp == 0:
         return out.zero_()
+    if tile_rows is None:
+        tile_rows = pe_conv_tile_rows(x.device)
+        if tile_rows not in PE_TILE_ROWS:
+            raise ValueError(f"pe_conv_grad_2d: the registered calibration's "
+                             f"tile_rows {tile_rows!r} not in {PE_TILE_ROWS}")
     from repro_torch.kernels import build
     lib = build.load("pe_conv_grad")
     with torch.cuda.device(x.device):
@@ -475,7 +512,7 @@ def pe_conv_grad_2d(x, dy, *, KH: int, KW: int):
         rc = lib.repro_pe_conv_grad_2d(x.data_ptr(), dy.data_ptr(),
                                        out.data_ptr(), B, C, H, W, D, Hp, Wp,
                                        KH, KW, int(x.dtype == torch.bfloat16),
-                                       stream)
+                                       tile_rows, stream)
     _raise_on(rc, "pe_conv_grad_2d")
     LAUNCHES["pe_conv_grad_2d"] += 1
     return out

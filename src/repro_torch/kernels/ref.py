@@ -28,6 +28,19 @@ def gram_norm_ref(x, dy, *, has_bias: bool = False):
     return n
 
 
+def gram_norm_product_ref(x, dy, *, has_bias: bool = False):
+    """:func:`gram_norm_ref`'s function by the per-example product,
+    ‖δy_bᵀx_b‖²_F = ‖x_bᵀδy_b‖²_F (+ ‖Σ_t δy‖² if has_bias): the plain
+    version where the T×T Grams do not fit (VGG16's conv0–1, T = 65 536:
+    17 GB a Gram an example).  f32, or f64 for f64 inputs."""
+    dt = torch.promote_types(dy.dtype, F32)
+    xf, gf = x.to(dt), dy.to(dt)
+    n = torch.bmm(xf.transpose(1, 2), gf).square().sum(dim=(1, 2))
+    if has_bias:
+        n = n + gf.sum(dim=1).square().sum(dim=1)
+    return n
+
+
 def gram_norm_fused_ref(x, dy, w, *, has_bias: bool = False):
     """Fused ghost norm + weighted contribution:
     (‖δy_bᵀx_b‖²_F [+ ‖Σ_t δy_bt‖²], Σ_b w_b·x_bᵀδy_b, Σ_b w_b·Σ_t δy_bt),

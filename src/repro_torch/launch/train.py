@@ -21,19 +21,29 @@ port's own kernels sum in a fixed order (no atomics).
 
 The flags are the JAX CLI's, plus ``--device`` (``cuda`` unless the
 caller asks for ``cpu``) and ``--attn-impl`` (the attention
-implementation of an LM config, e.g. ``flash``).  ``--mesh`` and
-``--calibration`` raise ``NotImplementedError`` (sharding and measured
-constants: ROADMAP.md items 14 and 13), and so does a checkpoint that
-recorded a mesh.  ``--mispredict-threshold`` is accepted and inert: the
-re-plan loop needs a calibration, as in the JAX package.  The ``encdec``
-family is not served.  The last line printed is a JSON summary (losses,
-per-step ms, the part of it spent making the batch on the host and
-copying it over, checkpoint save ms and bytes).
+implementation of an LM config, e.g. ``flash``).  ``--calibration``
+takes ``analytic``, a saved calibration blob (``calibrate.
+save_calibration``; an unusable one falls back to the analytic constants
+with a warning) or ``measure`` (the harness on the run's device); the
+planned step (``--strategy auto``) then feeds each step's wall time —
+the whole step, making the batch on the host included, as the JAX CLI
+observes it — to the mispredict loop (``--mispredict-threshold``), and
+prints ``[calibrate]`` and ``[replan]`` lines.  The first step of each
+segment and the first after a re-plan are not observed: they hold the
+kernels' build and the plan's probe.  A checkpoint pins the plan
+fingerprint under the analytic constants, which names the mechanism: a
+re-plan re-prices, so a run resumes across one.  ``--mesh`` raises
+``NotImplementedError`` (sharding: ROADMAP.md item 14), and so does a
+checkpoint that recorded a mesh.  The ``encdec`` family is not served.
+The last line printed is a JSON summary (losses, per-step ms, the part
+of it spent making the batch on the host and copying it over,
+checkpoint save ms and bytes, re-plans).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -142,11 +152,16 @@ def parse_args(argv=None):
                     help="plan store file: loaded if present (skips the "
                          "probe), written after planning otherwise")
     ap.add_argument("--calibration", default=None,
-                    help="measured cost constants: not served yet "
-                         "(ROADMAP.md item 13)")
+                    help="'analytic' plans from the analytic constants; a "
+                         "calibration JSON path loads measured ones "
+                         "(unusable blobs fall back to the analytic "
+                         "constants with a named warning); 'measure' runs "
+                         "the harness on the run's device")
     ap.add_argument("--mispredict-threshold", type=float, default=0.5,
-                    help="re-plan threshold of the mispredict loop; inert "
-                         "without a calibration")
+                    help="relative measured-vs-predicted step time "
+                         "divergence that triggers a re-plan (needs a "
+                         "calibration and --strategy auto); <= 0 "
+                         "disables")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
@@ -184,9 +199,6 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharded execution comes with ROADMAP.md item 14")
-    if args.calibration:
-        raise NotImplementedError(
-            "--calibration: measured constants come with ROADMAP.md item 13")
     with deterministic_step():
         return _run(args)
 
@@ -243,7 +255,16 @@ def _run(args):
         lr=lambda step: cosine_schedule(step, warmup=10, total=args.steps,
                                         peak=args.lr),
         weight_decay=0.01, accountant=acct, run_seed=args.run_seed,
-        device=device)
+        device=device, calibration=args.calibration,
+        mispredict_threshold=(args.mispredict_threshold
+                              if args.mispredict_threshold > 0 else None),
+        monitor=mon)
+    if engine.calibration is not None:
+        c = engine.calibration
+        print(f"[calibrate] {c.digest()} (source={c.source}, "
+              f"flops/s={c.flops_per_second:.4g}, hbm B/s="
+              f"{c.hbm_bytes_per_second:.4g}, pe_conv_grad tile_rows="
+              f"{c.kernels.get('pe_conv_grad', {}).get('tile_rows', 0)})")
     # Fixed strategies bypass the planner; don't pay an advisory probe for
     # them unless the user asks.
     if args.explain or dpc.strategy == "auto":
@@ -257,7 +278,8 @@ def _run(args):
     def train_state(params, opt):
         return DPTrainState(
             params=params, opt=opt, clip_state=engine.clip_state_dict(),
-            ledger=acct.state_dict(), plan_fingerprint=engine.fingerprint(),
+            ledger=acct.state_dict(),
+            plan_fingerprint=engine.fingerprint(calibration="analytic"),
             monitor=mon.state_dict(), run_seed=args.run_seed,
             noise_device=device.type)
 
@@ -285,8 +307,8 @@ def _run(args):
                     f"checkpoint drew its noise on {st.noise_device}, this "
                     f"run is on {device.type}: the generators of the two "
                     f"devices draw different numbers from one seed")
-            if st.plan_fingerprint and \
-                    st.plan_fingerprint != engine.fingerprint():
+            if st.plan_fingerprint and st.plan_fingerprint \
+                    != engine.fingerprint(calibration="analytic"):
                 raise SystemExit(
                     "checkpoint plan fingerprint mismatch: model code, "
                     "shapes, or DP config changed; refusing to resume onto "
@@ -305,6 +327,7 @@ def _run(args):
             engine.reset_clip_state()
             acct.reset()
         losses = []
+        skip_observe = True
         for step in range(start, args.steps):
             chaos.maybe_fail(step)
             mon.start()
@@ -316,6 +339,18 @@ def _run(args):
             losses.append(float(loss))     # waits for the step
             dt = mon.stop(step)
             timing["step_ms"][step] = dt * 1e3
+            if skip_observe:
+                skip_observe = False
+            else:
+                ev = engine.observe_step_time(dt, step=step)
+                if ev is not None:
+                    skip_observe = True
+                    print(f"[replan] step {step}: measured/predicted "
+                          f"{ev.ratio:.2f}x ({ev.measured_s * 1e3:.1f} ms "
+                          f"vs {ev.predicted_s * 1e3:.1f} ms) — "
+                          f"calibration {ev.old_calibration} -> "
+                          f"{ev.new_calibration}, plan "
+                          f"{'changed' if ev.plan_changed else 'kept'}")
             if step % 10 == 0 or step == args.steps - 1:
                 if "clip_fraction_lagged" in aux:
                     clip_msg = (f"clip_frac(lagged) "
@@ -343,7 +378,8 @@ def _run(args):
         backoff_s=args.restart_backoff,
         restart_window_s=args.restart_window)
     print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}), "
-          f"restarts={restarts}, stragglers={len(mon.stragglers)}")
+          f"restarts={restarts}, stragglers={len(mon.stragglers)}, "
+          f"replans={len(mon.replans)}")
     if args.noise:
         print(engine.report())
     print(json.dumps({"train_summary": {
@@ -353,7 +389,9 @@ def _run(args):
         "data_ms": [timing["data_ms"][s] for s in sorted(timing["data_ms"])],
         "ckpt_snapshot_ms": timing["ckpt_snapshot_ms"],
         "ckpt_final_ms": timing["ckpt_final_ms"],
-        "ckpt_bytes": timing["ckpt_bytes"]}}))
+        "ckpt_bytes": timing["ckpt_bytes"],
+        "replans": [dataclasses.asdict(ev)
+                    for ev in engine.replan_events]}}))
     return losses
 
 

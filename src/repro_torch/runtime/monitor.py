@@ -1,8 +1,7 @@
 """Step-time monitoring + straggler detection (the JAX package's
-``repro.runtime.monitor``, unchanged: it is plain Python).  The port has
-no mispredict re-plan loop yet (ROADMAP.md item 13), so nothing calls
-``record_replan`` in this package; the replan history still round-trips
-through the state dict, so checkpoints keep one schema."""
+``repro.runtime.monitor``, unchanged: it is plain Python).  The engine's
+mispredict loop records its re-plans here (``record_replan``), and the
+history round-trips through the state dict with the checkpoint."""
 from __future__ import annotations
 
 import time

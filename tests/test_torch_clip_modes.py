@@ -5,9 +5,10 @@ At σ = 0, three ``PrivacyEngine.private_step``s under flat, per_layer
 (uniform, mapping and ``"auto"`` budgets) and stale clipping must leave
 the same params (rtol 1e-4 / atol 1e-6, AdamW eps 1e-6 and lr 1e-4 as in
 ``test_torch_slice.py``), with the same per-step losses, per-example
-norms and mode-specific metrics, on the toy CNN and the AlexNet-structured
-config (``test_torch_alexnet.py`` runs that one through the tests
-here); so must bk under per_layer and stale.  The fused norm+contrib
+norms and mode-specific metrics, on the toy CNN and the AlexNet- and
+VGG16-structured configs (``test_torch_alexnet.py`` and
+``test_torch_vgg16.py`` run those through the helpers here); so must bk
+under per_layer and stale.  The fused norm+contrib
 realizations (``kinds.*_norm_and_contrib``) are held against the JAX
 package's on their own, and the budget split keeps Σ C_l² = C².
 """
@@ -43,6 +44,7 @@ from test_torch_slice import _assert_tree_close, _jax_params, _t  # noqa
 
 TOY = dict(n_layers=4, channel_rate=2.0, c0=16, img=32)
 ALEX64 = dict(img_size=64, n_classes=10)
+VGG32 = dict(img_size=32, n_classes=10)
 # A mapping split: the classifier groups get twice the conv groups' weight.
 MAPPING = {"fc*": 2.0}
 CLIPPINGS = {
@@ -61,6 +63,9 @@ def _policy(pkg, spec):
 def _cfgs(arch):
     if arch == "toy":
         return jtoy(**TOY), ttoy(**TOY), 4
+    if arch == "vgg16_32":
+        return jget("vgg16").replace(**VGG32), \
+            tget("vgg16").replace(**VGG32), 2
     return jget("alexnet").replace(**ALEX64), \
         tget("alexnet").replace(**ALEX64), 2
 

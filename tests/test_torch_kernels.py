@@ -36,7 +36,7 @@ from repro.kernels.pe_conv_grad import (  # noqa: E402
     pe_conv_grad_1d as jax_pe_conv_grad_1d)
 from repro.kernels.pe_conv_grad import (  # noqa: E402
     pe_conv_grad_2d as jax_pe_conv_grad_2d)
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import convops  # noqa: E402
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,6 +64,29 @@ def test_gram_norm_ref_vs_pallas(shape, dtype, has_bias):
     assert got.dtype == torch.float32 and got.shape == (B,)
     rtol = 2e-5 if dtype == "float32" else 5e-2
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol)
+
+
+@pytest.mark.parametrize("shape", [(3, 50, 16, 24), (2, 300, 7, 5),
+                                   (2, 1, 40, 12)])
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_gram_norm_product_ref_vs_pallas(shape, has_bias):
+    """The product-form plain version (the card's check where the T×T
+    Grams do not fit) against the JAX package's Pallas kernel, in f32
+    and, from f64 inputs, in f64."""
+    B, T, Di, Do = shape
+    rng = np.random.RandomState(sum(shape) + 1)
+    xn = rng.randn(B, T, Di).astype(np.float32)
+    dyn = rng.randn(B, T, Do).astype(np.float32)
+    want = jax_gram_norm(jnp.asarray(xn), jnp.asarray(dyn),
+                         has_bias=has_bias, bt=64, interpret=True)
+    x, dy = torch.from_numpy(xn), torch.from_numpy(dyn)
+    got = ref.gram_norm_product_ref(x, dy, has_bias=has_bias)
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5)
+    exact = ref.gram_norm_product_ref(x.double(), dy.double(),
+                                      has_bias=has_bias)
+    assert exact.dtype == torch.float64
+    np.testing.assert_allclose(exact.numpy(), np.asarray(want), rtol=2e-5)
 
 
 @pytest.mark.parametrize("shape", [(3, 50, 16, 24), (2, 300, 7, 5),

@@ -131,6 +131,50 @@ def test_cuda_pe_conv_grad_2d_matches_ref(shape, dtype):
                 (H - K + 1) ** 2)
 
 
+# VGG16's conv0 (C·KH·KW = 27 of a 64-wide tile), conv1 (65 536-term
+# sums) and conv12 at 256 px, B = 2: (name, B, C, H padded, D, K).
+VGG_TILE_SHAPES = [("conv0", 2, 3, 258, 64, 3), ("conv1", 2, 64, 258, 64, 3),
+                   ("conv12", 2, 512, 18, 512, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ops.PE_TILE_ROWS)
+@pytest.mark.parametrize("shape", VGG_TILE_SHAPES, ids=lambda s: s[0])
+def test_cuda_pe_conv_grad_2d_tiles(shape, rows):
+    """Card only: every tile the calibration sweep may pick (0: the shape
+    rule; 64 or 128 rows forced) at VGG16's shapes, under the f32 sum
+    bound and bitwise repeatable."""
+    _needs_card()
+    _, B, C, H, D, K = shape
+    g = torch.Generator().manual_seed(H + D)
+    x = torch.randn(B, C, H, H, generator=g).to("cuda")
+    dy = torch.randn(B, D, H - K + 1, H - K + 1, generator=g).to("cuda")
+    got = ops.pe_conv_grad_2d(x, dy, KH=K, KW=K, tile_rows=rows)
+    again = ops.pe_conv_grad_2d(x, dy, KH=K, KW=K, tile_rows=rows)
+    assert torch.equal(got, again)
+    _meets_rule(got, lambda a, b: ref.pe_conv_grad_2d_ref(a, b, K, K), x, dy,
+                (H - K + 1) ** 2)
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate_quick():
+    """Card only: the quick harness measures finite rates on the card and
+    picks its tile from its own sweep."""
+    _needs_card()
+    from repro_torch import calibrate
+    calib = calibrate.measure(quick=True)
+    assert calib.hardware == calibrate.hardware_signature("cuda")
+    for rate in (calib.flops_per_second, calib.hbm_bytes_per_second):
+        assert 0 < rate < float("inf")
+    pe = calib.kernels["pe_conv_grad"]
+    assert pe["tile_rows"] in ops.PE_TILE_ROWS
+    assert str(pe["tile_rows"]) in pe["sweep"]
+    assert pe["sweep"][str(pe["tile_rows"])]["seconds"] == min(
+        v["seconds"] for v in pe["sweep"].values())
+    assert calib.kernels["gram_norm_fused"]["seconds"] > 0
+    assert calibrate.Calibration.from_json(calib.to_json()) == calib
+
+
 # (B, C, D, T, K): the JAX kernel test's sweep, then a ragged case (T'
 # not a multiple of the 32-deep stage, D and C·K wider than one tile)
 # and the 1-D lane's first layer (C·K = 33 of a 64-wide tile); then the

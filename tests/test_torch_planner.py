@@ -299,7 +299,9 @@ def test_planner_rejects_what_it_does_not_serve():
     m, params, batch = _toy()
     with pytest.raises(NotImplementedError, match="item 14"):
         tcm.get_plan(m.apply, params, batch, mesh="data:8")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # The planner prices under a Calibration (or the analytic table);
+    # "measure" and paths are the engine's to resolve.
+    with pytest.raises(TypeError, match="PrivacyEngine resolves"):
         tcm.get_plan(m.apply, params, batch, calibration="measure")
     with pytest.raises(ValueError, match="invalid for conv"):
         tcm.get_plan(m.apply, params, batch, overrides={"conv0": "gram"})

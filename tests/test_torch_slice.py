@@ -33,6 +33,7 @@ from repro.models.cnn import CNN as JCNN  # noqa: E402
 from repro.models.cnn import toy_cnn_config as jtoy  # noqa: E402
 from repro.optim import adamw_init as jadamw_init  # noqa: E402
 from repro.optim import adamw_update as jadamw_update  # noqa: E402
+from repro_torch import calibrate  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.models.cnn import CNN as TCNN  # noqa: E402
 from repro_torch.models.cnn import toy_cnn_config as ttoy  # noqa: E402
@@ -137,19 +138,24 @@ def test_toy_cnn_step_parity_kernel_knobs(strategy):
 
 
 def test_fixed_strategies_only():
-    """Meshes and calibration still raise; the planned strategy, injected
-    plans and stale clipping run, and a fixed strategy's explain shows
-    the plan as advisory."""
+    """Meshes still raise, and so does a calibration blob measured on
+    other hardware; the planned strategy, injected plans and stale
+    clipping run, and a fixed strategy's explain shows the plan as
+    advisory."""
     cfg = ttoy(**TOY)
     m = TCNN(cfg)
     params, _ = m.init(0, device="cpu")
     batch = {"img": torch.zeros(2, 3, 32, 32),
              "label": torch.zeros(2, dtype=torch.int32)}
-    for kw, item in (({"mesh": "data:8"}, "item 14"),
-                     ({"calibration": "measure"}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
-                                dp=tcore.DPConfig(strategy="crb"), **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
+                            dp=tcore.DPConfig(strategy="crb"),
+                            mesh="data:8")
+    foreign = calibrate.injected(hardware="cuda:NVIDIA H100 80GB HBM3:1")
+    with pytest.raises(calibrate.CalibrationHardwareMismatch):
+        tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
+                            dp=tcore.DPConfig(strategy="crb"),
+                            calibration=foreign)
     plan = tcore.get_plan(m.apply, params, batch)
     for kw in ({"dp": tcore.DPConfig(strategy="auto")},
                {"dp": tcore.DPConfig(strategy="auto"), "plan": plan},
