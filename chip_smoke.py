@@ -75,7 +75,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    T = 1024, σ = 1: 3 steps each of bk (the config's strategy) and
    ``auto`` flat, step ms, peak memory and one profiled step each (with
    each flash kernel's device time a launch).  Each step's capture pass
-   must launch every flash kernel once per layer (16).
+   must launch every flash kernel once per layer (16).  Then, on the
+   same params and batches: ``auto`` under per_layer (uniform budgets)
+   and stale clipping (phase ``lm_clip_modes``: the stale plan fuses
+   wq, wo and the three MLP denses of every layer, 80
+   ``gram_norm_fused`` launches a step after the flat bootstrap; the
+   lane names the fused layers, or prints its plan if there are none),
+   and bk with ``remat=False`` and ``remat=True`` (phase ``lm_remat``:
+   step ms and peak of each; a remat step launches the flash forward 32
+   times, the forward and the recompute; the clipped noise-free sums of
+   one batch are bitwise equal, or else within the bf16 lane's
+   tolerance, and the lane says which).
+9b. OLMo-1B (phase ``olmo_main_path``): the same bk and ``auto`` flat
+   lanes on full-width OLMo-1B (16 layers, d_model 2048, 16/16 heads,
+   head_dim 128, vocab 50 304, non-parametric LayerNorm, tied, bf16,
+   flash): the flash kernels at head_dim 128 on a model.
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -101,6 +115,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    Llama-3.2-1B at full width and depth 2 (B = 8, T = 1024, bf16, flash,
    ``auto``, 4 steps).  The two runs' last checkpoints (params, optimizer
    state, clip state, ledger) must be bitwise equal.
+14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
+   full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
+   32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
+   card), 8 requests in batches of 4, 128-token prompts, 32 tokens out:
+   prefill ms, decode ms a token, tokens/s, peak memory; then
+   decode-equals-forward (prefill and 4 decode steps against one causal
+   forward: in bf16 within twice the forward's own spread over another
+   length, and on an f32 copy of the weights within the flash rows' f32
+   tolerance); serving launches no kernel of this repo.
+15. the serving CLI: ``python -m repro_torch.launch.serve --arch glm4-9b
+   --n-requests 8 --batch 4 --gen 16`` (reduced) in its own process:
+   exit 0 and its ``served`` line.
 
 Each phase prints its seconds.  The kernel cases of phase 3 hold the
 conv gradients at VGG16's conv shapes and ``gram_norm`` at its Grams too
@@ -114,7 +140,9 @@ it, and the bound at the f32 FMA peak its route runs on) and
 ``gram_norm_tokmask`` (B = 8, T = 1024, D = 2048 in bf16 and f32, random
 and heavily repeated ids, a ragged T = 1000; each against the plain
 version and the segment sum; each row names its route,
-``ops.tokmask_route``).
+``ops.tokmask_route``), ``gram_norm_fused`` at the five denses the stale
+Llama plan fuses (one layer, bf16), and the flash kernels at OLMo-1B's
+(8, 1024, 16, 128).
 
 The line before the last is a JSON object with one entry per kernel
 (eight, each with its share of its bound); the last line is
@@ -159,6 +187,11 @@ GRAM_CASES = [("conv0", 3969, 363, 64), ("conv1", 961, 1600, 192),
               ("fc1", 1, 4096, 4096), ("fc2", 1, 4096, 1000)]
 # The layers a stale plan fuses on full-width AlexNet at B = 32.
 FUSED_CASES = GRAM_CASES[2:5]
+# (name, Di, Do) of the denses a stale plan fuses in each layer of
+# full-width Llama-3.2-1B (tests/test_torch_planner.py holds the plan).
+LM_FUSED_CASES = [("llama_wq", 2048, 2048), ("llama_wo", 2048, 2048),
+                  ("llama_w_gate", 2048, 8192), ("llama_w_up", 2048, 8192),
+                  ("llama_w_down", 8192, 2048)]
 
 # Full-width VGG16 (paper Table 1, 3x256x256, 1000 classes), and its
 # kernel cases at a small batch: (name, C, H padded, D, K) of its distinct
@@ -196,6 +229,8 @@ LM_B, LM_T, LM_LAYERS = 8, 1024, 16
 FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
                ("llama_f32", LM_B, LM_T, 32, 32, 64, True, "float32", False),
                ("llama_rep4_bf16", LM_B, LM_T, 32, 8, 64, True, "bfloat16",
+                False),
+               ("olmo_bf16", LM_B, LM_T, 16, 16, 128, True, "bfloat16",
                 False),
                ("full_f32", 2, 256, 8, 8, 64, False, "float32", False),
                ("ragged_f32", 2, 100, 4, 2, 64, True, "float32", False)]
@@ -497,18 +532,25 @@ def fused_cases(torch, rnd):
     """``gram_norm_fused`` at conv2-4 as the conv path hands it over
     (transposed views of the (B, C·K, T) patches and (B, D, T)
     cotangents, read in place), conv3 once more on contiguous copies, a
-    ragged and a bf16 case."""
+    ragged and a bf16 case; and at the five denses a stale plan fuses in
+    each layer of full-width Llama-3.2-1B (B = 8, T = 1024, bf16, one
+    layer of the stack: the (B, T, D) rows the capture holds)."""
     from repro_torch.kernels import ops, ref
     cases = [(n, 32, t, di, do, "float32", True)
              for n, t, di, do in FUSED_CASES]
     cases += [("conv3_contiguous", 32, 225, 3456, 256, "float32", False),
               ("ragged", 3, 100, 70, 33, "float32", False),
               ("conv2_bf16", 32, 225, 1728, 384, "bfloat16", False)]
+    cases += [(n, LM_B, LM_T, di, do, "bfloat16", False)
+              for n, di, do in LM_FUSED_CASES]
     rows = []
     for name, b, t, di, do, dt, main in cases:
         tdt = getattr(torch, dt)
-        x = rnd(b, di, t, dtype=tdt).transpose(1, 2)
-        dy = rnd(b, do, t, dtype=tdt).transpose(1, 2)
+        if name.startswith("llama_"):
+            x, dy = rnd(b, t, di, dtype=tdt), rnd(b, t, do, dtype=tdt)
+        else:
+            x = rnd(b, di, t, dtype=tdt).transpose(1, 2)
+            dy = rnd(b, do, t, dtype=tdt).transpose(1, 2)
         copy_ms = None
         if name == "conv3_contiguous":
             # What a wrapper that copied the views would add first.
@@ -517,10 +559,11 @@ def fused_cases(torch, rnd):
                                               dyv.contiguous()), 3)
             x, dy = x.contiguous(), dy.contiguous()
         w = torch.rand(b, device="cuda")
-        got = ops.gram_norm_fused(x, dy, w, has_bias=True)
-        again = ops.gram_norm_fused(x, dy, w, has_bias=True)
+        hb = not name.startswith("llama_")     # the LM denses have none
+        got = ops.gram_norm_fused(x, dy, w, has_bias=hb)
+        again = ops.gram_norm_fused(x, dy, w, has_bias=hb)
         torch.cuda.synchronize()
-        want = ref.gram_norm_fused_ref(x, dy, w, has_bias=True)
+        want = ref.gram_norm_fused_ref(x, dy, w, has_bias=hb)
         # The norms are sums of squares; the contributions are signed sums
         # over B·T terms whose entries can cancel to near zero, so their
         # error is held against rtol times the largest entry.
@@ -531,6 +574,9 @@ def fused_cases(torch, rnd):
 
         def library():
             pe = torch.bmm(x.transpose(1, 2).float(), dy.float())
+            if not hb:
+                return (pe.square().sum((1, 2)),
+                        torch.einsum("b,bio->io", w, pe))
             sb = dy.float().sum(1)
             return (pe.square().sum((1, 2)) + sb.square().sum(1),
                     torch.einsum("b,bio->io", w, pe),
@@ -550,13 +596,15 @@ def fused_cases(torch, rnd):
                "rtol": RTOL[dt], "ok": all(e[2] for e in errs) and same,
                "bitwise_repeat": same,
                "kernel_ms": cuda_ms(torch, lambda: ops.gram_norm_fused(
-                   x, dy, w, has_bias=True), 5),
+                   x, dy, w, has_bias=hb), 5),
                "plain_ms": cuda_ms(torch, lambda: ref.gram_norm_fused_ref(
-                   x, dy, w, has_bias=True), 3),
+                   x, dy, w, has_bias=hb), 3),
                "library_ms": cuda_ms(torch, library, 3),
                "library": "bmm materialize + square-sum + einsum with w",
                "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
                "main_path": main}
+        if name.startswith("llama_"):
+            row.update(lane="llama_auto_stale", calls_per_step=LM_LAYERS)
         if copy_ms is not None:
             row["copy_ms"] = copy_ms
         rows.append(row)
@@ -970,19 +1018,22 @@ def planned_needs(eng, steps):
     """The launches each step of a planned lane must make, read off its
     plan: ``pe_conv_grad_2d`` once per plain conv (stride and dilation 1,
     one group) the plan materializes (``pe``), ``gram_norm_fused`` once
-    per fused layer.  A stale lane's step 0 is the flat bootstrap, under
-    the flat plan."""
+    per fused layer (once per layer of a scanned stack).  A stale lane's
+    step 0 is the flat bootstrap, under the flat plan."""
     from repro_torch.core import costmodel
 
     def count(plan):
-        pe = 0
+        pe = fused = 0
         for n, lp in plan.layers.items():
             st = plan.metas[n].static
             plain = (st.get("groups", 1) == 1
                      and all(v == 1 for v in _pair(st.get("stride", 1)))
                      and all(v == 1 for v in _pair(st.get("dilation", 1))))
             pe += lp.kind == "conv" and lp.norm_method == "pe" and plain
-        return pe, sum(lp.fused for lp in plan.layers.values())
+            # a scanned layer's fused pass runs once a layer of its stack
+            fused += lp.fused * math.prod(
+                plan.tap_shapes[n].shape[:plan.metas[n].scanned])
+        return pe, fused
 
     pe, fused = count(eng.plan())
     if eng.dp.clipping.mode != "stale":
@@ -1000,25 +1051,28 @@ def _pair(v):
 
 
 def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
-              steps=3, n_examples=4096):
+              steps=3, n_examples=4096, lr=1e-3, named=(), also_needs=None):
     """Each lane of ``runs`` — (lane, strategy, clipping, norm knobs, the
     launches each step must make: a dict, or ``"plan"`` to read them off
     the lane's plan, ``planned_needs``) — through ``PrivacyEngine``, σ = 1,
     C = 1, AdamW: ``steps`` timed ``private_step``s with the launch counts
-    set to 0 before each step and read after it, then one profiled step.
-    Adds the counts to ``launches`` and each lane's, step by step, to
-    ``lanes``.  Returns {lane: {"step_ms", "norms0" (step 0's per-example
-    norms), "plan" (the realizations of a planned lane)}}."""
+    set to 0 before each step and read after it, then one profiled step
+    (``named``: kernel name parts whose device time it reports).  Adds the
+    counts to ``launches`` and each lane's, step by step, to ``lanes``;
+    ``also_needs`` adds launches every lane must make.  Returns {lane:
+    {"step_ms", "norms0" (step 0's per-example norms), "plan" (the
+    realizations of a planned lane), "profiled" (the profiled step),
+    "peak_mem_gb"}}."""
     from repro_torch.core import DPConfig, PrivacyEngine
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw_init
     out = {}
     for lane, strategy, clipping, norm, needs in runs:
-        B = int(batches[0]["label"].shape[0])
+        B = int(next(iter(batches[0].values())).shape[0])
         dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
                       norm=norm, clipping=clipping)
         eng = PrivacyEngine(model.apply, params, batches[0], dp,
-                            optimizer="adamw", lr=1e-3, run_seed=0,
+                            optimizer="adamw", lr=lr, run_seed=0,
                             sampling_rate=B / n_examples, device="cuda")
         plan = realized = None
         if strategy == "auto":
@@ -1026,6 +1080,7 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
             realized = eng.plan().realizations()
         if needs == "plan":
             needs = planned_needs(eng, steps)
+        needs = dict(needs, **(also_needs or {}))
         p, opt = params, adamw_init(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1047,7 +1102,8 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
         lanes[lane] = {k: [c[k] for c in per_step]
                        for k, v in counts.items() if v}
         prof = profile_step(torch, lambda: eng.private_step(
-            p, opt, batches[steps], step=steps))
+            p, opt, batches[steps], step=steps), top=10 if named else 8,
+            named=named)
         check(all(math.isfinite(v) for v in losses),
               f"{lane}: non-finite loss {losses}")
         for k, want in needs.items():
@@ -1067,7 +1123,8 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
              "peak_mem_gb": peak, "profiled_step": prof,
              "clip_fraction": float(aux["clip_fraction"]),
              "report": eng.report()})
-        out[lane] = {"step_ms": step_ms, "norms0": norms0, "plan": realized}
+        out[lane] = {"step_ms": step_ms, "norms0": norms0, "plan": realized,
+                     "profiled": prof, "peak_mem_gb": peak}
         del p, opt, eng, aux
         torch.cuda.empty_cache()
     return out
@@ -1441,25 +1498,20 @@ def calibrated_plans(torch, calib, timings):
          "seconds": time.perf_counter() - t0})
 
 
-def lm_main_path(torch, launches, lanes):
-    """Phase 9: full-width Llama-3.2-1B DP-SGD steps through the engine,
-    bk and ``auto`` flat; adds the flash launches to ``launches`` and each
-    lane's launches per step to ``lanes``.  Returns each lane's flash
-    kernels' device time in its profiled step."""
-    import numpy as np
+def lm_inputs(torch, arch, widths):
+    """Full-width ``arch`` with ``attn_impl="flash"``: (model, params from
+    seed 0, four (B, T) synthetic batches on the card).  ``widths``:
+    (layers, d_model, heads, KV heads, d_ff, vocab, head_dim), checked
+    against the config."""
     from repro_torch.configs import get_config
-    from repro_torch.core import DPConfig, PrivacyEngine
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.kernels import ops
     from repro_torch.models.lm import TransformerLM
-    from repro_torch.optim import adamw_init
     from repro_torch.tree import get_subtree, leaf_paths
 
-    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+    cfg = get_config(arch).replace(attn_impl="flash")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff,
-           cfg.vocab, cfg.hd) == (LM_LAYERS, 2048, 32, 8, 8192, 128256, 64)
-          and cfg.tie_embeddings and cfg.dtype == "bfloat16",
-          "llama3.2-1b config")
+           cfg.vocab, cfg.hd) == widths and cfg.tie_embeddings
+          and cfg.dtype == "bfloat16", f"{arch} config")
     model = TransformerLM(cfg)
     t0 = time.perf_counter()
     params, _ = model.init(0, device="cuda")
@@ -1467,8 +1519,7 @@ def lm_main_path(torch, launches, lanes):
     n_params = sum(get_subtree(params, p).numel()
                    for p in leaf_paths(params))
     t0 = time.perf_counter()
-    n_examples = 4096
-    ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=n_examples, seed=0)
+    ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=4096, seed=0)
     batches = []
     for s in range(4):
         b = ds.batch(range(s * LM_B, (s + 1) * LM_B))
@@ -1476,57 +1527,311 @@ def lm_main_path(torch, launches, lanes):
     log({"phase": "lm_setup", "arch": cfg.name, "params": n_params,
          "batch": LM_B, "seq": LM_T, "init_s": init_s,
          "data_s": time.perf_counter() - t0})
-    flash = FLASH_NAMES
+    return model, params, batches
+
+
+def flash_needs(steps, remat=False):
+    """Each flash kernel's launches a step of one capture pass: once a
+    layer (the forward twice a layer under remat: the forward and the
+    backward's recompute)."""
+    return {"flash_fwd": [(2 if remat else 1) * LM_LAYERS] * steps,
+            "flash_dq": [LM_LAYERS] * steps,
+            "flash_dkv": [LM_LAYERS] * steps}
+
+
+def lm_main_path(torch, launches, lanes, profiled, llm, phase, prefix):
+    """Phases 9 and 9b: full-width LM DP-SGD steps through the engine, bk
+    and ``auto`` flat; each step's capture pass must launch every flash
+    kernel once a layer.  Adds each lane's flash kernels' device time in
+    its profiled step to ``profiled``."""
+    from repro_torch.core import NormCfg
+    model, params, batches = llm
     steps = 3
-    profiled = {}
-    for lane, strategy in (("llama_bk", "bk"), ("llama_auto_flat", "auto")):
-        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy)
-        eng = PrivacyEngine(model.apply, params, batches[0], dp,
-                            optimizer="adamw", lr=1e-4, run_seed=0,
-                            sampling_rate=LM_B / n_examples, device="cuda")
-        plan = eng.explain() if strategy == "auto" else None
-        p, opt = params, adamw_init(params)
-        torch.cuda.synchronize()
+    runs = [(f"{prefix}_bk", "bk", "flat", NormCfg(), flash_needs(steps)),
+            (f"{prefix}_auto_flat", "auto", "flat", NormCfg(),
+             flash_needs(steps))]
+    out = run_lanes(torch, phase, model, params, batches, runs, lanes,
+                    launches, steps, lr=1e-4, named=FLASH_NAMES)
+    for lane, o in out.items():
+        profiled[lane] = o["profiled"].get("named", {})
+    return out
+
+
+def lm_clip_modes(torch, launches, lanes, profiled, llm):
+    """Phase 9c: full-width Llama-3.2-1B, ``auto`` under per_layer
+    (uniform budgets) and stale clipping.  Each step launches what the
+    plan says (``planned_needs``: ``gram_norm_fused`` once per fused
+    layer of every stack, after the stale lane's flat bootstrap) and the
+    flash kernels once a layer.  Names the layers the stale plan fuses,
+    or prints its plan if it fuses none."""
+    from repro_torch.core import ClipPolicy, NormCfg
+    model, params, batches = llm
+    steps = 3
+    runs = [("llama_auto_per_layer", "auto", ClipPolicy(mode="per_layer"),
+             NormCfg(), "plan"),
+            ("llama_auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg(),
+             "plan")]
+    out = run_lanes(torch, "lm_clip_modes", model, params, batches, runs,
+                    lanes, launches, steps, lr=1e-4,
+                    named=FLASH_NAMES + ("direct_wgmma",),
+                    also_needs=flash_needs(steps))
+    fused = sorted(n for n, (_, how) in out["llama_auto_stale"]["plan"]
+                   .items() if how == "fused")
+    entry = {"phase": "lm_clip_modes", "stale_fused_layers": fused,
+             "gram_norm_fused_launches_each_step":
+                 lanes["llama_auto_stale"].get("gram_norm_fused")}
+    if fused:
+        named = out["llama_auto_stale"]["profiled"].get("named", {})
+        entry["gram_norm_fused_profiled"] = named.get("direct_wgmma")
+    else:
+        entry["why_no_fused_layer"] = "the stale plan fuses no LM layer"
+        entry["plan"] = out["llama_auto_stale"]["plan"]
+    log(entry)
+    for lane, o in out.items():
+        profiled[lane] = o["profiled"].get("named", {})
+    return fused
+
+
+def lm_remat(torch, launches, lanes, llm):
+    """Phase 9d: full-width Llama-3.2-1B under bk, flat, with
+    ``remat=False`` and ``remat=True``: step ms and peak of each (a
+    remat step launches the flash forward twice a layer: the forward and
+    the backward's recompute), then the clipped, noise-free gradient sums
+    of one batch under each.  The two orders of summation are the same,
+    so they must be bitwise equal, or else within the bf16 lane's
+    tolerance (rtol 1e-2, atol 1e-5 of the largest entry); the lane says
+    which held."""
+    from repro_torch.core import NormCfg, clipped_grad_sum
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    model, params, batches = llm
+    steps = 3
+    res, sums = {}, {}
+    for remat in (False, True):
+        m = TransformerLM(model.cfg.replace(remat=remat))
+        lane = f"llama_bk_remat_{str(remat).lower()}"
+        out = run_lanes(
+            torch, "lm_remat", m, params, batches,
+            [(lane, "bk", "flat", NormCfg(),
+              flash_needs(steps, remat))],
+            lanes, launches, steps, lr=1e-4)
+        res[remat] = {"step_ms": out[lane]["step_ms"],
+                      "peak_mem_gb": out[lane]["peak_mem_gb"]}
         torch.cuda.reset_peak_memory_stats()
-        step_ms, losses, per_step = [], [], []
-        for s in range(steps):
-            ops.reset_launches()
-            t = time.perf_counter()
-            p, opt, loss, aux = eng.private_step(p, opt, batches[s], step=s)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            per_step.append(dict(ops.LAUNCHES))
-            losses.append(float(loss))
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        counts = {k: sum(c[k] for c in per_step) for k in ops.LAUNCHES}
-        for k, v in counts.items():
-            launches[k] += v
-        lanes[lane] = {k: [c[k] for c in per_step]
-                       for k, v in counts.items() if v}
-        prof = profile_step(torch, lambda: eng.private_step(
-            p, opt, batches[steps], step=steps), top=10, named=flash)
-        profiled[lane] = prof.get("named", {})
-        check(all(math.isfinite(v) for v in losses),
-              f"{lane}: non-finite loss {losses}")
-        for k in flash:
-            got = [c[k] for c in per_step]
-            # one capture pass per step (bk, and auto with no weighted
-            # backward): each layer's attention launches each kernel once
-            check(got == [LM_LAYERS] * steps,
-                  f"{lane}: {k} launches per step {got}, expected "
-                  f"{LM_LAYERS}")
-        log({"phase": "lm_main_path", "lane": lane, "strategy": strategy,
-             "clipping": "flat", "plan": plan, "losses": losses,
-             "step_ms": step_ms, "step_ms_after_first": step_ms[1:],
-             "launches_each_step": per_step,
-             "peak_mem_gb": peak, "profiled_step": prof,
-             "clip_fraction": float(aux["clip_fraction"]),
-             "report": eng.report()})
-        del p, opt, eng, aux
-        torch.cuda.empty_cache()
-    del params
+        sums[remat] = clipped_grad_sum(m.apply, params, batches[0],
+                                       l2_clip=1.0, strategy="bk")
+        res[remat]["clipped_sum_peak_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    (_, g0, n0), (_, g1, n1) = sums[False], sums[True]
+    paths = leaf_paths(g0)
+    bitwise = torch.equal(n0, n1) and all(
+        torch.equal(get_subtree(g0, q), get_subtree(g1, q)) for q in paths)
+    held = "bitwise"
+    if not bitwise:
+        for q in paths:
+            a, b = get_subtree(g1, q), get_subtree(g0, q)
+            check(torch.allclose(a, b, rtol=1e-2,
+                                 atol=1e-5 * b.abs().max().item()),
+                  f"remat: clipped sum differs at {'/'.join(q)}")
+        check(torch.allclose(n1, n0, rtol=1e-2), "remat: norms differ")
+        held = "bf16 tolerance"
+    log({"phase": "lm_remat", "lanes": {str(k): v for k, v in res.items()},
+         "clipped_sums_equal": held, "ok": True})
+    del sums, g0, g1
     torch.cuda.empty_cache()
-    return profiled
+
+
+# The serving lanes: (arch, widths as lm_inputs checks them).  8 requests
+# in batches of 4, a 128-token prompt, 32 tokens out.
+SERVE_ARCHS = [("llama3.2-1b", (16, 2048, 32, 8, 8192, 128256, 64)),
+               ("glm4-9b", (40, 4096, 32, 2, 13696, 151552, 128))]
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 4, 128, 32
+SERVE_CHECK_STEPS = 4
+
+
+def decode_vs_forward(torch, model, params, prompts):
+    """Prefill ``prompts`` and take SERVE_CHECK_STEPS greedy decode steps;
+    returns ([each call's logits], one causal forward's logits over the
+    same tokens (``TransformerLM.logits``, the training path), the same
+    forward over the prompt and one more token)."""
+    logits, cache = model.prefill(params, prompts,
+                                  max_len=SERVE_PROMPT + SERVE_GEN)
+    outs, toks = [logits], []
+    for _ in range(SERVE_CHECK_STEPS):
+        toks.append(torch.argmax(outs[-1], -1))
+        logits, cache = model.decode_step(params, cache, toks[-1])
+        outs.append(logits)
+    tokens = torch.cat([prompts, torch.stack(toks, 1)], 1)
+    with torch.no_grad():
+        return (outs, model.logits(params, tokens),
+                model.logits(params, tokens[:, :SERVE_PROMPT + 1]))
+
+
+def serve_checks(torch, arch, model, params, prompts):
+    """Decode-equals-forward at full width, twice.  In the config's bf16
+    the serving path's logits must be as close to the full forward's as
+    that forward is to itself over a different length (the prompt and one
+    token, compared at the two positions both hold: bf16 GEMMs over
+    another row count round otherwise): |serve - full| at most twice that
+    spread plus one bf16 rounding (2^-8) of the largest logit.  Then on
+    an f32 copy of the weights (TF32 off), where the full forward does not
+    depend on the length, within the flash rows' f32 tolerance
+    (``flash_close``: rtol 1e-4 a entry, 1e-5 of the largest).  Frees
+    ``params``; returns the record of both."""
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import tree_map
+    P = SERVE_PROMPT - 1
+    outs, full, short = decode_vs_forward(torch, model, params, prompts)
+    err = max((o.float() - full[:, P + i].float()).abs().max().item()
+              for i, o in enumerate(outs))
+    spread = max((short[:, P + i].float() - full[:, P + i].float()).abs()
+                 .max().item() for i in range(2))
+    top = full[:, P:].float().abs().max().item()
+    bound = 2 * spread + 2 ** -8 * top
+    flash_rows = [flash_close(torch, o, full[:, P + i])[2]
+                  for i, o in enumerate(outs)]
+    check(err <= bound, f"{arch} bf16: prefill + decode logits {err:.4g} "
+          f"from the full forward's, more than {bound:.4g} (twice its own "
+          f"spread over another length, {spread:.4g}, + 2^-8 of {top:.4g})")
+    rec = {"bf16": {"max_abs_err": err, "forward_spread": spread,
+                    "bound": bound, "largest_logit": top,
+                    "within_flash_rows_bf16_tolerance": all(flash_rows)}}
+    del outs, full, short
+    p32 = tree_map(lambda a: a.float(), params)
+    params.clear()
+    torch.cuda.empty_cache()
+    m32 = TransformerLM(model.cfg.replace(dtype="float32"))
+    outs, full, _ = decode_vs_forward(torch, m32, p32, prompts)
+    errs = [flash_close(torch, o, full[:, P + i])
+            for i, o in enumerate(outs)]
+    check(all(e[2] for e in errs), f"{arch} f32: prefill + decode logits "
+          f"differ from the full forward's: {[e[:2] for e in errs]}")
+    rec["f32"] = {"max_abs_err": max(e[0] for e in errs),
+                  "max_rel_err": max(e[1] for e in errs),
+                  "rtol": FLASH_RTOL["float32"], "atol_of_largest":
+                  FLASH_ATOL}
+    del outs, full, p32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_lane(torch):
+    """Phase 14: ``launch.serve.generate_batch`` at full width on
+    Llama-3.2-1B and GLM-4-9B (bf16, weights drawn on the card from a
+    seeded CUDA generator: no parity rests on them): prefill ms and
+    decode ms a token on one batch (and one decode step profiled), the
+    requests served in batches (tokens/s), the peak memory; then
+    decode-equals-forward
+    (``serve_checks``, SERVE_CHECK_STEPS decode steps).  Serving reaches
+    no kernel of this repo (the cached attention is the plain softmax,
+    as in the JAX package): the counts must stay 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate_batch
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    for arch, widths in SERVE_ARCHS:
+        cfg = get_config(arch)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff,
+               cfg.vocab, cfg.hd) == widths and cfg.dtype == "bfloat16",
+              f"{arch} config")
+        model = TransformerLM(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params, _ = model.init(gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        n_params = sum(get_subtree(params, q).numel()
+                       for q in leaf_paths(params))
+        prompts = torch.randint(0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT),
+                                generator=gen, device="cuda")
+        max_len = SERVE_PROMPT + SERVE_GEN
+        p0 = prompts[:SERVE_BATCH]
+        ops.reset_launches()
+        generate_batch(model, params, p0, max_len=max_len, gen=2)  # warm
+
+        # prefill ms, decode ms a token (one batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, p0, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        tok = torch.argmax(logits, -1)
+        t = time.perf_counter()
+        for _ in range(SERVE_GEN - 1):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / (SERVE_GEN - 1)
+        # where a decode step's time goes: the device's busy share
+        decode_prof = profile_step(
+            torch, lambda: model.decode_step(params, cache, tok), top=5)
+        del logits, cache
+
+        # the requests, served in batches
+        t = time.perf_counter()
+        outs = [generate_batch(model, params,
+                               prompts[i:i + SERVE_BATCH], max_len=max_len,
+                               gen=SERVE_GEN)
+                for i in range(0, SERVE_REQUESTS, SERVE_BATCH)]
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(tuple(o.shape) == (SERVE_BATCH, SERVE_GEN) for o in outs)
+              and all(bool(((o >= 0) & (o < cfg.padded_vocab)).all())
+                      for o in outs), f"{arch}: generated tokens")
+        checks = serve_checks(torch, arch, model, params, p0)
+        check(not any(ops.LAUNCHES.values()),
+              f"{arch}: serving launched {dict(ops.LAUNCHES)}")
+        log({"phase": "serve_lane", "arch": arch, "params": n_params,
+             "weights_gb": n_params * 2 / 1e9, "init_s": init_s,
+             "kv_cache_bytes_a_token": 2 * cfg.n_layers * cfg.n_kv
+             * cfg.hd * 2,
+             "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+             "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+             "prefill_ms": prefill_ms, "decode_ms_a_token": decode_ms,
+             "profiled_decode_step": decode_prof, "served_s": served_s,
+             "tokens_per_s": SERVE_REQUESTS * SERVE_GEN / served_s,
+             "peak_mem_gb": peak, "init_peak_mem_gb": init_peak,
+             "decode_equals_forward": checks, "ok": True,
+             "sample": outs[0][0, :8].tolist()})
+        del params, outs, prompts, model
+        torch.cuda.empty_cache()
+
+
+SERVE_CLI = ["--arch", "glm4-9b", "--n-requests", "8", "--batch", "4",
+             "--gen", "16"]
+
+
+def serve_cli():
+    """Phase 15: ``python -m repro_torch.launch.serve`` in a process of
+    its own (the reduced GLM-4-9B, as the JAX package's CLI serves it):
+    exit code 0 and its ``served`` line."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_CLI],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"serve CLI: timed out after {CLI_TIMEOUT_S} s") \
+            from e
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"serve CLI: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    check(lines and lines[-1].startswith("served 8 requests in "),
+          f"serve CLI: no served line: {lines[-3:]}")
+    log({"phase": "serve_cli", "args": SERVE_CLI, "wall_s": wall,
+         "batches": sum(ln.startswith("batch done") for ln in lines),
+         "served": lines[-1], "ok": True})
 
 
 def tokmask_path(torch, launches, lanes):
@@ -1914,7 +2219,22 @@ def summarize(rows, launches, lanes, profiled):
                 route: sum(r["kernel_ms"] for r in main
                            if r["route"] == route)
                 for route in ("direct", "gram", "rank1")}
+        side = [r for r in mine if r.get("lane")]
+        if side:
+            # One step's calls of the kernel on an LM lane beside the
+            # main path's (gram_norm_fused: a stale Llama step).
+            entry[side[0]["lane"]] = {
+                "ms": per_step("kernel_ms", side),
+                "bound_ms": per_step("bound_ms", side),
+                "plain_ms": per_step("plain_ms", side),
+                "library_ms": per_step("library_ms", side),
+                "calls": sum(r["calls_per_step"] for r in side),
+                "cases": [r["case"] for r in side]}
         if name in FLASH_NAMES:
+            olmo = next(r for r in mine if r["case"] == "olmo_bf16")
+            entry["olmo_hd128_per_call"] = {
+                k: olmo[k] for k in ("design", "kernel_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}
             entry["design"] = main[0]["design"]
             if "earlier_ms" in main[0]:
                 entry["earlier_ms_per_call"] = main[0]["earlier_ms"]
@@ -1970,9 +2290,29 @@ def main():
     log({"phase": "main_path_done", "seconds": time.perf_counter() - t})
     vgg16_main_path(torch, lanes, launches, timings)
     toy_cnns(torch, lanes, launches)
+    profiled = {}
     t = time.perf_counter()
-    profiled = lm_main_path(torch, launches, lanes)
+    llama = lm_inputs(torch, "llama3.2-1b",
+                      (LM_LAYERS, 2048, 32, 8, 8192, 128256, 64))
+    lm_main_path(torch, launches, lanes, profiled, llama, "lm_main_path",
+                 "llama")
     log({"phase": "lm_main_path_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    lm_clip_modes(torch, launches, lanes, profiled, llama)
+    log({"phase": "lm_clip_modes_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    lm_remat(torch, launches, lanes, llama)
+    log({"phase": "lm_remat_done", "seconds": time.perf_counter() - t})
+    del llama
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    olmo = lm_inputs(torch, "olmo-1b",
+                     (LM_LAYERS, 2048, 16, 16, 8192, 50304, 128))
+    lm_main_path(torch, launches, lanes, profiled, olmo, "olmo_main_path",
+                 "olmo")
+    del olmo
+    torch.cuda.empty_cache()
+    log({"phase": "olmo_main_path_done", "seconds": time.perf_counter() - t})
     tokmask_path(torch, launches, lanes)
     t = time.perf_counter()
     conv1d_lane(torch, launches, lanes)
@@ -1982,6 +2322,12 @@ def main():
     t = time.perf_counter()
     cli_lanes(calib)
     log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    serve_lane(torch)
+    log({"phase": "serve_lane_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    serve_cli()
+    log({"phase": "serve_cli_done", "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
     log({"kernels": summarize(rows, launches, lanes, profiled)})

@@ -1,8 +1,9 @@
-"""The paper's own CNN configs (AlexNet, VGG16) and the first language
-model of the port, Llama-3.2-1B.
+"""The paper's own CNN configs (AlexNet, VGG16) and the dense language
+models of the port: Llama-3.2-1B, OLMo-1B, GLM-4-9B, StableLM-2-12B and
+Chameleon-34B (family ``vlm``, an early-fusion backbone over token ids).
 
-The JAX package's other language-model configs come with the rest of
-the LM slice (ROADMAP.md, "Modules to port" item 11); asking for one
+The JAX package's other language-model configs need MoE, MLA, SSM,
+hybrid or enc-dec blocks (ROADMAP.md items 11d and 12); asking for one
 here raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -16,7 +17,9 @@ ARCH_IDS = [
 ]
 PAPER_IDS = ["alexnet", "vgg16"]
 # The LM ids the port serves, and the module of each.
-SERVED_LM = {"llama3.2-1b": "llama32_1b"}
+SERVED_LM = {"llama3.2-1b": "llama32_1b", "olmo-1b": "olmo_1b",
+             "glm4-9b": "glm4_9b", "stablelm-12b": "stablelm_12b",
+             "chameleon-34b": "chameleon_34b"}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -26,9 +29,9 @@ def get_config(arch: str) -> ModelConfig:
             f"repro_torch.configs.{SERVED_LM[arch]}").CONFIG
     if arch in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch!r} is a language model the port does not serve yet; "
-            f"it serves {PAPER_IDS + sorted(SERVED_LM)} until the rest of "
-            f"the LM slice (ROADMAP.md item 11)")
+            f"{arch!r} is a language model the port does not serve yet "
+            f"(MoE, MLA, SSM, hybrid and enc-dec blocks: ROADMAP.md items "
+            f"11d and 12); it serves {PAPER_IDS + sorted(SERVED_LM)}")
     if arch not in PAPER_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from "
                        f"{PAPER_IDS + sorted(SERVED_LM)}")

@@ -235,25 +235,6 @@ class DPConfig:
                     clip_fused=self.clipping.fused)
 
 
-def check_served(cfg: DPConfig, metas: dict) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve:
-    ``per_layer`` or ``stale`` clipping of a model with scanned or shared
-    layers (``metas``: the plan's or the probe's layer metadata).  The
-    planner plans those modes; executing them (per-layer budgets over
-    stacked layers, the fused stale pass of scanned layers) comes with the
-    rest of the LM slice (ROADMAP.md item 11)."""
-    mode = cfg.clipping.mode
-    if mode == "flat":
-        return
-    bad = sorted(n for n, m in metas.items() if m.scanned or m.shared)
-    if bad:
-        raise NotImplementedError(
-            f"{mode!r} clipping of scanned or shared layers ({bad[0]!r} "
-            f"and {len(bad) - 1} more) comes with the rest of the LM "
-            f"slice (ROADMAP.md item 11); this slice serves flat clipping "
-            f"for such models")
-
-
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
               l2_clip: float):
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
@@ -305,9 +286,6 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
     match the per-microbatch shapes *and* the clipping mode.  ``key`` is
     the ``torch.Generator`` the noise is drawn from.
 
-    A non-flat clipping mode is checked against the model's layers first
-    (:func:`check_served`).
-
     ``clip_state`` threads the cross-step state of the non-flat modes
     (the engine owns this loop):
       * ``{"prev_norms_sq": (B,)}`` — ``stale``: the norms the lagged
@@ -324,9 +302,6 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
     ``clip_budgets``; ``stale`` adds ``clip_fraction_lagged`` (what the
     applied coefficients clipped; ``clip_fraction`` describes the current
     norms, i.e. the next step's coefficients) and ``clip_state``."""
-    if cfg.clipping.mode != "flat":
-        check_served(cfg, (plan or costmodel.get_plan(
-            apply_fn, params, batch, **cfg.planner_opts())).metas)
     B = next(iter(batch.values())).shape[0]
     denom = denom or B
     policy = cfg.clipping

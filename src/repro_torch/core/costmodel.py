@@ -464,7 +464,7 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         raise NotImplementedError(
             f"layer {name!r} (kind {meta.kind!r}"
             f"{', segmented' if meta.segmented else ''}): comes with the "
-            f"rest of the LM slice (ROADMAP.md item 11)")
+            f"rest of the LM slice (ROADMAP.md items 11b and 12)")
     k = meta.scanned
     dy_shape = tuple(dy_sh.shape)
     stack = _prod(dy_shape[:k])

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel
-from repro_torch.core.clipping import (DPConfig, check_served, dp_gradient,
+from repro_torch.core.clipping import (DPConfig, dp_gradient,
                                        resolve_budgets, resolve_microbatches)
 from repro_torch.core.privacy import PrivacyAccountant, clipping_sensitivity
 from repro_torch.core.tapper import TensorSpec, spec_of
@@ -176,9 +176,6 @@ class PrivacyEngine:
                 clip_mode=self.dp.clipping.mode,
                 calibration=self._calibration or "")
         self._plan = plan
-        if self.dp.clipping.mode != "flat":
-            # Refuse an unserved mode now, not at the first step.
-            check_served(self.dp, self.plan().metas)
         self.run_seed = run_seed
         # Cross-step clipping state: stale mode's lagged norms (a device
         # tensor: no host sync on the stale path), and the per-layer

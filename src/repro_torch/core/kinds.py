@@ -30,9 +30,8 @@ card, products of two bf16 captures are bf16 GEMMs with f32 output
 
 The method string ``"pallas"`` keeps the JAX package's spelling so that
 ``NormCfg`` and configs stay one-to-one; here it means this repo's own
-CUDA kernel (:mod:`repro_torch.kernels.ops`).  Segmented (MoE) layers,
-the attn and local_vjp kinds, and the fused realization of scanned
-layers come with the rest of the LM slice (ROADMAP.md item 11) and raise
+CUDA kernel (:mod:`repro_torch.kernels.ops`).  The attn kind (ROADMAP.md
+item 11b), segmented (MoE) layers and the local_vjp kind (item 12) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -461,9 +460,10 @@ def _fold_into_seq(meta: LayerMeta, cap, dy):
     return {n: fold(a) for n, a in cap.items()}, fold(dy)
 
 
-def _item11(what: str):
+def _unported(what: str, item: str):
     return NotImplementedError(
-        f"{what} comes with the rest of the LM slice (ROADMAP.md item 11)")
+        f"{what} comes with the rest of the LM slice (ROADMAP.md item "
+        f"{item})")
 
 
 def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
@@ -474,8 +474,8 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
     kw = dict(norm_method=norm_method, conv_impl=conv_impl,
               embed_method=embed_method, conv_norm=conv_norm)
     if meta.segmented:
-        raise _item11(f"layer {'/'.join(map(str, meta.path))}: segmented "
-                      f"(MoE) layers")
+        raise _unported(f"layer {'/'.join(map(str, meta.path))}: "
+                        f"segmented (MoE) layers", "12")
     if meta.shared and meta.scanned and meta.kind in ("dense", "scale"):
         # Fold applications into the sequence axis: the per-example
         # gradient of a shared parameter is the sum over applications,
@@ -536,22 +536,38 @@ def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
     one pass over the captures; valid whenever the weights are known
     entering the pass (stale-coefficient clipping).
 
-    Unscanned dense (non-segmented) and conv layers, shared or not, go to
-    the fused ``gram_norm_fused`` realizations when ``fused``, the layers
-    the planner marks ``fused``; the non-fused request falls back to the
+    Dense (non-segmented) layers go to the fused ``gram_norm_fused``
+    realization when ``fused``, the layers the planner marks ``fused``:
+    a shared scanned layer folds its stack into the sequence axis first,
+    a scanned one takes its stack one layer at a time (the JAX package's
+    ``lax.map``) and sums the norms over it; so do unscanned conv layers.
+    Every other kind, and the non-fused request, falls back to the
     norm_sq + contrib pair (still one capture pass of the model, just two
-    reductions over the same tensors).  The fused realization of scanned
-    layers comes with the rest of the LM slice (stale clipping on
-    scanned layers is refused before it is reached,
-    ``clipping.check_served``)."""
-    if fused and meta.scanned:
-        raise _item11(f"layer {'/'.join(map(str, meta.path))}: the fused "
-                      f"norm+contrib of scanned layers")
-    if fused:
-        if meta.kind == "dense" and not meta.segmented:
+    reductions over the same tensors)."""
+    if fused and meta.kind == "dense" and not meta.segmented:
+        if meta.shared and meta.scanned:
+            cap2, dy2 = _fold_into_seq(meta, cap, dy)
+            return dense_norm_and_contrib(_unscanned(meta), cap2, dy2,
+                                          weights)
+        if not meta.scanned:
             return dense_norm_and_contrib(meta, cap, dy, weights)
-        if meta.kind == "conv":
-            return conv_norm_and_contrib(meta, cap, dy, weights)
+        cap_f, dy_f, stack_shape = _split_stack(meta, cap, dy)
+        meta_f = _unscanned(meta)
+        total, bufs = None, None
+        for i in range(dy_f.shape[0]):
+            n, c = dense_norm_and_contrib(
+                meta_f, {k: a[i] for k, a in cap_f.items()}, dy_f[i],
+                weights)
+            total = n if total is None else total + n
+            if bufs is None:
+                bufs = tree_map(lambda a: torch.empty(
+                    (dy_f.shape[0],) + tuple(a.shape), dtype=a.dtype,
+                    device=a.device), c)
+            tree_map(lambda buf, a: buf[i].copy_(a), bufs, c)
+        return total, tree_map(
+            lambda a: a.reshape(stack_shape + a.shape[1:]), bufs)
+    if fused and meta.kind == "conv" and not meta.scanned:
+        return conv_norm_and_contrib(meta, cap, dy, weights)
     n = apply_kind("norm_sq", meta, cap, dy, params_sub=params_sub,
                    norm_method=norm_method, conv_impl=conv_impl,
                    embed_method=embed_method, conv_norm=conv_norm)
@@ -595,7 +611,8 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
                                 method=conv_norm)
         return conv_contrib(meta, cap, dy, weights)
     if kind in ("attn", "local_vjp"):
-        raise _item11(f"layer kind {kind!r}")
+        raise _unported(f"layer kind {kind!r}",
+                        "11b" if kind == "attn" else "12")
     raise ValueError(f"unknown kind {kind}")
 
 

@@ -32,8 +32,7 @@ backward saves anyway) and captures that are one tensor in the model
 Shared parameters (tied embeddings) are declared by prefixing the tap
 name with ``"~"``: the parameter path is then read from the params root
 and the layer is marked ``shared``.  The ``local_vjp`` and
-``dense_segmented`` kinds come with the rest of the LM slice (ROADMAP.md
-item 11).
+``dense_segmented`` kinds come with ROADMAP.md item 12.
 
 Models stay pure: a ``Tapper`` in mode ``"none"`` is a no-op, so the same
 model code serves ordinary training and every PEG strategy.
@@ -59,11 +58,12 @@ class PipelineStats:
     """Counters for forwards / backwards / probes through a model.
 
     ``fused`` additionally counts fused norm+contrib realizations
-    (``gram_norm_fused`` single passes picked by stale-coefficient plans);
-    it stays out of :meth:`snapshot`, which counts passes through the
+    (``gram_norm_fused`` single passes picked by stale-coefficient plans)
+    and ``recomputes`` the layers a ``remat`` backward ran again; both
+    stay out of :meth:`snapshot`, which counts passes through the
     model."""
 
-    __slots__ = ("forwards", "backwards", "probes", "fused")
+    __slots__ = ("forwards", "backwards", "probes", "fused", "recomputes")
 
     def __init__(self):
         self.reset()
@@ -73,6 +73,7 @@ class PipelineStats:
         self.backwards = 0
         self.probes = 0
         self.fused = 0
+        self.recomputes = 0
 
     def snapshot(self) -> dict:
         return {"forwards": self.forwards, "backwards": self.backwards,
@@ -163,7 +164,7 @@ class Tapper:
             raise NotImplementedError(
                 f"tap {name!r} applied twice outside a scan: shared "
                 f"call sites of one name come with the rest of the LM "
-                f"slice (ROADMAP.md item 11)")
+                f"slice (ROADMAP.md item 12)")
         self.metas.setdefault(name, meta)
         if self.mode == "probe":
             self.outputs[name] = spec_of(y)
@@ -238,19 +239,54 @@ def _stack_spec(specs) -> TensorSpec:
     return TensorSpec((len(specs),) + tuple(specs[0].shape), specs[0].dtype)
 
 
-def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params):
+def _checkpointed(body_fn, stp: Tapper):
+    """``body_fn(·, carry, params_l)`` under a per-layer
+    ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package):
+    the forward records into ``stp`` and keeps only what the tapper holds
+    (captures, layer outputs) and the layer's inputs; the backward runs
+    the layer again under an inactive tapper, which records nothing and
+    builds the same graph (every tapped output of a layer derives from
+    the carry, which requires grad, so the capture pass turns none of
+    them into a new leaf)."""
+    calls = []
+
+    def run(carry, p_l):
+        if calls:
+            STATS.recomputes += 1
+        t = Tapper() if calls else stp
+        calls.append(1)
+        return body_fn(t, carry, p_l)
+
+    def fn(carry, p_l):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(run, carry, p_l, use_reentrant=False)
+    return fn
+
+
+def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params, *,
+                   remat: bool = False):
     """Run ``body_fn(sub_tp, carry, params_l) -> carry`` over stacked
     layers (``xs_params``: the parameter tree with a leading L axis), one
     layer at a time, in order (``lax.scan``'s semantics), threading
     captures.  Each sub-tap ``n`` appears in ``tp`` as ``name/n`` with
     ``scanned + 1`` and, unless it is shared (``"~"``: its path stays
-    absolute), ``name``'s path in front of its own."""
+    absolute), ``name``'s path in front of its own.  ``remat`` recomputes
+    each layer in the backward (:func:`_checkpointed`) wherever autograd
+    records a graph, except under ``torch.func``'s transforms (the
+    ``multi`` strategy's vmap of grad), which take no saved-tensor hooks:
+    there the layers run as without it."""
     prefix = name + "/"
     sub_metas: dict[str, LayerMeta] = {}
     layers = []
+    remat = (remat and torch.is_grad_enabled() and tp.mode != "probe"
+             and not torch._C._are_functorch_transforms_active())
     for i in range(_leading(xs_params)):
         stp = Tapper(tp.mode, metas=sub_metas)
-        carry = body_fn(stp, carry, tree_map(lambda a: a[i], xs_params))
+        p_l = tree_map(lambda a: a[i], xs_params)
+        if remat:
+            carry = _checkpointed(body_fn, stp)(carry, p_l)
+        else:
+            carry = body_fn(stp, carry, p_l)
         layers.append(stp)
     if not tp.active():
         return carry

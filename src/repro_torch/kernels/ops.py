@@ -621,7 +621,7 @@ def _flash_ready(name: str, *tensors) -> bool:
     if hd not in _FLASH_HD:
         raise NotImplementedError(
             f"{name}: head_dim {hd} not in {_FLASH_HD}, the head dims the "
-            f"kernels are built for (ROADMAP.md item 11)")
+            f"kernels are built for (ROADMAP.md queue 2)")
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head_dim axis must be contiguous")

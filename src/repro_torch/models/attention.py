@@ -1,12 +1,11 @@
-"""Attention for the training path: GQA (+RoPE, qk-norm) over the
-``attend`` dispatch (full softmax, chunked, or this repo's flash
-kernels).
+"""Attention: GQA (+RoPE, qk-norm, sliding window) over the ``attend``
+dispatch (full softmax, chunked, or this repo's flash kernels), with the
+KV cache that prefill and decode serve from.
 
 All projections go through tapped denses, so per-example gradients cover
-every attention parameter.  The JAX package's serving paths (the KV
-cache), cross attention, MLA and the block-level ``dp_attn`` tap come
-with the rest of the LM slice (ROADMAP.md item 11) and raise
-``NotImplementedError``.
+every attention parameter; serving passes an inactive ``Tapper``.  Cross
+attention (ROADMAP.md item 12), MLA and the block-level ``dp_attn`` tap
+(items 11d and 11b) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,9 +26,8 @@ class FlashUnsupportedError(NotImplementedError):
     masking)."""
 
 
-def _item11(what: str):
-    return NotImplementedError(
-        f"{what} comes with the rest of the LM slice (ROADMAP.md item 11)")
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} comes with ROADMAP.md item {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +151,20 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
               rope_theta=1e4, qk_norm=False, positions=None, causal=True,
               window=0, cache=None, x_kv=None, attn_impl="auto",
               use_rope=True, dp_attn=False):
-    """Returns (attn_out, None) on the training path.  K and V are repeated
-    to all query heads before ``attend``, as in the JAX package."""
-    if cache is not None:
-        raise _item11("gqa_apply with a KV cache (serving)")
+    """Returns (attn_out, new_cache).  ``cache``: {"k", "v", "pos"} or
+    None; K and V are repeated to all query heads before ``attend``, as in
+    the JAX package.
+
+    With a cache, the new tokens' K and V are written at ``pos`` (at
+    ``pos mod S_max`` when a ``window`` is set and the cache holds no more
+    than the window: a ring) into a copy of the cache, which is returned,
+    and the queries attend to the valid slots with the plain softmax
+    (``impl="xla"``, as the JAX package: the flash kernels take no offset
+    or valid length)."""
     if x_kv is not None:
-        raise _item11("cross attention (gqa_apply x_kv=)")
+        raise _unported("cross attention (gqa_apply x_kv=)", "12")
     if dp_attn:
-        raise _item11("the block-level 'attn' tap (dp_attn=True)")
+        raise _unported("the block-level 'attn' tap (dp_attn=True)", "11b")
     B, T, _ = x.shape
     q = tp.dense(f"{name}/wq", x, p["wq"]["w"], p["wq"].get("b"))
     k = tp.dense(f"{name}/wk", x, p["wk"]["w"], p["wk"].get("b"))
@@ -173,14 +177,47 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
         k = cm.rmsnorm(tp, f"{name}/kn", p["kn"], k)
     if use_rope:
         if positions is None:
-            positions = torch.arange(T, device=x.device)[None, :] \
+            pos0 = cache["pos"] if cache is not None else 0
+            positions = (torch.arange(T, device=x.device)[None, :] + pos0) \
                 .expand(B, T)
         cos, sin = cm.rope_angles(positions, head_dim, rope_theta)
         q = cm.apply_rope(q, cos, sin)
         k = cm.apply_rope(k, cos, sin)
     rep = n_heads // n_kv
-    out = attend(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=causal,
-                 window=window, impl=attn_impl)
+    new_cache = None
+    if cache is not None:
+        S_max = cache["k"].shape[1]
+        ring = bool(window) and S_max <= window   # fixed-size rolling cache
+        idx = cache["pos"] % S_max if ring else cache["pos"]
+        ck = _updated(cache["k"], k, idx)
+        cv = _updated(cache["v"], v, idx)
+        new_cache = {"k": ck, "v": cv, "pos": cache["pos"] + T}
+        out = attend(q, repeat_kv(ck, rep), repeat_kv(cv, rep),
+                     causal=T > 1, offset=idx,
+                     valid_len=min(new_cache["pos"], S_max), window=0,
+                     impl="xla")
+    else:
+        out = attend(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=causal,
+                     window=window, impl=attn_impl)
     out = out.reshape(B, T, n_heads * head_dim)
-    return tp.dense(f"{name}/wo", out, p["wo"]["w"], p["wo"].get("b")), None
+    return (tp.dense(f"{name}/wo", out, p["wo"]["w"], p["wo"].get("b")),
+            new_cache)
 
+
+def _updated(buf, new, idx: int):
+    """A copy of ``buf`` (B, S, ...) with ``new`` (B, T, ...) written at
+    slots ``idx .. idx + T`` (``lax.dynamic_update_slice``: the start is
+    clamped so the slice fits)."""
+    idx = max(0, min(idx, buf.shape[1] - new.shape[1]))
+    out = buf.clone()
+    out[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+    return out
+
+
+def gqa_cache(batch, max_len, n_kv, head_dim, dtype=F32, device="cpu"):
+    """An empty KV cache: zeros, ``pos`` 0 (a Python int: positions and
+    masks are formed on the host, with no sync on the card)."""
+    z = dict(dtype=dtype, device=device)
+    return {"k": torch.zeros((batch, max_len, n_kv, head_dim), **z),
+            "v": torch.zeros((batch, max_len, n_kv, head_dim), **z),
+            "pos": 0}

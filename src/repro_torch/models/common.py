@@ -28,9 +28,10 @@ class Pm:
 
 def mk(gen: torch.Generator, shape, axes, *, scale=None, dist="normal",
        dtype=torch.float32, device="cpu"):
-    """One parameter leaf.  Normal draws come from ``gen`` (a CPU
-    generator, so a seed gives the same weights on every device), in
-    float32, scaled, then cast to ``dtype`` on ``device``."""
+    """One parameter leaf.  Normal draws come from ``gen`` on its own
+    device (a CPU generator gives the same weights on every device; a
+    card's draws on the card, and other numbers), in float32, scaled,
+    then cast to ``dtype`` on ``device``."""
     assert len(shape) == len(axes), (shape, axes)
     if dist == "zeros":
         return Pm(torch.zeros(shape, dtype=dtype, device=device), axes)
@@ -38,7 +39,8 @@ def mk(gen: torch.Generator, shape, axes, *, scale=None, dist="normal",
         return Pm(torch.ones(shape, dtype=dtype, device=device), axes)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0] if len(shape) else 1.0)
-    v = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    v = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return Pm(v.to(device=device, dtype=dtype), axes)
 
 

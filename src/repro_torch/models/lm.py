@@ -1,18 +1,23 @@
-"""Decoder-only language model, family ``dense`` (Llama-style: RMSNorm,
-GQA with RoPE, SwiGLU, optionally tied embeddings).
+"""Decoder-only language models, families ``dense`` and ``vlm`` (an
+early-fusion backbone over token ids): RMSNorm or LayerNorm (affine or
+not), GQA with RoPE and optional qk-norm, SwiGLU, optionally tied
+embeddings.
 
 Training applies go through the tapper, so DP per-example gradients
 cover every parameter: the embedding gather (``tok_emb``), every
 scanned block's norms and projections (``blocks/...``, stacked with a
-leading layer axis by :func:`~repro_torch.core.tapper.scan_with_taps`),
-the final norm and the head — with tied embeddings the head is the
-transposed table, tapped as ``"~tok_emb"`` so the two uses of one
-parameter form one group.  Params and tap names are the JAX package's.
+leading layer axis by :func:`~repro_torch.core.tapper.scan_with_taps`,
+each block recomputed in the backward under ``remat=True``), the final
+norm and the head — with tied embeddings the head is the transposed
+table, tapped as ``"~tok_emb"`` so the two uses of one parameter form one
+group.  Params and tap names are the JAX package's.
 
-The other families (MoE, SSM, hybrid, VLM), MLA, ``remat=True`` and the
-serving paths (``prefill``, ``decode_step``, ``init_cache``) come with
-the rest of the LM slice (ROADMAP.md item 11) and raise
-``NotImplementedError``.
+Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
+params, runs the layers as a Python loop over the stack against a KV
+cache, under ``torch.no_grad()`` with an inactive ``Tapper``.
+
+MLA (ROADMAP.md item 11d) and the MoE, SSM and hybrid families (item 12)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,21 +29,21 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.tree import tree_map
 
 
-def _item11(what: str):
-    return NotImplementedError(
-        f"{what} comes with the rest of the LM slice (ROADMAP.md item 11)")
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} comes with ROADMAP.md item {item}")
 
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise _item11(f"LM family {cfg.family!r}")
+        if cfg.family not in ("dense", "vlm"):
+            raise _unported(f"LM family {cfg.family!r}", "12")
         if cfg.mla:
-            raise _item11("MLA (multi-head latent attention)")
+            raise _unported("MLA (multi-head latent attention)", "11d")
         if cfg.n_experts:
-            raise _item11("MoE blocks")
+            raise _unported("MoE blocks", "12")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
@@ -56,8 +61,9 @@ class TransformerLM:
         return {k: v for k, v in p.items() if v is not None}
 
     def init(self, key: int | torch.Generator = 0, *, device="cuda"):
-        """-> (params, logical axes).  ``key`` seeds a CPU generator (or is
-        one), so a seed gives the same weights on every device."""
+        """-> (params, logical axes).  ``key`` seeds a CPU generator, so a
+        seed gives the same weights on every device; or it is a generator,
+        which may live on the card (its draws differ from a CPU seed's)."""
         dev = resolve_device(device)
         gen = key if isinstance(key, torch.Generator) \
             else torch.Generator().manual_seed(int(key))
@@ -94,13 +100,6 @@ class TransformerLM:
 
     def _backbone_train(self, params, h, tp: Tapper):
         c = self.cfg
-        if c.remat:
-            # The reference wraps each scanned block in jax.checkpoint;
-            # running without it would change the memory a config was
-            # sized for, so the knob is refused until it is served.
-            raise NotImplementedError(
-                "remat=True (per-layer torch.utils.checkpoint with the "
-                "captures intact) comes with ROADMAP.md item 11c")
 
         def body(stp, hh, p_l):
             a, _ = attn.gqa_apply(
@@ -111,30 +110,92 @@ class TransformerLM:
             x2 = cm.apply_norm(stp, "ln2", p_l.get("ln2"), hh, c.norm)
             return hh + mlp_apply(stp, "mlp", p_l["mlp"], x2, c.mlp)
 
-        return scan_with_taps(tp, "blocks", body, h, params["blocks"])
+        return scan_with_taps(tp, "blocks", body, h, params["blocks"],
+                              remat=c.remat)
 
     # ------------------------------------------------------------------
     # training apply: per-example losses
 
-    def apply(self, params, batch, tp: Tapper):
+    def logits(self, params, tokens, tp: Tapper | None = None):
+        """(B, T, V) logits of one causal forward over ``tokens`` (the
+        training path, tapped through ``tp``)."""
         c = self.cfg
-        tokens, labels = batch["tokens"], batch["labels"]
+        tp = tp or Tapper()
         h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens)
         h = self._backbone_train(params, h, tp)
         h = cm.apply_norm(tp, "final_norm", params.get("final_norm"), h,
                           c.norm)
-        logits = self._head(tp, params, h)
-        return cm.per_example_xent(logits, labels, batch.get("mask"),
-                                   vocab_valid=c.vocab)
+        return self._head(tp, params, h)
+
+    def apply(self, params, batch, tp: Tapper):
+        return cm.per_example_xent(self.logits(params, batch["tokens"], tp),
+                                   batch["labels"], batch.get("mask"),
+                                   vocab_valid=self.cfg.vocab)
 
     # ------------------------------------------------------------------
-    # serving
+    # serving: cache, prefill, decode
 
-    def init_cache(self, batch: int, max_len: int):
-        raise _item11("the KV cache (serving)")
+    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
+        """An empty cache: per layer K and V (stacked, leading L) and the
+        number of positions written (``pos``, a Python int)."""
+        c = self.cfg
+        one = attn.gqa_cache(batch, max_len, c.n_kv, c.hd, c.torch_dtype,
+                             device=resolve_device(device))
+        pos = one.pop("pos")
+        return {"layers": {k: torch.zeros((c.n_layers,) + v.shape,
+                                          dtype=v.dtype, device=v.device)
+                           for k, v in one.items()}, "pos": pos}
 
-    def prefill(self, *args, **kwargs):
-        raise _item11("prefill (serving)")
+    def _block_step(self, params_l, cache_l, h, pos):
+        """One layer applied to new tokens h (B, T, D) against its cache."""
+        c = self.cfg
+        tp = Tapper()
+        cl = dict(cache_l, pos=pos)
+        z = cm.apply_norm(tp, "ln1", params_l.get("ln1"), h, c.norm)
+        a, nc = attn.gqa_apply(tp, "attn", params_l["attn"], z, cache=cl,
+                               window=0, **self._attn_kw())
+        h = h + a
+        z = cm.apply_norm(tp, "ln2", params_l.get("ln2"), h, c.norm)
+        nc.pop("pos")
+        return h + mlp_apply(tp, "mlp", params_l["mlp"], z, c.mlp), nc
 
-    def decode_step(self, *args, **kwargs):
-        raise _item11("decode_step (serving)")
+    def _layers(self, params, cache, h):
+        """Every layer in order (``lax.scan``'s) -> (h, the new layers)."""
+        new = []
+        for i in range(self.cfg.n_layers):
+            h, nc = self._block_step(
+                tree_map(lambda a: a[i], params["blocks"]),
+                tree_map(lambda a: a[i], cache["layers"]), h, cache["pos"])
+            new.append(nc)
+        return h, {k: torch.stack([n[k] for n in new]) for k in new[0]}
+
+    def _last_logits(self, params, h):
+        h = _norm_plain(params.get("final_norm"), h, self.cfg.norm)
+        return self._head(Tapper(), params, h)[:, -1]
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens):
+        """tokens (B,) -> (logits (B, V), new cache)."""
+        h = params["tok_emb"]["emb"][tokens.long()][:, None, :]   # (B,1,D)
+        h, layers = self._layers(params, cache, h)
+        return self._last_logits(params, h), {"layers": layers,
+                                              "pos": cache["pos"] + 1}
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, max_len: int):
+        """tokens (B, T_prompt) -> (last-token logits (B, V), cache)."""
+        B, T = tokens.shape
+        cache = self.init_cache(B, max_len, device=tokens.device)
+        h = params["tok_emb"]["emb"][tokens.long()]
+        h, layers = self._layers(params, cache, h)
+        if self.cfg.prefill_last_only:
+            # Head matmul on the last position only: the (T, V) logits
+            # tensor drops to (1, V).
+            h = h[:, -1:]
+        return self._last_logits(params, h), {"layers": layers,
+                                              "pos": cache["pos"] + T}
+
+
+def _norm_plain(p, x, kind):
+    """Norm without taps (serving paths)."""
+    return cm.apply_norm(Tapper(), "n", p, x, kind)

@@ -11,7 +11,7 @@ cotangent, over their sweeps (GQA rep 1 / 2 / 4, causal and full,
 bq != bk, query padding) and the ``FlashShapeError`` raises; the lse
 rows are held against the JAX package's.  ``attend`` is compared for the
 xla, chunked and flash
-implementations.  Tolerance rtol 2e-4 / atol 2e-5 (f32; sums in another
+implementations, and ``gqa_apply`` through the KV cache.  Tolerance rtol 2e-4 / atol 2e-5 (f32; sums in another
 order).  The CUDA kernels run only on the card:
 ``tests/test_torch_flash_cuda.py``.
 """
@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.tapper import Tapper as JTapper  # noqa: E402
 from repro.kernels import flash_attn as jfa  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.core.tapper import Tapper  # noqa: E402
@@ -154,9 +155,28 @@ def test_chunked_and_masks_vs_reference():
 
 
 def test_unserved_attention_paths_raise():
-    x = torch.zeros(1, 4, 8)
-    p = {n: {"w": torch.zeros(8, 8)} for n in ("wq", "wk", "wv", "wo")}
+    """The KV cache is served: a prefill through the cache equals the
+    JAX package's (output, written K/V slots, ``pos``); cross attention
+    (item 12) and the block-level ``dp_attn`` tap (item 11b) raise."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 4, 8).astype(np.float32)
+    p = {n: {"w": rng.randn(8, 8).astype(np.float32) * 0.3}
+         for n in ("wq", "wk", "wv", "wo")}
     kw = dict(n_heads=2, n_kv=2, head_dim=4)
-    for extra in ({"cache": {}}, {"x_kv": x}, {"dp_attn": True}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tattn.gqa_apply(Tapper(), "attn", p, x, **kw, **extra)
+    tp = {n: {"w": torch.from_numpy(v["w"])} for n, v in p.items()}
+    want, jc = jattn.gqa_apply(
+        JTapper(), "attn", jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+        cache=jattn.gqa_cache(2, 6, 2, 4), **kw)
+    got, tc = tattn.gqa_apply(Tapper(), "attn", tp, torch.from_numpy(x),
+                              cache=tattn.gqa_cache(2, 6, 2, 4), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert tc["pos"] == int(jc["pos"]) == 4
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]),
+                                   rtol=RTOL, atol=ATOL)
+    xt = torch.from_numpy(x)
+    for extra, item in (({"x_kv": xt}, "item 12"),
+                        ({"dp_attn": True}, "item 11b")):
+        with pytest.raises(NotImplementedError, match=item):
+            tattn.gqa_apply(Tapper(), "attn", tp, xt, **kw, **extra)

@@ -344,8 +344,7 @@ def test_conv_norm_and_contrib_matches_reference(C, D, HW, K, stride, pad,
 @pytest.mark.parametrize("shared", [False, True])
 def test_apply_norm_contrib_routes(shared):
     # Unscanned dense layers fuse whether shared or not, as the planner
-    # marks them (the unfused pair of a shared layer comes with the LM
-    # slice, so the unshared pair is the yardstick); scanned ones raise.
+    # marks them (the unshared pair is the yardstick); scanned ones too.
     rng = np.random.RandomState(0)
     meta = LayerMeta("dense", ("l",), bias_key="b", shared=shared)
     cap = {"x": torch.from_numpy(_rand(rng, 2, 3, 5))}
@@ -362,6 +361,17 @@ def test_apply_norm_contrib_routes(shared):
     for k in c_u:
         np.testing.assert_allclose(c_f[k].numpy(), c_u[k].numpy(),
                                    rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        tkinds.apply_norm_contrib(
-            LayerMeta("dense", ("l",), scanned=1), cap, dy, weights=w)
+    # A scanned layer fuses one stacked layer at a time: a stack of two
+    # copies gives twice the norms and each copy's contribution.
+    before = STATS.fused
+    n_s, c_s = tkinds.apply_norm_contrib(
+        LayerMeta("dense", ("l",), bias_key="b", scanned=1),
+        {"x": torch.stack([cap["x"], cap["x"]])}, torch.stack([dy, dy]),
+        weights=w)
+    assert STATS.fused == before + 2
+    np.testing.assert_allclose(n_s.numpy(), 2 * n_u.numpy(), rtol=1e-5)
+    for k in c_u:
+        assert c_s[k].shape == (2,) + c_u[k].shape
+        for i in range(2):
+            np.testing.assert_allclose(c_s[k][i].numpy(), c_u[k].numpy(),
+                                       rtol=1e-5, atol=1e-7)

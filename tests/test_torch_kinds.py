@@ -11,9 +11,12 @@ conv, and a dense layer with a sequence long enough to take the chunked
 Gram.  The LM kinds come from a reduced Llama-3.2-1B's captures (JAX
 params, the port's capture checked first, with its stacked ``blocks/*``
 taps): the embedding gather (segsum / gram / pe), the scales, scanned
-dense layers (one stacked layer at a time), the shared transposed head,
-shared scanned layers (folded into the sequence axis, or materialized),
-and the tied embedding/head cross term.  f32, rtol 1e-5 (sums in another
+dense layers (one stacked layer at a time, fused under stale clipping
+too), the shared transposed head, shared scanned layers (folded into the
+sequence axis, or materialized), and the tied embedding/head cross term.
+The other dense LM configs (OLMo-1B, GLM-4-9B, StableLM-12B,
+Chameleon-34B) equal the JAX package's field by field, and reduced, their
+losses, cotangents and group norms.  f32, rtol 1e-5 (sums in another
 order).
 """
 import numpy as np
@@ -313,15 +316,83 @@ def test_tied_cross_term(lm):
 
 
 def test_scanned_fused_contrib_refused(lm):
-    """Stale clipping's fused pass over scanned layers is not ported
-    (``clipping.check_served`` refuses the mode before it is reached);
-    the unfused pair runs one stacked layer at a time."""
-    fields, cap, dy, psub = _lm_layer(lm, "blocks/mlp/w_up")
-    w = torch.ones(dy.shape[1])
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        tkinds.apply_norm_contrib(TMeta(**fields), _t(cap), _t(dy),
-                                  weights=w, params_sub=_t(psub))
-    n, c = tkinds.apply_norm_contrib(TMeta(**fields), _t(cap), _t(dy),
-                                     weights=w, params_sub=_t(psub),
-                                     fused=False, norm_method="gram")
-    assert n.shape == (dy.shape[1],) and c["w"].shape == psub["w"].shape
+    """Stale clipping's fused pass over a scanned layer is served: the
+    port takes the stack one layer at a time through ``gram_norm_fused``
+    (its plain version here) and equals the JAX package's ``lax.map``
+    over the same captures, and the unfused pair; a shared scanned layer
+    folds its stack into the sequence axis first."""
+    for name in ("blocks/mlp/w_up", "fold:dense"):
+        if name.startswith("fold:"):
+            fields, cap, dy, psub = _fold_case(lm, "dense")
+        else:
+            fields, cap, dy, psub = _lm_layer(lm, name)
+        w = np.random.RandomState(6).rand(dy.shape[1]).astype(np.float32)
+        jn, jc = jkinds.apply_norm_contrib(
+            JMeta(**fields), jax.tree.map(jnp.asarray, cap), jnp.asarray(dy),
+            weights=jnp.asarray(w), params_sub=jax.tree.map(jnp.asarray,
+                                                             psub))
+        n, c = tkinds.apply_norm_contrib(TMeta(**fields), _t(cap), _t(dy),
+                                         weights=_t(w), params_sub=_t(psub))
+        _close((n, c), _np((jn, jc)))
+        n_u, c_u = tkinds.apply_norm_contrib(
+            TMeta(**fields), _t(cap), _t(dy), weights=_t(w),
+            params_sub=_t(psub), fused=False, norm_method="gram")
+        _close((n, c), (n_u.numpy(), {k: v.numpy() for k, v in c_u.items()}))
+        assert n.shape == (dy.shape[fields["scanned"]],)
+        assert c["w"].shape == psub["w"].shape
+
+
+# ---------------------------------------------------------------------------
+# The other dense LM configs
+
+
+NEW_LMS = ("olmo-1b", "glm4-9b", "stablelm-12b", "chameleon-34b")
+
+
+@pytest.mark.parametrize("arch", NEW_LMS)
+def test_lm_configs_match_reference(arch):
+    """Each config and its ``.reduced()`` form equal the JAX package's
+    field by field, and build the port's model."""
+    import dataclasses
+    t, j = tget(arch), jget(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert isinstance(TLM(t.reduced()), TLM)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "stablelm-12b",
+                                  "chameleon-34b"])
+def test_lm_config_step_parity(arch):
+    """Reduced OLMo-1B (non-parametric LayerNorm, tied), StableLM-12B
+    (LayerNorm with bias) and Chameleon-34B (family ``vlm``, qk-norm):
+    per-example losses, every tap's cotangent and bk's per-group norms
+    equal the JAX package's (rtol 1e-5), on JAX params and the same
+    batch."""
+    jm, tm = JLM(jget(arch).reduced()), TLM(tget(arch).reduced())
+    jparams, _ = jm.init(jax.random.PRNGKey(2))
+    pnp = _np(jparams)
+    tparams = params_from_numpy(pnp, like=tm.init(0, device="cpu")[0],
+                                device="cpu")
+    rng = np.random.RandomState(2)
+    batch = {k: rng.randint(0, 60, (3, 10)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jl, jcaps, jdtaps, jmetas = jstrat._capture(
+        jm.apply, jparams, jax.tree.map(jnp.asarray, batch))
+    tl, tcaps, tdtaps, tmetas = capture_backward(
+        tm.apply, tparams, _t(batch), with_metas=True)
+    assert list(tmetas) == list(jmetas)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for n in jmetas:
+        _close(tdtaps[n], np.asarray(jdtaps[n]))
+    jkeys, jn = jstrat.group_norms_from_captures(jparams, jcaps, jdtaps,
+                                                 jmetas)
+    from repro_torch.core import strategies as tstrat
+    tkeys, tn = tstrat.group_norms_from_captures(tparams, tcaps, tdtaps,
+                                                 tmetas)
+    assert tkeys == jkeys
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5)
+    norms = {"olmo-1b": "layernorm_np", "stablelm-12b": "layernorm",
+             "chameleon-34b": "layernorm"}[arch]
+    assert tm.cfg.norm == norms
+    assert ("blocks/ln1" in tmetas) == (norms == "layernorm")
+    assert ("blocks/attn/qn" in tmetas) == (arch == "chameleon-34b")

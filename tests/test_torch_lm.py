@@ -11,9 +11,10 @@ Per-example losses and every tap's cotangent agree to rtol 1e-5, the
 per-group norms under bk (the tied embedding/head group included) to
 rtol 1e-5, and three σ = 0 ``private_step``s of bk and of ``auto`` flat
 leave the same params (rtol 1e-4 / atol 1e-6; AdamW eps 1e-6, lr 1e-4 in
-both, as the CNN lanes run it).  Per-layer and stale clipping of this
-model raise ``NotImplementedError`` in the port (flat only in this
-slice).
+both, as the CNN lanes run it); so do bk and ``auto`` under per_layer
+(uniform and auto budgets) and stale clipping, with the stale plan
+fusing the reference's layers.  ``remat=True`` equals ``remat=False``
+bitwise and the reference's ``remat=True``.
 """
 import dataclasses
 import functools
@@ -39,7 +40,7 @@ from repro.optim import adamw_update as jadamw_update  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core import strategies as tstrat  # noqa: E402
-from repro_torch.core.tapper import capture_backward  # noqa: E402
+from repro_torch.core.tapper import STATS, capture_backward  # noqa: E402
 from repro_torch.data import SyntheticLMDataset as TSyntheticLM  # noqa
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.core.tapper import Tapper  # noqa: E402
@@ -246,36 +247,124 @@ def test_private_steps_match_reference(lm, strategy, embed):
                 rtol=1e-4, atol=1e-6)
 
 
+# The non-flat clipping lanes: (strategy, clipping) by test id.  The
+# first four cases are the refusals this slice lifted.
+CLIP_MODES = {"per_layer": "per_layer", "stale": "stale",
+              "per_layer_auto": dict(mode="per_layer", budgets="auto",
+                                     ema=0.5)}
+
+
 @pytest.mark.parametrize("strategy,mode", [("bk", "per_layer"),
                                            ("bk", "stale"),
                                            ("auto", "per_layer"),
-                                           ("auto", "stale")])
+                                           ("auto", "stale"),
+                                           ("bk", "per_layer_auto"),
+                                           ("auto", "per_layer_auto")])
 def test_non_flat_clipping_raises(lm, strategy, mode):
-    """Flat clipping only on a model with scanned and shared layers: the
-    engine refuses at construction and ``dp_gradient`` before any step."""
+    """per_layer (uniform and auto budgets) and stale clipping over the
+    scanned and shared layers are served: three σ = 0 ``private_step``s
+    equal the JAX package's (losses, per-example norms, clip fractions,
+    budgets and per-layer norms rtol 1e-5; params rtol 1e-5 / atol 1e-7),
+    and the stale plan fuses the layers the reference's plan fuses.  The
+    clip bound (0.05) is below every example's norm, so every step
+    clips."""
+    jm, tm, jparams, tparams, batches = lm
+    spec = CLIP_MODES[mode]
+
+    def policy(pkg):
+        return spec if isinstance(spec, str) else pkg.ClipPolicy(**spec)
+
+    jdp = jcore.DPConfig(l2_clip=0.05, strategy=strategy,
+                         clipping=policy(jcore))
+    tdp = tcore.DPConfig(l2_clip=0.05, strategy=strategy,
+                         clipping=policy(tcore))
+    b0 = batches[0]
+    jeng = jcore.PrivacyEngine(
+        jm.apply, jparams, b0, dp=jdp, lr=1e-4,
+        optimizer=functools.partial(jadamw_update, eps=1e-6))
+    teng = tcore.PrivacyEngine(
+        tm.apply, tparams, _t(b0), dp=tdp, lr=1e-4, device="cpu",
+        optimizer=functools.partial(tadamw_update, eps=1e-6))
+    if strategy == "auto":
+        fused = {n for n, lp in teng.plan().layers.items() if lp.fused}
+        assert fused == {n for n, lp in jeng.plan().layers.items()
+                         if lp.fused}
+        assert bool(fused) == (mode == "stale")
+    keys = ("per_example_norms", "clip_fraction", "clip_fraction_lagged",
+            "per_layer_norms", "per_layer_clip_fraction", "clip_budgets")
+    jp, tp = jparams, tparams
+    jopt, topt = jadamw_init(jp), tadamw_init(tp)
+    for b in batches:
+        jp, jopt, jloss, jaux = jeng.private_step(
+            jp, jopt, jax.tree.map(jnp.asarray, b))
+        tp, topt, tloss, taux = teng.private_step(tp, topt, _t(b))
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        assert {k for k in keys if k in taux} == {k for k in keys
+                                                  if k in jaux}
+        for k in keys:
+            if k in jaux:
+                np.testing.assert_allclose(taux[k].numpy(),
+                                           np.asarray(jaux[k]), rtol=1e-5,
+                                           err_msg=k)
+    assert float(taux["clip_fraction"]) == 1.0
+    _tree_close(params_to_numpy(tp), jax.tree.map(np.asarray, jp),
+                rtol=1e-5, atol=1e-7)
+
+
+def test_remat_is_refused_by_name(lm):
+    """``remat=True`` is served (per-layer ``torch.utils.checkpoint``):
+    the captures, cotangents and clipped sums equal ``remat=False``'s
+    bitwise on the CPU, and the backward recomputes each layer once
+    (``STATS.recomputes``) while the capture pass still counts one
+    forward and one backward."""
     _, tm, _, tparams, batches = lm
-    dp = tcore.DPConfig(strategy=strategy, clipping=mode)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcore.PrivacyEngine(tm.apply, tparams, _t(batches[0]), dp=dp,
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcore.dp_gradient(tm.apply, tparams, _t(batches[0]), cfg=dp)
+    rm = TLM(tm.cfg.replace(remat=True))
+    b = _t(batches[1])
+    STATS.reset()
+    got = capture_backward(rm.apply, tparams, b)
+    assert STATS.recomputes == tm.cfg.n_layers
+    assert STATS.snapshot() == {"forwards": 1, "backwards": 1, "probes": 0}
+    want = capture_backward(tm.apply, tparams, b)
+    assert torch.equal(got[0], want[0])
+    for n in want[2]:
+        assert torch.equal(got[2][n], want[2][n]), n
+        for k in want[1][n]:
+            assert torch.equal(got[1][n][k], want[1][n][k]), n
+    for strategy in ("bk", "auto", "ghost"):
+        g = tcore.clipped_grad_sum(rm.apply, tparams, b, l2_clip=0.05,
+                                   strategy=strategy)
+        w = tcore.clipped_grad_sum(tm.apply, tparams, b, l2_clip=0.05,
+                                   strategy=strategy)
+        assert torch.equal(g[2], w[2]), strategy
+        _tree_close(params_to_numpy(g[1]), params_to_numpy(w[1]), rtol=0,
+                    atol=0)
 
 
-def test_remat_is_refused_by_name():
-    """``remat=True`` is not served yet (the reference checkpoints each
-    scanned block; the port would need per-layer ``torch.utils.checkpoint``
-    with the captures intact), so the training apply refuses it, naming
-    its ROADMAP item, instead of running without it."""
-    cfg = tget("llama3.2-1b").reduced().replace(remat=True)
-    tm = TLM(cfg)
-    params = tm.init(0, device="cpu")[0]
-    batch = _t(TSyntheticLM(cfg.vocab, T, n_examples=4).batch(range(2)))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        capture_backward(tm.apply, params, batch)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tcore.dp_gradient(tm.apply, params, batch,
-                          cfg=tcore.DPConfig(strategy="bk"))
+def test_remat_matches_reference_remat(lm):
+    """The port's ``remat=True`` against the JAX package's (each scanned
+    block under ``jax.checkpoint``): losses, cotangents and bk's clipped
+    sum and norms, rtol 1e-5."""
+    jm, tm, jparams, tparams, batches = lm
+    jr = JLM(jm.cfg.replace(remat=True, attn_impl="xla"))
+    tr = TLM(tm.cfg.replace(remat=True, attn_impl="xla"))
+    b = batches[2]
+    jl, _, jdtaps = jax.jit(
+        lambda p, bb: jstrat._capture(jr.apply, p, bb)[:3])(
+        jparams, jax.tree.map(jnp.asarray, b))
+    tl, _, tdtaps = capture_backward(tr.apply, tparams, _t(b))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for n in jdtaps:
+        want = np.asarray(jdtaps[n])
+        np.testing.assert_allclose(tdtaps[n].numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max(), err_msg=n)
+    _, jsum, jn = jax.jit(functools.partial(
+        jcore.clipped_grad_sum, jr.apply, l2_clip=0.05, strategy="bk"))(
+        jparams, jax.tree.map(jnp.asarray, b))
+    _, tsum, tn = tcore.clipped_grad_sum(tr.apply, tparams, _t(b),
+                                         l2_clip=0.05, strategy="bk")
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5)
+    _tree_close(params_to_numpy(tsum), jax.tree.map(np.asarray, jsum),
+                rtol=1e-5, atol=1e-7)
 
 
 def test_params_from_numpy_checks_the_lm_tree(lm):
@@ -298,15 +387,17 @@ def test_params_from_numpy_checks_the_lm_tree(lm):
 
 
 def test_unserved_models_raise():
-    for arch in ("olmo-1b", "deepseek-v3-671b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="LM slice"):
+    """The LM configs that need blocks this slice does not port (MoE and
+    MLA: ROADMAP.md items 11d and 12; SSM and hybrid: item 12) raise,
+    naming their item."""
+    for arch in ("deepseek-v3-671b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="item"):
             tget(arch)
     cfg = tget("llama3.2-1b").reduced()
-    for bad in (cfg.replace(family="moe"), cfg.replace(mla=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for bad, item in ((cfg.replace(family="moe"), "item 12"),
+                      (cfg.replace(n_experts=4), "item 12"),
+                      (cfg.replace(mla=True), "item 11d")):
+        with pytest.raises(NotImplementedError, match=item):
             build_model(bad)
-    m = build_model(cfg)
-    assert isinstance(m, TLM)
-    for call in (lambda: m.init_cache(1, 8), m.prefill, m.decode_step):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    assert isinstance(build_model(cfg), TLM)
+    assert isinstance(build_model(tget("chameleon-34b").reduced()), TLM)

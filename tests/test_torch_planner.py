@@ -1,10 +1,10 @@
 """The port's planner (``core/costmodel.py``) against the JAX package's.
 
 For the toy CNN, the AlexNet-structured config at 64 px, full-width
-AlexNet and VGG16 at B = 32, and Llama-3.2-1B reduced and at full width
-(B = 8, T = 1024, bf16) with ``attn_impl="flash"`` (by shape only: JAX
-plans from ``jax.eval_shape`` params, the port from ``device="meta"``
-tensors), the two planners must make the same per-layer
+AlexNet and VGG16 at B = 32, Llama-3.2-1B reduced and at full width and
+OLMo-1B at full width (B = 8, T = 1024, bf16) with ``attn_impl="flash"``
+(by shape only: JAX plans from ``jax.eval_shape`` params, the port from
+``device="meta"`` tensors), the two planners must make the same per-layer
 ``(norm_method, stash, fused)`` decisions, group ``norm_mode`` and
 ``sum_method``, ``needs_backward``, capture bytes and
 ``microbatches="auto"`` count under flat, per_layer and stale clipping.
@@ -96,18 +96,24 @@ def test_plan_decisions_match_reference(arch, mode):
     assert not (mode != "flat" and plan.needs_backward)
 
 
-# LM -> (config transform, batch, sequence length)
-LMS = {"llama_reduced": (lambda c: c.reduced(), 2, 16),
-       "llama": (lambda c: c, 8, 1024)}
+# LM -> (arch, config transform, batch, sequence length, the stacked
+# layers a stale plan fuses)
+_ATTN_MLP = {f"blocks/{n}" for n in ("attn/wq", "attn/wo", "mlp/w_gate",
+                                     "mlp/w_up", "mlp/w_down")}
+LMS = {"llama_reduced": ("llama3.2-1b", lambda c: c.reduced(), 2, 16,
+                         None),
+       "llama": ("llama3.2-1b", lambda c: c, 8, 1024, _ATTN_MLP),
+       "olmo": ("olmo-1b", lambda c: c, 8, 1024,
+                _ATTN_MLP | {"blocks/attn/wk", "blocks/attn/wv"})}
 _TORCH_DT = {jnp.dtype(jnp.float32): torch.float32,
              jnp.dtype(jnp.bfloat16): torch.bfloat16}
 
 
 def _lm_both(lm, **opts):
     """Plan one LM in both packages, by shape."""
-    fn, B, T = LMS[lm]
-    jm = JLM(fn(jget("llama3.2-1b")).replace(attn_impl="flash"))
-    tm = TLM(fn(tget("llama3.2-1b")).replace(attn_impl="flash"))
+    arch, fn, B, T, _ = LMS[lm]
+    jm = JLM(fn(jget(arch)).replace(attn_impl="flash"))
+    tm = TLM(fn(tget(arch)).replace(attn_impl="flash"))
     jp = jax.eval_shape(lambda k: jm.init(k)[0], jax.random.PRNGKey(0))
     tp = jax.tree.map(lambda s: torch.empty(
         s.shape, dtype=_TORCH_DT[jnp.dtype(s.dtype)], device="meta"), jp)
@@ -129,10 +135,19 @@ def test_lm_plan_decisions_match_reference(lm, mode):
     assert plan.metas["~tok_emb"].shared
     tied = next(g for g in plan.groups if g.path == ("tok_emb",))
     assert tied.members == ("tok_emb", "~tok_emb")
-    # full width: segsum on the 128 256-row table, so the tied group
-    # takes the cross term; the reduced table is small enough to stash
-    assert tied.norm_mode == ("tied" if lm == "llama" else "group_pe")
+    # full width: segsum on the 128 256- and 50 304-row tables, so the
+    # tied group takes the cross term; the reduced table is small enough
+    # to stash
+    assert tied.norm_mode == ("group_pe" if lm == "llama_reduced"
+                              else "tied")
     assert not plan.needs_backward
+    # Under stale clipping the stacked Gram-realized denses fuse (one
+    # gram_norm_fused call per layer of the stack), as in the reference.
+    fused = {n for n, lp in plan.layers.items() if lp.fused}
+    if mode == "stale" and LMS[lm][4] is not None:
+        assert fused == LMS[lm][4]
+    elif mode != "stale":
+        assert not fused
 
 
 @pytest.mark.parametrize("opts", [
