@@ -45,6 +45,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the port on the CPU (plain versions; the CPU tests hold those against
    the JAX package), under crb / ghost / bk and the planned stale step;
    and a reduced Llama-3.2-1B's (flash kernels) under bk and ``auto``;
+   then (phase ``dp_attn_parity``, f32, σ = 0) the block-level
+   ``"attn"`` tap: reduced Llama-3.2-1B (flash) and reduced MLA with
+   ``dp_attn=True`` under bk's ``attn_norm`` ghost and pe give the norms
+   (rtol 1e-4) and clipped sums (the reference's f32 sum tolerance) of
+   per-projection taps, launching the flash forward three times a layer,
+   and MLA's prefill plus decode (absorbed and not) equals one causal
+   forward within the flash rows' f32 tolerance;
 6. main path: ``PrivacyEngine.private_step`` on full-width AlexNet
    (1000 classes, ~74.7 M params), 3 steps each of crb / ghost / bk with the
    kernel knobs and of the planned step (``strategy="auto"``) under flat,
@@ -86,10 +93,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    times, the forward and the recompute; the clipped noise-free sums of
    one batch are bitwise equal, or else within the bf16 lane's
    tolerance, and the lane says which).
+   Then (phase ``lm_dp_attn``) ``dp_attn=True``: ``auto`` flat as
+   planned and with the ``"attn"`` block pinned to ghost and to pe, 3
+   steps each: the plan, step ms, peak, busy share, top device time;
+   each step must launch each flash kernel once a layer for every pass
+   over the blocks its plan runs (``attn_passes``: the capture pass, the
+   norm phase's recompute, the contribution's unless stashed: 48).
 9b. OLMo-1B (phase ``olmo_main_path``): the same bk and ``auto`` flat
    lanes on full-width OLMo-1B (16 layers, d_model 2048, 16/16 heads,
    head_dim 128, vocab 50 304, non-parametric LayerNorm, tied, bf16,
    flash): the flash kernels at head_dim 128 on a model.
+9f. DeepSeek-V3's first layer at full width (phase ``deepseek_layer0``:
+   MLA, d_model 7168, 128 heads, q / kv ranks 1536 / 512, nope / rope /
+   v 128 / 64 / 128, dense SwiGLU d_ff 18 432, vocab 129 280 untied,
+   bf16, weights drawn on the card; cut to one layer, no experts, no
+   remat or FSDP): ``auto`` flat with ``dp_attn=True,
+   attn_impl="xla"``, B = 4, T = 512, 3 steps (plan, step ms, peak, and
+   the DP gradient's own peak; no kernel of this repo launches); then
+   serving 4 prompts of 128 tokens, 32 out, with the absorbed decode off
+   and on: prefill ms, decode ms a token, the latent cache's 1152 bytes
+   a token, decode-equals-forward against the f32 forward
+   (``serve_checks_f32_ref``).
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -1014,6 +1038,88 @@ def small_lm_parity(torch):
          "strategies": ["bk", "auto"]})
 
 
+def _sum_close(torch, got, want, what):
+    """The JAX package's f32 clipped-sum tolerance
+    (``tests/test_exactness.py`` ``_sum_tol``): rtol 3e-3, atol 3e-4 of
+    the largest entry (at least 1)."""
+    from repro_torch.tree import get_subtree, leaf_paths
+    paths = leaf_paths(want)
+    scale = max(max(get_subtree(want, q).abs().max().item() for q in paths),
+                1.0)
+    tree_close(torch, got, want, 3e-3, 3e-4 * scale, what)
+
+
+def dp_attn_parity(torch):
+    """Phase 5b: the block-level ``"attn"`` tap on the card, f32, σ = 0.
+    Reduced Llama-3.2-1B (2 layers, ``attn_impl="flash"``) with
+    ``dp_attn=True`` under bk's ``attn_norm`` ghost and pe gives the
+    per-example norms (rtol 1e-4) and clipped sums (the reference's f32
+    sum tolerance) of ``dp_attn=False`` on the same params and batch: the
+    same function, realized by a layer-local recompute, which launches
+    the flash kernels once more a layer for the norm and once more for
+    the contribution.  Then reduced MLA (``attn_impl="xla"``) does the
+    same, and its prefill plus decode (absorbed and not) equals one causal
+    forward within the flash rows' f32 tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import TransformerLM
+    base = get_config("llama3.2-1b")
+    rec = {}
+    for lane, cfg in (("llama_flash",
+                       base.reduced().replace(attn_impl="flash")),
+                      ("mla_xla", base.replace(mla=True).reduced()
+                       .replace(attn_impl="xla"))):
+        plain = TransformerLM(cfg)
+        blk = TransformerLM(cfg.replace(dp_attn=True))
+        params, _ = plain.init(3, device="cuda")
+        b = SyntheticLMDataset(cfg.vocab, 16, n_examples=8).batch(range(4))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        _, want_sum, want_n = clipped_grad_sum(plain.apply, params, batch,
+                                               l2_clip=0.05, strategy="bk")
+        for method in ("ghost", "pe"):
+            ops.reset_launches()
+            _, got_sum, got_n = clipped_grad_sum(
+                blk.apply, params, batch, l2_clip=0.05, strategy="bk",
+                attn_norm=method)
+            fwd = ops.LAUNCHES["flash_fwd"]
+            want_fwd = 3 * cfg.n_layers if cfg.attn_impl == "flash" else 0
+            check(fwd == want_fwd, f"{lane} dp_attn {method}: {fwd} flash "
+                  f"forward launches, expected {want_fwd}")
+            check(torch.allclose(got_n, want_n, rtol=1e-4),
+                  f"{lane} dp_attn {method}: norms differ by "
+                  f"{(got_n / want_n - 1).abs().max().item():.3e}")
+            _sum_close(torch, got_sum, want_sum,
+                       f"{lane} dp_attn {method} clipped sum")
+            rec[f"{lane}_{method}"] = {
+                "norm_rel_err": (got_n / want_n - 1).abs().max().item(),
+                "flash_fwd_launches": fwd}
+    cfg = base.replace(mla=True).reduced()
+    params, _ = TransformerLM(cfg).init(3, device="cuda")
+    prompts = torch.from_numpy(SyntheticLMDataset(cfg.vocab, 8, n_examples=8)
+                               .batch(range(2))["tokens"]).cuda()
+    for absorbed in (False, True):
+        m = TransformerLM(cfg.replace(mla_absorbed_decode=absorbed))
+        logits, cache = m.prefill(params, prompts, max_len=12)
+        outs, toks = [logits], []
+        for _ in range(4):
+            toks.append(torch.argmax(outs[-1], -1))
+            logits, cache = m.decode_step(params, cache, toks[-1])
+            outs.append(logits)
+        with torch.no_grad():
+            full = m.logits(params, torch.cat(
+                [prompts, torch.stack(toks, 1)], 1))
+        errs = [flash_close(torch, o, full[:, 7 + i])
+                for i, o in enumerate(outs)]
+        check(all(e[2] for e in errs), f"MLA decode (absorbed={absorbed}) "
+              f"differs from the forward: {[e[:2] for e in errs]}")
+        rec[f"mla_decode_absorbed_{str(absorbed).lower()}"] = {
+            "max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs)}
+    log({"phase": "dp_attn_parity", "ok": True, "checks": rec})
+
+
 def planned_needs(eng, steps):
     """The launches each step of a planned lane must make, read off its
     plan: ``pe_conv_grad_2d`` once per plain conv (stride and dilation 1,
@@ -1051,26 +1157,31 @@ def _pair(v):
 
 
 def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
-              steps=3, n_examples=4096, lr=1e-3, named=(), also_needs=None):
+              steps=3, n_examples=4096, lr=1e-3, named=(), also_needs=None,
+              no_kernel=False):
     """Each lane of ``runs`` — (lane, strategy, clipping, norm knobs, the
-    launches each step must make: a dict, or ``"plan"`` to read them off
-    the lane's plan, ``planned_needs``) — through ``PrivacyEngine``, σ = 1,
-    C = 1, AdamW: ``steps`` timed ``private_step``s with the launch counts
-    set to 0 before each step and read after it, then one profiled step
-    (``named``: kernel name parts whose device time it reports).  Adds the
-    counts to ``launches`` and each lane's, step by step, to ``lanes``;
-    ``also_needs`` adds launches every lane must make.  Returns {lane:
-    {"step_ms", "norms0" (step 0's per-example norms), "plan" (the
-    realizations of a planned lane), "profiled" (the profiled step),
-    "peak_mem_gb"}}."""
+    launches each step must make: a dict, or a function of the engine
+    and the step count, such as ``planned_needs``, which reads them off
+    the lane's plan; optionally the planner's per-layer overrides) —
+    through ``PrivacyEngine``, σ = 1, C = 1, AdamW: ``steps`` timed
+    ``private_step``s with the launch counts set to 0 before each step
+    and read after it, then one profiled step (``named``: kernel name
+    parts whose device time it reports).  Adds the counts to
+    ``launches`` and each lane's, step by step, to ``lanes``;
+    ``also_needs`` adds launches every lane must make.  A lane must
+    launch some kernel of the repo, or, with ``no_kernel``, none.
+    Returns {lane: {"step_ms", "norms0" (step 0's per-example norms),
+    "plan" (the realizations of a planned lane), "profiled" (the
+    profiled step), "peak_mem_gb"}}."""
     from repro_torch.core import DPConfig, PrivacyEngine
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw_init
     out = {}
-    for lane, strategy, clipping, norm, needs in runs:
+    for lane, strategy, clipping, norm, needs, *rest in runs:
         B = int(next(iter(batches[0].values())).shape[0])
         dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
-                      norm=norm, clipping=clipping)
+                      norm=norm, clipping=clipping,
+                      overrides=rest[0] if rest else ())
         eng = PrivacyEngine(model.apply, params, batches[0], dp,
                             optimizer="adamw", lr=lr, run_seed=0,
                             sampling_rate=B / n_examples, device="cuda")
@@ -1078,8 +1189,8 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
         if strategy == "auto":
             plan = eng.explain()
             realized = eng.plan().realizations()
-        if needs == "plan":
-            needs = planned_needs(eng, steps)
+        if callable(needs):
+            needs = needs(eng, steps)
         needs = dict(needs, **(also_needs or {}))
         p, opt = params, adamw_init(params)
         torch.cuda.synchronize()
@@ -1110,8 +1221,12 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
             got = [c[k] for c in per_step]
             check(got == want,
                   f"{lane}: {k} launches per step {got}, expected {want}")
-        check(any(sum(w) for w in needs.values()),
-              f"{lane}: no kernel of the lane launched")
+        if no_kernel:
+            check(not any(counts.values()),
+                  f"{lane}: launched {counts}, expected no kernel")
+        else:
+            check(any(sum(w) for w in needs.values()),
+                  f"{lane}: no kernel of the lane launched")
         log({"phase": phase, "lane": lane, "strategy": strategy,
              "clipping": dataclass_dict(clipping) if not isinstance(
                  clipping, str) else clipping,
@@ -1259,9 +1374,10 @@ def alexnet_per_layer(torch, model, params, batches, lanes, launches,
     t = time.perf_counter()
     auto = NormCfg(conv_impl="pallas")
     runs = [("auto_per_layer_uniform", "auto", ClipPolicy(mode="per_layer"),
-             auto, "plan"),
+             auto, planned_needs),
             ("auto_per_layer_auto", "auto",
-             ClipPolicy(mode="per_layer", budgets="auto"), auto, "plan")]
+             ClipPolicy(mode="per_layer", budgets="auto"), auto,
+             planned_needs)]
     out = run_lanes(torch, "alexnet_per_layer", model, params, batches, runs,
                     lanes, launches)
     timings["alexnet"].update({k: v["step_ms"] for k, v in out.items()})
@@ -1319,10 +1435,10 @@ def vgg16_main_path(torch, lanes, launches, timings):
             ("vgg16_bk", "bk", "flat", NormCfg(dense="pallas", conv="pallas",
                                                conv_impl="pallas"),
              {"gram_norm": [n_layers] * steps}),
-            ("vgg16_auto_flat", "auto", "flat", auto, "plan"),
+            ("vgg16_auto_flat", "auto", "flat", auto, planned_needs),
             ("vgg16_auto_per_layer", "auto", ClipPolicy(mode="per_layer"),
-             auto, "plan"),
-            ("vgg16_auto_stale", "auto", "stale", auto, "plan")]
+             auto, planned_needs),
+            ("vgg16_auto_stale", "auto", "stale", auto, planned_needs)]
     out.update(run_lanes(torch, "vgg16_main_path", model, params, batches,
                          runs, lanes, launches, steps))
     ref_norms = out["vgg16_crb"]["norms0"]
@@ -1369,7 +1485,7 @@ def toy_cnns(torch, lanes, launches):
                  NormCfg(dense="pallas", conv="pallas", conv_impl="pallas"),
                  {"gram_norm": [L + 1] * steps}),
                 (f"{name}_auto_flat", "auto", "flat",
-                 NormCfg(conv_impl="pallas"), "plan")]
+                 NormCfg(conv_impl="pallas"), planned_needs)]
         out = run_lanes(torch, "toy_cnns", model, params, batches, runs,
                         lanes, launches, steps)
         ref_norms = out[f"{name}_crb"]["norms0"]
@@ -1530,13 +1646,28 @@ def lm_inputs(torch, arch, widths):
     return model, params, batches
 
 
-def flash_needs(steps, remat=False):
-    """Each flash kernel's launches a step of one capture pass: once a
-    layer (the forward twice a layer under remat: the forward and the
-    backward's recompute)."""
-    return {"flash_fwd": [(2 if remat else 1) * LM_LAYERS] * steps,
-            "flash_dq": [LM_LAYERS] * steps,
-            "flash_dkv": [LM_LAYERS] * steps}
+def flash_needs(steps, remat=False, passes=1):
+    """Each flash kernel's launches a step of ``passes`` passes over the
+    layers (the capture pass, and the ``dp_attn`` recomputes,
+    ``attn_passes``): once a layer each (the forward once more a layer
+    under remat: the backward's recompute)."""
+    return {"flash_fwd": [(passes + remat) * LM_LAYERS] * steps,
+            "flash_dq": [passes * LM_LAYERS] * steps,
+            "flash_dkv": [passes * LM_LAYERS] * steps}
+
+
+def attn_passes(plan):
+    """The passes over the attention layers a flat planned step runs,
+    read off its plan: the capture pass; each ``"attn"`` layer's norm
+    phase runs the block's forward and backward again once a layer of
+    its stack, its sum phase once more unless the norm stashed the
+    per-example grads; the shared weighted backward, where planned, is
+    one more pass of the model."""
+    n = 1 + int(plan.needs_backward)
+    for g in plan.groups:
+        if plan.layers[g.members[0]].kind == "attn":
+            n += 1 + (g.sum_method == "contrib")
+    return n
 
 
 def lm_main_path(torch, launches, lanes, profiled, llm, phase, prefix):
@@ -1568,9 +1699,9 @@ def lm_clip_modes(torch, launches, lanes, profiled, llm):
     model, params, batches = llm
     steps = 3
     runs = [("llama_auto_per_layer", "auto", ClipPolicy(mode="per_layer"),
-             NormCfg(), "plan"),
+             NormCfg(), planned_needs),
             ("llama_auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg(),
-             "plan")]
+             planned_needs)]
     out = run_lanes(torch, "lm_clip_modes", model, params, batches, runs,
                     lanes, launches, steps, lr=1e-4,
                     named=FLASH_NAMES + ("direct_wgmma",),
@@ -1641,6 +1772,159 @@ def lm_remat(torch, launches, lanes, llm):
     torch.cuda.empty_cache()
 
 
+def lm_dp_attn(torch, launches, lanes, profiled, llm):
+    """Phase 9e: full-width Llama-3.2-1B with ``dp_attn=True`` (each
+    block's attention tapped as one ``"attn"`` layer), ``auto`` flat as
+    planned and with the block pinned to ``ghost`` and to ``pe``.  Prints
+    each lane's plan (does the port pick pe, as the reference's record
+    ``BENCH_strategies.json`` ``llama32_1b@dp_attn`` does?), step ms,
+    peak, busy share and top device time; each step must launch each
+    flash kernel once a layer for every pass its plan runs
+    (``attn_passes``: the capture pass, the norm phase's recompute, and
+    the contribution's unless the norm stashed)."""
+    from repro_torch.core import NormCfg
+    from repro_torch.models.lm import TransformerLM
+    model, params, batches = llm
+    model = TransformerLM(model.cfg.replace(dp_attn=True))
+    steps = 3
+    passes = {}
+
+    def needs(lane):
+        def f(eng, steps):
+            passes[lane] = attn_passes(eng.plan())
+            return dict(planned_needs(eng, steps),
+                        **flash_needs(steps, passes=passes[lane]))
+        return f
+
+    runs = [(f"llama_dp_attn_{name}", "auto", "flat", NormCfg(),
+             needs(f"llama_dp_attn_{name}"), ov)
+            for name, ov in (("auto", ()),
+                             ("ghost", {"blocks/attn": "ghost"}),
+                             ("pe", {"blocks/attn": "pe"}))]
+    out = run_lanes(torch, "lm_dp_attn", model, params, batches, runs,
+                    lanes, launches, steps, lr=1e-4, named=FLASH_NAMES)
+    summary = {}
+    for lane, o in out.items():
+        profiled[lane] = o["profiled"].get("named", {})
+        summary[lane] = {
+            "attn_realization": o["plan"]["blocks/attn"],
+            "passes": passes[lane], "step_ms": o["step_ms"],
+            "peak_mem_gb": o["peak_mem_gb"],
+            "busy_share": o["profiled"].get("busy_share"),
+            "top": o["profiled"].get("top", [])[:3],
+            "flash_launches_each_step": {
+                k: lanes[lane].get(k) for k in FLASH_NAMES}}
+    log({"phase": "lm_dp_attn", "lanes": summary,
+         "auto_picks": out["llama_dp_attn_auto"]["plan"]["blocks/attn"]})
+
+
+# DeepSeek-V3's first layer at full width (arXiv:2412.19437; the widths
+# of configs/deepseek_v3_671b.py): MLA with d_model 7168, 128 heads, q
+# rank 1536, kv rank 512, nope 128, rope 64, v 128, and the dense SwiGLU
+# the model keeps in its first three layers (hf deepseek-ai/DeepSeek-V3:
+# intermediate_size 18432, first_k_dense_replace 3); vocab 129 280,
+# untied, bf16.  Cut: one layer, family "dense" (no experts), no remat,
+# no FSDP.
+DS_D_FF = 18432
+DS_B, DS_T = 4, 512
+
+
+def deepseek_layer0(torch, launches, lanes):
+    """Phase 9f: DeepSeek-V3's first layer (``DS_*``; weights drawn on
+    the card from a seeded CUDA generator).  Train: ``auto`` flat with
+    ``dp_attn=True, attn_impl="xla"`` (the flash kernels take one head
+    dim, MLA's q/k are 192 wide and its v 128), B = 4, T = 512, σ = 1,
+    3 steps: plan, step ms, peak; MLA runs no kernel of this repo, so
+    the lane must launch none.  Serve: 4 prompts of 128 tokens, 32 tokens
+    out, with ``mla_absorbed_decode`` off and on: prefill ms, decode ms a
+    token, the latent cache's bytes a token, and decode-equals-forward
+    (``serve_checks_f32_ref``)."""
+    from repro_torch.configs.deepseek_v3_671b import CONFIG
+    from repro_torch.core import NormCfg, clipped_grad_sum
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    t0 = time.perf_counter()
+    cfg = CONFIG.replace(n_layers=1, family="dense", n_experts=0,
+                         n_shared_experts=0, topk=0, d_ff=DS_D_FF,
+                         remat=False, fsdp=False, attn_impl="xla")
+    check((cfg.d_model, cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank,
+           cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.vocab)
+          == (7168, 128, 1536, 512, 128, 64, 128, 129280) and cfg.mla
+          and not cfg.tie_embeddings and cfg.dtype == "bfloat16",
+          "deepseek-v3 config")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = TransformerLM(cfg).init(gen, device="cuda")
+    n_params = sum(get_subtree(params, q).numel() for q in leaf_paths(params))
+    ds = SyntheticLMDataset(cfg.vocab, DS_T, n_examples=4096, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                ds.batch(range(s * DS_B, (s + 1) * DS_B)).items()}
+               for s in range(4)]
+    model = TransformerLM(cfg.replace(dp_attn=True))
+    steps = 3
+    out = run_lanes(torch, "deepseek_layer0", model, params, batches,
+                    [("deepseek_layer0_dp_attn_auto", "auto", "flat",
+                      NormCfg(), {})], lanes, launches, steps, lr=1e-4,
+                    no_kernel=True)
+    train = out["deepseek_layer0_dp_attn_auto"]
+    # the DP gradient's own peak, without the optimizer's moments
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clipped_grad_sum(model.apply, params, batches[0], l2_clip=1.0,
+                     strategy="auto")
+    train["clipped_sum_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del batches
+    torch.cuda.empty_cache()
+
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    max_len = SERVE_PROMPT + SERVE_GEN
+    serve = {}
+    for absorbed in (False, True):
+        m = TransformerLM(cfg.replace(mla_absorbed_decode=absorbed))
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        m.prefill(params, prompts, max_len=max_len)            # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = m.prefill(params, prompts, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        tok = torch.argmax(logits, -1)
+        t = time.perf_counter()
+        for _ in range(SERVE_GEN - 1):
+            logits, cache = m.decode_step(params, cache, tok)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / (SERVE_GEN - 1)
+        cache_bytes = sum(v[:, 0, 0].numel() * v.element_size()
+                          for v in cache["layers"].values())
+        check(cache_bytes == cfg.n_layers * 1152,
+              f"deepseek-v3 latent cache: {cache_bytes} B a token")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del logits, cache
+        checks = serve_checks_f32_ref(
+            torch, f"deepseek-v3 layer 0 absorbed={absorbed}", m, params,
+            prompts)
+        check(not any(ops.LAUNCHES.values()),
+              f"deepseek-v3 serving launched {dict(ops.LAUNCHES)}")
+        serve[f"absorbed_{str(absorbed).lower()}"] = {
+            "prefill_ms": prefill_ms, "decode_ms_a_token": decode_ms,
+            "cache_bytes_a_token": cache_bytes, "peak_mem_gb": peak,
+            "decode_equals_forward": checks}
+    log({"phase": "deepseek_layer0", "params": n_params,
+         "cuts": {"n_layers": 1, "family": "dense", "n_experts": 0,
+                  "remat": False, "fsdp": False},
+         "batch": DS_B, "seq": DS_T, "train_step_ms": train["step_ms"],
+         "train_peak_mem_gb": train["peak_mem_gb"],
+         "clipped_sum_peak_gb": train["clipped_sum_peak_gb"],
+         "train_plan": train["plan"], "serve": serve,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    del params
+    torch.cuda.empty_cache()
+
+
 # The serving lanes: (arch, widths as lm_inputs checks them).  8 requests
 # in batches of 4, a 128-token prompt, 32 tokens out.
 SERVE_ARCHS = [("llama3.2-1b", (16, 2048, 32, 8, 8192, 128256, 64)),
@@ -1700,18 +1984,72 @@ def serve_checks(torch, arch, model, params, prompts):
     p32 = tree_map(lambda a: a.float(), params)
     params.clear()
     torch.cuda.empty_cache()
-    m32 = TransformerLM(model.cfg.replace(dtype="float32"))
+    rec["f32"] = f32_decode_check(
+        torch, arch, TransformerLM(model.cfg.replace(dtype="float32")), p32,
+        prompts)
+    return rec
+
+
+def f32_decode_check(torch, arch, m32, p32, prompts):
+    """The f32 half of decode-equals-forward: prefill and decode of the
+    f32 model ``m32`` against its own causal forward, within the flash
+    rows' f32 tolerance (``flash_close``).  Frees ``p32``."""
+    P = SERVE_PROMPT - 1
     outs, full, _ = decode_vs_forward(torch, m32, p32, prompts)
     errs = [flash_close(torch, o, full[:, P + i])
             for i, o in enumerate(outs)]
     check(all(e[2] for e in errs), f"{arch} f32: prefill + decode logits "
           f"differ from the full forward's: {[e[:2] for e in errs]}")
-    rec["f32"] = {"max_abs_err": max(e[0] for e in errs),
-                  "max_rel_err": max(e[1] for e in errs),
-                  "rtol": FLASH_RTOL["float32"], "atol_of_largest":
-                  FLASH_ATOL}
-    del outs, full, p32
+    p32.clear()
+    del outs, full
     torch.cuda.empty_cache()
+    return {"max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs),
+            "rtol": FLASH_RTOL["float32"], "atol_of_largest": FLASH_ATOL}
+
+
+def serve_checks_f32_ref(torch, arch, model, params, prompts):
+    """Decode-equals-forward for a model of one layer (DeepSeek-V3's
+    first), whose forward hardly depends on the length, so that
+    ``serve_checks``'s bf16 bound (twice that spread plus 2^-8 of the
+    largest logit) falls below one bf16 ulp of the largest logit.  Here
+    the f32 forward (an f32 copy of the weights, TF32 off) over the bf16
+    path's tokens is the reference: the served bf16 logits must be within
+    twice the bf16 forward's own distance from it plus 2^-8 of the
+    largest logit; ``serve_checks``'s bound is computed and reported
+    beside it.  The f32 copy's own prefill and decode must equal its
+    forward within the flash rows' f32 tolerance, as in
+    ``serve_checks``."""
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import tree_map
+    P = SERVE_PROMPT - 1
+    outs, full, short = decode_vs_forward(torch, model, params, prompts)
+    tokens = torch.cat([prompts] + [torch.argmax(o, -1)[:, None]
+                                    for o in outs[:-1]], 1)
+    p32 = tree_map(lambda a: a.float(), params)
+    m32 = TransformerLM(model.cfg.replace(dtype="float32"))
+    with torch.no_grad():
+        ref = m32.logits(p32, tokens)[:, P:].float()
+    err = max((o.float() - ref[:, i]).abs().max().item()
+              for i, o in enumerate(outs))
+    fwd_err = (full[:, P:].float() - ref).abs().max().item()
+    spread = max((short[:, P + i].float() - full[:, P + i].float()).abs()
+                 .max().item() for i in range(2))
+    top = ref.abs().max().item()
+    bound = 2 * fwd_err + 2 ** -8 * top
+    check(err <= bound, f"{arch} bf16: prefill + decode logits {err:.4g} "
+          f"from the f32 forward's, more than {bound:.4g} (twice the bf16 "
+          f"forward's {fwd_err:.4g} + 2^-8 of {top:.4g})")
+    rec = {"bf16": {"max_abs_err_vs_f32_forward": err,
+                    "bf16_forward_err_vs_f32_forward": fwd_err,
+                    "bound": bound, "largest_logit": top,
+                    "forward_spread": spread,
+                    "max_abs_err_vs_bf16_forward": max(
+                        (o.float() - full[:, P + i].float()).abs().max()
+                        .item() for i, o in enumerate(outs)),
+                    "serve_checks_bound": 2 * spread + 2 ** -8 * top}}
+    del outs, full, short, ref
+    rec["f32"] = f32_decode_check(torch, arch, m32, p32, prompts)
     return rec
 
 
@@ -2282,6 +2620,7 @@ def main():
     t = time.perf_counter()
     small_parity(torch)
     small_lm_parity(torch)
+    dp_attn_parity(torch)
     log({"phase": "small_parity_done", "seconds": time.perf_counter() - t})
     lanes, timings = {}, {}
     launches = {k: 0 for k in ops.LAUNCHES}
@@ -2303,6 +2642,9 @@ def main():
     t = time.perf_counter()
     lm_remat(torch, launches, lanes, llama)
     log({"phase": "lm_remat_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    lm_dp_attn(torch, launches, lanes, profiled, llama)
+    log({"phase": "lm_dp_attn_done", "seconds": time.perf_counter() - t})
     del llama
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -2313,6 +2655,7 @@ def main():
     del olmo
     torch.cuda.empty_cache()
     log({"phase": "olmo_main_path_done", "seconds": time.perf_counter() - t})
+    deepseek_layer0(torch, launches, lanes)
     tokmask_path(torch, launches, lanes)
     t = time.perf_counter()
     conv1d_lane(torch, launches, lanes)

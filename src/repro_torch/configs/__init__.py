@@ -2,9 +2,11 @@
 models of the port: Llama-3.2-1B, OLMo-1B, GLM-4-9B, StableLM-2-12B and
 Chameleon-34B (family ``vlm``, an early-fusion backbone over token ids).
 
-The JAX package's other language-model configs need MoE, MLA, SSM,
-hybrid or enc-dec blocks (ROADMAP.md items 11d and 12); asking for one
-here raises ``NotImplementedError``.
+The JAX package's other language-model configs need MoE, SSM, hybrid or
+enc-dec blocks (ROADMAP.md item 12); asking for one here raises
+``NotImplementedError``.  DeepSeek-V3's config is kept
+(``configs/deepseek_v3_671b.py``) for its MLA attention, which runs on a
+dense cut of it.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ def get_config(arch: str) -> ModelConfig:
     if arch in ARCH_IDS:
         raise NotImplementedError(
             f"{arch!r} is a language model the port does not serve yet "
-            f"(MoE, MLA, SSM, hybrid and enc-dec blocks: ROADMAP.md items "
-            f"11d and 12); it serves {PAPER_IDS + sorted(SERVED_LM)}")
+            f"(MoE, SSM, hybrid and enc-dec blocks: ROADMAP.md item 12); "
+            f"it serves {PAPER_IDS + sorted(SERVED_LM)}")
     if arch not in PAPER_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from "
                        f"{PAPER_IDS + sorted(SERVED_LM)}")

@@ -27,10 +27,13 @@ shapes (one shape-only probe on ``device="meta"``) it chooses
 
 An embedding gather picks ``segsum`` / ``gram`` / ``pe``
 (:func:`embed_norm_method`); an elementwise affine (norm scale)
-materializes its tiny per-example grads.  Scanned layers multiply the
-per-application cost by the stack; shared scanned dense/scale layers fold
-the stack into the sequence axis.  Taps that share one parameter form a
-group with a ``norm_mode``: ``single``, ``tied`` (embedding + transposed
+materializes its tiny per-example grads; an attention block tapped as one
+``"attn"`` layer pays a layer-local recompute and picks ``ghost`` (each
+projection's Gram norm, then a second recompute for the contraction) or
+``pe`` (materialize every projection's per-example grad and stash it).
+Scanned layers multiply the per-application cost by the stack; shared
+scanned dense/scale layers fold the stack into the sequence axis.  Taps
+that share one parameter form a group with a ``norm_mode``: ``single``, ``tied`` (embedding + transposed
 LM head: both norms plus the cross term) or ``group_pe`` (materialize the
 summed per-example grad).
 
@@ -262,7 +265,7 @@ class GroupPlan:
     sum_method: str                # stash | contrib | backward
 
 
-PLAN_FORMAT_VERSION = 2   # v2: GroupPlan.norm_mode (tied / group_pe)
+PLAN_FORMAT_VERSION = 3   # v3: the block-level "attn" realization
 
 _META_FIELDS = ("kind", "path", "param_key", "bias_key", "w_transposed",
                 "segmented", "scanned", "shared", "static")
@@ -460,11 +463,11 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
     reduction over the stash, so ``stream``/``pe`` is charged once while
     ``gram``/``ghost`` is charged norm + contraction."""
     if meta.segmented or meta.kind not in ("dense", "conv", "embed",
-                                           "scale"):
+                                           "scale", "attn"):
         raise NotImplementedError(
             f"layer {name!r} (kind {meta.kind!r}"
             f"{', segmented' if meta.segmented else ''}): comes with the "
-            f"rest of the LM slice (ROADMAP.md items 11b and 12)")
+            f"rest of the LM slice (ROADMAP.md item 12)")
     k = meta.scanned
     dy_shape = tuple(dy_sh.shape)
     stack = _prod(dy_shape[:k])
@@ -582,6 +585,41 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         return LayerPlan(name, "embed", m, m == "pe", nf, cf, cf,
                          stash_bytes=stash_bytes, fallback_norm=fb)
 
+    if meta.kind == "attn":
+        # The norm phase recomputes the block forward + backward once
+        # (kinds._attn_parts: ≈ 3x the projection matmuls plus the T²
+        # score work), then realizes each projection's norm: "ghost" runs
+        # the inner Gram contractions, "pe" materializes and stashes the
+        # per-projection per-example grads so the sum phase is a free
+        # weighted reduction over the stash.
+        x_shape = tuple(cap_sh["x"].shape)[k:]
+        B = x_shape[0]
+        T = _prod(x_shape[1:-1])
+        proj = tuple(meta.static["proj_dims"])
+        qk = meta.static.get("qk_flops", 0)
+        per_ex = B * stack
+        proj_flops = sum(2.0 * T * Di * Do for Di, Do in proj)
+        recompute = 3.0 * (proj_flops + 4.0 * T * T * qk) * per_ex
+        gram = sum(2.0 * T * T * (Di + Do) for Di, Do in proj) * per_ex
+        outer = 2.0 * proj_flops * per_ex
+        psize = sum(Di * Do for Di, Do in proj)
+        mem_stash = B * psize * BYTES * stack
+        ghost_total = recompute + gram
+        pe_stash = recompute + outer
+        m = norm_method if norm_method in ("ghost", "pe") else "auto"
+        stash = False
+        if m == "auto":
+            if pe_stash < ghost_total and mem_stash <= mem_budget:
+                m, stash = "pe", True
+            else:
+                m = "ghost"
+        else:
+            stash = m == "pe" and mem_stash <= mem_budget
+        nf = recompute + (outer if m == "pe" else gram)
+        cf = recompute + proj_flops * per_ex
+        return LayerPlan(name, "attn", m, stash, nf, cf, proj_flops * per_ex,
+                         stash_bytes=mem_stash, fallback_norm="ghost")
+
     # scale: per-example grads are (B, d): materialize and stash
     B = app_dy[0] if app_dy else 1
     n = 2.0 * B * (_prod(app_dy) // max(B, 1)) * stack
@@ -604,6 +642,7 @@ _OVERRIDE_METHODS = {
     "dense": {"auto", "gram", "stream", "rank1", "pallas"},
     "embed": {"auto", "segsum", "gram", "pe"},
     "conv": {"auto", "ghost", "pe", "pallas"},
+    "attn": {"auto", "ghost", "pe"},
 }
 
 

@@ -30,9 +30,10 @@ card, products of two bf16 captures are bf16 GEMMs with f32 output
 
 The method string ``"pallas"`` keeps the JAX package's spelling so that
 ``NormCfg`` and configs stay one-to-one; here it means this repo's own
-CUDA kernel (:mod:`repro_torch.kernels.ops`).  The attn kind (ROADMAP.md
-item 11b), segmented (MoE) layers and the local_vjp kind (item 12) raise
-``NotImplementedError``.
+CUDA kernel (:mod:`repro_torch.kernels.ops`).  An attention block
+tapped as one ``"attn"`` layer (``dp_attn``) is realized by a layer-local
+recompute of the block (:func:`_attn_parts`).  Segmented (MoE) layers and
+the local_vjp kind (ROADMAP.md item 12) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ import torch
 
 from repro_torch.analysis.markers import tag
 from repro_torch.core import costmodel
-from repro_torch.core.tapper import STATS, LayerMeta
-from repro_torch.tree import tree_map
+from repro_torch.core.tapper import STATS, LayerMeta, Tapper
+from repro_torch.tree import get_subtree, set_subtree, tree_map
 
 F32 = torch.float32
 
@@ -429,6 +430,95 @@ def conv_contrib(meta: LayerMeta, cap, dy, w):
 
 
 # ---------------------------------------------------------------------------
+# Attention blocks (GQA / MLA, tapped as one "attn" layer)
+#
+# The block tap captures only the block input x_b and receives the block
+# output cotangent δy_b from the model backward.  A layer-local recompute
+# under an inner capture-mode Tapper then recovers every projection's
+# (x, δy) pair: differentiating  Σ_b ⟨y_b, δy_b⟩  with respect to the
+# inner projections' outputs (as capture_backward does for the model)
+# yields exactly the chain-rule cotangents of the true loss at each of
+# them, δy being constant; each projection then applies its own
+# dense/scale algebra.  Like the JAX package's, this is a layer-local
+# recompute, not a whole-model pass: no STATS ticks, the census stays one
+# forward and one backward a step.
+
+
+def _attn_parts(meta: LayerMeta, cap, dy, params_sub):
+    """Run the block again: (inner metas, captures, cotangents) of each
+    inner tap.  Inner tap names are rooted at the fixed "blk" prefix (see
+    ``gqa_apply`` / ``mla_apply``), so an inner layer's param path
+    relative to the block is ``path[1:]``.  The objective is formed in
+    f32 (δy cast to f32, ``sum(y.float() * δy)``), as the JAX package
+    forms it, so bf16 inner cotangents round alike."""
+    if meta.fn is None:
+        raise ValueError(
+            f"attn layer {'/'.join(map(str, meta.path))} has no rebuild "
+            f"closure (a meta read back from a plan's JSON?): realize it "
+            f"with the live metas of the capture pass")
+    inner_metas: dict[str, LayerMeta] = {}
+    tp = Tapper("capture", metas=inner_metas)
+    dyf = dy.to(F32)
+    with torch.enable_grad():
+        y = meta.fn(tp, params_sub, cap["x"])
+        names = list(tp.outputs)
+        grads = torch.autograd.grad((y.to(F32) * dyf).sum(),
+                                    [tp.outputs[n] for n in names])
+    return inner_metas, tp.captures, dict(zip(names, grads))
+
+
+def _attn_each(meta: LayerMeta, params_sub, inner_metas):
+    """(name, inner meta re-rooted under meta.path, relative path, param
+    subtree) of each inner tap, in sorted order."""
+    for iname in sorted(inner_metas):
+        im = inner_metas[iname]
+        rel = im.path[1:]
+        imf = dataclasses.replace(im, path=meta.path + rel, scanned=0,
+                                  shared=False)
+        yield iname, imf, rel, get_subtree(params_sub, rel)
+
+
+def _attn_inner(op, meta: LayerMeta, cap, dy, params_sub, weights=None):
+    """``op`` over every inner tap of one recompute: the norms summed, or
+    the per-projection trees assembled at the block's relative paths."""
+    inner_metas, caps, dtaps = _attn_parts(meta, cap, dy, params_sub)
+    out = None if op == "norm_sq" else {}
+    for iname, imf, rel, psub_i in _attn_each(meta, params_sub,
+                                              inner_metas):
+        part = _apply_flat(op, imf, caps[iname], dtaps[iname],
+                           params_sub=psub_i, weights=weights,
+                           norm_method="auto", conv_impl="fgc")
+        if op == "norm_sq":
+            out = part if out is None else out + part
+            continue
+        for k2, v2 in part.items():
+            out = set_subtree(out, rel + (k2,), v2)
+    return out
+
+
+def attn_pe_grad(meta: LayerMeta, cap, dy, params_sub):
+    return _attn_inner("pe_grad", meta, cap, dy, params_sub)
+
+
+def attn_norm_sq(meta: LayerMeta, cap, dy, params_sub, method: str = "auto"):
+    """``ghost`` (the default for ``auto``): each projection's own norm
+    realization; ``pe``: the materialized per-projection grads, squared."""
+    if method == "auto":
+        method = "ghost"
+    if method == "pe":
+        return _realized(_sumsq(attn_pe_grad(meta, cap, dy, params_sub)),
+                         meta, "pe")
+    if method != "ghost":
+        raise ValueError(f"unknown attn norm method {method!r}")
+    return _realized(_attn_inner("norm_sq", meta, cap, dy, params_sub),
+                     meta, "ghost")
+
+
+def attn_contrib(meta: LayerMeta, cap, dy, w, params_sub):
+    return _attn_inner("contrib", meta, cap, dy, params_sub, weights=w)
+
+
+# ---------------------------------------------------------------------------
 # Stacked-layer handling: fold meta.scanned leading axes
 
 
@@ -468,11 +558,13 @@ def _unported(what: str, item: str):
 
 def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
                weights=None, norm_method: str = "auto", conv_impl: str = "fgc",
-               embed_method: str = "segsum", conv_norm: str = "pe"):
+               embed_method: str = "segsum", conv_norm: str = "pe",
+               attn_norm: str = "auto"):
     """Dispatch ``op`` in {"pe_grad","norm_sq","contrib"} over the kinds,
     handling stacked (scanned) axes and shared parameters."""
     kw = dict(norm_method=norm_method, conv_impl=conv_impl,
-              embed_method=embed_method, conv_norm=conv_norm)
+              embed_method=embed_method, conv_norm=conv_norm,
+              attn_norm=attn_norm)
     if meta.segmented:
         raise _unported(f"layer {'/'.join(map(str, meta.path))}: "
                         f"segmented (MoE) layers", "12")
@@ -531,7 +623,7 @@ def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
                        params_sub=None, fused: bool = True,
                        conv_impl: str = "fgc", norm_method: str = "auto",
                        embed_method: str = "segsum",
-                       conv_norm: str = "auto"):
+                       conv_norm: str = "auto", attn_norm: str = "auto"):
     """Per-example squared norms *and* the weighted sum Σ_b w_b·g_b from
     one pass over the captures; valid whenever the weights are known
     entering the pass (stale-coefficient clipping).
@@ -570,14 +662,16 @@ def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
         return conv_norm_and_contrib(meta, cap, dy, weights)
     n = apply_kind("norm_sq", meta, cap, dy, params_sub=params_sub,
                    norm_method=norm_method, conv_impl=conv_impl,
-                   embed_method=embed_method, conv_norm=conv_norm)
+                   embed_method=embed_method, conv_norm=conv_norm,
+                   attn_norm=attn_norm)
     c = apply_kind("contrib", meta, cap, dy, params_sub=params_sub,
                    weights=weights, conv_impl=conv_impl)
     return n, c
 
 
 def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
-                conv_impl, embed_method="segsum", conv_norm="pe"):
+                conv_impl, embed_method="segsum", conv_norm="pe",
+                attn_norm="auto"):
     kind = meta.kind
     if op not in ("pe_grad", "norm_sq", "contrib"):
         raise ValueError(f"unknown op {op!r}")
@@ -610,9 +704,14 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
             return conv_norm_sq(meta, cap, dy, impl=conv_impl,
                                 method=conv_norm)
         return conv_contrib(meta, cap, dy, weights)
-    if kind in ("attn", "local_vjp"):
-        raise _unported(f"layer kind {kind!r}",
-                        "11b" if kind == "attn" else "12")
+    if kind == "attn":
+        if op == "pe_grad":
+            return attn_pe_grad(meta, cap, dy, params_sub)
+        if op == "norm_sq":
+            return attn_norm_sq(meta, cap, dy, params_sub, method=attn_norm)
+        return attn_contrib(meta, cap, dy, weights, params_sub)
+    if kind == "local_vjp":
+        raise _unported(f"layer kind {kind!r}", "12")
     raise ValueError(f"unknown kind {kind}")
 
 

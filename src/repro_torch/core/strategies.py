@@ -144,7 +144,8 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
                               norm_method: str = "auto",
                               conv_impl: str = "fgc",
                               embed_method: str = "segsum",
-                              conv_norm: str = "auto"):
+                              conv_norm: str = "auto",
+                              attn_norm: str = "auto"):
     """Per-parameter-group per-example squared grad norms, grouping taps
     that touch the same parameter (tied embeddings).
 
@@ -170,7 +171,8 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
             norms.append(_tagged(kinds.apply_kind(
                 "norm_sq", metas[n], caps[n], dtaps[n], params_sub=psub,
                 norm_method=norm_method, conv_impl=conv_impl,
-                embed_method=embed_method, conv_norm=conv_norm), path))
+                embed_method=embed_method, conv_norm=conv_norm,
+                attn_norm=attn_norm), path))
             continue
         if _is_tied(names, metas):
             kw = {"embed": {"embed_method": embed_method},
@@ -264,14 +266,16 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
                               conv_norm: str | None = None, overrides=None,
                               mem_budget: int | None = None, plan=None,
                               clip_policy=None, budgets=None,
-                              prev_norms_sq=None):
+                              prev_norms_sq=None, attn_norm: str = "auto"):
     """Returns (per-example losses, Σ_b clip(g_b), per-example norms²,
     detail).
 
     ``conv_norm`` (auto | ghost | pe | pallas) picks the conv norm
     realization (``None`` is an alias for ``"auto"``), ``norm_method``
     the dense one, ``embed_method`` (auto | segsum | gram | pe) the
-    embedding one, ``conv_impl`` (fgc | pallas) the materializing conv
+    embedding one, ``attn_norm`` (auto | ghost | pe) an ``"attn"``
+    block's under ghost and bk (the planned path takes it from the
+    plan), ``conv_impl`` (fgc | pallas) the materializing conv
     gradient.  ``overrides`` pins
     individual layers by tap-name glob and ``mem_budget`` bounds the
     materializing paths (planned strategy only); ``plan`` injects a
@@ -331,7 +335,7 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
     group_keys, group_ns = group_norms_from_captures(
         params, caps, dtaps, metas, norm_method=norm_method,
         conv_impl=conv_impl, embed_method=embed_method,
-        conv_norm=conv_norm or "auto")
+        conv_norm=conv_norm or "auto", attn_norm=attn_norm)
     norms_sq = group_ns.sum(dim=0)
 
     if mode == "per_layer":
@@ -392,6 +396,8 @@ def _norm_kwargs(lp):
         return {"embed_method": lp.norm_method}
     if lp.kind == "conv":
         return {"conv_norm": lp.norm_method}
+    if lp.kind == "attn":
+        return {"attn_norm": lp.norm_method}
     return {}
 
 

@@ -34,13 +34,20 @@ name with ``"~"``: the parameter path is then read from the params root
 and the layer is marked ``shared``.  The ``local_vjp`` and
 ``dense_segmented`` kinds come with ROADMAP.md item 12.
 
+An attention block tapped as one ``"attn"`` layer (``dp_attn``) captures
+only its input and carries its rebuild closure in ``LayerMeta.fn``; the
+kind runs the block again under an inner capture-mode ``Tapper``, a
+layer-local recompute that ticks no :data:`STATS` counter (the census
+stays one forward and one backward a step).
+
 Models stay pure: a ``Tapper`` in mode ``"none"`` is a no-op, so the same
 model code serves ordinary training and every PEG strategy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import warnings
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -91,7 +98,7 @@ class LayerMeta:
     """Static description of one tapped layer (the JAX package's fields).
 
     Attributes:
-      kind: "dense" | "conv" | "embed" | "scale" in this slice.
+      kind: "dense" | "conv" | "embed" | "scale" | "attn".
       path: key path of this layer's param dict inside model params.
       param_key: key of the weight inside the layer param dict.
       bias_key: key of the bias (or None).
@@ -99,7 +106,12 @@ class LayerMeta:
       segmented: captures carry explicit example ids (MoE; LM slice).
       scanned: number of leading stacked-layer axes on the captures.
       shared: parameter is shared across call sites (path absolute).
-      static: extra static configuration (conv strides, kernel shape).
+      static: extra static configuration (conv strides, kernel shape;
+        an attention block's projection widths).
+      fn: for "attn": the block's rebuild closure
+        ``fn(tapper, params_sub, x) -> y``, which the kind runs again to
+        recover each projection's captures and cotangents (not
+        serialized with a plan).
     """
 
     kind: str
@@ -111,6 +123,7 @@ class LayerMeta:
     scanned: int = 0
     shared: bool = False
     static: dict = dataclasses.field(default_factory=dict)
+    fn: Callable | None = None
 
 
 class TensorSpec(NamedTuple):
@@ -272,14 +285,21 @@ def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params, *,
     ``scanned + 1`` and, unless it is shared (``"~"``: its path stays
     absolute), ``name``'s path in front of its own.  ``remat`` recomputes
     each layer in the backward (:func:`_checkpointed`) wherever autograd
-    records a graph, except under ``torch.func``'s transforms (the
-    ``multi`` strategy's vmap of grad), which take no saved-tensor hooks:
-    there the layers run as without it."""
+    records a graph.  ``torch.func``'s transforms (the ``multi``
+    strategy's vmap of grad) take no saved-tensor hooks: there the layers
+    run as without it, with the same values, and a ``RuntimeWarning``
+    naming fault F4 says so (ROADMAP.md, divergences by design)."""
     prefix = name + "/"
     sub_metas: dict[str, LayerMeta] = {}
     layers = []
-    remat = (remat and torch.is_grad_enabled() and tp.mode != "probe"
-             and not torch._C._are_functorch_transforms_active())
+    remat = remat and torch.is_grad_enabled() and tp.mode != "probe"
+    if remat and torch._C._are_functorch_transforms_active():
+        warnings.warn(
+            f"F4: remat=True is not applied to the scanned layers "
+            f"{name!r} under torch.func transforms (the 'multi' "
+            f"strategy's vmap(grad)): they run without recompute, with "
+            f"the same values", RuntimeWarning, stacklevel=2)
+        remat = False
     for i in range(_leading(xs_params)):
         stp = Tapper(tp.mode, metas=sub_metas)
         p_l = tree_map(lambda a: a[i], xs_params)

@@ -1,17 +1,21 @@
 """Attention: GQA (+RoPE, qk-norm, sliding window) over the ``attend``
 dispatch (full softmax, chunked, or this repo's flash kernels), with the
-KV cache that prefill and decode serve from.
+KV cache that prefill and decode serve from, and DeepSeek-style MLA
+(multi-head latent attention: a latent-compressed KV cache, a decoupled
+rope head, and the absorbed decode that attends in the latent space).
 
 All projections go through tapped denses, so per-example gradients cover
-every attention parameter; serving passes an inactive ``Tapper``.  Cross
-attention (ROADMAP.md item 12), MLA and the block-level ``dp_attn`` tap
-(items 11d and 11b) raise ``NotImplementedError``.
+every attention parameter; serving passes an inactive ``Tapper``.  With
+``dp_attn`` the whole block is tapped as one ``"attn"`` layer instead
+(``core/kinds.py`` recovers each projection's captures and cotangents by
+running the block again).  Cross attention (ROADMAP.md item 12) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tapper import Tapper
+from repro_torch.core.tapper import LayerMeta, Tapper
 from repro_torch.models import common as cm
 
 NEG = -1e30
@@ -23,7 +27,7 @@ F32 = torch.float32
 class FlashUnsupportedError(NotImplementedError):
     """``impl="flash"`` was requested for a feature combination the flash
     kernels do not implement (sliding window, cache offsets, valid-length
-    masking)."""
+    masking, MLA's q/k head dim beside another v head dim)."""
 
 
 def _unported(what: str, item: str):
@@ -160,11 +164,32 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
     than the window: a ring) into a copy of the cache, which is returned,
     and the queries attend to the valid slots with the plain softmax
     (``impl="xla"``, as the JAX package: the flash kernels take no offset
-    or valid length)."""
+    or valid length).
+
+    ``dp_attn``: tap the whole block as one ``"attn"`` layer (see
+    ``core/kinds.py``): per-example norms for wq/wk/wv/wo come from a
+    layer-local recompute instead of per-projection captures, so the
+    planner prices the block's ghost norm as a unit.  Falls back to
+    per-projection taps under an inactive tapper (``multi``, serving), a
+    cache, a window, explicit positions and shared (``"~"``) call
+    sites."""
     if x_kv is not None:
         raise _unported("cross attention (gqa_apply x_kv=)", "12")
-    if dp_attn:
-        raise _unported("the block-level 'attn' tap (dp_attn=True)", "11b")
+    if (dp_attn and tp.active() and cache is None and not window
+            and positions is None and not name.startswith("~")):
+        kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                  rope_theta=rope_theta, qk_norm=qk_norm, causal=causal,
+                  attn_impl=attn_impl, use_rope=use_rope)
+
+        def rebuild(inner_tp, psub, xin):
+            return gqa_apply(inner_tp, "blk", psub, xin, **kw)[0]
+
+        D = x.shape[-1]
+        return _block_tap(tp, name, rebuild, p, x, qk_flops=n_heads * head_dim,
+                          proj_dims=((D, n_heads * head_dim),
+                                     (D, n_kv * head_dim),
+                                     (D, n_kv * head_dim),
+                                     (n_heads * head_dim, D)))
     B, T, _ = x.shape
     q = tp.dense(f"{name}/wq", x, p["wq"]["w"], p["wq"].get("b"))
     k = tp.dense(f"{name}/wk", x, p["wk"]["w"], p["wk"].get("b"))
@@ -204,6 +229,20 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
             new_cache)
 
 
+def _block_tap(tp: Tapper, name: str, rebuild, p, x, *, proj_dims,
+               qk_flops):
+    """The block's output under one ``"attn"`` tap capturing only ``x``;
+    ``rebuild`` (the block under the fixed ``"blk"`` prefix) rides in the
+    meta for the kind's recompute.  ``static`` holds what the planner
+    prices: each projection's (Din, Dout) and the score width
+    (heads x q/k head dim)."""
+    y = rebuild(Tapper(), p, x)
+    meta = LayerMeta("attn", tuple(name.split("/")),
+                     static={"proj_dims": proj_dims, "qk_flops": qk_flops},
+                     fn=rebuild)
+    return tp.tap(name, y, {"x": x}, meta), None
+
+
 def _updated(buf, new, idx: int):
     """A copy of ``buf`` (B, S, ...) with ``new`` (B, T, ...) written at
     slots ``idx .. idx + T`` (``lax.dynamic_update_slice``: the start is
@@ -220,4 +259,157 @@ def gqa_cache(batch, max_len, n_kv, head_dim, dtype=F32, device="cpu"):
     z = dict(dtype=dtype, device=device)
     return {"k": torch.zeros((batch, max_len, n_kv, head_dim), **z),
             "v": torch.zeros((batch, max_len, n_kv, head_dim), **z),
+            "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent-compressed KV, decoupled rope head
+
+
+def mla_init(gen: torch.Generator, d_model, n_heads, *, q_lora_rank,
+             kv_lora_rank, qk_nope_dim, qk_rope_dim, v_head_dim, dtype=F32,
+             device="cpu"):
+    kw = dict(dtype=dtype, device=device)
+    qd = qk_nope_dim + qk_rope_dim
+    p = {}
+    if q_lora_rank:
+        p["wq_a"] = {"w": cm.mk(gen, (d_model, q_lora_rank),
+                                ("embed", "qrank"), **kw)}
+        p["q_norm"] = {"g": cm.mk(gen, (q_lora_rank,), ("qrank",),
+                                  dist="ones", **kw)}
+        p["wq_b"] = {"w": cm.mk(gen, (q_lora_rank, n_heads * qd),
+                                ("qrank", "heads"), **kw)}
+    else:
+        p["wq"] = {"w": cm.mk(gen, (d_model, n_heads * qd),
+                              ("embed", "heads"), **kw)}
+    p["wkv_a"] = {"w": cm.mk(gen, (d_model, kv_lora_rank + qk_rope_dim),
+                             ("embed", "kvrank"), **kw)}
+    p["kv_norm"] = {"g": cm.mk(gen, (kv_lora_rank,), ("kvrank",),
+                               dist="ones", **kw)}
+    p["wkv_b"] = {"w": cm.mk(gen, (kv_lora_rank,
+                                   n_heads * (qk_nope_dim + v_head_dim)),
+                             ("kvrank", "heads"), **kw)}
+    p["wo"] = {"w": cm.mk(gen, (n_heads * v_head_dim, d_model),
+                          ("heads", "embed"), **kw)}
+    return p
+
+
+def mla_apply(tp: Tapper, name: str, p, x, *, n_heads, q_lora_rank,
+              kv_lora_rank, qk_nope_dim, qk_rope_dim, v_head_dim,
+              rope_theta=1e4, positions=None, cache=None, attn_impl="auto",
+              absorbed_decode: bool = False, dp_attn=False):
+    """Returns (out, new_cache).  The cache stores the *latent* KV:
+    {"ckv" (B, S, kv_lora_rank), "krope" (B, S, qk_rope_dim), "pos"}.
+
+    With a cache, ``absorbed_decode`` folds ``wkv_b`` into the query and
+    output sides, so attention runs in the latent space with no
+    decompression of the whole cache (scores in f32, as the JAX
+    package's ``preferred_element_type``); without it the cache is
+    decompressed and attended with the plain softmax.  The flash kernels
+    take one head dim for q, k and v, and MLA's q/k (``qk_nope_dim +
+    qk_rope_dim``) differ from v's: ``attn_impl="flash"`` raises
+    :class:`FlashUnsupportedError`.  ``dp_attn``: the block-level
+    ``"attn"`` tap over the train path (see :func:`gqa_apply`)."""
+    B, T, D = x.shape
+    qd = qk_nope_dim + qk_rope_dim
+    if attn_impl == "flash":
+        raise FlashUnsupportedError(
+            f"MLA with attn_impl='flash': the flash kernels take one head "
+            f"dim for q, k and v; MLA's q/k are {qd} wide "
+            f"(qk_nope_dim + qk_rope_dim), its v {v_head_dim}; use "
+            f"attn_impl='xla', 'chunked' or 'auto'")
+    if (dp_attn and tp.active() and cache is None and positions is None
+            and not name.startswith("~")):
+        kw = dict(n_heads=n_heads, q_lora_rank=q_lora_rank,
+                  kv_lora_rank=kv_lora_rank, qk_nope_dim=qk_nope_dim,
+                  qk_rope_dim=qk_rope_dim, v_head_dim=v_head_dim,
+                  rope_theta=rope_theta, attn_impl=attn_impl)
+
+        def rebuild(inner_tp, psub, xin):
+            return mla_apply(inner_tp, "blk", psub, xin, **kw)[0]
+
+        q_dims = (((D, q_lora_rank), (q_lora_rank, n_heads * qd))
+                  if q_lora_rank else ((D, n_heads * qd),))
+        return _block_tap(
+            tp, name, rebuild, p, x, qk_flops=n_heads * qd,
+            proj_dims=q_dims + ((D, kv_lora_rank + qk_rope_dim),
+                                (kv_lora_rank,
+                                 n_heads * (qk_nope_dim + v_head_dim)),
+                                (n_heads * v_head_dim, D)))
+
+    if q_lora_rank:
+        cq = tp.dense(f"{name}/wq_a", x, p["wq_a"]["w"])
+        cq = cm.rmsnorm(tp, f"{name}/q_norm", p["q_norm"], cq)
+        q = tp.dense(f"{name}/wq_b", cq, p["wq_b"]["w"])
+    else:
+        q = tp.dense(f"{name}/wq", x, p["wq"]["w"])
+    q = q.reshape(B, T, n_heads, qd)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+
+    kv_a = tp.dense(f"{name}/wkv_a", x, p["wkv_a"]["w"])
+    ckv, k_rope = kv_a[..., :kv_lora_rank], kv_a[..., kv_lora_rank:]
+    ckv = cm.rmsnorm(tp, f"{name}/kv_norm", p["kv_norm"], ckv)
+
+    pos0 = cache["pos"] if cache is not None else 0
+    if positions is None:
+        positions = (torch.arange(T, device=x.device)[None, :] + pos0) \
+            .expand(B, T)
+    cos, sin = cm.rope_angles(positions, qk_rope_dim, rope_theta)
+    q_rope = cm.apply_rope(q_rope, cos, sin)
+    k_rope = cm.apply_rope(k_rope[:, :, None, :], cos, sin)   # (B,T,1,dr)
+
+    if cache is not None:
+        ckv_c = _updated(cache["ckv"], ckv, pos0)
+        kr_c = _updated(cache["krope"], k_rope[:, :, 0], pos0)
+        new_cache = {"ckv": ckv_c, "krope": kr_c, "pos": pos0 + T}
+        S = ckv_c.shape[1]
+        valid = new_cache["pos"]
+        if absorbed_decode:
+            wkv_b = p["wkv_b"]["w"].reshape(kv_lora_rank, n_heads,
+                                            qk_nope_dim + v_head_dim)
+            wk_b, wv_b = wkv_b[..., :qk_nope_dim], wkv_b[..., qk_nope_dim:]
+            q_lat = torch.einsum("bthd,chd->bthc", q_nope, wk_b)
+            s = (torch.einsum("bthc,bsc->bhts", q_lat.to(F32),
+                              ckv_c.to(F32))
+                 + torch.einsum("bthr,bsr->bhts", q_rope.to(F32),
+                                kr_c.to(F32))) * qd ** -0.5
+            sl = torch.arange(S, device=x.device)
+            mask = (sl < valid)[None, None, None, :]
+            if T > 1:   # causal among the new tokens (prefill into cache)
+                t_idx = pos0 + torch.arange(T, device=x.device)[:, None]
+                mask = mask & (sl[None, :] <= t_idx)[None, None]
+            s = torch.where(mask, s, NEG)
+            pr = torch.softmax(s, dim=-1).to(ckv_c.dtype)
+            o_lat = torch.einsum("bhts,bsc->bthc", pr, ckv_c)
+            out = torch.einsum("bthc,chd->bthd", o_lat, wv_b)
+        else:
+            kv = torch.matmul(ckv_c, p["wkv_b"]["w"]).reshape(
+                B, S, n_heads, qk_nope_dim + v_head_dim)
+            k_nope, vfull = kv[..., :qk_nope_dim], kv[..., qk_nope_dim:]
+            k_full = torch.cat([k_nope, kr_c[:, :, None, :].expand(
+                B, S, n_heads, qk_rope_dim)], -1)
+            qf = torch.cat([q_nope, q_rope], -1)
+            out = attend(qf, k_full, vfull, causal=T > 1, offset=pos0,
+                         valid_len=valid, impl="xla")
+        out = out.reshape(B, T, n_heads * v_head_dim)
+        return tp.dense(f"{name}/wo", out, p["wo"]["w"]), new_cache
+
+    # train / prefill-style full pass
+    kv = tp.dense(f"{name}/wkv_b", ckv, p["wkv_b"]["w"]).reshape(
+        B, T, n_heads, qk_nope_dim + v_head_dim)
+    k_nope, v = kv[..., :qk_nope_dim], kv[..., qk_nope_dim:]
+    k_full = torch.cat([k_nope, k_rope.expand(B, T, n_heads, qk_rope_dim)],
+                       -1)
+    qf = torch.cat([q_nope, q_rope], -1)
+    out = attend(qf, k_full, v, causal=True, impl=attn_impl)
+    out = out.reshape(B, T, n_heads * v_head_dim)
+    return tp.dense(f"{name}/wo", out, p["wo"]["w"]), None
+
+
+def mla_cache(batch, max_len, kv_lora_rank, qk_rope_dim, dtype=F32,
+              device="cpu"):
+    """An empty latent cache: zeros, ``pos`` 0 (a Python int)."""
+    z = dict(dtype=dtype, device=device)
+    return {"ckv": torch.zeros((batch, max_len, kv_lora_rank), **z),
+            "krope": torch.zeros((batch, max_len, qk_rope_dim), **z),
             "pos": 0}

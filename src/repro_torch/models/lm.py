@@ -1,7 +1,9 @@
 """Decoder-only language models, families ``dense`` and ``vlm`` (an
 early-fusion backbone over token ids): RMSNorm or LayerNorm (affine or
-not), GQA with RoPE and optional qk-norm, SwiGLU, optionally tied
-embeddings.
+not), GQA with RoPE and optional qk-norm or MLA (``mla=True``: DeepSeek's
+latent attention, its cache the latent KV), SwiGLU, optionally tied
+embeddings.  With ``dp_attn`` each block's attention is tapped as one
+``"attn"`` layer.
 
 Training applies go through the tapper, so DP per-example gradients
 cover every parameter: the embedding gather (``tok_emb``), every
@@ -16,8 +18,8 @@ Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
 params, runs the layers as a Python loop over the stack against a KV
 cache, under ``torch.no_grad()`` with an inactive ``Tapper``.
 
-MLA (ROADMAP.md item 11d) and the MoE, SSM and hybrid families (item 12)
-raise ``NotImplementedError``.
+The MoE, SSM and hybrid families (ROADMAP.md item 12) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,8 +42,6 @@ class TransformerLM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in ("dense", "vlm"):
             raise _unported(f"LM family {cfg.family!r}", "12")
-        if cfg.mla:
-            raise _unported("MLA (multi-head latent attention)", "11d")
         if cfg.n_experts:
             raise _unported("MoE blocks", "12")
         self.cfg = cfg
@@ -49,12 +49,20 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # init
 
+    def _attn_init(self, gen, kw):
+        c = self.cfg
+        if c.mla:
+            return attn.mla_init(
+                gen, c.d_model, c.n_heads, q_lora_rank=c.q_lora_rank,
+                kv_lora_rank=c.kv_lora_rank, qk_nope_dim=c.qk_nope_dim,
+                qk_rope_dim=c.qk_rope_dim, v_head_dim=c.v_head_dim, **kw)
+        return attn.gqa_init(gen, c.d_model, c.n_heads, c.n_kv, c.hd,
+                             qk_norm=c.qk_norm, bias=c.attn_bias, **kw)
+
     def _block_init(self, gen, dev):
         c = self.cfg
         kw = dict(dtype=c.torch_dtype, device=dev)
-        p = {"attn": attn.gqa_init(gen, c.d_model, c.n_heads, c.n_kv, c.hd,
-                                   qk_norm=c.qk_norm, bias=c.attn_bias,
-                                   **kw),
+        p = {"attn": self._attn_init(gen, kw),
              "ln1": cm.norm_init(gen, c.d_model, c.norm, **kw),
              "ln2": cm.norm_init(gen, c.d_model, c.norm, **kw),
              "mlp": mlp_init(gen, c.d_model, c.d_ff, c.mlp, **kw)}
@@ -85,11 +93,19 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # shared pieces
 
-    def _attn_kw(self):
+    def _attn(self, tp, p, x, **kw):
+        """The block's attention (GQA or MLA) -> (out, new cache)."""
         c = self.cfg
-        return dict(n_heads=c.n_heads, n_kv=c.n_kv, head_dim=c.hd,
-                    rope_theta=c.rope_theta, qk_norm=c.qk_norm,
-                    attn_impl=c.attn_impl, dp_attn=c.dp_attn)
+        if c.mla:
+            return attn.mla_apply(
+                tp, "attn", p, x, n_heads=c.n_heads,
+                q_lora_rank=c.q_lora_rank, kv_lora_rank=c.kv_lora_rank,
+                qk_nope_dim=c.qk_nope_dim, qk_rope_dim=c.qk_rope_dim,
+                v_head_dim=c.v_head_dim, rope_theta=c.rope_theta, **kw)
+        return attn.gqa_apply(tp, "attn", p, x, n_heads=c.n_heads,
+                              n_kv=c.n_kv, head_dim=c.hd,
+                              rope_theta=c.rope_theta, qk_norm=c.qk_norm,
+                              **kw)
 
     def _head(self, tp, params, h):
         c = self.cfg
@@ -102,10 +118,10 @@ class TransformerLM:
         c = self.cfg
 
         def body(stp, hh, p_l):
-            a, _ = attn.gqa_apply(
-                stp, "attn", p_l["attn"],
+            a, _ = self._attn(
+                stp, p_l["attn"],
                 cm.apply_norm(stp, "ln1", p_l.get("ln1"), hh, c.norm),
-                **self._attn_kw())
+                attn_impl=c.attn_impl, dp_attn=c.dp_attn)
             hh = hh + a
             x2 = cm.apply_norm(stp, "ln2", p_l.get("ln2"), hh, c.norm)
             return hh + mlp_apply(stp, "mlp", p_l["mlp"], x2, c.mlp)
@@ -136,11 +152,15 @@ class TransformerLM:
     # serving: cache, prefill, decode
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
-        """An empty cache: per layer K and V (stacked, leading L) and the
-        number of positions written (``pos``, a Python int)."""
+        """An empty cache: per layer K and V (MLA: the latent ``ckv`` and
+        ``krope``), stacked with a leading L, and the number of positions
+        written (``pos``, a Python int)."""
         c = self.cfg
-        one = attn.gqa_cache(batch, max_len, c.n_kv, c.hd, c.torch_dtype,
-                             device=resolve_device(device))
+        dev = resolve_device(device)
+        one = (attn.mla_cache(batch, max_len, c.kv_lora_rank, c.qk_rope_dim,
+                              c.torch_dtype, device=dev) if c.mla
+               else attn.gqa_cache(batch, max_len, c.n_kv, c.hd,
+                                   c.torch_dtype, device=dev))
         pos = one.pop("pos")
         return {"layers": {k: torch.zeros((c.n_layers,) + v.shape,
                                           dtype=v.dtype, device=v.device)
@@ -152,8 +172,12 @@ class TransformerLM:
         tp = Tapper()
         cl = dict(cache_l, pos=pos)
         z = cm.apply_norm(tp, "ln1", params_l.get("ln1"), h, c.norm)
-        a, nc = attn.gqa_apply(tp, "attn", params_l["attn"], z, cache=cl,
-                               window=0, **self._attn_kw())
+        if c.mla:
+            a, nc = self._attn(tp, params_l["attn"], z, cache=cl,
+                               absorbed_decode=c.mla_absorbed_decode)
+        else:
+            a, nc = self._attn(tp, params_l["attn"], z, cache=cl, window=0,
+                               attn_impl=c.attn_impl)
         h = h + a
         z = cm.apply_norm(tp, "ln2", params_l.get("ln2"), h, c.norm)
         nc.pop("pos")

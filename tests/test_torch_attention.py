@@ -11,8 +11,10 @@ cotangent, over their sweeps (GQA rep 1 / 2 / 4, causal and full,
 bq != bk, query padding) and the ``FlashShapeError`` raises; the lse
 rows are held against the JAX package's.  ``attend`` is compared for the
 xla, chunked and flash
-implementations, and ``gqa_apply`` through the KV cache.  Tolerance rtol 2e-4 / atol 2e-5 (f32; sums in another
-order).  The CUDA kernels run only on the card:
+implementations, ``gqa_apply`` through the KV cache and under the
+block-level ``dp_attn`` tap, and MLA's ``mla_apply`` (train path, and
+decode through the latent cache with and without the absorbed decode).
+Tolerance rtol 2e-4 / atol 2e-5 (f32; sums in another order).  The CUDA kernels run only on the card:
 ``tests/test_torch_flash_cuda.py``.
 """
 import numpy as np
@@ -26,9 +28,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.tapper import Tapper as JTapper  # noqa: E402
 from repro.kernels import flash_attn as jfa  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro.models import common as jcm  # noqa: E402
 from repro_torch.core.tapper import Tapper  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import common as tcm  # noqa: E402
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -156,8 +160,12 @@ def test_chunked_and_masks_vs_reference():
 
 def test_unserved_attention_paths_raise():
     """The KV cache is served: a prefill through the cache equals the
-    JAX package's (output, written K/V slots, ``pos``); cross attention
-    (item 12) and the block-level ``dp_attn`` tap (item 11b) raise."""
+    JAX package's (output, written K/V slots, ``pos``).  So is the
+    block-level ``dp_attn`` tap: under an active tapper the block's
+    output equals the JAX package's and is tapped as one ``"attn"``
+    layer capturing only its input; under an inactive one it is the
+    plain block.  Cross attention (item 12) raises, and so does MLA
+    with ``attn_impl="flash"`` (one head dim for q, k and v)."""
     rng = np.random.RandomState(12)
     x = rng.randn(2, 4, 8).astype(np.float32)
     p = {n: {"w": rng.randn(8, 8).astype(np.float32) * 0.3}
@@ -176,7 +184,77 @@ def test_unserved_attention_paths_raise():
         np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]),
                                    rtol=RTOL, atol=ATOL)
     xt = torch.from_numpy(x)
-    for extra, item in (({"x_kv": xt}, "item 12"),
-                        ({"dp_attn": True}, "item 11b")):
-        with pytest.raises(NotImplementedError, match=item):
-            tattn.gqa_apply(Tapper(), "attn", tp, xt, **kw, **extra)
+    jtp = JTapper(None, "capture")
+    want, _ = jattn.gqa_apply(jtp, "attn", jax.tree.map(jnp.asarray, p),
+                              jnp.asarray(x), dp_attn=True, **kw)
+    ttp = Tapper("capture")
+    got, none = tattn.gqa_apply(ttp, "attn", tp, xt, dp_attn=True, **kw)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    assert none is None and list(ttp.metas) == list(jtp.metas) == ["attn"]
+    meta, jmeta = ttp.metas["attn"], jtp.metas["attn"]
+    assert meta.kind == jmeta.kind == "attn"
+    assert meta.static == jmeta.static and callable(meta.fn)
+    assert list(ttp.captures["attn"]) == ["x"]
+    plain, _ = tattn.gqa_apply(Tapper(), "attn", tp, xt, dp_attn=True, **kw)
+    assert torch.equal(plain, got.detach())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tattn.gqa_apply(Tapper(), "attn", tp, xt, x_kv=xt, **kw)
+    pm = tcm.split_tree(tattn.mla_init(torch.Generator().manual_seed(0), 8,
+                                       2, **_MLA_DIMS))[0]
+    with pytest.raises(tattn.FlashUnsupportedError, match="MLA"):
+        tattn.mla_apply(Tapper(), "m", pm, xt, n_heads=2,
+                        attn_impl="flash", **_MLA_DIMS)
+
+
+_MLA_DIMS = dict(q_lora_rank=8, kv_lora_rank=12, qk_nope_dim=6,
+                 qk_rope_dim=4, v_head_dim=6)
+
+
+@pytest.mark.parametrize("q_lora", (8, 0), ids=("q_lora", "wq"))
+@pytest.mark.parametrize("absorbed", (False, True),
+                         ids=("decompressed", "absorbed"))
+def test_mla_matches_reference(absorbed, q_lora):
+    """``mla_apply`` against the JAX package's, after
+    ``tests/test_attention.py::test_mla_decode_matches_train`` (D = 24,
+    2 heads, kv rank 12, nope / rope / v 6 / 4 / 6; a q rank of 8, or
+    none and a plain ``wq``): the train path; then token-by-token decode
+    through the latent cache, each step's output and the final cache
+    slots against the reference's, and the decoded sequence against the
+    train path."""
+    dims = dict(_MLA_DIMS, q_lora_rank=q_lora)
+    kw = dict(n_heads=2, **dims)
+    tree = jattn.mla_init(jax.random.PRNGKey(4), 24, 2, **dims)
+    jp = jcm.split_tree(tree)[0]
+    tp = {k: {n: torch.from_numpy(np.array(a)) for n, a in v.items()}
+          for k, v in jp.items()}
+    assert sorted(tp) == sorted(
+        (["wq_a", "q_norm", "wq_b"] if q_lora else ["wq"])
+        + ["wkv_a", "kv_norm", "wkv_b", "wo"])
+    B, T = 2, 7
+    x = np.random.RandomState(4).randn(B, T, 24).astype(np.float32)
+    jfull, _ = jattn.mla_apply(JTapper(), "m", jp, jnp.asarray(x), **kw)
+    full, _ = tattn.mla_apply(Tapper(), "m", tp, torch.from_numpy(x), **kw)
+    np.testing.assert_allclose(full.numpy(), np.asarray(jfull), rtol=RTOL,
+                               atol=ATOL)
+    jcache = jattn.mla_cache(B, T, 12, 4)
+    cache = tattn.mla_cache(B, T, 12, 4)
+    outs = []
+    for t in range(T):
+        jo, jcache = jattn.mla_apply(JTapper(), "m", jp,
+                                     jnp.asarray(x[:, t:t + 1]),
+                                     cache=jcache, absorbed_decode=absorbed,
+                                     **kw)
+        o, cache = tattn.mla_apply(Tapper(), "m", tp,
+                                   torch.from_numpy(x[:, t:t + 1]),
+                                   cache=cache, absorbed_decode=absorbed,
+                                   **kw)
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"step {t}")
+        outs.append(o)
+    assert cache["pos"] == int(jcache["pos"]) == T
+    for k in ("ckv", "krope"):
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(),
+                               full.numpy(), rtol=3e-4, atol=3e-5)

@@ -183,15 +183,19 @@ def test_kind_parity(toy, name, op, tkw, jkw):
 
 
 def test_unported_kinds_raise(toy):
-    """Segmented (MoE) layers and the attn / local_vjp kinds are not
-    ported yet."""
+    """Segmented (MoE) layers and the local_vjp kind are not ported yet.
+    The attn kind is (``tests/test_torch_attn_kind.py``); an attn meta
+    without its block's rebuild closure (one read back from a plan's
+    JSON) is refused by name."""
     fields, cap, dy, psub = _layer(toy, "fc0")
     for meta in (TMeta(**dict(fields, segmented=True)),
-                 TMeta(**dict(fields, kind="attn")),
                  TMeta(**dict(fields, kind="local_vjp"))):
         with pytest.raises(NotImplementedError, match="LM slice"):
             tkinds.apply_kind("norm_sq", meta, _t(cap), _t(dy),
                               params_sub=_t(psub))
+    with pytest.raises(ValueError, match="rebuild closure"):
+        tkinds.apply_kind("norm_sq", TMeta(**dict(fields, kind="attn")),
+                          _t(cap), _t(dy), params_sub=_t(psub))
 
 
 # ---------------------------------------------------------------------------

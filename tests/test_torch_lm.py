@@ -14,7 +14,9 @@ leave the same params (rtol 1e-4 / atol 1e-6; AdamW eps 1e-6, lr 1e-4 in
 both, as the CNN lanes run it); so do bk and ``auto`` under per_layer
 (uniform and auto budgets) and stale clipping, with the stale plan
 fusing the reference's layers.  ``remat=True`` equals ``remat=False``
-bitwise and the reference's ``remat=True``.
+bitwise and the reference's ``remat=True``.  Reduced MLA (with
+per-projection taps and with the block-level ``"attn"`` tap) gives the
+reference's losses, cotangents and group norms.
 """
 import dataclasses
 import functools
@@ -387,17 +389,74 @@ def test_params_from_numpy_checks_the_lm_tree(lm):
 
 
 def test_unserved_models_raise():
-    """The LM configs that need blocks this slice does not port (MoE and
-    MLA: ROADMAP.md items 11d and 12; SSM and hybrid: item 12) raise,
-    naming their item."""
+    """The LM configs that need blocks the port does not serve yet raise,
+    naming their item: MoE (DeepSeek-V3 too, whose MLA attention is
+    served and whose MoE layers are not), SSM and hybrid (ROADMAP.md item
+    12).  MLA builds (``test_mla_matches_reference``), and MLA with
+    ``attn_impl="flash"`` raises by name: the flash kernels take one head
+    dim for q, k and v."""
+    from repro_torch.configs.deepseek_v3_671b import CONFIG as DSV3
+    from repro_torch.models.attention import FlashUnsupportedError
     for arch in ("deepseek-v3-671b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             tget(arch)
     cfg = tget("llama3.2-1b").reduced()
-    for bad, item in ((cfg.replace(family="moe"), "item 12"),
-                      (cfg.replace(n_experts=4), "item 12"),
-                      (cfg.replace(mla=True), "item 11d")):
-        with pytest.raises(NotImplementedError, match=item):
+    for bad in (cfg.replace(family="moe"), cfg.replace(n_experts=4), DSV3,
+                DSV3.replace(family="dense")):
+        with pytest.raises(NotImplementedError, match="item 12"):
             build_model(bad)
-    assert isinstance(build_model(cfg), TLM)
+    mla = tget("llama3.2-1b").replace(mla=True).reduced()
+    assert isinstance(build_model(mla), TLM)
     assert isinstance(build_model(tget("chameleon-34b").reduced()), TLM)
+    fm = build_model(mla.replace(attn_impl="flash"))
+    params, _ = fm.init(0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(FlashUnsupportedError, match="MLA"):
+        fm.apply(params, {"tokens": tokens, "labels": tokens}, Tapper())
+
+
+@pytest.mark.parametrize("dp_attn", (False, True), ids=("taps", "dp_attn"))
+def test_mla_matches_reference(dp_attn):
+    """Reduced Llama-3.2-1B with MLA (``replace(mla=True).reduced()``:
+    q / kv ranks 32, nope 16, rope 8, v 16; f32, the plain softmax) in
+    both packages: per-example losses and every tap's cotangent to rtol
+    1e-5, the per-group norms under bk's realizations to rtol 1e-5, with
+    per-projection taps or the block-level ``"attn"`` tap.  DeepSeek-V3's
+    config and the reduced MLA configs are the JAX package's field for
+    field."""
+    from repro.configs.deepseek_v3_671b import CONFIG as JDSV3
+    from repro_torch.configs.deepseek_v3_671b import CONFIG as DSV3
+    for t, j in ((DSV3, JDSV3), (DSV3.reduced(), JDSV3.reduced()),
+                 (tget("llama3.2-1b").replace(mla=True).reduced(),
+                  jget("llama3.2-1b").replace(mla=True).reduced())):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    jm = JLM(jget("llama3.2-1b").replace(mla=True, dp_attn=dp_attn)
+             .reduced())
+    tm = TLM(tget("llama3.2-1b").replace(mla=True, dp_attn=dp_attn)
+             .reduced())
+    jparams = jax.jit(lambda k: jm.init(k)[0])(jax.random.PRNGKey(1))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                like=tm.init(0, device="cpu")[0],
+                                device="cpu")
+    assert sorted(tparams["blocks"]["attn"]) == [
+        "kv_norm", "q_norm", "wkv_a", "wkv_b", "wo", "wq_a", "wq_b"]
+    b = SyntheticLMDataset(jm.cfg.vocab, T, n_examples=8).batch(range(B))
+    jb = jax.tree.map(jnp.asarray, b)
+    _, jmetas, _ = jprobe(jm.apply, jparams, jb)
+    jl, jcaps, jdtaps = jax.jit(
+        lambda p, bb: jstrat._capture(jm.apply, p, bb)[:3])(jparams, jb)
+    tl, tcaps, tdtaps, tmetas = capture_backward(tm.apply, tparams, _t(b),
+                                                 with_metas=True)
+    assert list(tmetas) == list(jmetas)
+    assert ("blocks/attn" in tmetas) == dp_attn
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for n in jmetas:
+        want = np.asarray(jdtaps[n])
+        np.testing.assert_allclose(tdtaps[n].numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max(), err_msg=n)
+    jkeys, jn = jstrat.group_norms_from_captures(jparams, jcaps, jdtaps,
+                                                 jmetas)
+    tkeys, tn = tstrat.group_norms_from_captures(
+        tparams, tcaps, tdtaps, tmetas, embed_method="segsum")
+    assert tkeys == jkeys
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5)

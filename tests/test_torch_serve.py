@@ -1,13 +1,16 @@
 """Serving in the port (KV cache, prefill, decode, ``launch/serve.py``)
 against the JAX package's.
 
-Reduced Llama-3.2-1B and reduced GLM-4-9B in f32: params from the JAX
+Reduced Llama-3.2-1B, reduced GLM-4-9B and reduced Llama-3.2-1B with
+MLA (its cache the latent KV; decompressed and absorbed decode) in f32:
+params from the JAX
 package's ``init`` pass through numpy into the port, and the same numpy
 prompts (B = 2, 8 tokens, from a seed) go through both packages'
 ``prefill`` and then 4 greedy ``decode_step``s.  After each call the
 logits agree to rtol 1e-5 / atol 1e-6 (f32, sums in another order), the
 greedy tokens are equal, the caches' ``pos`` is equal and so are the
-written slots of every layer's K and V (rtol 1e-5, atol 1e-6 of the
+written slots of every layer's K and V (MLA: ``ckv`` and ``krope``;
+rtol 1e-5, atol 1e-6 of the
 largest entry, as the other parity tests hold captures), the rest zero.
 The port's own properties mirror ``tests/test_attention.py``'s: incremental decode equals the full
 causal forward, prefill then decode equals it, and a ring cache of the
@@ -37,16 +40,30 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 
 B, TP, STEPS = 2, 8, 4
 MAX_LEN = TP + STEPS + 2
-ARCHS = ("llama3.2-1b", "glm4-9b")
+# id -> the reduced config, built alike from either package's get_config
+ARCHS = {
+    "llama3.2-1b": lambda get: get("llama3.2-1b").reduced(),
+    "glm4-9b": lambda get: get("glm4-9b").reduced(),
+    "llama3.2-1b+mla": lambda get: get("llama3.2-1b").replace(
+        mla=True).reduced(),
+    "llama3.2-1b+mla_absorbed": lambda get: get("llama3.2-1b").replace(
+        mla=True, mla_absorbed_decode=True).reduced()}
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+def _cache_shapes(cfg):
+    """Each cache entry's shape per layer past (L, B, MAX_LEN)."""
+    if cfg.mla:
+        return {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    return {k: (cfg.n_kv, cfg.hd) for k in ("k", "v")}
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
 def served(request):
     """Both packages' prefill and decode steps on the same prompts:
     ([(logits, tokens, cache)] of each call, JAX then port), and the
     port's model and params."""
     arch = request.param
-    jm, tm = JLM(jget(arch).reduced()), TLM(tget(arch).reduced())
+    jm, tm = JLM(ARCHS[arch](jget)), TLM(ARCHS[arch](tget))
     jparams = jax.jit(lambda k: jm.init(k)[0])(jax.random.PRNGKey(0))
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
                                 like=tm.init(0, device="cpu")[0],
@@ -77,11 +94,11 @@ def test_prefill_and_decode_match_reference(served):
                                    err_msg=what)
         np.testing.assert_array_equal(ttok, jtok, err_msg=what)
         assert tc["pos"] == int(jc["pos"]) == TP + i, what
-        for k in ("k", "v"):
+        for k, shape in _cache_shapes(tm.cfg).items():
             want = jc["layers"][k]
             got = tc["layers"][k].numpy()
             assert got.shape == want.shape == (
-                tm.cfg.n_layers, B, MAX_LEN, tm.cfg.n_kv, tm.cfg.hd)
+                tm.cfg.n_layers, B, MAX_LEN) + shape
             n = TP + i
             np.testing.assert_allclose(
                 got[:, :, :n], want[:, :, :n], rtol=1e-5,
@@ -155,6 +172,17 @@ def test_sliding_window_ring_cache():
                                    cache=cache, window=4, **kw)
         outs.append(o)
     _close(torch.cat(outs, dim=1), full)
+
+
+def test_generate_batch_serves_mla(served):
+    """``launch.serve.generate_batch`` serves every config of the lane
+    (MLA too) through the same ``prefill`` / ``decode_step``: its greedy
+    tokens are those of the calls above."""
+    arch, _, tcalls, tm, tparams, prompts = served
+    toks = serve.generate_batch(tm, tparams, torch.from_numpy(prompts),
+                                max_len=MAX_LEN, gen=STEPS + 1)
+    np.testing.assert_array_equal(
+        toks.numpy(), np.stack([t[1] for t in tcalls], axis=1), err_msg=arch)
 
 
 def test_serving_never_records():
