@@ -114,6 +114,22 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and on: prefill ms, decode ms a token, the latent cache's 1152 bytes
    a token, decode-equals-forward against the f32 forward
    (``serve_checks_f32_ref``).
+9g. the static verifier (phase ``dp_verify``): ``engine.verify()`` on
+   fake CUDA tensors, ``strategy="auto"`` at full width: AlexNet
+   (B = 32) under flat, per_layer and stale clipping, VGG16 (B = 32)
+   flat, Llama-3.2-1B (B = 8, T = 1024, flash) stale and flat with
+   ``dp_attn``.  Each report must hold no error; each lane prints the
+   seconds of the trace and the passes, the graph's nodes, its nodes per
+   kernel op and the rise of ``max_memory_allocated`` during
+   ``verify()`` (under 1 % of the step's peak); one real
+   ``private_step`` of the same engine (after a stale lane's bootstrap)
+   must launch each kernel as many times as the graph holds its nodes.
+   One mutant on the card (the clip dropped, AlexNet ``auto`` flat)
+   must report ``clip_missing`` and ``unclipped_batch_reduction``; the
+   dispatcher's cost a launch is measured (``gram_norm`` through its
+   op against its CUDA implementation called directly); and
+   ``python -m repro_torch.launch.dpcheck`` over the reduced AlexNet,
+   VGG16 and Llama-3.2-1B under every clipping mode must exit 0.
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -1818,6 +1834,182 @@ def lm_dp_attn(torch, launches, lanes, profiled, llm):
          "auto_picks": out["llama_dp_attn_auto"]["plan"]["blocks/attn"]})
 
 
+# The static verifier's card lanes (phase dp_verify): (lane, arch, clip
+# mode, dp_attn), all ``strategy="auto"`` at full width; the CNNs at
+# B = 32, Llama-3.2-1B at B = 8, T = 1024 with flash.
+DPV_LANES = [("alexnet_auto_flat", "alexnet", "flat", False),
+             ("alexnet_auto_per_layer", "alexnet", "per_layer", False),
+             ("alexnet_auto_stale", "alexnet", "stale", False),
+             ("vgg16_auto_flat", "vgg16", "flat", False),
+             ("llama_auto_stale", "llama3.2-1b", "stale", False),
+             ("llama_dp_attn_auto_flat", "llama3.2-1b", "flat", True)]
+DPCHECK_ARGS = ["--archs", "alexnet", "vgg16", "llama3.2-1b",
+                "--clip-modes", "flat", "per_layer", "stale"]
+
+
+def verify_lane(torch, lane, model, params, batches, clipping, launches,
+                lanes):
+    """One verifier lane: ``engine.verify()`` on fake CUDA tensors (after
+    the flat bootstrap step of a stale lane, so the steady state it
+    proves is the step that runs next), then one real ``private_step``.
+    The report must hold no error, the rise of
+    ``torch.cuda.max_memory_allocated`` during ``verify()`` must stay
+    under 1 % of the step's peak, and each kernel's nodes in the
+    verified graph must equal its launches in the step."""
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="auto",
+                  norm=NormCfg(conv_impl="pallas"),
+                  clipping=ClipPolicy(mode=clipping))
+    eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                        optimizer="adamw", lr=1e-4, run_seed=0,
+                        device="cuda")
+    p, opt, step = params, adamw_init(params), 0
+    if clipping == "stale":
+        p, opt, _, _ = eng.private_step(p, opt, batches[0], step=0)
+        step = 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    report = eng.verify()
+    verify_s = time.perf_counter() - t
+    rise = torch.cuda.max_memory_allocated() - base
+    check(ops.LAUNCHES == before, f"dp_verify {lane}: verify() launched")
+    check(report.ok, f"dp_verify {lane}:\n{report.summary()}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    p, opt, loss, _ = eng.private_step(p, opt, batches[step], step=step)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(math.isfinite(float(loss)), f"dp_verify {lane}: loss {loss}")
+    check(report.census["kernels"] == got,
+          f"dp_verify {lane}: kernel nodes {report.census['kernels']} != "
+          f"launches of the step {got}")
+    check(got, f"dp_verify {lane}: the step launched no kernel")
+    check(rise < 0.01 * peak, f"dp_verify {lane}: verify() raised the "
+          f"peak by {rise} bytes, step peak {peak}")
+    for k, v in got.items():
+        launches[k] += v
+    lanes[f"dp_verify_{lane}"] = {k: [v] for k, v in got.items()}
+    log({"phase": "dp_verify", "lane": lane, "verify_s": verify_s,
+         "nodes": report.census["nodes"],
+         "kernel_nodes": report.census["kernels"], "step_launches": got,
+         "verify_peak_rise_bytes": rise, "step_peak_bytes": peak,
+         "verify_rise_share_of_step_peak": rise / peak, "step": step,
+         "step_ms": step_ms, "checked": report.checked,
+         "findings": [str(f) for f in report.findings]})
+    del p, opt, eng
+    return report
+
+
+def dispatch_cost(torch):
+    """Host microseconds a launch through the custom op's dispatcher adds
+    over calling its CUDA implementation directly: ``gram_norm`` at a
+    tiny shape (the device's work is negligible), 2000 calls a side,
+    direct / op / op / direct, each ended by one synchronise."""
+    from repro_torch.kernels import ops
+    direct = ops.CUDA_IMPLS["gram_norm"]
+    x = torch.randn(4, 2, 8, device="cuda")
+    dy = torch.randn(4, 2, 8, device="cuda")
+    op = torch.ops.repro_torch.gram_norm
+    n, times = 2000, {"direct": [], "op": []}
+    for name in ("direct", "op", "op", "direct"):
+        fn = direct if name == "direct" else op
+        for _ in range(50):
+            fn(x, dy, False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn(x, dy, False)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) * 1e6 / n)
+    return {"direct_us_per_call": times["direct"],
+            "op_us_per_call": times["op"],
+            "dispatch_us_per_launch": (sum(times["op"])
+                                       - sum(times["direct"])) / 2}
+
+
+def dp_verify(torch, launches, lanes, llm):
+    """Phase 9g (dp_verify): the static verifier on the card.  Each lane
+    of ``DPV_LANES`` verifies clean at full width on fake CUDA tensors
+    (``verify_lane``: seconds, nodes, kernel nodes, the peak's rise),
+    and its graph's kernel nodes equal the launches of a real step.
+    Then one mutant on the card (the clip dropped on AlexNet ``auto``
+    flat) must report ``clip_missing`` and ``unclipped_batch_reduction``;
+    the dispatcher's cost a launch is measured (``dispatch_cost``); and
+    ``python -m repro_torch.launch.dpcheck`` over the reduced AlexNet,
+    VGG16 and Llama-3.2-1B under every clipping mode must exit 0."""
+    import repro_torch.core.strategies as strategies
+    from repro_torch.configs import get_config
+    from repro_torch.models.cnn import CNN
+    from repro_torch.models.lm import TransformerLM
+
+    t0 = time.perf_counter()
+    lm_model, lm_params, lm_batches = llm
+    cnn = {}
+    for lane, arch, clipping, dp_attn in DPV_LANES:
+        if arch == "llama3.2-1b":
+            model = TransformerLM(lm_model.cfg.replace(dp_attn=dp_attn))
+            verify_lane(torch, lane, model, lm_params, lm_batches, clipping,
+                        launches, lanes)
+            continue
+        if arch not in cnn:
+            cnn.clear()
+            torch.cuda.empty_cache()
+            model = CNN(get_config(arch))
+            cnn[arch] = (model, model.init(0, device="cuda")[0],
+                         image_batches(torch, IMG, 1000, B, 2))
+        verify_lane(torch, lane, *cnn[arch], clipping, launches, lanes)
+        if lane == "alexnet_auto_flat":
+            from repro_torch.core import DPConfig, NormCfg, PrivacyEngine
+            model, params, batches = cnn[arch]
+            orig = strategies.clip_coefficients
+            strategies.clip_coefficients = (
+                lambda n, c, eps=1e-12, *, mode="flat": torch.ones_like(n))
+            try:
+                report = PrivacyEngine(
+                    model.apply, params, batches[0],
+                    DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                             norm=NormCfg(conv_impl="pallas")),
+                    run_seed=0, device="cuda").verify()
+            finally:
+                strategies.clip_coefficients = orig
+            codes = sorted({f.code for f in report.errors})
+            check({"clip_missing", "unclipped_batch_reduction"}
+                  <= set(codes), f"dp_verify mutant: codes {codes}")
+            log({"phase": "dp_verify", "mutant": "alexnet_auto_flat "
+                 "clip dropped", "error_codes": codes})
+    cnn.clear()
+    torch.cuda.empty_cache()
+    log(dict({"phase": "dp_verify", "what": "dispatch_cost"},
+             **dispatch_cost(torch)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dpcheck",
+             *DPCHECK_ARGS], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"dpcheck: timed out after {CLI_TIMEOUT_S} s") \
+            from e
+    check(proc.returncode == 0, f"dpcheck: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    log({"phase": "dp_verify", "dpcheck": DPCHECK_ARGS,
+         "wall_s": time.perf_counter() - t,
+         "lines": proc.stdout.splitlines()[-10:], "ok": True,
+         "seconds": time.perf_counter() - t0})
+
+
 # DeepSeek-V3's first layer at full width (arXiv:2412.19437; the widths
 # of configs/deepseek_v3_671b.py): MLA with d_model 7168, 128 heads, q
 # rank 1536, kv rank 512, nope 128, rope 64, v 128, and the dense SwiGLU
@@ -2645,6 +2837,9 @@ def main():
     t = time.perf_counter()
     lm_dp_attn(torch, launches, lanes, profiled, llama)
     log({"phase": "lm_dp_attn_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    dp_verify(torch, launches, lanes, llama)
+    log({"phase": "dp_verify_done", "seconds": time.perf_counter() - t})
     del llama
     torch.cuda.empty_cache()
     t = time.perf_counter()

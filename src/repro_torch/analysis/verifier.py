@@ -1,0 +1,258 @@
+"""Trace a PrivacyEngine's private step and verify DP invariants.
+
+:func:`verify_engine` is what ``engine.verify()`` and the ``dpcheck``
+CLI call.  It traces the engine's step closure (``engine._step_fn()``:
+``dp_gradient`` and the optimizer update, what ``private_step`` runs)
+with ``make_fx`` on fake tensors of the engine's own device
+(:mod:`repro_torch.analysis.graph`): nothing executes, no device memory
+is taken, and on the card the graph holds each hand-written kernel as
+one node.  Three passes read it:
+
+  * taint  (:mod:`repro_torch.analysis.taint`)  — clip before any batch
+    reduction on every path to the released params and optimizer state;
+  * noise  (:mod:`repro_torch.analysis.noise`)  — one fresh f32 Gaussian
+    per released leaf at sigma·C, every draw from the step's generator
+    stream, no stream consumed twice;
+  * plan   (:mod:`repro_torch.analysis.plancheck`) — the ExecPlan's
+    declared realizations executed (marker + STATS census), live
+    fingerprint.
+
+The JAX package's fourth pass, sharding, waits for a mesh (ROADMAP.md
+item 14).  Violations that only feed the *monitoring* outputs (the mean
+loss, clip fractions, the stale norms) are filtered by a backward slice
+from the params and optimizer outputs.
+
+Verifying leaves the engine as it found it: its cross-step clip state,
+its plan cache, ``tapper.STATS`` (the trace's own ticks are what the
+plan pass reads, then they are taken back) and ``ops.LAUNCHES`` (a fake
+trace launches nothing).  Stale mode is verified in its steady state,
+with a (B,) f32 ``prev_norms_sq`` (its bootstrap step is the flat
+pipeline, which the flat lane covers).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils import _pytree as pytree
+
+from repro_torch.analysis import graph as graphlib
+from repro_torch.analysis import noise as noiselib
+from repro_torch.analysis import plancheck
+from repro_torch.analysis import taint as taintlib
+from repro_torch.analysis.report import Finding, VerifyReport
+
+_STAT_FIELDS = ("forwards", "backwards", "probes", "fused", "recomputes")
+
+
+def _fake(fm: FakeTensorMode, spec, device):
+    with fm:
+        return torch.empty(tuple(spec.shape), dtype=spec.dtype,
+                           device=device)
+
+
+def _opt_state(engine, opt, fm, params):
+    if opt is not None:
+        return pytree.tree_map(
+            lambda t: fm.from_tensor(t) if isinstance(t, torch.Tensor)
+            else t, opt)
+    from repro_torch.optim import adamw_init, sgdm_init
+    table = {"adamw": adamw_init, "sgdm": sgdm_init}
+    if engine._optimizer_name not in table:
+        raise ValueError(
+            "engine uses a custom optimizer callable; pass opt= (a live "
+            "optimizer state) to verify()")
+    with fm:
+        return table[engine._optimizer_name](params)
+
+
+@contextlib.contextmanager
+def _engine_state_kept(engine):
+    """Restore the engine's cross-step clip state, the plan caches and
+    ``STATS`` on the way out."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.tapper import STATS
+    kept = (engine._prev_norms_sq, engine._budgets, engine._budget_q,
+            engine._plan)
+    cache = list(costmodel._PLAN_CACHE.items())
+    stats = {k: getattr(STATS, k) for k in _STAT_FIELDS}
+    try:
+        yield
+    finally:
+        (engine._prev_norms_sq, engine._budgets, engine._budget_q,
+         engine._plan) = kept
+        costmodel._PLAN_CACHE.clear()
+        costmodel._PLAN_CACHE.update(cache)
+        for k, v in stats.items():
+            setattr(STATS, k, v)
+
+
+def verify_engine(engine, *, opt=None,
+                  coll_bytes_warn: Optional[float] = None) -> VerifyReport:
+    """Statically verify one engine's private step.  Returns a
+    :class:`~repro_torch.analysis.report.VerifyReport`; never executes the
+    step.  ``coll_bytes_warn`` is the JAX package's knob; with no mesh
+    there is no collective traffic to warn about."""
+    with _engine_state_kept(engine):
+        return _verify(engine, opt, coll_bytes_warn)
+
+
+def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
+    from repro_torch.core.engine import noise_seed
+    from repro_torch.core.tapper import STATS, TensorSpec
+    from repro_torch.tree import tree_map
+
+    findings: List[Finding] = []
+    checked = {}
+    mode = engine.dp.clipping.mode
+    sigma_mult = engine.dp.noise_multiplier
+    l2_clip = engine.dp.l2_clip
+    dev = engine.device
+    B = next(iter(engine._batch_spec.values())).shape[0]
+    stale_steady = mode == "stale"
+
+    # Planning (and any probes) happen before the STATS snapshot, so the
+    # traced step's census below sees only the step's own phases.
+    plan = engine._exec_plan()
+    m = engine.microbatches()
+    step = engine._step_fn()
+
+    # The step's generator: the stream's, through the engine's own
+    # provenance check, or (no stream) one seeded as step 0 of run 0.
+    step_seed = None
+    if sigma_mult > 0:
+        if engine.run_seed is not None:
+            key = engine._check_key(engine.noise_key(0), step=0)
+            step_seed = noise_seed(engine.run_seed, 0)
+        else:
+            step_seed = noise_seed(0, 0)
+            key = torch.Generator(device=dev)
+            key.manual_seed(step_seed)
+    else:
+        key = None
+
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    params = tree_map(lambda s: _fake(fm, s, dev), engine._params_spec)
+    batch = tree_map(lambda s: _fake(fm, s, dev), engine._batch_spec)
+    opt_state = _opt_state(engine, opt, fm, params)
+    if stale_steady:
+        clip_state = {"prev_norms_sq": _fake(
+            fm, TensorSpec((B,), torch.float32), dev)}
+    else:
+        clip_state = {k: fm.from_tensor(v)
+                      for k, v in engine._clip_state().items()}
+
+    before = {k: getattr(STATS, k) for k in ("forwards", "backwards",
+                                             "probes", "fused")}
+    graph = graphlib.capture(
+        lambda p, o, b, c: step(p, o, b, key, c),
+        params, opt_state, batch, clip_state)
+    stats_delta = {k: getattr(STATS, k) - v for k, v in before.items()}
+
+    # -- input bookkeeping -------------------------------------------------
+    n_p = len(pytree.tree_leaves(params))
+    n_o = len(pytree.tree_leaves(opt_state))
+    batch_leaves = pytree.tree_leaves(batch)
+    n_b = len(batch_leaves)
+    invars = graph.invars
+    init = {}
+    for v, leaf in zip(invars[n_p + n_o:n_p + n_o + n_b], batch_leaves):
+        if leaf.shape and leaf.shape[0] == B:
+            init[v] = taintlib.Taint(frozenset({0}))
+    cs_paths = [pytree.keystr(p) for p, _ in
+                pytree.tree_flatten_with_path(clip_state)[0]]
+    for v, path in zip(invars[n_p + n_o + n_b:], cs_paths):
+        if "prev_norms_sq" in path:
+            init[v] = taintlib.Taint(frozenset({0}))
+
+    # -- taint pass --------------------------------------------------------
+    res = taintlib.TaintPass(graph, B, m).run(init)
+    sinks = [v for path, v in zip(graph.out_paths, graph.outvars)
+             if getattr(path[0], "idx", None) in (0, 1)]
+    released = graph.backward_slice(sinks)
+    for viol in res.violations:
+        if viol.node not in released:
+            continue  # feeds only the loss/monitoring outputs
+        findings.append(Finding(
+            "error", "unclipped_batch_reduction",
+            viol.message + " on a path to the released model update",
+            "taint"))
+    if res.approx:
+        uniq = sorted(set(res.approx))
+        findings.append(Finding(
+            "info", "taint_approximation",
+            f"unmodeled ops handled conservatively: {uniq[:8]}", "taint"))
+    checked["taint"] = (
+        f"all batch-axis reductions reaching the released update cross a "
+        f"clip contraction ({len(graph.nodes)} op nodes, B={B})")
+
+    # -- clip marker discipline -------------------------------------------
+    clip_markers = [p for _, p in graph.markers()
+                    if p.get("kind") == "clip_coef"]
+    if not clip_markers:
+        findings.append(Finding(
+            "error", "clip_missing",
+            "no clip-coefficient marker in the traced step — the "
+            "per-example clip was removed or replaced", "taint"))
+    else:
+        modes = {p.get("mode") for p in clip_markers}
+        if mode not in modes and not (mode == "stale" and "flat" in modes):
+            findings.append(Finding(
+                "error", "clip_mode_mismatch",
+                f"engine clips {mode!r} but the traced coefficients are "
+                f"{sorted(modes)}", "taint"))
+        for p in clip_markers:
+            c = p.get("l2_clip")
+            if c is not None and abs(float(c) - l2_clip) > 1e-9 * max(
+                    l2_clip, 1.0):
+                findings.append(Finding(
+                    "error", "clip_bound_mismatch",
+                    f"traced clip bound {c} != configured C={l2_clip}",
+                    "taint"))
+                break
+    checked["clip"] = (f"{len(clip_markers)} clip-coefficient site(s), "
+                       f"mode {mode!r}, C={l2_clip}")
+
+    # -- noise pass --------------------------------------------------------
+    findings.extend(noiselib.check_noise(
+        graph, step_seed=step_seed, n_param_leaves=n_p,
+        noise_multiplier=sigma_mult, l2_clip=l2_clip))
+    checked["noise"] = (
+        f"one f32 Gaussian per released leaf ({n_p} leaves) at "
+        f"sigma·C = {sigma_mult * l2_clip:g}, every draw from the step's "
+        f"generator stream (seed noise_seed(run_seed, step), checked by "
+        f"_check_key host-side), no stream consumed twice"
+        if sigma_mult > 0 else "noise_multiplier == 0: no draws expected")
+
+    # -- sharding ----------------------------------------------------------
+    checked["sharding"] = (
+        "no mesh: single-device step (the sharding pass and the "
+        "collective-bytes warning"
+        + ("" if coll_bytes_warn is None
+           else f" at {coll_bytes_warn / 2**20:.0f} MB")
+        + " come with ROADMAP.md item 14)")
+
+    # -- plan pass ---------------------------------------------------------
+    expected_fp = (engine.fingerprint()
+                   if plan is not None and m == 1 else None)
+    findings.extend(plancheck.check_plan(
+        graph, plan=plan, clip_mode=mode, stale_steady=stale_steady,
+        stats_delta=stats_delta, expected_fingerprint=expected_fp,
+        microbatches=m))
+    checked["plan"] = (
+        f"{len(plan.groups)} group realizations present in the graph, "
+        f"STATS census {stats_delta}, fingerprint {plan.fingerprint or '-'}"
+        if plan is not None
+        else f"fixed strategy {engine.dp.strategy!r}: no plan to check")
+
+    owner = getattr(engine.apply_fn, "__self__", None)
+    model = (type(owner).__qualname__ if owner is not None
+             else getattr(engine.apply_fn, "__qualname__", "<fn>"))
+    target = (f"{model} clip={mode} sigma={sigma_mult} B={B} mesh=none "
+              f"device={dev}" + (f" microbatches={m}" if m != 1 else ""))
+    order = {"error": 0, "warning": 1, "info": 2}
+    findings.sort(key=lambda f: order[f.severity])
+    return VerifyReport(target=target, findings=findings, checked=checked,
+                        census=graphlib.census(graph))

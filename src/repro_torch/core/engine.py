@@ -14,7 +14,9 @@ first-class value —
                                ``plan=`` is checked against it;
   * ``engine.microbatches()``  plan-driven ``microbatches="auto"``;
   * ``engine.private_step()``  gradient + clip + noise + optimizer update,
-                               with accountant bookkeeping.
+                               with accountant bookkeeping;
+  * ``engine.verify()``        the static DP verifier over the traced
+                               step (:mod:`repro_torch.analysis`).
 
 Steady state executes exactly one forward and one backward per step for
 ``strategy="auto"`` (counters in :data:`repro_torch.core.tapper.STATS`).
@@ -153,6 +155,8 @@ class PrivacyEngine:
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
         self._update_fn = _resolve_optimizer(optimizer)
+        self._optimizer_name = optimizer if isinstance(optimizer, str) \
+            else None
         self._lr = lr
         self._weight_decay = weight_decay
         if accountant is None and sampling_rate is not None:
@@ -416,11 +420,8 @@ class PrivacyEngine:
         """(mean loss, noised clipped mean gradient, aux).  Cross-step
         clipping state (stale norms, auto budgets) is threaded exactly as
         in ``private_step``."""
-        cfg = dataclasses.replace(self.dp, microbatches=self.microbatches())
-        out = dp_gradient(self.apply_fn, params, batch, cfg=cfg,
-                          key=self._check_key(key, step), denom=denom,
-                          plan=self._exec_plan(),
-                          clip_state=self._clip_state())
+        out = self._grad_fn()(params, batch, self._check_key(key, step),
+                              self._clip_state(), denom)
         self._absorb_clip_aux(out[2])
         return out
 
@@ -506,6 +507,57 @@ class PrivacyEngine:
                 clip, self.dp.l2_clip, self._group_keys(),
                 observed=self._budget_q, device=self.device)
 
+    def _grad_fn(self):
+        """The gradient closure over the plan: clip + noise,
+        ``grad(params, batch, key, clip_state, denom=None) -> (loss, grad,
+        aux)``.  It touches no engine state; ``noisy_grad`` and
+        ``_step_fn`` both run it."""
+        cfg = dataclasses.replace(self.dp, microbatches=self.microbatches())
+        plan = self._exec_plan()
+        apply_fn = self.apply_fn
+
+        def grad(params, batch, key, clip_state, denom=None):
+            return dp_gradient(apply_fn, params, batch, cfg=cfg, key=key,
+                               denom=denom, plan=plan, clip_state=clip_state)
+
+        return grad
+
+    def _step_fn(self):
+        """The step closure over the plan: :meth:`_grad_fn` + optimizer
+        update, ``step(params, opt, batch, key, clip_state) -> (params, opt,
+        loss, aux)``.  It touches no engine state, so ``private_step`` runs
+        it and the static verifier traces it."""
+        grad_fn, update_fn = self._grad_fn(), self._update_fn
+        lr, wd = self._lr, self._weight_decay
+
+        def step(params, opt, batch, key, clip_state):
+            loss, grad, aux = grad_fn(params, batch, key, clip_state)
+            lr_t = lr(opt["step"]) if callable(lr) else lr
+            params, opt = update_fn(grad, opt, params, lr=lr_t,
+                                    weight_decay=wd)
+            return params, opt, loss, aux
+
+        return step
+
+    def verify(self, *, opt=None, raise_on_error: bool = False,
+               coll_bytes_warn=None):
+        """Statically verify this engine's private step (no execution): trace
+        it on fake tensors of the engine's device, with every kernel one
+        graph node, and check clip-before-reduce taint discipline, noise
+        calibration and generator hygiene, and plan/graph consistency.
+        Returns a :class:`repro_torch.analysis.report.VerifyReport`; with
+        ``raise_on_error=True`` a failed report raises
+        :class:`repro_torch.analysis.report.DPVerificationError` instead.
+        ``opt``: the optimizer state, needed for a custom optimizer
+        callable; ``coll_bytes_warn`` is accepted for the JAX package's
+        signature (no mesh, nothing to price)."""
+        from repro_torch.analysis.verifier import verify_engine
+        report = verify_engine(self, opt=opt,
+                               coll_bytes_warn=coll_bytes_warn)
+        if raise_on_error:
+            report.raise_if_failed()
+        return report
+
     def private_step(self, params, opt, batch, key=None, *,
                      step: int | None = None):
         """One DP-SGD step: gradient + clip + noise + optimizer update, and
@@ -516,13 +568,12 @@ class PrivacyEngine:
         first step bootstraps with exact flat clipping); ``per_layer``
         with ``budgets="auto"`` re-splits the budget from the tracked
         per-layer norm quantiles after every step."""
-        loss, grad, aux = self.noisy_grad(params, batch, key, step=step)
-        lr = self._lr(opt["step"]) if callable(self._lr) else self._lr
-        params, opt = self._update_fn(grad, opt, params, lr=lr,
-                                      weight_decay=self._weight_decay)
+        out = self._step_fn()(params, opt, batch, self._check_key(key, step),
+                              self._clip_state())
+        self._absorb_clip_aux(out[3])
         if self.accountant is not None:
             self.accountant.step()
-        return params, opt, loss, aux
+        return out
 
     # -- accounting ----------------------------------------------------------
 

@@ -356,8 +356,8 @@ def _stack(items, seen: dict):
     if isinstance(items[0], list):
         out = torch.stack([_stack(i, seen) for i in items])
     else:
-        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                    for t in items)
+        key = tuple((t.untyped_storage()._cdata, t.storage_offset(),
+                     tuple(t.shape), t.stride(), t.dtype) for t in items)
         out = seen.get(key)
         if out is None:
             out = seen[key] = torch.stack(items)

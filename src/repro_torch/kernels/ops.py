@@ -1,18 +1,29 @@
 """Public wrappers + device dispatch for the port's kernels.
 
-The rule, for every wrapper:
-  * a CUDA tensor goes to the hand-written kernel (``csrc/*.cu``, built
-    at first use by :mod:`repro_torch.kernels.build`), or the call raises;
-  * a CPU tensor goes to the plain PyTorch version in
-    :mod:`repro_torch.kernels.ref`;
-  * nothing falls back from one to the other.
+Every kernel is one ``torch.library`` custom op, ``repro_torch::<name>``
+(``gram_norm``, ``gram_norm_fused``, ``gram_norm_tokmask``,
+``pe_conv_grad_1d``, ``pe_conv_grad_2d``, ``flash_fwd``, ``flash_dq``,
+``flash_dkv``), with three implementations:
+  * CUDA: the hand-written kernel (``csrc/*.cu``, built at first use by
+    :mod:`repro_torch.kernels.build`), launched through ``ctypes``; a
+    launch that fails raises;
+  * CPU: the plain PyTorch version in :mod:`repro_torch.kernels.ref`;
+  * fake: the output shapes and dtypes, so a graph traced on fake
+    tensors (``analysis.graph.capture``, the static verifier) holds each
+    launch as one node and runs nothing;
+and a vmap rule (the ``multi`` strategy's ``vmap(grad)``): the vmapped
+axis folds into the example axis, except for ``gram_norm_fused``, whose
+contribution sums over the examples, which runs once a vmapped slice.
+Nothing falls back from one device to the other.
 
-Each wrapper checks types (f32 or bf16 in), contiguity (except
-``gram_norm``, ``gram_norm_fused`` and the flash kernels, which read
-through strides) and shapes, allocates outputs and scratch with
-``torch.empty``, launches on PyTorch's current stream, and adds one to
-``LAUNCHES[<kernel>]`` per launch.  ``chip_smoke.py`` reads the counts to show that the main path
-went through the kernels.
+Each public wrapper checks types (f32 or bf16 in), the device (the CPU
+or a CUDA card, else it raises), contiguity (except ``gram_norm``,
+``gram_norm_fused`` and the flash kernels, which read through strides)
+and shapes, then calls the op.  The CUDA implementation allocates
+outputs and scratch with ``torch.empty``, launches on PyTorch's current
+stream, and adds one to ``LAUNCHES[<kernel>]`` per launch, so the counts
+hold real launches only.  ``chip_smoke.py`` reads them to show that the
+main path went through the kernels.
 
 ``gram_norm`` runs one of three routes, picked by shape
 (:func:`gram_route`): rank-1 at T = 1, the per-example product (the core
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref as _ref
 
@@ -94,10 +106,10 @@ def _check_pair(name: str, x, dy, ndim: int):
 
 
 def _launch_ready(name: str, *tensors, strided: bool = False) -> bool:
-    """True for CUDA inputs (launch the kernel), False for CPU inputs
-    (take the plain version); raises for anything else.  A ``strided``
-    kernel reads through strides with 64-bit offsets, so its inputs skip
-    the contiguity and 32-bit size checks."""
+    """True for CUDA inputs (the op launches the kernel), False for CPU
+    inputs (the op takes the plain version); raises for anything else.  A
+    ``strided`` kernel reads through strides with 64-bit offsets, so its
+    inputs skip the contiguity and 32-bit size checks."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
@@ -211,6 +223,74 @@ def _check_grid(name, x, dy, zs):
                          f"exceeds the kernel's grid")
 
 
+CUDA_IMPLS: dict = {}   # op name -> its CUDA implementation, undispatched
+
+
+def _op(name: str, fake, cpu, per_example: bool = True):
+    """Decorator: the decorated function is the CUDA implementation of the
+    custom op ``repro_torch::<name>`` (schema from its annotations; kept in
+    :data:`CUDA_IMPLS`, so the dispatcher's cost can be timed against it);
+    ``fake`` gives the output shapes and dtypes, ``cpu`` is the plain
+    version (its outputs made contiguous, as the kernels write them, so
+    the fake shapes and strides hold on both devices).  Under
+    ``torch.func.vmap`` a ``per_example`` op folds the vmapped axis into
+    its example axis (:func:`_vmap_fold`), any other runs once a vmapped
+    slice (:func:`_vmap_each`)."""
+    def deco(cuda_impl):
+        CUDA_IMPLS[name] = cuda_impl
+        op = torch.library.custom_op(f"repro_torch::{name}", cuda_impl,
+                                     mutates_args=(), device_types="cuda")
+        op.register_fake(fake)
+
+        def cpu_impl(*args):
+            out = cpu(*args)
+            if isinstance(out, tuple):
+                return tuple(t.contiguous() for t in out)
+            return out.contiguous()
+        op.register_kernel("cpu")(cpu_impl)
+        op.register_vmap((_vmap_fold if per_example else _vmap_each)(op))
+        return op
+    return deco
+
+
+def _vmap_fold(op):
+    """The vmap rule of a per-example op: fold the vmapped axis into the
+    example axis (axis 0 of every tensor argument; an unbatched tensor is
+    expanded), call the op once, and split the outputs' axis 0 again."""
+    def rule(info, in_dims, *args):
+        V = info.batch_size
+        flat = []
+        for a, d in zip(args, in_dims):
+            if isinstance(a, torch.Tensor):
+                a = (a.expand((V,) + tuple(a.shape)) if d is None
+                     else a.movedim(d, 0))
+                a = a.reshape((V * a.shape[1],) + tuple(a.shape[2:]))
+            flat.append(a)
+        out = op(*flat)
+        split = (lambda t: t.reshape((V, -1) + tuple(t.shape[1:])))
+        if isinstance(out, tuple):
+            return tuple(map(split, out)), (0,) * len(out)
+        return split(out), 0
+    return rule
+
+
+def _vmap_each(op):
+    """The vmap rule of an op that sums over its examples: one call a
+    vmapped slice, the outputs stacked."""
+    def rule(info, in_dims, *args):
+        outs = []
+        for i in range(info.batch_size):
+            outs.append(op(*(a.select(d, i) if d is not None else a
+                             for a, d in zip(args, in_dims))))
+        return (tuple(torch.stack(o) for o in zip(*outs)),
+                (0,) * len(outs[0]))
+    return rule
+
+
+def _f32_like(t, shape):
+    return t.new_empty(tuple(shape), dtype=torch.float32)
+
+
 def gram_norm(x, dy, *, has_bias: bool = False):
     """x (B, T, Di), dy (B, T, Do) -> (B,) f32 squared per-example norms
     ‖δy_bᵀ x_b‖²_F (+ ‖Σ_t δy_bt‖² with a bias), by the route
@@ -218,12 +298,21 @@ def gram_norm(x, dy, *, has_bias: bool = False):
     strides, so a transposed view (the conv path's im2col patches) needs
     no copy."""
     _check_pair("gram_norm", x, dy, 3)
+    if dy.shape[1] != x.shape[1]:
+        raise ValueError(f"gram_norm: x has T={x.shape[1]}, dy has "
+                         f"T={dy.shape[1]}")
+    _launch_ready("gram_norm", x, dy, strided=True)
+    return torch.ops.repro_torch.gram_norm(x, dy, has_bias)
+
+
+@_op("gram_norm",
+     fake=lambda x, dy, has_bias: _f32_like(x, (x.shape[0],)),
+     cpu=lambda x, dy, has_bias: _ref.gram_norm_ref(x, dy,
+                                                    has_bias=has_bias))
+def _gram_norm_cuda(x: torch.Tensor, dy: torch.Tensor,
+                    has_bias: bool) -> torch.Tensor:
     B, T, Di = x.shape
     Do = dy.shape[2]
-    if dy.shape[1] != T:
-        raise ValueError(f"gram_norm: x has T={T}, dy has T={dy.shape[1]}")
-    if not _launch_ready("gram_norm", x, dy, strided=True):
-        return _ref.gram_norm_ref(x, dy, has_bias=has_bias)
     dev = x.device
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
@@ -278,21 +367,37 @@ def gram_norm_fused(x, dy, w, *, has_bias: bool = False):
     route) with the weights; it reads x and dy through their strides, so
     a transposed view (the conv path's im2col patches) needs no copy."""
     _check_pair("gram_norm_fused", x, dy, 3)
-    B, T, Di = x.shape
-    Do = dy.shape[2]
+    B, T = x.shape[:2]
     if dy.shape[1] != T or tuple(w.shape) != (B,):
         raise ValueError(f"gram_norm_fused: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)} and w {tuple(w.shape)} do not "
                          f"fit (B, T, Di), (B, T, Do), (B,)")
-    if not _launch_ready("gram_norm_fused", x, dy, strided=True):
-        return _ref.gram_norm_fused_ref(x, dy, w, has_bias=has_bias)
+    _launch_ready("gram_norm_fused", x, dy, strided=True)
     if w.device != x.device:
         raise ValueError(f"gram_norm_fused: w on {w.device}, x on {x.device}")
+    return torch.ops.repro_torch.gram_norm_fused(x, dy, w, has_bias)
+
+
+def _gram_norm_fused_fake(x, dy, w, has_bias):
+    return (_f32_like(x, (x.shape[0],)),
+            _f32_like(x, (x.shape[2], dy.shape[2])),
+            _f32_like(x, (dy.shape[2],)))
+
+
+@_op("gram_norm_fused", fake=_gram_norm_fused_fake,
+     cpu=lambda x, dy, w, has_bias: _ref.gram_norm_fused_ref(
+         x, dy, w, has_bias=has_bias),
+     per_example=False)
+def _gram_norm_fused_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                          has_bias: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, T, Di = x.shape
+    Do = dy.shape[2]
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((B,), **f32)
-    cc = torch.empty((Di * Do + Do,), **f32)
-    c, cb = cc[:Di * Do].view(Di, Do), cc[Di * Do:]
+    c = torch.empty((Di, Do), **f32)
+    cb = torch.empty((Do,), **f32)
     if min(B, T, Di, Do) == 0:
         return out.zero_(), c.zero_(), cb.zero_()
     n_tiles = _cdiv(Di, _DIRECT_BM) * _cdiv(Do, _DIRECT_BN)
@@ -356,15 +461,21 @@ def gram_norm_tokmask(ids, dy):
     if ids.device != dy.device:
         raise ValueError(f"gram_norm_tokmask: ids on {ids.device}, dy on "
                          f"{dy.device}")
-    ready = _launch_ready("gram_norm_tokmask", dy)
+    _launch_ready("gram_norm_tokmask", dy)
     if ids.dtype == torch.int64 and ids.numel():
         # one reduction and one copy to the host
         lo, hi = torch.stack(torch.aminmax(ids)).tolist()
         if lo < -2 ** 31 or hi >= 2 ** 31:
             raise ValueError("gram_norm_tokmask: ids exceed int32, the "
                              "kernel's id type")
-    if not ready:
-        return _ref.gram_norm_tokmask_ref(ids, dy)
+    return torch.ops.repro_torch.gram_norm_tokmask(ids, dy)
+
+
+@_op("gram_norm_tokmask",
+     fake=lambda ids, dy: _f32_like(dy, (dy.shape[0],)),
+     cpu=lambda ids, dy: _ref.gram_norm_tokmask_ref(ids, dy))
+def _gram_norm_tokmask_cuda(ids: torch.Tensor,
+                            dy: torch.Tensor) -> torch.Tensor:
     B, T, D = dy.shape
     out = torch.empty((B,), dtype=torch.float32, device=dy.device)
     if B == 0:
@@ -413,8 +524,18 @@ def pe_conv_grad_1d(x, dy, *, K: int):
     if Tp != T - K + 1 or K < 1:
         raise ValueError(f"pe_conv_grad_1d: dy length {Tp} does not match x "
                          f"length {T} and kernel {K}")
-    if not _launch_ready("pe_conv_grad_1d", x, dy):
-        return _ref.pe_conv_grad_1d_ref(x, dy, K)
+    _launch_ready("pe_conv_grad_1d", x, dy)
+    return torch.ops.repro_torch.pe_conv_grad_1d(x, dy, K)
+
+
+@_op("pe_conv_grad_1d",
+     fake=lambda x, dy, K: _f32_like(x, (x.shape[0], dy.shape[1],
+                                         x.shape[1], K)),
+     cpu=lambda x, dy, K: _ref.pe_conv_grad_1d_ref(x, dy, K))
+def _pe_conv_grad_1d_cuda(x: torch.Tensor, dy: torch.Tensor,
+                          K: int) -> torch.Tensor:
+    B, C, T = x.shape
+    D, Tp = dy.shape[1:]
     if B > _GRID_YZ_MAX:
         raise ValueError(f"pe_conv_grad_1d: batch {B} too large for the grid")
     out = torch.empty((B, D, C, K), dtype=torch.float32, device=x.device)
@@ -487,8 +608,22 @@ def pe_conv_grad_2d(x, dy, *, KH: int, KW: int, tile_rows=None):
     if (Hp, Wp) != (H - KH + 1, W - KW + 1):
         raise ValueError(f"pe_conv_grad_2d: dy spatial {(Hp, Wp)} does not "
                          f"match x {(H, W)} and kernel {(KH, KW)}")
-    if not _launch_ready("pe_conv_grad_2d", x, dy):
-        return _ref.pe_conv_grad_2d_ref(x, dy, KH, KW)
+    _launch_ready("pe_conv_grad_2d", x, dy)
+    return torch.ops.repro_torch.pe_conv_grad_2d(
+        x, dy, KH, KW, -1 if tile_rows is None else tile_rows)
+
+
+@_op("pe_conv_grad_2d",
+     fake=lambda x, dy, KH, KW, tile_rows: _f32_like(
+         x, (x.shape[0], dy.shape[1], x.shape[1], KH, KW)),
+     cpu=lambda x, dy, KH, KW, tile_rows: _ref.pe_conv_grad_2d_ref(
+         x, dy, KH, KW))
+def _pe_conv_grad_2d_cuda(x: torch.Tensor, dy: torch.Tensor, KH: int,
+                          KW: int, tile_rows: int) -> torch.Tensor:
+    """``tile_rows`` -1: the registered calibration's
+    (:func:`pe_conv_tile_rows`)."""
+    B, C, H, W = x.shape
+    D, Hp, Wp = dy.shape[1:]
     if B > _GRID_YZ_MAX:
         raise ValueError(f"pe_conv_grad_2d: batch {B} too large for the grid")
     out = torch.empty((B, D, C, KH, KW), dtype=torch.float32,
@@ -500,7 +635,7 @@ def pe_conv_grad_2d(x, dy, *, KH: int, KW: int, tile_rows=None):
         return out
     if Hp * Wp == 0:
         return out.zero_()
-    if tile_rows is None:
+    if tile_rows < 0:
         tile_rows = pe_conv_tile_rows(x.device)
         if tile_rows not in PE_TILE_ROWS:
             raise ValueError(f"pe_conv_grad_2d: the registered calibration's "
@@ -643,8 +778,20 @@ def flash_fwd(q, k, v, *, causal: bool = True):
     :func:`flash_design` names.  No padding and no block contract here:
     see :func:`flash_attention`."""
     _check_qkv("flash_fwd", q, k, v)
-    if not _flash_ready("flash_fwd", q, k, v):
-        return _ref.flash_fwd_ref(q, k, v, causal=causal)
+    _flash_ready("flash_fwd", q, k, v)
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal)
+
+
+def _flash_fwd_fake(q, k, v, causal):
+    B, T, H, _ = q.shape
+    return torch.empty_like(q, memory_format=torch.contiguous_format), \
+        _f32_like(q, (B, H, T))
+
+
+@_op("flash_fwd", fake=_flash_fwd_fake,
+     cpu=lambda q, k, v, causal: _ref.flash_fwd_ref(q, k, v, causal=causal))
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if flash_design("flash_fwd", q.dtype, hd) == "wgmma":
@@ -669,17 +816,23 @@ def _flash_bwd(which: int, q, k, v, do, lse, delta, causal):
     """One launch of the dq (``which`` 1) or dk/dv (2) kernel."""
     name = "flash_dq" if which == 1 else "flash_dkv"
     _check_qkv(name, q, k, v, do)
-    if not _flash_ready(name, q, k, v, do):
-        fn = _ref.flash_dq_ref if which == 1 else _ref.flash_dkv_ref
-        return fn(q, k, v, do, lse, delta, causal=causal)
+    if _flash_ready(name, q, k, v, do):
+        B, T, H, _ = q.shape
+        for t, what in ((lse, "lse"), (delta, "delta")):
+            if t.device != q.device or t.dtype != torch.float32 \
+                    or tuple(t.shape) != (B, H, T) or not t.is_contiguous():
+                raise ValueError(f"{name}: {what} must be a contiguous "
+                                 f"(B, H, T) f32 tensor on {q.device}")
+    op = (torch.ops.repro_torch.flash_dq if which == 1
+          else torch.ops.repro_torch.flash_dkv)
+    return op(q, k, v, do, lse, delta, causal)
+
+
+def _flash_bwd_cuda(which: int, q, k, v, do, lse, delta, causal):
+    name = "flash_dq" if which == 1 else "flash_dkv"
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dev = q.device
-    for t, what in ((lse, "lse"), (delta, "delta")):
-        if t.device != dev or t.dtype != torch.float32 \
-                or tuple(t.shape) != (B, H, T) or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous (B, H, T) "
-                             f"f32 tensor on {dev}")
     if flash_design(name, q.dtype, hd) == "wgmma":
         q, k, v, do = _rows16(q), _rows16(k), _rows16(v), _rows16(do)
     dq = dk = dv = None
@@ -706,6 +859,29 @@ def _flash_bwd(which: int, q, k, v, do, lse, delta, causal):
     return dq if which == 1 else (dk, dv)
 
 
+@_op("flash_dq",
+     fake=lambda q, k, v, do, lse, delta, causal: torch.empty_like(
+         q, memory_format=torch.contiguous_format),
+     cpu=lambda q, k, v, do, lse, delta, causal: _ref.flash_dq_ref(
+         q, k, v, do, lse, delta, causal=causal))
+def _flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    return _flash_bwd_cuda(1, q, k, v, do, lse, delta, causal)
+
+
+@_op("flash_dkv",
+     fake=lambda q, k, v, do, lse, delta, causal: (
+         torch.empty_like(k, memory_format=torch.contiguous_format),
+         torch.empty_like(v, memory_format=torch.contiguous_format)),
+     cpu=lambda q, k, v, do, lse, delta, causal: _ref.flash_dkv_ref(
+         q, k, v, do, lse, delta, causal=causal))
+def _flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_bwd_cuda(2, q, k, v, do, lse, delta, causal)
+
+
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True):
     """One dq kernel launch -> dq (B, T, H, hd), from the forward's lse and
     Δ = :func:`flash_delta` (both (B, H, T) f32)."""
@@ -724,17 +900,31 @@ flash_delta = _ref.flash_delta
 
 class _Flash(torch.autograd.Function):
     """The kernels under autograd: the forward saves (q, k, v, o, lse);
-    the backward forms Δ once and launches dq and dk/dv."""
+    the backward forms Δ once and launches dq and dk/dv.  Under
+    ``torch.func`` transforms (the ``multi`` strategy) the vmap rule is
+    generated from forward and backward, which reach the ops' own vmap
+    rules.  The backward is ``once_differentiable``: it runs its ops
+    outside autograd (a custom op cannot record a graph under
+    ``torch.func.grad``, which differentiates with ``create_graph``), and
+    a second derivative through it raises instead of coming out zero."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_fwd(q, k, v, causal=causal)
+    def forward(q, k, v, causal):
+        return flash_fwd(q, k, v, causal=causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal = causal
-        return o
 
     @staticmethod
-    def backward(ctx, do):
+    @once_differentiable
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
@@ -769,5 +959,5 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512,
     if q.device.type == "meta":
         out = torch.empty(q.shape, dtype=q.dtype, device="meta")
     else:
-        out = _Flash.apply(q, k, v, causal)
+        out = _Flash.apply(q, k, v, causal)[0]
     return out[:, :T] if pad else out

@@ -171,6 +171,18 @@ def test_flash_design_rejects_what_no_kernel_takes():
         ops.flash_design("flash_fwd", torch.bfloat16, 96)
 
 
+def test_flash_second_derivative_raises():
+    """The flash backward is once differentiable: a second derivative
+    through it raises rather than coming out zero (CPU, plain version)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 8, 2, 16, generator=g, requires_grad=True)
+               for _ in range(3))
+    o = ops.flash_attention(q, k, v)
+    dq, = torch.autograd.grad(o.square().sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        dq.sum().backward()
+
+
 @pytest.mark.cuda
 def test_cuda_flash_kernels_match_ref():
     """Card only: forward, dq and dk/dv against their plain versions for

@@ -15,6 +15,10 @@ by entry against the f64 product over the n = H′W′ or T′ terms of the
 sum (the plain versions compute ``exact`` and Σ|x|·|δy| from f64
 inputs); the norms to rtol 1e-4 of the plain version (f32 sums in another
 order; bf16 inputs, f32 arithmetic).  Every kernel must repeat bitwise.
+The last tests call each kernel through its custom op
+(``torch.ops.repro_torch.*``) and under ``torch.func.vmap`` (the
+``multi`` strategy), against the plain version and the loop over
+examples.
 """
 import pytest
 
@@ -412,3 +416,137 @@ def test_cuda_kinds_bf16_products_are_bf16_gemms(monkeypatch, w_transposed):
     got, want = both(lambda c, d: kinds.dense_pe_grad(meta, c, d))
     for k in want:
         _close(got[k], want[k], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops (``torch.ops.repro_torch.*``), the form the
+# static verifier's traced graph holds them in, and their vmap rules (the
+# ``multi`` strategy's vmap of grad).
+
+OPS = ("gram_norm", "gram_norm_fused", "gram_norm_tokmask",
+       "pe_conv_grad_1d", "pe_conv_grad_2d", "flash_fwd", "flash_dq",
+       "flash_dkv")
+
+
+def _op_case(name, dtype, lead=()):
+    """(args, plain version, check(got, want, args)) of one op at a small
+    shape on the card; ``lead`` puts extra leading (vmapped) axes on the
+    tensor arguments."""
+    from test_torch_flash_cuda import _close as flash_close
+    g = torch.Generator().manual_seed(OPS.index(name))
+
+    def r(*s):
+        return torch.randn(*lead, *s, generator=g).to("cuda", dtype)
+
+    def norms(got, want, args):
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            _close(a, b)
+
+    def flash(got, want, args):
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            flash_close(a, b)
+
+    if name == "gram_norm":
+        return ((r(3, 70, 9), r(3, 70, 4), True),
+                lambda x, dy, b: ref.gram_norm_ref(x, dy, has_bias=b), norms)
+    if name == "gram_norm_fused":
+        w = torch.rand(*lead, 3, generator=g).to("cuda")
+        return ((r(3, 70, 90), r(3, 70, 33), w, True),
+                lambda x, dy, w, b: ref.gram_norm_fused_ref(x, dy, w,
+                                                            has_bias=b),
+                norms)
+    if name == "gram_norm_tokmask":
+        ids = torch.randint(0, 16, (*lead, 3, 70), generator=g).cuda()
+        return ((ids, r(3, 70, 40)), ref.gram_norm_tokmask_ref, norms)
+    if name == "pe_conv_grad_1d":
+        return ((r(3, 5, 40), r(3, 7, 38), 3), ref.pe_conv_grad_1d_ref,
+                lambda got, want, args: _meets_rule(
+                    got, lambda a, b: ref.pe_conv_grad_1d_ref(a, b, 3),
+                    args[0], args[1], 38))
+    if name == "pe_conv_grad_2d":
+        return ((r(3, 5, 12, 12), r(3, 7, 10, 10), 3, 3, -1),
+                lambda x, dy, kh, kw, _: ref.pe_conv_grad_2d_ref(x, dy, kh,
+                                                                 kw),
+                lambda got, want, args: _meets_rule(
+                    got, lambda a, b: ref.pe_conv_grad_2d_ref(a, b, 3, 3),
+                    args[0], args[1], 100))
+    q, k, v, do = r(2, 128, 4, 64), r(2, 128, 2, 64), r(2, 128, 2, 64), \
+        r(2, 128, 4, 64)
+    if name == "flash_fwd":
+        return ((q, k, v, True),
+                lambda q, k, v, c: ref.flash_fwd_ref(q, k, v, causal=c),
+                flash)
+    o, lse = ref.flash_fwd_ref(q.flatten(0, len(lead)),
+                               k.flatten(0, len(lead)),
+                               v.flatten(0, len(lead)))
+    delta = ref.flash_delta(o, do.flatten(0, len(lead)))
+    lse = lse.unflatten(0, (*lead, -1))
+    delta = delta.unflatten(0, (*lead, -1))
+    plain = ref.flash_dq_ref if name == "flash_dq" else ref.flash_dkv_ref
+    return ((q, k, v, do, lse, delta, True),
+            lambda *a: plain(*a[:6], causal=a[6]), flash)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("name", OPS)
+def test_cuda_ops_match_ref(name, dtype):
+    """Card only: each kernel through its op, ``torch.ops.repro_torch.*``,
+    one launch, against its plain version at the tolerances above (the
+    conv gradients under the f32 sum bound, the norms to rtol 1e-4, the
+    flash outputs to ``test_torch_flash_cuda``'s bound)."""
+    _needs_card()
+    args, plain, held = _op_case(name, dtype)
+    n0 = ops.LAUNCHES[name]
+    got = getattr(torch.ops.repro_torch, name)(*args)
+    assert ops.LAUNCHES[name] == n0 + 1
+    held(got, plain(*args), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OPS)
+def test_cuda_vmapped_op_equals_the_loop(name):
+    """Card only: ``torch.func.vmap`` of each op over a leading axis of 2
+    (the per-example ops fold it into their example axis, one launch;
+    ``gram_norm_fused``, whose contribution sums over its examples, runs
+    once a slice) equals the op called slice by slice."""
+    _needs_card()
+    args, _, held = _op_case(name, torch.float32, lead=(2,))
+    op = getattr(torch.ops.repro_torch, name)
+    dims = tuple(0 if isinstance(a, torch.Tensor) else None for a in args)
+    n0 = ops.LAUNCHES[name]
+    got = torch.func.vmap(op, in_dims=dims)(*args)
+    assert ops.LAUNCHES[name] == n0 + (2 if name == "gram_norm_fused"
+                                       else 1)
+    for i in range(2):
+        one = tuple(a[i] if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        want = op(*one)
+        part = (tuple(t[i] for t in got) if isinstance(got, tuple)
+                else got[i])
+        held(part, want, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+def test_cuda_multi_flash_grad_equals_the_loop(dtype):
+    """Card only: the ``multi`` strategy's vmap(grad) over a model that
+    calls the flash kernels equals the loop over examples."""
+    from test_torch_flash_cuda import _close as flash_close
+    _needs_card()
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(3, 128, 4, 64, generator=g).to("cuda", dtype),
+               torch.randn(3, 128, 2, 64, generator=g).to("cuda", dtype),
+               torch.randn(3, 128, 2, 64, generator=g).to("cuda", dtype))
+
+    def f(q1, k1, v1):
+        return ops.flash_attention(q1[None], k1[None], v1[None]).float() \
+            .square().sum()
+
+    grad = torch.func.grad(f, argnums=(0, 1, 2))
+    got = torch.func.vmap(grad)(q, k, v)
+    for b in range(3):
+        for a, w in zip(got, grad(q[b], k[b], v[b])):
+            flash_close(a[b], w)
