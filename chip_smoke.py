@@ -130,6 +130,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    op against its CUDA implementation called directly); and
    ``python -m repro_torch.launch.dpcheck`` over the reduced AlexNet,
    VGG16 and Llama-3.2-1B under every clipping mode must exit 0.
+9h. the MoE and enc-dec families (``run_moe_encdec``): full-width
+   Granite-3.0-1B-A400M (phase ``moe_main_path``: 24 layers, d_model
+   1024, 16/8 heads, 32 experts top-8 of d_ff 512, vocab 49 155, bf16,
+   gather dispatch, flash; B = 8, T = 1024) under ghost (``gram_norm`` on
+   every dense layer that is not an expert, 121 a step; flash 48 of each
+   kernel a step), ``auto`` flat and stale (the launches their plans
+   say; the plan's realization of each expert layer printed; no expert
+   fuses), then stale fused against unfused, the ghost norms with the
+   kernels against the plain versions, and two deterministic ghost sums
+   bitwise; the verifier on it (phase ``moe_verify``: ``auto`` stale
+   reports exactly the gather dispatch's global-capacity finding, its
+   kernel nodes equal a real step's launches; ``dpcheck`` over reduced
+   Granite and Seamless gives the JAX package's verdicts on Granite,
+   FAIL, and the port's own on Seamless, PASS); serving (phase
+   ``moe_encdec_serve``: Granite and SeamlessM4T-v2 through
+   ``generate_batch``, 8 requests in batches of 4, 128-token prompts, 32
+   out, decode-equals-forward; one full-width DeepSeek-V3 MoE layer,
+   1.34e10 params drawn on the card, served); the three MoE dispatches on
+   a reduced Granite (phase ``moe_dispatch``: equal outputs and norms
+   with no token dropped, deterministic sums bitwise); full-width
+   SeamlessM4T-large-v2 (phase ``encdec_main_path``: 12 + 12 layers,
+   d_model 1024, GELU d_ff 8192, vocab 256 206, bf16, remat, flash;
+   B = 8, 512 source frames, 512 target tokens) under bk (``gram_norm``
+   193 a step) and ``auto`` flat, flash 60 / 36 / 36 a pass (encoder
+   full, decoder causal, cross full over the source, the decoder's
+   forward again under remat).
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -182,7 +208,9 @@ and heavily repeated ids, a ragged T = 1000; each against the plain
 version and the segment sum; each row names its route,
 ``ops.tokmask_route``), ``gram_norm_fused`` at the five denses the stale
 Llama plan fuses (one layer, bf16), and the flash kernels at OLMo-1B's
-(8, 1024, 16, 128).
+(8, 1024, 16, 128), at Granite's and Seamless's shapes, and with a key
+length S other than T (cross attention: S = T/2, S = 2T, ragged), and
+``gram_norm`` at Granite's router (Do = 32).
 
 The line before the last is a JSON object with one entry per kernel
 (eight, each with its share of its bound); the last line is
@@ -265,6 +293,10 @@ GRAM_T_PLAIN_MAX = 16384
 # query heads before attention (as the JAX package does), so the model
 # path runs the flash kernels at rep 1; rep 4 (32 / 8) is checked alone.
 LM_B, LM_T, LM_LAYERS = 8, 1024, 16
+# Granite-3.0-1B-A400M's lane (B, T, layers), and SeamlessM4T-v2's (B,
+# source frames = target tokens, layers of each stack).
+GR_B, GR_T, GR_LAYERS = 8, 1024, 24
+SM_B, SM_T, SM_LAYERS = 8, 512, 12
 # (case, B, T, H, Hkv, hd, causal, dtype, on the main path)
 FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
                ("llama_f32", LM_B, LM_T, 32, 32, 64, True, "float32", False),
@@ -273,7 +305,24 @@ FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
                ("olmo_bf16", LM_B, LM_T, 16, 16, 128, True, "bfloat16",
                 False),
                ("full_f32", 2, 256, 8, 8, 64, False, "float32", False),
-               ("ragged_f32", 2, 100, 4, 2, 64, True, "float32", False)]
+               ("ragged_f32", 2, 100, 4, 2, 64, True, "float32", False),
+               # Granite-3.0-1B-A400M's causal calls (K and V repeated to
+               # the 16 query heads) and SeamlessM4T-v2's encoder / cross
+               # calls (full, S = T = 512 on its lane)
+               ("granite_bf16", GR_B, GR_T, 16, 16, 64, True, "bfloat16",
+                False),
+               ("seamless_full_bf16", SM_B, SM_T, 16, 16, 64, False,
+                "bfloat16", False),
+               # cross attention with another key length S (the last
+               # field): S = T/2, S = 2T, a ragged T over a ragged S
+               ("cross_half_bf16", 2, 512, 8, 8, 64, False, "bfloat16",
+                False, 256),
+               ("cross_double_f32", 2, 256, 8, 4, 64, False, "float32",
+                False, 512),
+               ("cross_ragged_bf16", 2, 100, 8, 2, 64, False, "bfloat16",
+                False, 260),
+               ("cross_ragged_f32", 2, 100, 8, 2, 64, False, "float32",
+                False, 260)]
 # The flash kernels' outputs are in the input dtype, so a bf16 output is
 # held to bf16's tolerance per entry (one rounding flip is at most 2^-7 of
 # the entry) and an f32 output to f32's; entries near zero get an absolute
@@ -509,9 +558,16 @@ def kernel_cases(torch):
                    for n, t, di, do in VGG_GRAM_CASES]
     gram_cases += [("vgg16_conv1_b32", 32, 65536, 576, 64, "float32",
                     False)]
+    # Granite-3.0-1B-A400M's router (d_model x 32 experts), contiguous
+    gram_cases += [("granite_router_bf16", GR_B, GR_T, 1024, 32,
+                    "bfloat16", False),
+                   ("granite_router_f32", GR_B, GR_T, 1024, 32, "float32",
+                    False)]
     for name, b, t, di, do, dt, main in gram_cases:
         tdt = getattr(torch, dt)
-        if t > 1:
+        if name.startswith("granite_router"):
+            x, dy = rnd(b, t, di, dtype=tdt), rnd(b, t, do, dtype=tdt)
+        elif t > 1:
             x = rnd(b, di, t, dtype=tdt).transpose(1, 2)
             dy = rnd(b, do, t, dtype=tdt).transpose(1, 2)
         else:
@@ -824,10 +880,11 @@ def flash_cases(torch, rnd):
                       f"{kern} {dt} hd {hd}: the library's design ({got}) "
                       f"is not ops.flash_design's ({want})")
     rows = []
-    for name, b, t, h, hkv, hd, causal, dt, main in FLASH_CASES:
+    for name, b, t, h, hkv, hd, causal, dt, main, *key_len in FLASH_CASES:
         tdt = getattr(torch, dt)
+        S = key_len[0] if key_len else t
         q, do = rnd(b, t, h, hd, dtype=tdt), rnd(b, t, h, hd, dtype=tdt)
-        k, v = rnd(b, t, hkv, hd, dtype=tdt), rnd(b, t, hkv, hd, dtype=tdt)
+        k, v = rnd(b, S, hkv, hd, dtype=tdt), rnd(b, S, hkv, hd, dtype=tdt)
         o, lse = ops.flash_fwd(q, k, v, causal=causal)
         o2, lse2 = ops.flash_fwd(q, k, v, causal=causal)
         delta = ops.flash_delta(o, do)
@@ -870,10 +927,10 @@ def flash_cases(torch, rnd):
                           lambda: ref.flash_dkv_ref(*bwd, causal=causal),
                           lib_bwd, "F.scaled_dot_product_attention backward "
                                    "(dq, dk and dv in one call)")}
-        # (query, key) pairs the causal mask keeps (T = S here); the
-        # forward does 2 hd-deep products per pair (q.k, p.v), dq 3
+        # (query, key) pairs the causal mask keeps (T = S when causal);
+        # the forward does 2 hd-deep products per pair (q.k, p.v), dq 3
         # (q.k, do.v, ds.k), dk/dv 4 (q.k, do.v, p^T.do, ds^T.q).
-        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * S)
         es = q.element_size()
         io = (q.numel() + k.numel() + v.numel()) * es
         rows_bhT = b * h * t * 4
@@ -891,8 +948,8 @@ def flash_cases(torch, rnd):
             k_ms = cuda_ms(torch, kfn, 20)
             row = {"kernel": kern, "case": name, "dtype": dt,
                    "design": ops.flash_design(kern, tdt, hd),
-                   "shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "hd": hd,
-                             "causal": causal},
+                   "shape": {"B": b, "T": t, "S": S, "H": h, "Hkv": hkv,
+                             "hd": hd, "causal": causal},
                    "max_abs_err": max(x[0] for x in e),
                    "max_rel_err": max(x[1] for x in e),
                    "rtol": rtol, "ok": all(x[2] for x in e) and repeat[kern],
@@ -1662,14 +1719,14 @@ def lm_inputs(torch, arch, widths):
     return model, params, batches
 
 
-def flash_needs(steps, remat=False, passes=1):
+def flash_needs(steps, remat=False, passes=1, layers=LM_LAYERS):
     """Each flash kernel's launches a step of ``passes`` passes over the
-    layers (the capture pass, and the ``dp_attn`` recomputes,
-    ``attn_passes``): once a layer each (the forward once more a layer
-    under remat: the backward's recompute)."""
-    return {"flash_fwd": [(passes + remat) * LM_LAYERS] * steps,
-            "flash_dq": [passes * LM_LAYERS] * steps,
-            "flash_dkv": [passes * LM_LAYERS] * steps}
+    ``layers`` attention layers (the capture pass, and the ``dp_attn``
+    recomputes, ``attn_passes``): once a layer each (the forward once
+    more a layer under remat: the backward's recompute)."""
+    return {"flash_fwd": [(passes + remat) * layers] * steps,
+            "flash_dq": [passes * layers] * steps,
+            "flash_dkv": [passes * layers] * steps}
 
 
 def attn_passes(plan):
@@ -1848,11 +1905,12 @@ DPCHECK_ARGS = ["--archs", "alexnet", "vgg16", "llama3.2-1b",
 
 
 def verify_lane(torch, lane, model, params, batches, clipping, launches,
-                lanes):
+                lanes, expect=None):
     """One verifier lane: ``engine.verify()`` on fake CUDA tensors (after
     the flat bootstrap step of a stale lane, so the steady state it
     proves is the step that runs next), then one real ``private_step``.
-    The report must hold no error, the rise of
+    The report must hold no error (with ``expect``, a function of the
+    report's errors, exactly the errors it accepts), the rise of
     ``torch.cuda.max_memory_allocated`` during ``verify()`` must stay
     under 1 % of the step's peak, and each kernel's nodes in the
     verified graph must equal its launches in the step."""
@@ -1878,7 +1936,8 @@ def verify_lane(torch, lane, model, params, batches, clipping, launches,
     verify_s = time.perf_counter() - t
     rise = torch.cuda.max_memory_allocated() - base
     check(ops.LAUNCHES == before, f"dp_verify {lane}: verify() launched")
-    check(report.ok, f"dp_verify {lane}:\n{report.summary()}")
+    check(report.ok if expect is None else expect(report.errors),
+          f"dp_verify {lane}:\n{report.summary()}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t = time.perf_counter()
@@ -2143,7 +2202,8 @@ def decode_vs_forward(torch, model, params, prompts):
                 model.logits(params, tokens[:, :SERVE_PROMPT + 1]))
 
 
-def serve_checks(torch, arch, model, params, prompts):
+def serve_checks(torch, arch, model, params, prompts, rebuild=None,
+                 moe_axes=None):
     """Decode-equals-forward at full width, twice.  In the config's bf16
     the serving path's logits must be as close to the full forward's as
     that forward is to itself over a different length (the prompt and one
@@ -2153,9 +2213,17 @@ def serve_checks(torch, arch, model, params, prompts):
     an f32 copy of the weights (TF32 off), where the full forward does not
     depend on the length, within the flash rows' f32 tolerance
     (``flash_close``: rtol 1e-4 a entry, 1e-5 of the largest).  Frees
-    ``params``; returns the record of both."""
+    ``params``; returns the record of both.  ``rebuild(cfg)`` makes the
+    f32 model (``TransformerLM`` by default).  For a MoE (``moe_axes``:
+    its logical axes) the bf16 half is recorded and not enforced (a
+    router's bf16 logits tie often enough that another row count picks
+    another expert for some token: a discrete difference, not a rounding
+    one), and the f32 half takes ``f32_decode_check``'s rule for another
+    order of the sums."""
+    moe = moe_axes is not None
     from repro_torch.models.lm import TransformerLM
     from repro_torch.tree import tree_map
+    rebuild = rebuild or TransformerLM
     P = SERVE_PROMPT - 1
     outs, full, short = decode_vs_forward(torch, model, params, prompts)
     err = max((o.float() - full[:, P + i].float()).abs().max().item()
@@ -2166,38 +2234,79 @@ def serve_checks(torch, arch, model, params, prompts):
     bound = 2 * spread + 2 ** -8 * top
     flash_rows = [flash_close(torch, o, full[:, P + i])[2]
                   for i, o in enumerate(outs)]
-    check(err <= bound, f"{arch} bf16: prefill + decode logits {err:.4g} "
+    check(err <= bound or moe,
+          f"{arch} bf16: prefill + decode logits {err:.4g} "
           f"from the full forward's, more than {bound:.4g} (twice its own "
           f"spread over another length, {spread:.4g}, + 2^-8 of {top:.4g})")
     rec = {"bf16": {"max_abs_err": err, "forward_spread": spread,
                     "bound": bound, "largest_logit": top,
+                    "within_bound": err <= bound, "enforced": not moe,
                     "within_flash_rows_bf16_tolerance": all(flash_rows)}}
     del outs, full, short
     p32 = tree_map(lambda a: a.float(), params)
     params.clear()
     torch.cuda.empty_cache()
     rec["f32"] = f32_decode_check(
-        torch, arch, TransformerLM(model.cfg.replace(dtype="float32")), p32,
-        prompts)
+        torch, arch, rebuild(model.cfg.replace(dtype="float32")), p32,
+        prompts, order_axes=moe_axes)
     return rec
 
 
-def f32_decode_check(torch, arch, m32, p32, prompts):
+def embed_permuted(torch, params, axes, seed=0):
+    """``params`` with the model width permuted alike along every axis
+    labelled "embed" (``axes``: the logical axes ``init`` gives): the
+    same function of the tokens, with every sum over the width taken in
+    another order."""
+    from repro_torch.tree import tree_map
+    emb, emb_axes = params["tok_emb"]["emb"], axes["tok_emb"]["emb"]
+    width = emb.shape[emb_axes.index("embed")]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(width, generator=gen, device="cuda")
+
+    def f(a, ax):
+        for i, lab in enumerate(ax):
+            if lab == "embed":
+                a = a.index_select(i, perm)
+        return a
+    return tree_map(f, params, axes)
+
+
+def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None):
     """The f32 half of decode-equals-forward: prefill and decode of the
     f32 model ``m32`` against its own causal forward, within the flash
-    rows' f32 tolerance (``flash_close``).  Frees ``p32``."""
+    rows' f32 tolerance (``flash_close``).  With ``order_axes`` (a MoE,
+    whose f32 rounding runs several times a dense model's: its logical
+    axes) the served logits may instead be within twice the distance
+    between the f32 forward and the same forward over the width-permuted
+    weights (``embed_permuted``: the same sums in another order) plus
+    FLASH_ATOL of the largest logit.  Frees ``p32``."""
     P = SERVE_PROMPT - 1
-    outs, full, _ = decode_vs_forward(torch, m32, p32, prompts)
+    outs, full, short = decode_vs_forward(torch, m32, p32, prompts)
     errs = [flash_close(torch, o, full[:, P + i])
             for i, o in enumerate(outs)]
-    check(all(e[2] for e in errs), f"{arch} f32: prefill + decode logits "
-          f"differ from the full forward's: {[e[:2] for e in errs]}")
+    rec = {"max_abs_err": max(e[0] for e in errs),
+           "max_rel_err": max(e[1] for e in errs),
+           "rtol": FLASH_RTOL["float32"], "atol_of_largest": FLASH_ATOL,
+           "within_flash_rows_tolerance": all(e[2] for e in errs)}
+    ok = rec["within_flash_rows_tolerance"]
+    if order_axes is not None:
+        toks = torch.cat([prompts] + [torch.argmax(o, -1)[:, None]
+                                      for o in outs[:-1]], 1)
+        with torch.no_grad():
+            other = m32.logits(embed_permuted(torch, p32, order_axes), toks)
+        noise = max((other[:, P + i] - full[:, P + i]).abs().max().item()
+                    for i in range(len(outs)))
+        del other
+        top = full[:, P:].abs().max().item()
+        rec.update(forward_order_spread=noise,
+                   order_bound=2 * noise + FLASH_ATOL * top)
+        ok = ok or rec["max_abs_err"] <= rec["order_bound"]
+    check(ok, f"{arch} f32: prefill + decode logits differ from the full "
+          f"forward's: {[e[:2] for e in errs]}, {rec}")
     p32.clear()
-    del outs, full
+    del outs, full, short
     torch.cuda.empty_cache()
-    return {"max_abs_err": max(e[0] for e in errs),
-            "max_rel_err": max(e[1] for e in errs),
-            "rtol": FLASH_RTOL["float32"], "atol_of_largest": FLASH_ATOL}
+    return rec
 
 
 def serve_checks_f32_ref(torch, arch, model, params, prompts):
@@ -2634,6 +2743,586 @@ def cli_lanes(calib):
     shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The MoE and enc-dec families: full-width Granite-3.0-1B-A400M (phase
+# moe_main_path), the MoE dispatches on a reduced Granite (moe_dispatch),
+# full-width SeamlessM4T-large-v2 (encdec_main_path), their serving and
+# one full-width DeepSeek-V3 MoE layer (moe_encdec_serve).
+
+# (layers, d_model, heads, KV heads, expert d_ff, vocab, head_dim,
+# experts, top-k) of configs/granite_moe_1b_a400m.py
+GR_WIDTHS = (GR_LAYERS, 1024, 16, 8, 512, 49155, 64, 32, 8)
+# (encoder layers, decoder layers, d_model, heads, KV heads, d_ff, vocab,
+# head_dim) of configs/seamless_m4t_large_v2.py
+SM_WIDTHS = (SM_LAYERS, SM_LAYERS, 1024, 16, 16, 8192, 256206, 64)
+
+
+def param_count(params):
+    from repro_torch.tree import get_subtree, leaf_paths
+    return sum(get_subtree(params, q).numel() for q in leaf_paths(params))
+
+
+def lm_flash_needs(eng, steps, fwd_per_pass, bwd_per_pass):
+    """Each flash kernel's launches a step of a planned LM lane, read off
+    its plan: one pass over the attention layers, one more where the plan
+    runs the shared weighted backward; a stale lane's step 0 is the flat
+    bootstrap, under the flat plan."""
+    from repro_torch.core import costmodel
+    plans = [eng.plan()] * steps
+    if eng.dp.clipping.mode == "stale":
+        plans[0] = costmodel.get_plan(
+            eng.apply_fn, eng._params_spec, eng._batch_spec,
+            **dict(eng._planner_opts(), clip_mode="flat"))
+    passes = [1 + int(p.needs_backward) for p in plans]
+    return {"flash_fwd": [n * fwd_per_pass for n in passes],
+            "flash_dq": [n * bwd_per_pass for n in passes],
+            "flash_dkv": [n * bwd_per_pass for n in passes]}
+
+
+def planned_lm_needs(fwd_per_pass, bwd_per_pass):
+    """``planned_needs`` (gram_norm_fused once per fused layer) with the
+    flash launches of ``lm_flash_needs``; a planned step never picks the
+    ``gram_norm`` kernel (the planner's dense norms are its plain
+    realizations)."""
+    def needs(eng, steps):
+        out = dict(planned_needs(eng, steps),
+                   **lm_flash_needs(eng, steps, fwd_per_pass, bwd_per_pass))
+        out["gram_norm"] = [0] * steps
+        out.pop("pe_conv_grad_2d")
+        return out
+    return needs
+
+
+def plan_summary(eng):
+    """The realization of each segmented (expert) layer and the fused
+    layers of an engine's plan."""
+    plan = eng.plan()
+    real = plan.realizations()
+    return {"seg_dense": {n: real[n] for n, lp in plan.layers.items()
+                          if lp.kind == "seg_dense"},
+            "fused": sorted(n for n, lp in plan.layers.items() if lp.fused),
+            "needs_backward": plan.needs_backward}
+
+
+def recording_plan(plans, lane, needs):
+    """``needs`` (a dict, or a function of the engine and the step count)
+    for ``run_lanes``, recording a planned lane's ``plan_summary`` in
+    ``plans``."""
+    def f(eng, steps):
+        if eng.dp.strategy == "auto":
+            plans[lane] = plan_summary(eng)
+        return needs(eng, steps) if callable(needs) else needs
+    return f
+
+
+def lane_record(out, lanes, lane):
+    o = out[lane]
+    return {"step_ms": o["step_ms"], "peak_mem_gb": o["peak_mem_gb"],
+            "busy_share": o["profiled"].get("busy_share"),
+            "device_ms": o["profiled"].get("device_ms"),
+            "top": o["profiled"].get("top", [])[:5],
+            "launches_each_step": lanes[lane]}
+
+
+def rel_frobenius(torch, got, want):
+    """Largest ‖got − want‖ / ‖want‖ over the leaves of two trees."""
+    from repro_torch.tree import get_subtree, leaf_paths
+    worst = 0.0
+    for q in leaf_paths(want):
+        a, b = get_subtree(got, q).float(), get_subtree(want, q).float()
+        worst = max(worst, ((a - b).norm() / b.norm().clamp_min(1e-30))
+                    .item())
+    return worst
+
+
+def moe_main_path(torch, launches, lanes):
+    """Phase moe_main_path: full-width Granite-3.0-1B-A400M (24 layers,
+    d_model 1024, 16/8 heads at head_dim 64, 32 experts top-8 of d_ff
+    512, vocab 49 155; bf16, ``moe_impl="gather"``, ``attn_impl="flash"``;
+    weights drawn on the card from seed 0), B = 8, T = 1024 (capacity
+    4096 slots an expert), σ = 1: 3 steps each of ghost (its
+    ``dp_strategy``; ``norm_method="pallas"``: ``gram_norm`` on every
+    dense layer that is not an expert, 5 a layer and the head, and the
+    flash kernels twice a layer, the capture pass and the weighted
+    backward), ``auto`` flat and ``auto`` stale (the launches their plans
+    say; no expert fuses).  Then, on one batch at σ = 0: the stale
+    fused step against the unfused one on the same lagged norms
+    (``gram_norm_fused`` swapped for its plain version; rtol 1e-3 / atol
+    1e-5 of the largest entry, f32 arithmetic on both sides), the ghost
+    norms with ``gram_norm`` against its plain version (the plain Gram;
+    rtol 1e-3), those with the plain attention (``attn_impl="xla"``)
+    recorded (bf16 attention rounds otherwise, and the router then picks
+    other experts for some tokens), and two ghost steps' clipped sums
+    bitwise equal under ``torch.use_deterministic_algorithms``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, NormCfg, clipped_grad_sum
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m").replace(attn_impl="flash")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff,
+           cfg.vocab, cfg.hd, cfg.n_experts, cfg.topk) == GR_WIDTHS
+          and cfg.moe_impl == "gather" and cfg.dtype == "bfloat16"
+          and cfg.padded_vocab == 49280, "granite config")
+    model = TransformerLM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = model.init(gen, device="cuda")
+    ds = SyntheticLMDataset(cfg.vocab, GR_T, n_examples=4096, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                ds.batch(range(s * GR_B, (s + 1) * GR_B)).items()}
+               for s in range(4)]
+    cap = int(cfg.capacity_factor * GR_B * GR_T * cfg.topk / cfg.n_experts)
+    log({"phase": "moe_setup", "arch": cfg.name, "params": param_count(params),
+         "batch": GR_B, "seq": GR_T, "capacity_slots_an_expert": cap,
+         "init_s": time.perf_counter() - t0})
+    steps, L = 3, GR_LAYERS
+    ghost_needs = dict(flash_needs(steps, passes=2, layers=L),
+                       gram_norm=[5 * L + 1] * steps)
+    runs = [("granite_ghost", "ghost", "flat", NormCfg(dense="pallas"),
+             ghost_needs),
+            ("granite_auto_flat", "auto", "flat", NormCfg(),
+             planned_lm_needs(L, L)),
+            ("granite_auto_stale", "auto", ClipPolicy(mode="stale"),
+             NormCfg(), planned_lm_needs(L, L))]
+    plans = {}
+    runs = [(lane, st, cl, nm, recording_plan(plans, lane, nd))
+            for lane, st, cl, nm, nd in runs]
+    out = run_lanes(torch, "moe_main_path", model, params, batches, runs,
+                    lanes, launches, steps, lr=1e-4,
+                    named=FLASH_NAMES + ("gram_norm",))
+    check(not any(n.startswith("blocks/moe/w_")
+                  for n in plans["granite_auto_stale"]["fused"]),
+          "granite stale plan fuses an expert")
+    check(all(v[0] == "stream" for p in plans.values()
+              for v in p["seg_dense"].values()),
+          f"granite expert norms: {plans}")
+
+    # fused vs unfused stale on the same lagged norms (σ = 0)
+    b = batches[0]
+    _, _, prev = clipped_grad_sum(model.apply, params, b, l2_clip=1.0,
+                                  strategy="auto")
+    sums = {}
+    for fused in (True, False):
+        torch.cuda.empty_cache()
+        sums[fused] = clipped_grad_sum(
+            model.apply, params, b, l2_clip=1.0, strategy="auto",
+            clip_policy=ClipPolicy(mode="stale", fused=fused),
+            prev_norms_sq=prev)
+    (_, gf, nf), (_, gu, nu) = sums[True], sums[False]
+    for q in leaf_paths(gu):
+        a, w = get_subtree(gf, q), get_subtree(gu, q)
+        check(torch.allclose(a, w, rtol=1e-3, atol=1e-5 * w.abs().max()
+                             .item()), f"granite stale fused vs unfused "
+              f"at {'/'.join(q)}")
+    check(torch.allclose(nf, nu, rtol=1e-3), "granite stale fused vs "
+          "unfused norms")
+    fused_rel = rel_frobenius(torch, gf, gu)
+    del sums, gf, gu
+    torch.cuda.empty_cache()
+    # the ghost norms with gram_norm against its plain version (the
+    # same flash forward, so the same routing): f32 sums of the same
+    # products in another order
+    n_k = clipped_grad_sum(model.apply, params, b, l2_clip=1.0,
+                           strategy="ghost", norm_method="pallas")[2]
+    torch.cuda.empty_cache()
+    n_p = clipped_grad_sum(model.apply, params, b, l2_clip=1.0,
+                           strategy="ghost", norm_method="gram")[2]
+    torch.cuda.empty_cache()
+    norms_rel = ((n_k - n_p).abs() / n_p).max().item()
+    check(norms_rel <= 1e-3, f"granite ghost norms, gram_norm vs plain: "
+          f"{norms_rel:.3g}")
+    # and with the plain attention (attn_impl="xla"): the bf16 attention
+    # rounds otherwise, the router's bf16 logits then pick other experts
+    # for some tokens, so this is recorded, not held to a bound
+    n_x = clipped_grad_sum(
+        TransformerLM(cfg.replace(attn_impl="xla")).apply, params, b,
+        l2_clip=1.0, strategy="ghost")[2]
+    torch.cuda.empty_cache()
+    xla_rel = ((n_k - n_x).abs() / n_x).max().item()
+    # two identical steps, bitwise
+    with deterministic_step():
+        r1 = clipped_grad_sum(model.apply, params, b, l2_clip=1.0,
+                              strategy="ghost", norm_method="pallas")
+        torch.cuda.empty_cache()
+        r2 = clipped_grad_sum(model.apply, params, b, l2_clip=1.0,
+                              strategy="ghost", norm_method="pallas")
+    bitwise = torch.equal(r1[2], r2[2]) and all(
+        torch.equal(get_subtree(r1[1], q), get_subtree(r2[1], q))
+        for q in leaf_paths(r1[1]))
+    check(bitwise, "granite: two deterministic ghost steps differ")
+    del r1, r2
+    torch.cuda.empty_cache()
+    log({"phase": "moe_main_path",
+         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
+         "plans": plans, "stale_fused_vs_unfused_rel_frobenius": fused_rel,
+         "ghost_norms_gram_norm_vs_plain_max_rel": norms_rel,
+         "ghost_norms_flash_vs_xla_attention_max_rel": xla_rel,
+         "deterministic_ghost_sums_bitwise": bitwise,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    return model, params, batches
+
+
+# The reduced MoE and enc-dec lanes of the dpcheck CLI, and the verdicts
+# the JAX package's dpcheck gives on them: Granite's gather dispatch has
+# global capacity (examples compete for one expert's slots) and fails in
+# both packages; Seamless fails in the JAX package from its LayerNorm's
+# variance under a nested jit (the same finding it reports for the dense
+# OLMo-1B) and is clean in the port.
+DPCHECK_MOE_ARCHS = ["granite-moe-1b-a400m", "seamless-m4t-large-v2"]
+DPCHECK_MOE_MODES = ["flat"]
+DPCHECK_MOE_ARGS = (["--archs"] + DPCHECK_MOE_ARCHS + ["--clip-modes"]
+                    + DPCHECK_MOE_MODES)
+
+
+def gather_capacity_finding(errors):
+    """True for the errors of a Granite lane that the global-capacity
+    dispatch gives: every one an unclipped batch reduction at the one-hot
+    of all examples' expert ids (``eq``), and at least one."""
+    return bool(errors) and all(
+        f.code == "unclipped_batch_reduction" and "`eq`" in f.message
+        for f in errors)
+
+
+def moe_verify(torch, launches, lanes, granite):
+    """Phase moe_verify: the static verifier on full-width Granite
+    (``auto`` stale, after the flat bootstrap): its report holds exactly
+    the global-capacity finding (``gather_capacity_finding``) and its
+    kernel nodes equal one real step's launches (``verify_lane``).  Then
+    ``python -m repro_torch.launch.dpcheck`` over reduced Granite and
+    Seamless (flat; ``tests/test_torch_dpcheck.py`` runs every clipping
+    mode on the CPU): exit 1, Granite
+    FAILs with the same finding, Seamless PASSes."""
+    t0 = time.perf_counter()
+    model, params, batches = granite
+    report = verify_lane(torch, "granite_auto_stale", model, params,
+                         batches, "stale", launches, lanes,
+                         expect=gather_capacity_finding)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dpcheck", "-v",
+             *DPCHECK_MOE_ARGS], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"dpcheck moe: timed out after "
+                           f"{CLI_TIMEOUT_S} s") from e
+    out = proc.stdout
+    verdicts = {ln.split()[2] + " " + ln.split()[3]: ln.split()[1]
+                for ln in out.splitlines()
+                if ln.startswith("[dpcheck] ") and ln.split()[1] in
+                ("PASS", "FAIL")}
+    want = {f"{a} clip={m}": ("FAIL" if a.startswith("granite") else "PASS")
+            for a in DPCHECK_MOE_ARCHS for m in DPCHECK_MOE_MODES}
+    check(proc.returncode == 1 and verdicts == want
+          and "batch-axis reduction in `eq`" in out,
+          f"dpcheck moe: exit {proc.returncode}, verdicts {verdicts}\n"
+          f"{out[-3000:]}\n{proc.stderr[-2000:]}")
+    log({"phase": "moe_verify", "granite_errors": sorted(
+        {f.code for f in report.errors}), "dpcheck": DPCHECK_MOE_ARGS,
+         "verdicts": verdicts, "dpcheck_wall_s": time.perf_counter() - t,
+         "seconds": time.perf_counter() - t0, "ok": True})
+
+
+def moe_dispatch(torch):
+    """Phase moe_dispatch: reduced Granite (2 layers, d_model 64, 4
+    experts top-2; f32, flash) on the card.  With capacity for every
+    entry (``capacity_factor = E / k``: no token dropped) the einsum,
+    gather and sort dispatches give the same outputs (rtol 1e-5) and
+    per-example norms (rtol 1e-4); gather and sort bitwise.  At the
+    config's capacity factor two identical ghost clipped sums are bitwise
+    equal under ``torch.use_deterministic_algorithms``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    t0 = time.perf_counter()
+    base = get_config("granite-moe-1b-a400m").reduced().replace(
+        attn_impl="flash")
+    roomy = base.n_experts / base.topk
+    params, _ = TransformerLM(base).init(0, device="cuda")
+    b = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        base.vocab, 64, n_examples=64, seed=0).batch(range(4)).items()}
+    res = {}
+    for impl in ("einsum", "gather", "sort"):
+        m = TransformerLM(base.replace(moe_impl=impl,
+                                       capacity_factor=roomy))
+        with torch.no_grad():
+            logits = m.logits(params, b["tokens"])
+        res[impl] = (logits, clipped_grad_sum(m.apply, params, b,
+                                              l2_clip=1.0,
+                                              strategy="ghost")[2])
+    for impl in ("gather", "sort"):
+        check(torch.allclose(res[impl][0], res["einsum"][0], rtol=1e-5,
+                             atol=1e-5 * res["einsum"][0].abs().max()
+                             .item()), f"moe {impl} vs einsum outputs")
+        check(torch.allclose(res[impl][1], res["einsum"][1], rtol=1e-4),
+              f"moe {impl} vs einsum norms")
+    check(torch.equal(res["gather"][0], res["sort"][0])
+          and torch.equal(res["gather"][1], res["sort"][1]),
+          "moe gather vs sort not bitwise")
+    m = TransformerLM(base)
+    with deterministic_step():
+        r1 = clipped_grad_sum(m.apply, params, b, l2_clip=1.0,
+                              strategy="ghost")
+        r2 = clipped_grad_sum(m.apply, params, b, l2_clip=1.0,
+                              strategy="ghost")
+    bitwise = torch.equal(r1[2], r2[2]) and all(
+        torch.equal(get_subtree(r1[1], q), get_subtree(r2[1], q))
+        for q in leaf_paths(r1[1]))
+    check(bitwise, "moe: two deterministic ghost sums differ")
+    log({"phase": "moe_dispatch", "capacity_factor_checked": roomy,
+         "gather_vs_einsum_max_abs": (res["gather"][0] - res["einsum"][0])
+         .abs().max().item(), "deterministic_bitwise": bitwise,
+         "seconds": time.perf_counter() - t0, "ok": True})
+
+
+def seamless_inputs(torch):
+    """Full-width SeamlessM4T-large-v2 (flash), weights drawn on the card
+    from seed 0, four ``make_batch_fn`` batches at seq 1024 (512 source
+    frames, 512 target tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch_fn, to_device
+    from repro_torch.models.encdec import EncDecLM
+    cfg = get_config("seamless-m4t-large-v2").replace(attn_impl="flash")
+    check((cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv, cfg.d_ff, cfg.vocab, cfg.hd) == SM_WIDTHS
+          and cfg.padded_vocab == 256256 and cfg.remat
+          and cfg.dtype == "bfloat16", "seamless config")
+    model = EncDecLM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = model.init(gen, device="cuda")
+    fn = make_batch_fn(cfg, SM_B, 2 * SM_T)
+    batches = [to_device(fn(s), "cuda") for s in range(4)]
+    return model, params, batches
+
+
+def encdec_main_path(torch, launches, lanes):
+    """Phase encdec_main_path: full-width SeamlessM4T-large-v2's backbone
+    (12 + 12 layers, d_model 1024, 16 heads at 64, GELU d_ff 8192,
+    LayerNorm, vocab 256 206; bf16, remat, flash), B = 8, 512 source
+    frames and 512 target tokens, σ = 1: 3 steps each of bk (its
+    ``dp_strategy``; ``norm_method="pallas"``: ``gram_norm`` on every
+    dense layer, 6 an encoder layer, 10 a decoder layer and the head) and
+    ``auto`` flat.  A pass launches the flash forward 12 times full
+    (encoder), 12 causal (decoder) and 12 full over the source (cross),
+    24 more under remat (the decoder's recompute), dq and dk/dv 36."""
+    from repro_torch.core import NormCfg
+    t0 = time.perf_counter()
+    model, params, batches = seamless_inputs(torch)
+    log({"phase": "encdec_setup", "arch": model.cfg.name,
+         "params": param_count(params), "batch": SM_B, "src": SM_T,
+         "tgt": SM_T, "init_s": time.perf_counter() - t0})
+    steps, L = 3, SM_LAYERS
+    fwd, bwd = 3 * L + 2 * L, 3 * L          # remat: the decoder's again
+    runs = [("seamless_bk", "bk", "flat", NormCfg(dense="pallas"),
+             {"flash_fwd": [fwd] * steps, "flash_dq": [bwd] * steps,
+              "flash_dkv": [bwd] * steps,
+              "gram_norm": [6 * L + 10 * L + 1] * steps}),
+            ("seamless_auto_flat", "auto", "flat", NormCfg(),
+             planned_lm_needs(fwd, bwd))]
+    plans = {}
+    out = run_lanes(torch, "encdec_main_path", model, params, batches,
+                    [(lane, st, cl, nm, recording_plan(plans, lane, nd))
+                     for lane, st, cl, nm, nd in runs], lanes, launches,
+                    steps, lr=1e-4, named=FLASH_NAMES + ("gram_norm",))
+    log({"phase": "encdec_main_path",
+         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
+         "plans": plans, "seconds": time.perf_counter() - t0, "ok": True})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+class _WithSource:
+    """An enc-dec model with its source fixed, behind the decoder-only
+    serving interface ``decode_vs_forward`` calls."""
+
+    def __init__(self, model, src):
+        self.model, self.src, self.cfg = model, src, model.cfg
+
+    def prefill(self, params, prompts, max_len):
+        return self.model.prefill(params, self.src, prompts, max_len=max_len)
+
+    def decode_step(self, params, cache, tok):
+        return self.model.decode_step(params, cache, tok)
+
+    def logits(self, params, tokens):
+        return self.model.logits(params, self.src, tokens)
+
+
+def serve_one(torch, arch, model, params, prompts, checks):
+    """``launch.serve.generate_batch`` over ``prompts`` in batches of
+    SERVE_BATCH (after one warm batch): prefill ms and decode ms a token
+    on one batch, tokens/s over all, peak memory; ``checks()`` gives the
+    decode-equals-forward record.  Serving launches no kernel of this
+    repo."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate_batch
+    max_len = SERVE_PROMPT + SERVE_GEN
+    p0 = prompts[:SERVE_BATCH]
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    generate_batch(model, params, p0, max_len=max_len, gen=2)   # warm
+    enc = model.cfg.family == "encdec"
+    src = (torch.zeros((SERVE_BATCH, SERVE_PROMPT, model.cfg.d_model),
+                       device="cuda") if enc else None)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = (model.prefill(params, src, p0, max_len=max_len) if enc
+                     else model.prefill(params, p0, max_len=max_len))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tok = torch.argmax(logits, -1)
+    t = time.perf_counter()
+    for _ in range(SERVE_GEN - 1):
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / (SERVE_GEN - 1)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    del logits, cache
+    t = time.perf_counter()
+    outs = [generate_batch(model, params, prompts[i:i + SERVE_BATCH],
+                           max_len=max_len, gen=SERVE_GEN)
+            for i in range(0, len(prompts), SERVE_BATCH)]
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t
+    check(all(tuple(o.shape) == (SERVE_BATCH, SERVE_GEN) for o in outs)
+          and all(bool(((o >= 0) & (o < model.cfg.padded_vocab)).all())
+                  for o in outs), f"{arch}: generated tokens")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"phase": "moe_encdec_serve", "arch": arch,
+           "params": param_count(params), "requests": len(prompts),
+           "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+           "gen": SERVE_GEN, "prefill_ms": prefill_ms,
+           "decode_ms_a_token": decode_ms, "served_s": served_s,
+           "tokens_per_s": len(prompts) * SERVE_GEN / served_s,
+           "peak_mem_gb": peak, "sample": outs[0][0, :8].tolist()}
+    check(not any(ops.LAUNCHES.values()),
+          f"{arch}: serving launched {dict(ops.LAUNCHES)}")
+    if checks is not None:
+        rec["decode_equals_forward"] = checks()
+    log(dict(rec, ok=True))
+
+
+# DeepSeek-V3's MoE layer at full width (configs/deepseek_v3_671b.py):
+# MLA as in deepseek_layer0, 256 routed experts top-8 and one shared
+# expert of d_ff 2048, vocab 129 280; cut to one layer, no remat or FSDP.
+DS_MOE_PARAMS_MIN = 1.3e10
+
+
+def moe_encdec_serve(torch, granite):
+    """Phase moe_encdec_serve: serving at full width through
+    ``launch.serve.generate_batch``, 8 requests in batches of 4,
+    128-token prompts, 32 tokens out (``serve_one``).  Granite (the
+    params of phase moe_main_path) and SeamlessM4T-v2 (weights drawn on
+    the card; zero source frames of the prompt's length, as the serving
+    CLI gives them) are checked decode-equals-forward by
+    ``serve_checks``' rule, with room for every entry in the experts
+    (``capacity_factor = E / k``: the global capacity of a 4-token decode
+    step is 2 slots an expert at the config's factor, and dropped tokens
+    would make decode differ from the forward by design); Seamless's
+    check runs on random source frames.  Then one full-width DeepSeek-V3
+    MoE layer (MLA + 256 experts top-8 + 1 shared, about 1.34e10 params,
+    26.7 GB in bf16, drawn on the card): serving only, finite logits and
+    valid tokens.  Its DP step does not fit one card (the f32 clipped
+    sum of the experts alone is 45 GB, AdamW's two f32 moments 90 GB
+    more): it waits for sharding (ROADMAP.md item 14)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import CONFIG
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.lm import TransformerLM
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model, params, _ = granite
+    prompts = torch.randint(0, model.cfg.vocab,
+                            (SERVE_REQUESTS, SERVE_PROMPT), generator=gen,
+                            device="cuda")
+    # the config's attention (the training lane's is flash): the
+    # forward the served logits are held to is the config's own
+    served = model.cfg.replace(attn_impl="auto")
+    roomy = served.replace(
+        capacity_factor=model.cfg.n_experts / model.cfg.topk)
+    serve_one(torch, "granite-moe-1b-a400m", TransformerLM(served),
+              params, prompts, lambda: serve_checks(
+                  torch, "granite-moe-1b-a400m", TransformerLM(roomy),
+                  params, prompts[:SERVE_BATCH],
+                  moe_axes=TransformerLM(served.reduced()).init(
+                      0, device="cpu")[1]))
+    del params, granite, model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("seamless-m4t-large-v2")
+    sm = EncDecLM(cfg)
+    params, _ = sm.init(gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    src = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model),
+                      generator=gen, device="cuda")
+    serve_one(torch, "seamless-m4t-large-v2", sm, params, prompts,
+              lambda: serve_checks(
+                  torch, "seamless-m4t-large-v2", _WithSource(sm, src),
+                  params, prompts[:SERVE_BATCH],
+                  rebuild=lambda c: _WithSource(EncDecLM(c), src)))
+    del params
+    torch.cuda.empty_cache()
+
+    dcfg = CONFIG.replace(n_layers=1, remat=False, fsdp=False)
+    check((dcfg.d_model, dcfg.n_experts, dcfg.topk, dcfg.n_shared_experts,
+           dcfg.d_ff, dcfg.vocab, dcfg.family, dcfg.moe_impl)
+          == (7168, 256, 8, 1, 2048, 129280, "moe", "gather"),
+          "deepseek-v3 moe config")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params, _ = TransformerLM(dcfg).init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n = param_count(params)
+    check(n >= DS_MOE_PARAMS_MIN, f"deepseek-v3 moe layer: {n} params")
+    prompts = torch.randint(0, dcfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    log({"phase": "moe_encdec_serve", "arch": "deepseek-v3-671b layer 0",
+         "params": n, "weights_gb": n * 2 / 1e9, "init_s": init_s,
+         "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "cuts": {"n_layers": 1, "remat": False, "fsdp": False}})
+    serve_one(torch, "deepseek-v3-671b layer 0", TransformerLM(dcfg),
+              params, prompts, None)
+    del params
+    torch.cuda.empty_cache()
+    log({"phase": "moe_encdec_serve_done",
+         "seconds": time.perf_counter() - t0})
+
+
+def run_moe_encdec(torch, launches, lanes):
+    """The phases of the MoE and enc-dec families, in order, each with
+    its seconds."""
+    t = time.perf_counter()
+    granite = moe_main_path(torch, launches, lanes)
+    log({"phase": "moe_main_path_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    moe_verify(torch, launches, lanes, granite)
+    log({"phase": "moe_verify_done", "seconds": time.perf_counter() - t})
+    granite[2].clear()
+    torch.cuda.empty_cache()
+    moe_encdec_serve(torch, granite)
+    del granite
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    moe_dispatch(torch)
+    log({"phase": "moe_dispatch_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    encdec_main_path(torch, launches, lanes)
+    log({"phase": "encdec_main_path_done",
+         "seconds": time.perf_counter() - t})
+
+
 def profile_step(torch, fn, top=8, named=()):
     """One step under ``torch.profiler``: wall ms, summed CUDA kernel ms,
     the device's busy share (kernel ms / wall ms, one stream), the
@@ -2851,6 +3540,7 @@ def main():
     torch.cuda.empty_cache()
     log({"phase": "olmo_main_path_done", "seconds": time.perf_counter() - t})
     deepseek_layer0(torch, launches, lanes)
+    run_moe_encdec(torch, launches, lanes)
     tokmask_path(torch, launches, lanes)
     t = time.perf_counter()
     conv1d_lane(torch, launches, lanes)

@@ -1,12 +1,12 @@
-"""The paper's own CNN configs (AlexNet, VGG16) and the dense language
-models of the port: Llama-3.2-1B, OLMo-1B, GLM-4-9B, StableLM-2-12B and
-Chameleon-34B (family ``vlm``, an early-fusion backbone over token ids).
+"""The paper's own CNN configs (AlexNet, VGG16) and the language models
+of the port: the dense Llama-3.2-1B, OLMo-1B, GLM-4-9B and StableLM-2-12B,
+Chameleon-34B (family ``vlm``, an early-fusion backbone over token ids),
+the MoE Granite-3.0-1B-A400M and DeepSeek-V3-671B (MLA + MoE), and the
+enc-dec SeamlessM4T-large-v2 backbone.
 
-The JAX package's other language-model configs need MoE, SSM, hybrid or
-enc-dec blocks (ROADMAP.md item 12); asking for one here raises
-``NotImplementedError``.  DeepSeek-V3's config is kept
-(``configs/deepseek_v3_671b.py``) for its MLA attention, which runs on a
-dense cut of it.
+The JAX package's two other language-model configs, xLSTM-125M and
+Zamba2-2.7B, need SSM and hybrid blocks (ROADMAP.md item 12, part 2);
+asking for one here raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +21,10 @@ PAPER_IDS = ["alexnet", "vgg16"]
 # The LM ids the port serves, and the module of each.
 SERVED_LM = {"llama3.2-1b": "llama32_1b", "olmo-1b": "olmo_1b",
              "glm4-9b": "glm4_9b", "stablelm-12b": "stablelm_12b",
-             "chameleon-34b": "chameleon_34b"}
+             "chameleon-34b": "chameleon_34b",
+             "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+             "deepseek-v3-671b": "deepseek_v3_671b",
+             "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -32,7 +35,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch in ARCH_IDS:
         raise NotImplementedError(
             f"{arch!r} is a language model the port does not serve yet "
-            f"(MoE, SSM, hybrid and enc-dec blocks: ROADMAP.md item 12); "
+            f"(SSM and hybrid blocks: ROADMAP.md item 12, part 2); "
             f"it serves {PAPER_IDS + sorted(SERVED_LM)}")
     if arch not in PAPER_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from "

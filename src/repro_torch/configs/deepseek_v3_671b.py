@@ -2,10 +2,9 @@
 
 MLA: q_lora 1536, kv_lora 512, rope 64, nope 128, v 128 over 128 heads.
 1 shared + 256 routed experts (top-8), per-expert hidden 2048.  The
-JAX package's config, field for field: its MoE layers come with
-ROADMAP.md item 12, so ``get_config`` and ``build_model`` refuse it; the
-MLA attention runs on its own (``cfg.replace(family="dense",
-n_experts=0, ...)``).
+JAX package's config, field for field: MLA + MoE blocks (family
+``moe``).  One card holds one full-width layer of it, not the model:
+its DP step needs sharding (ROADMAP.md item 14).
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -199,6 +199,20 @@ def dense_norm_method(T: int, Di: int, Do: int, B: int,
     return "gram"
 
 
+def seg_norm_method(S: int, Di: int, Do: int, B: int, G: int,
+                    mem_budget: int = STREAM_MEM_BUDGET) -> str:
+    """MoE expert slots: gram is O(G·S²·(Di+Do+B)), stream is
+    O(G·B·Di·Do) FLOPs with (B·Di·Do) scratch per expert-group step (the
+    reference's prices, kept for plan parity: the stream realization
+    does 2·G·B·S·Di·Do, ``kinds.seg_dense_norm_sq``)."""
+    gram_flops = G * S * S * (Di + Do + B)
+    stream_flops = G * B * Di * Do
+    stream_mem = B * Di * Do * BYTES
+    if stream_flops < gram_flops and stream_mem <= mem_budget:
+        return "stream"
+    return "gram"
+
+
 EMBED_PE_BUDGET = 32 << 20  # materialize embed pe grads below this
 
 
@@ -462,12 +476,10 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
     materializes per-example grads makes the sum phase a free (B,)-weighted
     reduction over the stash, so ``stream``/``pe`` is charged once while
     ``gram``/``ghost`` is charged norm + contraction."""
-    if meta.segmented or meta.kind not in ("dense", "conv", "embed",
-                                           "scale", "attn"):
+    if meta.kind not in ("dense", "conv", "embed", "scale", "attn"):
         raise NotImplementedError(
-            f"layer {name!r} (kind {meta.kind!r}"
-            f"{', segmented' if meta.segmented else ''}): comes with the "
-            f"rest of the LM slice (ROADMAP.md item 12)")
+            f"layer {name!r} (kind {meta.kind!r}): comes with ROADMAP.md "
+            f"item 12, part 2")
     k = meta.scanned
     dy_shape = tuple(dy_sh.shape)
     stack = _prod(dy_shape[:k])
@@ -484,6 +496,19 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
             return min(cc.hbm_flops_per_byte * read_bytes,
                        0.05 * cand_flops)
         return 0.0
+
+    if meta.kind == "dense" and meta.segmented:
+        # One device: the reference's per-shard terms with a mesh of 1.
+        x_shape = tuple(cap_sh["x"].shape)[k:]
+        S, Di, Do = x_shape[-2], x_shape[-1], app_dy[-1]
+        G = _prod(x_shape[:-2]) * stack
+        B = meta.static["n_examples"]
+        m = (norm_method if norm_method not in ("auto", "pallas")
+             else seg_norm_method(S, Di, Do, B, G, mem_budget))
+        nf = G * S * S * (Di + Do + B) if m == "gram" else G * B * Di * Do
+        cf = 2.0 * G * S * Di * Do
+        return LayerPlan(name, "seg_dense", m, False, nf, cf, cf,
+                         stash_bytes=B * G * Di * Do * BYTES)
 
     if meta.kind == "dense":
         x_shape = tuple(cap_sh["x"].shape)[k:]

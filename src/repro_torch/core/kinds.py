@@ -1,4 +1,5 @@
-"""Per-layer-kind gradient algebra (dense, conv, embed and scale kinds).
+"""Per-layer-kind gradient algebra (dense, segmented dense, conv, embed,
+scale and attention-block kinds).
 
 Given a layer's captured input ``x_b`` and output cotangent ``δy_b`` (from
 :mod:`repro_torch.core.tapper`), each *kind* knows three operations:
@@ -32,8 +33,11 @@ The method string ``"pallas"`` keeps the JAX package's spelling so that
 ``NormCfg`` and configs stay one-to-one; here it means this repo's own
 CUDA kernel (:mod:`repro_torch.kernels.ops`).  An attention block
 tapped as one ``"attn"`` layer (``dp_attn``) is realized by a layer-local
-recompute of the block (:func:`_attn_parts`).  Segmented (MoE) layers and
-the local_vjp kind (ROADMAP.md item 12) raise ``NotImplementedError``.
+recompute of the block (:func:`_attn_parts`).  A segmented dense layer
+(MoE expert slots, ``Tapper.dense_segmented``) carries each slot's
+example id in its captures; its kinds loop over the expert groups, so
+their scratch is one group's worth.  The local_vjp kind (ROADMAP.md item
+12, part 2) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,7 +75,8 @@ def _ee(eq, *args):
 # product: (a, b) -> (B, M, N).
 _BMM = {"bti,bto->bio": lambda a, b: (a.transpose(1, 2), b),
         "bto,bti->boi": lambda a, b: (a.transpose(1, 2), b),
-        "btd,bsd->bts": lambda a, b: (a, b.transpose(1, 2))}
+        "btd,bsd->bts": lambda a, b: (a, b.transpose(1, 2)),
+        "bis,bso->bio": lambda a, b: (a, b)}
 
 
 def _ee2(eq, a, b):
@@ -192,6 +197,134 @@ def dense_contrib(meta: LayerMeta, cap, dy, w):
     out = {meta.param_key: w_grad}
     if meta.bias_key:
         out[meta.bias_key] = _ee("b,bto->o", w, g)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dense (segmented: MoE expert slots with explicit example ids)
+#
+# Every slot belongs to one example (``seg``), so the per-example
+# gradient of group g is  Σ_{s: seg_s = b} x_s δy_sᵀ.  Each group's
+# (B, S) example mask multiplies x, and one batched product gives the
+# (B, Di, Do) per-example gradients of a chunk of groups: the
+# reference's one-hot contraction "sb,si,so->bio" without its one-hot
+# operand, in the same 2·B·S·Di·Do multiply-adds a group.  Empty slots
+# hold zero x and δy and add nothing whatever their id.
+
+
+def _seg_flatten(meta: LayerMeta, cap, dy):
+    """x (G, S, Di), δy (G, S, Do), seg (G, S) and the example count B."""
+    x, g, seg = cap["x"], dy, cap["seg"]
+    S = x.shape[-2]
+    return (x.reshape(-1, S, x.shape[-1]), g.reshape(-1, S, g.shape[-1]),
+            seg.reshape(-1, S), meta.static["n_examples"])
+
+
+# Elements of scratch one chunk of groups may take (2^28: 512 MB in
+# bf16); the groups are taken in chunks of as many as fit.
+SEG_CHUNK_ELEMS = 1 << 28
+
+
+def _seg_chunks(G: int, per_group: int):
+    c = max(1, min(G, SEG_CHUNK_ELEMS // max(per_group, 1)))
+    return [(i, min(i + c, G)) for i in range(0, G, c)]
+
+
+def _seg_mask(sg, B, dtype):
+    """(c, B, S) mask of each example's slots in a chunk of groups."""
+    return (sg[:, None, :] == torch.arange(B, device=sg.device)[
+        None, :, None]).to(dtype)
+
+
+def _seg_pe(xc, gc, sc, B):
+    """A chunk of groups' (c, B, Di, Do) f32 per-example gradients (a
+    view): the narrower of x and δy masked per example into (c, S, B, ·)
+    (a contiguous write), then one batched product with the other side,
+    which takes its transpose as a view."""
+    c, S, Di = xc.shape
+    Do = gc.shape[-1]
+    m = _seg_mask(sc, B, xc.dtype).transpose(1, 2)[..., None]  # (c,S,B,1)
+    if Di <= Do:
+        xm = (xc[:, :, None, :] * m).reshape(c, S, B * Di)
+        return _ee2("bis,bso->bio", xm.transpose(1, 2), gc) \
+            .reshape(c, B, Di, Do)
+    gm = (gc[:, :, None, :] * m).reshape(c, S, B * Do)
+    return _ee2("bis,bso->bio", xc.transpose(1, 2), gm) \
+        .reshape(c, Di, B, Do).transpose(1, 2)
+
+
+def _seg_bias(gc, sc, B):
+    """(c, B, Do) per-example bias gradients of a chunk of groups."""
+    return torch.bmm(_seg_mask(sc, B, F32), gc.to(F32))
+
+
+def seg_dense_pe_grad(meta: LayerMeta, cap, dy):
+    x, g, seg, B = _seg_flatten(meta, cap, dy)
+    G, S, Di = x.shape
+    Do = g.shape[-1]
+    lead = tuple(cap["x"].shape[:-2])
+    chunks = _seg_chunks(G, B * (S * Di + Di * Do))
+    w_grad = torch.cat([_seg_pe(x[a:b], g[a:b], seg[a:b], B)
+                        for a, b in chunks]).transpose(0, 1)
+    out = {meta.param_key: w_grad.reshape((B,) + lead + (Di, Do))}
+    if meta.bias_key:
+        bg = torch.cat([_seg_bias(g[a:b], seg[a:b], B)
+                        for a, b in chunks]).transpose(0, 1)
+        out[meta.bias_key] = bg.reshape((B,) + lead + (Do,))
+    return out
+
+
+def seg_dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
+    """``stream``: each group's per-example gradients, squared; ``gram``:
+    the slot Gram (x xᵀ)∘(δy δyᵀ) with same-example masking.  Both take
+    the groups (experts) a chunk at a time (``SEG_CHUNK_ELEMS``), so the
+    extra memory is a chunk's worth: (B, S, Di) + (B, Di, Do) a group for
+    stream, (S, S) for gram."""
+    x, g, seg, B = _seg_flatten(meta, cap, dy)
+    G, S, Di = x.shape
+    Do = g.shape[-1]
+    if method in ("auto", "pallas"):
+        # no kernel takes a segmented layer: "pallas" picks as the
+        # planner prices it (the reference's kinds take the Gram)
+        method = costmodel.seg_norm_method(S, Di, Do, B, G)
+    # as in the reference, every other method takes the Gram
+    method = "stream" if method == "stream" else "gram"
+    n = torch.zeros((B,), dtype=F32, device=x.device)
+    if method == "stream":
+        for a, b in _seg_chunks(G, B * (S * Di + Di * Do)):
+            n = n + _seg_pe(x[a:b], g[a:b], seg[a:b], B).square() \
+                .sum(dim=(2, 3)).sum(dim=0)
+            if meta.bias_key:
+                n = n + _seg_bias(g[a:b], seg[a:b], B).square() \
+                    .sum(dim=2).sum(dim=0)
+        return _realized(n, meta, method)
+    for a, b in _seg_chunks(G, 3 * S * S + S * (Di + Do)):
+        xf, gf = x[a:b].to(F32), g[a:b].to(F32)
+        gram_g = torch.bmm(gf, gf.transpose(1, 2))
+        p = torch.bmm(xf, xf.transpose(1, 2)) * gram_g
+        if meta.bias_key:
+            p = p + gram_g
+        oh = _seg_mask(seg[a:b], B, F32)                        # (c, B, S)
+        n = n + (torch.bmm(oh, p) * oh).sum(dim=2).sum(dim=0)
+    return _realized(n, meta, method)
+
+
+def seg_dense_contrib(meta: LayerMeta, cap, dy, w):
+    x, g, seg, _ = _seg_flatten(meta, cap, dy)
+    G, S, Di = x.shape
+    Do = g.shape[-1]
+    lead = tuple(cap["x"].shape[:-2])
+    w = w.to(F32)
+    ws, bs = [], []
+    for a, b in _seg_chunks(G, S * (Di + Do) + Di * Do):
+        wc = w[seg[a:b]]                                        # (c, S)
+        xw = x[a:b].to(F32) * wc[..., None]
+        ws.append(torch.bmm(xw.transpose(1, 2), g[a:b].to(F32)))
+        if meta.bias_key:
+            bs.append(torch.bmm(wc[:, None], g[a:b].to(F32))[:, 0])
+    out = {meta.param_key: torch.cat(ws).reshape(lead + (Di, Do))}
+    if meta.bias_key:
+        out[meta.bias_key] = torch.cat(bs).reshape(lead + (Do,))
     return out
 
 
@@ -565,10 +698,8 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
     kw = dict(norm_method=norm_method, conv_impl=conv_impl,
               embed_method=embed_method, conv_norm=conv_norm,
               attn_norm=attn_norm)
-    if meta.segmented:
-        raise _unported(f"layer {'/'.join(map(str, meta.path))}: "
-                        f"segmented (MoE) layers", "12")
-    if meta.shared and meta.scanned and meta.kind in ("dense", "scale"):
+    if meta.shared and meta.scanned and meta.kind in ("dense", "scale") \
+            and not meta.segmented:
         # Fold applications into the sequence axis: the per-example
         # gradient of a shared parameter is the sum over applications,
         # and the fold makes every op (the Gram norm's cross terms too)
@@ -585,6 +716,20 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
     if not meta.scanned:
         return _apply_flat(op, meta, cap, dy, params_sub=params_sub,
                            weights=weights, **kw)
+    if meta.segmented:
+        # The segmented kinds reduce over their leading group axis one
+        # group at a time already: flatten every stack into it.
+        cap_f, dy_f, stack_shape = _split_stack(meta, cap, dy)
+        res = _apply_flat(op, _unscanned(meta), cap_f, dy_f,
+                          params_sub=params_sub, weights=weights, **kw)
+        if op == "norm_sq":
+            return res
+        if op == "contrib":
+            return tree_map(lambda a: a.reshape(stack_shape + a.shape[1:]),
+                            res)
+        # pe_grad: (B, G, ...) -> (B, *stack, ...)
+        return tree_map(lambda a: a.reshape(
+            (a.shape[0],) + stack_shape + a.shape[2:]), res)
     cap_f, dy_f, stack_shape = _split_stack(meta, cap, dy)
     meta_f = _unscanned(meta)
     G = dy_f.shape[0]
@@ -628,7 +773,7 @@ def apply_norm_contrib(meta: LayerMeta, cap, dy, *, weights,
     one pass over the captures; valid whenever the weights are known
     entering the pass (stale-coefficient clipping).
 
-    Dense (non-segmented) layers go to the fused ``gram_norm_fused``
+    Dense layers that are not segmented go to the fused ``gram_norm_fused``
     realization when ``fused``, the layers the planner marks ``fused``:
     a shared scanned layer folds its stack into the sequence axis first,
     a scanned one takes its stack one layer at a time (the JAX package's
@@ -675,6 +820,12 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
     kind = meta.kind
     if op not in ("pe_grad", "norm_sq", "contrib"):
         raise ValueError(f"unknown op {op!r}")
+    if kind == "dense" and meta.segmented:
+        if op == "pe_grad":
+            return seg_dense_pe_grad(meta, cap, dy)
+        if op == "norm_sq":
+            return seg_dense_norm_sq(meta, cap, dy, method=norm_method)
+        return seg_dense_contrib(meta, cap, dy, weights)
     if kind == "dense":
         if op == "pe_grad":
             return dense_pe_grad(meta, cap, dy)
@@ -711,7 +862,7 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
             return attn_norm_sq(meta, cap, dy, params_sub, method=attn_norm)
         return attn_contrib(meta, cap, dy, weights, params_sub)
     if kind == "local_vjp":
-        raise _unported(f"layer kind {kind!r}", "12")
+        raise _unported(f"layer kind {kind!r}", "12, part 2")
     raise ValueError(f"unknown kind {kind}")
 
 

@@ -360,6 +360,8 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
             return coef
 
     if strategy == "ghost":
+        # the weighted backward needs no capture: free them before it
+        del caps, dtaps
         paths = leaf_paths(params)
         p = tree_map(lambda a: a.detach().requires_grad_(True), params)
         STATS.forwards += 1
@@ -390,7 +392,7 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
 
 
 def _norm_kwargs(lp):
-    if lp.kind == "dense":
+    if lp.kind in ("dense", "seg_dense"):
         return {"norm_method": lp.norm_method}
     if lp.kind == "embed":
         return {"embed_method": lp.norm_method}

@@ -31,8 +31,9 @@ backward saves anyway) and captures that are one tensor in the model
 
 Shared parameters (tied embeddings) are declared by prefixing the tap
 name with ``"~"``: the parameter path is then read from the params root
-and the layer is marked ``shared``.  The ``local_vjp`` and
-``dense_segmented`` kinds come with ROADMAP.md item 12.
+and the layer is marked ``shared``.  :meth:`Tapper.dense_segmented` taps
+dispatched slots (MoE experts) whose captures carry each slot's example
+id; the ``local_vjp`` kind comes with ROADMAP.md item 12, part 2.
 
 An attention block tapped as one ``"attn"`` layer (``dp_attn``) captures
 only its input and carries its rebuild closure in ``LayerMeta.fn``; the
@@ -103,11 +104,13 @@ class LayerMeta:
       param_key: key of the weight inside the layer param dict.
       bias_key: key of the bias (or None).
       w_transposed: "dense" only — weight stored (out, in), used as x @ W.T.
-      segmented: captures carry explicit example ids (MoE; LM slice).
+      segmented: captures carry explicit example ids ("seg") instead of
+        a leading batch axis (MoE expert slots).
       scanned: number of leading stacked-layer axes on the captures.
       shared: parameter is shared across call sites (path absolute).
       static: extra static configuration (conv strides, kernel shape;
-        an attention block's projection widths).
+        an attention block's projection widths; a segmented layer's
+        ``n_examples``).
       fn: for "attn": the block's rebuild closure
         ``fn(tapper, params_sub, x) -> y``, which the kind runs again to
         recover each projection's captures and cotangents (not
@@ -176,8 +179,8 @@ class Tapper:
         if name in self.outputs:
             raise NotImplementedError(
                 f"tap {name!r} applied twice outside a scan: shared "
-                f"call sites of one name come with the rest of the LM "
-                f"slice (ROADMAP.md item 12)")
+                f"call sites of one name come with ROADMAP.md item 12, "
+                f"part 2")
         self.metas.setdefault(name, meta)
         if self.mode == "probe":
             self.outputs[name] = spec_of(y)
@@ -201,6 +204,22 @@ class Tapper:
                          bias_key="b" if b is not None else None,
                          w_transposed=w_transposed, shared=shared)
         return self.tap(name, y, {"x": x}, meta)
+
+    def dense_segmented(self, name: str, x, w, seg, b=None, *,
+                        n_examples: int, stacked_axes: int = 1):
+        """Dense over dispatched slots: x (*stack, S, Din) with example ids
+        seg (*stack, S) and per-group weights w (*stack, Din, Dout), e.g.
+        MoE experts with stack = (E,).  ``stacked_axes`` counts the
+        leading group axes (:func:`scan_with_taps` adds the layer's)."""
+        y = torch.matmul(x, w)
+        if b is not None:
+            y = y + b
+        path, shared = _parse_name(name)
+        meta = LayerMeta("dense", path, bias_key="b" if b is not None
+                         else None, segmented=True, shared=shared,
+                         scanned=stacked_axes,
+                         static={"n_examples": n_examples})
+        return self.tap(name, y, {"x": x, "seg": seg}, meta)
 
     def embed(self, name: str, table, ids):
         """Tapped embedding gather ``y = table[ids]``."""

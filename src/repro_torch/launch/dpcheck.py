@@ -20,7 +20,10 @@ Exit status is 1 if any lane reports an error (or, with
 ``--fail-on-warn``, a warning), so a CI job wired to this module is a
 hard gate.  ``--mesh`` other than ``none`` raises
 ``NotImplementedError`` (sharding: ROADMAP.md item 14), and so does an
-arch the port does not serve yet (ROADMAP.md item 12).
+arch the port does not serve yet (SSM and hybrid: ROADMAP.md item 12,
+part 2).  The MoE archs' gather dispatch has global capacity (the
+examples' tokens compete for one expert's slots), and their lanes fail
+on it, as the JAX package's do.
 
     PYTHONPATH=src python -m repro_torch.launch.dpcheck \\
         --archs alexnet vgg16 llama3.2-1b \\

@@ -13,6 +13,10 @@ falls back to the analytic constants with a warning).  ``--device``
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
         --n-requests 8 --batch 4 --gen 16
+
+Every LM id of ``configs.SERVED_LM`` is served: the dense ones, the MoE
+Granite-3.0-1B-A400M and DeepSeek-V3-671B and the enc-dec
+SeamlessM4T-large-v2.
 """
 from __future__ import annotations
 
@@ -28,8 +32,16 @@ from repro_torch.models.registry import build_model
 
 
 def generate_batch(model, params, prompts, *, max_len: int, gen: int):
-    """prompts (B, Tp) -> greedily generated tokens (B, gen)."""
-    logits, cache = model.prefill(params, prompts, max_len=max_len)
+    """prompts (B, Tp) -> greedily generated tokens (B, gen).  An enc-dec
+    model is given zero source frames of the prompt's length (the
+    frontend is a stub, as in the JAX package)."""
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        src = torch.zeros((prompts.shape[0], prompts.shape[1], cfg.d_model),
+                          dtype=torch.float32, device=prompts.device)
+        logits, cache = model.prefill(params, src, prompts, max_len=max_len)
+    else:
+        logits, cache = model.prefill(params, prompts, max_len=max_len)
     tok = torch.argmax(logits, -1)
     out = [tok]
     for _ in range(gen - 1):

@@ -34,7 +34,7 @@ kernels' build and the plan's probe.  A checkpoint pins the plan
 fingerprint under the analytic constants, which names the mechanism: a
 re-plan re-prices, so a run resumes across one.  ``--mesh`` raises
 ``NotImplementedError`` (sharding: ROADMAP.md item 14), and so does a
-checkpoint that recorded a mesh.  The ``encdec`` family is not served.
+checkpoint that recorded a mesh.
 The last line printed is a JSON summary (losses, per-step ms, the part
 of it spent making the batch on the host and copying it over,
 checkpoint save ms and bytes, re-plans).
@@ -69,15 +69,21 @@ def make_batch_fn(cfg, batch: int, seq: int):
     batches."""
     if cfg.family == "cnn":
         ds = SyntheticImageDataset(cfg.img_size, cfg.n_classes)
-    elif cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encdec family comes with ROADMAP.md item 12")
     else:
         ds = SyntheticLMDataset(cfg.vocab, seq)
 
     def fn(step):
         idx = (np.arange(batch) + step * batch) % len(ds)
-        return ds.batch(idx)
+        b = ds.batch(idx)
+        if cfg.family != "encdec":
+            return b
+        # half the length of source frames (numpy RandomState(step)) and
+        # half of target tokens
+        g = np.random.RandomState(step)
+        return {"src_frames": g.randn(batch, seq // 2, cfg.d_model)
+                .astype(np.float32),
+                "tokens": b["tokens"][:, : seq // 2],
+                "labels": b["labels"][:, : seq // 2]}
     return fn
 
 

@@ -8,8 +8,8 @@ All projections go through tapped denses, so per-example gradients cover
 every attention parameter; serving passes an inactive ``Tapper``.  With
 ``dp_attn`` the whole block is tapped as one ``"attn"`` layer instead
 (``core/kinds.py`` recovers each projection's captures and cotangents by
-running the block again).  Cross attention (ROADMAP.md item 12) raises
-``NotImplementedError``.
+running the block again).  Cross attention (``gqa_apply(x_kv=)``) takes
+K and V from a source sequence, with no RoPE, no mask and no cache.
 """
 from __future__ import annotations
 
@@ -28,10 +28,6 @@ class FlashUnsupportedError(NotImplementedError):
     """``impl="flash"`` was requested for a feature combination the flash
     kernels do not implement (sliding window, cache offsets, valid-length
     masking, MLA's q/k head dim beside another v head dim)."""
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} comes with ROADMAP.md item {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +97,9 @@ def attend(q, k, v, *, causal=True, offset=0, window=0, impl="auto",
                 f"impl='flash' supports plain causal/full attention only "
                 f"(got window={window}, offset={offset}, "
                 f"valid_len={'set' if valid_len is not None else None}); "
-                f"use impl='chunked' or 'xla'")
+                f"use impl='chunked' or 'xla'"
+                + ("; a windowed flash (Zamba2) comes with ROADMAP.md "
+                   "item 12, part 2" if window else ""))
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal)
     if impl != "xla":
@@ -166,17 +164,21 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
     (``impl="xla"``, as the JAX package: the flash kernels take no offset
     or valid length).
 
+    ``x_kv`` (B, S, D): cross attention, K and V projected from that
+    source (no cache, no causal mask, no RoPE on either side); under
+    ``attn_impl="flash"`` the full-attention kernels run with key length
+    S.
+
     ``dp_attn``: tap the whole block as one ``"attn"`` layer (see
     ``core/kinds.py``): per-example norms for wq/wk/wv/wo come from a
     layer-local recompute instead of per-projection captures, so the
     planner prices the block's ghost norm as a unit.  Falls back to
     per-projection taps under an inactive tapper (``multi``, serving), a
-    cache, a window, explicit positions and shared (``"~"``) call
-    sites."""
-    if x_kv is not None:
-        raise _unported("cross attention (gqa_apply x_kv=)", "12")
-    if (dp_attn and tp.active() and cache is None and not window
-            and positions is None and not name.startswith("~")):
+    cache, cross attention, a window, explicit positions and shared
+    (``"~"``) call sites."""
+    if (dp_attn and tp.active() and cache is None and x_kv is None
+            and not window and positions is None
+            and not name.startswith("~")):
         kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
                   rope_theta=rope_theta, qk_norm=qk_norm, causal=causal,
                   attn_impl=attn_impl, use_rope=use_rope)
@@ -191,16 +193,18 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
                                      (D, n_kv * head_dim),
                                      (n_heads * head_dim, D)))
     B, T, _ = x.shape
+    src = x if x_kv is None else x_kv
+    S = src.shape[1]
     q = tp.dense(f"{name}/wq", x, p["wq"]["w"], p["wq"].get("b"))
-    k = tp.dense(f"{name}/wk", x, p["wk"]["w"], p["wk"].get("b"))
-    v = tp.dense(f"{name}/wv", x, p["wv"]["w"], p["wv"].get("b"))
+    k = tp.dense(f"{name}/wk", src, p["wk"]["w"], p["wk"].get("b"))
+    v = tp.dense(f"{name}/wv", src, p["wv"]["w"], p["wv"].get("b"))
     q = q.reshape(B, T, n_heads, head_dim)
-    k = k.reshape(B, T, n_kv, head_dim)
-    v = v.reshape(B, T, n_kv, head_dim)
+    k = k.reshape(B, S, n_kv, head_dim)
+    v = v.reshape(B, S, n_kv, head_dim)
     if qk_norm:
         q = cm.rmsnorm(tp, f"{name}/qn", p["qn"], q)
         k = cm.rmsnorm(tp, f"{name}/kn", p["kn"], k)
-    if use_rope:
+    if use_rope and x_kv is None:
         if positions is None:
             pos0 = cache["pos"] if cache is not None else 0
             positions = (torch.arange(T, device=x.device)[None, :] + pos0) \
@@ -222,8 +226,9 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
                      valid_len=min(new_cache["pos"], S_max), window=0,
                      impl="xla")
     else:
-        out = attend(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=causal,
-                     window=window, impl=attn_impl)
+        out = attend(q, repeat_kv(k, rep), repeat_kv(v, rep),
+                     causal=causal and x_kv is None, window=window,
+                     impl=attn_impl)
     out = out.reshape(B, T, n_heads * head_dim)
     return (tp.dense(f"{name}/wo", out, p["wo"]["w"], p["wo"].get("b")),
             new_cache)

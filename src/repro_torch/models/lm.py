@@ -1,9 +1,12 @@
-"""Decoder-only language models, families ``dense`` and ``vlm`` (an
-early-fusion backbone over token ids): RMSNorm or LayerNorm (affine or
-not), GQA with RoPE and optional qk-norm or MLA (``mla=True``: DeepSeek's
-latent attention, its cache the latent KV), SwiGLU, optionally tied
-embeddings.  With ``dp_attn`` each block's attention is tapped as one
-``"attn"`` layer.
+"""Decoder-only language models, families ``dense``, ``moe`` and ``vlm``
+(an early-fusion backbone over token ids): RMSNorm or LayerNorm (affine
+or not), GQA with RoPE and optional qk-norm or MLA (``mla=True``:
+DeepSeek's latent attention, its cache the latent KV), SwiGLU or a
+mixture of SwiGLU experts (``n_experts``: :mod:`repro_torch.models.moe`,
+its per-example load-balance loss carried through the layers and added
+to each example's loss as ``moe_lb_coef · lb / n_layers``), optionally
+tied embeddings.  With ``dp_attn`` each block's attention is tapped as
+one ``"attn"`` layer.
 
 Training applies go through the tapper, so DP per-example gradients
 cover every parameter: the embedding gather (``tok_emb``), every
@@ -18,7 +21,7 @@ Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
 params, runs the layers as a Python loop over the stack against a KV
 cache, under ``torch.no_grad()`` with an inactive ``Tapper``.
 
-The MoE, SSM and hybrid families (ROADMAP.md item 12) raise
+The SSM and hybrid families (ROADMAP.md item 12, part 2) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.tree import tree_map
 
 
@@ -40,10 +44,8 @@ def _unported(what: str, item: str):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "vlm"):
-            raise _unported(f"LM family {cfg.family!r}", "12")
-        if cfg.n_experts:
-            raise _unported("MoE blocks", "12")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise _unported(f"LM family {cfg.family!r}", "12, part 2")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
@@ -64,8 +66,12 @@ class TransformerLM:
         kw = dict(dtype=c.torch_dtype, device=dev)
         p = {"attn": self._attn_init(gen, kw),
              "ln1": cm.norm_init(gen, c.d_model, c.norm, **kw),
-             "ln2": cm.norm_init(gen, c.d_model, c.norm, **kw),
-             "mlp": mlp_init(gen, c.d_model, c.d_ff, c.mlp, **kw)}
+             "ln2": cm.norm_init(gen, c.d_model, c.norm, **kw)}
+        if c.n_experts:
+            p["moe"] = moe_init(gen, c.d_model, c.d_ff, c.n_experts,
+                                n_shared=c.n_shared_experts, **kw)
+        else:
+            p["mlp"] = mlp_init(gen, c.d_model, c.d_ff, c.mlp, **kw)
         return {k: v for k, v in p.items() if v is not None}
 
     def init(self, key: int | torch.Generator = 0, *, device="cuda"):
@@ -114,39 +120,60 @@ class TransformerLM:
                             w_transposed=True, param_key="emb")
         return tp.dense("head", h, params["head"]["w"])
 
+    def _ffn(self, tp, p_l, x):
+        """The block's feed-forward: (out, per-example load-balance loss
+        of a MoE block, else None)."""
+        c = self.cfg
+        if c.n_experts:
+            return moe_apply(tp, "moe", p_l["moe"], x, impl=c.moe_impl,
+                             n_experts=c.n_experts, topk=c.topk,
+                             capacity_factor=c.capacity_factor)
+        return mlp_apply(tp, "mlp", p_l["mlp"], x, c.mlp), None
+
     def _backbone_train(self, params, h, tp: Tapper):
+        """-> (h, the load-balance loss summed over the layers, (B,))."""
         c = self.cfg
 
-        def body(stp, hh, p_l):
+        def body(stp, carry, p_l):
+            hh, lb = carry
             a, _ = self._attn(
                 stp, p_l["attn"],
                 cm.apply_norm(stp, "ln1", p_l.get("ln1"), hh, c.norm),
                 attn_impl=c.attn_impl, dp_attn=c.dp_attn)
             hh = hh + a
             x2 = cm.apply_norm(stp, "ln2", p_l.get("ln2"), hh, c.norm)
-            return hh + mlp_apply(stp, "mlp", p_l["mlp"], x2, c.mlp)
+            m, lb_l = self._ffn(stp, p_l, x2)
+            return hh + m, lb if lb_l is None else lb + lb_l
 
-        return scan_with_taps(tp, "blocks", body, h, params["blocks"],
-                              remat=c.remat)
+        lb0 = torch.zeros((h.shape[0],), dtype=torch.float32,
+                          device=h.device)
+        return scan_with_taps(tp, "blocks", body, (h, lb0),
+                              params["blocks"], remat=c.remat)
 
     # ------------------------------------------------------------------
     # training apply: per-example losses
 
+    def _logits_lb(self, params, tokens, tp: Tapper):
+        c = self.cfg
+        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens)
+        h, lb = self._backbone_train(params, h, tp)
+        h = cm.apply_norm(tp, "final_norm", params.get("final_norm"), h,
+                          c.norm)
+        return self._head(tp, params, h), lb
+
     def logits(self, params, tokens, tp: Tapper | None = None):
         """(B, T, V) logits of one causal forward over ``tokens`` (the
         training path, tapped through ``tp``)."""
-        c = self.cfg
-        tp = tp or Tapper()
-        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens)
-        h = self._backbone_train(params, h, tp)
-        h = cm.apply_norm(tp, "final_norm", params.get("final_norm"), h,
-                          c.norm)
-        return self._head(tp, params, h)
+        return self._logits_lb(params, tokens, tp or Tapper())[0]
 
     def apply(self, params, batch, tp: Tapper):
-        return cm.per_example_xent(self.logits(params, batch["tokens"], tp),
-                                   batch["labels"], batch.get("mask"),
-                                   vocab_valid=self.cfg.vocab)
+        c = self.cfg
+        logits, lb = self._logits_lb(params, batch["tokens"], tp)
+        losses = cm.per_example_xent(logits, batch["labels"],
+                                     batch.get("mask"), vocab_valid=c.vocab)
+        if c.n_experts:
+            losses = losses + c.moe_lb_coef * lb / max(c.n_layers, 1)
+        return losses
 
     # ------------------------------------------------------------------
     # serving: cache, prefill, decode
@@ -181,7 +208,7 @@ class TransformerLM:
         h = h + a
         z = cm.apply_norm(tp, "ln2", params_l.get("ln2"), h, c.norm)
         nc.pop("pos")
-        return h + mlp_apply(tp, "mlp", params_l["mlp"], z, c.mlp), nc
+        return h + self._ffn(tp, params_l, z)[0], nc
 
     def _layers(self, params, cache, h):
         """Every layer in order (``lax.scan``'s) -> (h, the new layers)."""

@@ -164,8 +164,11 @@ def test_unserved_attention_paths_raise():
     block-level ``dp_attn`` tap: under an active tapper the block's
     output equals the JAX package's and is tapped as one ``"attn"``
     layer capturing only its input; under an inactive one it is the
-    plain block.  Cross attention (item 12) raises, and so does MLA
-    with ``attn_impl="flash"`` (one head dim for q, k and v)."""
+    plain block.  Cross attention is served too (``x_kv``: its output
+    equals the JAX package's; ``tests/test_torch_encdec.py`` holds its
+    VJP); the windowed flash attention that Zamba2 needs (item 12, part
+    2) raises, and so does MLA with ``attn_impl="flash"`` (one head dim
+    for q, k and v)."""
     rng = np.random.RandomState(12)
     x = rng.randn(2, 4, 8).astype(np.float32)
     p = {n: {"w": rng.randn(8, 8).astype(np.float32) * 0.3}
@@ -198,8 +201,18 @@ def test_unserved_attention_paths_raise():
     assert list(ttp.captures["attn"]) == ["x"]
     plain, _ = tattn.gqa_apply(Tapper(), "attn", tp, xt, dp_attn=True, **kw)
     assert torch.equal(plain, got.detach())
+    src = rng.randn(2, 7, 8).astype(np.float32)
+    want, _ = jattn.gqa_apply(JTapper(), "attn",
+                              jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                              x_kv=jnp.asarray(src), **kw)
+    got, none = tattn.gqa_apply(Tapper(), "attn", tp, xt,
+                                x_kv=torch.from_numpy(src), **kw)
+    assert none is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
     with pytest.raises(NotImplementedError, match="item 12"):
-        tattn.gqa_apply(Tapper(), "attn", tp, xt, x_kv=xt, **kw)
+        tattn.gqa_apply(Tapper(), "attn", tp, xt, window=2,
+                        **dict(kw, attn_impl="flash"))
     pm = tcm.split_tree(tattn.mla_init(torch.Generator().manual_seed(0), 8,
                                        2, **_MLA_DIMS))[0]
     with pytest.raises(tattn.FlashUnsupportedError, match="MLA"):

@@ -4,7 +4,8 @@ registry.  Clean lanes exit 0 (reduced AlexNet, VGG16 and Llama-3.2-1B
 under every clipping mode, ``dp_attn``, the fixed strategies); a lane
 with an error exits 1 and names it; ``--mesh`` other than ``none`` and
 an arch the port does not serve yet raise, naming their ROADMAP items
-(14 and 12).
+(14 and 12).  Reduced Granite-3.0-1B-A400M and SeamlessM4T-large-v2 run
+under every clipping mode and give the JAX package's verdicts.
 """
 import pytest
 
@@ -53,5 +54,31 @@ def test_mesh_lanes_raise_naming_item_14():
 
 
 def test_unserved_arch_raises_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dpcheck.main(["--archs", "granite-moe-1b-a400m"] + CPU)
+    """The SSM and hybrid archs are still refused (item 12, part 2); the
+    MoE and enc-dec ones run (``test_moe_and_encdec_lanes``)."""
+    for arch in ("xlstm-125m", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            dpcheck.main(["--archs", arch] + CPU)
+
+
+def test_moe_and_encdec_lanes(capsys):
+    """Reduced Granite-3.0-1B-A400M and SeamlessM4T-large-v2 run under
+    every clipping mode.  Granite
+    fails, as the JAX package's ``repro.launch.dpcheck`` does on the same
+    lane: its gather dispatch has global capacity (the examples' entries
+    compete for one expert's slots), and the verifier reports the
+    one-hot of every example's expert ids that feeds the slot cumsum as a
+    batch-axis reduction (``eq``; the JAX package's first finding is the
+    same one-hot).  Seamless is clean: the JAX package's verdict there is
+    FAIL, from its LayerNorm's variance (``jnp.var`` in a nested jit its
+    taint pass does not model), the same finding it reports for the dense
+    OLMo-1B; the port's graph holds the variance as plain ops."""
+    argv = ["--archs", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+            "--clip-modes", "flat", "per_layer", "stale", "-v"] + CPU
+    assert dpcheck.main(argv) == 1
+    out = capsys.readouterr().out
+    for mode in ("flat", "per_layer", "stale"):
+        assert f"FAIL  granite-moe-1b-a400m clip={mode}" in out
+        assert f"PASS  seamless-m4t-large-v2 clip={mode}" in out
+    assert "batch-axis reduction in `eq`" in out
+    assert "3/6 lanes clean" in out

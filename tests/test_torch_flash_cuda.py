@@ -339,3 +339,59 @@ def test_cuda_fma_only_times_the_fma_design():
     assert torch.equal(dq, ops.flash_dq(*bwd, causal=True))
     assert all(torch.equal(a, b) for a, b in
                zip((dk, dv), ops.flash_dkv(*bwd, causal=True)))
+
+
+# (B, T, S, H, Hkv, hd) of full attention with a key length S other than
+# the query length T, as cross attention calls it (the source's length):
+# S = T/2, S = 2T, a ragged T over a ragged S, at head_dim 64 (bf16 on
+# the wgmma design, f32 on the fma one) and 32 (fma for both).
+CROSS_CASES = [(2, 256, 128, 4, 4, 64), (2, 128, 256, 4, 2, 64),
+               (1, 100, 260, 4, 1, 64), (2, 130, 70, 4, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES,
+                         ids=lambda c: "B{}_T{}_S{}_H{}_Hkv{}_hd{}".format(
+                             *c))
+def test_cuda_full_attention_other_key_lengths(case):
+    """Card only: full (non-causal) forward, dq and dk/dv with S != T
+    against their plain versions, to ``_close``'s bound, f32 and bf16,
+    each design its route takes; ``flash_attention`` through autograd
+    launches each kernel once."""
+    _needs_card()
+    B, T, S, H, Hkv, hd = case
+    g = torch.Generator().manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(*s, generator=g).to("cuda", dt)
+                       for s in ((B, T, H, hd), (B, S, Hkv, hd),
+                                 (B, S, Hkv, hd), (B, T, H, hd)))
+        o, lse = ops.flash_fwd(q, k, v, causal=False)
+        ro, rl = ref.flash_fwd_ref(q, k, v, causal=False)
+        _close(o, ro)
+        _close(lse, rl)
+        bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+        _close(ops.flash_dq(*bwd, causal=False),
+               ref.flash_dq_ref(*bwd, causal=False))
+        for a, b in zip(ops.flash_dkv(*bwd, causal=False),
+                        ref.flash_dkv_ref(*bwd, causal=False)):
+            _close(a, b)
+        n0 = dict(ops.LAUNCHES)
+        qa = q.detach().requires_grad_(True)
+        ops.flash_attention(qa, k, v, causal=False).backward(do)
+        assert {n: ops.LAUNCHES[n] - n0[n] for n in
+                ("flash_fwd", "flash_dq", "flash_dkv")} == \
+            {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_key_length_must_divide_key_blocks():
+    """Card only: a key length that does not divide into ``bk`` keys
+    (S = 600 > 512) raises ``FlashShapeError`` before any launch, as the
+    JAX wrapper's contract says; keys are not padded."""
+    _needs_card()
+    q = torch.randn(1, 64, 2, 64, device="cuda")
+    k = torch.randn(1, 600, 2, 64, device="cuda")
+    n0 = dict(ops.LAUNCHES)
+    with pytest.raises(ops.FlashShapeError, match="S=600"):
+        ops.flash_attention(q, k, k, causal=False)
+    assert ops.LAUNCHES == n0

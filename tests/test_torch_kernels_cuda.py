@@ -550,3 +550,20 @@ def test_cuda_multi_flash_grad_equals_the_loop(dtype):
     for b in range(3):
         for a, w in zip(got, grad(q[b], k[b], v[b])):
             flash_close(a[b], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "bf16"))
+def test_cuda_gram_norm_at_the_router_shape(dtype):
+    """Card only: ``gram_norm`` at Granite-3.0-1B-A400M's router (x
+    (8, 1024, 1024), δy (8, 1024, 32): Do = 32, a quarter of the direct
+    route's 128-column tile) takes the direct route and matches its plain
+    version to rtol 1e-4, bitwise repeatable."""
+    _needs_card()
+    B, T, Di, Do = 8, 1024, 1024, 32
+    assert ops.gram_route(T, Di, Do) == "direct"
+    x, dy = _gram_inputs(B, T, Di, Do, "contiguous", dtype, 7)
+    got = ops.gram_norm(x, dy)
+    assert torch.equal(got, ops.gram_norm(x, dy))
+    torch.testing.assert_close(got, ref.gram_norm_ref(x, dy), rtol=1e-4,
+                               atol=0)

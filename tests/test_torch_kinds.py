@@ -183,16 +183,29 @@ def test_kind_parity(toy, name, op, tkw, jkw):
 
 
 def test_unported_kinds_raise(toy):
-    """Segmented (MoE) layers and the local_vjp kind are not ported yet.
-    The attn kind is (``tests/test_torch_attn_kind.py``); an attn meta
-    without its block's rebuild closure (one read back from a plan's
-    JSON) is refused by name."""
+    """The local_vjp kind is not ported yet (item 12, part 2).  Segmented
+    (MoE) layers are: fc0's captures read as one group of B slots, each
+    slot its own example, give fc0's own per-example norms
+    (``tests/test_torch_moe.py`` holds the kinds against the JAX
+    package's).  The attn kind is ported (``tests/test_torch_attn_kind.
+    py``); an attn meta without its block's rebuild closure (one read
+    back from a plan's JSON) is refused by name."""
     fields, cap, dy, psub = _layer(toy, "fc0")
-    for meta in (TMeta(**dict(fields, segmented=True)),
-                 TMeta(**dict(fields, kind="local_vjp"))):
-        with pytest.raises(NotImplementedError, match="LM slice"):
-            tkinds.apply_kind("norm_sq", meta, _t(cap), _t(dy),
-                              params_sub=_t(psub))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tkinds.apply_kind("norm_sq", TMeta(**dict(fields, kind="local_vjp")),
+                          _t(cap), _t(dy), params_sub=_t(psub))
+    x, g = _t(cap)["x"], _t(dy)
+    B = g.shape[0]
+    seg_meta = TMeta(**dict(fields, segmented=True, scanned=1,
+                            static={"n_examples": B}))
+    seg_cap = {"x": x.reshape(1, B, -1),
+               "seg": torch.arange(B, dtype=torch.int32)[None]}
+    want = tkinds.apply_kind("norm_sq", TMeta(**fields), _t(cap), g,
+                             params_sub=_t(psub), norm_method="stream")
+    for method in ("stream", "gram"):
+        got = tkinds.apply_kind("norm_sq", seg_meta, seg_cap,
+                                g.reshape(1, B, -1), norm_method=method)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
     with pytest.raises(ValueError, match="rebuild closure"):
         tkinds.apply_kind("norm_sq", TMeta(**dict(fields, kind="attn")),
                           _t(cap), _t(dy), params_sub=_t(psub))
