@@ -156,6 +156,25 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    193 a step) and ``auto`` flat, flash 60 / 36 / 36 a pass (encoder
    full, decoder causal, cross full over the source, the decoder's
    forward again under remat).
+9i. the SSM and hybrid families (``run_recurrent``): xLSTM-125M not cut
+   (phase ``ssm_main_path``: 12 layers, 3 super-blocks of 3 mLSTM and 1
+   sLSTM, d_model 768, vocab 50 304, bf16; B = 8, T = 128) under bk
+   (``gram_norm`` 67 a step), ``auto`` stale (``gram_norm_fused`` once a
+   fused dense of the stack, as its plan says) and ``auto`` flat (no
+   kernel of this repo: its plan realizes every norm with the plain
+   versions); Zamba2-2.7B at full width cut to 2 super-blocks (phase
+   ``hybrid_main_path``: 12 Mamba2 layers and the shared attention + MLP
+   block applied twice, d_model 2560, bf16, remat; B = 4, T = 512) under
+   bk (``gram_norm`` 32 a step) and ``auto`` flat; on each, in f32 at
+   full width on 2 examples at the lane's T, bk's group norms (the
+   ``local_vjp`` and the shared block's folded groups included) against
+   ``naive``'s, each example alone and the two together
+   (``recurrent_exactness``), and on Zamba2 bk's clipped sums with
+   ``remat=True`` bitwise those with ``remat=False``; then serving both,
+   not cut (phase ``ssm_serve``: Zamba2 54 layers; prompts prefilled one
+   token at a time), held decode-equals-forward (``serve_checks_f32_ref``:
+   bf16 within twice the bf16 forward's distance from the f32 forward,
+   f32 within RECURRENT_F32_OF_LARGEST of the largest logit).
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -171,7 +190,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    plan: both fingerprints, the layers whose realization differs, and
    ``predicted_step_seconds`` against the lane's measured step.
 13. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
-   own, twice per lane, once straight through and once with
+   own, twice per lane (the two at once), once straight through and once with
    ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
    AlexNet ``auto`` flat and stale (B = 32, 6 steps, checkpoint every 2),
    AlexNet ``auto`` stale with ``--calibration`` the blob of phase 4 (its
@@ -210,7 +229,9 @@ version and the segment sum; each row names its route,
 Llama plan fuses (one layer, bf16), and the flash kernels at OLMo-1B's
 (8, 1024, 16, 128), at Granite's and Seamless's shapes, and with a key
 length S other than T (cross attention: S = T/2, S = 2T, ragged), and
-``gram_norm`` at Granite's router (Do = 32).
+``gram_norm`` at Granite's router (Do = 32) and at the recurrent lanes'
+denses (xLSTM's wq, Zamba2's in_proj, a shared dense folded over its
+two applications).
 
 The line before the last is a JSON object with one entry per kernel
 (eight, each with its share of its bound); the last line is
@@ -563,9 +584,13 @@ def kernel_cases(torch):
                     "bfloat16", False),
                    ("granite_router_f32", GR_B, GR_T, 1024, 32, "float32",
                     False)]
+    gram_cases += [(n, b, t, di, do, dt, False)
+                   for n, b, t, di, do, dt in RECURRENT_GRAM_CASES]
+    contiguous = {"granite_router_bf16", "granite_router_f32"} | {
+        c[0] for c in RECURRENT_GRAM_CASES}
     for name, b, t, di, do, dt, main in gram_cases:
         tdt = getattr(torch, dt)
-        if name.startswith("granite_router"):
+        if name in contiguous:
             x, dy = rnd(b, t, di, dtype=tdt), rnd(b, t, do, dtype=tdt)
         elif t > 1:
             x = rnd(b, di, t, dtype=tdt).transpose(1, 2)
@@ -2271,7 +2296,8 @@ def embed_permuted(torch, params, axes, seed=0):
     return tree_map(f, params, axes)
 
 
-def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None):
+def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None,
+                     of_largest=None):
     """The f32 half of decode-equals-forward: prefill and decode of the
     f32 model ``m32`` against its own causal forward, within the flash
     rows' f32 tolerance (``flash_close``).  With ``order_axes`` (a MoE,
@@ -2279,7 +2305,9 @@ def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None):
     axes) the served logits may instead be within twice the distance
     between the f32 forward and the same forward over the width-permuted
     weights (``embed_permuted``: the same sums in another order) plus
-    FLASH_ATOL of the largest logit.  Frees ``p32``."""
+    FLASH_ATOL of the largest logit.  With ``of_largest`` (the recurrent
+    families) every served logit must be within that share of the
+    forward's largest logit instead.  Frees ``p32``."""
     P = SERVE_PROMPT - 1
     outs, full, short = decode_vs_forward(torch, m32, p32, prompts)
     errs = [flash_close(torch, o, full[:, P + i])
@@ -2289,6 +2317,11 @@ def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None):
            "rtol": FLASH_RTOL["float32"], "atol_of_largest": FLASH_ATOL,
            "within_flash_rows_tolerance": all(e[2] for e in errs)}
     ok = rec["within_flash_rows_tolerance"]
+    if of_largest is not None:
+        top = full[:, P:].abs().max().item()
+        rec.update(largest_logit=top, of_largest=of_largest,
+                   max_abs_err_of_largest=rec["max_abs_err"] / top)
+        ok = rec["max_abs_err"] <= of_largest * top
     if order_axes is not None:
         toks = torch.cat([prompts] + [torch.argmax(o, -1)[:, None]
                                       for o in outs[:-1]], 1)
@@ -2309,18 +2342,25 @@ def f32_decode_check(torch, arch, m32, p32, prompts, order_axes=None):
     return rec
 
 
-def serve_checks_f32_ref(torch, arch, model, params, prompts):
-    """Decode-equals-forward for a model of one layer (DeepSeek-V3's
-    first), whose forward hardly depends on the length, so that
-    ``serve_checks``'s bf16 bound (twice that spread plus 2^-8 of the
-    largest logit) falls below one bf16 ulp of the largest logit.  Here
-    the f32 forward (an f32 copy of the weights, TF32 off) over the bf16
-    path's tokens is the reference: the served bf16 logits must be within
-    twice the bf16 forward's own distance from it plus 2^-8 of the
-    largest logit; ``serve_checks``'s bound is computed and reported
-    beside it.  The f32 copy's own prefill and decode must equal its
-    forward within the flash rows' f32 tolerance, as in
-    ``serve_checks``."""
+def serve_checks_f32_ref(torch, arch, model, params, prompts,
+                         of_largest=None):
+    """Decode-equals-forward where ``serve_checks``'s bf16 bound (twice
+    the forward's spread over another length plus 2^-8 of the largest
+    logit) does not measure the forward's own bf16 error: a model of one
+    layer (DeepSeek-V3's first), whose forward hardly depends on the
+    length, so that the bound falls below one bf16 ulp of the largest
+    logit; and the recurrent families, whose scans run the same
+    elementwise steps at any length, so that only the GEMMs' rounding
+    moves with it, while through their layers every bf16 rounding grows
+    (the forward over another length moved xLSTM-125M's logits by a
+    quarter of the largest).  Here the f32 forward (an f32 copy of the
+    weights, TF32 off) over the bf16 path's tokens is the reference: the
+    served bf16 logits must be within twice the bf16 forward's own
+    distance from it plus 2^-8 of the largest logit, so that serving
+    rounds no worse than the forward; ``serve_checks``'s bound is
+    computed and reported beside it.  The f32 copy's own prefill and
+    decode are held by ``f32_decode_check`` (the flash rows' f32
+    tolerance, or ``of_largest`` of the largest logit)."""
     from repro_torch.models.lm import TransformerLM
     from repro_torch.tree import tree_map
     P = SERVE_PROMPT - 1
@@ -2350,7 +2390,8 @@ def serve_checks_f32_ref(torch, arch, model, params, prompts):
                         .item() for i, o in enumerate(outs)),
                     "serve_checks_bound": 2 * spread + 2 ** -8 * top}}
     del outs, full, short, ref
-    rec["f32"] = f32_decode_check(torch, arch, m32, p32, prompts)
+    rec["f32"] = f32_decode_check(torch, arch, m32, p32, prompts,
+                                  of_largest=of_largest)
     return rec
 
 
@@ -2693,7 +2734,10 @@ def cli_lanes(calib):
     calibrated lane must print its ``[calibrate]`` line and end, where the
     calibrated tile is the shape rule (0), bitwise equal to the
     uncalibrated lane; where it forces another tile, within f32
-    tolerance of it."""
+    tolerance of it.  A lane's two processes (straight and killed) run
+    at once, each with its own checkpoint directory: their time is
+    mostly the process's start and the checkpoints' writes."""
+    from concurrent.futures import ThreadPoolExecutor
     base = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(base, ignore_errors=True)
     refs = {r for *_, r in CLI_LANES if r}
@@ -2702,8 +2746,10 @@ def cli_lanes(calib):
         common = args + ["--steps", str(steps), "--ckpt-every", "2"]
         d_straight, d_killed = str(base / lane / "straight"), \
             str(base / lane / "killed")
-        s1, out1, wall1 = run_cli(common, d_straight)
-        s2, out2, wall2 = run_cli(common + ["--fail-at", "3"], d_killed)
+        with ThreadPoolExecutor(2) as pool:
+            f1 = pool.submit(run_cli, common, d_straight)
+            f2 = pool.submit(run_cli, common + ["--fail-at", "3"], d_killed)
+            (s1, out1, wall1), (s2, out2, wall2) = f1.result(), f2.result()
         check(s1["restarts"] == 0 and s2["restarts"] == 1,
               f"{lane}: restarts {s1['restarts']}, {s2['restarts']}")
         check("[restore] resuming from step 2" in out2,
@@ -3157,19 +3203,22 @@ class _WithSource:
         return self.model.logits(params, self.src, tokens)
 
 
-def serve_one(torch, arch, model, params, prompts, checks):
+def serve_one(torch, arch, model, params, prompts, checks,
+              phase="moe_encdec_serve", warm=True):
     """``launch.serve.generate_batch`` over ``prompts`` in batches of
-    SERVE_BATCH (after one warm batch): prefill ms and decode ms a token
-    on one batch, tokens/s over all, peak memory; ``checks()`` gives the
-    decode-equals-forward record.  Serving launches no kernel of this
-    repo."""
+    SERVE_BATCH (after one warm batch, unless ``warm`` is false: a
+    recurrent prefill is one decode step a token, warm after its first
+    token): prefill ms and decode ms a token on one batch, tokens/s over
+    all, peak memory; ``checks()`` gives the decode-equals-forward
+    record.  Serving launches no kernel of this repo."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate_batch
     max_len = SERVE_PROMPT + SERVE_GEN
     p0 = prompts[:SERVE_BATCH]
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    generate_batch(model, params, p0, max_len=max_len, gen=2)   # warm
+    if warm:
+        generate_batch(model, params, p0, max_len=max_len, gen=2)
     enc = model.cfg.family == "encdec"
     src = (torch.zeros((SERVE_BATCH, SERVE_PROMPT, model.cfg.d_model),
                        device="cuda") if enc else None)
@@ -3198,7 +3247,7 @@ def serve_one(torch, arch, model, params, prompts, checks):
           and all(bool(((o >= 0) & (o < model.cfg.padded_vocab)).all())
                   for o in outs), f"{arch}: generated tokens")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    rec = {"phase": "moe_encdec_serve", "arch": arch,
+    rec = {"phase": phase, "arch": arch,
            "params": param_count(params), "requests": len(prompts),
            "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
            "gen": SERVE_GEN, "prefill_ms": prefill_ms,
@@ -3323,23 +3372,380 @@ def run_moe_encdec(torch, launches, lanes):
          "seconds": time.perf_counter() - t})
 
 
+# The recurrent families' lanes: xLSTM-125M not cut (12 layers: 3
+# super-blocks of 3 mLSTM and 1 sLSTM), B = 8, T = 128; Zamba2-2.7B at
+# full width cut to ZB_LAYERS layers (2 super-blocks of 6 Mamba2 layers,
+# the shared block applied twice), B = 4, T = 512.  Widths as the configs
+# give them: (layers, d_model, heads, vocab, slstm_every) and (layers,
+# d_model, heads, KV heads, d_ff, vocab, head_dim, ssm_state, attn_every,
+# window).
+XL_B, XL_T = 8, 128
+XL_WIDTHS = (12, 768, 4, 50304, 4)
+ZB_B, ZB_T, ZB_LAYERS = 4, 512, 12
+ZB_WIDTHS = (54, 2560, 32, 32, 10240, 32000, 80, 64, 6, 4096)
+# bk's gram_norm launches a step (norm_method="pallas"): one a dense layer
+# of every stacked layer, once for each folded shared dense, and the
+# head.  xLSTM: 6 denses x 9 mLSTM layers + 4 x 3 sLSTM layers + head;
+# Zamba2: in_proj and out_proj x 12 + the shared block's 7 + head.
+XL_GRAM = 6 * 9 + 4 * 3 + 1
+ZB_GRAM = 2 * ZB_LAYERS + 7 + 1
+# Exactness at full width in f32: EXACT_B examples of the lane's first
+# batch at the lane's T; the remat check takes their first REMAT_T tokens.
+EXACT_B, REMAT_T = 2, 128
+# The recurrent families' f32 decode-equals-forward rule: every served
+# logit within this share of the forward's largest, twice the most the
+# card has read (xLSTM-125M 1.95e-4, Zamba2-2.7B 1.84e-4; PERF.md),
+# where the dense rows hold 1e-5: through the recurrences f32 rounding
+# grows.  A wrong gate or a state dropped moves a logit by a large share
+# of the largest.
+RECURRENT_F32_OF_LARGEST = 4e-4
+# gram_norm at the recurrent lanes' shapes (contiguous (B, T, D) rows, as
+# the dense taps hand them over): xLSTM's mLSTM wq, Zamba2's in_proj, and
+# a shared dense folded over its two applications (T twice the lane's).
+RECURRENT_GRAM_CASES = [
+    ("xlstm_wq_bf16", XL_B, XL_T, 1536, 1536, "bfloat16"),
+    ("zamba2_in_proj_bf16", ZB_B, ZB_T, 2560, 10448, "bfloat16"),
+    ("zamba2_shared_wq_folded_bf16", ZB_B, 2 * ZB_T, 2560, 2560,
+     "bfloat16")]
+
+
+def recurrent_inputs(torch, cfg, B, T, phase):
+    """``cfg``'s model, params drawn on the card from seed 0, and four
+    (B, T) synthetic batches on the card."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.lm import TransformerLM
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = model.init(gen, device="cuda")
+    ds = SyntheticLMDataset(cfg.vocab, T, n_examples=4096, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                ds.batch(range(s * B, (s + 1) * B)).items()}
+               for s in range(4)]
+    log({"phase": phase, "arch": cfg.name, "params": param_count(params),
+         "n_layers": cfg.n_layers, "batch": B, "seq": T,
+         "init_s": time.perf_counter() - t0})
+    return model, params, batches
+
+
+def _bk_group_norms(torch, model, params, batch):
+    """bk's per-group squared norms ((G, B), ``gram_norm`` on the
+    denses), the group keys, each group's param path and kind, and the
+    kernels launched."""
+    from repro_torch.core import capture_backward
+    from repro_torch.core import strategies
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    _, caps, dtaps, metas = capture_backward(model.apply, params, batch,
+                                             with_metas=True)
+    keys, norms = strategies.group_norms_from_captures(
+        params, caps, dtaps, metas, norm_method="pallas")
+    info = {strategies.group_key_of(m.path): (m.path, m.kind)
+            for m in metas.values()}
+    return keys, norms, info, {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _sq_norms(tree, leaf_paths):
+    """Per-example squared norm of a tree of (B, ...) grads."""
+    from repro_torch.tree import get_subtree
+    return sum(get_subtree(tree, q).float().square().flatten(1).sum(1)
+               for q in leaf_paths(tree))
+
+
+def _batched_plain_norms(torch, m32, p32, b, keys, info):
+    """The per-group squared norms of each example's gradient taken from
+    one plain f32 forward over all of ``b``'s rows (each example's loss
+    differentiated alone, the graph kept between them): a per-example
+    gradient with no kernel and no tap, whose GEMMs run over the batch's
+    row count as bk's do."""
+    from repro_torch.core.tapper import Tapper
+    from repro_torch.tree import from_paths, get_subtree, leaf_paths
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda a: a.detach().requires_grad_(True), p32)
+    paths = leaf_paths(p)
+    per = []
+    with torch.enable_grad():
+        losses = m32.apply(p, b, Tapper())
+        for i in range(len(losses)):
+            per.append(torch.autograd.grad(
+                losses[i], [get_subtree(p, q) for q in paths],
+                retain_graph=i < len(losses) - 1))
+    del losses
+    grads = from_paths(paths, [torch.stack([g[j] for g in per])
+                               for j in range(len(paths))])
+    del per
+    return torch.stack([_sq_norms(get_subtree(grads, info[k][0]), leaf_paths)
+                        for k in keys])
+
+
+def _rel_by_group(got, want, keys):
+    r = ((got - want).abs() / want.abs().clamp_min(1e-30)).max(1).values
+    return {k: r[i].item() for i, k in enumerate(keys)}
+
+
+def _max_by_kind(rel, info):
+    out = {}
+    for k, v in rel.items():
+        out[info[k][1]] = max(out.get(info[k][1], 0.0), v)
+    return out
+
+
+def recurrent_exactness(torch, model, params, batch, lane):
+    """At full width in f32 (an f32 copy of the weights, TF32 off), on
+    EXACT_B examples of ``batch`` at the lane's T, against the squared
+    norms of ``naive``'s per-example grads (one example a pass), group
+    by group (the ``local_vjp`` groups and the shared block's folded
+    groups included):
+
+    * bk's group norms (``gram_norm`` on the denses) with each example
+      taken alone, as ``naive`` takes it: within rtol 1e-4, the LM
+      lanes' f32 rule;
+    * bk's with the examples together, whose GEMMs run over another row
+      count: within the larger of 1e-4 and twice the witness, how far a
+      plain per-example gradient over the same rows moves from
+      ``naive``'s (``_batched_plain_norms``), since through the
+      recurrences f32 rounding grows (PERF.md)."""
+    from repro_torch.core import strategies
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths, tree_map
+    t0 = time.perf_counter()
+    m32 = TransformerLM(model.cfg.replace(dtype="float32"))
+    p32 = tree_map(lambda a: a.float(), params)
+    b = {k: v[:EXACT_B] for k, v in batch.items()}
+    parts = [_bk_group_norms(torch, m32, p32,
+                             {k: v[i:i + 1] for k, v in b.items()})
+             for i in range(EXACT_B)]
+    keys, info, launched = parts[0][0], parts[0][2], parts[0][3]
+    alone = torch.cat([p[1] for p in parts], 1)
+    del parts
+    torch.cuda.empty_cache()
+    t_keys, together, _, launched_together = _bk_group_norms(torch, m32,
+                                                             p32, b)
+    check(t_keys == keys, f"{lane}: bk's groups differ with B")
+    torch.cuda.empty_cache()
+    witness = _batched_plain_norms(torch, m32, p32, b, keys, info)
+    torch.cuda.empty_cache()
+    _, pe = strategies.naive_per_example_grads(m32.apply, p32, b)
+    want = torch.stack([_sq_norms(get_subtree(pe, info[k][0]), leaf_paths)
+                        for k in keys])
+    del pe, p32
+    torch.cuda.empty_cache()
+    rel = _rel_by_group(alone, want, keys)
+    rel_t = _rel_by_group(together, want, keys)
+    rel_w = _rel_by_group(witness, want, keys)
+    limit = max(1e-4, 2 * max(rel_w.values()))
+
+    def worst(r):
+        return sorted(r.items(), key=lambda kv: -kv[1])[:5]
+    check(all(v <= 1e-4 for v in rel.values()),
+          f"{lane} f32 bk group norms (each example alone) vs naive: "
+          f"{worst(rel)}")
+    check(all(v <= limit for v in rel_t.values()),
+          f"{lane} f32 bk group norms (examples together) vs naive: "
+          f"{worst(rel_t)}, over {limit:.3g} (the plain batched "
+          f"gradient's: {worst(rel_w)})")
+    check(launched.get("gram_norm", 0) > 0
+          and launched_together.get("gram_norm", 0) > 0,
+          f"{lane}: the f32 bk norms launched {launched}, "
+          f"{launched_together}")
+    return {"examples": EXACT_B, "seq": b["tokens"].shape[1],
+            "groups": len(keys),
+            "max_rel_err_by_kind": _max_by_kind(rel, info),
+            "together": {"max_rel_err_by_kind": _max_by_kind(rel_t, info),
+                         "limit": limit,
+                         "plain_batched_by_kind": _max_by_kind(rel_w,
+                                                               info),
+                         "worst": worst(rel_t),
+                         "plain_batched_worst": worst(rel_w)},
+            "shared_groups": {k: rel[k] for k in keys
+                              if k.startswith("shared/")},
+            "local_vjp_groups": {k: rel[k] for k in keys
+                                 if info[k][1] == "local_vjp"},
+            "launches_each_example": launched,
+            "launches_together": launched_together,
+            "seconds": time.perf_counter() - t0}
+
+
+def recurrent_lanes(torch, phase, model, params, batches, launches, lanes,
+                    bk_gram, flat_lane, stale_lane=None):
+    """bk (``norm_method="pallas"``: ``gram_norm`` ``bk_gram`` times a
+    step), ``auto`` stale where given (``gram_norm_fused`` once a fused
+    layer of the stack a step, as its plan says) and ``auto`` flat (its
+    plan realizes every norm with the plain versions: no kernel of the
+    repo runs), σ = 1: 3 steps each, two timed and the third profiled,
+    for the script's time (a Zamba2 step takes seconds)."""
+    from repro_torch.core import ClipPolicy, NormCfg
+    steps = 2
+    plans = {}
+    runs = [(f"{phase}_bk", "bk", "flat", NormCfg(dense="pallas"),
+             {"gram_norm": [bk_gram] * steps,
+              "gram_norm_fused": [0] * steps})]
+    if stale_lane:
+        runs.append((stale_lane, "auto", ClipPolicy(mode="stale"),
+                     NormCfg(), planned_lm_needs(0, 0)))
+    runs = [(lane, st, cl, nm, recording_plan(plans, lane, nd))
+            for lane, st, cl, nm, nd in runs]
+    out = run_lanes(torch, phase, model, params, batches, runs, lanes,
+                    launches, steps, lr=1e-4,
+                    named=("gram_kernel", "direct_wgmma", "gemm",
+                           "elementwise"))
+    out.update(run_lanes(
+        torch, phase, model, params, batches,
+        [(flat_lane, "auto", "flat", NormCfg(),
+          recording_plan(plans, flat_lane, planned_lm_needs(0, 0)))],
+        lanes, launches, steps, lr=1e-4, named=("gemm", "elementwise"),
+        no_kernel=True))
+    if stale_lane:
+        check(plans[stale_lane]["fused"], f"{stale_lane}: nothing fused")
+    return out, plans
+
+
+def ssm_main_path(torch, launches, lanes):
+    """Phase ssm_main_path: xLSTM-125M not cut (12 layers, d_model 768,
+    4 heads, vocab 50 304, bf16; about 1.9e8 params drawn on the card),
+    B = 8, T = 128, σ = 1: bk, ``auto`` stale and ``auto`` flat
+    (``recurrent_lanes``), then ``recurrent_exactness`` in f32."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config("xlstm-125m")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab,
+           cfg.slstm_every) == XL_WIDTHS and cfg.family == "ssm"
+          and cfg.dtype == "bfloat16" and not cfg.remat, "xlstm config")
+    model, params, batches = recurrent_inputs(torch, cfg, XL_B, XL_T,
+                                              "ssm_setup")
+    out, plans = recurrent_lanes(torch, "xlstm", model, params, batches,
+                                 launches, lanes, XL_GRAM,
+                                 "xlstm_auto_flat", "xlstm_auto_stale")
+    exact = recurrent_exactness(torch, model, params, batches[0], "xlstm")
+    log({"phase": "ssm_main_path",
+         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
+         "plans": plans, "exactness_f32": exact,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def hybrid_main_path(torch, launches, lanes):
+    """Phase hybrid_main_path: Zamba2-2.7B at full width (d_model 2560,
+    32 heads at head_dim 80, SwiGLU d_ff 10 240, ssm_state 64, window
+    4096, vocab 32 000, bf16, remat) cut to 2 super-blocks (12 Mamba2
+    layers, the shared block applied twice; about 7.5e8 params drawn on
+    the card), B = 4, T = 512, σ = 1: bk and ``auto`` flat
+    (``recurrent_lanes``), ``recurrent_exactness`` in f32, and bk's
+    clipped sums with ``remat=True`` bitwise equal to ``remat=False``'s
+    (deterministic algorithms, on the exactness examples of the lane's
+    first batch cut to REMAT_T tokens, in the lane's bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    t0 = time.perf_counter()
+    full = get_config("zamba2-2.7b")
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv, full.d_ff,
+           full.vocab, full.hd, full.ssm_state, full.attn_every,
+           full.window) == ZB_WIDTHS and full.remat
+          and full.dtype == "bfloat16", "zamba2 config")
+    cfg = full.replace(n_layers=ZB_LAYERS)
+    model, params, batches = recurrent_inputs(torch, cfg, ZB_B, ZB_T,
+                                              "hybrid_setup")
+    out, plans = recurrent_lanes(torch, "zamba2", model, params, batches,
+                                 launches, lanes, ZB_GRAM,
+                                 "zamba2_auto_flat")
+    exact = recurrent_exactness(torch, model, params, batches[0], "zamba2")
+    sums, peaks = {}, {}
+    b = {k: v[:EXACT_B, :REMAT_T] for k, v in batches[0].items()}
+    with deterministic_step():
+        for remat in (True, False):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m = TransformerLM(cfg.replace(remat=remat))
+            sums[remat] = clipped_grad_sum(m.apply, params, b, l2_clip=1.0,
+                                           strategy="bk",
+                                           norm_method="pallas")
+            peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
+    (_, g1, n1), (_, g2, n2) = sums[True], sums[False]
+    bitwise = torch.equal(n1, n2) and all(
+        torch.equal(get_subtree(g1, q), get_subtree(g2, q))
+        for q in leaf_paths(g2))
+    check(bitwise, "zamba2: bk clipped sums differ between remat=True and "
+          "remat=False")
+    del sums, g1, g2
+    torch.cuda.empty_cache()
+    log({"phase": "hybrid_main_path",
+         "cuts": {"n_layers": ZB_LAYERS},
+         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
+         "plans": plans, "exactness_f32": exact,
+         "remat_bk_sums_bitwise": bitwise,
+         "bk_sum_peak_gb": {"remat": peaks[True], "no_remat": peaks[False]},
+         "seconds": time.perf_counter() - t0, "ok": True})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def ssm_serve(torch):
+    """Phase ssm_serve: xLSTM-125M and Zamba2-2.7B, both not cut (Zamba2:
+    54 Mamba2 layers and 9 applications of the shared block), weights
+    drawn on the card, through ``launch.serve.generate_batch`` as
+    ``serve_one`` drives it: 4 requests in one batch, 128-token prompts
+    prefilled one token at a time (the JAX package's recurrent prefill),
+    32 out.  Decode-equals-forward (``serve_checks_f32_ref``): bf16
+    within twice the bf16 forward's own distance from the f32 forward
+    plus 2^-8 of the largest logit; f32 within RECURRENT_F32_OF_LARGEST
+    of the largest logit (``f32_decode_check``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import TransformerLM
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for arch in ("xlstm-125m", "zamba2-2.7b"):
+        cfg = get_config(arch)
+        model = TransformerLM(cfg)
+        params, _ = model.init(gen, device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                generator=gen, device="cuda")
+        serve_one(torch, arch, model, params, prompts,
+                  lambda: serve_checks_f32_ref(
+                      torch, arch, model, params, prompts[:SERVE_BATCH],
+                      of_largest=RECURRENT_F32_OF_LARGEST),
+                  phase="ssm_serve", warm=False)
+        del params
+        torch.cuda.empty_cache()
+    log({"phase": "ssm_serve_done", "seconds": time.perf_counter() - t0})
+
+
+def run_recurrent(torch, launches, lanes):
+    """The phases of the SSM and hybrid families, each with its
+    seconds."""
+    for fn in (ssm_main_path, hybrid_main_path):
+        t = time.perf_counter()
+        fn(torch, launches, lanes)
+        log({"phase": f"{fn.__name__}_done",
+             "seconds": time.perf_counter() - t})
+    ssm_serve(torch)
+
+
 def profile_step(torch, fn, top=8, named=()):
     """One step under ``torch.profiler``: wall ms, summed CUDA kernel ms,
     the device's busy share (kernel ms / wall ms, one stream), the
     kernels that took the most device time and, for each string in
     ``named``, the device time and launches of the kernels whose names
-    hold it."""
+    hold it.  It traces the device alone (no host op events: a step of
+    10^5 small launches records half a million of them), and sums the
+    device events straight from the trace (``key_averages`` takes tens
+    of seconds over such a step)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if str(ev.device_type()).endswith("CUDA"):
+            ms, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
+    kernels = [(k, ms, n) for k, (ms, n) in by_name.items()]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
@@ -3541,6 +3947,7 @@ def main():
     log({"phase": "olmo_main_path_done", "seconds": time.perf_counter() - t})
     deepseek_layer0(torch, launches, lanes)
     run_moe_encdec(torch, launches, lanes)
+    run_recurrent(torch, launches, lanes)
     tokmask_path(torch, launches, lanes)
     t = time.perf_counter()
     conv1d_lane(torch, launches, lanes)

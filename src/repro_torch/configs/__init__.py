@@ -1,12 +1,9 @@
-"""The paper's own CNN configs (AlexNet, VGG16) and the language models
-of the port: the dense Llama-3.2-1B, OLMo-1B, GLM-4-9B and StableLM-2-12B,
-Chameleon-34B (family ``vlm``, an early-fusion backbone over token ids),
-the MoE Granite-3.0-1B-A400M and DeepSeek-V3-671B (MLA + MoE), and the
-enc-dec SeamlessM4T-large-v2 backbone.
-
-The JAX package's two other language-model configs, xLSTM-125M and
-Zamba2-2.7B, need SSM and hybrid blocks (ROADMAP.md item 12, part 2);
-asking for one here raises ``NotImplementedError``.
+"""The paper's own CNN configs (AlexNet, VGG16) and the JAX package's ten
+language models: the dense Llama-3.2-1B, OLMo-1B, GLM-4-9B and
+StableLM-2-12B, Chameleon-34B (family ``vlm``, an early-fusion backbone
+over token ids), the MoE Granite-3.0-1B-A400M and DeepSeek-V3-671B (MLA +
+MoE), the enc-dec SeamlessM4T-large-v2 backbone, the SSM xLSTM-125M and
+the hybrid Zamba2-2.7B (Mamba2 + a shared attention block).
 """
 from __future__ import annotations
 
@@ -24,7 +21,8 @@ SERVED_LM = {"llama3.2-1b": "llama32_1b", "olmo-1b": "olmo_1b",
              "chameleon-34b": "chameleon_34b",
              "granite-moe-1b-a400m": "granite_moe_1b_a400m",
              "deepseek-v3-671b": "deepseek_v3_671b",
-             "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
+             "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+             "xlstm-125m": "xlstm_125m", "zamba2-2.7b": "zamba2_2p7b"}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -32,11 +30,6 @@ def get_config(arch: str) -> ModelConfig:
     if arch in SERVED_LM:
         return importlib.import_module(
             f"repro_torch.configs.{SERVED_LM[arch]}").CONFIG
-    if arch in ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch!r} is a language model the port does not serve yet "
-            f"(SSM and hybrid blocks: ROADMAP.md item 12, part 2); "
-            f"it serves {PAPER_IDS + sorted(SERVED_LM)}")
     if arch not in PAPER_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from "
                        f"{PAPER_IDS + sorted(SERVED_LM)}")

@@ -30,7 +30,10 @@ An embedding gather picks ``segsum`` / ``gram`` / ``pe``
 materializes its tiny per-example grads; an attention block tapped as one
 ``"attn"`` layer pays a layer-local recompute and picks ``ghost`` (each
 projection's Gram norm, then a second recompute for the contraction) or
-``pe`` (materialize every projection's per-example grad and stash it).
+``pe`` (materialize every projection's per-example grad and stash it);
+a ``local_vjp`` layer materializes its per-example grads (stashed when
+they fit the budget; a standalone contraction re-runs the vmapped VJP
+and is charged :data:`LOCAL_VJP_CONTRIB_PENALTY`).
 Scanned layers multiply the per-application cost by the stack; shared
 scanned dense/scale layers fold the stack into the sequence axis.  Taps
 that share one parameter form a group with a ``norm_mode``: ``single``, ``tied`` (embedding + transposed
@@ -68,7 +71,7 @@ from typing import Any, Mapping
 
 import torch
 
-from repro_torch.core.tapper import LayerMeta, TensorSpec, probe
+from repro_torch.core.tapper import LayerMeta, TensorSpec, is_multi, probe
 from repro_torch.tree import get_subtree, leaf_paths
 
 GRAM_CHUNK = 1024
@@ -111,6 +114,13 @@ ANALYTIC_CONSTANTS = CostConstants(
     hbm_flops_per_byte=ANALYTIC_FALLBACK["hbm_flops_per_byte"],
     flops_per_second=ANALYTIC_FALLBACK["flops_per_second"])
 
+# contrib for a local_vjp layer replays the layer's VJP once *per
+# example* under vmap — for scan-based layers (SSM recurrences) the
+# vmapped per-example re-run costs far more than the batched backward's
+# single pass, so its contraction is charged a premium over the layer's
+# wgrad share.  This is what can tip a local_vjp-dominated model into the
+# shared weighted backward.  The JAX package's constant.
+LOCAL_VJP_CONTRIB_PENALTY = 4.0
 PLAN_CACHE_SIZE = 16
 
 
@@ -462,10 +472,15 @@ def _prod(xs) -> int:
     return int(math.prod(int(x) for x in xs)) if xs else 1
 
 
+def _tree_elems(tree) -> int:
+    return sum(_prod(get_subtree(tree, q).shape) for q in leaf_paths(tree))
+
+
 def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
                 *, norm_method: str, embed_method: str, conv_norm: str,
                 mem_budget: int, vocab: int | None = None,
-                clip_mode: str = "flat", clip_fused: bool = True,
+                params_sub=None, clip_mode: str = "flat",
+                clip_fused: bool = True,
                 cc: CostConstants = ANALYTIC_CONSTANTS) -> LayerPlan:
     """Costs for one tap (whole batch, one device).  Stacked (scanned)
     applications multiply the per-application cost; shared stacked dense
@@ -476,10 +491,9 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
     materializes per-example grads makes the sum phase a free (B,)-weighted
     reduction over the stash, so ``stream``/``pe`` is charged once while
     ``gram``/``ghost`` is charged norm + contraction."""
-    if meta.kind not in ("dense", "conv", "embed", "scale", "attn"):
-        raise NotImplementedError(
-            f"layer {name!r} (kind {meta.kind!r}): comes with ROADMAP.md "
-            f"item 12, part 2")
+    if meta.kind not in ("dense", "conv", "embed", "scale", "attn",
+                         "local_vjp"):
+        raise ValueError(f"layer {name!r}: unknown kind {meta.kind!r}")
     k = meta.scanned
     dy_shape = tuple(dy_sh.shape)
     stack = _prod(dy_shape[:k])
@@ -645,9 +659,21 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         return LayerPlan(name, "attn", m, stash, nf, cf, proj_flops * per_ex,
                          stash_bytes=mem_stash, fallback_norm="ghost")
 
-    # scale: per-example grads are (B, d): materialize and stash
     B = app_dy[0] if app_dy else 1
     n = 2.0 * B * (_prod(app_dy) // max(B, 1)) * stack
+    if meta.kind == "local_vjp":
+        # The norm phase materializes the per-example grads and stashes
+        # them when the (B, *param) scratch fits the budget, making the
+        # sum free; else the contraction pays LOCAL_VJP_CONTRIB_PENALTY.
+        # params_sub at meta.path carries the stacked axes in its leaf
+        # shapes for scanned layers, so B * elems is the whole stash.
+        psize = _tree_elems(params_sub) if params_sub is not None else 0
+        stash_mem = B * psize * BYTES
+        return LayerPlan(name, "local_vjp", "pe",
+                         psize == 0 or stash_mem <= mem_budget, n,
+                         LOCAL_VJP_CONTRIB_PENALTY * n, n,
+                         stash_bytes=stash_mem)
+    # scale: per-example grads are (B, d): materialize and stash
     return LayerPlan(name, "scale", "pe", True, n, n, n,
                      stash_bytes=(B * app_dy[-1] * BYTES * stack
                                   if app_dy else 0.0))
@@ -732,13 +758,20 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
     layers: dict[str, LayerPlan] = {}
     by_path: dict[tuple, list] = {}
     for name, meta in metas.items():
+        psub = None
+        if params is not None and meta.kind == "local_vjp":
+            try:
+                psub = get_subtree(params, meta.path)
+            except (KeyError, TypeError):
+                psub = None
         ov = _override_for(name, meta.kind, overrides)
         layers[name] = _plan_layer(
             name, meta, cap_shapes[name], tap_shapes[name],
             norm_method=ov or norm_method, embed_method=ov or embed_method,
             conv_norm=ov or conv_norm, mem_budget=mem_budget,
             vocab=_vocab_of(meta, params) if meta.kind == "embed" else None,
-            clip_mode=clip_mode, clip_fused=clip_fused, cc=cc)
+            params_sub=psub, clip_mode=clip_mode, clip_fused=clip_fused,
+            cc=cc)
         by_path.setdefault(meta.path, []).append(name)
 
     total_wgrad = sum(lp.wgrad_flops for lp in layers.values())
@@ -828,7 +861,9 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
 
     capture_bytes = 0.0
     for name in metas:
-        capture_bytes += sum(_nbytes(s) for s in cap_shapes[name].values())
+        for spec in cap_shapes[name].values():
+            capture_bytes += (sum(map(_nbytes, spec)) if is_multi(spec)
+                              else _nbytes(spec))
         capture_bytes += 2.0 * _nbytes(tap_shapes[name])  # output + cotangent
 
     return ExecPlan(

@@ -1,5 +1,5 @@
 """Per-layer-kind gradient algebra (dense, segmented dense, conv, embed,
-scale and attention-block kinds).
+scale, attention-block and local-VJP kinds).
 
 Given a layer's captured input ``x_b`` and output cotangent ``δy_b`` (from
 :mod:`repro_torch.core.tapper`), each *kind* knows three operations:
@@ -36,8 +36,9 @@ tapped as one ``"attn"`` layer (``dp_attn``) is realized by a layer-local
 recompute of the block (:func:`_attn_parts`).  A segmented dense layer
 (MoE expert slots, ``Tapper.dense_segmented``) carries each slot's
 example id in its captures; its kinds loop over the expert groups, so
-their scratch is one group's worth.  The local_vjp kind (ROADMAP.md item
-12, part 2) raises ``NotImplementedError``.
+their scratch is one group's worth.  A ``local_vjp`` layer (the
+parameters inside an SSM recurrence) re-runs its layer's VJP one example
+at a time under ``torch.func.vmap`` (:func:`local_vjp_pe_grad`).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ import torch
 
 from repro_torch.analysis.markers import tag
 from repro_torch.core import costmodel
-from repro_torch.core.tapper import STATS, LayerMeta, Tapper
+from repro_torch.core.tapper import STATS, LayerMeta, Tapper, cap_map
 from repro_torch.tree import get_subtree, set_subtree, tree_map
 
 F32 = torch.float32
@@ -652,6 +653,48 @@ def attn_contrib(meta: LayerMeta, cap, dy, w, params_sub):
 
 
 # ---------------------------------------------------------------------------
+# Generic local-VJP kind (SSM scans)
+#
+# The layer is pure, ``y = fn(params_sub, *inputs)``, and its captures are
+# its inputs.  The per-example gradient is the VJP of one example's call
+# (a batch of one) at its own output cotangent, vmapped over the examples
+# with ``params_sub`` shared.  It runs after the capture backward, outside
+# any ``torch.utils.checkpoint``, so the saved-tensor hooks that
+# ``torch.func`` refuses (fault F4) never meet it.
+
+
+def local_vjp_pe_grad(meta: LayerMeta, cap, dy, params_sub):
+    """(B, *param) per-example grads of ``params_sub``: δy is cast to the
+    layer output's dtype before the VJP, as the JAX package does."""
+    if meta.fn is None:
+        raise ValueError(
+            f"local_vjp layer {'/'.join(map(str, meta.path))} has no fn "
+            f"(a meta read back from a plan's JSON?): realize it with the "
+            f"live metas of the capture pass")
+    fn = meta.fn
+
+    def one(inputs_b, dy_b):
+        def f(p):
+            return fn(p, *[a[None] for a in inputs_b])
+        y, vjp = torch.func.vjp(f, params_sub)
+        (g,) = vjp(dy_b[None].to(y.dtype))
+        return g
+
+    with torch.enable_grad():
+        return torch.func.vmap(one)(cap["inputs"], dy)
+
+
+def local_vjp_norm_sq(meta: LayerMeta, cap, dy, params_sub):
+    return _realized(_sumsq(local_vjp_pe_grad(meta, cap, dy, params_sub)),
+                     meta, "vjp")
+
+
+def local_vjp_contrib(meta: LayerMeta, cap, dy, w, params_sub):
+    pe = local_vjp_pe_grad(meta, cap, dy, params_sub)
+    return tree_map(lambda leaf: _ee("b...,b->...", leaf, w), pe)
+
+
+# ---------------------------------------------------------------------------
 # Stacked-layer handling: fold meta.scanned leading axes
 
 
@@ -666,8 +709,7 @@ def _split_stack(meta: LayerMeta, cap, dy):
     def flat(a):
         return a.reshape((-1,) + tuple(a.shape[k:]))
 
-    return ({n: flat(a) for n, a in cap.items()}, flat(dy),
-            tuple(dy.shape[:k]))
+    return cap_map(flat, cap), flat(dy), tuple(dy.shape[:k])
 
 
 def _fold_into_seq(meta: LayerMeta, cap, dy):
@@ -680,13 +722,7 @@ def _fold_into_seq(meta: LayerMeta, cap, dy):
     def fold(a):
         return a.reshape((-1,) + tuple(a.shape[meta.scanned:])) \
             .transpose(0, 1)
-    return {n: fold(a) for n, a in cap.items()}, fold(dy)
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} comes with the rest of the LM slice (ROADMAP.md item "
-        f"{item})")
+    return cap_map(fold, cap), fold(dy)
 
 
 def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
@@ -744,7 +780,7 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
     for i in range(G):
         p_i = params_sub if meta.shared else (
             None if psub is None else tree_map(lambda a: a[i], psub))
-        res = _apply_flat(op, meta_f, {n: a[i] for n, a in cap_f.items()},
+        res = _apply_flat(op, meta_f, cap_map(lambda a: a[i], cap_f),
                           dy_f[i], params_sub=p_i, weights=weights, **kw)
         if op == "norm_sq" or meta.shared:
             total = res if total is None else (
@@ -862,7 +898,11 @@ def _apply_flat(op, meta, cap, dy, *, params_sub, weights, norm_method,
             return attn_norm_sq(meta, cap, dy, params_sub, method=attn_norm)
         return attn_contrib(meta, cap, dy, weights, params_sub)
     if kind == "local_vjp":
-        raise _unported(f"layer kind {kind!r}", "12, part 2")
+        if op == "pe_grad":
+            return local_vjp_pe_grad(meta, cap, dy, params_sub)
+        if op == "norm_sq":
+            return local_vjp_norm_sq(meta, cap, dy, params_sub)
+        return local_vjp_contrib(meta, cap, dy, weights, params_sub)
     raise ValueError(f"unknown kind {kind}")
 
 

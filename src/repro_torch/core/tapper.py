@@ -29,11 +29,15 @@ forward never holds a capture twice (a layer's capture is the tensor its
 backward saves anyway) and captures that are one tensor in the model
 (the input of ``wq``/``wk``/``wv``) stay one stacked tensor.
 
-Shared parameters (tied embeddings) are declared by prefixing the tap
-name with ``"~"``: the parameter path is then read from the params root
-and the layer is marked ``shared``.  :meth:`Tapper.dense_segmented` taps
-dispatched slots (MoE experts) whose captures carry each slot's example
-id; the ``local_vjp`` kind comes with ROADMAP.md item 12, part 2.
+Shared parameters (tied embeddings, Zamba2's shared attention block,
+which :func:`scan_with_taps` hands every step as ``shared_params``) are
+declared by prefixing the tap name with ``"~"``: the parameter path is
+then read from the params root and the layer is marked ``shared``.
+:meth:`Tapper.dense_segmented` taps dispatched slots (MoE experts) whose
+captures carry each slot's example id.  :meth:`Tapper.local_vjp` taps a
+generic layer ``fn(params_sub, *inputs)`` (the parameters inside an SSM
+recurrence): its capture ``"inputs"`` is a tuple of tensors, which the
+stacking, the probe's specs and the planner take element by element.
 
 An attention block tapped as one ``"attn"`` layer (``dp_attn``) captures
 only its input and carries its rebuild closure in ``LayerMeta.fn``; the
@@ -99,7 +103,7 @@ class LayerMeta:
     """Static description of one tapped layer (the JAX package's fields).
 
     Attributes:
-      kind: "dense" | "conv" | "embed" | "scale" | "attn".
+      kind: "dense" | "conv" | "embed" | "scale" | "attn" | "local_vjp".
       path: key path of this layer's param dict inside model params.
       param_key: key of the weight inside the layer param dict.
       bias_key: key of the bias (or None).
@@ -113,8 +117,9 @@ class LayerMeta:
         ``n_examples``).
       fn: for "attn": the block's rebuild closure
         ``fn(tapper, params_sub, x) -> y``, which the kind runs again to
-        recover each projection's captures and cotangents (not
-        serialized with a plan).
+        recover each projection's captures and cotangents; for
+        "local_vjp": the pure layer ``fn(params_sub, *inputs) -> y``
+        (neither is serialized with a plan).
     """
 
     kind: str
@@ -143,6 +148,19 @@ def spec_of(t) -> TensorSpec:
 def _parse_name(name: str) -> tuple[tuple, bool]:
     shared = name.startswith("~")
     return tuple(name.lstrip("~").split("/")), shared
+
+
+def cap_map(fn, cap: dict) -> dict:
+    """``fn`` over every tensor of a capture dict, whose values are
+    tensors or (``local_vjp``'s ``"inputs"``) tuples of tensors."""
+    return {k: tuple(map(fn, v)) if is_multi(v) else fn(v)
+            for k, v in cap.items()}
+
+
+def is_multi(v) -> bool:
+    """A capture value that is a tuple of tensors (or of their specs; a
+    :class:`TensorSpec` is a named tuple, and not one of these)."""
+    return type(v) is tuple
 
 
 class Tapper:
@@ -177,19 +195,21 @@ class Tapper:
         if self.mode == "none":
             return y
         if name in self.outputs:
-            raise NotImplementedError(
-                f"tap {name!r} applied twice outside a scan: shared "
-                f"call sites of one name come with ROADMAP.md item 12, "
-                f"part 2")
+            # The JAX package overwrites the first capture here; a shared
+            # parameter used more than once is either scanned
+            # (scan_with_taps) or tapped under names of its own.
+            raise ValueError(
+                f"tap {name!r} applied twice outside a scan: the first "
+                f"call site's capture would be lost")
         self.metas.setdefault(name, meta)
         if self.mode == "probe":
             self.outputs[name] = spec_of(y)
-            self.captures[name] = {k: spec_of(v) for k, v in captures.items()}
+            self.captures[name] = cap_map(spec_of, captures)
             return y
         if not y.requires_grad:
             y = y.detach().requires_grad_(True)
         self.outputs[name] = y
-        self.captures[name] = {k: v.detach() for k, v in captures.items()}
+        self.captures[name] = cap_map(torch.Tensor.detach, captures)
         return y
 
     # -- layer helpers ----------------------------------------------------
@@ -256,6 +276,15 @@ class Tapper:
                     "kernel_shape": tuple(w.shape)})
         return self.tap(name, y, {"x": x}, meta)
 
+    def local_vjp(self, name: str, fn: Callable, params_sub, *inputs):
+        """Tapped generic layer ``y = fn(params_sub, *inputs)`` (pure;
+        every input has a leading B): its per-example grads come from the
+        layer-local VJP under ``torch.func.vmap`` (``kinds``)."""
+        y = fn(params_sub, *inputs)
+        path, shared = _parse_name(name)
+        meta = LayerMeta("local_vjp", path, shared=shared, fn=fn)
+        return self.tap(name, y, {"inputs": tuple(inputs)}, meta)
+
 
 # ---------------------------------------------------------------------------
 # Scanned layer stacks
@@ -271,38 +300,52 @@ def _stack_spec(specs) -> TensorSpec:
     return TensorSpec((len(specs),) + tuple(specs[0].shape), specs[0].dtype)
 
 
+def _per_layer(caps: list, k: str):
+    """One capture key over the layers: a list with one entry a layer, or
+    for a tuple-valued capture a tuple of such lists (one per element)."""
+    if is_multi(caps[0][k]):
+        return tuple([c[k][j] for c in caps] for j in range(len(caps[0][k])))
+    return [c[k] for c in caps]
+
+
 def _checkpointed(body_fn, stp: Tapper):
-    """``body_fn(·, carry, params_l)`` under a per-layer
+    """``body_fn(·, carry, params_l, *shared)`` under a per-layer
     ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package):
     the forward records into ``stp`` and keeps only what the tapper holds
     (captures, layer outputs) and the layer's inputs; the backward runs
     the layer again under an inactive tapper, which records nothing and
     builds the same graph (every tapped output of a layer derives from
     the carry, which requires grad, so the capture pass turns none of
-    them into a new leaf)."""
+    them into a new leaf).  Shared params are closed over: the
+    non-reentrant checkpoint saves them through its hooks, so their
+    gradient flows as without it."""
     calls = []
 
-    def run(carry, p_l):
+    def run(carry, p_l, *shared):
         if calls:
             STATS.recomputes += 1
         t = Tapper() if calls else stp
         calls.append(1)
-        return body_fn(t, carry, p_l)
+        return body_fn(t, carry, p_l, *shared)
 
-    def fn(carry, p_l):
+    def fn(carry, p_l, *shared):
         from torch.utils.checkpoint import checkpoint
-        return checkpoint(run, carry, p_l, use_reentrant=False)
+        return checkpoint(lambda c, p: run(c, p, *shared), carry, p_l,
+                          use_reentrant=False)
     return fn
 
 
 def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params, *,
-                   remat: bool = False):
+                   remat: bool = False, shared_params=None):
     """Run ``body_fn(sub_tp, carry, params_l) -> carry`` over stacked
     layers (``xs_params``: the parameter tree with a leading L axis), one
     layer at a time, in order (``lax.scan``'s semantics), threading
-    captures.  Each sub-tap ``n`` appears in ``tp`` as ``name/n`` with
-    ``scanned + 1`` and, unless it is shared (``"~"``: its path stays
-    absolute), ``name``'s path in front of its own.  ``remat`` recomputes
+    captures; with ``shared_params`` (an unstacked subtree, Zamba2's
+    shared block) each step is ``body_fn(sub_tp, carry, params_l,
+    shared_params)``, and taps against it use ``"~"`` names.  Each
+    sub-tap ``n`` appears in ``tp`` as ``name/n`` with ``scanned + 1``
+    and, unless it is shared (``"~"``: its path stays absolute),
+    ``name``'s path in front of its own.  ``remat`` recomputes
     each layer in the backward (:func:`_checkpointed`) wherever autograd
     records a graph.  ``torch.func``'s transforms (the ``multi``
     strategy's vmap of grad) take no saved-tensor hooks: there the layers
@@ -319,13 +362,14 @@ def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params, *,
             f"strategy's vmap(grad)): they run without recompute, with "
             f"the same values", RuntimeWarning, stacklevel=2)
         remat = False
+    shared = () if shared_params is None else (shared_params,)
     for i in range(_leading(xs_params)):
         stp = Tapper(tp.mode, metas=sub_metas)
         p_l = tree_map(lambda a: a[i], xs_params)
         if remat:
-            carry = _checkpointed(body_fn, stp)(carry, p_l)
+            carry = _checkpointed(body_fn, stp)(carry, p_l, *shared)
         else:
-            carry = body_fn(stp, carry, p_l)
+            carry = body_fn(stp, carry, p_l, *shared)
         layers.append(stp)
     if not tp.active():
         return carry
@@ -339,12 +383,14 @@ def scan_with_taps(tp: Tapper, name: str, body_fn, carry, xs_params, *,
             meta, path=new_path, scanned=meta.scanned + 1))
         caps = [stp.captures[sub_name] for stp in layers]
         outs = [stp.outputs[sub_name] for stp in layers]
+        per_layer = {k: _per_layer(caps, k) for k in caps[0]}
         if tp.mode == "probe":
-            tp.captures[full] = {k: _stack_spec([c[k] for c in caps])
-                                 for k in caps[0]}
+            tp.captures[full] = {
+                k: tuple(map(_stack_spec, v)) if is_multi(v)
+                else _stack_spec(v) for k, v in per_layer.items()}
             tp.outputs[full] = _stack_spec(outs)
         else:
-            tp.captures[full] = {k: [c[k] for c in caps] for k in caps[0]}
+            tp.captures[full] = per_layer
             tp.outputs[full] = outs
     return carry
 
@@ -366,10 +412,13 @@ def _unflat(tree, it):
 
 
 def _stack(items, seen: dict):
-    """(Nested) per-layer list -> one tensor with the leading layer axes.
-    Lists of the very same per-layer tensors (one capture feeding several
-    taps) stack once; the list is emptied, so a layer's tensors are freed
-    as soon as no list holds them."""
+    """(Nested) per-layer list -> one tensor with the leading layer axes
+    (a tuple of such lists -> a tuple of tensors).  Lists of the very
+    same per-layer tensors (one capture feeding several taps) stack once;
+    the list is emptied, so a layer's tensors are freed as soon as no
+    list holds them."""
+    if is_multi(items):
+        return tuple(_stack(i, seen) for i in items)
     if not isinstance(items, list):
         return items
     if isinstance(items[0], list):

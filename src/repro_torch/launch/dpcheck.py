@@ -19,9 +19,9 @@ a single step*:
 Exit status is 1 if any lane reports an error (or, with
 ``--fail-on-warn``, a warning), so a CI job wired to this module is a
 hard gate.  ``--mesh`` other than ``none`` raises
-``NotImplementedError`` (sharding: ROADMAP.md item 14), and so does an
-arch the port does not serve yet (SSM and hybrid: ROADMAP.md item 12,
-part 2).  The MoE archs' gather dispatch has global capacity (the
+``NotImplementedError`` (sharding: ROADMAP.md item 14).  Every arch of
+``configs.PAPER_IDS`` and ``configs.SERVED_LM`` runs, reduced.  The MoE
+archs' gather dispatch has global capacity (the
 examples' tokens compete for one expert's slots), and their lanes fail
 on it, as the JAX package's do.
 

@@ -15,8 +15,9 @@ falls back to the analytic constants with a warning).  ``--device``
         --n-requests 8 --batch 4 --gen 16
 
 Every LM id of ``configs.SERVED_LM`` is served: the dense ones, the MoE
-Granite-3.0-1B-A400M and DeepSeek-V3-671B and the enc-dec
-SeamlessM4T-large-v2.
+Granite-3.0-1B-A400M and DeepSeek-V3-671B, the enc-dec
+SeamlessM4T-large-v2, and the recurrent xLSTM-125M and Zamba2-2.7B, whose
+prefill is one decode step a prompt token.
 """
 from __future__ import annotations
 

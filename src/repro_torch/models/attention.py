@@ -97,9 +97,7 @@ def attend(q, k, v, *, causal=True, offset=0, window=0, impl="auto",
                 f"impl='flash' supports plain causal/full attention only "
                 f"(got window={window}, offset={offset}, "
                 f"valid_len={'set' if valid_len is not None else None}); "
-                f"use impl='chunked' or 'xla'"
-                + ("; a windowed flash (Zamba2) comes with ROADMAP.md "
-                   "item 12, part 2" if window else ""))
+                f"use impl='chunked' or 'xla'")
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal)
     if impl != "xla":

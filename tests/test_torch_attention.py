@@ -210,7 +210,7 @@ def test_unserved_attention_paths_raise():
     assert none is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(tattn.FlashUnsupportedError, match="window=2"):
         tattn.gqa_apply(Tapper(), "attn", tp, xt, window=2,
                         **dict(kw, attn_impl="flash"))
     pm = tcm.split_tree(tattn.mla_init(torch.Generator().manual_seed(0), 8,

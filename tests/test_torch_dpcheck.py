@@ -54,11 +54,15 @@ def test_mesh_lanes_raise_naming_item_14():
 
 
 def test_unserved_arch_raises_naming_item_12():
-    """The SSM and hybrid archs are still refused (item 12, part 2); the
-    MoE and enc-dec ones run (``test_moe_and_encdec_lanes``)."""
-    for arch in ("xlstm-125m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            dpcheck.main(["--archs", arch] + CPU)
+    """The SSM and hybrid archs run (reduced xLSTM-125M and Zamba2-2.7B,
+    flat, at T = 8: the traced graph holds every step of the
+    recurrences), and pass, as the MoE and enc-dec ones run
+    (``test_moe_and_encdec_lanes``); an unknown arch raises."""
+    assert dpcheck.main(["--archs", "xlstm-125m", "zamba2-2.7b",
+                         "--clip-modes", "flat", "--seq", "8",
+                         "--batch", "4"] + CPU) == 0
+    with pytest.raises(KeyError, match="unknown arch"):
+        dpcheck.main(["--archs", "mamba-3b"] + CPU)
 
 
 def test_moe_and_encdec_lanes(capsys):

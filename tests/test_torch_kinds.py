@@ -183,17 +183,32 @@ def test_kind_parity(toy, name, op, tkw, jkw):
 
 
 def test_unported_kinds_raise(toy):
-    """The local_vjp kind is not ported yet (item 12, part 2).  Segmented
-    (MoE) layers are: fc0's captures read as one group of B slots, each
-    slot its own example, give fc0's own per-example norms
-    (``tests/test_torch_moe.py`` holds the kinds against the JAX
-    package's).  The attn kind is ported (``tests/test_torch_attn_kind.
-    py``); an attn meta without its block's rebuild closure (one read
-    back from a plan's JSON) is refused by name."""
+    """Every kind of the JAX package is ported.  The local_vjp kind on
+    fc0 written as a pure layer ``fn(p, x) = x @ w + b`` gives the
+    reference's local_vjp norms and fc0's own dense norms (rtol 1e-5);
+    ``tests/test_torch_ssm.py`` and ``tests/test_torch_hybrid.py`` hold
+    it on the SSM scans.  Segmented (MoE) layers:
+    fc0's captures read as one group of B slots, each slot its own
+    example, give fc0's own per-example norms (``tests/test_torch_moe.py``
+    holds the kinds against the JAX package's).  The attn kind is ported
+    (``tests/test_torch_attn_kind.py``); an attn meta without its block's
+    rebuild closure (one read back from a plan's JSON) is refused by
+    name."""
     fields, cap, dy, psub = _layer(toy, "fc0")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tkinds.apply_kind("norm_sq", TMeta(**dict(fields, kind="local_vjp")),
-                          _t(cap), _t(dy), params_sub=_t(psub))
+    vjp_fields = dict(fields, kind="local_vjp")
+    want = jkinds.apply_kind(
+        "norm_sq", JMeta(**dict(vjp_fields, fn=lambda p, x: x @ p["w"]
+                                + p["b"])),
+        {"inputs": (jnp.asarray(cap["x"]),)}, jnp.asarray(dy),
+        params_sub=jax.tree.map(jnp.asarray, psub))
+    got = tkinds.apply_kind(
+        "norm_sq", TMeta(**dict(vjp_fields, fn=lambda p, x: x @ p["w"]
+                                + p["b"])),
+        {"inputs": (_t(cap)["x"],)}, _t(dy), params_sub=_t(psub))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    dense = tkinds.apply_kind("norm_sq", TMeta(**fields), _t(cap), _t(dy),
+                              params_sub=_t(psub))
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=1e-5)
     x, g = _t(cap)["x"], _t(dy)
     B = g.shape[0]
     seg_meta = TMeta(**dict(fields, segmented=True, scanned=1,

@@ -389,27 +389,31 @@ def test_params_from_numpy_checks_the_lm_tree(lm):
 
 
 def test_unserved_models_raise():
-    """The LM configs that need blocks the port does not serve yet raise,
-    naming their item: SSM (xLSTM-125M) and hybrid (Zamba2-2.7B), ROADMAP.md
-    item 12, part 2.  The MoE and enc-dec configs build
-    (Granite-3.0-1B-A400M, DeepSeek-V3-671B with MLA + MoE,
+    """Every LM config of the JAX package builds: the SSM xLSTM-125M and
+    the hybrid Zamba2-2.7B too (``tests/test_torch_ssm.py`` and
+    ``tests/test_torch_hybrid.py`` hold them against the JAX package);
+    only an unknown family or arch raises.  The MoE and enc-dec configs
+    build (Granite-3.0-1B-A400M, DeepSeek-V3-671B with MLA + MoE,
     SeamlessM4T-large-v2; ``tests/test_torch_moe.py`` and
     ``tests/test_torch_encdec.py`` hold them against the JAX package).
     MLA builds (``test_mla_matches_reference``), and MLA with
     ``attn_impl="flash"`` raises by name: the flash kernels take one head
     dim for q, k and v."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.configs.deepseek_v3_671b import CONFIG as DSV3
     from repro_torch.models.attention import FlashUnsupportedError
     from repro_torch.models.encdec import EncDecLM
+    for arch in ARCH_IDS:
+        assert build_model(tget(arch)).cfg.name == arch
     for arch in ("xlstm-125m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tget(arch)
+        assert isinstance(build_model(tget(arch)), TLM)
     cfg = tget("llama3.2-1b").reduced()
-    for bad in (cfg.replace(family="ssm"), cfg.replace(family="hybrid")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build_model(bad)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TLM(bad)
+    with pytest.raises(ValueError, match="family 'rnn'"):
+        build_model(cfg.replace(family="rnn"))
+    with pytest.raises(ValueError, match="LM family 'rnn'"):
+        TLM(cfg.replace(family="rnn"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("mamba-3b")
     for good in (cfg.replace(family="moe", n_experts=4, topk=2), DSV3,
                  tget("granite-moe-1b-a400m"), tget("deepseek-v3-671b")):
         assert isinstance(build_model(good), TLM)
