@@ -174,7 +174,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    not cut (phase ``ssm_serve``: Zamba2 54 layers; prompts prefilled one
    token at a time), held decode-equals-forward (``serve_checks_f32_ref``:
    bf16 within twice the bf16 forward's distance from the f32 forward,
-   f32 within RECURRENT_F32_OF_LARGEST of the largest logit).
+   f32 within RECURRENT_F32_OF_LARGEST of the largest logit; one
+   ``generate_batch`` pass a model, its prefill and decode steps timed
+   in place).  Each recurrent lane runs one timed step and a profiled
+   one (stale: the bootstrap and a stale step timed).
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -190,7 +193,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    plan: both fingerprints, the layers whose realization differs, and
    ``predicted_step_seconds`` against the lane's measured step.
 13. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
-   own, twice per lane (the two at once), once straight through and once with
+   own, twice per lane (every lane's processes at once, eight), once
+   straight through and once with
    ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
    AlexNet ``auto`` flat and stale (B = 32, 6 steps, checkpoint every 2),
    AlexNet ``auto`` stale with ``--calibration`` the blob of phase 4 (its
@@ -200,6 +204,28 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    Llama-3.2-1B at full width and depth 2 (B = 8, T = 1024, bf16, flash,
    ``auto``, 4 steps).  The two runs' last checkpoints (params, optimizer
    state, clip state, ledger) must be bitwise equal.
+13b. data parallelism on one card (phase ``sharded_main_path``): two
+   ranks of one process group on cuda:0 under ``torch.distributed.run``
+   with gloo (NCCL's refusal of two ranks on one device is probed and
+   printed; gloo's staging of a CUDA tensor through the host is traced):
+   full-width AlexNet, B = 32 over ``data:2``, σ = 1, SGD with momentum,
+   3 steps each of crb (``conv_impl="pallas"``), ``auto`` flat and
+   ``auto`` stale, each lane twice; per rank the step ms, the
+   all-reduce's ms and the peak; each rank launches what its plan says;
+   the ranks' params bitwise equal, the two runs bitwise equal, and the
+   single-device engine's params on the same global batches within the
+   bound ``shard_reference`` derives from the f32 sum bound.  Then
+   Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024, bf16,
+   flash, ``auto`` stale on ``data:2``: every flash kernel once a layer
+   a step per rank, ``gram_norm_fused`` 10 a step after the bootstrap,
+   one all-reduce a param leaf (the tied embed/head group once), ranks
+   bitwise equal; the collective calibration over the gloo group
+   (``measure_collective_bytes_per_second``); ``engine.verify()`` of
+   AlexNet ``auto`` stale on a ``data:2`` spec over fake CUDA tensors
+   (the sharding pass; kernel nodes equal to a real step's launches);
+   and the training CLI under ``torch.distributed.run --nproc_per_node
+   2`` with ``--mesh data:2 --backend gloo``, 4 steps, straight and with
+   ``--fail-at 2`` at once: the step-3 checkpoints bitwise equal.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -404,7 +430,14 @@ class SmokeFailure(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def log(obj):
+    """One JSON line (a phase's ``*_done`` line also gets the seconds
+    since the script started)."""
+    if isinstance(obj, dict) and str(obj.get("phase", "")).endswith("_done"):
+        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -1256,7 +1289,7 @@ def _pair(v):
 
 def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
               steps=3, n_examples=4096, lr=1e-3, named=(), also_needs=None,
-              no_kernel=False):
+              no_kernel=False, profile=True):
     """Each lane of ``runs`` — (lane, strategy, clipping, norm knobs, the
     launches each step must make: a dict, or a function of the engine
     and the step count, such as ``planned_needs``, which reads them off
@@ -1266,8 +1299,9 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
     and read after it, then one profiled step (``named``: kernel name
     parts whose device time it reports).  Adds the counts to
     ``launches`` and each lane's, step by step, to ``lanes``;
-    ``also_needs`` adds launches every lane must make.  A lane must
-    launch some kernel of the repo, or, with ``no_kernel``, none.
+    ``also_needs`` adds launches every lane must make; ``profile=False``
+    skips the profiled step.  A lane must launch some kernel of the repo,
+    or, with ``no_kernel``, none.
     Returns {lane: {"step_ms", "norms0" (step 0's per-example norms),
     "plan" (the realizations of a planned lane), "profiled" (the
     profiled step), "peak_mem_gb"}}."""
@@ -1312,7 +1346,7 @@ def run_lanes(torch, phase, model, params, batches, runs, lanes, launches,
                        for k, v in counts.items() if v}
         prof = profile_step(torch, lambda: eng.private_step(
             p, opt, batches[steps], step=steps), top=10 if named else 8,
-            named=named)
+            named=named) if profile else {}
         check(all(math.isfinite(v) for v in losses),
               f"{lane}: non-finite loss {losses}")
         for k, want in needs.items():
@@ -2734,59 +2768,82 @@ def cli_lanes(calib):
     calibrated lane must print its ``[calibrate]`` line and end, where the
     calibrated tile is the shape rule (0), bitwise equal to the
     uncalibrated lane; where it forces another tile, within f32
-    tolerance of it.  A lane's two processes (straight and killed) run
-    at once, each with its own checkpoint directory: their time is
-    mostly the process's start and the checkpoints' writes."""
+    tolerance of it.  Each lane's two processes (straight and killed)
+    run at once, each with its own checkpoint directory: the AlexNet
+    lanes' six together, then the Llama lane's two (all eight do not fit
+    the card), while the AlexNet lanes' checkpoints are compared.  Their
+    time is mostly the processes' start, the host batch and the
+    checkpoints' writes, so a lane's step ms here is read under the
+    others' load."""
     from concurrent.futures import ThreadPoolExecutor
     base = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(base, ignore_errors=True)
-    refs = {r for *_, r in CLI_LANES if r}
     tile = calib.kernels["pe_conv_grad"]["tile_rows"]
-    for lane, args, steps, ref_lane in CLI_LANES:
-        common = args + ["--steps", str(steps), "--ckpt-every", "2"]
-        d_straight, d_killed = str(base / lane / "straight"), \
-            str(base / lane / "killed")
-        with ThreadPoolExecutor(2) as pool:
-            f1 = pool.submit(run_cli, common, d_straight)
-            f2 = pool.submit(run_cli, common + ["--fail-at", "3"], d_killed)
-            (s1, out1, wall1), (s2, out2, wall2) = f1.result(), f2.result()
-        check(s1["restarts"] == 0 and s2["restarts"] == 1,
-              f"{lane}: restarts {s1['restarts']}, {s2['restarts']}")
-        check("[restore] resuming from step 2" in out2,
-              f"{lane}: the killed run did not resume from step 2")
-        check(all(math.isfinite(v) for v in s1["losses_last_segment"]
-                  + s2["losses_last_segment"]), f"{lane}: non-finite loss")
-        n = same_checkpoint(d_straight, d_killed, steps - 1,
-                            "stale" in lane)
-        entry = {"phase": "cli_lane", "lane": lane, "args": common,
-                 "bitwise_equal_arrays": n, "ok": True,
-                 "straight": {"wall_s": wall1, **s1},
-                 "killed_at_3": {"wall_s": wall2, **s2},
-                 "disk_free_gb": shutil.disk_usage(base).free / 1e9}
-        if ref_lane:
-            check(all(f"[calibrate] {calib.digest()} " in out
-                      for out in (out1, out2)),
-                  f"{lane}: planned without the calibration")
-            entry["calibrate_and_replan_lines"] = [
-                ln for ln in (out1 + out2).splitlines()
-                if ln.startswith(("[calibrate]", "[replan]"))]
-            d_ref = str(base / ref_lane / "straight")
-            if tile == 0:
-                entry["vs_uncalibrated"] = {
-                    "tile_rows": 0, "bitwise_equal_arrays":
-                        same_checkpoint(d_straight, d_ref, steps - 1, True)}
-            else:
-                m, bitwise = close_checkpoint(d_straight, d_ref, steps - 1)
-                entry["vs_uncalibrated"] = {
-                    "tile_rows": tile, "arrays_within_f32_tolerance": m,
-                    "bitwise_equal_all_the_same": bitwise}
-        log(entry)
-        shutil.rmtree(base / lane / "killed", ignore_errors=True)
-        if lane not in refs:
-            shutil.rmtree(base / lane, ignore_errors=True)
-        if ref_lane:
-            shutil.rmtree(base / ref_lane, ignore_errors=True)
+    alexnet = [c for c in CLI_LANES if c[0].startswith("cli_alexnet")]
+    rest = [c for c in CLI_LANES if c not in alexnet]
+
+    def start(pool, wave):
+        out = {}
+        for lane, args, steps, _ in wave:
+            common = args + ["--steps", str(steps), "--ckpt-every", "2"]
+            out[lane] = (
+                common,
+                pool.submit(run_cli, common, str(base / lane / "straight")),
+                pool.submit(run_cli, common + ["--fail-at", "3"],
+                            str(base / lane / "killed")))
+        return out
+
+    with ThreadPoolExecutor(2 * len(alexnet)) as pool:
+        first = start(pool, alexnet)
+        results = {lane: (common, f1.result(), f2.result())
+                   for lane, (common, f1, f2) in first.items()}
+        second = start(pool, rest)
+        for lane, args, steps, ref_lane in alexnet:
+            check_cli_lane(calib, tile, base, lane, steps, ref_lane,
+                           results[lane])
+        for lane, args, steps, ref_lane in rest:
+            common, f1, f2 = second[lane]
+            check_cli_lane(calib, tile, base, lane, steps, ref_lane,
+                           (common, f1.result(), f2.result()))
     shutil.rmtree(base, ignore_errors=True)
+
+
+def check_cli_lane(calib, tile, base, lane, steps, ref_lane, result):
+    """One CLI lane's checks (``cli_lanes``) and its record."""
+    common, (s1, out1, wall1), (s2, out2, wall2) = result
+    d_straight, d_killed = str(base / lane / "straight"), \
+        str(base / lane / "killed")
+    check(s1["restarts"] == 0 and s2["restarts"] == 1,
+          f"{lane}: restarts {s1['restarts']}, {s2['restarts']}")
+    check("[restore] resuming from step 2" in out2,
+          f"{lane}: the killed run did not resume from step 2")
+    check(all(math.isfinite(v) for v in s1["losses_last_segment"]
+              + s2["losses_last_segment"]), f"{lane}: non-finite loss")
+    n = same_checkpoint(d_straight, d_killed, steps - 1,
+                        "stale" in lane)
+    entry = {"phase": "cli_lane", "lane": lane, "args": common,
+             "bitwise_equal_arrays": n, "ok": True,
+             "straight": {"wall_s": wall1, **s1},
+             "killed_at_3": {"wall_s": wall2, **s2},
+             "disk_free_gb": shutil.disk_usage(base).free / 1e9}
+    if ref_lane:
+        check(all(f"[calibrate] {calib.digest()} " in out
+                  for out in (out1, out2)),
+              f"{lane}: planned without the calibration")
+        entry["calibrate_and_replan_lines"] = [
+            ln for ln in (out1 + out2).splitlines()
+            if ln.startswith(("[calibrate]", "[replan]"))]
+        d_ref = str(base / ref_lane / "straight")
+        if tile == 0:
+            entry["vs_uncalibrated"] = {
+                "tile_rows": 0, "bitwise_equal_arrays":
+                    same_checkpoint(d_straight, d_ref, steps - 1, True)}
+        else:
+            m, bitwise = close_checkpoint(d_straight, d_ref, steps - 1)
+            entry["vs_uncalibrated"] = {
+                "tile_rows": tile, "arrays_within_f32_tolerance": m,
+                "bitwise_equal_all_the_same": bitwise}
+    log(entry)
 
 
 # ---------------------------------------------------------------------------
@@ -3041,24 +3098,26 @@ def moe_verify(torch, launches, lanes, granite):
     mode on the CPU): exit 1, Granite
     FAILs with the same finding, Seamless PASSes."""
     t0 = time.perf_counter()
-    model, params, batches = granite
-    report = verify_lane(torch, "granite_auto_stale", model, params,
-                         batches, "stale", launches, lanes,
-                         expect=gather_capacity_finding)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
+    # the dpcheck CLI runs in its own process while this one verifies
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dpcheck", "-v",
+         *DPCHECK_MOE_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    model, params, batches = granite
+    report = verify_lane(torch, "granite_auto_stale", model, params,
+                         batches, "stale", launches, lanes,
+                         expect=gather_capacity_finding)
     t = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dpcheck", "-v",
-             *DPCHECK_MOE_ARGS], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=CLI_TIMEOUT_S)
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
     except subprocess.TimeoutExpired as e:
+        proc.kill()
         raise SmokeFailure(f"dpcheck moe: timed out after "
                            f"{CLI_TIMEOUT_S} s") from e
-    out = proc.stdout
     verdicts = {ln.split()[2] + " " + ln.split()[3]: ln.split()[1]
                 for ln in out.splitlines()
                 if ln.startswith("[dpcheck] ") and ln.split()[1] in
@@ -3068,10 +3127,10 @@ def moe_verify(torch, launches, lanes, granite):
     check(proc.returncode == 1 and verdicts == want
           and "batch-axis reduction in `eq`" in out,
           f"dpcheck moe: exit {proc.returncode}, verdicts {verdicts}\n"
-          f"{out[-3000:]}\n{proc.stderr[-2000:]}")
+          f"{out[-3000:]}\n{err[-2000:]}")
     log({"phase": "moe_verify", "granite_errors": sorted(
         {f.code for f in report.errors}), "dpcheck": DPCHECK_MOE_ARGS,
-         "verdicts": verdicts, "dpcheck_wall_s": time.perf_counter() - t,
+         "verdicts": verdicts, "dpcheck_waited_s": time.perf_counter() - t,
          "seconds": time.perf_counter() - t0, "ok": True})
 
 
@@ -3203,22 +3262,62 @@ class _WithSource:
         return self.model.logits(params, self.src, tokens)
 
 
+def _timed_serve(torch, model, params, prompts, max_len):
+    """One ``generate_batch`` pass over ``prompts`` (SERVE_BATCH rows)
+    with ``model.prefill`` and ``model.decode_step`` timed between
+    synchronizations: (tokens, prefill ms, decode ms a token, seconds)."""
+    from repro_torch.launch.serve import generate_batch
+    times = {"prefill": [], "decode_step": []}
+
+    def timed(name):
+        fn = getattr(model, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    model.prefill, model.decode_step = (timed("prefill"),
+                                        timed("decode_step"))
+    try:
+        t = time.perf_counter()
+        out = generate_batch(model, params, prompts, max_len=max_len,
+                             gen=SERVE_GEN)
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t
+    finally:
+        del model.prefill, model.decode_step
+    return (out, times["prefill"][0],
+            sum(times["decode_step"]) / len(times["decode_step"]), served_s)
+
+
 def serve_one(torch, arch, model, params, prompts, checks,
               phase="moe_encdec_serve", warm=True):
     """``launch.serve.generate_batch`` over ``prompts`` in batches of
-    SERVE_BATCH (after one warm batch, unless ``warm`` is false: a
-    recurrent prefill is one decode step a token, warm after its first
-    token): prefill ms and decode ms a token on one batch, tokens/s over
-    all, peak memory; ``checks()`` gives the decode-equals-forward
-    record.  Serving launches no kernel of this repo."""
+    SERVE_BATCH (after one warm batch): prefill ms and decode ms a token
+    on one batch, tokens/s over all, peak memory; ``checks()`` gives the
+    decode-equals-forward record.  Unless ``warm`` (a recurrent model: its
+    prefill is one decode step a token, warm after its first token), the
+    one pass over ``prompts`` (a single batch) gives all three, its
+    prefill and decode steps timed in place (``_timed_serve``).  Serving
+    launches no kernel of this repo."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate_batch
     max_len = SERVE_PROMPT + SERVE_GEN
     p0 = prompts[:SERVE_BATCH]
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    if warm:
-        generate_batch(model, params, p0, max_len=max_len, gen=2)
+    if not warm:
+        check(len(prompts) == SERVE_BATCH, f"{arch}: one batch of prompts")
+        out, prefill_ms, decode_ms, served_s = _timed_serve(
+            torch, model, params, p0, max_len)
+        return _served(torch, arch, model, params, prompts, checks, phase,
+                       [out], prefill_ms, decode_ms, served_s)
+    generate_batch(model, params, p0, max_len=max_len, gen=2)
     enc = model.cfg.family == "encdec"
     src = (torch.zeros((SERVE_BATCH, SERVE_PROMPT, model.cfg.d_model),
                        device="cuda") if enc else None)
@@ -3243,6 +3342,14 @@ def serve_one(torch, arch, model, params, prompts, checks,
             for i in range(0, len(prompts), SERVE_BATCH)]
     torch.cuda.synchronize()
     served_s = time.perf_counter() - t
+    _served(torch, arch, model, params, prompts, checks, phase, outs,
+            prefill_ms, decode_ms, served_s)
+
+
+def _served(torch, arch, model, params, prompts, checks, phase, outs,
+            prefill_ms, decode_ms, served_s):
+    """``serve_one``'s checks of the served tokens and its record."""
+    from repro_torch.kernels import ops
     check(all(tuple(o.shape) == (SERVE_BATCH, SERVE_GEN) for o in outs)
           and all(bool(((o >= 0) & (o < model.cfg.padded_vocab)).all())
                   for o in outs), f"{arch}: generated tokens")
@@ -3572,29 +3679,29 @@ def recurrent_lanes(torch, phase, model, params, batches, launches, lanes,
     step), ``auto`` stale where given (``gram_norm_fused`` once a fused
     layer of the stack a step, as its plan says) and ``auto`` flat (its
     plan realizes every norm with the plain versions: no kernel of the
-    repo runs), σ = 1: 3 steps each, two timed and the third profiled,
-    for the script's time (a Zamba2 step takes seconds)."""
+    repo runs), σ = 1, for the script's time (a Zamba2 step takes
+    seconds): bk one timed step and a profiled second, flat one timed
+    step, stale two (the flat bootstrap, then a stale step); only bk's
+    step is profiled."""
     from repro_torch.core import ClipPolicy, NormCfg
-    steps = 2
     plans = {}
-    runs = [(f"{phase}_bk", "bk", "flat", NormCfg(dense="pallas"),
-             {"gram_norm": [bk_gram] * steps,
-              "gram_norm_fused": [0] * steps})]
+    named = ("gram_kernel", "direct_wgmma", "gemm", "elementwise")
+    out = run_lanes(
+        torch, phase, model, params, batches,
+        [(f"{phase}_bk", "bk", "flat", NormCfg(dense="pallas"),
+          {"gram_norm": [bk_gram], "gram_norm_fused": [0]})],
+        lanes, launches, 1, lr=1e-4, named=named)
     if stale_lane:
-        runs.append((stale_lane, "auto", ClipPolicy(mode="stale"),
-                     NormCfg(), planned_lm_needs(0, 0)))
-    runs = [(lane, st, cl, nm, recording_plan(plans, lane, nd))
-            for lane, st, cl, nm, nd in runs]
-    out = run_lanes(torch, phase, model, params, batches, runs, lanes,
-                    launches, steps, lr=1e-4,
-                    named=("gram_kernel", "direct_wgmma", "gemm",
-                           "elementwise"))
+        out.update(run_lanes(
+            torch, phase, model, params, batches,
+            [(stale_lane, "auto", ClipPolicy(mode="stale"), NormCfg(),
+              recording_plan(plans, stale_lane, planned_lm_needs(0, 0)))],
+            lanes, launches, 2, lr=1e-4, profile=False))
     out.update(run_lanes(
         torch, phase, model, params, batches,
         [(flat_lane, "auto", "flat", NormCfg(),
           recording_plan(plans, flat_lane, planned_lm_needs(0, 0)))],
-        lanes, launches, steps, lr=1e-4, named=("gemm", "elementwise"),
-        no_kernel=True))
+        lanes, launches, 1, lr=1e-4, no_kernel=True, profile=False))
     if stale_lane:
         check(plans[stale_lane]["fused"], f"{stale_lane}: nothing fused")
     return out, plans
@@ -3722,6 +3829,481 @@ def run_recurrent(torch, launches, lanes):
         log({"phase": f"{fn.__name__}_done",
              "seconds": time.perf_counter() - t})
     ssm_serve(torch)
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism on one card (ROADMAP item 14 part 1): phase
+# sharded_main_path.  Two ranks of one process group share cuda:0 under
+# ``torch.distributed.run``.  NCCL refuses two ranks on one device, so the
+# ranks run gloo, which all-reduces a CUDA tensor by staging it through the
+# host: the all-reduce times below are the host's, not NVLink's or NCCL's.
+
+SH_RANKS = 2
+SH_DIR = ROOT / "build" / "chip_smoke_shard"
+SH_TIMEOUT_S = 300
+SH_LR = 1e-3
+SH_STEPS = 3
+# Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024: 2 steps
+# (the stale bootstrap, then a stale step).
+SH_LLAMA_LAYERS, SH_LLAMA_STEPS = 2, 2
+SH_CLI = ["--arch", "alexnet", "--full", "--batch", "32", "--strategy",
+          "auto", "--noise", "1.0", "--mesh", f"data:{SH_RANKS}",
+          "--backend", "gloo", "--steps", "4", "--ckpt-every", "2"]
+# The f32 unit roundoff of kernels/bounds.py.
+U32 = 2.0 ** -24
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(cmd, timeout, env=None):
+    """``cmd`` in a session of its own, every process of which is killed
+    if it outlives ``timeout``: (exit code, stdout, stderr, seconds)."""
+    import signal
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return None, out, err, time.perf_counter() - t
+    return proc.returncode, out, err, time.perf_counter() - t
+
+
+def torchrun(args, timeout):
+    """``python -m torch.distributed.run`` with SH_RANKS ranks on this
+    machine (a free localhost port) running ``args``."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")   # whole lines a write
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(SH_RANKS), "--master_addr", "127.0.0.1", "--master_port",
+           str(free_port()), *args]
+    return run_group(cmd, timeout, env)
+
+
+def tree_digest(tree):
+    """sha256 of every leaf's bytes in leaf-path order."""
+    import hashlib
+    from repro_torch.tree import get_subtree, leaf_paths
+    h = hashlib.sha256()
+    for p in leaf_paths(tree):
+        t = get_subtree(tree, p).detach().contiguous()
+        h.update(t.view(-1).view(__import__("torch").uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
+               optimizer, lr, runs=2):
+    """One sharded lane, ``runs`` times from the same params: per step the
+    rank's step ms, the all-reduce's ms (``clipping.sync_grads`` timed
+    between synchronizations), the launches (counts set to 0 before the
+    step, read after) and the leaves synced; the params' digest and the
+    rank's peak.  Returns (record, the first run's params)."""
+    from repro_torch.core import PrivacyEngine, clipping
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init, sgdm_init
+    from repro_torch.tree import leaf_paths
+    real = clipping.sync_grads
+    sync = []
+
+    def timed(gsum, shard):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(gsum, shard)
+        torch.cuda.synchronize()
+        sync.append(((time.perf_counter() - t) * 1e3, len(leaf_paths(gsum))))
+        return out
+
+    clipping.sync_grads = timed
+    rec = {"runs": []}
+    first = None
+    try:
+        for r in range(runs):
+            eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                                optimizer=optimizer, lr=lr, run_seed=0,
+                                sampling_rate=1 / 128, device="cuda",
+                                mesh=mesh)
+            if callable(needs):
+                needs = needs(eng, steps)
+            init = sgdm_init if optimizer == "sgdm" else adamw_init
+            p, opt = params, init(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            del sync[:]
+            step_ms, per_step, losses = [], [], []
+            for s in range(steps):
+                ops.reset_launches()
+                t = time.perf_counter()
+                p, opt, loss, aux = eng.private_step(p, opt, batches[s],
+                                                     step=s)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                per_step.append({k: v for k, v in ops.LAUNCHES.items()})
+                losses.append(float(loss))
+            for k, want in needs.items():
+                got = [c[k] for c in per_step]
+                check(got == want, f"sharded lane: {k} launches per step "
+                      f"{got}, the plan says {want}")
+            check(all(math.isfinite(v) for v in losses),
+                  f"sharded lane: loss {losses}")
+            rec["runs"].append({
+                "step_ms": step_ms, "all_reduce_ms": [m for m, _ in sync],
+                "leaves_synced_a_step": [n for _, n in sync],
+                "launches_each_step": per_step, "losses": losses,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "clip_fraction": float(aux["clip_fraction"]),
+                "digest": tree_digest(p)})
+            if r == 0:
+                rec["plan"] = (eng.plan().realizations()
+                               if dp.strategy == "auto" else None)
+                rec["n_param_leaves"] = len(leaf_paths(params))
+                first = p
+            else:
+                del p
+            del opt, eng
+            torch.cuda.empty_cache()
+    finally:
+        clipping.sync_grads = real
+    rec["runs_bitwise_equal"] = len({r["digest"] for r in rec["runs"]}) == 1
+    return rec, first
+
+
+def shard_reference(torch, model, params, batches, dp, steps, got):
+    """The single-device engine on the same global batches and run_seed
+    (rank 0 alone): the largest |Δ param| against the sharded run's and
+    the bound it is held to.  The sharded clipped sum adds the same
+    terms in another order: each sum within the f32 sum bound of
+    kernels/bounds.py, u·√B·Σ_b|w_b g_b| ≤ u·√B·B·C a coordinate
+    (every clipped gradient has norm ≤ C), so the released means differ
+    by at most g_tol = 2·u·√B·C plus one rounding of the noised sum; SGD
+    with momentum β = 0.9 moves the params by lr·(1 + (1+β) +
+    (1+β+β²)) = 5.61·lr such differences over 3 steps, plus one rounding
+    of each update."""
+    from repro_torch.core import PrivacyEngine
+    from repro_torch.optim import sgdm_init
+    from repro_torch.tree import get_subtree, leaf_paths
+    B = int(next(iter(batches[0].values())).shape[0])
+    eng = PrivacyEngine(model.apply, params, batches[0], dp, optimizer="sgdm",
+                        lr=SH_LR, run_seed=0, sampling_rate=1 / 128,
+                        device="cuda")
+    p, opt = params, sgdm_init(params)
+    for s in range(steps):
+        p, opt, _, _ = eng.private_step(p, opt, batches[s], step=s)
+    diff = max(float((get_subtree(p, q) - get_subtree(got, q)).abs().max())
+               for q in leaf_paths(p))
+    pmax = max(float(get_subtree(p, q).abs().max()) for q in leaf_paths(p))
+    g_tol = 2 * U32 * (math.sqrt(B) * dp.l2_clip + 1.0)
+    bound = 5.61 * SH_LR * g_tol + 3 * 2 * U32 * pmax
+    check(diff <= bound, f"sharded vs single-device params: {diff:.3e} > "
+          f"{bound:.3e}")
+    del p, opt, eng
+    return {"max_abs_param_diff": diff, "bound": bound, "g_tol": g_tol}
+
+
+def shard_worker(out_dir):
+    """One rank of phase sharded_main_path (under torch.distributed.run):
+    the gloo group on cuda:0, then full-width AlexNet's lanes, the
+    depth-2 Llama lane and the collective calibration; this rank's
+    record goes to ``out_dir/rank<r>.json``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.calibrate import harness
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import init_distributed, make_mesh_from_spec
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.cnn import CNN
+    from repro_torch.models.lm import TransformerLM
+    check(torch.cuda.is_available(), "a rank sees no card")
+    dev = init_distributed("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh_from_spec(f"data:{SH_RANKS}", device_type="cuda")
+    rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    rec["gloo_cuda_all_reduce"] = {
+        "ok": bool((x == sum(range(1, SH_RANKS + 1))).all()),
+        "result_device": str(x.device)}
+    check(rec["gloo_cuda_all_reduce"]["ok"], "gloo all-reduce of a CUDA "
+          "tensor gave a wrong sum")
+    # Where gloo moves a CUDA tensor: the copies in a profiled all-reduce.
+    y = torch.zeros(1 << 18, device=dev)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+    copies = sorted({e.name for e in prof.events()
+                     if "memcpy" in e.name.lower()})
+    rec["gloo_cuda_all_reduce"]["copies_traced"] = copies
+    rec["gloo_cuda_all_reduce"]["staged_through_host"] = (
+        any("dtoh" in c.lower().replace(" ", "") for c in copies)
+        and any("htod" in c.lower().replace(" ", "") for c in copies))
+    with deterministic_step():
+        cfg = get_config("alexnet")
+        model = CNN(cfg)
+        params, _ = model.init(0, device="cuda")
+        batches = image_batches(torch, IMG, 1000, B, SH_STEPS)
+        knobs = NormCfg(conv_impl="pallas")
+        runs = [("crb", "crb", "flat",
+                 {"pe_conv_grad_2d": [len(PE_CASES)] * SH_STEPS}),
+                ("auto_flat", "auto", "flat", planned_needs),
+                ("auto_stale", "auto", "stale", planned_needs)]
+        rec["alexnet"] = {}
+        for lane, strategy, clip, needs in runs:
+            dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                          strategy=strategy, norm=knobs,
+                          clipping=ClipPolicy(mode=clip))
+            r, p = shard_lane(torch, model, params, batches, dp, SH_STEPS,
+                              mesh, needs, "sgdm", SH_LR)
+            digests = [None] * SH_RANKS
+            dist.all_gather_object(digests, r["runs"][0]["digest"])
+            r["ranks_bitwise_equal"] = len(set(digests)) == 1
+            check(r["ranks_bitwise_equal"], f"alexnet {lane}: the ranks' "
+                  f"params differ")
+            check(r["runs_bitwise_equal"], f"alexnet {lane}: two sharded "
+                  f"runs differ")
+            if rank == 0:
+                r["vs_single_device"] = shard_reference(
+                    torch, model, params, batches, dp, SH_STEPS, p)
+            del p
+            torch.cuda.empty_cache()
+            dist.barrier()
+            rec["alexnet"][lane] = r
+        del params, batches, model
+        torch.cuda.empty_cache()
+
+        cfg = get_config("llama3.2-1b").replace(attn_impl="flash",
+                                                n_layers=SH_LLAMA_LAYERS)
+        model = TransformerLM(cfg)
+        params, _ = model.init(0, device="cuda")
+        ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=4096, seed=0)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                    ds.batch(range(s * LM_B, (s + 1) * LM_B)).items()}
+                   for s in range(SH_LLAMA_STEPS)]
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="auto",
+                      clipping=ClipPolicy(mode="stale"))
+        fused = 5 * SH_LLAMA_LAYERS
+        needs = dict(flash_needs(SH_LLAMA_STEPS, layers=SH_LLAMA_LAYERS),
+                     gram_norm_fused=[0] + [fused] * (SH_LLAMA_STEPS - 1))
+        r, p = shard_lane(torch, model, params, batches, dp, SH_LLAMA_STEPS,
+                          mesh, needs, "adamw", 1e-4, runs=1)
+        digests = [None] * SH_RANKS
+        dist.all_gather_object(digests, r["runs"][0]["digest"])
+        r["ranks_bitwise_equal"] = len(set(digests)) == 1
+        check(r["ranks_bitwise_equal"], "llama: the ranks' params differ")
+        check(all(n == r["n_param_leaves"]
+                  for n in r["runs"][0]["leaves_synced_a_step"]),
+              "llama: leaves synced a step != param leaves (the tied "
+              "embed/head group must sync once)")
+        r["tied_group_synced_once"] = True
+        r["cuts"] = {"n_layers": SH_LLAMA_LAYERS}
+        rec["llama_depth2_auto_stale"] = r
+        del p, params, batches, model
+        torch.cuda.empty_cache()
+
+    rec["collective_bytes_per_second"] = {
+        "data": harness.measure_collective_bytes_per_second(
+            "data", SH_RANKS, device="cuda"),
+        "what": "gloo, staged through the host, two ranks on one card; "
+                "not an NVLink or NCCL figure"}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_probe(out_dir):
+    """One rank of the NCCL probe: an NCCL group of two ranks on cuda:0
+    and one all-reduce; the rank records whether NCCL refused."""
+    import torch
+    import torch.distributed as dist
+    rank = int(os.environ["RANK"])
+    rec = {"rank": rank}
+    try:
+        import datetime
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev,
+                                timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        rec.update(refused=False, sum=float(x[0]))
+    except Exception as e:   # what NCCL says is the finding
+        rec.update(refused=True, error=f"{type(e).__name__}: {e}"[:600])
+    with open(os.path.join(out_dir, f"nccl_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    os._exit(0)
+
+
+def shard_verify(torch):
+    """``engine.verify()`` of full-width AlexNet ``auto`` stale on a
+    ``data:2`` spec over fake CUDA tensors (two ranks of a fake group;
+    after the flat bootstrap step): clean, the sharding pass's record,
+    and its kernel nodes equal to the launches of the next real step
+    under the same plan (run unsharded by this process)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import CNN
+    from repro_torch.optim import adamw_init
+    model = CNN(get_config("alexnet"))
+    params, _ = model.init(0, device="cuda")
+    batches = image_batches(torch, IMG, 1000, B, 2)
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="auto",
+                  norm=NormCfg(conv_impl="pallas"),
+                  clipping=ClipPolicy(mode="stale"))
+    eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                        optimizer="adamw", lr=1e-4, run_seed=0,
+                        device="cuda", mesh=f"data:{SH_RANKS}")
+    p, opt, _, _ = eng.private_step(params, adamw_init(params), batches[0],
+                                    step=0)
+    before = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    report = eng.verify(coll_bytes_warn=1 << 40)
+    verify_s = time.perf_counter() - t
+    check(ops.LAUNCHES == before, "sharded verify launched a kernel")
+    check(report.ok and not report.warnings,
+          f"sharded verify:\n{report.summary()}")
+    ops.reset_launches()
+    eng.private_step(p, opt, batches[1], step=1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(report.census["kernels"] == got, f"sharded verify: kernel nodes "
+          f"{report.census['kernels']} != the step's launches {got}")
+    coll = eng.plan().total_coll_bytes
+    del p, opt, eng, params, batches
+    torch.cuda.empty_cache()
+    return {"verify_s": verify_s, "target": report.target,
+            "sharding": report.checked["sharding"],
+            "kernel_nodes": report.census["kernels"],
+            "nodes": report.census["nodes"],
+            "plan_coll_mb_a_step_and_rank": coll / 2**20}
+
+
+def sharded_cli(base):
+    """The training CLI under torch.distributed.run on ``data:2`` with
+    gloo, straight and with ``--fail-at 2`` at once: both end with the
+    same step-3 checkpoint, bitwise, which records the mesh."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.checkpoint import Checkpointer
+    d1, d2 = str(base / "cli_straight"), str(base / "cli_killed")
+
+    def run(extra, d):
+        return torchrun(["-m", "repro_torch.launch.train", *SH_CLI, *extra,
+                         "--ckpt-dir", d], SH_TIMEOUT_S)
+
+    with ThreadPoolExecutor(2) as pool:
+        f1, f2 = pool.submit(run, [], d1), pool.submit(run, ["--fail-at",
+                                                             "2"], d2)
+        (rc1, out1, err1, w1), (rc2, out2, err2, w2) = f1.result(), \
+            f2.result()
+    for rc, out, err in ((rc1, out1, err1), (rc2, out2, err2)):
+        check(rc == 0, f"sharded CLI: exit {rc}\n{out[-2000:]}\n"
+              f"{err[-4000:]}")
+    # the ranks share one stdout: their lines may run together
+    dec, summaries = json.JSONDecoder(), []
+    for out in (out1, out2):
+        i = out.find('{"train_summary"')
+        while i >= 0:
+            obj, end = dec.raw_decode(out, i)
+            summaries.append(obj["train_summary"])
+            i = out.find('{"train_summary"', end)
+    check(len(summaries) == 2 * SH_RANKS, "sharded CLI: summaries")
+    check(out2.count("[restore] resuming from step 2") == SH_RANKS,
+          "sharded CLI: the killed run did not resume from step 2 on "
+          "every rank")
+    n = same_checkpoint(d1, d2, 3, False)
+    meta = Checkpointer(d1).read_meta(3)
+    check(meta["mesh_axes"] == [["data", SH_RANKS]],
+          f"sharded CLI: checkpoint mesh {meta['mesh_axes']}")
+    return {"args": SH_CLI, "wall_s": [w1, w2],
+            "bitwise_equal_arrays": n, "mesh_axes": meta["mesh_axes"],
+            "per_rank": [{k: s[k] for k in ("rank", "mesh", "restarts",
+                                            "step_ms", "losses_last_segment")}
+                         for s in summaries]}
+
+
+def sharded_main_path(torch, launches, lanes):
+    """Phase sharded_main_path (module comment above): the ranks' lanes
+    (``shard_worker``), the NCCL probe and the sharded CLI lane, each in
+    processes of their own and at once, and the verifier in this process
+    meanwhile."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SH_DIR, ignore_errors=True)
+    SH_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        # The CLI lane's and the probe's processes run beside the ranks,
+        # and this process verifies while the ranks start (so the ranks'
+        # times below are read under that host load).
+        ranks_run = pool.submit(torchrun, [str(ROOT / "chip_smoke.py"),
+                                           "--shard-worker", str(SH_DIR)],
+                                SH_TIMEOUT_S)
+        probe = pool.submit(torchrun, [str(ROOT / "chip_smoke.py"),
+                                       "--nccl-probe", str(SH_DIR)], 120)
+        cli = pool.submit(sharded_cli, SH_DIR)
+        t = time.perf_counter()
+        verify_rec = shard_verify(torch)
+        verify_rec["seconds"] = time.perf_counter() - t
+        rc, out, err, wall = ranks_run.result()
+        check(rc == 0, f"sharded ranks: exit {rc}\n{out[-3000:]}\n"
+              f"{err[-5000:]}")
+        prc, pout, perr, pwall = probe.result()
+        cli_rec = cli.result()
+    ranks = [json.loads((SH_DIR / f"rank{r}.json").read_text())
+             for r in range(SH_RANKS)]
+    nccl = [json.loads(p.read_text())
+            for p in sorted(SH_DIR.glob("nccl_rank*.json"))]
+    found = ("killed after 120 s" if prc is None else
+             "refused" if nccl and all(r["refused"] for r in nccl) else
+             "accepted" if nccl else f"no record (exit {prc})")
+    for r in ranks:
+        for lane, rec in list(r["alexnet"].items()) + [
+                ("llama_depth2_auto_stale", r["llama_depth2_auto_stale"])]:
+            name = f"sharded_{lane}_rank{r['rank']}"
+            lanes[name] = {k: [c[k] for c in
+                               rec["runs"][0]["launches_each_step"]]
+                           for k in launches
+                           if any(c[k] for c in
+                                  rec["runs"][0]["launches_each_step"])}
+            if r["rank"] == 0:
+                for k, v in lanes[name].items():
+                    launches[k] += sum(v)
+    log({"phase": "sharded_main_path", "ranks": SH_RANKS,
+         "backend": "gloo",
+         "why": f"NCCL {found} two ranks on one device (probe below); "
+                f"gloo all-reduces CUDA tensors by staging them through "
+                f"the host (the copies traced per rank below), so its "
+                f"rates are the host's, not NVLink's or NCCL's",
+         "nccl_probe": {"found": found, "exit": prc, "seconds": pwall,
+                        "ranks": nccl, "stderr_tail": perr[-600:]},
+         "gloo_cuda_all_reduce": [r["gloo_cuda_all_reduce"] for r in ranks],
+         "ranks_wall_s": wall,
+         "alexnet": {r["rank"]: r["alexnet"] for r in ranks},
+         "llama_depth2_auto_stale": {r["rank"]: r["llama_depth2_auto_stale"]
+                                     for r in ranks},
+         "collective_bytes_per_second": [r["collective_bytes_per_second"]
+                                         for r in ranks],
+         "verify": verify_rec, "cli_lane": cli_rec,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    shutil.rmtree(SH_DIR, ignore_errors=True)
 
 
 def profile_step(torch, fn, top=8, named=()):
@@ -3954,9 +4536,14 @@ def main():
     log({"phase": "conv1d_lane_done", "seconds": time.perf_counter() - t})
     torch.cuda.empty_cache()
     calibrated_plans(torch, calib, timings)
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     cli_lanes(calib)
     log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    sharded_main_path(torch, launches, lanes)
+    log({"phase": "sharded_main_path_done",
+         "seconds": time.perf_counter() - t})
     t = time.perf_counter()
     serve_lane(torch)
     log({"phase": "serve_lane_done", "seconds": time.perf_counter() - t})
@@ -3973,7 +4560,12 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--shard-worker"]:
+            shard_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--nccl-probe"]:
+            nccl_probe(sys.argv[2])
+        else:
+            main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)

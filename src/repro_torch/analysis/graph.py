@@ -90,7 +90,7 @@ def dtype(node):
 class FlatGraph:
     """The flattened view of one captured ``GraphModule``."""
 
-    def __init__(self, gm: torch.fx.GraphModule):
+    def __init__(self, gm: torch.fx.GraphModule, out_spec=None):
         self.gm = gm
         self.invars: List = []
         self.nodes: List = []
@@ -102,6 +102,10 @@ class FlatGraph:
                 self.nodes.append(node)
             elif node.op == "output":
                 out = node.args[0]
+        if out_spec is not None:
+            # The traced function's outputs, recorded flat: give each its
+            # path in the function's own output structure.
+            out = pytree.tree_unflatten(list(out), out_spec)
         leaves = pytree.tree_flatten_with_path(out)[0]
         self.out_paths = [path for path, _ in leaves]
         self.outvars = [leaf for _, leaf in leaves]
@@ -177,10 +181,14 @@ def capture(fn, *args) -> FlatGraph:
     """Record ``fn(*args)`` on fake tensors.  ``args`` hold fake tensors
     (``make_fx`` takes up their fake mode): tensors of the device the
     step runs on, so the graph holds the ops that device would run."""
+    spec = {}
+
     def noted(*a):
         with _GeneratorNotes():
-            return fn(*a)
-    return FlatGraph(make_fx(noted, tracing_mode="fake")(*args))
+            leaves, spec["out"] = pytree.tree_flatten(fn(*a))
+            return leaves
+    gm = make_fx(noted, tracing_mode="fake")(*args)
+    return FlatGraph(gm, out_spec=spec["out"])
 
 
 def census(graph: FlatGraph) -> dict:

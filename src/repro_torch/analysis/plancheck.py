@@ -17,11 +17,9 @@ pipeline tags what it *really* ran (``dp_tag`` markers of kind
     ``tapper.STATS`` deltas recorded while tracing agree (exactly one
     forward and backward plus the planned extra weighted backward, zero
     probes once planned, ``fused`` live iff the plan fused);
-  * the plan's fingerprint matches the engine's live fingerprint.
-
-The port has no mesh, so the JAX package's collective-bytes warning has
-nothing to price: the verifier accepts ``coll_bytes_warn`` and its
-report says so.
+  * the plan's fingerprint matches the engine's live fingerprint;
+  * the plan's predicted collective bytes a step and device stay under
+    ``coll_bytes_warn`` (``coll_bytes_high``, a warning).
 """
 from __future__ import annotations
 
@@ -48,7 +46,8 @@ def _expected_group_method(g, plan, stale_steady: bool) -> List[str]:
 def check_plan(graph: FlatGraph, *, plan, clip_mode: str,
                stale_steady: bool, stats_delta: Optional[Dict[str, int]],
                expected_fingerprint: Optional[str] = None,
-               microbatches: int = 1) -> List[Finding]:
+               microbatches: int = 1,
+               coll_bytes_warn: Optional[float] = None) -> List[Finding]:
     """The plan against the traced graph and the ``STATS`` delta of the
     trace.  The port's microbatch loop is a Python loop, so the trace
     runs each microbatch's passes (the JAX package's scan traces one
@@ -152,4 +151,18 @@ def check_plan(graph: FlatGraph, *, plan, clip_mode: str,
             "error", "plan_clip_mode_mismatch",
             f"plan was built for clipping mode {plan.clip_mode!r}, the "
             f"engine clips {clip_mode!r}", where))
+
+    # -- predicted collective traffic -------------------------------------
+    if coll_bytes_warn and plan.total_coll_bytes > coll_bytes_warn:
+        by_axis = plan.total_coll_bytes_by_axis
+        per_axis = ("" if not by_axis else " ["
+                    + ", ".join(f"{a}: {b / 2**20:.1f} MB"
+                                for a, b in by_axis) + "]")
+        findings.append(Finding(
+            "warning", "coll_bytes_high",
+            f"plan predicts {plan.total_coll_bytes / 2**20:.1f} MB/device "
+            f"of collective traffic per step{per_axis} (threshold "
+            f"{coll_bytes_warn / 2**20:.0f} MB) — a stash/backward layout "
+            f"is putting per-example state on the wire; compare "
+            f"realizations with engine.explain()", where))
     return findings

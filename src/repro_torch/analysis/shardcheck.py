@@ -1,0 +1,206 @@
+"""Sharding pass: the data-parallel private step's collectives.
+
+The JAX package's pass (``repro/analysis/shardcheck.py``) reads the
+declared SPMD shardings of a jitted step, since XLA inserts the psums
+itself.  The port's sharded step (:func:`repro_torch.core.clipping.
+dp_gradient` with a :class:`~repro_torch.core.clipping.DataShard`) has
+its collectives in the graph: each is a ``_c10d_functional.all_reduce``
+node naming its group.  So the pass keeps the JAX package's intent and
+proves it on the port's own terms, over the ``make_fx`` graph of the
+step as one rank of a fake group of the mesh's data degree traces it
+(:func:`repro_torch.launch.mesh.fake_world`):
+
+  * the batch input is the rank's contiguous ``B/d`` slice, and nothing
+    else of the global batch is read (``batch_not_sharded``);
+  * every released parameter leaf passes through exactly one sum
+    all-reduce over the data group (``grad_sync_missing`` /
+    ``grad_sync_repeated``): the replicas stay equal and each example is
+    counted once;
+  * the noise carries no example axis (``noise_per_example``), is added
+    after that all-reduce (``noise_before_sync``: noise summed over d
+    ranks has d times the variance), and every rank draws it from a
+    generator of one seed (``noise_seed_rank_dependent``, comparing the
+    traces of two ranks);
+  * the released sum is divided by the global batch
+    (``divisor_not_global``);
+  * the statistics the next step's clipping reads — the per-example
+    norms and, under per_layer clipping, the per-layer norms the auto
+    budgets' quantiles come from — and the mean loss cover the whole
+    group's examples (``budget_stats_local``, ``loss_not_global``).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from repro_torch.analysis.graph import FlatGraph, op_name, shape
+from repro_torch.analysis.report import Finding
+
+WHERE = "sharding"
+
+
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
+def sync_nodes(graph: FlatGraph, group_name: str) -> list:
+    """The sum all-reduces over the data group, in graph order."""
+    return [n for n in graph.nodes
+            if op_name(n) == "all_reduce" and len(n.args) >= 3
+            and str(n.args[1]) == "sum" and str(n.args[2]) == group_name]
+
+
+def draw_seeds(graph: FlatGraph) -> list:
+    """The seeds of the generators the Gaussian draws take, in graph
+    order (``None``: the default generator)."""
+    from repro_torch.analysis.noise import _DRAWS
+    out = []
+    for n in graph.nodes:
+        if op_name(n) in _DRAWS:
+            g = graph.generator(n)
+            out.append(None if g is None else g.initial_seed())
+    return out
+
+
+def _out_index(path) -> Optional[int]:
+    return getattr(path[0], "idx", None) if path else None
+
+
+def _out_key(path, i: int):
+    if len(path) <= i:
+        return None
+    return getattr(path[i], "key", getattr(path[i], "idx", None))
+
+
+def _divisors_after(node, depth: int = 8) -> list:
+    """The numbers a value is divided by on its way from ``node`` to the
+    release: ``div(x, n)`` nodes reached through at most ``depth`` users
+    (the noise add, casts, views)."""
+    out, frontier, seen = [], [node], set()
+    for _ in range(depth):
+        nxt = []
+        for n in frontier:
+            for u in n.users:
+                if u in seen:
+                    continue
+                seen.add(u)
+                if op_name(u) == "div" and len(u.args) > 1 \
+                        and _is_number(u.args[1]) and u.args[0] is n:
+                    out.append(u.args[1])
+                else:
+                    nxt.append(u)
+        frontier = nxt
+    return out
+
+
+def check_sharding(graph: FlatGraph, *, taints, batch_size: int,
+                   data_size: int, rank: int, group_name: str,
+                   n_batch_inputs: int, batch_offset: int,
+                   noise_expected: bool,
+                   rank_seeds: Sequence[list] = ()) -> List[Finding]:
+    """The sharded step's graph, traced as rank ``rank`` of ``data_size``
+    with the data group named ``group_name``.  ``batch_offset`` and
+    ``n_batch_inputs`` locate the batch among the graph's inputs;
+    ``rank_seeds`` holds the draw seeds of every traced rank."""
+    findings: List[Finding] = []
+    B, d = batch_size, data_size
+    if B % d:
+        findings.append(Finding(
+            "error", "batch_not_divisible",
+            f"global batch {B} is not divisible by the mesh's "
+            f"data-parallel degree {d}", WHERE))
+        return findings
+    Bl = B // d
+    lo, hi = rank * Bl, (rank + 1) * Bl
+
+    # -- the batch: this rank's slice, nothing else -------------------------
+    for v in graph.invars[batch_offset:batch_offset + n_batch_inputs]:
+        if not shape(v) or shape(v)[0] != B:
+            continue
+        for u in v.users:
+            ok = (op_name(u) == "slice" and len(u.args) >= 4
+                  and u.args[1] == 0 and u.args[2] == lo
+                  and min(u.args[3], B) == hi)
+            if not ok:
+                findings.append(Finding(
+                    "error", "batch_not_sharded",
+                    f"a batch input of {B} examples is read by "
+                    f"{op_name(u)}{tuple(u.args[1:4])}, not as this rank's "
+                    f"slice [{lo}:{hi}) — per-example work would not be "
+                    f"split over the data group", WHERE))
+                break
+
+    syncs = sync_nodes(graph, group_name)
+    sync_set = set(syncs)
+
+    # -- one gradient all-reduce a released leaf ----------------------------
+    grad_syncs = set()
+    for path, out in zip(graph.out_paths, graph.outvars):
+        if _out_index(path) != 0:
+            continue
+        mine = sync_set & graph.backward_slice([out])
+        grad_syncs |= mine
+        n = len(mine)
+        if n != 1:
+            code = "grad_sync_missing" if n == 0 else "grad_sync_repeated"
+            findings.append(Finding(
+                "error", code,
+                f"released parameter {path} passes through {n} sum "
+                f"all-reduce(s) over the data group, not exactly one — "
+                + ("the replicas drift apart and each updates from its "
+                   "own examples only" if n == 0 else
+                   "its examples are counted more than once"), WHERE))
+
+    # -- noise: aggregate-level, after the sum, one seed -------------------
+    noise = [node for node, p in graph.markers() if p.get("kind") == "noise"]
+    for node in noise:
+        t = taints.get(node.args[0]) if node.args else None
+        if t is not None and t.batch:
+            findings.append(Finding(
+                "error", "noise_per_example",
+                "a noise marker still carries the example axis — noise "
+                "must attach to the aggregate, one draw", WHERE))
+            break
+    if noise and grad_syncs:
+        before = graph.backward_slice([s.args[0] for s in grad_syncs])
+        if any(node in before for node in noise):
+            findings.append(Finding(
+                "error", "noise_before_sync",
+                f"noise is added before the all-reduce over the data "
+                f"group: the released sum holds {d} draws, {d}x the "
+                f"variance the accountant charges for", WHERE))
+    seeds = [tuple(s) for s in rank_seeds]
+    if noise_expected and len(set(seeds)) > 1:
+        findings.append(Finding(
+            "error", "noise_seed_rank_dependent",
+            f"the ranks draw their noise from generators of different "
+            f"seeds ({[list(s)[:2] for s in seeds]}): replicas add "
+            f"independent noise and diverge", WHERE))
+
+    # -- the divisor is the global batch -----------------------------------
+    divs = sorted({x for s in grad_syncs for x in _divisors_after(s)})
+    if grad_syncs and B not in divs:
+        findings.append(Finding(
+            "error", "divisor_not_global",
+            f"the all-reduced clipped sum is divided by {divs}, not by "
+            f"the global batch {B}", WHERE))
+
+    # -- statistics over the group -----------------------------------------
+    for path, out in zip(graph.out_paths, graph.outvars):
+        idx, key = _out_index(path), _out_key(path, 1)
+        if idx == 2:
+            if not sync_set & graph.backward_slice([out]):
+                findings.append(Finding(
+                    "error", "loss_not_global",
+                    "the mean loss is this rank's, not the group's: no "
+                    "all-reduce over the data group feeds it", WHERE))
+        elif idx == 3 and key in ("per_example_norms", "per_layer_norms"):
+            sh = shape(out)
+            if (sh and sh[-1] != B) or not sync_set & graph.backward_slice(
+                    [out]):
+                findings.append(Finding(
+                    "error", "budget_stats_local",
+                    f"aux {key!r} of shape {tuple(sh)} covers this rank's "
+                    f"examples only, not the group's {B}: the clip "
+                    f"fraction and the auto budgets' quantiles would differ "
+                    f"from rank to rank", WHERE))
+    return findings

@@ -233,7 +233,7 @@ class TaintPass:
         elif base in _CONST:
             self._set(node, NONE)
         elif not any(t.per_example or t.covered for t in ins) \
-                and base not in ("dp_tag", "stack", "cat"):
+                and base not in ("dp_tag", "stack", "cat", "all_reduce"):
             self._set(node, Taint(ex=ex))
         else:
             handler = getattr(self, f"_h_{base}", None)
@@ -492,6 +492,21 @@ class TaintPass:
         self._set(node, self.t(node.args[0]))
 
     _h_detach = _h_alias
+
+    def _h_all_reduce(self, node: Node):
+        """A sum over the data group adds the ranks' values position by
+        position: the zero-padded per-example slices of
+        ``clipping.gather_examples`` stay per example, an aggregate stays
+        an aggregate.  An aggregate of one rank's single example (``ex``:
+        a batch slice of width 1) is summed with the other ranks'
+        examples here, so it must be clipped already."""
+        t = self.t(node.args[0])
+        if not t.batch and t.ex:
+            self._reduce_event(node, [t], "sum over the data group's "
+                                          "examples")
+        self._set(node, t)
+
+    _h_wait_tensor = _h_all_reduce
 
     def _keep0(self, node: Node):
         ins = [self.t(a) for a in self._tensor_args(node)]

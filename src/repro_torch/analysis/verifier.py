@@ -15,10 +15,16 @@ one node.  Three passes read it:
     stream, no stream consumed twice;
   * plan   (:mod:`repro_torch.analysis.plancheck`) — the ExecPlan's
     declared realizations executed (marker + STATS census), live
-    fingerprint.
+    fingerprint, the predicted collective bytes against
+    ``coll_bytes_warn``;
+  * sharding (:mod:`repro_torch.analysis.shardcheck`) — on a mesh: the
+    step is traced as rank 0 and as the last rank of a fake group of the
+    data degree (:func:`repro_torch.launch.mesh.fake_world`; an engine
+    on a live mesh traces its own rank over its own group), and the
+    pass checks the batch slice, the one gradient all-reduce a leaf, the
+    noise after it from one seed, the global divisor and statistics.
 
-The JAX package's fourth pass, sharding, waits for a mesh (ROADMAP.md
-item 14).  Violations that only feed the *monitoring* outputs (the mean
+Violations that only feed the *monitoring* outputs (the mean
 loss, clip fractions, the stale norms) are filtered by a backward slice
 from the params and optimizer outputs.
 
@@ -40,7 +46,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.analysis import graph as graphlib
 from repro_torch.analysis import noise as noiselib
-from repro_torch.analysis import plancheck
+from repro_torch.analysis import plancheck, shardcheck
 from repro_torch.analysis import taint as taintlib
 from repro_torch.analysis.report import Finding, VerifyReport
 
@@ -93,13 +99,22 @@ def verify_engine(engine, *, opt=None,
                   coll_bytes_warn: Optional[float] = None) -> VerifyReport:
     """Statically verify one engine's private step.  Returns a
     :class:`~repro_torch.analysis.report.VerifyReport`; never executes the
-    step.  ``coll_bytes_warn`` is the JAX package's knob; with no mesh
-    there is no collective traffic to warn about."""
+    step.  ``coll_bytes_warn`` (bytes a step and device) warns when the
+    plan predicts more collective traffic."""
     with _engine_state_kept(engine):
         return _verify(engine, opt, coll_bytes_warn)
 
 
+def _trace_step(engine, shard, key, params, opt_state, batch, clip_state):
+    step = engine._step_fn(shard)
+    return graphlib.capture(
+        lambda p, o, b, c: step(p, o, b, key, c),
+        params, opt_state, batch, clip_state)
+
+
 def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
+    from repro_torch.core import costmodel
+    from repro_torch.core.clipping import DataShard
     from repro_torch.core.engine import noise_seed
     from repro_torch.core.tapper import STATS, TensorSpec
     from repro_torch.tree import tree_map
@@ -112,12 +127,20 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     dev = engine.device
     B = next(iter(engine._batch_spec.values())).shape[0]
     stale_steady = mode == "stale"
+    axes = engine.mesh_axes
+    if costmodel.mesh_model_axes(axes):
+        raise NotImplementedError(
+            f"verifying a step on mesh {costmodel.format_mesh(axes)}: "
+            f"model axes are ROADMAP.md item 14 part 2")
+    d = costmodel.mesh_data_size(axes)
+    if B % d:
+        raise ValueError(f"global batch {B} is not divisible by the mesh's "
+                         f"data-parallel degree {d}")
 
     # Planning (and any probes) happen before the STATS snapshot, so the
     # traced step's census below sees only the step's own phases.
     plan = engine._exec_plan()
     m = engine.microbatches()
-    step = engine._step_fn()
 
     # The step's generator: the stream's, through the engine's own
     # provenance check, or (no stream) one seeded as step 0 of run 0.
@@ -139,17 +162,38 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     opt_state = _opt_state(engine, opt, fm, params)
     if stale_steady:
         clip_state = {"prev_norms_sq": _fake(
-            fm, TensorSpec((B,), torch.float32), dev)}
+            fm, TensorSpec((B // d,), torch.float32), dev)}
     else:
         clip_state = {k: fm.from_tensor(v)
                       for k, v in engine._clip_state().items()}
 
+    # The traces: one, or on a mesh rank 0 and the last rank (each over
+    # a fake group of the data degree; a live engine's own rank and
+    # group).  The first is the one every pass reads.
+    traces = []
     before = {k: getattr(STATS, k) for k in ("forwards", "backwards",
                                              "probes", "fused")}
-    graph = graphlib.capture(
-        lambda p, o, b, c: step(p, o, b, key, c),
-        params, opt_state, batch, clip_state)
-    stats_delta = {k: getattr(STATS, k) - v for k, v in before.items()}
+    stats_delta = None
+    if not axes or d == 1:
+        traces.append((0, "", _trace_step(engine, None, key, params,
+                                          opt_state, batch, clip_state)))
+    elif engine._shard is not None:
+        sh = engine._shard
+        traces.append((sh.rank, sh.group.group_name, _trace_step(
+            engine, sh, key, params, opt_state, batch, clip_state)))
+    else:
+        from repro_torch.launch.mesh import fake_world
+        for r in sorted({0, d - 1}):
+            with fake_world(d, rank=r) as group:
+                traces.append((r, group.group_name, _trace_step(
+                    engine, DataShard(group, r, d), key, params,
+                    opt_state, batch, clip_state)))
+            if stats_delta is None:
+                stats_delta = {k: getattr(STATS, k) - v
+                               for k, v in before.items()}
+    if stats_delta is None:
+        stats_delta = {k: getattr(STATS, k) - v for k, v in before.items()}
+    graph = traces[0][2]
 
     # -- input bookkeeping -------------------------------------------------
     n_p = len(pytree.tree_leaves(params))
@@ -168,7 +212,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
             init[v] = taintlib.Taint(frozenset({0}))
 
     # -- taint pass --------------------------------------------------------
-    res = taintlib.TaintPass(graph, B, m).run(init)
+    res = taintlib.TaintPass(graph, B // d, m).run(init)
     sinks = [v for path, v in zip(graph.out_paths, graph.outvars)
              if getattr(path[0], "idx", None) in (0, 1)]
     released = graph.backward_slice(sinks)
@@ -227,12 +271,21 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
         if sigma_mult > 0 else "noise_multiplier == 0: no draws expected")
 
     # -- sharding ----------------------------------------------------------
-    checked["sharding"] = (
-        "no mesh: single-device step (the sharding pass and the "
-        "collective-bytes warning"
-        + ("" if coll_bytes_warn is None
-           else f" at {coll_bytes_warn / 2**20:.0f} MB")
-        + " come with ROADMAP.md item 14)")
+    if axes:
+        findings.extend(shardcheck.check_sharding(
+            graph, taints=res.taints, batch_size=B, data_size=d,
+            rank=traces[0][0], group_name=traces[0][1],
+            n_batch_inputs=n_b, batch_offset=n_p + n_o,
+            noise_expected=sigma_mult > 0,
+            rank_seeds=[shardcheck.draw_seeds(g) for _, _, g in traces]))
+        checked["sharding"] = (
+            f"mesh {costmodel.format_mesh(axes)}: traced as rank(s) "
+            f"{[r for r, _, _ in traces]} of {d}; batch slice B/d = "
+            f"{B // d}, one sum all-reduce a released leaf over the data "
+            f"group, noise after it from one seed, divisor B = {B}, "
+            f"statistics over the group")
+    else:
+        checked["sharding"] = "no mesh: single-device step"
 
     # -- plan pass ---------------------------------------------------------
     expected_fp = (engine.fingerprint()
@@ -240,7 +293,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     findings.extend(plancheck.check_plan(
         graph, plan=plan, clip_mode=mode, stale_steady=stale_steady,
         stats_delta=stats_delta, expected_fingerprint=expected_fp,
-        microbatches=m))
+        microbatches=m, coll_bytes_warn=coll_bytes_warn))
     checked["plan"] = (
         f"{len(plan.groups)} group realizations present in the graph, "
         f"STATS census {stats_delta}, fingerprint {plan.fingerprint or '-'}"
@@ -250,7 +303,8 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     owner = getattr(engine.apply_fn, "__self__", None)
     model = (type(owner).__qualname__ if owner is not None
              else getattr(engine.apply_fn, "__qualname__", "<fn>"))
-    target = (f"{model} clip={mode} sigma={sigma_mult} B={B} mesh=none "
+    target = (f"{model} clip={mode} sigma={sigma_mult} B={B} "
+              f"mesh={costmodel.format_mesh(axes) if axes else 'none'} "
               f"device={dev}" + (f" microbatches={m}" if m != 1 else ""))
     order = {"error": 0, "warning": 1, "info": 2}
     findings.sort(key=lambda f: order[f.severity])

@@ -1,11 +1,11 @@
-"""Measured-cost calibration on one device: the planner trusts the card.
+"""Measured-cost calibration: the planner trusts the card.
 
-``repro_torch.calibrate`` is the JAX package's ``repro.calibrate`` for
-one device:
+``repro_torch.calibrate`` is the JAX package's ``repro.calibrate``:
 
   * :mod:`~repro_torch.calibrate.harness` measures the FLOP rate, the HBM
-    bandwidth and, on the card, ``pe_conv_grad_2d``'s tile sweep and
-    ``gram_norm_fused``'s time;
+    bandwidth, the ring all-reduce bandwidth of each data axis of a live
+    mesh (over its process group) and, on the card, ``pe_conv_grad_2d``'s
+    tile sweep and ``gram_norm_fused``'s time;
   * :mod:`~repro_torch.calibrate.table` holds the validated, serializable
     :class:`Calibration` result and the process-wide registry the cost
     model and the kernel wrappers consult;
@@ -15,7 +15,8 @@ one device:
     never a crash, while the strict loaders in ``table`` never
     downgrade.
 
-Collective bandwidth (a mesh) comes with sharding, ROADMAP.md item 14.
+Calibrations are keyed by (hardware, mesh).  A mesh with a model axis
+raises ``NotImplementedError`` (ROADMAP.md item 14 part 2).
 """
 from __future__ import annotations
 
@@ -31,13 +32,14 @@ from repro_torch.calibrate.table import (  # noqa: F401  (public re-exports)
 from repro_torch.calibrate.harness import measure  # noqa: F401
 
 
-def load_or_fallback(path: str, *, device=None):
-    """Load + validate a stored calibration for ``device``; on *any*
-    failure (missing file, truncated blob, wrong hardware, bad rates)
+def load_or_fallback(path: str, *, device=None, mesh=None):
+    """Load + validate a stored calibration for ``device`` and ``mesh``;
+    on *any* failure (missing file, truncated blob, wrong hardware or
+    mesh, bad rates)
     emit a named :class:`CalibrationFallbackWarning` and return ``None``
     so the caller plans with the analytic constants."""
     try:
-        return load_calibration(path, device=device)
+        return load_calibration(path, device=device, expect_mesh=mesh)
     except (OSError, CalibrationError) as e:
         warnings.warn(
             f"calibration {path!r} unusable ({type(e).__name__}: {e}); "
@@ -46,11 +48,13 @@ def load_or_fallback(path: str, *, device=None):
         return None
 
 
-def get_or_measure(*, quick: bool = True, device="cuda") -> Calibration:
-    """The calibration registered for ``device``'s hardware, measuring
-    and registering one if absent — what an engine built with
-    ``calibration="measure"`` uses."""
-    calib = lookup(device)
+def get_or_measure(mesh=None, *, quick: bool = True, device="cuda",
+                   group=None) -> Calibration:
+    """The calibration registered for ``device``'s hardware and ``mesh``,
+    measuring and registering one if absent — what an engine built with
+    ``calibration="measure"`` uses (``group``: the mesh's data group)."""
+    calib = lookup(device, mesh=mesh)
     if calib is None:
-        calib = register(measure(quick=quick, device=device))
+        calib = register(measure(mesh, quick=quick, device=device,
+                                 group=group))
     return calib

@@ -1,9 +1,8 @@
 """Microbenchmark harness: measure the constants the planner uses, on the
-device it plans for (the JAX package's ``repro.calibrate.harness``, for
-one device).
+device it plans for (the JAX package's ``repro.calibrate.harness``).
 
 One :func:`measure` run produces a
-:class:`~repro_torch.calibrate.table.Calibration` for the device:
+:class:`~repro_torch.calibrate.table.Calibration` for the device and mesh:
 
   * dense f32 matmul FLOP rate, TF32 off (the precision the training
     step runs at, ``launch.train.deterministic_step``) — the unit every
@@ -13,6 +12,10 @@ One :func:`measure` run produces a
   * HBM streaming bandwidth: one read and one write of a 1 GiB f32
     array on the card, far beyond its 50 MB L2 (the reference's 32 MB
     would stream from the L2);
+  * for each data axis of a live mesh, the ring all-reduce wire bandwidth
+    over the axis's process group (:func:`measure_collective_bytes_per_\
+second`): ``ring(d)·shard_bytes`` a second at the JAX package's shard
+    sizes (1 and 8 MiB a device), the convention the cost model charges;
   * on the card only, the kernel sweeps: ``pe_conv_grad_2d``'s output
     tile (the shape rule, 64 rows, 128 rows) over AlexNet's conv1–4 and
     VGG16's conv0, conv1, conv7 and conv12 at B = 4 (the winner feeds
@@ -23,8 +26,10 @@ On the card every time is the least of a few runs between CUDA events
 after a warm-up; on the CPU (``device="cpu"``, the tests) the host clock,
 with ``kernels`` left empty: the plain versions there are no tile sweep.
 ``quick`` takes small sizes (the matmul at n = 256, a 4 MiB stream, which
-the card's L2 holds).  Collective bandwidth needs a mesh (ROADMAP.md
-item 14).
+the card's L2 holds, one 1 MiB all-reduce).  On a mesh every rank
+measures and rank 0's calibration is broadcast, so all ranks plan under
+one digest.  A mesh with a model axis raises ``NotImplementedError``
+(ROADMAP.md item 14 part 2).
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ import time
 
 import torch
 
-from repro_torch.calibrate.table import (Calibration, _no_mesh,
+from repro_torch.calibrate.table import (Calibration,
+                                         CalibrationMeshMismatch, _no_mesh,
                                          hardware_signature)
+from repro_torch.core import costmodel
 from repro_torch.device import resolve_device
 
 # Matmul sizes (n of n x n f32 operands) and stream sizes (bytes).
@@ -53,6 +60,10 @@ PE_TILE_BATCH_QUICK = 1
 # Candidates: 0 is the shape rule (ops.pe_conv_tile_rule), first so that
 # it wins a tie.
 PE_TILE_CANDIDATES = (0, 64, 128)
+# Shard sizes (bytes a device) the ring all-reduce is timed at: the
+# JAX package's (the latency end and the stash-traffic streaming regime).
+COLLECTIVE_SIZES = (1 << 20, 8 << 20)
+COLLECTIVE_SIZES_QUICK = (1 << 20,)
 
 
 def _time(fn, *, device, iters: int = 3, warmup: int = 1) -> float:
@@ -120,12 +131,57 @@ def measure_hbm_bytes_per_second(*, quick: bool = False,
     return 2.0 * nbytes / max(t, 1e-9)
 
 
-def measure_collective_bytes_per_second(axis: str, size: int, **_) -> float:
-    """Ring all-reduce wire bandwidth over a mesh axis: one device has
-    none to measure."""
-    raise NotImplementedError(
-        f"collective bandwidth of mesh axis {axis}:{size} comes with "
-        f"sharding (ROADMAP.md item 14)")
+def measure_collective_bytes_per_second(axis: str, size: int, *,
+                                        group=None, sizes=COLLECTIVE_SIZES,
+                                        device="cuda",
+                                        iters: int = 3) -> float:
+    """Ring all-reduce wire bandwidth over mesh axis ``axis`` of ``size``
+    ranks: a sum all-reduce of one f32 shard a rank over ``group`` (the
+    default group when ``None``), timed by the host clock between
+    barriers, the slowest rank's time (all ranks get the same number).
+    Returns per-device bytes on the wire a second, ``ring(size) *
+    shard_bytes / t``, the best over ``sizes`` (the JAX package's
+    convention).  Every rank of the group must call it.  The tensors
+    live on ``device``; under gloo a CUDA tensor is staged through the
+    host, so that rate is the host's, not the interconnect's."""
+    import torch.distributed as dist
+    if size < 2:
+        raise CalibrationMeshMismatch(
+            f"mesh axis {axis}:{size} induces no collective traffic; "
+            f"nothing to measure")
+    if not dist.is_initialized():
+        raise CalibrationMeshMismatch(
+            f"cannot measure mesh axis {axis}:{size}: no process group "
+            f"(launch the ranks with torch.distributed.run)")
+    have = dist.get_world_size(group)
+    if have != size:
+        raise CalibrationMeshMismatch(
+            f"cannot measure mesh axis {axis}:{size} over a group of "
+            f"{have} rank(s); measure on the target topology")
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ring = costmodel._ring(size)
+    best = 0.0
+    for shard_bytes in sizes:
+        elems = max(int(shard_bytes) // 4, 1)
+        x = torch.zeros(elems, device=dev)
+        dist.all_reduce(x, group=group)          # warm-up
+        t_min = float("inf")
+        for _ in range(iters):
+            sync()
+            dist.barrier(group=group)
+            t0 = time.perf_counter()
+            dist.all_reduce(x, group=group)
+            sync()
+            t_min = min(t_min, time.perf_counter() - t0)
+        t = torch.tensor([t_min], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        best = max(best, ring * 4.0 * elems / max(float(t.item()), 1e-9))
+    return best
 
 
 def _need_card(dev, what: str):
@@ -184,24 +240,39 @@ def time_gram_norm_fused(*, quick: bool = False, device="cuda") -> dict:
 
 
 def measure(mesh=None, *, quick: bool = False, kernels: bool | None = None,
-            device="cuda") -> Calibration:
-    """Run the harness on ``device`` and return the resulting
+            device="cuda", group=None) -> Calibration:
+    """Run the harness on ``device`` for ``mesh`` and return the resulting
     :class:`Calibration` (not registered — callers decide; see
     :func:`repro_torch.calibrate.get_or_measure`).  ``kernels=None``
     sweeps the kernels on the card and leaves them out on the CPU;
-    ``kernels=True`` on the CPU raises."""
+    ``kernels=True`` on the CPU raises.  Each data axis of ``mesh`` is
+    timed over ``group`` (the default group when ``None``); every rank of
+    it must call, and all get rank 0's calibration."""
     axes = _no_mesh(mesh)
     dev = resolve_device(device)
     if kernels is None:
         kernels = dev.type == "cuda"
+    sizes = COLLECTIVE_SIZES_QUICK if quick else COLLECTIVE_SIZES
+    coll = {name: measure_collective_bytes_per_second(
+                name, size, group=group, sizes=sizes, device=dev)
+            for name, size in axes}
     kern = {}
     if kernels:
         kern["pe_conv_grad"] = sweep_pe_conv_tiles(quick=quick, device=dev)
         kern["gram_norm_fused"] = time_gram_norm_fused(quick=quick,
                                                        device=dev)
-    return Calibration(
+    calib = Calibration(
         hardware=hardware_signature(dev), mesh=axes,
         flops_per_second=measure_flops_per_second(quick=quick, device=dev),
         hbm_bytes_per_second=measure_hbm_bytes_per_second(quick=quick,
                                                           device=dev),
-        kernels=kern, measured_at=time.time(), source="measured")
+        collective_bytes_per_second=coll, kernels=kern,
+        measured_at=time.time(), source="measured")
+    if axes:
+        import torch.distributed as dist
+        box = [calib.to_payload()]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(group, 0) if group is not None
+            else 0, group=group)
+        calib = Calibration.from_payload(box[0])
+    return calib

@@ -1,23 +1,25 @@
 """Calibration tables: measured hardware constants the planner trusts
-(the JAX package's ``repro.calibrate.table``, for one device).
+(the JAX package's ``repro.calibrate.table``).
 
 A :class:`Calibration` is the persisted result of one
-:func:`repro_torch.calibrate.harness.measure` run on a concrete device:
-the FLOP rate, the HBM streaming bandwidth and the kernel sweep winners
-(``pe_conv_grad_2d``'s tile sweep).  The cost model converts these into
-FLOP-equivalents-per-byte lookups that replace the analytic constants
-whenever a calibration is active (:mod:`repro_torch.core.costmodel` keeps
-the analytic values as the documented fallback).
+:func:`repro_torch.calibrate.harness.measure` run on a concrete
+(hardware, mesh) pair: the FLOP rate, the HBM streaming bandwidth, the
+ring all-reduce wire bandwidth of each data axis of the mesh, and the
+kernel sweep winners (``pe_conv_grad_2d``'s tile sweep).  The cost
+model converts these into FLOP-equivalents-per-byte lookups that replace
+the analytic constants whenever a calibration is active
+(:mod:`repro_torch.core.costmodel` keeps the analytic values as the
+documented fallback).
 
 The JSON format is the JAX package's (format 1, the same fields), so a
-blob written by either package reads in the other.  The port measures no
-collective bandwidth: ``collective_bytes_per_second`` stays ``{}`` and a
-non-empty ``mesh`` raises ``NotImplementedError`` (sharding, ROADMAP.md
-item 14).
+blob written by either package reads in the other.  The registry is
+keyed by (hardware, mesh), as the JAX package's.  A mesh with a model
+axis raises ``NotImplementedError``: model-axis execution, and so its
+calibration, is ROADMAP.md item 14 part 2.
 
 Every deserialized blob is validated — wrong format or truncated
-payload, non-finite or non-positive rates, a hardware signature that
-does not match the live device — and each rejection raises a *named*
+payload, non-finite or non-positive rates, a hardware signature or mesh
+that does not match the live context — and each rejection raises a *named*
 error (:class:`CalibrationFormatError`, :class:`CalibrationValueError`,
 :class:`CalibrationHardwareMismatch`, :class:`CalibrationMeshMismatch`).
 Soft consumers (engine init, the CLI) catch :class:`CalibrationError`,
@@ -32,6 +34,7 @@ import json
 import math
 import platform
 import time
+import warnings
 from typing import Any, Mapping
 
 import torch
@@ -62,9 +65,9 @@ class CalibrationHardwareMismatch(CalibrationError):
 
 
 class CalibrationMeshMismatch(CalibrationError):
-    """The JAX package's rejection of a blob measured for another mesh
-    topology; kept so both packages name the same errors.  The port
-    refuses any mesh with ``NotImplementedError`` instead."""
+    """The blob was measured for a different mesh topology (or an axis
+    it lacks was asked for); its collective bandwidths do not describe
+    the topology being planned."""
 
 
 class CalibrationFallbackWarning(UserWarning):
@@ -73,18 +76,20 @@ class CalibrationFallbackWarning(UserWarning):
 
 
 class CalibrationAxisFallbackWarning(UserWarning):
-    """The JAX package's warning for an axis-less wire price on a
-    multi-axis calibration; kept so both packages name the same
-    warnings.  The port measures no mesh axes, so it never fires here."""
+    """Multi-axis collective traffic priced through the axis-less
+    (slowest-axis) lookup.  The port calibrates data axes only, so a
+    calibration holds one axis unless several data axes were measured."""
 
 
 def _no_mesh(mesh) -> tuple:
+    """``mesh`` normalized; a model axis raises: the port calibrates and
+    executes pure-data meshes (model axes are item 14 part 2)."""
     axes = costmodel.mesh_axes(mesh)
-    if axes:
+    if costmodel.mesh_model_axes(axes):
         raise NotImplementedError(
-            f"calibration for mesh {costmodel.format_mesh(axes)}: meshes "
-            f"and their collective bandwidths come with sharding "
-            f"(ROADMAP.md item 14)")
+            f"calibration for mesh {costmodel.format_mesh(axes)}: model "
+            f"axes and their collective bandwidths come with model-axis "
+            f"sharding (ROADMAP.md item 14 part 2)")
     return axes
 
 
@@ -122,12 +127,14 @@ def _finite_pos(value, name: str) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class Calibration:
-    """Measured hardware constants for one device.
+    """Measured hardware constants for one (hardware, mesh) pair.
 
     Rates are measured, not assumed:
       * ``flops_per_second``             — dense f32 matmul throughput;
       * ``hbm_bytes_per_second``         — streaming read+write bandwidth;
-      * ``collective_bytes_per_second``  — ``{}`` (the port has no mesh);
+      * ``collective_bytes_per_second``  — per data axis, the ring
+        all-reduce *wire* bandwidth (``ring(d)·shard_bytes`` a second, the
+        convention the cost model charges); ``{}`` off-mesh;
       * ``kernels``                      — per-kernel sweep results, e.g.
         ``{"pe_conv_grad": {"tile_rows": 64, "sweep": {...}}}``.
 
@@ -154,6 +161,29 @@ class Calibration:
         for axis, bw in dict(self.collective_bytes_per_second).items():
             _finite_pos(bw, f"collective_bytes_per_second[{axis!r}]")
 
+    def collective_flops_per_byte(self, axis: str | None = None) -> float:
+        """FLOP-equivalents of one collective byte on the wire of mesh
+        axis ``axis``.  The axis-less form prices all traffic at the
+        slowest measured axis and warns when there are several."""
+        table = self.collective_bytes_per_second
+        if not table:
+            raise CalibrationValueError(
+                f"calibration {self.digest()} has no collective "
+                f"measurements (mesh {costmodel.format_mesh(self.mesh)})")
+        if axis is not None:
+            if axis not in table:
+                raise CalibrationMeshMismatch(
+                    f"calibration {self.digest()} has no measurement for "
+                    f"mesh axis {axis!r}; measured axes: {sorted(table)}")
+            return self.flops_per_second / table[axis]
+        if len(table) > 1:
+            warnings.warn(
+                f"calibration {self.digest()} measured {len(table)} mesh "
+                f"axes {sorted(table)} but was asked for an axis-less wire "
+                f"price; pricing all traffic at the slowest axis",
+                CalibrationAxisFallbackWarning, stacklevel=2)
+        return self.flops_per_second / min(table.values())
+
     def hbm_flops_per_byte(self) -> float:
         """FLOP-equivalents of one HBM byte: what the cost model credits
         the fused norm+contrib realizations with."""
@@ -170,14 +200,22 @@ class Calibration:
         return hashlib.sha1(
             json.dumps(payload, sort_keys=True).encode()).hexdigest()[:12]
 
-    def validate_for(self, hardware: str):
-        """Reject this calibration for a device it does not describe,
-        naming what differs."""
-        if self.hardware != hardware:
+    def validate_for(self, hardware: str | None = None, mesh=None):
+        """Reject this calibration for a live context (device, mesh) it
+        does not describe, naming what differs."""
+        if hardware is not None and self.hardware != hardware:
             raise CalibrationHardwareMismatch(
                 f"calibration {self.digest()} was measured on "
                 f"{self.hardware!r}, this process runs on {hardware!r}; "
                 f"re-calibrate on this hardware")
+        if mesh is not None:
+            ms = costmodel.mesh_axes(mesh)
+            if self.mesh != ms:
+                raise CalibrationMeshMismatch(
+                    f"calibration {self.digest()} was measured for mesh "
+                    f"{costmodel.format_mesh(self.mesh)}, this process "
+                    f"plans {costmodel.format_mesh(ms)}; re-calibrate "
+                    f"for this topology")
 
     # -- serialization -----------------------------------------------------
 
@@ -244,17 +282,34 @@ class Calibration:
 
     # -- derivation --------------------------------------------------------
 
-    def retimed(self, *, predicted_s: float,
-                measured_s: float) -> "Calibration":
+    def retimed(self, *, predicted_s: float, measured_s: float,
+                coll_bytes: float = 0.0,
+                coll_bytes_by_axis=None) -> "Calibration":
         """A calibration updated so the cost model would have predicted
         ``measured_s`` for the step it predicted ``predicted_s`` for —
-        the engine's mispredict feedback.  One device moves no collective
-        bytes, so the FLOP rate absorbs the whole gap (the JAX package's
-        rule when a step moved none; the wire's share comes with
-        sharding, ROADMAP.md item 14).  Deterministic: a pure function of
-        its inputs."""
+        the engine's mispredict feedback (the JAX package's rule).  When
+        the step moved collective bytes on measured axes, the gap is put
+        on the wire (holding the compute share fixed); otherwise the FLOP
+        rate absorbs it.  Deterministic: a pure function of its inputs."""
         predicted_s = _finite_pos(predicted_s, "predicted_s")
         measured_s = _finite_pos(measured_s, "measured_s")
+        table = self.collective_bytes_per_second
+        by_axis = dict(coll_bytes_by_axis or ())
+        if table and (by_axis or coll_bytes > 0.0):
+            if by_axis:
+                wire_s_old = sum(float(b) / table[a]
+                                 for a, b in by_axis.items() if a in table)
+            else:
+                wire_s_old = (self.collective_flops_per_byte() * coll_bytes
+                              / self.flops_per_second)
+            if wire_s_old > 0.0:
+                compute_s = max(predicted_s - wire_s_old, 1e-12)
+                wire_s_new = max(measured_s - compute_s, 1e-12)
+                scale = wire_s_old / wire_s_new
+                return dataclasses.replace(
+                    self, collective_bytes_per_second={
+                        a: bw * scale for a, bw in table.items()},
+                    source="replan", measured_at=self.measured_at)
         return dataclasses.replace(
             self, flops_per_second=self.flops_per_second
             * (predicted_s / measured_s),
@@ -262,25 +317,28 @@ class Calibration:
 
 
 # ---------------------------------------------------------------------------
-# Process-wide registry: hardware signature -> Calibration (one device, so
-# no mesh in the key).  The engine and the cost model consult it when no
+# Process-wide registry: (hardware signature, mesh) -> Calibration.  The
+# engine and the cost model consult it when no
 # calibration is passed explicitly; load_plan_store() installs the
 # calibrations persisted with a plan store, and the kernel wrappers read
 # the sweep winners from it (ops.pe_conv_tile_rows).
 
 
-_REGISTRY: dict[str, Calibration] = {}
+_REGISTRY: dict[tuple, Calibration] = {}
 
 
 def register(calib: Calibration) -> Calibration:
-    _REGISTRY[calib.hardware] = calib
+    _REGISTRY[(calib.hardware, calib.mesh)] = calib
     return calib
 
 
-def lookup(device=None) -> Calibration | None:
+def lookup(device=None, *, mesh=None) -> Calibration | None:
     """The calibration registered for ``device``'s hardware (the device
-    this process would run on by default), or ``None``."""
-    return _REGISTRY.get(hardware_signature(device))
+    this process would run on by default) and ``mesh``, or ``None``.
+    Exact-mesh match only: a ``data:8`` calibration never prices a
+    ``data:4`` plan."""
+    return _REGISTRY.get((hardware_signature(device),
+                          costmodel.mesh_axes(mesh)))
 
 
 def registered() -> list:
@@ -292,17 +350,18 @@ def clear_registry():
 
 
 def load_calibration(path: str, *, expect_hardware: bool = True,
-                     device=None) -> Calibration:
+                     device=None, expect_mesh=None) -> Calibration:
     """Strict file loader: parse, validate values, and check the blob
     against the live device (``device``, or the one this process would
-    run on).  Raises named :class:`CalibrationError` subclasses; never
-    warns-and-continues (see
+    run on) and, when given, ``expect_mesh``.  Raises named
+    :class:`CalibrationError` subclasses; never warns-and-continues (see
     :func:`repro_torch.calibrate.load_or_fallback`)."""
     with open(path) as f:
         raw = f.read()
     calib = Calibration.from_json(raw)
-    if expect_hardware:
-        calib.validate_for(hardware_signature(device))
+    calib.validate_for(
+        hardware_signature(device) if expect_hardware else None,
+        mesh=expect_mesh)
     return calib
 
 
@@ -311,17 +370,26 @@ def save_calibration(path: str, calib: Calibration):
         f.write(calib.to_json(indent=1))
 
 
-def injected(*, flops_per_second: float = 1e12,
+def injected(*, mesh=(), flops_per_second: float = 1e12,
              hbm_bytes_per_second: float = 1e11,
+             collective_bytes_per_second=None,
              kernels: dict | None = None,
              hardware: str | None = None, device=None) -> Calibration:
     """A synthetic calibration for tests: known rates on the live
     hardware signature (so context validation passes), marked
-    ``source="injected"``."""
+    ``source="injected"``.  ``collective_bytes_per_second`` is one float
+    (every mesh axis) or a per-axis mapping."""
+    ms = costmodel.mesh_axes(mesh)
+    coll = collective_bytes_per_second
+    if coll is None:
+        coll = {}
+    if not isinstance(coll, Mapping):
+        coll = {name: float(coll) for name, _ in ms}
     return Calibration(
-        hardware=hardware or hardware_signature(device),
+        hardware=hardware or hardware_signature(device), mesh=ms,
         flops_per_second=flops_per_second,
         hbm_bytes_per_second=hbm_bytes_per_second,
+        collective_bytes_per_second=dict(coll),
         kernels=dict(kernels or {}), measured_at=time.time(),
         source="injected")
 

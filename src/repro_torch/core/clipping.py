@@ -4,6 +4,15 @@ The preferred entry point is :class:`repro_torch.core.engine.PrivacyEngine`;
 :func:`dp_gradient` is the functional core it drives.  Clipping is flat,
 per-layer or stale (:class:`ClipPolicy`); ``microbatches="auto"`` splits
 the batch from the plan's memory estimates.
+
+Data parallelism (``shard=`` a :class:`DataShard`): each rank clips its
+contiguous slice of the global batch, the clipped sums are all-reduced
+once a leaf (:func:`sync_grads`), the noise is added *after* that sum
+from the one generator every rank holds (:func:`release_sum`), and the
+divisor, the mean loss and the statistics are the global batch's.
+Clipping is per example, so a rank's coefficients need only its own
+examples' norms: the step equals the single-device step up to the order
+of the sum.
 """
 from __future__ import annotations
 
@@ -235,6 +244,66 @@ class DPConfig:
                     clip_fused=self.clipping.fused)
 
 
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """One rank's place in a data-parallel group: the process group the
+    clipped sums and the statistics are reduced over, this rank's index
+    in it, and its size."""
+
+    group: Any
+    rank: int
+    size: int
+
+    def local(self, B: int) -> slice:
+        """This rank's contiguous slice of a global batch of ``B``."""
+        if B % self.size:
+            raise ValueError(
+                f"batch {B} is not divisible by the data-parallel degree "
+                f"{self.size}")
+        n = B // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+
+def _psum(t, shard: DataShard):
+    """Sum all-reduce over the shard's group (a functional collective, so
+    a traced step records it as one node)."""
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(t, "sum", shard.group))
+
+
+def sync_grads(gsum, shard: DataShard):
+    """The clipped sum summed over the data group: one all-reduce a leaf,
+    in sorted leaf-path order (the same on every rank and every run)."""
+    out = gsum
+    for path in leaf_paths(gsum):
+        out = set_subtree(out, path, _psum(get_subtree(gsum, path), shard))
+    return out
+
+
+def gather_examples(t, shard: DataShard):
+    """``(..., B/d)`` per-example values of this rank -> ``(..., B)`` of
+    the whole group, in rank order: a sum all-reduce of the zero-padded
+    slices (exact: every other entry is a zero)."""
+    n = t.shape[-1]
+    lead = tuple(t.shape[:-1])
+    return _psum(torch.cat(
+        [t.new_zeros(lead + (n * shard.rank,)), t,
+         t.new_zeros(lead + (n * (shard.size - shard.rank - 1),))],
+        dim=-1), shard)
+
+
+def release_sum(gsum, key, cfg, shard: DataShard | None = None):
+    """The clipped sum as released before the divisor: summed over the
+    data group first, then noised once (:func:`add_noise`).  Every rank
+    draws from a generator of the same seed, so every rank adds the same
+    noise to the same sum."""
+    if shard is not None:
+        gsum = sync_grads(gsum, shard)
+    if key is not None and cfg.noise_multiplier > 0:
+        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip)
+    return gsum
+
+
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
               l2_clip: float):
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
@@ -275,7 +344,8 @@ def resolve_microbatches(apply_fn, params, batch, cfg: DPConfig,
 
 def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
                 key: torch.Generator | None = None, denom: int | None = None,
-                plan=None, clip_state: dict | None = None):
+                plan=None, clip_state: dict | None = None,
+                shard: DataShard | None = None):
     """Full DP-SGD gradient:  (Σ_b clip(g_b) + σC·ξ) / denom.
 
     ``batch`` leaves have leading B; with ``cfg.microbatches`` > 1 the
@@ -296,6 +366,10 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         the engine-tracked split.  Absent → the policy's static split
         (uniform / mapping) is resolved against the plan's groups.
 
+    ``shard`` runs this rank's slice of the global ``batch`` and reduces
+    over its group (module docstring); ``prev_norms_sq`` is then the
+    rank's slice, and ``plan`` the mesh-keyed one.
+
     Returns (mean loss, gradient tree in float32, aux dict with
     ``per_example_norms`` and ``clip_fraction``).  ``per_layer`` adds
     ``per_layer_norms`` (G, B), ``per_layer_clip_fraction`` (G,) and
@@ -304,6 +378,10 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
     norms, i.e. the next step's coefficients) and ``clip_state``."""
     B = next(iter(batch.values())).shape[0]
     denom = denom or B
+    if shard is not None:
+        sl = shard.local(B)
+        batch = {k: v[sl] for k, v in batch.items()}
+        B = B // shard.size
     policy = cfg.clipping
     clip_state = dict(clip_state or {})
     prev_ns = clip_state.get("prev_norms_sq")
@@ -344,20 +422,26 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
             group_ns.append(detail["group_norms_sq"])
             budgets_used = detail["budgets"]
     losses, norms_sq = torch.cat(losses), torch.cat(norms)
-    if key is not None and cfg.noise_multiplier > 0:
-        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip)
+    gsum = release_sum(gsum, key, cfg, shard)
     grad = tree_map(lambda g: g / denom, gsum)
+
+    def whole(t):
+        return t if shard is None else gather_examples(t, shard)
+
+    all_ns = whole(norms_sq)
+    loss = (losses.mean() if shard is None
+            else _psum(losses.sum(), shard) / all_ns.shape[-1])
     C = cfg.l2_clip
     aux = {
-        "per_example_norms": torch.sqrt(norms_sq + 1e-12),
-        "clip_fraction": (torch.sqrt(norms_sq) > C).to(F32).mean(),
+        "per_example_norms": torch.sqrt(all_ns + 1e-12),
+        "clip_fraction": (torch.sqrt(all_ns) > C).to(F32).mean(),
     }
     if policy.mode == "per_layer":
         # The flat-style scalar above would be wrong (it compares the
         # *total* norm against C while clipping happened per layer):
         # report per-layer fractions against the per-layer budgets, and
         # make the scalar their mean over (layer, example) pairs.
-        group_ns = torch.cat(group_ns, dim=1)                    # (G, B)
+        group_ns = whole(torch.cat(group_ns, dim=1))             # (G, B)
         pl_norms = torch.sqrt(group_ns + 1e-12)
         clipped = (pl_norms > budgets_used[:, None]).to(F32)
         aux["per_layer_norms"] = pl_norms
@@ -368,8 +452,8 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         # ``clip_fraction`` describes the *current* norms — the
         # coefficients the next step applies.  What this step applied is
         # lagged; label it instead of reporting it wrongly.
-        applied_ns = norms_sq if bootstrap else prev_ns
+        applied_ns = all_ns if bootstrap else whole(prev_ns)
         aux["clip_fraction_lagged"] = \
             (torch.sqrt(applied_ns) > C).to(F32).mean()
-        aux["clip_state"] = {"prev_norms_sq": norms_sq}
-    return losses.mean(), grad, aux
+        aux["clip_state"] = {"prev_norms_sq": norms_sq}   # this rank's
+    return loss, grad, aux

@@ -1,4 +1,4 @@
-"""Per-layer execution planner for the DP-SGD pipeline (single device).
+"""Per-layer execution planner for the DP-SGD pipeline.
 
 The paper's empirical finding is that which per-example-gradient strategy
 wins depends on layer geometry (depth, width, batch, kernel size).  This
@@ -46,13 +46,28 @@ groups are marked ``fused``: their norm and contribution come from one
 
 The decision rules and constants are the JAX package's
 (``repro.core.costmodel``), so the two packages plan alike under the same
-constants.  Only the single-device planner is ported: ``mesh=`` raises
-(ROADMAP.md item 14).  ``calibration=`` prices with measured constants
+constants.  ``calibration=`` prices with measured constants
 (:mod:`repro_torch.calibrate`; ``None`` takes the calibration registered
-for this process's device, ``"analytic"`` the analytic table), and the
-calibration's digest is part of every plan's identity: the cache key,
-the fingerprint and the plan store.  :func:`predicted_step_seconds` is
-what the engine's mispredict loop compares measured step times against.
+for this process's device and mesh, ``"analytic"`` the analytic table),
+and the calibration's digest is part of every plan's identity: the cache
+key, the fingerprint and the plan store.
+
+Mesh-aware planning: with ``mesh=`` (a live ``DeviceMesh``, a
+``"data:8,model:2"`` spec, an axes mapping or an ``(("data", 8), ...)``
+tuple; :func:`mesh_axes`) every per-layer estimate is *per device*: the
+batch-linear FLOPs and scratch shrink by the data-parallel degree (the
+memory budget is one device's), and each candidate realization is also
+charged the collective bytes it induces, priced per mesh axis
+(:meth:`CostConstants.coll_price`): a non-materializing norm all-reduces
+the (B,) scalar norms, a stash puts per-example gradients on the
+gradient-sync ring, every group pays its parameter-sized sync once (a
+shared weighted backward twice), and a tensor-sharded layer psums its
+partial norms over the model axes.  A spec plans for a topology this
+process need not have (no devices are touched).  The mesh is part of the
+fingerprint, the cache key and the payload: a plan built for another
+topology fails loudly (:func:`check_plan_matches`).
+:func:`predicted_step_seconds` is what the engine's mispredict loop
+compares measured step times against.
 Plans are cached on (model identity, batch/param shapes, knobs,
 calibration): steady-state training re-plans nothing and never
 re-probes (:func:`get_plan`).
@@ -87,7 +102,7 @@ BACKWARD_FIXED_FACTOR = 2.0
 # (repro_torch.calibrate) is given or registered, so that uncalibrated
 # plans equal the reference's.  Of the three only ``hbm_flops_per_byte``
 # moves a single-device decision (the fused credit under stale clipping);
-# the wire price needs a mesh and the FLOP rate only converts
+# the wire price moves decisions on a mesh and the FLOP rate only converts
 # FLOP-equivalents into predicted seconds.
 ANALYTIC_FALLBACK = {
     "collective_flops_per_byte": 512.0,
@@ -96,17 +111,36 @@ ANALYTIC_FALLBACK = {
 }
 
 
+# Mesh axes treated as pure data parallelism (batch-sharded); every other
+# axis is model parallelism.  The JAX package's names.
+DATA_AXIS_NAMES = ("pod", "data", "batch")
+
+
 @dataclasses.dataclass(frozen=True)
 class CostConstants:
     """The rates one planning pass prices against, plus provenance
     (``calibration`` is a measured calibration's digest, "" when
-    analytic; it is part of every plan's identity)."""
+    analytic; it is part of every plan's identity).
+
+    ``collective_flops_per_byte_by_axis`` holds the per-mesh-axis wire
+    prices (``(("data", p), ...)``) when the calibration measured them;
+    :meth:`coll_price` is the per-axis lookup every collective term goes
+    through, the scalar being the fallback for unmeasured axes."""
 
     collective_flops_per_byte: float
     hbm_flops_per_byte: float
     flops_per_second: float
     source: str = "analytic"
     calibration: str = ""
+    collective_flops_per_byte_by_axis: tuple = ()
+
+    def coll_price(self, axis: str) -> float:
+        """Wire price (FLOP-equivalents a byte) of traffic crossing
+        ``axis``: its measured rate, else the scalar constant."""
+        for name, price in self.collective_flops_per_byte_by_axis:
+            if name == axis:
+                return price
+        return self.collective_flops_per_byte
 
 
 ANALYTIC_CONSTANTS = CostConstants(
@@ -124,16 +158,24 @@ LOCAL_VJP_CONTRIB_PENALTY = 4.0
 PLAN_CACHE_SIZE = 16
 
 
-def _single_device(mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-aware planning comes with sharding (ROADMAP.md item 14)")
+# ---------------------------------------------------------------------------
+# Mesh normalization: every planner entry point takes ``mesh`` as a live
+# ``torch.distributed.device_mesh.DeviceMesh``, a "data:8,model:2" spec,
+# an axes mapping or an (("data", 8), ...) tuple, all normalized to the
+# tuple form (hashable, JSON-able, fingerprintable).
+
+
+def _drop_unit_axes(axes: tuple) -> tuple:
+    """Size-1 axes are topology no-ops: ``(("data", 8), ("model", 1))``
+    runs as ``(("data", 8),)``, so they are normalized out and a stored
+    plan keyed on one spelling does not fail against the other."""
+    return tuple((n, s) for n, s in axes if int(s) != 1)
 
 
 def mesh_axes(mesh) -> tuple:
-    """Normalize a mesh spec (``"data:8,model:2"``, an axes mapping, or an
-    ``(("data", 8), ...)`` tuple) to the tuple form, dropping size-1
-    axes: the JAX package's rule, which calibration blobs are keyed by."""
+    """Normalize a mesh description to ``(("data", 8), ("model", 2))``,
+    size-1 axes dropped (:func:`_drop_unit_axes`): the JAX package's
+    rule, which plans and calibration blobs are keyed by."""
     if mesh is None:
         return ()
     if isinstance(mesh, str):
@@ -151,19 +193,52 @@ def mesh_axes(mesh) -> tuple:
         pairs = out
     elif isinstance(mesh, Mapping):
         pairs = mesh.items()
+    elif getattr(mesh, "mesh_dim_names", None) is not None:   # DeviceMesh
+        pairs = zip(mesh.mesh_dim_names, tuple(mesh.shape))
     else:
         pairs = mesh
-    return tuple((str(n), int(s)) for n, s in pairs if int(s) != 1)
+    return _drop_unit_axes(tuple((str(n), int(s)) for n, s in pairs))
+
+
+def mesh_data_size(axes: tuple) -> int:
+    d = 1
+    for name, size in axes:
+        if name in DATA_AXIS_NAMES:
+            d *= int(size)
+    return d
+
+
+def mesh_data_axes(axes: tuple) -> tuple:
+    """The data-parallel (batch-sharded) axes of a normalized mesh."""
+    return tuple((n, s) for n, s in axes if n in DATA_AXIS_NAMES)
+
+
+def mesh_model_axes(axes: tuple) -> tuple:
+    """The model-parallel (tensor-sharded) axes of a normalized mesh."""
+    return tuple((n, s) for n, s in axes if n not in DATA_AXIS_NAMES)
+
+
+def mesh_model_size(axes: tuple) -> int:
+    m = 1
+    for _, size in mesh_model_axes(axes):
+        m *= int(size)
+    return m
 
 
 def format_mesh(axes: tuple) -> str:
     return ("x".join(f"{n}={s}" for n, s in axes)) if axes else "(no mesh)"
 
 
-def _resolve_calibration(calibration):
+def _ring(d: int) -> float:
+    """Per-device bytes-on-the-wire multiplier of a ring all-reduce."""
+    return 2.0 * (d - 1) / d if d > 1 else 0.0
+
+
+def _resolve_calibration(calibration, mesh=()):
     """An explicit Calibration wins; ``None`` consults the registry for
-    this process's device; ``"analytic"`` asks for the analytic table.
-    Imported lazily — repro_torch.calibrate imports this module."""
+    this process's device and ``mesh``; ``"analytic"`` asks for the
+    analytic table.  Imported lazily — repro_torch.calibrate imports this
+    module."""
     if isinstance(calibration, str):
         if calibration == "analytic":
             return None
@@ -174,23 +249,32 @@ def _resolve_calibration(calibration):
     if calibration is not None:
         return calibration
     from repro_torch.calibrate import table
-    return table.lookup()
+    return table.lookup(mesh=mesh_axes(mesh))
 
 
-def resolve_cost_constants(calibration=None) -> CostConstants:
-    """The :class:`CostConstants` a planning pass prices against: the
-    given (or registered) calibration's measured rates, or
-    :data:`ANALYTIC_CONSTANTS`.  One device measures no wire, so the wire
-    price stays analytic."""
-    calib = _resolve_calibration(calibration)
+def resolve_cost_constants(calibration=None, mesh=None) -> CostConstants:
+    """The :class:`CostConstants` a planning pass for ``mesh`` prices
+    against: the given (or registered) calibration's measured rates, or
+    :data:`ANALYTIC_CONSTANTS`.  Every measured mesh axis is priced on its
+    own; a calibration that measured no collective (one device) keeps the
+    analytic wire price."""
+    calib = _resolve_calibration(calibration, mesh)
     if calib is None:
         return ANALYTIC_CONSTANTS
+    if calib.collective_bytes_per_second:
+        by_axis = tuple(
+            (axis, calib.collective_flops_per_byte(axis))
+            for axis in sorted(calib.collective_bytes_per_second))
+        coll = max(price for _, price in by_axis)
+    else:
+        by_axis = ()
+        coll = ANALYTIC_FALLBACK["collective_flops_per_byte"]
     return CostConstants(
-        collective_flops_per_byte=ANALYTIC_FALLBACK[
-            "collective_flops_per_byte"],
+        collective_flops_per_byte=coll,
         hbm_flops_per_byte=calib.hbm_flops_per_byte(),
         flops_per_second=calib.flops_per_second,
-        source=calib.source, calibration=calib.digest())
+        source=calib.source, calibration=calib.digest(),
+        collective_flops_per_byte_by_axis=by_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +349,10 @@ def conv_norm_method(T: int, C: int, D: int, K: int, B: int, groups: int = 1,
 
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
-    """Per-tap decision + cost estimates (whole batch, one device)."""
+    """Per-tap decision + cost estimates, per device: with no mesh that is
+    the whole batch; on a mesh the batch-linear FLOPs and scratch are for
+    one device's batch shard, and ``coll_bytes`` is this device's share
+    of the collective traffic the chosen realization induces a step."""
 
     name: str
     kind: str
@@ -277,6 +364,11 @@ class LayerPlan:
     stash_bytes: float = 0.0  # size of the (B, *param) grads if stashed
     fallback_norm: str = ""   # best no-stash method (cumulative demotion)
     fused: bool = False       # stale mode: single-pass gram_norm_fused
+    param_bytes: float = 0.0  # parameter bytes (grad-sync unit, per shard)
+    coll_bytes: float = 0.0   # predicted collective bytes per step
+    ex_per_dev: float = 0.0   # examples on one device's batch shard
+    model_shards: int = 1     # tensor-parallel degree this layer splits over
+    coll_bytes_by_axis: tuple = ()  # (("data", bytes), ...) per mesh axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,7 +381,7 @@ class GroupPlan:
     sum_method: str                # stash | contrib | backward
 
 
-PLAN_FORMAT_VERSION = 3   # v3: the block-level "attn" realization
+PLAN_FORMAT_VERSION = 4   # v4: the mesh and the per-axis collective bytes
 
 _META_FIELDS = ("kind", "path", "param_key", "bias_key", "w_transposed",
                 "segmented", "scanned", "shared", "static")
@@ -337,7 +429,10 @@ class ExecPlan:
     tap_shapes: dict = dataclasses.field(default_factory=dict)
     capture_bytes: float = 0.0     # captures + outputs + cotangents
     fingerprint: str = ""
+    mesh: tuple = ()               # (("data", 8), ...) this plan targets
     batch_sig: tuple = ()          # batch shapes the plan was built on
+    total_coll_bytes: float = 0.0  # per-device collective bytes per step
+    total_coll_bytes_by_axis: tuple = ()  # (("data", bytes), ...)
     clip_mode: str = "flat"        # flat | per_layer | stale
     calibration: str = ""          # calibration digest ("" = analytic)
     _anchor: Any = None            # pins apply_fn identity while cached
@@ -362,10 +457,13 @@ class ExecPlan:
                    for g in self.groups if g.sum_method == "stash")
 
     def explain(self) -> str:
-        """Per-layer table of the chosen realizations and predicted costs."""
+        """Per-layer table of the chosen realizations and predicted costs
+        (per device; ``coll MB`` is the collective traffic the realization
+        induces on the plan's mesh)."""
         sums = self.sum_methods()
         header = (f"{'layer':<28} {'kind':<10} {'norm':<8} {'sum':<9} "
-                  f"{'norm MF':>9} {'sum MF':>9} {'stash MB':>9}")
+                  f"{'norm MF':>9} {'sum MF':>9} {'stash MB':>9} "
+                  f"{'coll MB':>9}")
         lines = [header, "-" * len(header)]
         for n, lp in self.layers.items():
             stash_mb = lp.stash_bytes / 2**20 if lp.stash else 0.0
@@ -373,7 +471,8 @@ class ExecPlan:
             lines.append(
                 f"{n:<28} {lp.kind:<10} {lp.norm_method:<8} "
                 f"{sum_m:<9} {lp.norm_flops / 1e6:>9.2f} "
-                f"{lp.contrib_flops / 1e6:>9.2f} {stash_mb:>9.2f}")
+                f"{lp.contrib_flops / 1e6:>9.2f} {stash_mb:>9.2f} "
+                f"{lp.coll_bytes / 2**20:>9.2f}")
         passes = ("2 fwd + 2 bwd (shared weighted backward)"
                   if self.needs_backward else "1 fwd + 1 bwd")
         n_fused = sum(lp.fused for lp in self.layers.values())
@@ -388,6 +487,14 @@ class ExecPlan:
             f"clipping mode: {self.clip_mode}"
             + (f" ({n_fused} fused single-pass norm+contrib layer"
                f"{'s' if n_fused != 1 else ''})" if n_fused else ""))
+        per_axis = ("; per axis: " + ", ".join(
+            f"{a}={b / 2**20:.2f} MB"
+            for a, b in self.total_coll_bytes_by_axis)
+            if self.total_coll_bytes_by_axis else "")
+        lines.append(
+            f"mesh: {format_mesh(self.mesh)}; predicted collectives "
+            f"{self.total_coll_bytes / 2**20:.2f} MB/step/device"
+            + per_axis)
         lines.append(
             f"cost constants: measured calibration {self.calibration}"
             if self.calibration else
@@ -404,14 +511,18 @@ class ExecPlan:
         return {
             "format": PLAN_FORMAT_VERSION,
             "fingerprint": self.fingerprint,
+            "mesh": _jsonable(self.mesh),
             "batch_sig": _jsonable(self.batch_sig),
             "clip_mode": self.clip_mode,
             "needs_backward": self.needs_backward,
             "total_norm_flops": self.total_norm_flops,
             "total_contrib_flops": self.total_contrib_flops,
+            "total_coll_bytes": self.total_coll_bytes,
+            "total_coll_bytes_by_axis":
+                _jsonable(self.total_coll_bytes_by_axis),
             "calibration": self.calibration,
             "capture_bytes": self.capture_bytes,
-            "layers": {n: dataclasses.asdict(lp)
+            "layers": {n: _jsonable(dataclasses.asdict(lp))
                        for n, lp in self.layers.items()},
             "groups": [{"path": list(g.path), "members": list(g.members),
                         "norm_mode": g.norm_mode,
@@ -431,7 +542,9 @@ class ExecPlan:
             raise ValueError(
                 f"unsupported plan format {p.get('format')!r} "
                 f"(this build reads {PLAN_FORMAT_VERSION})")
-        layers = {n: LayerPlan(**d) for n, d in p["layers"].items()}
+        layers = {n: LayerPlan(**{**d, "coll_bytes_by_axis": _retuple(
+                      d["coll_bytes_by_axis"])})
+                  for n, d in p["layers"].items()}
         groups = tuple(
             GroupPlan(tuple(g["path"]), tuple(g["members"]),
                       g["norm_mode"], g["sum_method"]) for g in p["groups"])
@@ -448,7 +561,11 @@ class ExecPlan:
                    tap_shapes=tap_shapes,
                    capture_bytes=p["capture_bytes"],
                    fingerprint=p["fingerprint"],
+                   mesh=_retuple(p["mesh"]),
                    batch_sig=_retuple(p["batch_sig"]),
+                   total_coll_bytes=p["total_coll_bytes"],
+                   total_coll_bytes_by_axis=_retuple(
+                       p["total_coll_bytes_by_axis"]),
                    clip_mode=p["clip_mode"],
                    calibration=p["calibration"])
 
@@ -479,18 +596,24 @@ def _tree_elems(tree) -> int:
 def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
                 *, norm_method: str, embed_method: str, conv_norm: str,
                 mem_budget: int, vocab: int | None = None,
-                params_sub=None, clip_mode: str = "flat",
+                params_sub=None, mesh: tuple = (), clip_mode: str = "flat",
                 clip_fused: bool = True,
                 cc: CostConstants = ANALYTIC_CONSTANTS) -> LayerPlan:
-    """Costs for one tap (whole batch, one device).  Stacked (scanned)
-    applications multiply the per-application cost; shared stacked dense
-    layers fold the stack into the sequence axis first (matching
-    kinds.apply_kind).
+    """Costs for one tap.  Stacked (scanned) applications multiply the
+    per-application cost; shared stacked dense layers fold the stack into
+    the sequence axis first (matching kinds.apply_kind).
 
     The auto choice minimizes the *joint* norm + sum cost: a norm that
     materializes per-example grads makes the sum phase a free (B,)-weighted
     reduction over the stash, so ``stream``/``pe`` is charged once while
-    ``gram``/``ghost`` is charged norm + contraction."""
+    ``gram``/``ghost`` is charged norm + contraction.
+
+    On a mesh every estimate is per device (batch-linear terms use the
+    per-device batch shard; the memory budget is one device's), and the
+    candidates also pay their collective traffic in FLOP-equivalents:
+    stash candidates put per-example grads on the wire, non-materializing
+    norms all-reduce ``B`` scalars, tensor-sharded layers psum partial
+    norms over the model axes."""
     if meta.kind not in ("dense", "conv", "embed", "scale", "attn",
                          "local_vjp"):
         raise ValueError(f"layer {name!r}: unknown kind {meta.kind!r}")
@@ -498,6 +621,33 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
     dy_shape = tuple(dy_sh.shape)
     stack = _prod(dy_shape[:k])
     app_dy = dy_shape[k:]
+    d = mesh_data_size(mesh)
+    daxes = mesh_data_axes(mesh)
+    maxes = mesh_model_axes(mesh)
+    msize = mesh_model_size(mesh)
+
+    def _shard(B: int) -> int:
+        return max(1, -(-int(B) // d))
+
+    def _data_wire(nbytes: float) -> float:
+        # Bytes crossing the data-parallel ring(s), each axis at its own
+        # price: a hierarchical all-reduce moves ring(s) bytes per axis.
+        return sum(cc.coll_price(a) * nbytes * _ring(s) for a, s in daxes)
+
+    def _model_wire(nbytes: float) -> float:
+        # Bytes psum'd over the model axes: the partial-norm reduction of
+        # tensor-sharded layers.
+        return sum(cc.coll_price(a) * nbytes * _ring(s) for a, s in maxes)
+
+    def _scal_cost(B: int, model_sharded: bool = False) -> float:
+        # The all-reduce of the (B,) f32 per-example norms.  Per-layer
+        # clipping drops the data-axis term (a layer's coefficient needs
+        # only its own norm, which lives with the example); a
+        # tensor-sharded layer still psums its partial norms over model.
+        w = 0.0 if clip_mode == "per_layer" else _data_wire(B * BYTES)
+        if model_sharded:
+            w += _model_wire(B * BYTES)
+        return w
 
     def _fused_credit(read_bytes: float, cand_flops: float) -> float:
         # Stale coefficients are known entering the pass, so the Gram
@@ -512,45 +662,62 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         return 0.0
 
     if meta.kind == "dense" and meta.segmented:
-        # One device: the reference's per-shard terms with a mesh of 1.
         x_shape = tuple(cap_sh["x"].shape)[k:]
         S, Di, Do = x_shape[-2], x_shape[-1], app_dy[-1]
         G = _prod(x_shape[:-2]) * stack
         B = meta.static["n_examples"]
+        Bl = _shard(B)
+        # Expert-sharded MoE layers place G/msh experts per model shard.
+        msh = msize if msize > 1 and G % msize == 0 else 1
+        Gl = G // msh
         m = (norm_method if norm_method not in ("auto", "pallas")
-             else seg_norm_method(S, Di, Do, B, G, mem_budget))
-        nf = G * S * S * (Di + Do + B) if m == "gram" else G * B * Di * Do
-        cf = 2.0 * G * S * Di * Do
+             else seg_norm_method(S, Di, Do, Bl, Gl, mem_budget))
+        nf = (Gl * S * S * (Di + Do + Bl) if m == "gram"
+              else Gl * Bl * Di * Do)
+        cf = 2.0 * Gl * S * Di * Do
         return LayerPlan(name, "seg_dense", m, False, nf, cf, cf,
-                         stash_bytes=B * G * Di * Do * BYTES)
+                         stash_bytes=Bl * Gl * Di * Do * BYTES,
+                         param_bytes=Gl * Di * Do * BYTES, ex_per_dev=Bl,
+                         model_shards=msh)
 
     if meta.kind == "dense":
         x_shape = tuple(cap_sh["x"].shape)[k:]
         B, Di, Do = x_shape[0], x_shape[-1], app_dy[-1]
+        Bl = _shard(B)
         T = _prod(x_shape[1:-1])
         mult = stack
         if meta.shared and k:
             T, mult = T * stack, 1        # folded into the sequence axis
-        cf = 2.0 * B * T * Di * Do * mult
+        # Tensor sharding over the model axes splits the output width:
+        # each device contracts its Do/msh slice, the per-example norm is
+        # the model-axis psum of the partial Grams.
+        msh = msize if msize > 1 and Do % msize == 0 else 1
+        Dol = Do // msh
+        cf = 2.0 * Bl * T * Di * Dol * mult
+        pbytes = Di * Dol * BYTES * mult
         # Stashing keeps (B, *stack, Di, Do) alive until the sum phase;
         # the un-stashed stream norm reduces one stacked layer at a time,
         # so it needs one layer's scratch but pays the contraction again.
-        mem_stash = B * Di * Do * BYTES * mult
-        mem_layer = B * Di * Do * BYTES
+        mem_stash = Bl * Di * Dol * BYTES * mult
+        mem_layer = Bl * Di * Dol * BYTES
         stash = False
         fallback = norm_method
         if norm_method == "auto":
             if T == 1:
                 m = fallback = "rank1"
             else:
-                per_ex = B * mult
-                gram_flops = (2.0 * T * T * (Di + Do)
-                              + 2.0 * T * Di * Do) * per_ex
-                gram_total = gram_flops - _fused_credit(
-                    T * (Di + Do) * BYTES * per_ex, gram_flops)
-                stream_stash = 4.0 * T * Di * Do * per_ex
-                stream_again = (4.0 * T * Di * Do
-                                + 2.0 * T * Di * Do) * per_ex
+                per_ex = Bl * mult
+                gram_flops = (2.0 * T * T * (Di + Dol)
+                              + 2.0 * T * Di * Dol) * per_ex
+                gram_total = (gram_flops + _scal_cost(B, msh > 1)
+                              - _fused_credit(
+                                  T * (Di + Dol) * BYTES * per_ex,
+                                  gram_flops))
+                stream_stash = (4.0 * T * Di * Dol * per_ex
+                                + _data_wire(mem_stash))
+                stream_again = (4.0 * T * Di * Dol
+                                + 2.0 * T * Di * Dol) * per_ex \
+                    + _scal_cost(B, msh > 1)
                 fallback = ("stream" if stream_again < gram_total
                             and mem_layer <= mem_budget else "gram")
                 if stream_stash < gram_total and mem_stash <= mem_budget:
@@ -562,35 +729,47 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
             stash = m == "stream" and mem_stash <= mem_budget
         if m == "rank1" and T != 1:
             m = fallback = "gram"
-        nf = {"gram": 2.0 * T * T * (Di + Do),
-              "pallas": 2.0 * T * T * (Di + Do),
-              "stream": 4.0 * T * Di * Do,
-              "rank1": 2.0 * T * (Di + Do)}[m] * B * mult
+        nf = {"gram": 2.0 * T * T * (Di + Dol),
+              "pallas": 2.0 * T * T * (Di + Dol),
+              "stream": 4.0 * T * Di * Dol,
+              "rank1": 2.0 * T * (Di + Dol)}[m] * Bl * mult
         return LayerPlan(name, "dense", m, stash, nf, cf, cf,
-                         stash_bytes=mem_stash, fallback_norm=fallback)
+                         stash_bytes=mem_stash, fallback_norm=fallback,
+                         param_bytes=pbytes, ex_per_dev=Bl,
+                         model_shards=msh)
 
     if meta.kind == "conv":
         st = meta.static
         x_shape = tuple(cap_sh["x"].shape)[k:]
         B, C = x_shape[0], x_shape[1]
+        Bl = _shard(B)
         D = app_dy[1]
         T = _prod(app_dy[2:])
         K = _prod(st["kernel_shape"][2:])
         g = max(st.get("groups", 1), 1)
         F, Dg = (C // g) * K, D // g
-        cf = 2.0 * B * T * F * Dg * g * stack
-        mem_stash = B * D * (C // g) * K * BYTES * stack
-        mem_layer = B * D * (C // g) * K * BYTES
+        # Tensor sharding splits the output channels: each model shard
+        # owns Dg/msh filters a group and psums its partial norms.
+        msh = msize if msize > 1 and Dg % msize == 0 else 1
+        Dgl = Dg // msh
+        cf = 2.0 * Bl * T * F * Dgl * g * stack
+        pbytes = (D // msh) * (C // g) * K * BYTES * stack
+        mem_stash = Bl * (D // msh) * (C // g) * K * BYTES * stack
+        mem_layer = Bl * (D // msh) * (C // g) * K * BYTES
         stash = False
         fallback = conv_norm
         if conv_norm == "auto":
-            per_ex = B * stack
-            ghost_flops = (2.0 * T * T * (F + Dg)
-                           + 2.0 * T * F * Dg) * g * per_ex
-            ghost_total = ghost_flops - _fused_credit(
-                T * (F + Dg) * g * BYTES * per_ex, ghost_flops)
-            pe_stash = 4.0 * T * F * Dg * g * per_ex
-            pe_again = (4.0 * T * F * Dg + 2.0 * T * F * Dg) * g * per_ex
+            per_ex = Bl * stack
+            ghost_flops = (2.0 * T * T * (F + Dgl)
+                           + 2.0 * T * F * Dgl) * g * per_ex
+            ghost_total = (ghost_flops + _scal_cost(B, msh > 1)
+                           - _fused_credit(
+                               T * (F + Dgl) * g * BYTES * per_ex,
+                               ghost_flops))
+            pe_stash = (4.0 * T * F * Dgl * g * per_ex
+                        + _data_wire(mem_stash))
+            pe_again = ((4.0 * T * F * Dgl + 2.0 * T * F * Dgl) * g * per_ex
+                        + _scal_cost(B, msh > 1))
             fallback = ("pe" if pe_again < ghost_total
                         and mem_layer <= mem_budget else "ghost")
             if pe_stash < ghost_total and mem_stash <= mem_budget:
@@ -600,29 +779,52 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         else:
             m = conv_norm
             stash = m == "pe" and mem_stash <= mem_budget
-        nf = (2.0 * B * T * T * (F + Dg) * g if m == "ghost"
-              else 4.0 * B * T * F * Dg * g) * stack
+        nf = (2.0 * Bl * T * T * (F + Dgl) * g if m == "ghost"
+              else 4.0 * Bl * T * F * Dgl * g) * stack
         return LayerPlan(name, "conv", m, stash, nf, cf, cf,
-                         stash_bytes=mem_stash, fallback_norm=fallback)
+                         stash_bytes=mem_stash, fallback_norm=fallback,
+                         param_bytes=pbytes, ex_per_dev=Bl,
+                         model_shards=msh)
 
     if meta.kind == "embed":
         ids_shape = tuple(cap_sh["ids"].shape)[k:]
         B = ids_shape[0]
+        Bl = _shard(B)
         T = _prod(ids_shape[1:])
         D = app_dy[-1]
         V = vocab or T
-        stash_bytes = B * V * D * BYTES * stack
+        # A vocab-sharded table keeps V/msh rows a model shard; its
+        # partial norms psum over the model axes.
+        msh = msize if msize > 1 and V % msize == 0 else 1
+        Vl = V // msh
+        pbytes = Vl * D * BYTES * stack
+        stash_bytes = Bl * Vl * D * BYTES * stack
         seg_f = (T * max(math.log2(max(T, 2)), 1.0) + 2.0 * T * D)
-        # stack multiplies the stashed (B, V, D) scratch for the budget
-        m = (embed_method if embed_method != "auto"
-             else embed_norm_method(T, D, B * stack, vocab))
-        nf = {"gram": 2.0 * B * T * T * D,
-              "pe": B * (T * D + V * D),
-              "segsum": B * seg_f}[m] * stack
-        cf = 2.0 * B * T * D * stack
+        if embed_method != "auto":
+            m = embed_method
+        elif not mesh:
+            # stack multiplies the stashed (B, V, D) scratch for the budget
+            m = embed_norm_method(T, D, B * stack, vocab)
+        else:
+            # On a mesh the stash's ring traffic competes with the scalar
+            # all-reduce of the ghost realizations.
+            costs = {"pe": Bl * (T * D + Vl * D) * stack
+                     + _data_wire(stash_bytes),
+                     "gram": 2.0 * Bl * T * T * D * stack
+                     + _scal_cost(B, msh > 1),
+                     "segsum": Bl * seg_f * stack + _scal_cost(B, msh > 1)}
+            m = min(costs, key=costs.get)
+            if m == "pe" and stash_bytes > EMBED_PE_BUDGET:
+                m = "gram" if T <= 32 else "segsum"
+        nf = {"gram": 2.0 * Bl * T * T * D,
+              "pe": Bl * (T * D + Vl * D),
+              "segsum": Bl * seg_f}[m] * stack
+        cf = 2.0 * Bl * T * D * stack
         fb = m if m != "pe" else ("gram" if T <= 32 else "segsum")
         return LayerPlan(name, "embed", m, m == "pe", nf, cf, cf,
-                         stash_bytes=stash_bytes, fallback_norm=fb)
+                         stash_bytes=stash_bytes, fallback_norm=fb,
+                         param_bytes=pbytes, ex_per_dev=Bl,
+                         model_shards=msh)
 
     if meta.kind == "attn":
         # The norm phase recomputes the block forward + backward once
@@ -633,18 +835,19 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         # weighted reduction over the stash.
         x_shape = tuple(cap_sh["x"].shape)[k:]
         B = x_shape[0]
+        Bl = _shard(B)
         T = _prod(x_shape[1:-1])
         proj = tuple(meta.static["proj_dims"])
         qk = meta.static.get("qk_flops", 0)
-        per_ex = B * stack
+        per_ex = Bl * stack
         proj_flops = sum(2.0 * T * Di * Do for Di, Do in proj)
         recompute = 3.0 * (proj_flops + 4.0 * T * T * qk) * per_ex
         gram = sum(2.0 * T * T * (Di + Do) for Di, Do in proj) * per_ex
         outer = 2.0 * proj_flops * per_ex
         psize = sum(Di * Do for Di, Do in proj)
-        mem_stash = B * psize * BYTES * stack
-        ghost_total = recompute + gram
-        pe_stash = recompute + outer
+        mem_stash = Bl * psize * BYTES * stack
+        ghost_total = recompute + gram + _scal_cost(B)
+        pe_stash = recompute + outer + _data_wire(mem_stash)
         m = norm_method if norm_method in ("ghost", "pe") else "auto"
         stash = False
         if m == "auto":
@@ -657,10 +860,12 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         nf = recompute + (outer if m == "pe" else gram)
         cf = recompute + proj_flops * per_ex
         return LayerPlan(name, "attn", m, stash, nf, cf, proj_flops * per_ex,
-                         stash_bytes=mem_stash, fallback_norm="ghost")
+                         stash_bytes=mem_stash, fallback_norm="ghost",
+                         param_bytes=psize * BYTES * stack, ex_per_dev=Bl)
 
     B = app_dy[0] if app_dy else 1
-    n = 2.0 * B * (_prod(app_dy) // max(B, 1)) * stack
+    Bl = _shard(B)
+    n = 2.0 * Bl * (_prod(app_dy) // max(B, 1)) * stack
     if meta.kind == "local_vjp":
         # The norm phase materializes the per-example grads and stashes
         # them when the (B, *param) scratch fits the budget, making the
@@ -668,15 +873,19 @@ def _plan_layer(name: str, meta: LayerMeta, cap_sh: dict, dy_sh,
         # params_sub at meta.path carries the stacked axes in its leaf
         # shapes for scanned layers, so B * elems is the whole stash.
         psize = _tree_elems(params_sub) if params_sub is not None else 0
-        stash_mem = B * psize * BYTES
+        stash_mem = Bl * psize * BYTES
         return LayerPlan(name, "local_vjp", "pe",
                          psize == 0 or stash_mem <= mem_budget, n,
                          LOCAL_VJP_CONTRIB_PENALTY * n, n,
-                         stash_bytes=stash_mem)
+                         stash_bytes=stash_mem, param_bytes=psize * BYTES,
+                         ex_per_dev=Bl)
     # scale: per-example grads are (B, d): materialize and stash
     return LayerPlan(name, "scale", "pe", True, n, n, n,
-                     stash_bytes=(B * app_dy[-1] * BYTES * stack
-                                  if app_dy else 0.0))
+                     stash_bytes=(Bl * app_dy[-1] * BYTES * stack
+                                  if app_dy else 0.0),
+                     param_bytes=(app_dy[-1] * BYTES * stack
+                                  if app_dy else 0.0),
+                     ex_per_dev=Bl)
 
 
 def _vocab_of(meta: LayerMeta, params) -> int | None:
@@ -734,11 +943,13 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
                    params=None, *, norm_method: str = "auto",
                    embed_method: str = "auto", conv_norm: str = "auto",
                    mem_budget: int = STREAM_MEM_BUDGET,
-                   overrides=None, clip_mode: str = "flat",
+                   overrides=None, mesh=None, clip_mode: str = "flat",
                    clip_fused: bool = True, calibration=None) -> ExecPlan:
     """Build the per-layer plan from probed shapes (``params``: the tree
     or its specs, read for the embedding tables' vocabulary sizes),
     priced under ``calibration`` (see :func:`resolve_cost_constants`).
+    ``mesh`` (anything :func:`mesh_axes` takes) makes every estimate per
+    device and charges candidates their collective bytes.
 
     Fixed ``norm_method`` / ``embed_method`` / ``conv_norm`` override the
     analytic choice uniformly (the planner still fills in cost estimates);
@@ -754,7 +965,9 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
     single-pass ``gram_norm_fused`` norm+contrib.
     """
     overrides = normalize_overrides(overrides)
-    cc = resolve_cost_constants(calibration)
+    ms = mesh_axes(mesh)
+    d = mesh_data_size(ms)
+    cc = resolve_cost_constants(calibration, ms)
     layers: dict[str, LayerPlan] = {}
     by_path: dict[tuple, list] = {}
     for name, meta in metas.items():
@@ -770,8 +983,8 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
             norm_method=ov or norm_method, embed_method=ov or embed_method,
             conv_norm=ov or conv_norm, mem_budget=mem_budget,
             vocab=_vocab_of(meta, params) if meta.kind == "embed" else None,
-            params_sub=psub, clip_mode=clip_mode, clip_fused=clip_fused,
-            cc=cc)
+            params_sub=psub, mesh=ms, clip_mode=clip_mode,
+            clip_fused=clip_fused, cc=cc)
         by_path.setdefault(meta.path, []).append(name)
 
     total_wgrad = sum(lp.wgrad_flops for lp in layers.values())
@@ -779,8 +992,14 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
     # AND computes every parameter's wgrad — including those of groups
     # that keep their stash/contraction, whose share is pure waste.  So
     # switching the candidate set to the backward only pays off when the
-    # contractions it replaces exceed fixed + total_wgrad.
-    backward_cost = (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad
+    # contractions it replaces exceed fixed + total_wgrad.  On a mesh it
+    # also all-reduces the whole gradient a second time, sized by the
+    # *unique* parameters (taps sharing a path sync one gradient).
+    unique_pbytes = sum(max(layers[n].param_bytes for n in names)
+                        for names in by_path.values())
+    backward_cost = (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad \
+        + sum(cc.coll_price(a) * _ring(s) * unique_pbytes
+              for a, s in mesh_data_axes(ms))
 
     groups: list[GroupPlan] = []
     for path, names in sorted(by_path.items()):
@@ -859,12 +1078,48 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
                         and lp.norm_method in ("ghost", "pallas")):
                 layers[name] = dataclasses.replace(lp, fused=True)
 
+    # The collective bytes of the *chosen* realization, per mesh axis.
+    # Data axes carry the norm phase (the stash, or the all-reduce of the
+    # global (B,) norms) plus this layer's share of its group's gradient
+    # sync: one sync a parameter, split over the taps sharing it, doubled
+    # for weighted-backward groups.  Model axes carry the partial-norm
+    # psum of tensor-sharded layers.
+    if ms:
+        for g in groups:
+            group_pb = max(layers[n].param_bytes for n in g.members)
+            sync_each = group_pb \
+                * (2.0 if g.sum_method == "backward" else 1.0) \
+                / len(g.members)
+            for name in g.members:
+                lp = layers[name]
+                norm_bytes = (lp.stash_bytes if lp.stash
+                              else lp.ex_per_dev * d * BYTES)
+                by_axis = []
+                for a, size in ms:
+                    r = _ring(size)
+                    if a in DATA_AXIS_NAMES:
+                        b = (norm_bytes + sync_each) * r
+                    else:
+                        b = (lp.ex_per_dev * d * BYTES * r
+                             if lp.model_shards > 1 else 0.0)
+                    if b > 0.0:
+                        by_axis.append((a, b))
+                layers[name] = dataclasses.replace(
+                    lp, coll_bytes=sum(b for _, b in by_axis),
+                    coll_bytes_by_axis=tuple(by_axis))
+
     capture_bytes = 0.0
     for name in metas:
         for spec in cap_shapes[name].values():
             capture_bytes += (sum(map(_nbytes, spec)) if is_multi(spec)
                               else _nbytes(spec))
         capture_bytes += 2.0 * _nbytes(tap_shapes[name])  # output + cotangent
+    capture_bytes /= d   # captures are batch-sharded: one device's share
+
+    axis_totals: dict[str, float] = {}
+    for lp in layers.values():
+        for a, b in lp.coll_bytes_by_axis:
+            axis_totals[a] = axis_totals.get(a, 0.0) + b
 
     return ExecPlan(
         groups=tuple(groups), layers=layers, metas=metas,
@@ -872,7 +1127,10 @@ def plan_execution(metas: dict, cap_shapes: dict, tap_shapes: dict,
         total_norm_flops=sum(lp.norm_flops for lp in layers.values()),
         total_contrib_flops=sum(lp.contrib_flops for lp in layers.values()),
         tap_shapes=dict(tap_shapes), capture_bytes=capture_bytes,
-        clip_mode=clip_mode, calibration=cc.calibration)
+        mesh=ms, clip_mode=clip_mode, calibration=cc.calibration,
+        total_coll_bytes=sum(lp.coll_bytes for lp in layers.values()),
+        total_coll_bytes_by_axis=tuple(
+            (a, axis_totals[a]) for a, _ in ms if a in axis_totals))
 
 
 # ---------------------------------------------------------------------------
@@ -940,13 +1198,13 @@ def _sig_summary(sig) -> str:
 
 
 def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
-                       batch_sig=None, clip_mode: str | None = None,
+                       mesh=None, batch_sig=None, clip_mode: str | None = None,
                        calibration=None):
     """Validate a deserialized/injected plan against the live context,
-    naming the offending field — calibration, clipping mode, batch shape
-    or fingerprint — so a stale plan fails loudly instead of executing a
-    stale layout.  ``calibration`` is a Calibration or its digest ("" asserts
-    the analytic constants)."""
+    naming the offending field — calibration, clipping mode, mesh shape,
+    batch shape or fingerprint — so a stale plan fails loudly instead of
+    executing a stale layout.  ``calibration`` is a Calibration or its
+    digest ("" asserts the analytic constants)."""
     if calibration is not None:
         want = (calibration if isinstance(calibration, str)
                 else calibration.digest())
@@ -965,6 +1223,14 @@ def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
             f"{plan.fingerprint or '<unfingerprinted>'} was built for "
             f"clipping mode {plan.clip_mode!r}, this process clips "
             f"{clip_mode!r}; re-plan for this policy")
+    if mesh is not None:
+        ms = mesh_axes(mesh)
+        if tuple(plan.mesh) != ms:
+            raise ValueError(
+                f"stale ExecPlan: mesh shape mismatch — plan "
+                f"{plan.fingerprint or '<unfingerprinted>'} was built for "
+                f"mesh {format_mesh(tuple(plan.mesh))}, this process runs "
+                f"{format_mesh(ms)}; re-plan for this topology")
     if batch_sig is not None and plan.batch_sig \
             and tuple(plan.batch_sig) != tuple(batch_sig):
         raise ValueError(
@@ -980,11 +1246,13 @@ def check_plan_matches(plan: ExecPlan, *, fingerprint: str | None = None,
 
 
 def _opts_tuple(norm_method, embed_method, conv_norm, mem_budget, overrides,
-                clip_mode="flat", clip_fused=True, calib=None) -> tuple:
-    """The planner knobs as a hashable tuple, ending with the digest of
-    the (resolved) calibration the plan is priced under ("" analytic)."""
+                mesh=(), clip_mode="flat", clip_fused=True,
+                calib=None) -> tuple:
+    """The planner knobs as a hashable tuple: the normalized mesh at
+    index 5, ending with the digest of the (resolved) calibration the
+    plan is priced under ("" analytic)."""
     return (norm_method, embed_method, conv_norm, mem_budget,
-            normalize_overrides(overrides),
+            normalize_overrides(overrides), mesh_axes(mesh),
             (str(clip_mode), bool(clip_fused)),
             "" if calib is None else calib.digest())
 
@@ -996,12 +1264,12 @@ def plan_fingerprint(apply_fn, params, batch, *, norm_method: str = "auto",
                      mesh=None, calibration=None) -> str:
     """The fingerprint :func:`get_plan` would key this request on — same
     knob normalization, no probe."""
-    _single_device(mesh)
+    ms = mesh_axes(mesh)
     return model_fingerprint(
         apply_fn, params, batch,
         _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
-                    overrides, clip_mode, clip_fused,
-                    _resolve_calibration(calibration)))
+                    overrides, ms, clip_mode, clip_fused,
+                    _resolve_calibration(calibration, ms)))
 
 
 def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
@@ -1018,11 +1286,13 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     lifetime, so a recycled id can never alias a different model.
     ``calibration`` (explicit, or the registered one) keys the cache and
     the fingerprint by its digest, so a plan priced under other constants
-    is never handed back."""
-    _single_device(mesh)
-    calib = _resolve_calibration(calibration)
+    is never handed back.  ``mesh`` keys both too: a store that holds
+    this request's plan for *another* topology raises (naming the mesh)
+    instead of re-planning over a stale layout."""
+    ms = mesh_axes(mesh)
+    calib = _resolve_calibration(calibration, ms)
     opts = _opts_tuple(norm_method, embed_method, conv_norm, mem_budget,
-                       overrides, clip_mode, clip_fused, calib)
+                       overrides, ms, clip_mode, clip_fused, calib)
     key = (_fn_ident(apply_fn), _shape_sig(batch), _shape_sig(params), opts)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -1031,16 +1301,29 @@ def get_plan(apply_fn, params, batch, *, norm_method: str = "auto",
     fp = model_fingerprint(apply_fn, params, batch, opts)
     plan = _PLAN_STORE.get(fp)
     if plan is None:
+        sig = _shape_sig(batch)
+        for cand in _PLAN_STORE.values():
+            if tuple(cand.batch_sig) != sig or tuple(cand.mesh) == ms:
+                continue
+            # Only this request's own plan on another topology blocks
+            # planning: re-key the request under the candidate's mesh, so
+            # an unrelated model sharing the batch shape never trips it.
+            cand_opts = _opts_tuple(
+                norm_method, embed_method, conv_norm, mem_budget, overrides,
+                tuple(cand.mesh), clip_mode, clip_fused,
+                _resolve_calibration(calibration, tuple(cand.mesh)))
+            if cand.fingerprint == model_fingerprint(apply_fn, params,
+                                                     batch, cand_opts):
+                check_plan_matches(cand, mesh=ms)
         metas, tap_shapes, cap_shapes = probe(apply_fn, params, batch,
                                               return_captures=True)
         plan = plan_execution(
             metas, cap_shapes, tap_shapes, params, norm_method=norm_method,
             embed_method=embed_method, conv_norm=conv_norm,
-            mem_budget=mem_budget, overrides=opts[4], clip_mode=clip_mode,
-            clip_fused=clip_fused,
+            mem_budget=mem_budget, overrides=opts[4], mesh=ms,
+            clip_mode=clip_mode, clip_fused=clip_fused,
             calibration="analytic" if calib is None else calib)
-        plan = dataclasses.replace(plan, fingerprint=fp,
-                                   batch_sig=_shape_sig(batch))
+        plan = dataclasses.replace(plan, fingerprint=fp, batch_sig=sig)
     object.__setattr__(plan, "_anchor", getattr(apply_fn, "__self__",
                                                 apply_fn))
     _PLAN_CACHE[key] = plan
@@ -1141,21 +1424,31 @@ def auto_microbatches(plan: ExecPlan, batch_size: int,
 # converted to seconds through the calibrated (or analytic) rate.
 
 
-def predicted_step_flops(plan: ExecPlan) -> float:
-    """FLOP-equivalents of one private step under this plan: forward +
-    backward (≈ 2 wgrad shares) + wgrad + the plan's norm and contraction
-    phases + the weighted second backward when taken.  One device moves
-    no collective bytes."""
+def predicted_step_flops(plan: ExecPlan,
+                         cc: CostConstants | None = None) -> float:
+    """Per-device FLOP-equivalents of one private step under this plan:
+    forward + backward (≈ 2 wgrad shares) + wgrad + the plan's norm and
+    contraction phases + the weighted second backward when taken + the
+    wire price of the predicted collective bytes, each axis at its own
+    price."""
+    cc = cc or ANALYTIC_CONSTANTS
     total_wgrad = sum(lp.wgrad_flops for lp in plan.layers.values())
     flops = 3.0 * total_wgrad \
         + plan.total_norm_flops + plan.total_contrib_flops
     if plan.needs_backward:
         flops += (BACKWARD_FIXED_FACTOR + 1.0) * total_wgrad
+    if plan.total_coll_bytes_by_axis:
+        flops += sum(cc.coll_price(a) * b
+                     for a, b in plan.total_coll_bytes_by_axis)
+    else:
+        flops += cc.collective_flops_per_byte * plan.total_coll_bytes
     return flops
 
 
 def predicted_step_seconds(plan: ExecPlan, calibration=None) -> float:
-    """Predicted wall-clock of one step: :func:`predicted_step_flops` over
-    the (calibrated or analytic) FLOP rate."""
-    cc = resolve_cost_constants(calibration)
-    return predicted_step_flops(plan) / cc.flops_per_second
+    """Predicted wall-clock of one step: :func:`predicted_step_flops`
+    under the plan's cost constants (its mesh's calibration), over the
+    (calibrated or analytic) FLOP rate."""
+    cc = resolve_cost_constants(calibration, plan.mesh)
+    return predicted_step_flops(plan, cc) / cc.flops_per_second
+

@@ -1,4 +1,4 @@
-"""PrivacyEngine: the plan-first DP-SGD public surface on one device.
+"""PrivacyEngine: the plan-first DP-SGD public surface.
 
 Make-private-once, step-many: construct the engine once from the model's
 ``apply_fn``, the params, an example batch and a :class:`DPConfig`; the
@@ -27,8 +27,21 @@ reads them back).  Plans are priced under the engine's calibration
 (measured constants of its device, :mod:`repro_torch.calibrate`) or the
 analytic table; :meth:`observe_step_time` feeds measured step times to
 the mispredict loop, which retimes the calibration and re-plans when the
-prediction is off.  Meshes come with ROADMAP.md item 14 and raise
-``NotImplementedError``.
+prediction is off.
+
+Data-parallel execution: ``mesh=`` a live pure-data ``DeviceMesh`` (one
+rank a device, :mod:`repro_torch.launch.mesh`) plans with the mesh-keyed
+plan (per-device costs, collective bytes, the mesh in the fingerprint),
+and each rank's ``private_step`` takes its contiguous slice of the
+global batch, clips it, all-reduces the clipped sum once a leaf over the
+data group, adds the one noise draw every rank shares after that sum,
+and divides by the global batch (:func:`repro_torch.core.clipping.
+dp_gradient`).  The replicas stay bitwise equal; the step equals the
+single-device step up to the order of the sum.  No
+``DistributedDataParallel``: it all-reduces the unclipped gradient, in
+an order that is not fixed.  A mesh *spec* (``"data:8"``) plans only.  A
+live mesh with a model axis raises ``NotImplementedError`` (ROADMAP.md
+item 14 part 2).
 
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
@@ -44,8 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel
-from repro_torch.core.clipping import (DPConfig, dp_gradient,
-                                       resolve_budgets, resolve_microbatches)
+from repro_torch.core.clipping import (DataShard, DPConfig, dp_gradient,
+                                       gather_examples, resolve_budgets,
+                                       resolve_microbatches)
 from repro_torch.core.privacy import PrivacyAccountant, clipping_sensitivity
 from repro_torch.core.tapper import TensorSpec, spec_of
 from repro_torch.device import resolve_device
@@ -117,10 +131,17 @@ class PrivacyEngine:
                   the model, shapes, clipping mode, planner knobs and
                   calibration; validated up front with named-field errors
                   and again at execution).
-      mesh:       not served yet (raises; ROADMAP.md item 14).
+      mesh:       a live ``DeviceMesh`` of data axes: plans become
+                  mesh-aware and ``private_step`` runs this rank's slice
+                  of the global batch (module docstring); ``batch_spec``
+                  is the *global* batch, whose size the data degree must
+                  divide.  A mesh spec (``"data:8"``, an axes mapping)
+                  plans for that topology without running it.
       calibration: measured cost constants for planning.  ``None`` takes
-                  the calibration registered for the engine's device, if
-                  any; ``"analytic"`` plans from the analytic constants;
+                  the calibration registered for the engine's device and
+                  mesh, if any (a pure-data mesh otherwise keeps the
+                  analytic constants); ``"analytic"`` plans from the
+                  analytic constants;
                   a :class:`repro_torch.calibrate.Calibration` is
                   validated strictly against the device (named errors on
                   mismatch); a path loads a stored blob *softly* (an
@@ -148,12 +169,12 @@ class PrivacyEngine:
                  run_seed: int | None = None, device="cuda"):
         self.device = resolve_device(device)
         self.dp = dp if dp is not None else DPConfig()
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded execution comes with ROADMAP.md item 14")
         self.apply_fn = apply_fn
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
+        self._mesh_axes = costmodel.mesh_axes(mesh)
+        live = getattr(mesh, "mesh_dim_names", None) is not None
+        self._shard = self._data_shard(mesh) if live else None
         self._update_fn = _resolve_optimizer(optimizer)
         self._optimizer_name = optimizer if isinstance(optimizer, str) \
             else None
@@ -176,7 +197,7 @@ class PrivacyEngine:
             # fingerprint).
             costmodel.check_plan_matches(
                 plan, batch_sig=costmodel._shape_sig(self._batch_spec),
-                fingerprint=self.fingerprint(),
+                fingerprint=self.fingerprint(), mesh=self._mesh_axes,
                 clip_mode=self.dp.clipping.mode,
                 calibration=self._calibration or "")
         self._plan = plan
@@ -188,6 +209,40 @@ class PrivacyEngine:
         self._budgets = None
         self._budget_q = None
 
+    # -- the mesh ------------------------------------------------------------
+
+    def _data_shard(self, mesh) -> DataShard | None:
+        """This rank's :class:`DataShard` of a live mesh; a model axis
+        raises, and so does a global batch the data degree does not
+        divide."""
+        axes = self._mesh_axes
+        if costmodel.mesh_model_axes(axes):
+            raise NotImplementedError(
+                f"a live mesh with model axes "
+                f"({costmodel.format_mesh(axes)}): tensor-sharded "
+                f"execution is ROADMAP.md item 14 part 2; this engine runs "
+                f"pure-data meshes")
+        d = costmodel.mesh_data_size(axes)
+        for k, leaf in self._batch_spec.items():
+            if leaf.shape and leaf.shape[0] % d:
+                raise ValueError(
+                    f"batch leaf {k!r} leading dim {leaf.shape[0]} is not "
+                    f"divisible by the mesh's data-parallel degree {d} "
+                    f"({costmodel.format_mesh(axes)})")
+        if d == 1:
+            return None
+        dims = [i for i, n in enumerate(tuple(mesh.shape)) if n > 1]
+        if len(dims) == 1:
+            return DataShard(mesh.get_group(dims[0]),
+                             mesh.get_local_rank(dims[0]), d)
+        flat = mesh._flatten()
+        return DataShard(flat.get_group(), flat.get_local_rank(), d)
+
+    @property
+    def mesh_axes(self) -> tuple:
+        """The normalized mesh the engine plans for (``()``: none)."""
+        return self._mesh_axes
+
     # -- planning ------------------------------------------------------------
 
     def _resolve_calibration_arg(self, calibration):
@@ -195,18 +250,20 @@ class PrivacyEngine:
         from repro_torch import calibrate
         if calibration == "analytic":
             return None
+        axes = self._mesh_axes
         if calibration is None:
-            calib = calibrate.lookup(self.device)
+            calib = calibrate.lookup(self.device, mesh=axes)
         elif isinstance(calibration, calibrate.Calibration):
             calibration.validate_for(
-                calibrate.hardware_signature(self.device))
+                calibrate.hardware_signature(self.device), axes)
             calib = calibration
         elif calibration == "measure":
             calib = calibrate.get_or_measure(
-                quick=self.device.type != "cuda", device=self.device)
+                axes, quick=self.device.type != "cuda", device=self.device,
+                group=None if self._shard is None else self._shard.group)
         else:
             calib = calibrate.load_or_fallback(str(calibration),
-                                               device=self.device)
+                                               device=self.device, mesh=axes)
         return None if calib is None else calibrate.register(calib)
 
     @property
@@ -216,18 +273,22 @@ class PrivacyEngine:
         return self._calibration
 
     def _planner_opts(self) -> dict:
-        return dict(self.dp.planner_opts(),
+        return dict(self.dp.planner_opts(), mesh=self._mesh_axes,
                     calibration=self._calibration or "analytic")
 
-    def fingerprint(self, calibration=None) -> str:
+    def fingerprint(self, calibration=None, mesh=None) -> str:
         """The plan fingerprint for this engine's (model, shapes, config,
-        calibration); ``calibration=`` re-keys it under other constants
-        (``"analytic"``: what identifies the mechanism alone, which a
-        checkpoint pins, since a re-plan re-prices without changing what
-        a step computes)."""
+        mesh, calibration); ``calibration=`` re-keys it under other
+        constants (``"analytic"``: what identifies the mechanism alone,
+        which a checkpoint pins, since a re-plan re-prices without
+        changing what a step computes), ``mesh=`` under another topology
+        (the elastic-resume check: "the same run on another mesh", not
+        "another model or planner config")."""
         opts = self._planner_opts()
         if calibration is not None:
             opts["calibration"] = calibration
+        if mesh is not None:
+            opts["mesh"] = costmodel.mesh_axes(mesh)
         return costmodel.plan_fingerprint(
             self.apply_fn, self._params_spec, self._batch_spec, **opts)
 
@@ -280,8 +341,10 @@ class PrivacyEngine:
         from repro_torch import calibrate
         old = self._calibration
         old_plan = self.plan()
-        new = calibrate.register(old.retimed(predicted_s=predicted_s,
-                                             measured_s=measured_s))
+        new = calibrate.register(old.retimed(
+            predicted_s=predicted_s, measured_s=measured_s,
+            coll_bytes=old_plan.total_coll_bytes,
+            coll_bytes_by_axis=old_plan.total_coll_bytes_by_axis))
         self._calibration = new
         self._plan = None
         self._step_ema = None
@@ -338,7 +401,9 @@ class PrivacyEngine:
                      if clip.mode == "per_layer" else "")
                   + f" microbatches={self.microbatches()}"
                   + ("" if self.dp.microbatches != "auto" else " (auto)")
-                  + f" device={self.device}")
+                  + f" device={self.device}"
+                  + (f" mesh={costmodel.format_mesh(self._mesh_axes)}"
+                     if self._mesh_axes else ""))
         cal = self._explain_calibration()
         if self.dp.strategy != "auto":
             return (header + f"\nfixed strategy {self.dp.strategy!r}: the "
@@ -420,8 +485,9 @@ class PrivacyEngine:
         """(mean loss, noised clipped mean gradient, aux).  Cross-step
         clipping state (stale norms, auto budgets) is threaded exactly as
         in ``private_step``."""
-        out = self._grad_fn()(params, batch, self._check_key(key, step),
-                              self._clip_state(), denom)
+        out = self._grad_fn(self._shard)(
+            params, batch, self._check_key(key, step), self._clip_state(),
+            denom)
         self._absorb_clip_aux(out[2])
         return out
 
@@ -437,7 +503,13 @@ class PrivacyEngine:
         released."""
         out = {}
         if self._prev_norms_sq is not None:
-            out["prev_norms_sq"] = self._prev_norms_sq.cpu().numpy()
+            # On a mesh each rank holds its examples' lagged norms; the
+            # snapshot holds the global batch's (a collective: every
+            # rank calls), so a checkpoint resumes on any data degree.
+            ns = self._prev_norms_sq
+            if self._shard is not None:
+                ns = gather_examples(ns, self._shard)
+            out["prev_norms_sq"] = ns.cpu().numpy()
         if self._budgets is not None:
             out["budgets"] = self._budgets.cpu().numpy()
         if self._budget_q is not None:
@@ -453,7 +525,12 @@ class PrivacyEngine:
             return None if a is None else torch.as_tensor(
                 np.asarray(a, np.float32), device=self.device)
 
-        self._prev_norms_sq = dev(state.get("prev_norms_sq"))
+        ns = state.get("prev_norms_sq")
+        if ns is not None and self._shard is not None:
+            B = next(iter(self._batch_spec.values())).shape[0]
+            if len(ns) == B:
+                ns = np.asarray(ns)[self._shard.local(B)]
+        self._prev_norms_sq = dev(ns)
         self._budgets = dev(state.get("budgets"))
         q = state.get("budget_q")
         self._budget_q = None if q is None else np.asarray(q, np.float64)
@@ -507,27 +584,32 @@ class PrivacyEngine:
                 clip, self.dp.l2_clip, self._group_keys(),
                 observed=self._budget_q, device=self.device)
 
-    def _grad_fn(self):
+    def _grad_fn(self, shard=None):
         """The gradient closure over the plan: clip + noise,
         ``grad(params, batch, key, clip_state, denom=None) -> (loss, grad,
-        aux)``.  It touches no engine state; ``noisy_grad`` and
-        ``_step_fn`` both run it."""
+        aux)``, as the rank ``shard`` (a :class:`DataShard`; this engine's
+        own, or one of a fake group the verifier traces) runs it, or one
+        device (``None``).  It touches no engine state; ``noisy_grad``
+        and ``_step_fn`` both run it."""
         cfg = dataclasses.replace(self.dp, microbatches=self.microbatches())
         plan = self._exec_plan()
         apply_fn = self.apply_fn
 
+        sharded = {} if shard is None else {"shard": shard}
+
         def grad(params, batch, key, clip_state, denom=None):
             return dp_gradient(apply_fn, params, batch, cfg=cfg, key=key,
-                               denom=denom, plan=plan, clip_state=clip_state)
+                               denom=denom, plan=plan, clip_state=clip_state,
+                               **sharded)
 
         return grad
 
-    def _step_fn(self):
+    def _step_fn(self, shard=None):
         """The step closure over the plan: :meth:`_grad_fn` + optimizer
         update, ``step(params, opt, batch, key, clip_state) -> (params, opt,
         loss, aux)``.  It touches no engine state, so ``private_step`` runs
         it and the static verifier traces it."""
-        grad_fn, update_fn = self._grad_fn(), self._update_fn
+        grad_fn, update_fn = self._grad_fn(shard), self._update_fn
         lr, wd = self._lr, self._weight_decay
 
         def step(params, opt, batch, key, clip_state):
@@ -549,8 +631,11 @@ class PrivacyEngine:
         ``raise_on_error=True`` a failed report raises
         :class:`repro_torch.analysis.report.DPVerificationError` instead.
         ``opt``: the optimizer state, needed for a custom optimizer
-        callable; ``coll_bytes_warn`` is accepted for the JAX package's
-        signature (no mesh, nothing to price)."""
+        callable; ``coll_bytes_warn`` (bytes) warns when the plan predicts
+        more collective traffic a step and device.  On a mesh the step is
+        traced as ranks of a fake group of the data degree and the
+        sharding pass (:mod:`repro_torch.analysis.shardcheck`) reads
+        it."""
         from repro_torch.analysis.verifier import verify_engine
         report = verify_engine(self, opt=opt,
                                coll_bytes_warn=coll_bytes_warn)
@@ -568,8 +653,9 @@ class PrivacyEngine:
         first step bootstraps with exact flat clipping); ``per_layer``
         with ``budgets="auto"`` re-splits the budget from the tracked
         per-layer norm quantiles after every step."""
-        out = self._step_fn()(params, opt, batch, self._check_key(key, step),
-                              self._clip_state())
+        out = self._step_fn(self._shard)(
+            params, opt, batch, self._check_key(key, step),
+            self._clip_state())
         self._absorb_clip_aux(out[3])
         if self.accountant is not None:
             self.accountant.step()

@@ -14,12 +14,17 @@ a single step*:
     ``sigma = noise_multiplier * l2_clip``, every draw from the step's
     generator stream, no stream consumed twice;
   * plan/graph consistency: the ExecPlan's realizations appear in the
-    traced graph, the STATS census matches, the fingerprint is live.
+    traced graph, the STATS census matches, the fingerprint is live;
+  * sharding (``--mesh data:N`` lanes): the step traced as ranks of an
+    in-process fake group of N (``launch.mesh.fake_world``: no
+    processes, the JAX package's forced host devices) holds the batch
+    slice, one gradient all-reduce a leaf, the noise after it from one
+    seed, the global divisor and statistics.
 
 Exit status is 1 if any lane reports an error (or, with
 ``--fail-on-warn``, a warning), so a CI job wired to this module is a
-hard gate.  ``--mesh`` other than ``none`` raises
-``NotImplementedError`` (sharding: ROADMAP.md item 14).  Every arch of
+hard gate.  A ``--mesh`` with a model axis raises
+``NotImplementedError`` (ROADMAP.md item 14 part 2).  Every arch of
 ``configs.PAPER_IDS`` and ``configs.SERVED_LM`` runs, reduced.  The MoE
 archs' gather dispatch has global capacity (the
 examples' tokens compete for one expert's slots), and their lanes fail
@@ -27,7 +32,7 @@ on it, as the JAX package's do.
 
     PYTHONPATH=src python -m repro_torch.launch.dpcheck \\
         --archs alexnet vgg16 llama3.2-1b \\
-        --clip-modes flat per_layer stale --device cpu
+        --clip-modes flat per_layer stale --mesh none data:8 --device cpu
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ from repro_torch.models.registry import build_model
 
 def _build_engine(arch: str, clip_mode: str, *, batch: int, seq: int,
                   noise: float, clip: float, run_seed: int, strategy: str,
-                  device: str, dp_attn: bool = False) -> PrivacyEngine:
+                  device: str, dp_attn: bool = False,
+                  mesh: str | None = None) -> PrivacyEngine:
     cfg = get_config(arch).reduced()
     if dp_attn:
         cfg = cfg.replace(dp_attn=True)
@@ -56,7 +62,7 @@ def _build_engine(arch: str, clip_mode: str, *, batch: int, seq: int,
                          to_device(make_batch_fn(cfg, batch, seq)(0), device),
                          dp=dpc, optimizer="adamw", lr=1e-3,
                          weight_decay=0.01, run_seed=run_seed,
-                         calibration="analytic", device=device)
+                         calibration="analytic", device=device, mesh=mesh)
 
 
 def main(argv=None):
@@ -66,8 +72,9 @@ def main(argv=None):
     ap.add_argument("--clip-modes", nargs="+", default=["flat"],
                     choices=["flat", "per_layer", "stale"])
     ap.add_argument("--mesh", nargs="+", default=["none"],
-                    help="mesh specs per lane; only 'none' (one device) "
-                         "is served (sharding: ROADMAP.md item 14)")
+                    help="mesh specs per lane; 'none' = one device, "
+                         "'data:N' traces the sharded step on a fake "
+                         "group of N ranks")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--clip", type=float, default=1.0)
@@ -82,8 +89,7 @@ def main(argv=None):
                          "exercises the planner so the plan/graph "
                          "consistency pass has a plan to check")
     ap.add_argument("--coll-bytes-warn", type=int, default=None,
-                    help="per-device collective-bytes warning threshold "
-                         "(no mesh: nothing to price)")
+                    help="per-device collective-bytes warning threshold")
     ap.add_argument("--fail-on-warn", action="store_true",
                     help="treat warnings as failures too")
     ap.add_argument("--device", default="cuda",
@@ -93,15 +99,20 @@ def main(argv=None):
                     help="print every finding, not just failures")
     args = ap.parse_args(argv)
 
-    meshes = [s for s in args.mesh if s != "none"]
-    if meshes:
-        raise NotImplementedError(
-            f"--mesh {meshes[0]}: sharded lanes come with ROADMAP.md item "
-            f"14; the port verifies the single-device step (--mesh none)")
-    lanes = [(a, m) for a in args.archs for m in args.clip_modes]
+    for spec in args.mesh:
+        axes = () if spec == "none" else costmodel.mesh_axes(spec)
+        if costmodel.mesh_model_axes(axes):
+            raise NotImplementedError(
+                f"--mesh {spec}: model axes are ROADMAP.md item 14 part 2; "
+                f"the port verifies data-parallel lanes")
+        if args.batch % costmodel.mesh_data_size(axes):
+            raise SystemExit(f"--batch {args.batch} not divisible by the "
+                             f"data degree of mesh {spec}")
+    lanes = [(a, m, s) for a in args.archs for m in args.clip_modes
+             for s in args.mesh]
     failed = []
-    for arch, mode in lanes:
-        name = f"{arch} clip={mode} mesh=none"
+    for arch, mode, spec in lanes:
+        name = f"{arch} clip={mode} mesh={spec}"
         if args.dp_attn:
             name += " dp_attn"
         costmodel.clear_plan_cache()
@@ -109,7 +120,8 @@ def main(argv=None):
                                noise=args.noise, clip=args.clip,
                                run_seed=args.run_seed,
                                strategy=args.strategy, device=args.device,
-                               dp_attn=args.dp_attn)
+                               dp_attn=args.dp_attn,
+                               mesh=None if spec == "none" else spec)
         report = engine.verify(coll_bytes_warn=args.coll_bytes_warn)
         bad = bool(report.errors) or (args.fail_on_warn
                                       and bool(report.warnings))

@@ -1,5 +1,5 @@
-"""End-to-end DP training CLI with checkpoint/restart fault tolerance, on
-one device (the JAX package's ``repro.launch.train``).
+"""End-to-end DP training CLI with checkpoint/restart fault tolerance
+(the JAX package's ``repro.launch.train``).
 
 The loop is plan -> step -> account: one ``PrivacyEngine`` owns the
 ExecPlan, the private step and the accountant; checkpointing, the
@@ -32,9 +32,26 @@ prints ``[calibrate]`` and ``[replan]`` lines.  The first step of each
 segment and the first after a re-plan are not observed: they hold the
 kernels' build and the plan's probe.  A checkpoint pins the plan
 fingerprint under the analytic constants, which names the mechanism: a
-re-plan re-prices, so a run resumes across one.  ``--mesh`` raises
-``NotImplementedError`` (sharding: ROADMAP.md item 14), and so does a
-checkpoint that recorded a mesh.
+re-plan re-prices, so a run resumes across one.
+
+Data parallelism: ``--mesh data:N`` runs N ranks, one a device, under
+``torch.distributed.run`` (rank r on ``cuda:(r % device_count)``)::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch alexnet --mesh data:2 \
+        --backend gloo --steps 4 --ckpt-dir ckpt
+
+``--backend`` is ``nccl`` (default) or ``gloo`` (NCCL refuses two ranks
+on one card; gloo stages CUDA tensors through the host).  Every rank
+makes the global batch and steps on its slice (``PrivacyEngine(mesh=)``);
+rank 0 writes the checkpoints, behind a barrier, with the mesh recorded.
+Resume follows the JAX CLI: an explicit ``--mesh`` wins; otherwise the
+checkpoint's mesh is collapsed onto the live world size
+(``runtime.elastic_mesh_axes``) and re-planned, and a fingerprint that
+differs only by the mesh is accepted (re-keyed under the checkpoint's
+mesh); the ledger and the ``(run_seed, step)`` noise stream continue.  A
+mesh with a model axis raises ``NotImplementedError`` (ROADMAP.md item
+14 part 2).
 The last line printed is a JSON summary (losses, per-step ms, the part
 of it spent making the batch on the host and copying it over,
 checkpoint save ms and bytes, re-plans).
@@ -50,6 +67,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer, DPTrainState
 from repro_torch.configs import get_config
@@ -60,7 +78,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw_init, cosine_schedule
 from repro_torch.runtime import (ChaosMonkey, StepMonitor,
-                                 run_with_restarts)
+                                 elastic_mesh_axes, run_with_restarts)
 
 
 def make_batch_fn(cfg, batch: int, seq: int):
@@ -151,7 +169,10 @@ def parse_args(argv=None):
                     help="int, or 'auto' to derive from the plan's "
                          "peak-memory estimates")
     ap.add_argument("--mesh", default=None,
-                    help="mesh spec: not served yet (ROADMAP.md item 14)")
+                    help="data-parallel mesh spec, e.g. data:2 (run the "
+                         "ranks under torch.distributed.run)")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="torch.distributed backend of a --mesh run")
     ap.add_argument("--explain", action="store_true",
                     help="print the per-layer execution plan and exit")
     ap.add_argument("--plan-json", default=None,
@@ -202,11 +223,43 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
+    if costmodel.mesh_model_axes(costmodel.mesh_axes(args.mesh)):
         raise NotImplementedError(
-            "--mesh: sharded execution comes with ROADMAP.md item 14")
+            f"--mesh {args.mesh}: model axes are ROADMAP.md item 14 part "
+            f"2; this CLI runs data-parallel meshes")
     with deterministic_step():
         return _run(args)
+
+
+def _live_mesh(args, device, stored_meta):
+    """(mesh, device, owned): the mesh this run steps on — ``--mesh``, or
+    the checkpoint's collapsed onto the live world size — initializing
+    the process group for it unless one is (``owned``: this call did);
+    ``(None, device, False)`` for one device."""
+    spec = args.mesh
+    if not spec and stored_meta and stored_meta.get("mesh_axes"):
+        stored = tuple((n, int(s)) for n, s in stored_meta["mesh_axes"])
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        live = elastic_mesh_axes(stored, world, args.batch)
+        if live != stored:
+            print(f"[elastic] checkpoint mesh {costmodel.format_mesh(stored)}"
+                  f" -> {costmodel.format_mesh(live)} on {world} rank(s) "
+                  f"(re-planning; ledger and noise stream continue)")
+        spec = ",".join(f"{n}:{s}" for n, s in live)
+    if not costmodel.mesh_axes(spec):
+        return None, device, False
+    from repro_torch.launch.mesh import init_distributed, make_mesh_from_spec
+    owned = not dist.is_initialized()
+    device = init_distributed(args.backend, device_type=device.type)
+    mesh = make_mesh_from_spec(spec, device_type=device.type)
+    d = costmodel.mesh_data_size(costmodel.mesh_axes(mesh))
+    if args.batch % d:
+        raise SystemExit(f"--batch {args.batch} not divisible by the "
+                         f"mesh's data-parallel degree {d}")
+    print(f"[mesh] {costmodel.format_mesh(costmodel.mesh_axes(mesh))} "
+          f"rank {dist.get_rank()}/{dist.get_world_size()} on {device} "
+          f"backend {dist.get_backend()}")
+    return mesh, device, owned
 
 
 def _run(args):
@@ -246,13 +299,26 @@ def _run(args):
     if args.plan_json and os.path.exists(args.plan_json):
         n = costmodel.load_plan_store(args.plan_json)
         print(f"[plan] loaded {n} plan(s) from {args.plan_json}")
-    if ckpt and ckpt.latest_step() is not None:
-        stored = ckpt.read_meta() or {}
-        if stored.get("mesh_axes"):
-            raise NotImplementedError(
-                f"checkpoint in {args.ckpt_dir} was written on mesh "
-                f"{stored['mesh_axes']}; elastic resume comes with sharding "
-                f"(ROADMAP.md item 14)")
+    stored_meta = (ckpt.read_meta() if ckpt and ckpt.latest_step()
+                   is not None else None)
+    mesh, device, owned = _live_mesh(args, device, stored_meta)
+    try:
+        return _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt,
+                      mesh, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
+           device):
+    rank = 0 if mesh is None else dist.get_rank()
+    writer = rank == 0
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier()
+
     params0, _ = model.init(0, device=device)
     mon = StepMonitor()
     engine = PrivacyEngine(
@@ -261,7 +327,7 @@ def _run(args):
         lr=lambda step: cosine_schedule(step, warmup=10, total=args.steps,
                                         peak=args.lr),
         weight_decay=0.01, accountant=acct, run_seed=args.run_seed,
-        device=device, calibration=args.calibration,
+        device=device, mesh=mesh, calibration=args.calibration,
         mispredict_threshold=(args.mispredict_threshold
                               if args.mispredict_threshold > 0 else None),
         monitor=mon)
@@ -277,17 +343,18 @@ def _run(args):
         print(engine.explain())
     if args.explain:
         return []
-    if args.plan_json and not os.path.exists(args.plan_json):
+    if args.plan_json and not os.path.exists(args.plan_json) and writer:
         engine.save_plan(args.plan_json)
         print(f"[plan] wrote {args.plan_json}")
 
     def train_state(params, opt):
+        # Every rank calls: the stale norms are gathered over the mesh.
         return DPTrainState(
             params=params, opt=opt, clip_state=engine.clip_state_dict(),
             ledger=acct.state_dict(),
             plan_fingerprint=engine.fingerprint(calibration="analytic"),
             monitor=mon.state_dict(), run_seed=args.run_seed,
-            noise_device=device.type)
+            noise_device=device.type, mesh_axes=engine.mesh_axes)
 
     timing = {"step_ms": {}, "data_ms": {}, "ckpt_snapshot_ms": [],
               "ckpt_final_ms": None, "ckpt_bytes": None}
@@ -298,8 +365,10 @@ def _run(args):
         start = 0
         if ckpt:
             # A restart in this process sees the save its previous life
-            # had in flight (a killed process would have lost it).
+            # had in flight (a killed process would have lost it); on a
+            # mesh, every rank waits for rank 0's.
             ckpt.wait()
+            barrier()
         if ckpt and ckpt.latest_step() is not None:
             st, at = ckpt.restore_state(params, opt, fallback=True)
             if st.run_seed is not None and st.run_seed != args.run_seed:
@@ -315,10 +384,14 @@ def _run(args):
                     f"devices draw different numbers from one seed")
             if st.plan_fingerprint and st.plan_fingerprint \
                     != engine.fingerprint(calibration="analytic"):
-                raise SystemExit(
-                    "checkpoint plan fingerprint mismatch: model code, "
-                    "shapes, or DP config changed; refusing to resume onto "
-                    "a different mechanism")
+                # A mesh change is the one legitimate drift: re-key the
+                # fingerprint under the checkpoint's mesh.
+                if st.plan_fingerprint != engine.fingerprint(
+                        calibration="analytic", mesh=st.mesh_axes):
+                    raise SystemExit(
+                        "checkpoint plan fingerprint mismatch beyond the "
+                        "mesh: model code, shapes, or DP config changed; "
+                        "refusing to resume onto a different mechanism")
             params, opt = st.params, st.opt
             engine.load_clip_state(st.clip_state)
             if st.ledger is not None:
@@ -368,15 +441,20 @@ def _run(args):
                       + (f" [{engine.report()}]" if args.noise else ""))
             if ckpt and (step + 1) % args.ckpt_every == 0:
                 t = time.perf_counter()
-                ckpt.save_state_async(step, train_state(params, opt))
+                state = train_state(params, opt)
+                if writer:
+                    ckpt.save_state_async(step, state)
                 timing["ckpt_snapshot_ms"].append(
                     (time.perf_counter() - t) * 1e3)
         if ckpt:
             ckpt.wait()
             t = time.perf_counter()
-            path = ckpt.save_state(args.steps - 1, train_state(params, opt))
-            timing["ckpt_final_ms"] = (time.perf_counter() - t) * 1e3
-            timing["ckpt_bytes"] = _dir_bytes(path)
+            state = train_state(params, opt)
+            if writer:
+                path = ckpt.save_state(args.steps - 1, state)
+                timing["ckpt_final_ms"] = (time.perf_counter() - t) * 1e3
+                timing["ckpt_bytes"] = _dir_bytes(path)
+            barrier()
         return losses
 
     losses, restarts = run_with_restarts(
@@ -390,6 +468,7 @@ def _run(args):
         print(engine.report())
     print(json.dumps({"train_summary": {
         "arch": cfg.name, "device": str(device), "steps": args.steps,
+        "mesh": costmodel.format_mesh(engine.mesh_axes), "rank": rank,
         "restarts": restarts, "losses_last_segment": losses,
         "step_ms": [timing["step_ms"][s] for s in sorted(timing["step_ms"])],
         "data_ms": [timing["data_ms"][s] for s in sorted(timing["data_ms"])],

@@ -3,10 +3,10 @@ JAX package's ``repro.runtime.elastic``; pure functions of axis sizes).
 
 Checkpoints are mesh-agnostic (see the checkpointer), so elastic rescale
 is: pick the new data-parallel degree that keeps the global batch
-divisible, rebuild the mesh, restore onto it, and continue.  The port
-runs on one device until sharding lands (ROADMAP.md item 14): the
-training CLI never calls these without a mesh, and a checkpoint that
-records one is refused there.
+divisible, rebuild the mesh, restore onto it, and continue.  The
+training CLI (``launch/train.py``) collapses a checkpoint's mesh onto the
+live world size with :func:`elastic_mesh_axes` when no ``--mesh`` is
+given.
 """
 from __future__ import annotations
 

@@ -233,15 +233,17 @@ def test_attn_plan_json_roundtrip_and_v2_refusal(tmp_path):
     got = tstrat.planned_clipped_sum(tapply, tp, tb, back, l2_clip=0.1)
     assert torch.equal(got[2], want[2])
     payload = plan.to_payload()
-    assert payload["format"] == tcm.PLAN_FORMAT_VERSION == 3
-    payload["format"] = 2
-    with pytest.raises(ValueError, match="unsupported plan format 2"):
-        tcm.ExecPlan.from_payload(payload)
-    store = tmp_path / "plans.json"
-    store.write_text(__import__("json").dumps({"format": 2,
-                                               "plans": [payload]}))
-    with pytest.raises(ValueError, match="unsupported plan format 2"):
-        tcm.load_plan_store(str(store))
+    assert payload["format"] == tcm.PLAN_FORMAT_VERSION == 4
+    for old in (2, 3):
+        payload["format"] = old
+        with pytest.raises(ValueError, match=f"unsupported plan format {old}"):
+            tcm.ExecPlan.from_payload(payload)
+        store = tmp_path / "plans.json"
+        store.write_text(__import__("json").dumps({"format": old,
+                                                   "plans": [payload]}))
+        with pytest.raises(ValueError,
+                           match=f"unsupported plan format {old}"):
+            tcm.load_plan_store(str(store))
 
 
 def _llama_meta_plans(**opts):

@@ -409,16 +409,19 @@ def test_mutation_every_error_is_a_named_calibration_error():
 
 
 def test_mesh_waits_for_sharding(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        calibrate.Calibration(hardware="h", mesh="data:2",
+    """A pure-data mesh calibrates (its collective bandwidth is measured
+    over the mesh's process group); a model axis waits for item 14
+    part 2."""
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+        calibrate.Calibration(hardware="h", mesh="data:4,model:2",
                               flops_per_second=1.0,
                               hbm_bytes_per_second=1.0)
     p = _cpu_calib().to_payload()
-    p["mesh"] = [["data", 2]]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    p["mesh"] = [["data", 4], ["model", 2]]
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
         calibrate.load_calibration(_write(tmp_path, p), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        calibrate.measure("data:2", quick=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+        calibrate.measure("data:4,model:2", quick=True, device="cpu")
 
 
 # ---------------------------------------------------------------------------

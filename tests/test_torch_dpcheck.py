@@ -49,8 +49,8 @@ def test_failing_lane_exits_one(monkeypatch, capsys):
 
 
 def test_mesh_lanes_raise_naming_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        dpcheck.main(["--mesh", "data:8"] + CPU)
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+        dpcheck.main(["--mesh", "data:4,model:2"] + CPU)
 
 
 def test_unserved_arch_raises_naming_item_12():

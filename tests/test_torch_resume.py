@@ -419,5 +419,5 @@ def test_cli_restores_global_flags_and_rejects_unserved():
     cli.main(CLI_CASES["alexnet_flat"] + ["--device", "cpu", "--steps",
                                           "1"])
     assert torch.are_deterministic_algorithms_enabled() == before
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["--device", "cpu", "--mesh", "data:2"])
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+        cli.main(["--device", "cpu", "--mesh", "data:2,model:2"])

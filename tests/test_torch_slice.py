@@ -138,8 +138,9 @@ def test_toy_cnn_step_parity_kernel_knobs(strategy):
 
 
 def test_fixed_strategies_only():
-    """Meshes still raise, and so does a calibration blob measured on
-    other hardware; the planned strategy, injected plans and stale
+    """A mesh with a model axis still raises (verifying its step is item
+    14 part 2), and so does a calibration blob measured on other
+    hardware; the planned strategy, injected plans and stale
     clipping run, and a fixed strategy's explain shows the plan as
     advisory."""
     cfg = ttoy(**TOY)
@@ -147,10 +148,10 @@ def test_fixed_strategies_only():
     params, _ = m.init(0, device="cpu")
     batch = {"img": torch.zeros(2, 3, 32, 32),
              "label": torch.zeros(2, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14 part 2"):
         tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
                             dp=tcore.DPConfig(strategy="crb"),
-                            mesh="data:8")
+                            mesh="data:4,model:2").verify()
     foreign = calibrate.injected(hardware="cuda:NVIDIA H100 80GB HBM3:1")
     with pytest.raises(calibrate.CalibrationHardwareMismatch):
         tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
