@@ -226,6 +226,35 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and the training CLI under ``torch.distributed.run --nproc_per_node
    2`` with ``--mesh data:2 --backend gloo``, 4 steps, straight and with
    ``--fail-at 2`` at once: the step-3 checkpoints bitwise equal.
+13c. model-axis sharding on one card (phase ``model_axis_path``): the
+   tensor-sharded step (``PrivacyEngine(param_axes=)``) of gloo ranks
+   sharing cuda:0, as 13b's: full-width AlexNet, B = 32, σ = 1, SGD with
+   momentum, 3 steps each of crb (``conv_impl="pallas"``), ``auto`` flat
+   and ``auto`` stale on ``model:2`` (2 ranks) and on ``data:2,model:2``
+   (4 ranks); Llama-3.2-1B at full width cut to 2 layers, B = 8,
+   T = 1024, bf16, flash, ``auto`` stale and bk (the kernel norms:
+   ``gram_norm`` on every sliced dense) on ``model:2``; each lane twice.
+   Per rank: step ms (first run), ms in the model-group and
+   the data-group collectives (second run, each collective synchronized
+   and timed), peak GB, launches each step against the plan (every flash
+   kernel once a layer a step on the rank's 16 of 32 heads), bytes a
+   step over ``model`` beside the plan's ``coll_bytes_by_axis``.  The
+   ranks of one model slot bitwise equal across data ranks, the two runs
+   bitwise equal, AlexNet's gathered params within ``shard_reference``'s
+   bound of the single-device step.  The bf16 Llama lanes' params cannot
+   show a wrong gradient (lr 1e-4 under AdamW moves none by a bf16 ulp),
+   so one f32 gradient of the same model on ``model:2`` (bk, the kernel
+   norms, per-layer clipping) is held against one device's: its loss,
+   per-example and per-layer norms and gathered gradient
+   (``ma_llama_f32_check``); and ``gram_norm`` at each slice shape the
+   Llama lanes handed it against its plain version.  Also: the
+   collective calibration over the model group, ``engine.verify()`` of
+   AlexNet ``auto`` stale on a ``data:2,model:2`` spec over fake CUDA
+   tensors (clean, "partitioned over model", its kernel nodes equal to a
+   real rank's stale step), and
+   the training CLI under ``--nproc_per_node 4 --mesh data:2,model:2
+   --backend gloo``, straight and ``--fail-at 2``: the step-3
+   checkpoints (whole arrays) bitwise equal.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -3877,15 +3906,15 @@ def run_group(cmd, timeout, env=None):
     return proc.returncode, out, err, time.perf_counter() - t
 
 
-def torchrun(args, timeout):
-    """``python -m torch.distributed.run`` with SH_RANKS ranks on this
+def torchrun(args, timeout, nproc=SH_RANKS):
+    """``python -m torch.distributed.run`` with ``nproc`` ranks on this
     machine (a free localhost port) running ``args``."""
     env = dict(os.environ, PYTHONUNBUFFERED="1")   # whole lines a write
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           str(SH_RANKS), "--master_addr", "127.0.0.1", "--master_port",
+           str(nproc), "--master_addr", "127.0.0.1", "--master_port",
            str(free_port()), *args]
     return run_group(cmd, timeout, env)
 
@@ -3903,17 +3932,23 @@ def tree_digest(tree):
 
 
 def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
-               optimizer, lr, runs=2):
-    """One sharded lane, ``runs`` times from the same params: per step the
-    rank's step ms, the all-reduce's ms (``clipping.sync_grads`` timed
-    between synchronizations), the launches (counts set to 0 before the
-    step, read after) and the leaves synced; the params' digest and the
-    rank's peak.  Returns (record, the first run's params)."""
+               optimizer, lr, runs=2, axes=None):
+    """One sharded lane, ``runs`` times from the same whole params (on a
+    model axis, ``axes`` the logical axes: this rank's slices of them):
+    per step the rank's step ms, the all-reduce's ms
+    (``clipping.sync_grads`` timed between synchronizations) and the
+    leaves synced, the calls and MB of the model- and data-group
+    collectives and, in the second run, their ms (each synchronized and
+    timed: ``sharding.COLL_STATS``), the launches (counts set to 0 before
+    the step, read after); the slices' digest and the rank's peak.
+    Returns (record, the first run's whole params)."""
     from repro_torch.core import PrivacyEngine, clipping
     from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
     from repro_torch.optim import adamw_init, sgdm_init
-    from repro_torch.tree import leaf_paths
+    from repro_torch.tree import get_subtree, leaf_paths
     real = clipping.sync_grads
+    st = sharding.COLL_STATS
     sync = []
 
     def timed(gsum, shard):
@@ -3932,24 +3967,32 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
             eng = PrivacyEngine(model.apply, params, batches[0], dp,
                                 optimizer=optimizer, lr=lr, run_seed=0,
                                 sampling_rate=1 / 128, device="cuda",
-                                mesh=mesh)
+                                mesh=mesh, param_axes=axes)
             if callable(needs):
                 needs = needs(eng, steps)
             init = sgdm_init if optimizer == "sgdm" else adamw_init
-            p, opt = params, init(params)
+            p = eng.shard_params(params)
+            opt = init(p)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             del sync[:]
-            step_ms, per_step, losses = [], [], []
+            st.timing = r == 1
+            step_ms, per_step, coll, losses = [], [], [], []
             for s in range(steps):
                 ops.reset_launches()
+                st.reset()
                 t = time.perf_counter()
                 p, opt, loss, aux = eng.private_step(p, opt, batches[s],
                                                      step=s)
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t) * 1e3)
                 per_step.append({k: v for k, v in ops.LAUNCHES.items()})
+                coll.append({"calls": dict(st.calls),
+                             "mb": {a: v / 2**20 for a, v in st.bytes.items()},
+                             "ms": ({a: v * 1e3 for a, v in st.seconds.items()}
+                                    if st.timing else "not timed")})
                 losses.append(float(loss))
+            st.timing = False
             for k, want in needs.items():
                 got = [c[k] for c in per_step]
                 check(got == want, f"sharded lane: {k} launches per step "
@@ -3959,23 +4002,39 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
             rec["runs"].append({
                 "step_ms": step_ms, "all_reduce_ms": [m for m, _ in sync],
                 "leaves_synced_a_step": [n for _, n in sync],
+                "collectives_each_step": coll,
                 "launches_each_step": per_step, "losses": losses,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "clip_fraction": float(aux["clip_fraction"]),
                 "digest": tree_digest(p)})
             if r == 0:
-                rec["plan"] = (eng.plan().realizations()
+                plan = eng.plan()
+                rec["plan"] = (plan.realizations()
                                if dp.strategy == "auto" else None)
+                rec["plan_coll_mb_by_axis"] = {
+                    a: v / 2**20 for a, v in plan.total_coll_bytes_by_axis}
                 rec["n_param_leaves"] = len(leaf_paths(params))
-                first = p
-            else:
-                del p
-            del opt, eng
+                specs = eng.param_specs
+                if specs is not None:
+                    rec["leaves_sliced"] = sum(
+                        sharding.is_sharded(get_subtree(specs, q))
+                        for q in leaf_paths(specs))
+                first = eng.gather_params(p)
+            del p, opt, eng
             torch.cuda.empty_cache()
     finally:
         clipping.sync_grads = real
+        st.timing = False
     rec["runs_bitwise_equal"] = len({r["digest"] for r in rec["runs"]}) == 1
     return rec, first
+
+
+def released_mean_bound(B, C):
+    """How far two released noised means of one batch may lie apart, a
+    coordinate, when their clipped sums add the same terms in another
+    order (``shard_reference``): 2·u·√B·C plus one rounding of the noised
+    sum."""
+    return 2 * U32 * (math.sqrt(B) * C + 1.0)
 
 
 def shard_reference(torch, model, params, batches, dp, steps, got):
@@ -3985,7 +4044,7 @@ def shard_reference(torch, model, params, batches, dp, steps, got):
     terms in another order: each sum within the f32 sum bound of
     kernels/bounds.py, u·√B·Σ_b|w_b g_b| ≤ u·√B·B·C a coordinate
     (every clipped gradient has norm ≤ C), so the released means differ
-    by at most g_tol = 2·u·√B·C plus one rounding of the noised sum; SGD
+    by at most g_tol (``released_mean_bound``); SGD
     with momentum β = 0.9 moves the params by lr·(1 + (1+β) +
     (1+β+β²)) = 5.61·lr such differences over 3 steps, plus one rounding
     of each update."""
@@ -4002,7 +4061,7 @@ def shard_reference(torch, model, params, batches, dp, steps, got):
     diff = max(float((get_subtree(p, q) - get_subtree(got, q)).abs().max())
                for q in leaf_paths(p))
     pmax = max(float(get_subtree(p, q).abs().max()) for q in leaf_paths(p))
-    g_tol = 2 * U32 * (math.sqrt(B) * dp.l2_clip + 1.0)
+    g_tol = released_mean_bound(B, dp.l2_clip)
     bound = 5.61 * SH_LR * g_tol + 3 * 2 * U32 * pmax
     check(diff <= bound, f"sharded vs single-device params: {diff:.3e} > "
           f"{bound:.3e}")
@@ -4306,6 +4365,406 @@ def sharded_main_path(torch, launches, lanes):
     shutil.rmtree(SH_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Model-axis sharding on one card (ROADMAP item 14 part 2): phase
+# model_axis_path.  The ranks run gloo on cuda:0 as sharded_main_path's do;
+# every layout move of the tensor-sharded step is a gloo all-reduce staged
+# through the host, so the collective times below are the host's: the
+# phase shows the kernels running on shards and the sharded step equal to
+# the single-device step, and claims no speed.
+
+MA_DIR = ROOT / "build" / "chip_smoke_model_axis"
+MA_TIMEOUT_S = 420
+MA_MESHES = {"model:2": 2, "data:2,model:2": 4}
+MA_CLI = ["--arch", "alexnet", "--full", "--batch", "32", "--strategy",
+          "auto", "--noise", "1.0", "--mesh", "data:2,model:2",
+          "--backend", "gloo", "--steps", "4", "--ckpt-every", "2"]
+
+
+def ma_agree(torch, dist, mesh, r, lane):
+    """The ranks of one model slot hold bitwise-equal slices (across the
+    data ranks), and the two runs are bitwise equal."""
+    names = tuple(mesh.mesh_dim_names)
+    slot = mesh.get_local_rank(names.index("model"))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (slot, r["runs"][0]["digest"]))
+    by_slot = {}
+    for s, dg in got:
+        by_slot.setdefault(s, set()).add(dg)
+    r["model_slots_bitwise_equal"] = all(len(v) == 1
+                                         for v in by_slot.values())
+    r["slots_differ"] = len({next(iter(v)) for v in by_slot.values()}) > 1
+    check(r["model_slots_bitwise_equal"], f"{lane}: the ranks of one model "
+          f"slot differ")
+    check(r["slots_differ"], f"{lane}: the model slots hold the same "
+          f"params (nothing sliced?)")
+    check(r["runs_bitwise_equal"], f"{lane}: two runs differ")
+
+
+# The model-axis Llama lanes run bf16 under AdamW at lr 1e-4, which moves
+# no param by a bf16 ulp, so their params cannot show a wrong gradient.
+# One f32 private gradient of the same full-width model is held instead
+# (ma_llama_f32_check): every per-example and per-layer norm within
+# MA_NORM_RTOL of one device's (compare's rule), ten times the kernels'
+# own rtol, since both sides' norms come from gram_norm; a sliced leaf's
+# partial norm left unsummed over model is about 30 % off, and so is wk's
+# from a partial cotangent.  The loss within MA_LOSS_RTOL (f32 logsumexp
+# over the vocabulary, in halves or whole), the gathered noised mean within
+# released_mean_bound a coordinate.
+MA_NORM_RTOL = 1e-3
+MA_LOSS_RTOL = 1e-5
+
+
+def ma_gram_slices(torch, slices):
+    """``gram_norm`` against its plain version (``compare``'s rule at
+    RTOL) at every (x, dy) shape, stride and dtype the Llama lanes handed
+    it on this rank's slices, on seeded random inputs."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for xs, xst, ds, dst, dt, hb in sorted(slices):
+        tdt = getattr(torch, dt)
+
+        def rnd(shape, stride):
+            t = torch.empty_strided(shape, stride, dtype=tdt, device="cuda")
+            return t.copy_(torch.randn(shape, generator=g, device="cuda"))
+
+        x, dy = rnd(xs, xst), rnd(ds, dst)
+        got = ops.gram_norm(x, dy, has_bias=hb)
+        want = ref.gram_norm_ref(x, dy, has_bias=hb)
+        abs_err, rel_err, ok = compare(torch, got, want, dt)
+        rows.append({"x": list(xs), "dy": list(ds), "dtype": dt,
+                     "has_bias": hb, "contiguous": x.is_contiguous()
+                     and dy.is_contiguous(),
+                     "route": ops.gram_route(xs[1], xs[2], ds[2]),
+                     "max_abs_err": abs_err, "max_rel_err": rel_err,
+                     "rtol": RTOL[dt], "ok": ok})
+        check(ok, f"gram_norm on a model-axis slice, x {xs}, dy {ds}, {dt}: "
+              f"{rel_err:.3e} from its plain version")
+        del x, dy, got, want
+    check(rows, "the Llama lanes handed gram_norm no slice")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ma_llama_f32_check(torch, dist, mesh, cfg, batch, device):
+    """One noised clipped mean gradient (``noisy_grad``) of ``cfg`` (f32)
+    under bk with the kernel norms and per-layer clipping, on this rank's
+    slices and then, on rank 0, on one device from the same whole params,
+    batch and key: the loss, every per-example and per-layer norm and the
+    gathered gradient are held (bounds above).  Rank 0's readings, an
+    empty record on the other ranks."""
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    model = TransformerLM(cfg)
+    params, axes = model.init(0, device=device)
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="bk",
+                  norm=NormCfg(dense="pallas"),
+                  clipping=ClipPolicy(mode="per_layer"))
+    kw = dict(optimizer="sgdm", lr=SH_LR, run_seed=0, device=device)
+    eng = PrivacyEngine(model.apply, params, batch, dp, mesh=mesh,
+                        param_axes=axes, **kw)
+    ops.reset_launches()
+    loss, grad, aux = eng.noisy_grad(eng.shard_params(params), batch,
+                                     step=0)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(launches.get("gram_norm", 0) > 0, f"f32 model-axis check: no "
+          f"gram_norm launch ({launches})")
+    grad = eng.gather_params(grad)
+    del eng
+    torch.cuda.empty_cache()
+    rec = {}
+    if dist.get_rank() == 0:
+        one = PrivacyEngine(model.apply, params, batch, dp, **kw)
+        l1, g1, a1 = one.noisy_grad(params, batch, step=0)
+        B = int(next(iter(batch.values())).shape[0])
+        rec = {"dtype": "float32", "strategy": "bk", "clip": "per_layer",
+               "launches": launches, "loss": float(loss),
+               "loss_one_device": float(l1),
+               "loss_rel_diff": abs(float(loss) - float(l1))
+               / abs(float(l1)), "loss_rtol": MA_LOSS_RTOL,
+               "norm_rtol": MA_NORM_RTOL,
+               "grad_bound": released_mean_bound(B, dp.l2_clip)}
+        for k in ("per_example_norms", "per_layer_norms"):
+            abs_err, rel_err, ok = compare(torch, aux[k], a1[k], "float32",
+                                           rtol=MA_NORM_RTOL)
+            rec[k] = {"shape": list(a1[k].shape), "max_abs_err": abs_err,
+                      "max_rel_err": rel_err}
+            check(ok, f"f32 model-axis check: {k} {rel_err:.3e} from one "
+                  f"device's (rtol {MA_NORM_RTOL})")
+        check(rec["loss_rel_diff"] <= MA_LOSS_RTOL, f"f32 model-axis check: "
+              f"loss {float(loss)!r} vs one device's {float(l1)!r}")
+        rec["grad_max_abs_diff"] = max(
+            float((get_subtree(grad, q) - get_subtree(g1, q)).abs().max())
+            for q in leaf_paths(g1))
+        check(rec["grad_max_abs_diff"] <= rec["grad_bound"], f"f32 model-axis "
+              f"check: gradients {rec['grad_max_abs_diff']:.3e} apart > "
+              f"{rec['grad_bound']:.3e}")
+        del one, g1, a1
+    del params, grad, aux
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def model_axis_worker(spec, out_dir):
+    """One rank of phase model_axis_path (under torch.distributed.run) on
+    mesh ``spec``: full-width AlexNet's lanes and, on ``model:2``, the
+    depth-2 Llama lanes and the model group's collective calibration;
+    this rank's record goes to ``out_dir/<spec>_rank<r>.json``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.calibrate import harness
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import init_distributed, make_mesh_from_spec
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.cnn import CNN
+    from repro_torch.models.lm import TransformerLM
+    check(torch.cuda.is_available(), "a rank sees no card")
+    dev = init_distributed("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh_from_spec(spec, device_type="cuda")
+    rec = {"rank": rank, "mesh": spec, "device": str(dev),
+           "model_rank": mesh.get_local_rank(
+               tuple(mesh.mesh_dim_names).index("model"))}
+    with deterministic_step():
+        cfg = get_config("alexnet")
+        model = CNN(cfg)
+        params, axes = model.init(0, device="cuda")
+        batches = image_batches(torch, IMG, 1000, B, SH_STEPS)
+        knobs = NormCfg(conv_impl="pallas")
+        rec["alexnet"] = {}
+        for lane, strategy, clip, needs in (
+                ("crb", "crb", "flat",
+                 {"pe_conv_grad_2d": [len(PE_CASES)] * SH_STEPS}),
+                ("auto_flat", "auto", "flat", planned_needs),
+                ("auto_stale", "auto", "stale", planned_needs)):
+            dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                          strategy=strategy, norm=knobs,
+                          clipping=ClipPolicy(mode=clip))
+            r, whole = shard_lane(torch, model, params, batches, dp,
+                                  SH_STEPS, mesh, needs, "sgdm", SH_LR,
+                                  axes=axes)
+            ma_agree(torch, dist, mesh, r, f"alexnet {lane} on {spec}")
+            if rank == 0:
+                r["vs_single_device"] = shard_reference(
+                    torch, model, params, batches, dp, SH_STEPS, whole)
+            del whole
+            torch.cuda.empty_cache()
+            dist.barrier()
+            rec["alexnet"][lane] = r
+        del params, batches, model
+        torch.cuda.empty_cache()
+        if spec == "model:2":
+            cfg = get_config("llama3.2-1b").replace(
+                attn_impl="flash", n_layers=SH_LLAMA_LAYERS)
+            model = TransformerLM(cfg)
+            params, axes = model.init(0, device="cuda")
+            ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=4096, seed=0)
+            batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                        ds.batch(range(s * LM_B, (s + 1) * LM_B)).items()}
+                       for s in range(SH_LLAMA_STEPS)]
+            flash = flash_needs(SH_LLAMA_STEPS, layers=SH_LLAMA_LAYERS)
+
+            def stale_needs(eng, steps):
+                # the model-axis plan's fused layers, read off it
+                return dict(flash, **planned_needs(eng, steps))
+            # bk with the kernel norms: gram_norm once a dense a layer
+            # (wq, wk, wv, wo, w_gate, w_up, w_down) and once at the
+            # tied head, on the rank's slices.
+            bk_needs = dict(flash, gram_norm=[7 * SH_LLAMA_LAYERS + 1]
+                            * SH_LLAMA_STEPS)
+            from repro_torch.kernels import ops
+            real_gram, slices = ops.gram_norm, set()
+
+            def gram_spy(x, dy, *, has_bias=False):
+                slices.add((tuple(x.shape), tuple(x.stride()),
+                            tuple(dy.shape), tuple(dy.stride()),
+                            str(x.dtype).split(".")[-1], bool(has_bias)))
+                return real_gram(x, dy, has_bias=has_bias)
+
+            for lane, strategy, clip, knobs, needs in (
+                    ("auto_stale", "auto", "stale", NormCfg(), stale_needs),
+                    ("bk", "bk", "flat", NormCfg(dense="pallas"),
+                     bk_needs)):
+                dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                              strategy=strategy, norm=knobs,
+                              clipping=ClipPolicy(mode=clip))
+                ops.gram_norm = gram_spy
+                try:
+                    r, whole = shard_lane(torch, model, params, batches, dp,
+                                          SH_LLAMA_STEPS, mesh, needs,
+                                          "adamw", 1e-4, axes=axes)
+                finally:
+                    ops.gram_norm = real_gram
+                ma_agree(torch, dist, mesh, r, f"llama {lane}")
+                r["cuts"] = {"n_layers": SH_LLAMA_LAYERS}
+                r["local_heads"] = cfg.n_heads // 2
+                del whole
+                torch.cuda.empty_cache()
+                dist.barrier()
+                rec[f"llama_depth2_{lane}"] = r
+            b0 = batches[0]
+            del params, batches, model
+            torch.cuda.empty_cache()
+            if rank == 0:
+                rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+            rec["f32_check"] = ma_llama_f32_check(
+                torch, dist, mesh, cfg.replace(dtype="float32"), b0, "cuda")
+            del b0
+    names = tuple(mesh.mesh_dim_names)
+    rec["collective_bytes_per_second"] = {
+        a: harness.measure_collective_bytes_per_second(
+            a, int(mesh.shape[names.index(a)]),
+            group=mesh.get_group(names.index(a)), device="cuda")
+        for a in names if int(mesh.shape[names.index(a)]) > 1}
+    rec["collective_bytes_per_second"]["what"] = (
+        "gloo, staged through the host, ranks sharing one card; not an "
+        "NVLink or NCCL figure")
+    tag = spec.replace(":", "").replace(",", "_")
+    with open(os.path.join(out_dir, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ma_verify(torch):
+    """``engine.verify()`` of full-width AlexNet ``auto`` stale on a
+    ``data:2,model:2`` spec over fake CUDA tensors: clean, partitioned
+    over model, no launch; its kernel nodes (rank (0, 0)'s trace) are
+    compared with a real rank's stale step by the caller."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import CNN
+    model = CNN(get_config("alexnet"))
+    params, axes = model.init(0, device="cuda")
+    batches = image_batches(torch, IMG, 1000, B, 1)
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="auto",
+                  norm=NormCfg(conv_impl="pallas"),
+                  clipping=ClipPolicy(mode="stale"))
+    eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                        optimizer="sgdm", lr=SH_LR, run_seed=0,
+                        device="cuda", mesh="data:2,model:2",
+                        param_axes=axes)
+    before = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    report = eng.verify()
+    verify_s = time.perf_counter() - t
+    check(ops.LAUNCHES == before, "model-axis verify launched a kernel")
+    check(report.ok and not report.warnings,
+          f"model-axis verify:\n{report.summary()}")
+    check("partitioned over model" in report.checked["sharding"],
+          f"model-axis verify: {report.checked['sharding']}")
+    del eng, params, batches
+    torch.cuda.empty_cache()
+    return {"verify_s": verify_s, "target": report.target,
+            "sharding": report.checked["sharding"],
+            "kernel_nodes": report.census["kernels"],
+            "nodes": report.census["nodes"],
+            "warnings": [f.code for f in report.warnings]}
+
+
+def ma_cli(base):
+    """The training CLI under torch.distributed.run, 4 ranks on
+    ``data:2,model:2`` with gloo, straight and with ``--fail-at 2`` at
+    once: both end with the same step-3 checkpoint (whole arrays),
+    bitwise, which records the mesh."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.checkpoint import Checkpointer
+    d1, d2 = str(base / "cli_straight"), str(base / "cli_killed")
+
+    def run(extra, d):
+        return torchrun(["-m", "repro_torch.launch.train", *MA_CLI, *extra,
+                         "--ckpt-dir", d], MA_TIMEOUT_S, nproc=4)
+
+    with ThreadPoolExecutor(2) as pool:
+        f1, f2 = pool.submit(run, [], d1), pool.submit(run, ["--fail-at",
+                                                             "2"], d2)
+        (rc1, out1, err1, w1), (rc2, out2, err2, w2) = f1.result(), \
+            f2.result()
+    for rc, out, err in ((rc1, out1, err1), (rc2, out2, err2)):
+        check(rc == 0, f"model-axis CLI: exit {rc}\n{out[-2000:]}\n"
+              f"{err[-4000:]}")
+    check(out2.count("[restore] resuming from step 2") == 4,
+          "model-axis CLI: the killed run did not resume from step 2 on "
+          "every rank")
+    n = same_checkpoint(d1, d2, 3, False)
+    meta = Checkpointer(d1).read_meta(3)
+    check(meta["mesh_axes"] == [["data", 2], ["model", 2]],
+          f"model-axis CLI: checkpoint mesh {meta['mesh_axes']}")
+    return {"args": MA_CLI, "wall_s": [w1, w2], "bitwise_equal_arrays": n,
+            "mesh_axes": meta["mesh_axes"]}
+
+
+def model_axis_path(torch, launches, lanes):
+    """Phase model_axis_path (module comment above): the ``model:2`` and
+    ``data:2,model:2`` ranks at once, the verifier in this process
+    meanwhile, then the CLI lane."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MA_DIR, ignore_errors=True)
+    MA_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        # The CLI lane's processes run beside the ranks, and this process
+        # verifies meanwhile (so the ranks' times are read under that
+        # host load).
+        runs = {spec: pool.submit(torchrun, [
+            str(ROOT / "chip_smoke.py"), "--model-axis-worker", spec,
+            str(MA_DIR)], MA_TIMEOUT_S, nproc=n)
+            for spec, n in MA_MESHES.items()}
+        cli = pool.submit(ma_cli, MA_DIR)
+        t = time.perf_counter()
+        verify_rec = ma_verify(torch)
+        verify_rec["seconds"] = time.perf_counter() - t
+        walls = {}
+        for spec, fut in runs.items():
+            rc, out, err, walls[spec] = fut.result()
+            check(rc == 0, f"model-axis ranks ({spec}): exit {rc}\n"
+                  f"{out[-3000:]}\n{err[-5000:]}")
+        cli_rec = cli.result()
+    ranks = {spec: [json.loads((MA_DIR / "{}_rank{}.json".format(
+        spec.replace(":", "").replace(",", "_"), r)).read_text())
+        for r in range(n)] for spec, n in MA_MESHES.items()}
+    # The verifier's trace is rank (0, 0)'s: its kernel nodes are that
+    # rank's launches in a stale step after the bootstrap.
+    real = ranks["data:2,model:2"][0]["alexnet"]["auto_stale"]["runs"][0][
+        "launches_each_step"][1]
+    real = {k: v for k, v in real.items() if v}
+    check(verify_rec["kernel_nodes"] == real, f"model-axis verify: kernel "
+          f"nodes {verify_rec['kernel_nodes']} != rank 0's stale step's "
+          f"launches {real}")
+    for spec, rs in ranks.items():
+        tag = spec.replace(":", "").replace(",", "_")
+        for r in rs:
+            recs = [(f"alexnet_{k}", v) for k, v in r["alexnet"].items()]
+            recs += [(k, v) for k, v in r.items() if k.startswith("llama_")]
+            for lane, rec in recs:
+                steps = rec["runs"][0]["launches_each_step"]
+                name = f"model_axis_{tag}_{lane}_rank{r['rank']}"
+                lanes[name] = {k: [c[k] for c in steps] for k in launches
+                               if any(c[k] for c in steps)}
+                if r["rank"] == 0:
+                    for k, v in lanes[name].items():
+                        launches[k] += sum(v)
+    log({"phase": "model_axis_path", "backend": "gloo",
+         "why": "NCCL refuses two ranks on one device (sharded_main_path's "
+                "probe); every layout move is a gloo all-reduce staged "
+                "through the host, so the collective times are the host's",
+         "ranks_wall_s": walls, "ranks": ranks, "verify": verify_rec,
+         "verify_kernel_nodes_equal_rank0_stale_step": True,
+         "cli_lane": cli_rec, "seconds": time.perf_counter() - t0,
+         "ok": True})
+    shutil.rmtree(MA_DIR, ignore_errors=True)
+
+
 def profile_step(torch, fn, top=8, named=()):
     """One step under ``torch.profiler``: wall ms, summed CUDA kernel ms,
     the device's busy share (kernel ms / wall ms, one stream), the
@@ -4545,6 +5004,10 @@ def main():
     log({"phase": "sharded_main_path_done",
          "seconds": time.perf_counter() - t})
     t = time.perf_counter()
+    model_axis_path(torch, launches, lanes)
+    log({"phase": "model_axis_path_done",
+         "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
     serve_lane(torch)
     log({"phase": "serve_lane_done", "seconds": time.perf_counter() - t})
     t = time.perf_counter()
@@ -4562,6 +5025,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--shard-worker"]:
             shard_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--model-axis-worker"]:
+            model_axis_worker(sys.argv[2], sys.argv[3])
         elif sys.argv[1:2] == ["--nccl-probe"]:
             nccl_probe(sys.argv[2])
         else:

@@ -27,10 +27,31 @@ step as one rank of a fake group of the mesh's data degree traces it
     norms and, under per_layer clipping, the per-layer norms the auto
     budgets' quantiles come from — and the mean loss cover the whole
     group's examples (``budget_stats_local``, ``loss_not_global``).
+
+The model half (:func:`check_model`), over the traces of a
+tensor-sharded step (``data x model``, each rank on its slices), where
+the JAX package's pass reads the declared param shardings:
+
+  * each sliced group's partial norm² (its ``group_norm`` marker) passes
+    through exactly one sum all-reduce over the model group on its way
+    to the clip coefficients and the norm statistics
+    (``model_norm_sum_missing`` / ``model_norm_sum_repeated``); a
+    replicated group's norm, whole on every rank, through none
+    (``model_norm_overcount``);
+  * no clipped contribution (a value without the example axis) is summed
+    over the model group on its way to a released leaf
+    (``model_contrib_reduced``: a slice would add the other ranks'
+    slices, a replicated leaf M copies of itself);
+  * the noise of every leaf is drawn at the leaf's full shape, and a
+    sliced leaf keeps the rank's slice of it; the model ranks draw from
+    one seed (``noise_slice_mismatch``, comparing two model ranks'
+    traces, as ``noise_seed_rank_dependent`` compares data ranks').
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+import torch
 
 from repro_torch.analysis.graph import FlatGraph, op_name, shape
 from repro_torch.analysis.report import Finding
@@ -203,4 +224,145 @@ def check_sharding(graph: FlatGraph, *, taints, batch_size: int,
                     f"examples only, not the group's {B}: the clip "
                     f"fraction and the auto budgets' quantiles would differ "
                     f"from rank to rank", WHERE))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# The model half
+
+
+def _descendants(node, within: set) -> set:
+    """Nodes reached from ``node`` through users, inside ``within``."""
+    out, stack = set(), [node]
+    while stack:
+        n = stack.pop()
+        for u in n.users:
+            if u in within and u not in out:
+                out.add(u)
+                stack.append(u)
+    return out
+
+
+def _slices_of(node, depth: int = 6) -> list:
+    """``(dim, start, end)`` of the ``slice`` ops reached from ``node``
+    through at most ``depth`` users."""
+    out, frontier, seen = [], [node], set()
+    for _ in range(depth):
+        nxt = []
+        for n in frontier:
+            for u in n.users:
+                if u in seen:
+                    continue
+                seen.add(u)
+                if op_name(u) == "slice" and len(u.args) >= 4:
+                    out.append(tuple(u.args[1:4]))
+                nxt.append(u)
+        frontier = nxt
+    return out
+
+
+def check_model(traces: Sequence, *, taints, specs, param_shapes,
+                model_size: int,
+                noise_expected: bool) -> List[Finding]:
+    """The model half over ``traces``: ``(model rank, model group name,
+    graph)`` of each traced rank, the first the graph ``taints`` belongs
+    to.  ``specs``: the param spec tree; ``param_shapes``: the whole
+    params' shapes (:class:`~repro_torch.core.tapper.TensorSpec`)."""
+    from repro_torch.analysis.noise import _DRAWS
+    from repro_torch.launch.sharding import is_sharded, model_dims
+    from repro_torch.tree import get_subtree, leaf_paths
+    findings: List[Finding] = []
+    rank0, gname, graph = traces[0]
+    msums = set(sync_nodes(graph, gname))
+
+    def sliced(key: str) -> bool:
+        sub = get_subtree(specs, tuple(key.split("/")))
+        if isinstance(sub, dict):
+            return any(is_sharded(get_subtree(sub, p))
+                       for p in leaf_paths(sub))
+        return is_sharded(sub)
+
+    # -- partial norms: one model sum each, replicated ones none -----------
+    sinks = [n for n, p in graph.markers() if p.get("kind") == "clip_coef"]
+    sinks += [out for path, out in zip(graph.out_paths, graph.outvars)
+              if _out_index(path) == 3]
+    upstream = graph.backward_slice(sinks)
+    reported = set()
+    for node, p in graph.markers():
+        if p.get("kind") != "group_norm":
+            continue
+        key = str(p.get("group"))
+        n = len(msums & _descendants(node, upstream))
+        if sliced(key) and n != 1:
+            code = ("model_norm_sum_missing" if n == 0
+                    else "model_norm_sum_repeated")
+            msg = (f"group {key} is sliced over model, but its partial "
+                   f"norm² reaches the clip coefficients through {n} sum "
+                   f"all-reduce(s) over the model group, not exactly one "
+                   f"— " + ("each rank clips with its own slice's norm"
+                            if n == 0 else
+                            "the norm is counted more than once"))
+        elif not sliced(key) and n:
+            code = "model_norm_overcount"
+            msg = (f"group {key} is replicated (its norm is whole on every "
+                   f"rank) but reaches the clip coefficients through {n} "
+                   f"sum all-reduce(s) over the model group: counted "
+                   f"{model_size}x")
+        else:
+            continue
+        if (code, key) not in reported:
+            reported.add((code, key))
+            findings.append(Finding("error", code, msg, WHERE))
+
+    # -- clipped contributions stay local -----------------------------------
+    # A contribution has a released leaf's local shape and no example
+    # axis (the shape tells it from a one-example activation, B/d = 1).
+    leaf_shapes = {shape(out) for path, out in zip(graph.out_paths,
+                                                   graph.outvars)
+                   if _out_index(path) == 0}
+    for path, out in zip(graph.out_paths, graph.outvars):
+        if _out_index(path) != 0:
+            continue
+        bad = [s for s in msums & graph.backward_slice([out])
+               if not getattr(taints.get(s.args[0]), "batch", True)
+               and shape(s.args[0]) in leaf_shapes]
+        if bad:
+            findings.append(Finding(
+                "error", "model_contrib_reduced",
+                f"released parameter {path} receives a value without the "
+                f"example axis summed over the model group: a clipped "
+                f"contribution is reduced over model ({model_size} ranks' "
+                f"slices or copies added)", WHERE))
+            break
+
+    # -- noise: slices of one full draw, one seed ----------------------------
+    if noise_expected:
+        paths = leaf_paths(param_shapes)
+        seeds = []
+        for mr, _, g in traces:
+            draws = [n for n in g.nodes if op_name(n) in _DRAWS]
+            seeds.append([None if g.generator(n) is None
+                          else g.generator(n).initial_seed() for n in draws])
+            for node, p in zip(draws, paths):
+                full = tuple(get_subtree(param_shapes, p).shape)
+                got = tuple(node.meta["val"].shape) if isinstance(
+                    node.meta.get("val"), torch.Tensor) else ()
+                dims = model_dims(get_subtree(specs, p))
+                want = [(dd, mr * full[dd] // model_size,
+                         (mr + 1) * full[dd] // model_size) for dd in dims]
+                if got != full or not set(want) <= set(_slices_of(node)):
+                    findings.append(Finding(
+                        "error", "noise_slice_mismatch",
+                        f"model rank {mr}: the noise of {'/'.join(p)} is "
+                        f"drawn at {got}, not as its slice {want} of one "
+                        f"draw at the leaf's full shape {full}: the model "
+                        f"ranks' noise is not the single-device noise",
+                        WHERE))
+                    break
+        if len({tuple(x) for x in seeds}) > 1:
+            findings.append(Finding(
+                "error", "noise_slice_mismatch",
+                "the model ranks draw their noise from generators of "
+                "different seeds: their slices are not of one draw",
+                WHERE))
     return findings

@@ -157,8 +157,11 @@ def _dims(d, rank: int):
 
 class TaintPass:
     def __init__(self, graph: FlatGraph, batch_size: int,
-                 microbatches: int = 1):
+                 microbatches: int = 1, model_groups=()):
         self.graph = graph
+        # A sum over a model group adds the model ranks' partial values
+        # of the same examples: no reduction over the examples.
+        self.model_groups = frozenset(model_groups)
         self.B = batch_size
         # A microbatch's example count: the step's loop runs one at a time.
         self.mb = batch_size // microbatches
@@ -499,9 +502,15 @@ class TaintPass:
         ``clipping.gather_examples`` stay per example, an aggregate stays
         an aggregate.  An aggregate of one rank's single example (``ex``:
         a batch slice of width 1) is summed with the other ranks'
-        examples here, so it must be clipped already."""
+        examples here, so it must be clipped already.  A sum over a model
+        group (``model_groups``) adds partial values of the same
+        examples and passes the taint on."""
         t = self.t(node.args[0])
-        if not t.batch and t.ex:
+        src = node if op_name(node) == "all_reduce" else node.args[0]
+        model = (isinstance(src, Node) and op_name(src) == "all_reduce"
+                 and len(src.args) > 2
+                 and str(src.args[2]) in self.model_groups)
+        if not model and not t.batch and t.ex:
             self._reduce_event(node, [t], "sum over the data group's "
                                           "examples")
         self._set(node, t)

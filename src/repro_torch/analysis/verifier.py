@@ -23,6 +23,13 @@ one node.  Three passes read it:
     on a live mesh traces its own rank over its own group), and the
     pass checks the batch slice, the one gradient all-reduce a leaf, the
     noise after it from one seed, the global divisor and statistics.
+    With a tensor-sharded model axis the step is traced on the rank's
+    slices over a fake ``data x model`` world
+    (:func:`repro_torch.launch.mesh.fake_mesh`) as (data 0, model 0),
+    (data 0, the last model rank) and (the last data rank, model 0),
+    and the model half reads it: one model sum of each sliced group's
+    partial norm², none of a replicated one's, no model sum of a
+    clipped contribution, the noise as slices of one full draw.
 
 Violations that only feed the *monitoring* outputs (the mean
 loss, clip fractions, the stale norms) are filtered by a backward slice
@@ -117,7 +124,8 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     from repro_torch.core.clipping import DataShard
     from repro_torch.core.engine import noise_seed
     from repro_torch.core.tapper import STATS, TensorSpec
-    from repro_torch.tree import tree_map
+    from repro_torch.launch.sharding import is_sharded
+    from repro_torch.tree import get_subtree, leaf_paths, tree_map
 
     findings: List[Finding] = []
     checked = {}
@@ -128,10 +136,8 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     B = next(iter(engine._batch_spec.values())).shape[0]
     stale_steady = mode == "stale"
     axes = engine.mesh_axes
-    if costmodel.mesh_model_axes(axes):
-        raise NotImplementedError(
-            f"verifying a step on mesh {costmodel.format_mesh(axes)}: "
-            f"model axes are ROADMAP.md item 14 part 2")
+    specs = engine.param_specs
+    msize = costmodel.mesh_model_size(axes) if specs is not None else 1
     d = costmodel.mesh_data_size(axes)
     if B % d:
         raise ValueError(f"global batch {B} is not divisible by the mesh's "
@@ -157,7 +163,12 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
         key = None
 
     fm = FakeTensorMode(allow_non_fake_inputs=True)
-    params = tree_map(lambda s: _fake(fm, s, dev), engine._params_spec)
+    params = engine._params_spec
+    if msize > 1:
+        from repro_torch.launch.sharding import local_shape
+        params = tree_map(lambda s, sp: TensorSpec(
+            local_shape(s.shape, sp, msize), s.dtype), params, specs)
+    params = tree_map(lambda s: _fake(fm, s, dev), params)
     batch = tree_map(lambda s: _fake(fm, s, dev), engine._batch_spec)
     opt_state = _opt_state(engine, opt, fm, params)
     if stale_steady:
@@ -174,7 +185,40 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     before = {k: getattr(STATS, k) for k in ("forwards", "backwards",
                                              "probes", "fused")}
     stats_delta = None
-    if not axes or d == 1:
+    model_traces = []    # (model rank, model group name, graph)
+    if msize > 1:
+        from repro_torch.core.clipping import MeshShard
+        from repro_torch.launch.mesh import fake_mesh
+        from repro_torch.launch.sharding import ModelShard
+        sh = engine._shard
+        if sh is not None:
+            ms = sh.model
+            ranks = [(sh.rank, ms.rank, sh, ms)]
+        else:
+            ranks = [(0, 0), (0, msize - 1)] + ([(d - 1, 0)] if d > 1
+                                                else [])
+        for entry in ranks:
+            if sh is not None:
+                dr, mr, shard, ms = entry
+                gname = "" if shard.group is None else shard.group.group_name
+                g = _trace_step(engine, shard, key, params, opt_state,
+                                batch, clip_state)
+            else:
+                dr, mr = entry
+                with fake_mesh(d, msize, rank=dr * msize + mr) as (dg, mg):
+                    ms = ModelShard(mg, mr, msize, specs)
+                    shard = MeshShard(dg, dr, d, model=ms)
+                    gname = "" if dg is None else dg.group_name
+                    g = _trace_step(engine, shard, key, params, opt_state,
+                                    batch, clip_state)
+            if stats_delta is None:
+                stats_delta = {k: getattr(STATS, k) - v
+                               for k, v in before.items()}
+            traces.append((dr, gname, g))
+            model_traces.append((mr, ms.group.group_name, g))
+        if len(traces) > 2:      # model-rank pair first, data pair after
+            traces = [traces[0], traces[2]]
+    elif not axes or d == 1:
         traces.append((0, "", _trace_step(engine, None, key, params,
                                           opt_state, batch, clip_state)))
     elif engine._shard is not None:
@@ -212,7 +256,9 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
             init[v] = taintlib.Taint(frozenset({0}))
 
     # -- taint pass --------------------------------------------------------
-    res = taintlib.TaintPass(graph, B // d, m).run(init)
+    res = taintlib.TaintPass(
+        graph, B // d, m,
+        model_groups=[g for _, g, _ in model_traces[:1]]).run(init)
     sinks = [v for path, v in zip(graph.out_paths, graph.outvars)
              if getattr(path[0], "idx", None) in (0, 1)]
     released = graph.backward_slice(sinks)
@@ -271,7 +317,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
         if sigma_mult > 0 else "noise_multiplier == 0: no draws expected")
 
     # -- sharding ----------------------------------------------------------
-    if axes:
+    if axes and d > 1:
         findings.extend(shardcheck.check_sharding(
             graph, taints=res.taints, batch_size=B, data_size=d,
             rank=traces[0][0], group_name=traces[0][1],
@@ -284,8 +330,25 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
             f"{B // d}, one sum all-reduce a released leaf over the data "
             f"group, noise after it from one seed, divisor B = {B}, "
             f"statistics over the group")
+    elif axes:
+        checked["sharding"] = (f"mesh {costmodel.format_mesh(axes)}: no "
+                               f"data degree")
     else:
         checked["sharding"] = "no mesh: single-device step"
+    if model_traces:
+        findings.extend(shardcheck.check_model(
+            model_traces, taints=res.taints, specs=specs,
+            param_shapes=engine._params_spec, model_size=msize,
+            noise_expected=sigma_mult > 0))
+        n_sh = sum(1 for p in leaf_paths(specs)
+                   if is_sharded(get_subtree(specs, p)))
+        checked["sharding"] += (
+            f"; params partitioned over model ({n_sh} of "
+            f"{len(leaf_paths(specs))} leaves sliced {msize} ways), traced "
+            f"as model rank(s) {sorted({r for r, _, _ in model_traces})}: "
+            f"each sliced group's partial norm² summed over model once "
+            f"before any coefficient, replicated norms never, clipped "
+            f"contributions local, noise the slices of one full draw")
 
     # -- plan pass ---------------------------------------------------------
     expected_fp = (engine.fingerprint()

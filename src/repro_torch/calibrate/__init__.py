@@ -3,8 +3,8 @@
 ``repro_torch.calibrate`` is the JAX package's ``repro.calibrate``:
 
   * :mod:`~repro_torch.calibrate.harness` measures the FLOP rate, the HBM
-    bandwidth, the ring all-reduce bandwidth of each data axis of a live
-    mesh (over its process group) and, on the card, ``pe_conv_grad_2d``'s
+    bandwidth, the ring all-reduce bandwidth of each axis of a live
+    mesh (over that axis's process group) and, on the card, ``pe_conv_grad_2d``'s
     tile sweep and ``gram_norm_fused``'s time;
   * :mod:`~repro_torch.calibrate.table` holds the validated, serializable
     :class:`Calibration` result and the process-wide registry the cost
@@ -15,8 +15,8 @@
     never a crash, while the strict loaders in ``table`` never
     downgrade.
 
-Calibrations are keyed by (hardware, mesh).  A mesh with a model axis
-raises ``NotImplementedError`` (ROADMAP.md item 14 part 2).
+Calibrations are keyed by (hardware, mesh), a ``data x model`` mesh
+included.
 """
 from __future__ import annotations
 
@@ -49,12 +49,13 @@ def load_or_fallback(path: str, *, device=None, mesh=None):
 
 
 def get_or_measure(mesh=None, *, quick: bool = True, device="cuda",
-                   group=None) -> Calibration:
+                   groups=None) -> Calibration:
     """The calibration registered for ``device``'s hardware and ``mesh``,
     measuring and registering one if absent — what an engine built with
-    ``calibration="measure"`` uses (``group``: the mesh's data group)."""
+    ``calibration="measure"`` uses (``groups``: each axis's process
+    group)."""
     calib = lookup(device, mesh=mesh)
     if calib is None:
         calib = register(measure(mesh, quick=quick, device=device,
-                                 group=group))
+                                 groups=groups))
     return calib

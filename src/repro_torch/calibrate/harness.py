@@ -12,8 +12,8 @@ One :func:`measure` run produces a
   * HBM streaming bandwidth: one read and one write of a 1 GiB f32
     array on the card, far beyond its 50 MB L2 (the reference's 32 MB
     would stream from the L2);
-  * for each data axis of a live mesh, the ring all-reduce wire bandwidth
-    over the axis's process group (:func:`measure_collective_bytes_per_\
+  * for each axis of a live mesh, data and model alike, the ring
+    all-reduce wire bandwidth over that axis's own process group (:func:`measure_collective_bytes_per_\
 second`): ``ring(d)·shard_bytes`` a second at the JAX package's shard
     sizes (1 and 8 MiB a device), the convention the cost model charges;
   * on the card only, the kernel sweeps: ``pe_conv_grad_2d``'s output
@@ -28,8 +28,7 @@ with ``kernels`` left empty: the plain versions there are no tile sweep.
 ``quick`` takes small sizes (the matmul at n = 256, a 4 MiB stream, which
 the card's L2 holds, one 1 MiB all-reduce).  On a mesh every rank
 measures and rank 0's calibration is broadcast, so all ranks plan under
-one digest.  A mesh with a model axis raises ``NotImplementedError``
-(ROADMAP.md item 14 part 2).
+one digest.
 """
 from __future__ import annotations
 
@@ -39,7 +38,7 @@ import time
 import torch
 
 from repro_torch.calibrate.table import (Calibration,
-                                         CalibrationMeshMismatch, _no_mesh,
+                                         CalibrationMeshMismatch, _mesh,
                                          hardware_signature)
 from repro_torch.core import costmodel
 from repro_torch.device import resolve_device
@@ -240,21 +239,23 @@ def time_gram_norm_fused(*, quick: bool = False, device="cuda") -> dict:
 
 
 def measure(mesh=None, *, quick: bool = False, kernels: bool | None = None,
-            device="cuda", group=None) -> Calibration:
+            device="cuda", groups=None) -> Calibration:
     """Run the harness on ``device`` for ``mesh`` and return the resulting
     :class:`Calibration` (not registered — callers decide; see
     :func:`repro_torch.calibrate.get_or_measure`).  ``kernels=None``
     sweeps the kernels on the card and leaves them out on the CPU;
-    ``kernels=True`` on the CPU raises.  Each data axis of ``mesh`` is
-    timed over ``group`` (the default group when ``None``); every rank of
-    it must call, and all get rank 0's calibration."""
-    axes = _no_mesh(mesh)
+    ``kernels=True`` on the CPU raises.  Each axis of ``mesh`` is timed
+    over its own group, ``groups[axis]`` (the default group when absent);
+    every rank of the mesh must call, and all get rank 0's calibration,
+    broadcast over the default group."""
+    axes = _mesh(mesh)
+    groups = groups or {}
     dev = resolve_device(device)
     if kernels is None:
         kernels = dev.type == "cuda"
     sizes = COLLECTIVE_SIZES_QUICK if quick else COLLECTIVE_SIZES
     coll = {name: measure_collective_bytes_per_second(
-                name, size, group=group, sizes=sizes, device=dev)
+                name, size, group=groups.get(name), sizes=sizes, device=dev)
             for name, size in axes}
     kern = {}
     if kernels:
@@ -271,8 +272,6 @@ def measure(mesh=None, *, quick: bool = False, kernels: bool | None = None,
     if axes:
         import torch.distributed as dist
         box = [calib.to_payload()]
-        dist.broadcast_object_list(
-            box, src=dist.get_global_rank(group, 0) if group is not None
-            else 0, group=group)
+        dist.broadcast_object_list(box, src=0)
         calib = Calibration.from_payload(box[0])
     return calib

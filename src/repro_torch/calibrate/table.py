@@ -4,7 +4,7 @@
 A :class:`Calibration` is the persisted result of one
 :func:`repro_torch.calibrate.harness.measure` run on a concrete
 (hardware, mesh) pair: the FLOP rate, the HBM streaming bandwidth, the
-ring all-reduce wire bandwidth of each data axis of the mesh, and the
+ring all-reduce wire bandwidth of each axis of the mesh, and the
 kernel sweep winners (``pe_conv_grad_2d``'s tile sweep).  The cost
 model converts these into FLOP-equivalents-per-byte lookups that replace
 the analytic constants whenever a calibration is active
@@ -13,9 +13,8 @@ documented fallback).
 
 The JSON format is the JAX package's (format 1, the same fields), so a
 blob written by either package reads in the other.  The registry is
-keyed by (hardware, mesh), as the JAX package's.  A mesh with a model
-axis raises ``NotImplementedError``: model-axis execution, and so its
-calibration, is ROADMAP.md item 14 part 2.
+keyed by (hardware, mesh), as the JAX package's; a ``data x model``
+mesh is one key, and each of its axes has its own bandwidth.
 
 Every deserialized blob is validated — wrong format or truncated
 payload, non-finite or non-positive rates, a hardware signature or mesh
@@ -77,20 +76,13 @@ class CalibrationFallbackWarning(UserWarning):
 
 class CalibrationAxisFallbackWarning(UserWarning):
     """Multi-axis collective traffic priced through the axis-less
-    (slowest-axis) lookup.  The port calibrates data axes only, so a
-    calibration holds one axis unless several data axes were measured."""
+    (slowest-axis) lookup."""
 
 
-def _no_mesh(mesh) -> tuple:
-    """``mesh`` normalized; a model axis raises: the port calibrates and
-    executes pure-data meshes (model axes are item 14 part 2)."""
-    axes = costmodel.mesh_axes(mesh)
-    if costmodel.mesh_model_axes(axes):
-        raise NotImplementedError(
-            f"calibration for mesh {costmodel.format_mesh(axes)}: model "
-            f"axes and their collective bandwidths come with model-axis "
-            f"sharding (ROADMAP.md item 14 part 2)")
-    return axes
+def _mesh(mesh) -> tuple:
+    """``mesh`` normalized (``costmodel.mesh_axes``): data and model
+    axes alike, each with its own collective bandwidth."""
+    return costmodel.mesh_axes(mesh)
 
 
 def hardware_signature(device=None) -> str:
@@ -132,7 +124,7 @@ class Calibration:
     Rates are measured, not assumed:
       * ``flops_per_second``             — dense f32 matmul throughput;
       * ``hbm_bytes_per_second``         — streaming read+write bandwidth;
-      * ``collective_bytes_per_second``  — per data axis, the ring
+      * ``collective_bytes_per_second``  — per mesh axis, the ring
         all-reduce *wire* bandwidth (``ring(d)·shard_bytes`` a second, the
         convention the cost model charges); ``{}`` off-mesh;
       * ``kernels``                      — per-kernel sweep results, e.g.
@@ -155,7 +147,7 @@ class Calibration:
     source: str = "measured"
 
     def __post_init__(self):
-        object.__setattr__(self, "mesh", _no_mesh(self.mesh))
+        object.__setattr__(self, "mesh", _mesh(self.mesh))
         _finite_pos(self.flops_per_second, "flops_per_second")
         _finite_pos(self.hbm_bytes_per_second, "hbm_bytes_per_second")
         for axis, bw in dict(self.collective_bytes_per_second).items():

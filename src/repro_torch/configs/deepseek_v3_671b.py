@@ -5,7 +5,7 @@ MLA: q_lora 1536, kv_lora 512, rope 64, nope 128, v 128 over 128 heads.
 JAX package's config, field for field: MLA + MoE blocks (family
 ``moe``).  One card holds one full-width layer of it, not the model:
 its DP step needs the experts sharded over a model axis (ROADMAP.md
-item 14 part 2).
+item 14 part 3).
 """
 from repro_torch.configs.base import ModelConfig
 

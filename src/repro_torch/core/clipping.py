@@ -13,6 +13,16 @@ divisor, the mean loss and the statistics are the global batch's.
 Clipping is per example, so a rank's coefficients need only its own
 examples' norms: the step equals the single-device step up to the order
 of the sum.
+
+A model axis too (``shard=`` a :class:`MeshShard`, whose ``model`` names
+the model group and the param specs): the strategies run under
+:func:`repro_torch.launch.sharding.model_parallel`, so the models make
+their layout moves and the strategies sum each sliced group's partial
+norm² over ``model`` once, before any coefficient.  The clipped
+contributions of sliced leaves stay local (summed over the data group
+only), and the noise is the single-device noise: every rank draws each
+leaf's full shape from the one generator and keeps its slice
+(:func:`add_noise`).
 """
 from __future__ import annotations
 
@@ -264,11 +274,31 @@ class DataShard:
         return slice(self.rank * n, (self.rank + 1) * n)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshShard(DataShard):
+    """One rank's place in a ``data x model`` mesh: the data group (its
+    fields are :class:`DataShard`'s; size 1 and no group on a mesh with
+    no data degree) and ``model``, the rank's
+    :class:`~repro_torch.launch.sharding.ModelShard` (its group, rank,
+    size and the param specs)."""
+
+    model: Any = None
+
+
+def model_of(shard) -> Any:
+    """The :class:`~repro_torch.launch.sharding.ModelShard` of a shard
+    (``None``: no model axis)."""
+    return getattr(shard, "model", None)
+
+
 def _psum(t, shard: DataShard):
-    """Sum all-reduce over the shard's group (a functional collective, so
-    a traced step records it as one node)."""
-    import torch.distributed._functional_collectives as funcol
-    return funcol.wait_tensor(funcol.all_reduce(t, "sum", shard.group))
+    """Sum all-reduce over the shard's data group (a functional
+    collective, so a traced step records it as one node; a data degree
+    of 1 has nothing to sum)."""
+    if shard.size == 1:
+        return t
+    from repro_torch.launch.sharding import all_reduce
+    return all_reduce(t, shard.group, axis="data")
 
 
 def sync_grads(gsum, shard: DataShard):
@@ -300,27 +330,40 @@ def release_sum(gsum, key, cfg, shard: DataShard | None = None):
     if shard is not None:
         gsum = sync_grads(gsum, shard)
     if key is not None and cfg.noise_multiplier > 0:
-        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip)
+        ms = model_of(shard)
+        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip,
+                         **({} if ms is None else {"model": ms}))
     return gsum
 
 
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
-              l2_clip: float):
+              l2_clip: float, *, model=None):
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
     from ``generator`` (on the grads' device), leaf by leaf in sorted
     leaf-path order, and summed in float32; only the result is cast back
-    to the grad dtype."""
+    to the grad dtype.  On a model axis (``model``: the rank's
+    ``ModelShard``) a sliced leaf's noise is drawn at the leaf's full
+    shape and this rank keeps its slice, so the model ranks add the
+    slices of the one draw a single device adds."""
     if noise_multiplier == 0.0:
         return grad_sum
+    from repro_torch.launch import sharding
     sigma = noise_multiplier * l2_clip
     out = grad_sum
     for path in leaf_paths(grad_sum):
         g = get_subtree(grad_sum, path)
-        noise = torch.randn(g.shape, generator=generator, dtype=F32,
+        dims = (() if model is None
+                else sharding.model_dims(get_subtree(model.specs, path)))
+        full = list(g.shape)
+        for d in dims:
+            full[d] *= model.size
+        noise = torch.randn(full, generator=generator, dtype=F32,
                             device=g.device)
         noise = tag(sigma * noise, kind="noise", sigma=float(sigma),
                     noise_multiplier=float(noise_multiplier),
                     l2_clip=float(l2_clip))
+        for d in dims:
+            noise = sharding._own(noise, d, model)
         out = set_subtree(out, path, (g.to(F32) + noise).to(g.dtype))
     return out
 
@@ -345,7 +388,7 @@ def resolve_microbatches(apply_fn, params, batch, cfg: DPConfig,
 def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
                 key: torch.Generator | None = None, denom: int | None = None,
                 plan=None, clip_state: dict | None = None,
-                shard: DataShard | None = None):
+                shard: DataShard | None = None, flat_plan=None):
     """Full DP-SGD gradient:  (Σ_b clip(g_b) + σC·ξ) / denom.
 
     ``batch`` leaves have leading B; with ``cfg.microbatches`` > 1 the
@@ -368,7 +411,11 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
 
     ``shard`` runs this rank's slice of the global ``batch`` and reduces
     over its group (module docstring); ``prev_norms_sq`` is then the
-    rank's slice, and ``plan`` the mesh-keyed one.
+    rank's slice, and ``plan`` the mesh-keyed one.  A :class:`MeshShard`
+    with a model group runs the strategies under it: ``params`` are
+    then the rank's slices, and ``flat_plan`` (the mesh-keyed flat plan)
+    is what the stale bootstrap executes, where a plan of the slices'
+    shapes would price another layer.
 
     Returns (mean loss, gradient tree in float32, aux dict with
     ``per_example_norms`` and ``clip_fraction``).  ``per_layer`` adds
@@ -393,7 +440,7 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         # the pass.  The returned clip_state seeds the steady state.
         policy = ClipPolicy()
         cfg = dataclasses.replace(cfg, clipping=policy)
-        plan = None
+        plan = flat_plan
     m = cfg.microbatches
     if m == "auto":
         m = resolve_microbatches(apply_fn, params, batch, cfg, plan=plan)
@@ -403,24 +450,26 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         raise ValueError(f"batch {B} not divisible by microbatches {m}")
     mb = B // m
     gsum, losses, norms, group_ns, budgets_used = None, [], [], [], None
-    for i in range(m):
-        sl = slice(i * mb, (i + 1) * mb)
-        part = {k: v[sl] for k, v in batch.items()}
-        l_i, g_i, n_i, detail = strategies.clipped_grad_sum_detailed(
-            apply_fn, params, part, l2_clip=cfg.l2_clip,
-            strategy=cfg.strategy, norm_method=cfg.norm.dense,
-            conv_impl=cfg.norm.conv_impl, embed_method=cfg.norm.embed,
-            conv_norm=cfg.norm.conv,
-            overrides=cfg.overrides, mem_budget=cfg.norm.mem_budget,
-            plan=plan, clip_policy=policy, budgets=budgets,
-            prev_norms_sq=None if prev_ns is None else prev_ns[sl])
-        g_i = tree_map(lambda g: g.to(F32), g_i)
-        gsum = g_i if gsum is None else tree_map(torch.add, gsum, g_i)
-        losses.append(l_i)
-        norms.append(n_i)
-        if detail["group_norms_sq"] is not None:
-            group_ns.append(detail["group_norms_sq"])
-            budgets_used = detail["budgets"]
+    from repro_torch.launch.sharding import model_parallel
+    with model_parallel(model_of(shard)):
+        for i in range(m):
+            sl = slice(i * mb, (i + 1) * mb)
+            part = {k: v[sl] for k, v in batch.items()}
+            l_i, g_i, n_i, detail = strategies.clipped_grad_sum_detailed(
+                apply_fn, params, part, l2_clip=cfg.l2_clip,
+                strategy=cfg.strategy, norm_method=cfg.norm.dense,
+                conv_impl=cfg.norm.conv_impl, embed_method=cfg.norm.embed,
+                conv_norm=cfg.norm.conv,
+                overrides=cfg.overrides, mem_budget=cfg.norm.mem_budget,
+                plan=plan, clip_policy=policy, budgets=budgets,
+                prev_norms_sq=None if prev_ns is None else prev_ns[sl])
+            g_i = tree_map(lambda g: g.to(F32), g_i)
+            gsum = g_i if gsum is None else tree_map(torch.add, gsum, g_i)
+            losses.append(l_i)
+            norms.append(n_i)
+            if detail["group_norms_sq"] is not None:
+                group_ns.append(detail["group_norms_sq"])
+                budgets_used = detail["budgets"]
     losses, norms_sq = torch.cat(losses), torch.cat(norms)
     gsum = release_sum(gsum, key, cfg, shard)
     grad = tree_map(lambda g: g / denom, gsum)

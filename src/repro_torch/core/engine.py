@@ -39,9 +39,20 @@ and divides by the global batch (:func:`repro_torch.core.clipping.
 dp_gradient`).  The replicas stay bitwise equal; the step equals the
 single-device step up to the order of the sum.  No
 ``DistributedDataParallel``: it all-reduces the unclipped gradient, in
-an order that is not fixed.  A mesh *spec* (``"data:8"``) plans only.  A
-live mesh with a model axis raises ``NotImplementedError`` (ROADMAP.md
-item 14 part 2).
+an order that is not fixed.  A mesh *spec* (``"data:8"``) plans only.
+
+A ``model`` axis too (``mesh=`` a live ``data:D,model:M`` mesh,
+``param_axes=`` the logical axes ``model.init`` returns): every leaf
+whose spec under ``launch.sharding.PARAM_RULES`` names ``model`` is
+tensor-sharded, and ``private_step`` takes and returns this rank's
+slices (:meth:`shard_params`, :meth:`gather_params`; the optimizer
+moments are slices too, :meth:`shard_opt`, :meth:`gather_opt`).  The
+models make their layout moves explicitly, the strategies sum each
+sliced group's partial norm² over ``model`` once before any coefficient,
+the clipped contributions stay local, and every rank keeps its slice of
+the one full-shape noise draw, so the step equals the single-device
+step up to the order of the sums.  Without ``param_axes`` a model axis
+runs replicated, as the JAX package's does.
 
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
@@ -57,8 +68,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel
-from repro_torch.core.clipping import (DataShard, DPConfig, dp_gradient,
-                                       gather_examples, resolve_budgets,
+from repro_torch.core.clipping import (DataShard, DPConfig, MeshShard,
+                                       dp_gradient, gather_examples,
+                                       model_of, resolve_budgets,
                                        resolve_microbatches)
 from repro_torch.core.privacy import PrivacyAccountant, clipping_sensitivity
 from repro_torch.core.tapper import TensorSpec, spec_of
@@ -137,6 +149,14 @@ class PrivacyEngine:
                   is the *global* batch, whose size the data degree must
                   divide.  A mesh spec (``"data:8"``, an axes mapping)
                   plans for that topology without running it.
+      param_axes: the logical-axes tree ``model.init`` returns beside
+                  the params.  On a mesh with a model axis it partitions
+                  the params (and the optimizer moments) per
+                  ``launch.sharding.PARAM_RULES``: tensor-sharded dense,
+                  conv and embedding layers then execute sharded, and
+                  ``params`` here are the *whole* params (their shapes
+                  plan), while the step takes each rank's slices.
+                  Ignored on pure-data meshes.
       calibration: measured cost constants for planning.  ``None`` takes
                   the calibration registered for the engine's device and
                   mesh, if any (a pure-data mesh otherwise keeps the
@@ -164,7 +184,8 @@ class PrivacyEngine:
                  lr=1e-3, weight_decay: float = 0.0,
                  sampling_rate: float | None = None,
                  accountant: PrivacyAccountant | None = None,
-                 plan=None, mesh=None, calibration=None,
+                 plan=None, mesh=None, param_axes=None,
+                 calibration=None,
                  mispredict_threshold: float | None = 0.5, monitor=None,
                  run_seed: int | None = None, device="cuda"):
         self.device = resolve_device(device)
@@ -173,8 +194,9 @@ class PrivacyEngine:
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
         self._mesh_axes = costmodel.mesh_axes(mesh)
+        self._specs = self._param_specs(param_axes)
         live = getattr(mesh, "mesh_dim_names", None) is not None
-        self._shard = self._data_shard(mesh) if live else None
+        self._shard = self._mesh_shard(mesh) if live else None
         self._update_fn = _resolve_optimizer(optimizer)
         self._optimizer_name = optimizer if isinstance(optimizer, str) \
             else None
@@ -211,17 +233,28 @@ class PrivacyEngine:
 
     # -- the mesh ------------------------------------------------------------
 
-    def _data_shard(self, mesh) -> DataShard | None:
-        """This rank's :class:`DataShard` of a live mesh; a model axis
-        raises, and so does a global batch the data degree does not
-        divide."""
+    def _param_specs(self, param_axes):
+        """The param spec tree on a mesh with a model axis and
+        ``param_axes`` (``None`` otherwise: every leaf replicated)."""
+        from repro_torch.launch import sharding
         axes = self._mesh_axes
-        if costmodel.mesh_model_axes(axes):
+        maxes = costmodel.mesh_model_axes(axes)
+        if param_axes is None or not maxes:
+            return None
+        if [a for a, _ in maxes] != ["model"]:
             raise NotImplementedError(
-                f"a live mesh with model axes "
-                f"({costmodel.format_mesh(axes)}): tensor-sharded "
-                f"execution is ROADMAP.md item 14 part 2; this engine runs "
-                f"pure-data meshes")
+                f"model-parallel axes {maxes}: the port executes one axis "
+                f"named 'model'; others are {sharding.DEFERRED}")
+        return sharding.param_sharding(param_axes, axes,
+                                       shapes_tree=self._params_spec)
+
+    def _mesh_shard(self, mesh) -> DataShard | None:
+        """This rank's shard of a live mesh: a :class:`DataShard` of the
+        data axes, or with a sharded model axis a :class:`MeshShard`
+        naming both groups; a global batch the data degree does not
+        divide raises."""
+        from repro_torch.launch import sharding
+        axes = self._mesh_axes
         d = costmodel.mesh_data_size(axes)
         for k, leaf in self._batch_spec.items():
             if leaf.shape and leaf.shape[0] % d:
@@ -229,14 +262,99 @@ class PrivacyEngine:
                     f"batch leaf {k!r} leading dim {leaf.shape[0]} is not "
                     f"divisible by the mesh's data-parallel degree {d} "
                     f"({costmodel.format_mesh(axes)})")
+        model = (None if self._specs is None
+                 else sharding.model_shard_of(mesh, self._specs))
+        names = tuple(mesh.mesh_dim_names)
+        dims = [i for i, n in enumerate(tuple(mesh.shape))
+                if n > 1 and names[i] in costmodel.DATA_AXIS_NAMES]
         if d == 1:
-            return None
-        dims = [i for i, n in enumerate(tuple(mesh.shape)) if n > 1]
-        if len(dims) == 1:
-            return DataShard(mesh.get_group(dims[0]),
+            data = DataShard(None, 0, 1)
+        elif len(dims) == 1:
+            data = DataShard(mesh.get_group(dims[0]),
                              mesh.get_local_rank(dims[0]), d)
-        flat = mesh._flatten()
-        return DataShard(flat.get_group(), flat.get_local_rank(), d)
+        else:
+            flat = mesh[tuple(names[i] for i in dims)]._flatten()
+            data = DataShard(flat.get_group(), flat.get_local_rank(), d)
+        if model is not None:
+            return MeshShard(data.group, data.rank, data.size, model=model)
+        return None if d == 1 else data
+
+    # -- tensor-sharded params -------------------------------------------------
+
+    @property
+    def param_specs(self):
+        """The param spec tree (``None``: every leaf replicated)."""
+        return self._specs
+
+    def _model(self):
+        return model_of(self._shard)
+
+    def shard_params(self, params):
+        """This rank's slices of whole params (the tree ``private_step``
+        takes on a model axis; whole params elsewhere)."""
+        from repro_torch.launch import sharding
+        ms = self._model()
+        return params if ms is None else sharding.shard_params(
+            params, self._specs, ms)
+
+    def gather_params(self, params):
+        """Whole params from every rank's slices (a collective over the
+        model group)."""
+        from repro_torch.launch import sharding
+        ms = self._model()
+        return params if ms is None else sharding.gather_params(
+            params, self._specs, ms)
+
+    def opt_specs(self, opt):
+        """Specs of an optimizer state: a subtree with the params'
+        structure (AdamW's and SGD-momentum's moments, a custom
+        optimizer's) takes the param specs; any other leaf shaped like a
+        param whose spec is unambiguous takes that spec, and the rest
+        (the step count, scalars) stays replicated."""
+        from repro_torch.launch import sharding
+        from repro_torch.tree import leaf_paths
+        p_paths = leaf_paths(self._specs)
+        out = {}
+        for k, sub in opt.items():
+            if isinstance(sub, dict) and leaf_paths(sub) == p_paths:
+                out[k] = self._specs
+            else:
+                out[k] = sharding.derived_specs(
+                    {k: sub}, self._params_spec, self._specs)[k]
+        return out
+
+    def shard_opt(self, opt):
+        """This rank's slices of a whole optimizer state."""
+        from repro_torch.launch import sharding
+        ms = self._model()
+        return opt if ms is None else sharding.shard_params(
+            opt, self.opt_specs(opt), ms)
+
+    def gather_opt(self, opt):
+        """A whole optimizer state from every rank's slices."""
+        from repro_torch.launch import sharding
+        ms = self._model()
+        return opt if ms is None else sharding.gather_params(
+            opt, self.opt_specs(opt), ms)
+
+    def _check_local(self, params):
+        """On a model axis the step takes this rank's slices: a whole
+        leaf where a slice belongs raises, naming the leaf."""
+        from repro_torch.launch import sharding
+        from repro_torch.tree import get_subtree, leaf_paths
+        ms = self._model()
+        if ms is None:
+            return
+        for p in leaf_paths(self._specs):
+            want = sharding.local_shape(
+                get_subtree(self._params_spec, p).shape,
+                get_subtree(self._specs, p), ms.size)
+            got = tuple(get_subtree(params, p).shape)
+            if got != want:
+                raise ValueError(
+                    f"param {'/'.join(map(str, p))} has shape {got}; on "
+                    f"model rank {ms.rank} of {ms.size} the step takes its "
+                    f"slice {want} (engine.shard_params)")
 
     @property
     def mesh_axes(self) -> tuple:
@@ -260,11 +378,21 @@ class PrivacyEngine:
         elif calibration == "measure":
             calib = calibrate.get_or_measure(
                 axes, quick=self.device.type != "cuda", device=self.device,
-                group=None if self._shard is None else self._shard.group)
+                groups=self._axis_groups())
         else:
             calib = calibrate.load_or_fallback(str(calibration),
                                                device=self.device, mesh=axes)
         return None if calib is None else calibrate.register(calib)
+
+    def _axis_groups(self) -> dict:
+        """The process group of each mesh axis this rank collects over."""
+        sh, out = self._shard, {}
+        if sh is not None and sh.size > 1:
+            for a, _ in costmodel.mesh_data_axes(self._mesh_axes):
+                out[a] = sh.group
+        if model_of(sh) is not None:
+            out["model"] = model_of(sh).group
+        return out
 
     @property
     def calibration(self):
@@ -430,19 +558,24 @@ class PrivacyEngine:
         return resolve_microbatches(self.apply_fn, self._params_spec,
                                     self._batch_spec, self.dp, plan=plan)
 
-    def _exec_plan(self) -> costmodel.ExecPlan | None:
+    def _exec_plan(self, clip_mode: str | None = None
+                   ) -> costmodel.ExecPlan | None:
         """The plan matching the shapes the step actually executes: the
-        full-batch plan, or a per-microbatch-shape plan when splitting."""
+        full-batch plan, or a per-microbatch-shape plan when splitting
+        (``clip_mode``: planned for that clipping mode instead)."""
         if self.dp.strategy != "auto":
             return None
         m = self.microbatches()
-        if m == 1:
+        if m == 1 and clip_mode is None:
             return self.plan()
+        opts = self._planner_opts()
+        if clip_mode is not None:
+            opts["clip_mode"] = clip_mode
         mb_spec = {k: TensorSpec((s.shape[0] // m,) + tuple(s.shape[1:]),
                                  s.dtype)
                    for k, s in self._batch_spec.items()}
         return costmodel.get_plan(self.apply_fn, self._params_spec, mb_spec,
-                                  **self._planner_opts())
+                                  **opts)
 
     # -- noise ---------------------------------------------------------------
 
@@ -485,6 +618,7 @@ class PrivacyEngine:
         """(mean loss, noised clipped mean gradient, aux).  Cross-step
         clipping state (stale norms, auto budgets) is threaded exactly as
         in ``private_step``."""
+        self._check_local(params)
         out = self._grad_fn(self._shard)(
             params, batch, self._check_key(key, step), self._clip_state(),
             denom)
@@ -596,11 +730,17 @@ class PrivacyEngine:
         apply_fn = self.apply_fn
 
         sharded = {} if shard is None else {"shard": shard}
+        boot = model_of(shard) is not None and self.dp.clipping.mode == "stale"
 
         def grad(params, batch, key, clip_state, denom=None):
+            kw = dict(sharded)
+            if boot and (clip_state or {}).get("prev_norms_sq") is None:
+                # The bootstrap's flat plan, of the whole shapes and the
+                # mesh (a plan of the slices' shapes prices other layers).
+                kw["flat_plan"] = self._exec_plan(clip_mode="flat")
             return dp_gradient(apply_fn, params, batch, cfg=cfg, key=key,
                                denom=denom, plan=plan, clip_state=clip_state,
-                               **sharded)
+                               **kw)
 
         return grad
 
@@ -635,7 +775,8 @@ class PrivacyEngine:
         more collective traffic a step and device.  On a mesh the step is
         traced as ranks of a fake group of the data degree and the
         sharding pass (:mod:`repro_torch.analysis.shardcheck`) reads
-        it."""
+        it; with a sharded model axis, as ranks of a fake ``data x model``
+        world, whose model half the same pass reads."""
         from repro_torch.analysis.verifier import verify_engine
         report = verify_engine(self, opt=opt,
                                coll_bytes_warn=coll_bytes_warn)
@@ -653,6 +794,7 @@ class PrivacyEngine:
         first step bootstraps with exact flat clipping); ``per_layer``
         with ``budgets="auto"`` re-splits the budget from the tracked
         per-layer norm quantiles after every step."""
+        self._check_local(params)
         out = self._step_fn(self._shard)(
             params, opt, batch, self._check_key(key, step),
             self._clip_state())

@@ -27,6 +27,13 @@ The paper's three strategies plus the ghost / book-keeping extensions:
 Clipping modes (``ClipPolicy``): ``flat`` everywhere; ``per_layer`` and
 ``stale`` under ``auto`` and ``bk``.
 
+On a model axis (the strategies run under ``launch.sharding.
+model_parallel``) every sliced parameter group's per-example norm² is
+partial, and is summed over ``model`` exactly once, before any clip
+coefficient (:func:`model_summed`, :func:`pe_norms_sq`); a replicated
+group's norm is whole on every rank and never summed.  The clipped
+contributions stay this rank's slices.
+
 ``apply_fn(params, batch, tapper) -> (B,) per-example losses`` is the only
 contract a model must satisfy.  Execution counts (forwards / backwards)
 are tracked in :data:`repro_torch.core.tapper.STATS`.
@@ -45,6 +52,49 @@ from repro_torch.tree import (from_paths, get_subtree, leaf_paths,
 
 STRATEGIES = ("naive", "multi", "crb", "ghost", "bk", "auto")
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The model axis: partial norms summed once
+
+
+def model_summed(norms: list, paths) -> list:
+    """Per-group (B,) norms² with every sliced group's partial norm²
+    summed over the active model group, in one all-reduce of those rows
+    stacked; a replicated group's norm passes through untouched (its
+    gradient is whole on every rank).  No model group: ``norms``."""
+    from repro_torch.launch import sharding
+    ms = sharding.active()
+    if ms is None:
+        return norms
+    rows = [i for i, p in enumerate(paths) if ms.sharded_path(tuple(p))]
+    if not rows:
+        return norms
+    summed = sharding.all_reduce(torch.stack([norms[i] for i in rows]),
+                                 ms.group).unbind(0)
+    out = list(norms)
+    for i, t in zip(rows, summed):
+        out[i] = t
+    return out
+
+
+def pe_norms_sq(pe):
+    """(B,) norms² of materialized per-example grads: on a model axis the
+    sliced leaves' share summed over ``model`` once, the replicated
+    leaves' counted once."""
+    from repro_torch.launch import sharding
+    ms = sharding.active()
+    if ms is None:
+        return kinds._sumsq(pe)
+    part, whole = [], []
+    for p in leaf_paths(pe):
+        g = get_subtree(pe, p)
+        sq = g.to(F32).square().sum(dim=tuple(range(1, g.ndim)))
+        (part if ms.sharded_path(p) else whole).append(sq)
+    out = sum(whole) if whole else 0.0
+    if part:
+        out = out + sharding.all_reduce(sum(part), ms.group)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +121,11 @@ def naive_per_example_grads(apply_fn, params, batch):
 
 def multi_per_example_grads(apply_fn, params, batch):
     """vmap(grad) — the paper's `multi` (model copies sharing params)."""
+    from repro_torch.launch import sharding
+    if sharding.active() is not None:
+        raise NotImplementedError(
+            f"strategy 'multi' on a model axis: the collectives take no "
+            f"torch.func.vmap; {sharding.DEFERRED}")
     def loss(p, ex):
         ex1 = {k: v.unsqueeze(0) for k, v in ex.items()}
         out = apply_fn(p, ex1, Tapper())[0]
@@ -185,7 +240,8 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
             names, metas, caps, dtaps, psub, conv_impl)), path, "pe"))
     if not norms:
         raise ValueError("no tapped layers")
-    return tuple(keys), torch.stack(norms)
+    return tuple(keys), torch.stack(model_summed(
+        norms, [p for p, _ in sorted(by_param.items())]))
 
 
 def _is_tied(names, metas) -> bool:
@@ -325,7 +381,7 @@ def clipped_grad_sum_detailed(apply_fn, params, batch, *, l2_clip: float,
         else:
             losses, pe = crb_per_example_grads(
                 apply_fn, params, batch, conv_impl=conv_impl, check=check)
-        norms_sq = kinds._sumsq(pe)
+        norms_sq = pe_norms_sq(pe)
         coef = clip_coefficients(norms_sq, l2_clip)
         return losses, _weighted_sum(pe, coef), norms_sq, _flat_detail(coef)
     if strategy not in ("ghost", "bk"):
@@ -532,11 +588,12 @@ def planned_clipped_sum(apply_fn, params, batch, plan, *, l2_clip: float,
         coef = clip_coefficients(prev_norms_sq, l2_clip,
                                  mode="stale").detach()
         acc: dict = {}
+        norms = [_stale_group_norm_contrib(
+            g, plan, metas, caps, dtaps, params, coef, conv_impl, fused_ok,
+            acc) for g in plan.groups]
         total = 0.0
-        for g in plan.groups:
-            total = total + _stale_group_norm_contrib(
-                g, plan, metas, caps, dtaps, params, coef, conv_impl,
-                fused_ok, acc)
+        for n_g in model_summed(norms, [g.path for g in plan.groups]):
+            total = total + n_g
         gsum = _grads_to_tree(acc)
         if check:
             missing = check_coverage(params, gsum)
@@ -545,10 +602,10 @@ def planned_clipped_sum(apply_fn, params, batch, plan, *, l2_clip: float,
         return losses, gsum, total, _flat_detail(coef)
 
     stash: dict = {}
-    group_ns = torch.stack([
+    group_ns = torch.stack(model_summed([
         _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
                             stash)
-        for g in plan.groups])                                   # (G, B)
+        for g in plan.groups], [g.path for g in plan.groups]))   # (G, B)
     total = group_ns.sum(dim=0)
 
     if mode == "per_layer":

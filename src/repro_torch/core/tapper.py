@@ -241,12 +241,22 @@ class Tapper:
                          static={"n_examples": n_examples})
         return self.tap(name, y, {"x": x, "seg": seg}, meta)
 
-    def embed(self, name: str, table, ids):
-        """Tapped embedding gather ``y = table[ids]``."""
-        y = table[ids.long()]
+    def embed(self, name: str, table, ids, *, n_rows: int | None = None):
+        """Tapped embedding gather ``y = table[ids]``.  ``n_rows``: the
+        whole table's rows; when ``table`` arrives as this rank's slice of
+        a vocabulary sharded over the active model group, the rank looks
+        up the ids in its shard (capturing their local ids), zeroes the
+        rest, and the rows are summed over ``model``.  The zeroed rows
+        carry a zero cotangent, so the kinds count only the tokens whose
+        id lies in the shard."""
+        from repro_torch.launch import sharding
         path, shared = _parse_name(name)
         meta = LayerMeta("embed", path, param_key="emb", shared=shared)
-        return self.tap(name, y, {"ids": ids}, meta)
+        if n_rows is None or not sharding.split(table.shape[0], n_rows):
+            return self.tap(name, table[ids.long()], {"ids": ids}, meta)
+        lid, mine = sharding.lookup(table, ids)
+        y = self.tap(name, table[lid], {"ids": lid}, meta)
+        return sharding.reduce_from_model(y * mine[..., None].to(y.dtype))
 
     def scale(self, name: str, x, g, b=None):
         """Tapped elementwise affine (RMSNorm/LayerNorm): y = x*g (+ b)."""

@@ -19,12 +19,17 @@ a single step*:
     in-process fake group of N (``launch.mesh.fake_world``: no
     processes, the JAX package's forced host devices) holds the batch
     slice, one gradient all-reduce a leaf, the noise after it from one
-    seed, the global divisor and statistics.
+    seed, the global divisor and statistics; on ``data:N,model:M`` the
+    params are tensor-sharded (the logical axes ``model.init`` returns),
+    and the model half checks each sliced group's one model sum of its
+    partial norms, none of a replicated group's, local contributions,
+    and the noise as slices of one draw.
 
 Exit status is 1 if any lane reports an error (or, with
 ``--fail-on-warn``, a warning), so a CI job wired to this module is a
-hard gate.  A ``--mesh`` with a model axis raises
-``NotImplementedError`` (ROADMAP.md item 14 part 2).  Every arch of
+hard gate.  On a model axis the MoE, enc-dec and recurrent families,
+MLA and qk-norm on sliced heads raise ``NotImplementedError`` (ROADMAP.md
+item 14 part 3).  Every arch of
 ``configs.PAPER_IDS`` and ``configs.SERVED_LM`` runs, reduced.  The MoE
 archs' gather dispatch has global capacity (the
 examples' tokens compete for one expert's slots), and their lanes fail
@@ -32,7 +37,8 @@ on it, as the JAX package's do.
 
     PYTHONPATH=src python -m repro_torch.launch.dpcheck \\
         --archs alexnet vgg16 llama3.2-1b \\
-        --clip-modes flat per_layer stale --mesh none data:8 --device cpu
+        --clip-modes flat per_layer stale --mesh none data:8 data:4,model:2 \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -57,12 +63,13 @@ def _build_engine(arch: str, clip_mode: str, *, batch: int, seq: int,
         strategy = "auto"
     dpc = DPConfig(l2_clip=clip, noise_multiplier=noise, strategy=strategy,
                    clipping=ClipPolicy(mode=clip_mode))
-    params0, _ = model.init(0, device=device)
+    params0, axes = model.init(0, device=device)
     return PrivacyEngine(model.apply, params0,
                          to_device(make_batch_fn(cfg, batch, seq)(0), device),
                          dp=dpc, optimizer="adamw", lr=1e-3,
                          weight_decay=0.01, run_seed=run_seed,
-                         calibration="analytic", device=device, mesh=mesh)
+                         calibration="analytic", device=device, mesh=mesh,
+                         param_axes=axes)
 
 
 def main(argv=None):
@@ -74,7 +81,8 @@ def main(argv=None):
     ap.add_argument("--mesh", nargs="+", default=["none"],
                     help="mesh specs per lane; 'none' = one device, "
                          "'data:N' traces the sharded step on a fake "
-                         "group of N ranks")
+                         "group of N ranks, 'data:N,model:M' the "
+                         "tensor-sharded step on a fake N x M world")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--clip", type=float, default=1.0)
@@ -101,10 +109,6 @@ def main(argv=None):
 
     for spec in args.mesh:
         axes = () if spec == "none" else costmodel.mesh_axes(spec)
-        if costmodel.mesh_model_axes(axes):
-            raise NotImplementedError(
-                f"--mesh {spec}: model axes are ROADMAP.md item 14 part 2; "
-                f"the port verifies data-parallel lanes")
         if args.batch % costmodel.mesh_data_size(axes):
             raise SystemExit(f"--batch {args.batch} not divisible by the "
                              f"data degree of mesh {spec}")

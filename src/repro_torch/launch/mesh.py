@@ -85,11 +85,43 @@ def fake_world(n: int, *, rank: int = 0):
         sys.excepthook = hook
 
 
+def mesh_groups(data: int, model: int, rank: int):
+    """``(data group, model group)`` of global rank ``rank`` in a
+    ``(data, model)`` mesh laid out row-major over the default group
+    (rank ``i * model + j`` is data rank ``i``, model rank ``j``): every
+    subgroup is created, in one fixed order, as ``new_group`` requires
+    of every rank; ``None`` for an axis of size 1."""
+    out = [None, None]
+    if data > 1:
+        for j in range(model):
+            g = dist.new_group([i * model + j for i in range(data)])
+            if rank % model == j:
+                out[0] = g
+    if model > 1:
+        for i in range(data):
+            g = dist.new_group([i * model + j for j in range(model)])
+            if rank // model == i:
+                out[1] = g
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def fake_mesh(data: int, model: int, *, rank: int = 0):
+    """:func:`fake_world` of ``data * model`` ranks with its ``data x
+    model`` subgroups (:func:`mesh_groups`): yields ``(data group, model
+    group)`` of ``rank``, over which the verifier traces one rank of a
+    tensor-sharded step."""
+    with fake_world(data * model, rank=rank):
+        yield mesh_groups(data, model, rank)
+
+
 def make_mesh_from_spec(spec, *, device_type: str = "cuda"):
     """A live ``DeviceMesh`` for a planner mesh spec (``"data:8"``,
     ``"data:4,model:2"``; :func:`~repro_torch.core.costmodel.mesh_axes`)
     over the process group already initialized, or ``None`` for an empty
-    spec.  The world size must equal the mesh's device count."""
+    spec.  The world size must equal the mesh's device count; the
+    dimensions are named after the axes (``mesh.get_group("model")``),
+    row-major, as :func:`mesh_groups` lays them out."""
     from torch.distributed.device_mesh import init_device_mesh
     axes = mesh_axes(spec)
     if not axes:

@@ -9,14 +9,56 @@ name, or a tuple of names — trailing ``None`` entries dropped.
 
 Data-parallel execution (``PrivacyEngine(mesh=)`` on a pure-data mesh)
 uses only :func:`batch_sharding`: the batch's leading axis over the data
-axes, every param replicated.  The param specs are computed and held
-against the JAX package's; executing them is model-axis sharding
-(ROADMAP.md item 14 part 2).
+axes, every param replicated.
+
+Model-axis execution (``PrivacyEngine(mesh=, param_axes=)`` on a mesh
+with a ``model`` axis) partitions every leaf whose spec names ``model``:
+each rank holds its contiguous slice of that dimension
+(:func:`shard_params`, :func:`gather_params`).  There is no SPMD
+compiler, so every layout move is an explicit collective, and the
+models make it at the layout points the JAX package marks with
+``shard_act``, under :func:`model_parallel` (outside one each helper is
+the identity):
+
+  * :func:`copy_to_model`   — a full activation entering a
+    column-sharded layer: identity forward, its cotangent summed over
+    ``model`` in the backward (Megatron's ``f``);
+  * :func:`reduce_from_model` — a row-sharded layer's partial output, a
+    partial loss term: summed over ``model`` forward, identity backward
+    (Megatron's ``g``);
+  * :func:`gather_from_model` — a feature slice all-gathered for a
+    consumer that needs the full input; the backward takes the rank's
+    slice of the cotangent (a replicated consumer) or reduce-scatters it
+    (``sharded_consumer=True``: a column-sharded one);
+  * :func:`parallel_xent` — cross entropy over vocabulary-sharded
+    logits (max, sum of exponentials and target logit summed over
+    ``model``; the logits are never gathered).
+
+Every one is a sum all-reduce of the model group (the gathers sum
+zero-padded slices, exact; the reduce-scatter all-reduces and keeps
+the slice): one ``_c10d_functional.all_reduce`` node a move, in a
+fixed order, which the verifier's model half reads, and the one
+collective gloo runs on CUDA tensors.  A gather or a reduce-scatter so
+moves the full tensor, about twice a ring all-gather's or
+reduce-scatter's bytes; ``all_gather_tensor`` / ``reduce_scatter_tensor``
+under NCCL, read by the verifier, are ROADMAP.md item 14 part 3.
+:data:`COLL_STATS` counts the calls and bytes by axis and, when
+``timing`` is on, the host time.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import time
+from typing import Any
+
+import torch
+
 from repro_torch.core.costmodel import DATA_AXIS_NAMES
-from repro_torch.tree import tree_map
+from repro_torch.tree import get_subtree, leaf_paths, set_subtree, tree_map
+
+# Deferred model-axis work names this ROADMAP item.
+DEFERRED = "ROADMAP.md item 14 part 3"
 
 # Default production rules.  "batch" maps to all pure-data axes; FSDP
 # additionally shards the "embed" param axes over the data axes.
@@ -108,7 +150,13 @@ def param_sharding(axes_tree, mesh, *, fsdp: bool = False,
     """The logical-axes tree as a tree of specs.  With ``shapes_tree``
     (tensors or specs, same structure) mesh axes that do not divide a
     dimension are dropped instead of kept (4 heads on an 8-way model
-    axis stay replicated)."""
+    axis stay replicated).  ``fsdp=True`` plans over a mesh spec; on a
+    live ``DeviceMesh`` it raises, since no step executes those rules."""
+    if fsdp and getattr(mesh, "mesh_dim_names", None) is not None:
+        raise NotImplementedError(
+            f"fsdp=True on a live mesh {tuple(mesh.mesh_dim_names)}: "
+            f"FSDP_PARAM_RULES (params sharded over the data axes) is "
+            f"{DEFERRED}")
     rules = FSDP_PARAM_RULES if fsdp else PARAM_RULES
     if shapes_tree is None:
         return tree_map(lambda axes: _axes_to_spec(axes, rules, mesh),
@@ -131,3 +179,313 @@ def batch_sharding(batch, mesh):
             f"{DATA_AXIS_NAMES}) to shard the batch over")
     spec = (data_axes if len(data_axes) > 1 else data_axes[0],)
     return tree_map(lambda leaf: spec, batch)
+
+
+def model_dims(spec) -> tuple:
+    """The dimensions of a leaf's spec that name the ``model`` axis."""
+    out = []
+    for i, m in enumerate(spec or ()):
+        ms = (m,) if isinstance(m, str) else tuple(m or ())
+        if "model" in ms:
+            out.append(i)
+    return tuple(out)
+
+
+def is_sharded(spec) -> bool:
+    return bool(model_dims(spec))
+
+
+def local_shape(shape, spec, size: int) -> tuple:
+    """A leaf's shape on one rank of a model axis of ``size``."""
+    out = list(shape)
+    for i in model_dims(spec):
+        out[i] //= size
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Model-axis execution
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """One rank's place on the model axis: the process group the partial
+    sums cross, this rank's index in it, the axis size, and the param
+    spec tree (which leaves are sliced, on which dimension)."""
+
+    group: Any
+    rank: int
+    size: int
+    specs: Any = None
+
+    def sharded_path(self, path: tuple) -> bool:
+        """Whether the param group at ``path`` (a layer's param dict, or
+        one leaf) is sliced over the model axis.  A group must be wholly
+        sliced or wholly replicated: a row-sharded layer with a
+        replicated bias is not executed yet."""
+        sub = get_subtree(self.specs, path)
+        flags = ({is_sharded(get_subtree(sub, p)) for p in leaf_paths(sub)}
+                 if isinstance(sub, dict) else {is_sharded(sub)})
+        if len(flags) > 1:
+            raise NotImplementedError(
+                f"param group {'/'.join(map(str, path))} mixes sliced and "
+                f"replicated leaves (a row-sharded layer with a bias); "
+                f"{DEFERRED}")
+        return flags == {True}
+
+
+class CollStats:
+    """Model- and data-axis collectives of the step: calls and payload
+    bytes by axis, and (``timing = True``: each collective synchronized
+    and timed on the host clock) seconds by axis."""
+
+    def __init__(self):
+        self.timing = False
+        self.reset()
+
+    def reset(self):
+        self.calls = {"model": 0, "data": 0}
+        self.bytes = {"model": 0, "data": 0}
+        self.seconds = {"model": 0.0, "data": 0.0}
+
+
+COLL_STATS = CollStats()
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def model_parallel(shard: ModelShard | None):
+    """Run the block with ``shard`` as the active model group (``None``
+    or a size-1 axis: nothing changes)."""
+    if shard is None or shard.size == 1:
+        yield
+        return
+    _ACTIVE.append(shard)
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def active() -> ModelShard | None:
+    """The model group in effect, or ``None``."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def split(local: int, full: int) -> bool:
+    """Whether a dimension of full size ``full`` arrives sliced (size
+    ``local``) over the active model group."""
+    ms = active()
+    if ms is None or local == full:
+        return False
+    if local * ms.size != full:
+        raise ValueError(f"a dimension of {full} arrived as {local} on a "
+                         f"model axis of {ms.size}")
+    return True
+
+
+def all_reduce(t, group, op: str = "sum", axis: str = "model"):
+    """A functional all-reduce over ``group`` (one graph node when traced),
+    counted in :data:`COLL_STATS` under ``axis``."""
+    import torch.distributed._functional_collectives as funcol
+    st = COLL_STATS
+    st.calls[axis] += 1
+    st.bytes[axis] += t.numel() * t.element_size()
+    if not st.timing:
+        return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+    sync = torch.cuda.synchronize if t.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = funcol.wait_tensor(funcol.all_reduce(t, op, group))
+    sync()
+    st.seconds[axis] += time.perf_counter() - t0
+    return out
+
+
+def _pad_slice(t, dim: int, ms: ModelShard):
+    """This rank's slice ``t`` placed in zeros of the full extent."""
+    n = t.shape[dim]
+    lo, hi = list(t.shape), list(t.shape)
+    lo[dim] = n * ms.rank
+    hi[dim] = n * (ms.size - ms.rank - 1)
+    return torch.cat([t.new_zeros(lo), t, t.new_zeros(hi)], dim=dim)
+
+
+def _own(t, dim: int, ms: ModelShard):
+    n = t.shape[dim] // ms.size
+    return t.narrow(dim, ms.rank * n, n)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ms):
+        return torch.ops.aten.alias(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ms = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ms.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ms):
+        return all_reduce(x, ms.group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dim, sharded_consumer, ms):
+        return all_reduce(_pad_slice(x, dim, ms), ms.group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.dim, ctx.sharded, ctx.ms = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sharded:
+            g = all_reduce(g, ctx.ms.group)
+        return _own(g, ctx.dim, ctx.ms).contiguous(), None, None, None
+
+
+def copy_to_model(x):
+    """Identity forward; the cotangent summed over ``model`` backward."""
+    ms = active()
+    return x if ms is None else _Copy.apply(x, ms)
+
+
+def reduce_from_model(x):
+    """Summed over ``model`` forward; identity backward."""
+    ms = active()
+    return x if ms is None else _Reduce.apply(x, ms)
+
+
+def gather_from_model(x, dim: int, *, sharded_consumer: bool = False):
+    """The full tensor from every rank's slice along ``dim``.  Backward:
+    this rank's slice of the cotangent (a replicated consumer, whose
+    cotangent is whole on every rank) or, ``sharded_consumer``, of the
+    cotangent summed over ``model`` (a reduce-scatter: a column-sharded
+    consumer's is partial)."""
+    ms = active()
+    if ms is None:
+        return x
+    return _Gather.apply(x, dim % x.ndim, sharded_consumer, ms)
+
+
+def parallel_xent(lg, labels, *, vocab_valid: int | None = None):
+    """Per-position ``logsumexp(lg) - lg[label]`` over logits ``lg``
+    (f32, ``(..., V/M)``: this rank's contiguous slice of the
+    vocabulary) without gathering them: the max, the sum of
+    exponentials and the target logit are each summed over ``model``.
+    ``vocab_valid`` masks padded vocabulary rows (global index)."""
+    ms = active()
+    Vl = lg.shape[-1]
+    off = ms.rank * Vl
+    if vocab_valid is not None and vocab_valid < Vl * ms.size:
+        pad = torch.arange(off, off + Vl, device=lg.device) >= vocab_valid
+        lg = lg.masked_fill(pad, -1e30)
+    m = all_reduce(lg.detach().amax(dim=-1), ms.group, "max")
+    se = reduce_from_model(torch.exp(lg - m[..., None]).sum(dim=-1))
+    lid = labels.long() - off
+    mine = (lid >= 0) & (lid < Vl)
+    ll = torch.gather(lg, -1, lid.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = reduce_from_model(torch.where(mine, ll, torch.zeros_like(ll)))
+    return torch.log(se) + m - ll
+
+
+def lookup(table, ids):
+    """``(local ids, in-shard mask)`` of a lookup in this rank's slice
+    of a vocabulary-sharded table: an id in the shard becomes its row
+    there, any other id row 0 (which the mask zeroes)."""
+    ms = active()
+    Vl = table.shape[0]
+    lid = ids.long() - ms.rank * Vl
+    mine = (lid >= 0) & (lid < Vl)
+    lid = torch.where(mine, lid, torch.zeros_like(lid))
+    return lid, mine
+
+
+def model_shard_of(mesh, specs=None) -> ModelShard | None:
+    """This rank's :class:`ModelShard` of a live ``DeviceMesh`` (``None``
+    without a model axis of size > 1)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names:
+        return None
+    dim = names.index("model")
+    if tuple(mesh.shape)[dim] == 1:
+        return None
+    return ModelShard(mesh.get_group(dim), mesh.get_local_rank(dim),
+                      tuple(mesh.shape)[dim], specs)
+
+
+def _model_of(mesh_or_shard, specs):
+    if isinstance(mesh_or_shard, ModelShard):
+        return mesh_or_shard
+    return model_shard_of(mesh_or_shard, specs)
+
+
+def shard_params(params, specs, mesh):
+    """This rank's slices of a tree of whole tensors: every leaf whose
+    spec names ``model`` cut to its contiguous part of that dimension
+    (a copy), the rest kept.  ``mesh``: a live ``DeviceMesh`` or a
+    :class:`ModelShard`."""
+    ms = _model_of(mesh, specs)
+    if ms is None:
+        return params
+
+    def cut(t, spec):
+        for d in model_dims(spec):
+            t = _own(t, d, ms)
+        return t.contiguous().clone() if model_dims(spec) else t
+    return tree_map(cut, params, specs)
+
+
+def gather_params(params, specs, mesh):
+    """Whole tensors again from every rank's slices (a collective: every
+    rank of the model group calls; all get the whole tree)."""
+    import torch.distributed as dist
+    ms = _model_of(mesh, specs)
+    if ms is None:
+        return params
+
+    def whole(t, spec):
+        for d in model_dims(spec):
+            parts = [torch.empty_like(t) for _ in range(ms.size)]
+            dist.all_gather(parts, t.contiguous(), group=ms.group)
+            t = torch.cat(parts, dim=d)
+        return t
+    return tree_map(whole, params, specs)
+
+
+def derived_specs(tree, param_shapes, param_specs):
+    """Specs for a tree shaped like optimizer state (the port's form of
+    the JAX engine's ``_derived_opt_sharding``): a leaf shaped like a
+    param whose spec is unambiguous (every param of that shape has one
+    spec) takes it; scalars and ambiguous shapes stay replicated."""
+    by_shape: dict = {}
+    for p in leaf_paths(param_shapes):
+        shape = tuple(get_subtree(param_shapes, p).shape)
+        spec = tuple(get_subtree(param_specs, p))
+        cur = by_shape.get(shape, spec)
+        by_shape[shape] = cur if cur == spec else None
+
+    def spec_of(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        return (by_shape.get(shape) or ()) if shape else ()
+    out = {}
+    for p in leaf_paths(tree):
+        out = set_subtree(out, p, spec_of(get_subtree(tree, p)))
+    return out

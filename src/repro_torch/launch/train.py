@@ -169,8 +169,8 @@ def parse_args(argv=None):
                     help="int, or 'auto' to derive from the plan's "
                          "peak-memory estimates")
     ap.add_argument("--mesh", default=None,
-                    help="data-parallel mesh spec, e.g. data:2 (run the "
-                         "ranks under torch.distributed.run)")
+                    help="mesh spec, e.g. data:2 or data:2,model:2 (run "
+                         "the ranks under torch.distributed.run)")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="torch.distributed backend of a --mesh run")
     ap.add_argument("--explain", action="store_true",
@@ -223,10 +223,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if costmodel.mesh_model_axes(costmodel.mesh_axes(args.mesh)):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: model axes are ROADMAP.md item 14 part "
-            f"2; this CLI runs data-parallel meshes")
     with deterministic_step():
         return _run(args)
 
@@ -240,7 +236,13 @@ def _live_mesh(args, device, stored_meta):
     if not spec and stored_meta and stored_meta.get("mesh_axes"):
         stored = tuple((n, int(s)) for n, s in stored_meta["mesh_axes"])
         world = int(os.environ.get("WORLD_SIZE", "1"))
-        live = elastic_mesh_axes(stored, world, args.batch)
+        try:
+            live = elastic_mesh_axes(stored, world, args.batch)
+        except ValueError:
+            # Too few ranks for the checkpoint's model degree: the
+            # checkpoint holds whole arrays, so drop the model axis.
+            live = elastic_mesh_axes(costmodel.mesh_data_axes(stored),
+                                     world, args.batch)
         if live != stored:
             print(f"[elastic] checkpoint mesh {costmodel.format_mesh(stored)}"
                   f" -> {costmodel.format_mesh(live)} on {world} rank(s) "
@@ -319,7 +321,7 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
         if mesh is not None:
             dist.barrier()
 
-    params0, _ = model.init(0, device=device)
+    params0, axes = model.init(0, device=device)
     mon = StepMonitor()
     engine = PrivacyEngine(
         model.apply, params0, to_device(batch_fn(0), device), dp=dpc,
@@ -327,7 +329,8 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
         lr=lambda step: cosine_schedule(step, warmup=10, total=args.steps,
                                         peak=args.lr),
         weight_decay=0.01, accountant=acct, run_seed=args.run_seed,
-        device=device, mesh=mesh, calibration=args.calibration,
+        device=device, mesh=mesh, param_axes=axes,
+        calibration=args.calibration,
         mispredict_threshold=(args.mispredict_threshold
                               if args.mispredict_threshold > 0 else None),
         monitor=mon)
@@ -348,9 +351,11 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
         print(f"[plan] wrote {args.plan_json}")
 
     def train_state(params, opt):
-        # Every rank calls: the stale norms are gathered over the mesh.
+        # Every rank calls: the stale norms are gathered over the mesh,
+        # the sliced leaves over the model group.
         return DPTrainState(
-            params=params, opt=opt, clip_state=engine.clip_state_dict(),
+            params=engine.gather_params(params), opt=engine.gather_opt(opt),
+            clip_state=engine.clip_state_dict(),
             ledger=acct.state_dict(),
             plan_fingerprint=engine.fingerprint(calibration="analytic"),
             monitor=mon.state_dict(), run_seed=args.run_seed,
@@ -360,7 +365,7 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
               "ckpt_final_ms": None, "ckpt_bytes": None}
 
     def segment(restart_count):
-        params = params0
+        params = engine.shard_params(params0)
         opt = adamw_init(params)
         start = 0
         if ckpt:
@@ -370,7 +375,8 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
             ckpt.wait()
             barrier()
         if ckpt and ckpt.latest_step() is not None:
-            st, at = ckpt.restore_state(params, opt, fallback=True)
+            st, at = ckpt.restore_state(params0, adamw_init(params0),
+                                        fallback=True)
             if st.run_seed is not None and st.run_seed != args.run_seed:
                 raise SystemExit(
                     f"checkpoint noise stream run_seed={st.run_seed} != "
@@ -392,7 +398,8 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
                         "checkpoint plan fingerprint mismatch beyond the "
                         "mesh: model code, shapes, or DP config changed; "
                         "refusing to resume onto a different mechanism")
-            params, opt = st.params, st.opt
+            params = engine.shard_params(st.params)
+            opt = engine.shard_opt(st.opt)
             engine.load_clip_state(st.clip_state)
             if st.ledger is not None:
                 acct.load_state_dict(st.ledger)

@@ -10,12 +10,23 @@ every attention parameter; serving passes an inactive ``Tapper``.  With
 (``core/kinds.py`` recovers each projection's captures and cotangents by
 running the block again).  Cross attention (``gqa_apply(x_kv=)``) takes
 K and V from a source sequence, with no RoPE, no mask and no cache.
+
+On a model axis that slices the query heads (``"heads"``), ``wq`` is
+column-sharded and ``wo`` row-sharded (its partial output summed over
+``model``); ``wk`` / ``wv`` stay replicated (``"kv"`` maps to no mesh
+axis) and each rank attends with the KV heads its local query heads
+read, so their outputs' cotangent is summed over ``model`` before the
+capture sees it.  MLA, qk-norm on sliced heads (its scale's gradient is
+a sum of the ranks' partial gradients), block taps (``dp_attn``), a
+cache and cross attention on a model axis are ROADMAP.md item 14
+part 3.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.tapper import LayerMeta, Tapper
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 
 NEG = -1e30
@@ -174,6 +185,18 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
     per-projection taps under an inactive tapper (``multi``, serving), a
     cache, cross attention, a window, explicit positions and shared
     (``"~"``) call sites."""
+    cut = sh.split(p["wq"]["w"].shape[-1], n_heads * head_dim)
+    if sh.active() is not None and dp_attn and tp.active():
+        raise NotImplementedError(
+            f"{name}: block taps (dp_attn) on a model axis are "
+            f"{sh.DEFERRED}")
+    if cut:
+        return _gqa_heads_sharded(tp, name, p, x, n_heads=n_heads,
+                                  n_kv=n_kv, head_dim=head_dim,
+                                  rope_theta=rope_theta, qk_norm=qk_norm,
+                                  positions=positions, causal=causal,
+                                  window=window, cache=cache, x_kv=x_kv,
+                                  attn_impl=attn_impl, use_rope=use_rope)
     if (dp_attn and tp.active() and cache is None and x_kv is None
             and not window and positions is None
             and not name.startswith("~")):
@@ -230,6 +253,57 @@ def gqa_apply(tp: Tapper, name: str, p, x, *, n_heads, n_kv, head_dim,
     out = out.reshape(B, T, n_heads * head_dim)
     return (tp.dense(f"{name}/wo", out, p["wo"]["w"], p["wo"].get("b")),
             new_cache)
+
+
+def _gqa_heads_sharded(tp: Tapper, name: str, p, x, *, n_heads, n_kv,
+                       head_dim, rope_theta, qk_norm, positions, causal,
+                       window, cache, x_kv, attn_impl, use_rope):
+    """:func:`gqa_apply` on this rank's slice of the query heads: ``wq``
+    column-sharded, ``wk`` / ``wv`` replicated, ``wo`` row-sharded."""
+    if qk_norm or cache is not None or x_kv is not None:
+        what = ("qk-norm on sliced heads" if qk_norm else
+                "a KV cache" if cache is not None else "cross attention")
+        raise NotImplementedError(f"{name}: {what} on a model axis is "
+                                  f"{sh.DEFERRED}")
+    if any("b" in p[n] for n in ("wq", "wk", "wv", "wo")):
+        raise NotImplementedError(
+            f"{name}: attention biases beside sliced heads are "
+            f"{sh.DEFERRED}")
+    ms = sh.active()
+    B, T, _ = x.shape
+    hl = n_heads // ms.size
+    q = tp.dense(f"{name}/wq", sh.copy_to_model(x), p["wq"]["w"])
+    # The replicated wk / wv see every rank's partial use of their heads:
+    # the cotangent is summed over model before the capture reads it.
+    k = sh.copy_to_model(tp.dense(f"{name}/wk", x, p["wk"]["w"]))
+    v = sh.copy_to_model(tp.dense(f"{name}/wv", x, p["wv"]["w"]))
+    q = q.reshape(B, T, hl, head_dim)
+    k = k.reshape(B, T, n_kv, head_dim)
+    v = v.reshape(B, T, n_kv, head_dim)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None, :] \
+                .expand(B, T)
+        cos, sin = cm.rope_angles(positions, head_dim, rope_theta)
+        q = cm.apply_rope(q, cos, sin)
+        k = cm.apply_rope(k, cos, sin)
+    # Local query head j is global head r*hl + j; it reads KV head
+    # (r*hl + j) // rep: this rank's run of KV heads, each repeated to
+    # its query heads.
+    rep = n_heads // n_kv
+    if hl % rep and rep % hl:
+        raise NotImplementedError(
+            f"{name}: {hl} query heads a rank beside {rep} query heads a "
+            f"KV head: {sh.DEFERRED}")
+    kv0 = ms.rank * hl // rep
+    kv1 = ((ms.rank + 1) * hl - 1) // rep + 1
+    r_l = hl // (kv1 - kv0)
+    out = attend(q, repeat_kv(k[:, :, kv0:kv1], r_l),
+                 repeat_kv(v[:, :, kv0:kv1], r_l), causal=causal,
+                 window=window, impl=attn_impl)
+    out = out.reshape(B, T, hl * head_dim)
+    return (sh.reduce_from_model(tp.dense(f"{name}/wo", out, p["wo"]["w"])),
+            None)
 
 
 def _block_tap(tp: Tapper, name: str, rebuild, p, x, *, proj_dims,
@@ -313,6 +387,9 @@ def mla_apply(tp: Tapper, name: str, p, x, *, n_heads, q_lora_rank,
     qk_rope_dim``) differ from v's: ``attn_impl="flash"`` raises
     :class:`FlashUnsupportedError`.  ``dp_attn``: the block-level
     ``"attn"`` tap over the train path (see :func:`gqa_apply`)."""
+    if sh.active() is not None:
+        raise NotImplementedError(f"{name}: MLA on a model axis is "
+                                  f"{sh.DEFERRED}")
     B, T, D = x.shape
     qd = qk_nope_dim + qk_rope_dim
     if attn_impl == "flash":

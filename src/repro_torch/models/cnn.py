@@ -9,6 +9,14 @@ ill-defined); dropout is likewise omitted.
 Params and layer names are the JAX package's, leaf for leaf.  Max
 pooling is ``F.max_pool2d(k, s)``, which equals ``reduce_window`` with
 ``VALID`` padding.
+
+On a model axis every conv and fc whose out-channels the axis divides
+arrives as this rank's slice of them (column-sharded, ``"mlp"``): it
+takes the full input and gives its slice of the channels, which is
+all-gathered before the next layer (whose backward reduce-scatters a
+column-sharded consumer's cotangent); a head the axis does not divide
+stays replicated, and a sliced head's loss is the vocabulary-parallel
+cross entropy.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tapper import Tapper
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 
 ALEXNET = [  # (out_ch, kernel, stride, pad, pool_after)
@@ -90,25 +99,46 @@ class CNN:
                            dtype=dt, device=dev)}
         return cm.split_tree(tree)
 
-    def features(self, params, img, tp: Tapper):
-        h = img
+    def features(self, params, img, tp: Tapper, cut_fc0: bool = False):
+        """Conv trunk -> (B, features); ``cut_fc0``: the consumer (fc0)
+        is column-sharded."""
+        h, cut = img, False
         for i, (ch, k, s, p, pool) in enumerate(self.plan):
-            h = tp.conv(f"conv{i}", h, params[f"conv{i}"]["w"],
+            w = params[f"conv{i}"]["w"]
+            out_cut = sh.split(w.shape[0], ch)
+            h = tp.conv(f"conv{i}", _enter(h, cut, 1, out_cut), w,
                         params[f"conv{i}"]["b"], stride=s, padding=p)
+            cut = out_cut
             h = F.relu(h)
             if pool:
                 h = F.max_pool2d(h, self.pool_k, self.pool_s)
-        return h.reshape(h.shape[0], -1)
+        return _enter(h, cut, 1, cut_fc0).reshape(h.shape[0], -1)
 
     def apply(self, params, batch, tp: Tapper):
-        h = self.features(params, batch["img"].to(self.cfg.torch_dtype), tp)
         n_fc = len(self.fcs) + 1
+        widths = self.fcs + (self.cfg.n_classes,)
+        cuts = [sh.split(params[f"fc{j}"]["w"].shape[1], widths[j])
+                for j in range(n_fc)]
+        h = self.features(params, batch["img"].to(self.cfg.torch_dtype), tp,
+                          cut_fc0=cuts[0])
         for j in range(n_fc):
+            if j:
+                h = _enter(h, cuts[j - 1], -1, cuts[j])
             h = tp.dense(f"fc{j}", h, params[f"fc{j}"]["w"],
                          params[f"fc{j}"]["b"])
             if j < n_fc - 1:
                 h = F.relu(h)
-        return cm.per_example_xent_cls(h, batch["label"])
+        return cm.per_example_xent_cls(h, batch["label"],
+                                       n_classes=self.cfg.n_classes)
+
+
+def _enter(h, cut: bool, dim: int, sharded: bool):
+    """``h`` (this rank's slice along ``dim`` when ``cut``) as the full
+    input of the next layer (``sharded``: a column-sharded one, whose
+    input cotangent is partial on each rank)."""
+    if cut:
+        return sh.gather_from_model(h, dim, sharded_consumer=sharded)
+    return sh.copy_to_model(h) if sharded else h
 
 
 def toy_cnn_config(n_layers: int, channel_rate: float, *, c0: int = 25,

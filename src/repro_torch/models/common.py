@@ -1,8 +1,10 @@
 """Shared model-building blocks: the parameter builder with logical
 sharding axes, norms (tapped affines), RoPE, and per-example losses.
 
-The JAX package's activation-sharding hints (``shard_act``) have no
-counterpart here: the port runs on one device.
+The JAX package's activation-sharding hints (``shard_act``) are the
+layout moves of :mod:`repro_torch.launch.sharding` here, made where a
+model axis slices a layer (the identity everywhere else); the losses
+take vocabulary-sharded logits (``n_vocab``: the whole width).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 import torch
 
 from repro_torch.core.tapper import Tapper
+from repro_torch.launch import sharding as sh
 
 F32 = torch.float32
 
@@ -136,27 +139,36 @@ def apply_rope(x, cos, sin):
 
 
 def per_example_xent(logits, labels, mask=None,
-                     vocab_valid: int | None = None):
+                     vocab_valid: int | None = None,
+                     n_vocab: int | None = None):
     """Per-example mean cross entropy, in float32.  logits (B, T, V);
     labels (B, T).  ``vocab_valid`` masks padded vocabulary rows out of
-    the softmax (their logits become -1e30)."""
+    the softmax (their logits become -1e30).  ``n_vocab``: the whole
+    width, when the logits may arrive as this rank's vocabulary slice
+    (``launch.sharding.parallel_xent``)."""
     lg = logits.to(F32)
     V = lg.shape[-1]
-    if vocab_valid is not None and vocab_valid < V:
-        pad = torch.arange(V, device=lg.device) >= vocab_valid
-        lg = lg.masked_fill(pad, -1e30)
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    if n_vocab is not None and sh.split(V, n_vocab):
+        nll = sh.parallel_xent(lg, labels, vocab_valid=vocab_valid)
+    else:
+        if vocab_valid is not None and vocab_valid < V:
+            pad = torch.arange(V, device=lg.device) >= vocab_valid
+            lg = lg.masked_fill(pad, -1e30)
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is None:
         return nll.mean(dim=-1)
     m = mask.to(F32)
     return (nll * m).sum(dim=-1) / torch.clamp(m.sum(dim=-1), min=1.0)
 
 
-def per_example_xent_cls(logits, labels):
+def per_example_xent_cls(logits, labels, n_classes: int | None = None):
     """Per-example cross entropy of a classifier, in float32:
-    ``-log_softmax(logits)[label]``."""
+    ``-log_softmax(logits)[label]`` (``n_classes``: the whole width, when
+    the logits may arrive as this rank's slice of the classes)."""
+    if n_classes is not None and sh.split(logits.shape[-1], n_classes):
+        return sh.parallel_xent(logits.to(torch.float32), labels)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
 

@@ -129,6 +129,10 @@ class EncDecLM:
         return tp.dense("head", h, params["head"]["w"])
 
     def apply(self, params, batch, tp: Tapper):
+        from repro_torch.launch import sharding as sh
+        if sh.active() is not None:
+            raise NotImplementedError(
+                f"the enc-dec family on a model axis is {sh.DEFERRED}")
         return cm.per_example_xent(
             self.logits(params, batch["src_frames"], batch["tokens"], tp),
             batch["labels"], batch.get("mask"), vocab_valid=self.cfg.vocab)

@@ -28,6 +28,14 @@ and the head — with tied embeddings the head is the transposed table,
 tapped as ``"~tok_emb"`` so the two uses of one parameter form one group.
 Params and tap names are the JAX package's.
 
+On a model axis (``launch.sharding``) the dense family runs
+tensor-sharded: the vocabulary-sharded ``tok_emb`` (looked up in each
+rank's shard and summed over ``model``), head-sharded attention and
+``d_ff``-sharded MLPs, and a vocabulary-sharded head (tied or not)
+whose logits feed the vocabulary-parallel cross entropy, never
+gathered.  The MoE, enc-dec and recurrent families there, and MLA, are
+ROADMAP.md item 14 part 3.
+
 Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
 params and runs the blocks as a Python loop over the stack, under
 ``torch.no_grad()`` with an inactive ``Tapper``: against a KV cache for
@@ -43,6 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tapper import Tapper, _leading, scan_with_taps
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ssm as ssmlib
@@ -194,9 +203,15 @@ class TransformerLM:
     def _head(self, tp, params, h):
         c = self.cfg
         if c.tie_embeddings:
-            return tp.dense("~tok_emb", h, params["tok_emb"]["emb"],
-                            w_transposed=True, param_key="emb")
-        return tp.dense("head", h, params["head"]["w"])
+            w = params["tok_emb"]["emb"]
+            if sh.split(w.shape[0], c.padded_vocab):
+                h = sh.copy_to_model(h)
+            return tp.dense("~tok_emb", h, w, w_transposed=True,
+                            param_key="emb")
+        w = params["head"]["w"]
+        if sh.split(w.shape[1], c.padded_vocab):
+            h = sh.copy_to_model(h)
+        return tp.dense("head", h, w)
 
     def _ffn(self, tp, p_l, x):
         """The block's feed-forward: (out, per-example load-balance loss
@@ -206,7 +221,7 @@ class TransformerLM:
             return moe_apply(tp, "moe", p_l["moe"], x, impl=c.moe_impl,
                              n_experts=c.n_experts, topk=c.topk,
                              capacity_factor=c.capacity_factor)
-        return mlp_apply(tp, "mlp", p_l["mlp"], x, c.mlp), None
+        return mlp_apply(tp, "mlp", p_l["mlp"], x, c.mlp, d_ff=c.d_ff), None
 
     def _ssm_kw(self):
         c = self.cfg
@@ -226,6 +241,9 @@ class TransformerLM:
 
     def _recurrent_train(self, params, h, tp: Tapper):
         c = self.cfg
+        if sh.active() is not None:
+            raise NotImplementedError(
+                f"the {c.family} family on a model axis is {sh.DEFERRED}")
         kw = self._ssm_kw()
         lb0 = torch.zeros((h.shape[0],), dtype=torch.float32,
                           device=h.device)
@@ -294,7 +312,8 @@ class TransformerLM:
 
     def _logits_lb(self, params, tokens, tp: Tapper):
         c = self.cfg
-        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens)
+        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens,
+                     n_rows=c.padded_vocab)
         h, lb = self._backbone_train(params, h, tp)
         h = cm.apply_norm(tp, "final_norm", params.get("final_norm"), h,
                           c.norm)
@@ -309,7 +328,8 @@ class TransformerLM:
         c = self.cfg
         logits, lb = self._logits_lb(params, batch["tokens"], tp)
         losses = cm.per_example_xent(logits, batch["labels"],
-                                     batch.get("mask"), vocab_valid=c.vocab)
+                                     batch.get("mask"), vocab_valid=c.vocab,
+                                     n_vocab=c.padded_vocab)
         if c.n_experts:
             losses = losses + c.moe_lb_coef * lb / max(c.n_layers, 1)
         return losses

@@ -1,10 +1,16 @@
-"""Feed-forward blocks: SwiGLU and GeLU MLPs (tapped)."""
+"""Feed-forward blocks: SwiGLU and GeLU MLPs (tapped).
+
+On a model axis that slices ``d_ff`` (``"mlp"``), ``w_up`` / ``w_gate``
+are column-sharded (the full input, copied in) and ``w_down``
+row-sharded (its partial output summed over ``model``).
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tapper import Tapper
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 
 
@@ -24,7 +30,17 @@ def mlp_init(gen: torch.Generator, d_model, d_ff, kind="swiglu", *,
     return p
 
 
-def mlp_apply(tp: Tapper, name: str, p, x, kind="swiglu"):
+def mlp_apply(tp: Tapper, name: str, p, x, kind="swiglu", *,
+              d_ff: int | None = None):
+    """``d_ff``: the whole hidden width, when ``p`` may arrive as this
+    rank's slices of it."""
+    cut = d_ff is not None and sh.split(p["w_up"]["w"].shape[-1], d_ff)
+    if cut:
+        if p["w_down"].get("b") is not None:
+            raise NotImplementedError(
+                f"{name}: a row-sharded w_down with a replicated bias is "
+                f"{sh.DEFERRED}")
+        x = sh.copy_to_model(x)
     up = tp.dense(f"{name}/w_up", x, p["w_up"]["w"], p["w_up"].get("b"))
     if kind == "swiglu":
         gate = tp.dense(f"{name}/w_gate", x, p["w_gate"]["w"])
@@ -32,5 +48,6 @@ def mlp_apply(tp: Tapper, name: str, p, x, kind="swiglu"):
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up, approximate="tanh")
-    return tp.dense(f"{name}/w_down", h, p["w_down"]["w"],
-                    p["w_down"].get("b"))
+    y = tp.dense(f"{name}/w_down", h, p["w_down"]["w"],
+                 p["w_down"].get("b"))
+    return sh.reduce_from_model(y) if cut else y

@@ -223,6 +223,11 @@ def moe_apply_sort(tp: Tapper, name: str, p, x, *, n_experts, topk,
 
 
 def moe_apply(tp, name, p, x, *, impl="einsum", **kw):
+    from repro_torch.launch import sharding as sh
+    if sh.active() is not None:
+        raise NotImplementedError(
+            f"{name}: MoE experts on a model axis (the 'expert' rule) are "
+            f"{sh.DEFERRED}")
     if impl == "gather":
         return moe_apply_gather(tp, name, p, x, **kw)
     if impl == "sort":

@@ -409,18 +409,20 @@ def test_mutation_every_error_is_a_named_calibration_error():
 
 
 def test_mesh_waits_for_sharding(tmp_path):
-    """A pure-data mesh calibrates (its collective bandwidth is measured
-    over the mesh's process group); a model axis waits for item 14
-    part 2."""
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
-        calibrate.Calibration(hardware="h", mesh="data:4,model:2",
+    """A mesh with a model axis calibrates as a pure-data one does (item
+    14 part 2 executes it): the calibration is keyed by the 2D mesh, a
+    stored blob of it loads, and measuring it needs the live process
+    groups of its axes (none here: a named error, not a guess)."""
+    c = calibrate.Calibration(hardware="h", mesh="data:4,model:2",
                               flops_per_second=1.0,
                               hbm_bytes_per_second=1.0)
+    assert c.mesh == (("data", 4), ("model", 2))
     p = _cpu_calib().to_payload()
     p["mesh"] = [["data", 4], ["model", 2]]
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
-        calibrate.load_calibration(_write(tmp_path, p), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+    got = calibrate.load_calibration(_write(tmp_path, p), device="cpu")
+    assert got.mesh == (("data", 4), ("model", 2))
+    with pytest.raises(calibrate.CalibrationMeshMismatch,
+                       match="no process group"):
         calibrate.measure("data:4,model:2", quick=True, device="cpu")
 
 

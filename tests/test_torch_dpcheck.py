@@ -49,8 +49,34 @@ def test_failing_lane_exits_one(monkeypatch, capsys):
 
 
 def test_mesh_lanes_raise_naming_item_14():
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
-        dpcheck.main(["--mesh", "data:4,model:2"] + CPU)
+    """``--mesh data:4,model:2`` runs the tensor-sharded lanes (item 14
+    part 2; ``tests/test_torch_model_axis.py``); the families it leaves
+    out raise naming item 14 part 3 — MLA (DeepSeek-V3), qk-norm on
+    sliced heads (Chameleon), MoE experts on ``model`` (Granite), the
+    enc-dec (Seamless) and recurrent (xLSTM, Zamba2) families — and so
+    do the FSDP rules on a live mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import fake_world, make_mesh_from_spec
+    from repro_torch.launch.sharding import param_sharding
+    from repro_torch.models.registry import build_model
+    for arch, what in (("deepseek-v3-671b", "MLA"),
+                       ("chameleon-34b", "qk-norm"),
+                       ("granite-moe-1b-a400m", "MoE experts"),
+                       ("seamless-m4t-large-v2", "enc-dec"),
+                       ("xlstm-125m", "ssm family"),
+                       ("zamba2-2.7b", "hybrid family")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*item 14 part 3"):
+            dpcheck.main(["--archs", arch, "--mesh", "data:4,model:2",
+                          "--seq", "8", "--batch", "4"] + CPU)
+    _, axes = build_model(get_config("llama3.2-1b").reduced()).init(
+        0, device="cpu")
+    assert param_sharding(axes, "data:4,model:2", fsdp=True)  # plans
+    with fake_world(8):
+        mesh = make_mesh_from_spec("data:4,model:2", device_type="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="FSDP_PARAM_RULES.*item 14 part 3"):
+            param_sharding(axes, mesh, fsdp=True)
 
 
 def test_unserved_arch_raises_naming_item_12():

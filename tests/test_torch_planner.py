@@ -312,15 +312,15 @@ def test_auto_microbatches_split_over_budget():
 
 def test_planner_rejects_what_it_does_not_serve():
     m, params, batch = _toy()
-    # A pure-data mesh plans; pricing a model axis with measured
-    # constants waits for model-axis sharding.
+    # A pure-data mesh plans, and so does a model axis under measured
+    # constants (item 14 part 2 calibrates and runs it).
     assert tcm.get_plan(m.apply, params, batch,
                         mesh="data:8").mesh == (("data", 8),)
     from repro_torch import calibrate
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
-        tcm.get_plan(m.apply, params, batch, mesh="data:4,model:2",
-                     calibration=calibrate.injected(
-                         mesh="data:4,model:2", device="cpu"))
+    assert tcm.get_plan(m.apply, params, batch, mesh="data:4,model:2",
+                        calibration=calibrate.injected(
+                            mesh="data:4,model:2", device="cpu")).mesh \
+        == (("data", 4), ("model", 2))
     # The planner prices under a Calibration (or the analytic table);
     # "measure" and paths are the engine's to resolve.
     with pytest.raises(TypeError, match="PrivacyEngine resolves"):

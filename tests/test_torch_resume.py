@@ -419,5 +419,8 @@ def test_cli_restores_global_flags_and_rejects_unserved():
     cli.main(CLI_CASES["alexnet_flat"] + ["--device", "cpu", "--steps",
                                           "1"])
     assert torch.are_deterministic_algorithms_enabled() == before
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+    # A model axis runs (item 14 part 2): the CLI no longer refuses the
+    # mesh, it asks for the ranks (tests/test_torch_model_axis.py runs
+    # them).
+    with pytest.raises(RuntimeError, match="RANK / WORLD_SIZE"):
         cli.main(["--device", "cpu", "--mesh", "data:2,model:2"])

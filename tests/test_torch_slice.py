@@ -138,20 +138,27 @@ def test_toy_cnn_step_parity_kernel_knobs(strategy):
 
 
 def test_fixed_strategies_only():
-    """A mesh with a model axis still raises (verifying its step is item
-    14 part 2), and so does a calibration blob measured on other
-    hardware; the planned strategy, injected plans and stale
-    clipping run, and a fixed strategy's explain shows the plan as
-    advisory."""
+    """A mesh with a model axis verifies (item 14 part 2: the step of a
+    rank of a fake data x model world, its params sliced) where the
+    batch divides its data degree, and raises where it does not; a
+    calibration blob measured on other hardware raises; the planned
+    strategy, injected plans and stale clipping run, and a fixed
+    strategy's explain shows the plan as advisory."""
     cfg = ttoy(**TOY)
     m = TCNN(cfg)
-    params, _ = m.init(0, device="cpu")
+    params, axes = m.init(0, device="cpu")
     batch = {"img": torch.zeros(2, 3, 32, 32),
              "label": torch.zeros(2, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 14 part 2"):
+    with pytest.raises(ValueError, match="not divisible"):
         tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
                             dp=tcore.DPConfig(strategy="crb"),
                             mesh="data:4,model:2").verify()
+    report = tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
+                                 dp=tcore.DPConfig(strategy="crb"),
+                                 mesh="data:2,model:2",
+                                 param_axes=axes).verify()
+    assert report.ok, report.summary()
+    assert "partitioned over model" in report.checked["sharding"]
     foreign = calibrate.injected(hardware="cuda:NVIDIA H100 80GB HBM3:1")
     with pytest.raises(calibrate.CalibrationHardwareMismatch):
         tcore.PrivacyEngine(m.apply, params, batch, device="cpu",
