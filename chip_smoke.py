@@ -131,11 +131,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``python -m repro_torch.launch.dpcheck`` over the reduced AlexNet,
    VGG16 and Llama-3.2-1B under every clipping mode must exit 0.
 9h. the MoE and enc-dec families (``run_moe_encdec``): full-width
-   Granite-3.0-1B-A400M (phase ``moe_main_path``: 24 layers, d_model
-   1024, 16/8 heads, 32 experts top-8 of d_ff 512, vocab 49 155, bf16,
-   gather dispatch, flash; B = 8, T = 1024) under ghost (``gram_norm`` on
-   every dense layer that is not an expert, 121 a step; flash 48 of each
-   kernel a step), ``auto`` flat and stale (the launches their plans
+   Granite-3.0-1B-A400M (phase ``moe_main_path``: cut from 24 layers to
+   GR_DEPTH = 6, d_model 1024, 16/8 heads, 32 experts top-8 of d_ff
+   512, vocab 49 155, bf16, gather dispatch, flash; B = 8, T = 1024)
+   under ghost (``gram_norm`` on every dense layer that is not an
+   expert, 31 a step; flash 12 of each kernel a step), ``auto`` flat and
+   stale (the launches their plans
    say; the plan's realization of each expert layer printed; no expert
    fuses), then stale fused against unfused, the ghost norms with the
    kernels against the plain versions, and two deterministic ghost sums
@@ -156,10 +157,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    193 a step) and ``auto`` flat, flash 60 / 36 / 36 a pass (encoder
    full, decoder causal, cross full over the source, the decoder's
    forward again under remat).
-9i. the SSM and hybrid families (``run_recurrent``): xLSTM-125M not cut
-   (phase ``ssm_main_path``: 12 layers, 3 super-blocks of 3 mLSTM and 1
-   sLSTM, d_model 768, vocab 50 304, bf16; B = 8, T = 128) under bk
-   (``gram_norm`` 67 a step), ``auto`` stale (``gram_norm_fused`` once a
+9i. the SSM and hybrid families (``run_recurrent``): xLSTM-125M at full
+   width cut to 4 of its 12 layers (phase ``ssm_main_path``: one
+   super-block of 3 mLSTM and 1 sLSTM, d_model 768, vocab 50 304, bf16;
+   B = 8, T = 128) under bk (``gram_norm`` 23 a step), ``auto`` stale (``gram_norm_fused`` once a
    fused dense of the stack, as its plan says) and ``auto`` flat (no
    kernel of this repo: its plan realizes every norm with the plain
    versions); Zamba2-2.7B at full width cut to 2 super-blocks (phase
@@ -171,7 +172,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``naive``'s, each example alone and the two together
    (``recurrent_exactness``), and on Zamba2 bk's clipped sums with
    ``remat=True`` bitwise those with ``remat=False``; then serving both,
-   not cut (phase ``ssm_serve``: Zamba2 54 layers; prompts prefilled one
+   not cut (phase ``ssm_serve``, beside the CLI lanes' AlexNet
+   processes: Zamba2 54 layers; prompts prefilled one
    token at a time), held decode-equals-forward (``serve_checks_f32_ref``:
    bf16 within twice the bf16 forward's distance from the f32 forward,
    f32 within RECURRENT_F32_OF_LARGEST of the largest logit; one
@@ -193,10 +195,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    plan: both fingerprints, the layers whose realization differs, and
    ``predicted_step_seconds`` against the lane's measured step.
 13. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
-   own, twice per lane (every lane's processes at once, eight), once
-   straight through and once with
+   own, twice per lane (the AlexNet lanes' six processes at once, then
+   the Llama lane's two; beside the AlexNet processes this process
+   serves, phases 14, 15 and ``ssm_serve``, and the Llama pair waits for
+   it, ``cli_lanes_beside_serving``), once straight through and once with
    ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
-   AlexNet ``auto`` flat and stale (B = 32, 6 steps, checkpoint every 2),
+   AlexNet ``auto`` flat and stale (B = 32, 4 steps, checkpoint every 2),
    AlexNet ``auto`` stale with ``--calibration`` the blob of phase 4 (its
    ``[calibrate]`` and ``[replan]`` lines printed; it must end bitwise
    equal to the uncalibrated stale lane where the calibrated tile is the
@@ -209,7 +213,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with gloo (NCCL's refusal of two ranks on one device is probed and
    printed; gloo's staging of a CUDA tensor through the host is traced):
    full-width AlexNet, B = 32 over ``data:2``, σ = 1, SGD with momentum,
-   3 steps each of crb (``conv_impl="pallas"``), ``auto`` flat and
+   2 steps each of crb (``conv_impl="pallas"``), ``auto`` flat and
    ``auto`` stale, each lane twice; per rank the step ms, the
    all-reduce's ms and the peak; each rank launches what its plan says;
    the ranks' params bitwise equal, the two runs bitwise equal, and the
@@ -229,7 +233,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13c. model-axis sharding on one card (phase ``model_axis_path``): the
    tensor-sharded step (``PrivacyEngine(param_axes=)``) of gloo ranks
    sharing cuda:0, as 13b's: full-width AlexNet, B = 32, σ = 1, SGD with
-   momentum, 3 steps each of crb (``conv_impl="pallas"``), ``auto`` flat
+   momentum, 2 steps each of crb (``conv_impl="pallas"``), ``auto`` flat
    and ``auto`` stale on ``model:2`` (2 ranks) and on ``data:2,model:2``
    (4 ranks); Llama-3.2-1B at full width cut to 2 layers, B = 8,
    T = 1024, bf16, flash, ``auto`` stale and bk (the kernel norms:
@@ -246,7 +250,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    so one f32 gradient of the same model on ``model:2`` (bk, the kernel
    norms, per-layer clipping) is held against one device's: its loss,
    per-example and per-layer norms and gathered gradient
-   (``ma_llama_f32_check``); and ``gram_norm`` at each slice shape the
+   (``ma_f32_check``); and ``gram_norm`` at each slice shape the
    Llama lanes handed it against its plain version.  Also: the
    collective calibration over the model group, ``engine.verify()`` of
    AlexNet ``auto`` stale on a ``data:2,model:2`` spec over fake CUDA
@@ -255,6 +259,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the training CLI under ``--nproc_per_node 4 --mesh data:2,model:2
    --backend gloo``, straight and ``--fail-at 2``: the step-3
    checkpoints (whole arrays) bitwise equal.
+13d. the MoE family on a model axis (phase ``moe_model_axis_path``, its
+   comment below): Granite-3.0-1B-A400M at full width cut to 2 layers on
+   ``model:2`` and ``data:2,model:2``, one DeepSeek-V3 MoE layer at full
+   width (routed experts cut to 64) on ``model:2``; ranks and runs
+   bitwise, within a derived bound of one device, an f32 gradient of
+   each (the DeepSeek-V3 layer's at 16 routed experts), the kernels at
+   the slice shapes.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -292,6 +303,7 @@ The line before the last is a JSON object with one entry per kernel
 (eight, each with its share of its bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import functools
 import json
 import math
@@ -300,6 +312,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -372,6 +385,10 @@ LM_B, LM_T, LM_LAYERS = 8, 1024, 16
 # Granite-3.0-1B-A400M's lane (B, T, layers), and SeamlessM4T-v2's (B,
 # source frames = target tokens, layers of each stack).
 GR_B, GR_T, GR_LAYERS = 8, 1024, 24
+# The Granite lanes' depth: cut from GR_LAYERS to make room for phase
+# moe_model_axis_path in the script's time (12, then 6 when its DeepSeek-V3
+# layer grew to 64 routed experts).
+GR_DEPTH = 6
 SM_B, SM_T, SM_LAYERS = 8, 512, 12
 # (case, B, T, H, Hkv, hd, causal, dtype, on the main path)
 FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
@@ -443,10 +460,10 @@ _ALEX_STALE = ["--arch", "alexnet", "--full", "--batch", "32", "--strategy",
 CLI_LANES = [
     ("cli_alexnet_auto_flat",
      ["--arch", "alexnet", "--full", "--batch", "32", "--strategy", "auto",
-      "--noise", "1.0"], 6, None),
-    ("cli_alexnet_auto_stale", _ALEX_STALE, 6, None),
+      "--noise", "1.0"], 4, None),
+    ("cli_alexnet_auto_stale", _ALEX_STALE, 4, None),
     ("cli_alexnet_auto_stale_calibrated",
-     _ALEX_STALE + ["--calibration", str(CALIB_BLOB.relative_to(ROOT))], 6,
+     _ALEX_STALE + ["--calibration", str(CALIB_BLOB.relative_to(ROOT))], 4,
      "cli_alexnet_auto_stale"),
     ("cli_llama_depth2_auto",
      ["--arch", "llama3.2-1b", "--full", "--layers", "2", "--batch",
@@ -460,14 +477,19 @@ class SmokeFailure(Exception):
 
 
 T_START = time.perf_counter()
+LOG_LOCK = threading.Lock()
 
 
 def log(obj):
     """One JSON line (a phase's ``*_done`` line also gets the seconds
-    since the script started)."""
+    since the script started), written whole: the CLI lanes' thread logs
+    beside the main thread's serving (``cli_lanes_beside_serving``)."""
     if isinstance(obj, dict) and str(obj.get("phase", "")).endswith("_done"):
         obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
-    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+    line = (json.dumps(obj) if isinstance(obj, dict) else str(obj)) + "\n"
+    with LOG_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def check(cond, msg):
@@ -2089,15 +2111,30 @@ def dp_verify(torch, launches, lanes, llm):
     and its graph's kernel nodes equal the launches of a real step.
     Then one mutant on the card (the clip dropped on AlexNet ``auto``
     flat) must report ``clip_missing`` and ``unclipped_batch_reduction``;
-    the dispatcher's cost a launch is measured (``dispatch_cost``); and
-    ``python -m repro_torch.launch.dpcheck`` over the reduced AlexNet,
-    VGG16 and Llama-3.2-1B under every clipping mode must exit 0."""
+    the dispatcher's cost a launch is measured first (``dispatch_cost``,
+    a host time: read before any other process of this phase starts);
+    and ``python -m repro_torch.launch.dpcheck`` over the reduced
+    AlexNet, VGG16 and Llama-3.2-1B under every clipping mode must exit
+    0 (its own process, started next, so its wall time is read beside
+    the verifies)."""
     import repro_torch.core.strategies as strategies
     from repro_torch.configs import get_config
     from repro_torch.models.cnn import CNN
     from repro_torch.models.lm import TransformerLM
 
     t0 = time.perf_counter()
+    log(dict({"phase": "dp_verify", "what": "dispatch_cost"},
+             **dispatch_cost(torch)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dpcheck",
+         *DPCHECK_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # a failing check below exits the script: stop the process with it
+    atexit.register(lambda: proc.poll() is None and proc.kill())
     lm_model, lm_params, lm_batches = llm
     cnn = {}
     for lane, arch, clipping, dp_attn in DPV_LANES:
@@ -2134,26 +2171,20 @@ def dp_verify(torch, launches, lanes, llm):
                  "clip dropped", "error_codes": codes})
     cnn.clear()
     torch.cuda.empty_cache()
-    log(dict({"phase": "dp_verify", "what": "dispatch_cost"},
-             **dispatch_cost(torch)))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
     t = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dpcheck",
-             *DPCHECK_ARGS], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=CLI_TIMEOUT_S)
+        out, err = proc.communicate(
+            timeout=max(CLI_TIMEOUT_S - (t - t0), 1.0))
     except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.communicate()
         raise SmokeFailure(f"dpcheck: timed out after {CLI_TIMEOUT_S} s") \
             from e
     check(proc.returncode == 0, f"dpcheck: exit {proc.returncode}\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+          f"{out[-2000:]}\n{err[-4000:]}")
     log({"phase": "dp_verify", "dpcheck": DPCHECK_ARGS,
-         "wall_s": time.perf_counter() - t,
-         "lines": proc.stdout.splitlines()[-10:], "ok": True,
+         "waited_s": time.perf_counter() - t,
+         "lines": out.splitlines()[-10:], "ok": True,
          "seconds": time.perf_counter() - t0})
 
 
@@ -2792,18 +2823,18 @@ def close_checkpoint(d1, d2, step):
                                   for k in za.files)
 
 
-def cli_lanes(calib):
+def cli_lanes(calib, llama_after=None):
     """Phase 13: kill-and-resume through the training CLI, bitwise.  The
     calibrated lane must print its ``[calibrate]`` line and end, where the
     calibrated tile is the shape rule (0), bitwise equal to the
     uncalibrated lane; where it forces another tile, within f32
     tolerance of it.  Each lane's two processes (straight and killed)
     run at once, each with its own checkpoint directory: the AlexNet
-    lanes' six together, then the Llama lane's two (all eight do not fit
-    the card), while the AlexNet lanes' checkpoints are compared.  Their
-    time is mostly the processes' start, the host batch and the
-    checkpoints' writes, so a lane's step ms here is read under the
-    others' load."""
+    lanes' six together, then (once ``llama_after``, an event, is set)
+    the Llama lane's two (all eight do not fit the card), while the
+    AlexNet lanes' checkpoints are compared.  Their time is mostly the
+    processes' start, the host batch and the checkpoints' writes, so a
+    lane's step ms here is read under the others' load."""
     from concurrent.futures import ThreadPoolExecutor
     base = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(base, ignore_errors=True)
@@ -2826,6 +2857,8 @@ def cli_lanes(calib):
         first = start(pool, alexnet)
         results = {lane: (common, f1.result(), f2.result())
                    for lane, (common, f1, f2) in first.items()}
+        if llama_after is not None:
+            llama_after.wait()
         second = start(pool, rest)
         for lane, args, steps, ref_lane in alexnet:
             check_cli_lane(calib, tile, base, lane, steps, ref_lane,
@@ -2873,6 +2906,44 @@ def check_cli_lane(calib, tile, base, lane, steps, ref_lane, result):
                 "tile_rows": tile, "arrays_within_f32_tolerance": m,
                 "bitwise_equal_all_the_same": bitwise}
     log(entry)
+
+
+def cli_lanes_beside_serving(torch, calib):
+    """Phases 13 (``cli_lanes``), 14, 15 and ``ssm_serve`` at once, for
+    the script's time: this thread serves (``serve_lane``: GLM-4-9B's
+    weights, 34 GB while they are built; then ``ssm_serve``: Zamba2 and
+    its f32 copy, about 20 GB) beside the AlexNet CLI processes (six,
+    about 4 GB each), and ``serve_cli`` runs its own process meanwhile;
+    the Llama CLI pair (60 GB) starts once the serving has handed its
+    memory back.  The serving times are read beside the CLI processes'
+    load."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    served = threading.Event()
+
+    def timed_serve_cli():
+        t = time.perf_counter()
+        serve_cli()
+        log({"phase": "serve_cli_done", "seconds": time.perf_counter() - t})
+
+    with ThreadPoolExecutor(2) as pool:
+        cli = pool.submit(cli_lanes, calib, served)
+        scli = pool.submit(timed_serve_cli)
+        try:
+            t = time.perf_counter()
+            serve_lane(torch)
+            torch.cuda.empty_cache()
+            log({"phase": "serve_lane_done",
+                 "seconds": time.perf_counter() - t})
+            ssm_serve(torch)
+            torch.cuda.empty_cache()
+        finally:
+            served.set()
+        t = time.perf_counter()
+        scli.result()
+        cli.result()
+        log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t0,
+             "waited_after_serving_s": time.perf_counter() - t})
 
 
 # ---------------------------------------------------------------------------
@@ -2968,8 +3039,8 @@ def rel_frobenius(torch, got, want):
 
 
 def moe_main_path(torch, launches, lanes):
-    """Phase moe_main_path: full-width Granite-3.0-1B-A400M (24 layers,
-    d_model 1024, 16/8 heads at head_dim 64, 32 experts top-8 of d_ff
+    """Phase moe_main_path: full-width Granite-3.0-1B-A400M (cut from 24
+    layers to GR_DEPTH, d_model 1024, 16/8 heads at head_dim 64, 32 experts top-8 of d_ff
     512, vocab 49 155; bf16, ``moe_impl="gather"``, ``attn_impl="flash"``;
     weights drawn on the card from seed 0), B = 8, T = 1024 (capacity
     4096 slots an expert), σ = 1: 3 steps each of ghost (its
@@ -2998,6 +3069,7 @@ def moe_main_path(torch, launches, lanes):
            cfg.vocab, cfg.hd, cfg.n_experts, cfg.topk) == GR_WIDTHS
           and cfg.moe_impl == "gather" and cfg.dtype == "bfloat16"
           and cfg.padded_vocab == 49280, "granite config")
+    cfg = cfg.replace(n_layers=GR_DEPTH)
     model = TransformerLM(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params, _ = model.init(gen, device="cuda")
@@ -3008,8 +3080,9 @@ def moe_main_path(torch, launches, lanes):
     cap = int(cfg.capacity_factor * GR_B * GR_T * cfg.topk / cfg.n_experts)
     log({"phase": "moe_setup", "arch": cfg.name, "params": param_count(params),
          "batch": GR_B, "seq": GR_T, "capacity_slots_an_expert": cap,
+         "cuts": {"n_layers": [GR_LAYERS, GR_DEPTH]},
          "init_s": time.perf_counter() - t0})
-    steps, L = 3, GR_LAYERS
+    steps, L = 3, GR_DEPTH
     ghost_needs = dict(flash_needs(steps, passes=2, layers=L),
                        gram_norm=[5 * L + 1] * steps)
     runs = [("granite_ghost", "ghost", "flat", NormCfg(dense="pallas"),
@@ -3508,8 +3581,9 @@ def run_moe_encdec(torch, launches, lanes):
          "seconds": time.perf_counter() - t})
 
 
-# The recurrent families' lanes: xLSTM-125M not cut (12 layers: 3
-# super-blocks of 3 mLSTM and 1 sLSTM), B = 8, T = 128; Zamba2-2.7B at
+# The recurrent families' lanes: xLSTM-125M at full width cut from 12
+# layers to XL_DEPTH = 4 (one super-block of 3 mLSTM and 1 sLSTM, to make
+# room for phase moe_model_axis_path), B = 8, T = 128; Zamba2-2.7B at
 # full width cut to ZB_LAYERS layers (2 super-blocks of 6 Mamba2 layers,
 # the shared block applied twice), B = 4, T = 512.  Widths as the configs
 # give them: (layers, d_model, heads, vocab, slstm_every) and (layers,
@@ -3517,13 +3591,15 @@ def run_moe_encdec(torch, launches, lanes):
 # window).
 XL_B, XL_T = 8, 128
 XL_WIDTHS = (12, 768, 4, 50304, 4)
+XL_DEPTH = 4
 ZB_B, ZB_T, ZB_LAYERS = 4, 512, 12
 ZB_WIDTHS = (54, 2560, 32, 32, 10240, 32000, 80, 64, 6, 4096)
 # bk's gram_norm launches a step (norm_method="pallas"): one a dense layer
 # of every stacked layer, once for each folded shared dense, and the
-# head.  xLSTM: 6 denses x 9 mLSTM layers + 4 x 3 sLSTM layers + head;
-# Zamba2: in_proj and out_proj x 12 + the shared block's 7 + head.
-XL_GRAM = 6 * 9 + 4 * 3 + 1
+# head.  xLSTM: 6 denses an mLSTM layer and 4 an sLSTM layer (3 and 1 a
+# super-block of XL_WIDTHS[4] layers) + head; Zamba2: in_proj and out_proj
+# x 12 + the shared block's 7 + head.
+XL_GRAM = (6 * 3 + 4) * (XL_DEPTH // XL_WIDTHS[4]) + 1
 ZB_GRAM = 2 * ZB_LAYERS + 7 + 1
 # Exactness at full width in f32: EXACT_B examples of the lane's first
 # batch at the lane's T; the remat check takes their first REMAT_T tokens.
@@ -3703,15 +3779,15 @@ def recurrent_exactness(torch, model, params, batch, lane):
 
 
 def recurrent_lanes(torch, phase, model, params, batches, launches, lanes,
-                    bk_gram, flat_lane, stale_lane=None):
+                    bk_gram, flat_lane, stale_lane=None, profile_bk=True):
     """bk (``norm_method="pallas"``: ``gram_norm`` ``bk_gram`` times a
     step), ``auto`` stale where given (``gram_norm_fused`` once a fused
     layer of the stack a step, as its plan says) and ``auto`` flat (its
     plan realizes every norm with the plain versions: no kernel of the
     repo runs), σ = 1, for the script's time (a Zamba2 step takes
-    seconds): bk one timed step and a profiled second, flat one timed
-    step, stale two (the flat bootstrap, then a stale step); only bk's
-    step is profiled."""
+    seconds): bk one timed step and (``profile_bk``) a profiled second,
+    flat one timed step, stale two (the flat bootstrap, then a stale
+    step); only bk's step is profiled."""
     from repro_torch.core import ClipPolicy, NormCfg
     plans = {}
     named = ("gram_kernel", "direct_wgmma", "gemm", "elementwise")
@@ -3719,7 +3795,7 @@ def recurrent_lanes(torch, phase, model, params, batches, launches, lanes,
         torch, phase, model, params, batches,
         [(f"{phase}_bk", "bk", "flat", NormCfg(dense="pallas"),
           {"gram_norm": [bk_gram], "gram_norm_fused": [0]})],
-        lanes, launches, 1, lr=1e-4, named=named)
+        lanes, launches, 1, lr=1e-4, named=named, profile=profile_bk)
     if stale_lane:
         out.update(run_lanes(
             torch, phase, model, params, batches,
@@ -3737,8 +3813,9 @@ def recurrent_lanes(torch, phase, model, params, batches, launches, lanes,
 
 
 def ssm_main_path(torch, launches, lanes):
-    """Phase ssm_main_path: xLSTM-125M not cut (12 layers, d_model 768,
-    4 heads, vocab 50 304, bf16; about 1.9e8 params drawn on the card),
+    """Phase ssm_main_path: xLSTM-125M at full width cut to XL_DEPTH of
+    its 12 layers (d_model 768, 4 heads, vocab 50 304, bf16; drawn on
+    the card),
     B = 8, T = 128, σ = 1: bk, ``auto`` stale and ``auto`` flat
     (``recurrent_lanes``), then ``recurrent_exactness`` in f32."""
     from repro_torch.configs import get_config
@@ -3747,6 +3824,7 @@ def ssm_main_path(torch, launches, lanes):
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab,
            cfg.slstm_every) == XL_WIDTHS and cfg.family == "ssm"
           and cfg.dtype == "bfloat16" and not cfg.remat, "xlstm config")
+    cfg = cfg.replace(n_layers=XL_DEPTH)
     model, params, batches = recurrent_inputs(torch, cfg, XL_B, XL_T,
                                               "ssm_setup")
     out, plans = recurrent_lanes(torch, "xlstm", model, params, batches,
@@ -3785,9 +3863,11 @@ def hybrid_main_path(torch, launches, lanes):
     cfg = full.replace(n_layers=ZB_LAYERS)
     model, params, batches = recurrent_inputs(torch, cfg, ZB_B, ZB_T,
                                               "hybrid_setup")
+    # No profiled bk step: it took about 20 s, which phase
+    # moe_model_axis_path needed (PERF.md §5 keeps an earlier profile).
     out, plans = recurrent_lanes(torch, "zamba2", model, params, batches,
                                  launches, lanes, ZB_GRAM,
-                                 "zamba2_auto_flat")
+                                 "zamba2_auto_flat", profile_bk=False)
     exact = recurrent_exactness(torch, model, params, batches[0], "zamba2")
     sums, peaks = {}, {}
     b = {k: v[:EXACT_B, :REMAT_T] for k, v in batches[0].items()}
@@ -3850,14 +3930,13 @@ def ssm_serve(torch):
 
 
 def run_recurrent(torch, launches, lanes):
-    """The phases of the SSM and hybrid families, each with its
-    seconds."""
+    """The training phases of the SSM and hybrid families, each with its
+    seconds (their serving, ``ssm_serve``, runs beside the CLI lanes)."""
     for fn in (ssm_main_path, hybrid_main_path):
         t = time.perf_counter()
         fn(torch, launches, lanes)
         log({"phase": f"{fn.__name__}_done",
              "seconds": time.perf_counter() - t})
-    ssm_serve(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -3871,7 +3950,7 @@ SH_RANKS = 2
 SH_DIR = ROOT / "build" / "chip_smoke_shard"
 SH_TIMEOUT_S = 300
 SH_LR = 1e-3
-SH_STEPS = 3
+SH_STEPS = 2
 # Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024: 2 steps
 # (the stale bootstrap, then a stale step).
 SH_LLAMA_LAYERS, SH_LLAMA_STEPS = 2, 2
@@ -4037,36 +4116,66 @@ def released_mean_bound(B, C):
     return 2 * U32 * (math.sqrt(B) * C + 1.0)
 
 
+# A parameter's unit in the last place, relative to the largest |param|:
+# one rounding of an update to the param dtype.
+PARAM_ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+
+
+def released_param_bound(B, C, lr, steps, pmax, dtype, beta=0.9):
+    """How far the released params of a sharded run and of one device's
+    run of the same batches may lie apart, a coordinate: each step's
+    noised means within ``released_mean_bound`` (the same clipped terms
+    summed in another order, the same noise), carried by SGD with
+    momentum β into the params by lr·Σ_s Σ_{j<s} β^j of them (over 2
+    steps 2.9·lr), plus one rounding of each update to the param dtype
+    (an ulp of the largest param: bf16 params land an ulp apart where
+    the two f32 updates straddle a rounding boundary).  In bf16 the
+    rounding term is about 2^-6 (the norm scales are near 1), larger than
+    any update these rates make: there the comparison holds the sharded
+    run to one device's, and an f32 gradient check (``ma_f32_check``)
+    holds the gradient."""
+    carry = sum(sum(beta ** j for j in range(s)) for s in range(1, steps + 1))
+    return (carry * lr * released_mean_bound(B, C)
+            + steps * PARAM_ULP[dtype] * pmax)
+
+
 def shard_reference(torch, model, params, batches, dp, steps, got):
     """The single-device engine on the same global batches and run_seed
-    (rank 0 alone): the largest |Δ param| against the sharded run's and
-    the bound it is held to.  The sharded clipped sum adds the same
-    terms in another order: each sum within the f32 sum bound of
-    kernels/bounds.py, u·√B·Σ_b|w_b g_b| ≤ u·√B·B·C a coordinate
+    (rank 0 alone, SGD with momentum, the state donated as in the
+    sharded lanes' largest step): the largest |Δ param| against the
+    sharded run's (``got``: whole params, on the card or the host), the
+    bound it is held to and the run's peak.  The sharded clipped sum adds
+    the same terms in another order: each sum within the f32 sum bound
+    of kernels/bounds.py, u·√B·Σ_b|w_b g_b| ≤ u·√B·B·C a coordinate
     (every clipped gradient has norm ≤ C), so the released means differ
-    by at most g_tol (``released_mean_bound``); SGD
-    with momentum β = 0.9 moves the params by lr·(1 + (1+β) +
-    (1+β+β²)) = 5.61·lr such differences over 3 steps, plus one rounding
-    of each update."""
+    by at most g_tol (``released_mean_bound``), which the optimizer
+    carries into the params (``released_param_bound``, in the params'
+    dtype)."""
     from repro_torch.core import PrivacyEngine
     from repro_torch.optim import sgdm_init
     from repro_torch.tree import get_subtree, leaf_paths
     B = int(next(iter(batches[0].values())).shape[0])
     eng = PrivacyEngine(model.apply, params, batches[0], dp, optimizer="sgdm",
-                        lr=SH_LR, run_seed=0, sampling_rate=1 / 128,
-                        device="cuda")
+                        donate_opt=True, lr=SH_LR, run_seed=0,
+                        sampling_rate=1 / 128, device="cuda")
     p, opt = params, sgdm_init(params)
+    torch.cuda.reset_peak_memory_stats()
     for s in range(steps):
         p, opt, _, _ = eng.private_step(p, opt, batches[s], step=s)
-    diff = max(float((get_subtree(p, q) - get_subtree(got, q)).abs().max())
-               for q in leaf_paths(p))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt, eng
+    diff = max(float((get_subtree(p, q).float() - get_subtree(got, q).to(
+        "cuda").float()).abs().max()) for q in leaf_paths(p))
     pmax = max(float(get_subtree(p, q).abs().max()) for q in leaf_paths(p))
-    g_tol = released_mean_bound(B, dp.l2_clip)
-    bound = 5.61 * SH_LR * g_tol + 3 * 2 * U32 * pmax
+    dtype = str(get_subtree(p, leaf_paths(p)[0]).dtype).split(".")[-1]
+    bound = released_param_bound(B, dp.l2_clip, SH_LR, steps, pmax, dtype)
     check(diff <= bound, f"sharded vs single-device params: {diff:.3e} > "
           f"{bound:.3e}")
-    del p, opt, eng
-    return {"max_abs_param_diff": diff, "bound": bound, "g_tol": g_tol}
+    del p
+    torch.cuda.empty_cache()
+    return {"max_abs_param_diff": diff, "bound": bound, "param_dtype": dtype,
+            "g_tol": released_mean_bound(B, dp.l2_clip),
+            "single_device_peak_gb": peak}
 
 
 def shard_worker(out_dir):
@@ -4404,7 +4513,7 @@ def ma_agree(torch, dist, mesh, r, lane):
 # The model-axis Llama lanes run bf16 under AdamW at lr 1e-4, which moves
 # no param by a bf16 ulp, so their params cannot show a wrong gradient.
 # One f32 private gradient of the same full-width model is held instead
-# (ma_llama_f32_check): every per-example and per-layer norm within
+# (ma_f32_check): every per-example and per-layer norm within
 # MA_NORM_RTOL of one device's (compare's rule), ten times the kernels'
 # own rtol, since both sides' norms come from gram_norm; a sliced leaf's
 # partial norm left unsummed over model is about 30 % off, and so is wk's
@@ -4447,19 +4556,20 @@ def ma_gram_slices(torch, slices):
     return rows
 
 
-def ma_llama_f32_check(torch, dist, mesh, cfg, batch, device):
+def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
     """One noised clipped mean gradient (``noisy_grad``) of ``cfg`` (f32)
     under bk with the kernel norms and per-layer clipping, on this rank's
-    slices and then, on rank 0, on one device from the same whole params,
-    batch and key: the loss, every per-example and per-layer norm and the
-    gathered gradient are held (bounds above).  Rank 0's readings, an
-    empty record on the other ranks."""
+    slices and then, on rank 0, on one device from the same whole params
+    (``model.init(key)``: a seed, or a generator on the card, which every
+    rank seeds alike), batch and key: the loss, every per-example and
+    per-layer norm and the gathered gradient are held (bounds above).
+    Rank 0's readings, an empty record on the other ranks."""
     from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
     from repro_torch.kernels import ops
     from repro_torch.models.lm import TransformerLM
     from repro_torch.tree import get_subtree, leaf_paths
     model = TransformerLM(cfg)
-    params, axes = model.init(0, device=device)
+    params, axes = model.init(key, device=device)
     dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="bk",
                   norm=NormCfg(dense="pallas"),
                   clipping=ClipPolicy(mode="per_layer"))
@@ -4615,7 +4725,7 @@ def model_axis_worker(spec, out_dir):
             torch.cuda.empty_cache()
             if rank == 0:
                 rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
-            rec["f32_check"] = ma_llama_f32_check(
+            rec["f32_check"] = ma_f32_check(
                 torch, dist, mesh, cfg.replace(dtype="float32"), b0, "cuda")
             del b0
     names = tuple(mesh.mesh_dim_names)
@@ -4763,6 +4873,512 @@ def model_axis_path(torch, launches, lanes):
          "cli_lane": cli_rec, "seconds": time.perf_counter() - t0,
          "ok": True})
     shutil.rmtree(MA_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase moe_model_axis_path: the MoE family on a model axis (ROADMAP item
+# 14 part 3).  Its own torchrun groups, after model_axis_path's ranks have
+# finished: data:2,model:2 (4 ranks) and model:2 (2 ranks) at once, the
+# model:2 ranks' DeepSeek-V3 layer, which needs most of the card, only
+# after the 4-rank group has exited.  Gloo ranks share cuda:0, as
+# in the earlier sharded phases.  SGD with momentum, σ = 1, C = 1; each
+# lane runs twice (``shard_lane``).
+#   * Granite-3.0-1B-A400M at full width, cut to depth 2 (MX_GR_LAYERS),
+#     bf16, flash, B = 8, T = 1024: on model:2 (8 of 16 query heads, 16 of
+#     32 experts, 24 640 of 49 280 vocabulary rows a rank) under ``auto``
+#     stale and ghost (``gram_norm`` on the sliced denses and the router's
+#     16 columns); on data:2,model:2 ``auto`` flat.
+#   * One DeepSeek-V3 MoE layer at full width (MLA at d_model 7168 with
+#     128 heads, ranks 1536 / 512, expert d_ff 2048, top-8, capacity
+#     factor 2.0, 1 shared expert, vocab 129 280), its routed experts cut
+#     from 256 to MX_DS_EXPERTS = 64 (every rank shares the one card, so
+#     sharding adds no memory: a rank holds 2.4e9 params, its bf16
+#     params, f32 clipped sum and f32 momentum about 29 GB, the sum noised
+#     and divided in place and the momentum updated in place, the state
+#     donated), on model:2 (64 heads and 32 experts a rank), ``auto``
+#     flat, ``attn_impl="xla"``, B = 4, T = 512.
+# Held: the ranks of a model slot bitwise equal, the two runs bitwise
+# equal, the released params within ``released_param_bound`` of one
+# device's run of the same batches.  bf16 params at these rates cannot
+# show a wrong gradient, so one f32 gradient on model:2 (bk with the
+# kernel norms, per-layer clipping: ghost takes no per-layer clipping) is
+# held against one device's (``ma_f32_check``'s rules) for each
+# model: Granite at depth 2, and the DeepSeek-V3 layer with its routed
+# experts cut to MX_DS_F32_EXPERTS (MLA's sliced heads and latent
+# copies, the shared expert's partial output, the expert slices).  Each
+# lane prints the entries dropped and the share of the expert slot rows
+# its entries fill.  ``gram_norm``, ``gram_norm_fused`` and the flash
+# kernels at the shapes the lanes handed them, against their plain
+# versions.
+
+MX_DIR = ROOT / "build" / "chip_smoke_moe_model_axis"
+MX_SIDE_DONE = "data2_model2.done"
+MX_TIMEOUT_S = 420
+MX_MESHES = {"data:2,model:2": 4, "model:2": 2}
+MX_GR_LAYERS = 2
+MX_STEPS = 2
+MX_DS_EXPERTS = 64
+MX_DS_B, MX_DS_T = 4, 512
+# The f32 DeepSeek-V3 gradient check's routed experts: 16 (8 a rank,
+# top-8 of 16) keeps the whole f32 layer (2.7e9 params) on each rank
+# beside one device's gradient.
+MX_DS_F32_EXPERTS = 16
+
+
+def mx_dropped_spy(record):
+    """Wrap the MoE dispatch's positions so that each call appends to
+    ``record`` the entries this rank drops (global position past the
+    capacity) and keeps, as device tensors (no sync in the step), and
+    the slot rows of all E experts (E·capacity); returns the undo."""
+    from repro_torch.models import moe
+    real = moe._global_positions
+
+    def spy(e_flat, E, slots_fn, N, topk, capacity_factor):
+        pos, gpos, cap = real(e_flat, E, slots_fn, N, topk, capacity_factor)
+        if gpos.device.type != "meta":      # not the planner's probes
+            over = gpos >= cap
+            record.append((over.sum(), (~over).sum(), E * cap))
+        return pos, gpos, cap
+    moe._global_positions = spy
+    return lambda: setattr(moe, "_global_positions", real)
+
+
+def mx_dispatch_reading(record):
+    """The spy's record of one run: the entries dropped at each dispatch
+    and the share of the expert slot rows its kept entries fill (the
+    rest are zero rows the expert GEMMs and norms still run over: on a
+    data axis each rank's buffer holds the global capacity, fault F6's
+    repair)."""
+    return {"entries_dropped_each_call": [int(d) for d, _, _ in record],
+            "slot_rows_filled_each_call": [int(k) / rows
+                                           for _, k, rows in record]}
+
+
+def mx_lm_batches(torch, cfg, B, T, steps):
+    from repro_torch.data import SyntheticLMDataset
+    ds = SyntheticLMDataset(cfg.vocab, T, n_examples=4096, seed=0)
+    return [{k: torch.from_numpy(v).cuda() for k, v in
+             ds.batch(range(s * B, (s + 1) * B)).items()}
+            for s in range(steps)]
+
+
+def mx_lane(torch, dist, mesh, lane, model, params, batches, dp, needs,
+            axes, rank, store):
+    """One lane through ``shard_lane`` with the dropped-entry spy and the
+    kernels' shape spies (``mx_spies`` into ``store``), the slot and run
+    agreement, and (rank 0, the other ranks waiting) one device's run;
+    the whole params go to the host first."""
+    dropped = []
+    undo = mx_dropped_spy(dropped)
+    undo_spies = mx_spies(store)
+    try:
+        r, whole = shard_lane(torch, model, params, batches, dp, MX_STEPS,
+                              mesh, needs, "sgdm", SH_LR, axes=axes)
+    finally:
+        undo()
+        undo_spies()
+    # the spy saw every dispatch of both runs: each run's own share
+    r.update(mx_dispatch_reading(dropped[:len(dropped) // 2]))
+    ma_agree(torch, dist, mesh, r, lane)
+    from repro_torch.tree import tree_map
+    host = tree_map(lambda t: t.cpu(), whole)
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        r["vs_single_device"] = shard_reference(torch, model, params,
+                                                batches, dp, MX_STEPS, host)
+    del host
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return r
+
+
+def mx_spies(store):
+    """Record the shapes, strides and dtypes ``gram_norm``,
+    ``gram_norm_fused`` and ``flash_fwd`` are handed into ``store``;
+    returns the undo."""
+    from repro_torch.kernels import ops
+    real = {k: getattr(ops, k) for k in ("gram_norm", "gram_norm_fused",
+                                         "flash_fwd")}
+
+    def sig(t):
+        return (tuple(t.shape), tuple(t.stride()))
+
+    def gram(x, dy, *, has_bias=False):
+        store["gram_norm"].add((sig(x), sig(dy), str(x.dtype)[6:],
+                                bool(has_bias)))
+        return real["gram_norm"](x, dy, has_bias=has_bias)
+
+    def fused(x, dy, w, *, has_bias=False):
+        store["gram_norm_fused"].add((sig(x), sig(dy), str(x.dtype)[6:],
+                                      bool(has_bias)))
+        return real["gram_norm_fused"](x, dy, w, has_bias=has_bias)
+
+    def flash(q, k, v, *, causal=True):
+        store["flash"].add((tuple(q.shape), tuple(k.shape), str(q.dtype)[6:],
+                            bool(causal)))
+        return real["flash_fwd"](q, k, v, causal=causal)
+    ops.gram_norm, ops.gram_norm_fused, ops.flash_fwd = gram, fused, flash
+    return lambda: [setattr(ops, k, v) for k, v in real.items()]
+
+
+def mx_slice_kernels(torch, store):
+    """``gram_norm_fused`` and the flash forward, dq and dk/dv at the
+    shapes the model-axis lanes handed them (``gram_norm``'s go through
+    ``ma_gram_slices``), on seeded random inputs, against their plain
+    versions at the existing tolerances."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(shape, stride, dt):
+        t = torch.empty_strided(shape, stride, dtype=getattr(torch, dt),
+                                device="cuda")
+        return t.copy_(torch.randn(shape, generator=g, device="cuda"))
+
+    rows = []
+    for (xs, xst), (ds, dst), dt, hb in sorted(store["gram_norm_fused"]):
+        x, dy = rnd(xs, xst, dt), rnd(ds, dst, dt)
+        w = torch.rand(xs[0], generator=g, device="cuda")
+        got = ops.gram_norm_fused(x, dy, w, has_bias=hb)
+        want = ref.gram_norm_fused_ref(x, dy, w, has_bias=hb)
+        errs = [compare(torch, a, c, dt, floor=f)
+                for a, c, f in zip(got, want, (1e-3, 1.0, 1.0))]
+        ok = all(e[2] for e in errs)
+        rows.append({"kernel": "gram_norm_fused", "x": list(xs),
+                     "dy": list(ds), "dtype": dt, "has_bias": hb,
+                     "max_rel_err": max(e[1] for e in errs), "ok": ok})
+        check(ok, f"gram_norm_fused at a model-axis slice x {xs}, dy {ds}: "
+              f"{errs}")
+        del x, dy, w, got, want
+    def dense(shape, dt):
+        return rnd(shape, tuple(math.prod(shape[i + 1:])
+                                for i in range(len(shape))), dt)
+
+    for qs, ks, dt, causal in sorted(store["flash"]):
+        q, do, k, v = dense(qs, dt), dense(qs, dt), dense(ks, dt), \
+            dense(ks, dt)
+        o, lse = ops.flash_fwd(q, k, v, causal=causal)
+        bwd = (q, k, v, do, lse, ops.flash_delta(o, do))
+        dq = ops.flash_dq(*bwd, causal=causal)
+        dk, dv = ops.flash_dkv(*bwd, causal=causal)
+        ro, rl = ref.flash_fwd_ref(q, k, v, causal=causal)
+        rdq = ref.flash_dq_ref(*bwd, causal=causal)
+        rdk, rdv = ref.flash_dkv_ref(*bwd, causal=causal)
+        for name, pairs in (("flash_fwd", ((o, ro), (lse, rl))),
+                            ("flash_dq", ((dq, rdq),)),
+                            ("flash_dkv", ((dk, rdk), (dv, rdv)))):
+            errs = [flash_close(torch, a, c) for a, c in pairs]
+            ok = all(e[2] for e in errs)
+            rows.append({"kernel": name, "q": list(qs), "k": list(ks),
+                         "dtype": dt, "causal": causal,
+                         "max_rel_err": max(e[1] for e in errs), "ok": ok})
+            check(ok, f"{name} at model-axis heads q {qs}, k {ks}: {errs}")
+        del q, k, v, do, o, lse, bwd, dq, dk, dv, ro, rl, rdq, rdk, rdv
+    check(store["flash"] and store["gram_norm_fused"], "the Granite lanes "
+          f"handed the flash kernels or gram_norm_fused nothing: {store}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mx_granite(torch, dist, mesh, spec, rank, rec):
+    """The Granite lanes of ``spec``; on model:2 also the kernels at the
+    slice shapes and the f32 gradient check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.models.lm import TransformerLM
+    cfg = get_config("granite-moe-1b-a400m").replace(
+        attn_impl="flash", n_layers=MX_GR_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab, cfg.hd,
+           cfg.n_experts, cfg.topk) == GR_WIDTHS[1:]
+          and cfg.moe_impl == "gather" and cfg.dtype == "bfloat16",
+          "granite config")
+    model = TransformerLM(cfg)
+    params, axes = model.init(0, device="cuda")
+    batches = mx_lm_batches(torch, cfg, GR_B, GR_T, MX_STEPS)
+    L = MX_GR_LAYERS
+    if spec == "model:2":
+        # ghost with the kernel norms: gram_norm once at each of wq, wk,
+        # wv, wo and the router a layer and at the head; the flash
+        # kernels in the capture pass and the weighted backward
+        lanes = (("auto_stale", "auto", ClipPolicy(mode="stale"),
+                  NormCfg(), planned_lm_needs(L, L)),
+                 ("ghost", "ghost", ClipPolicy(), NormCfg(dense="pallas"),
+                  dict(flash_needs(MX_STEPS, passes=2, layers=L),
+                       gram_norm=[5 * L + 1] * MX_STEPS)))
+    else:
+        lanes = (("auto_flat", "auto", ClipPolicy(), NormCfg(),
+                  planned_lm_needs(L, L)),)
+    store = {"gram_norm": set(), "gram_norm_fused": set(), "flash": set()}
+    for lane, strategy, clip, knobs, needs in lanes:
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
+                      norm=knobs, clipping=clip)
+        r = mx_lane(torch, dist, mesh, f"granite {lane} on {spec}", model,
+                    params, batches, dp, needs, axes, rank, store)
+        r["cuts"] = {"n_layers": MX_GR_LAYERS}
+        r["local"] = {"query_heads": cfg.n_heads // 2,
+                      "experts": cfg.n_experts // 2,
+                      "vocab_rows": cfg.padded_vocab // 2}
+        rec[f"granite_depth2_{lane}"] = r
+    b0 = batches[0]
+    del params, batches
+    torch.cuda.empty_cache()
+    if spec == "model:2":
+        if rank == 0:
+            slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
+                      dt, hb in store["gram_norm"]}
+            rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+            rec["kernels_on_slices"] = mx_slice_kernels(torch, store)
+        dist.barrier()
+        rec["f32_check"] = ma_f32_check(
+            torch, dist, mesh, cfg.replace(dtype="float32"), b0, "cuda")
+    del b0
+    torch.cuda.empty_cache()
+
+
+def mx_deepseek(torch, dist, mesh, rank, rec):
+    """The DeepSeek-V3 MoE layer on model:2: each run draws the whole
+    layer on the card from one seed and keeps this rank's slices (the
+    whole tree is dropped before a step), so a rank holds its half of
+    the params, the f32 clipped sum and momentum; rank 0 then runs one
+    device alone (the others' memory freed) on a fresh draw."""
+    from repro_torch.configs.deepseek_v3_671b import CONFIG
+    from repro_torch.core import DPConfig, PrivacyEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.optim import sgdm_init
+    from repro_torch.tree import tree_map
+    cfg = CONFIG.replace(n_layers=1, n_experts=MX_DS_EXPERTS, remat=False,
+                         fsdp=False, attn_impl="xla")
+    check((cfg.d_model, cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank,
+           cfg.topk, cfg.n_shared_experts, cfg.d_ff, cfg.vocab,
+           cfg.capacity_factor, cfg.moe_impl) == (7168, 128, 1536, 512, 8, 1,
+                                                  2048, 129280, 2.0, "gather")
+          and cfg.mla, "deepseek-v3 moe config")
+    model = TransformerLM(cfg)
+
+    def draw():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return model.init(gen, device="cuda")
+
+    batches = mx_lm_batches(torch, cfg, MX_DS_B, MX_DS_T, MX_STEPS)
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="auto")
+    st = sharding.COLL_STATS
+    runs, dropped, first = [], [], None
+    n_params = None
+    undo = mx_dropped_spy(dropped)
+    try:
+        for r in range(2):
+            params, axes = draw()
+            if n_params is None:
+                n_params = param_count(params)
+            eng = PrivacyEngine(model.apply, params, batches[0], dp,
+                                optimizer="sgdm", donate_opt=True, lr=SH_LR,
+                                run_seed=0, sampling_rate=1 / 128,
+                                device="cuda", mesh=mesh, param_axes=axes)
+            p = eng.shard_params(params)
+            del params
+            torch.cuda.empty_cache()
+            opt = sgdm_init(p)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st.timing = r == 1
+            del dropped[:]
+            step_ms, per_step, coll, losses = [], [], [], []
+            for s in range(MX_STEPS):
+                ops.reset_launches()
+                st.reset()
+                t = time.perf_counter()
+                p, opt, loss, aux = eng.private_step(p, opt, batches[s],
+                                                     step=s)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                per_step.append(dict(ops.LAUNCHES))
+                coll.append({"calls": dict(st.calls),
+                             "mb": {a: v / 2**20 for a, v in st.bytes.items()},
+                             "ms": ({a: v * 1e3 for a, v in st.seconds.items()}
+                                    if st.timing else "not timed")})
+                losses.append(float(loss))
+            st.timing = False
+            check(all(not any(c.values()) for c in per_step),
+                  f"deepseek moe layer: MLA and the planned step launch no "
+                  f"kernel, got {per_step}")
+            check(all(math.isfinite(v) for v in losses),
+                  f"deepseek moe layer: loss {losses}")
+            runs.append({"step_ms": step_ms, "collectives_each_step": coll,
+                         "launches_each_step": per_step, "losses": losses,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9, **mx_dispatch_reading(dropped),
+                         "digest": tree_digest(p)})
+            del opt, aux
+            torch.cuda.empty_cache()
+            if r == 0:
+                plan = eng.plan()
+                rec_plan = {"realizations": plan.realizations(),
+                            "coll_mb_by_axis": {
+                                a: v / 2**20 for a, v in
+                                plan.total_coll_bytes_by_axis}}
+                whole = eng.gather_params(p)
+                if rank == 0:
+                    first = tree_map(lambda t: t.cpu(), whole)
+                del whole
+            del p, eng
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+        st.timing = False
+    r = {"runs": runs, "plan": rec_plan, "params": n_params,
+         "runs_bitwise_equal": len({x["digest"] for x in runs}) == 1,
+         "cuts": {"n_layers": 1, "n_experts": [256, MX_DS_EXPERTS],
+                  "remat": False, "fsdp": False},
+         "local": {"heads": cfg.n_heads // 2,
+                   "experts": MX_DS_EXPERTS // 2}}
+    ma_agree(torch, dist, mesh, r, "deepseek moe layer on model:2")
+    dist.barrier()
+    if rank == 0:
+        params, _ = draw()
+        r["vs_single_device"] = shard_reference(torch, model, params,
+                                                batches, dp, MX_STEPS, first)
+        del params
+        torch.cuda.empty_cache()
+    del first
+    dist.barrier()
+    rec["deepseek_moe_layer"] = r
+    # the bf16 params above cannot show a wrong gradient (the rounding
+    # term of released_param_bound): one f32 gradient of the same layer,
+    # routed experts cut to MX_DS_F32_EXPERTS, against one device's
+    f32 = cfg.replace(dtype="float32", n_experts=MX_DS_F32_EXPERTS)
+    r["f32_check"] = ma_f32_check(
+        torch, dist, mesh, f32, batches[0], "cuda",
+        key=torch.Generator(device="cuda").manual_seed(0))
+    r["f32_check"]["cuts"] = {"n_experts": [256, MX_DS_F32_EXPERTS]}
+    del batches
+    torch.cuda.empty_cache()
+
+
+def moe_model_axis_worker(spec, out_dir):
+    """One rank of phase moe_model_axis_path (under torch.distributed.run)
+    on mesh ``spec``; this rank's record goes to
+    ``out_dir/<spec>_rank<r>.json``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # two DeepSeek-V3 ranks fill most of the card: no stranded segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh_from_spec
+    from repro_torch.launch.train import deterministic_step
+    check(torch.cuda.is_available(), "a rank sees no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh_from_spec(spec, device_type="cuda")
+    rec = {"rank": rank, "mesh": spec, "device": str(dev),
+           "model_rank": mesh.get_local_rank(
+               tuple(mesh.mesh_dim_names).index("model"))}
+    t = time.perf_counter()
+    with deterministic_step():
+        mx_granite(torch, dist, mesh, spec, rank, rec)
+        rec["granite_s"] = time.perf_counter() - t
+        if spec == "model:2":
+            # the data:2,model:2 ranks run beside the Granite lanes; the
+            # DeepSeek layer needs the card to itself
+            t = time.perf_counter()
+            if rank == 0:
+                flag = pathlib.Path(out_dir) / MX_SIDE_DONE
+                while not flag.exists():
+                    check(time.perf_counter() - t < MX_TIMEOUT_S,
+                          "the data:2,model:2 ranks did not finish")
+                    time.sleep(0.5)
+            dist.barrier()
+            rec["waited_for_data2_model2_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            mx_deepseek(torch, dist, mesh, rank, rec)
+            rec["deepseek_s"] = time.perf_counter() - t
+    tag = spec.replace(":", "").replace(",", "_")
+    with open(os.path.join(out_dir, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def moe_model_axis_path(torch, launches, lanes):
+    """Phase moe_model_axis_path (module comment above): the
+    data:2,model:2 ranks and the model:2 ranks at once, the model:2
+    ranks' DeepSeek-V3 layer after the others have exited (so the
+    Granite lanes' times are read under the other group's load)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    shutil.rmtree(MX_DIR, ignore_errors=True)
+    MX_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+
+    def run(spec, n):
+        try:
+            return torchrun([str(ROOT / "chip_smoke.py"),
+                             "--moe-model-axis-worker", spec, str(MX_DIR)],
+                            MX_TIMEOUT_S, nproc=n)
+        finally:
+            if spec == "data:2,model:2":
+                (MX_DIR / MX_SIDE_DONE).touch()
+
+    walls = {}
+    with ThreadPoolExecutor(len(MX_MESHES)) as pool:
+        futs = {spec: pool.submit(run, spec, n)
+                for spec, n in MX_MESHES.items()}
+        results = {spec: f.result() for spec, f in futs.items()}
+    for spec, n in MX_MESHES.items():
+        rc, out, err, walls[spec] = results[spec]
+        # the failing rank's own message, which the others' tracebacks
+        # (a peer closed) would push out of the tail
+        why = [ln for ln in err.splitlines()
+               if "chip_smoke: FAILED" in ln or ln.startswith(
+                   tuple(f"[rank{r}]: {e}" for r in range(n)
+                         for e in ("RuntimeError", "ValueError",
+                                   "TypeError", "KeyError",
+                                   "AttributeError", "torch.OutOfMemory",
+                                   "NotImplementedError", "AssertionError",
+                                   "IndexError", "NameError")))]
+        check(rc == 0, f"moe model-axis ranks ({spec}): exit {rc}\n"
+              f"{why[:12]}\n{out[-3000:]}\n{err[-5000:]}")
+    ranks = {spec: [json.loads((MX_DIR / "{}_rank{}.json".format(
+        spec.replace(":", "").replace(",", "_"), r)).read_text())
+        for r in range(n)] for spec, n in MX_MESHES.items()}
+    for spec, rs in ranks.items():
+        tag = spec.replace(":", "").replace(",", "_")
+        for r in rs:
+            for lane, rec in r.items():
+                if not (isinstance(rec, dict) and "runs" in rec):
+                    continue
+                steps = rec["runs"][0]["launches_each_step"]
+                name = f"moe_model_axis_{tag}_{lane}_rank{r['rank']}"
+                lanes[name] = {k: [c.get(k, 0) for c in steps]
+                               for k in launches
+                               if any(c.get(k, 0) for c in steps)}
+                if r["rank"] == 0:
+                    for k, v in lanes[name].items():
+                        launches[k] += sum(v)
+                print(json.dumps({
+                    "moe_model_axis_lane": name,
+                    "step_ms": [x["step_ms"] for x in rec["runs"]],
+                    "peak_mem_gb": [x["peak_mem_gb"] for x in rec["runs"]],
+                    "collectives": rec["runs"][1]["collectives_each_step"],
+                    "launches": lanes[name],
+                    "entries_dropped": rec.get(
+                        "entries_dropped_each_call",
+                        rec["runs"][0].get("entries_dropped_each_call")),
+                    "slot_rows_filled": rec.get(
+                        "slot_rows_filled_each_call",
+                        rec["runs"][0].get("slot_rows_filled_each_call")),
+                    "vs_single_device": rec.get("vs_single_device")}),
+                    flush=True)
+    log({"phase": "moe_model_axis_path", "backend": "gloo",
+         "ranks_wall_s": walls, "ranks": ranks,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    shutil.rmtree(MX_DIR, ignore_errors=True)
 
 
 def profile_step(torch, fn, top=8, named=()):
@@ -4997,8 +5613,9 @@ def main():
     calibrated_plans(torch, calib, timings)
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    cli_lanes(calib)
-    log({"phase": "cli_lanes_done", "seconds": time.perf_counter() - t})
+    cli_lanes_beside_serving(torch, calib)
+    log({"phase": "cli_and_serving_done",
+         "seconds": time.perf_counter() - t})
     t = time.perf_counter()
     sharded_main_path(torch, launches, lanes)
     log({"phase": "sharded_main_path_done",
@@ -5008,11 +5625,9 @@ def main():
     log({"phase": "model_axis_path_done",
          "seconds": time.perf_counter() - t})
     t = time.perf_counter()
-    serve_lane(torch)
-    log({"phase": "serve_lane_done", "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    serve_cli()
-    log({"phase": "serve_cli_done", "seconds": time.perf_counter() - t})
+    moe_model_axis_path(torch, launches, lanes)
+    log({"phase": "moe_model_axis_path_done",
+         "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
     log({"kernels": summarize(rows, launches, lanes, profiled)})
@@ -5027,6 +5642,8 @@ if __name__ == "__main__":
             shard_worker(sys.argv[2])
         elif sys.argv[1:2] == ["--model-axis-worker"]:
             model_axis_worker(sys.argv[2], sys.argv[3])
+        elif sys.argv[1:2] == ["--moe-model-axis-worker"]:
+            moe_model_axis_worker(sys.argv[2], sys.argv[3])
         elif sys.argv[1:2] == ["--nccl-probe"]:
             nccl_probe(sys.argv[2])
         else:

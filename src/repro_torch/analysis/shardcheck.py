@@ -53,7 +53,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.analysis.graph import FlatGraph, op_name, shape
+from repro_torch.analysis.graph import FlatGraph, op_name, shape, val
 from repro_torch.analysis.report import Finding
 
 WHERE = "sharding"
@@ -64,10 +64,19 @@ def _is_number(x) -> bool:
 
 
 def sync_nodes(graph: FlatGraph, group_name: str) -> list:
-    """The sum all-reduces over the data group, in graph order."""
+    """The sum all-reduces of floating-point values over the group, in
+    graph order.  An integer sum (the MoE dispatch's per-expert entry
+    counts, which place a data rank's entries in the global slots) sums
+    no gradient, norm or loss."""
     return [n for n in graph.nodes
             if op_name(n) == "all_reduce" and len(n.args) >= 3
-            and str(n.args[1]) == "sum" and str(n.args[2]) == group_name]
+            and str(n.args[1]) == "sum" and str(n.args[2]) == group_name
+            and _floating(n)]
+
+
+def _floating(node) -> bool:
+    v = val(node)
+    return not isinstance(v, torch.Tensor) or v.dtype.is_floating_point
 
 
 def draw_seeds(graph: FlatGraph) -> list:
@@ -94,8 +103,8 @@ def _out_key(path, i: int):
 
 def _divisors_after(node, depth: int = 8) -> list:
     """The numbers a value is divided by on its way from ``node`` to the
-    release: ``div(x, n)`` nodes reached through at most ``depth`` users
-    (the noise add, casts, views)."""
+    release: ``div(x, n)`` (or in place, ``div_``) nodes reached through
+    at most ``depth`` users (the noise add, casts, views)."""
     out, frontier, seen = [], [node], set()
     for _ in range(depth):
         nxt = []
@@ -104,7 +113,7 @@ def _divisors_after(node, depth: int = 8) -> list:
                 if u in seen:
                     continue
                 seen.add(u)
-                if op_name(u) == "div" and len(u.args) > 1 \
+                if op_name(u) in ("div", "div_") and len(u.args) > 1 \
                         and _is_number(u.args[1]) and u.args[0] is n:
                     out.append(u.args[1])
                 else:

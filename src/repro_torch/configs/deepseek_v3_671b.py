@@ -4,8 +4,8 @@ MLA: q_lora 1536, kv_lora 512, rope 64, nope 128, v 128 over 128 heads.
 1 shared + 256 routed experts (top-8), per-expert hidden 2048.  The
 JAX package's config, field for field: MLA + MoE blocks (family
 ``moe``).  One card holds one full-width layer of it, not the model:
-its DP step needs the experts sharded over a model axis (ROADMAP.md
-item 14 part 3).
+its DP step needs the experts sharded over a model axis (the ``expert``
+rule, which ``models/moe.py`` executes).
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -12,7 +12,10 @@ from the one generator every rank holds (:func:`release_sum`), and the
 divisor, the mean loss and the statistics are the global batch's.
 Clipping is per example, so a rank's coefficients need only its own
 examples' norms: the step equals the single-device step up to the order
-of the sum.
+of the sum.  The strategies run under :func:`repro_torch.launch.sharding.
+data_parallel`, so a layer whose forward couples the global batch's
+examples (the MoE dispatch's global capacity) keeps one device's
+semantics on a data rank.
 
 A model axis too (``shard=`` a :class:`MeshShard`, whose ``model`` names
 the model group and the param specs): the strategies run under
@@ -341,10 +344,12 @@ def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
     from ``generator`` (on the grads' device), leaf by leaf in sorted
     leaf-path order, and summed in float32; only the result is cast back
-    to the grad dtype.  On a model axis (``model``: the rank's
-    ``ModelShard``) a sliced leaf's noise is drawn at the leaf's full
-    shape and this rank keeps its slice, so the model ranks add the
-    slices of the one draw a single device adds."""
+    to the grad dtype.  A float32 leaf takes its noise in place: the sum
+    is the caller's to give up, and a step then holds one copy of it,
+    not two.  On a model axis (``model``: the rank's ``ModelShard``) a
+    sliced leaf's noise is drawn at the leaf's full shape and this rank
+    keeps its slice, so the model ranks add the slices of the one draw a
+    single device adds."""
     if noise_multiplier == 0.0:
         return grad_sum
     from repro_torch.launch import sharding
@@ -359,12 +364,13 @@ def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
             full[d] *= model.size
         noise = torch.randn(full, generator=generator, dtype=F32,
                             device=g.device)
-        noise = tag(sigma * noise, kind="noise", sigma=float(sigma),
+        noise = tag(noise.mul_(sigma), kind="noise", sigma=float(sigma),
                     noise_multiplier=float(noise_multiplier),
                     l2_clip=float(l2_clip))
         for d in dims:
             noise = sharding._own(noise, d, model)
-        out = set_subtree(out, path, (g.to(F32) + noise).to(g.dtype))
+        out = set_subtree(out, path, g.add_(noise) if g.dtype == F32
+                          else (g.to(F32) + noise).to(g.dtype))
     return out
 
 
@@ -450,8 +456,8 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
         raise ValueError(f"batch {B} not divisible by microbatches {m}")
     mb = B // m
     gsum, losses, norms, group_ns, budgets_used = None, [], [], [], None
-    from repro_torch.launch.sharding import model_parallel
-    with model_parallel(model_of(shard)):
+    from repro_torch.launch.sharding import data_parallel, model_parallel
+    with model_parallel(model_of(shard)), data_parallel(shard):
         for i in range(m):
             sl = slice(i * mb, (i + 1) * mb)
             part = {k: v[sl] for k, v in batch.items()}
@@ -472,7 +478,8 @@ def dp_gradient(apply_fn: Callable, params, batch, *, cfg: DPConfig,
                 budgets_used = detail["budgets"]
     losses, norms_sq = torch.cat(losses), torch.cat(norms)
     gsum = release_sum(gsum, key, cfg, shard)
-    grad = tree_map(lambda g: g / denom, gsum)
+    # the sum is this step's own: divided in place, as it is noised
+    grad = tree_map(lambda g: g.div_(denom), gsum)
 
     def whole(t):
         return t if shard is None else gather_examples(t, shard)

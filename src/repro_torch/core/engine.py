@@ -62,6 +62,7 @@ and the accountant's ledger stays the truth.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -102,16 +103,21 @@ class ReplanEvent:
     plan_changed: bool        # did any layer's realization actually flip
 
 
-def _resolve_optimizer(optimizer) -> Callable:
+def _resolve_optimizer(optimizer, donate_opt: bool = False) -> Callable:
     if callable(optimizer):
+        if donate_opt:
+            raise ValueError("donate_opt= takes a named optimizer ('adamw' "
+                             "or 'sgdm'); an update callable decides itself "
+                             "what it updates in place")
         return optimizer
     from repro_torch.optim import adamw_update, sgdm_update
     table = {"adamw": adamw_update, "sgdm": sgdm_update}
     try:
-        return table[optimizer]
+        update = table[optimizer]
     except KeyError:
         raise ValueError(f"unknown optimizer {optimizer!r}; pass one of "
                          f"{sorted(table)} or an update callable") from None
+    return functools.partial(update, inplace=True) if donate_opt else update
 
 
 def noise_seed(run_seed: int, step: int) -> int:
@@ -131,6 +137,11 @@ class PrivacyEngine:
       dp:         :class:`DPConfig`.
       optimizer:  "adamw" | "sgdm" | ``update(grads, state, params, *, lr,
                   weight_decay) -> (params, state)``.
+      donate_opt: the step consumes the optimizer state it is given: a
+                  named optimizer updates the moments in place (bitwise
+                  the same values), so a step holds one copy of them, as
+                  a jitted step with the state donated does.  The caller
+                  keeps only the state the step returns.
       lr:         learning rate, or ``lr(opt_step) -> lr``.
       sampling_rate / accountant: privacy accounting — the Poisson
                   sampling rate (an accountant is built) or an existing
@@ -181,7 +192,7 @@ class PrivacyEngine:
 
     def __init__(self, apply_fn: Callable, params, batch_spec,
                  dp: DPConfig | None = None, *, optimizer="adamw",
-                 lr=1e-3, weight_decay: float = 0.0,
+                 donate_opt: bool = False, lr=1e-3, weight_decay: float = 0.0,
                  sampling_rate: float | None = None,
                  accountant: PrivacyAccountant | None = None,
                  plan=None, mesh=None, param_axes=None,
@@ -197,7 +208,7 @@ class PrivacyEngine:
         self._specs = self._param_specs(param_axes)
         live = getattr(mesh, "mesh_dim_names", None) is not None
         self._shard = self._mesh_shard(mesh) if live else None
-        self._update_fn = _resolve_optimizer(optimizer)
+        self._update_fn = _resolve_optimizer(optimizer, donate_opt)
         self._optimizer_name = optimizer if isinstance(optimizer, str) \
             else None
         self._lr = lr

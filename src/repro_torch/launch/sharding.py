@@ -34,6 +34,10 @@ the identity):
     logits (max, sum of exponentials and target logit summed over
     ``model``; the logits are never gathered).
 
+Layers whose forward couples the examples of the global batch read
+the data group the same way (:func:`data_parallel`): the MoE dispatch's
+global capacity sums each data rank's per-expert entry counts.
+
 Every one is a sum all-reduce of the model group (the gathers sum
 zero-padded slices, exact; the reduce-scatter all-reduces and keeps
 the slice): one ``_c10d_functional.all_reduce`` node a move, in a
@@ -233,6 +237,13 @@ class ModelShard:
                 f"{DEFERRED}")
         return flags == {True}
 
+    def run(self, n: int) -> tuple:
+        """``[lo, hi)``: this rank's contiguous run of ``n`` rows sliced
+        over the axis (the experts of an ``"expert"``-sliced MoE layer:
+        ``[r·E/M, (r+1)·E/M)``)."""
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
 
 class CollStats:
     """Model- and data-axis collectives of the step: calls and payload
@@ -271,6 +282,31 @@ def model_parallel(shard: ModelShard | None):
 def active() -> ModelShard | None:
     """The model group in effect, or ``None``."""
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+_DATA: list = []
+
+
+@contextlib.contextmanager
+def data_parallel(shard):
+    """Run the block with ``shard`` (a ``clipping.DataShard``: its group,
+    rank and size) as the active data group (``None`` or a size-1 group:
+    nothing changes).  A layer whose forward couples the examples of
+    the global batch (the MoE dispatch's global capacity) reads it to
+    keep the single-device semantics on a data rank."""
+    if shard is None or shard.size == 1:
+        yield
+        return
+    _DATA.append(shard)
+    try:
+        yield
+    finally:
+        _DATA.pop()
+
+
+def active_data():
+    """The data group in effect (a ``clipping.DataShard``), or ``None``."""
+    return _DATA[-1] if _DATA else None
 
 
 def split(local: int, full: int) -> bool:

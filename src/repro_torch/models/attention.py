@@ -16,10 +16,11 @@ column-sharded and ``wo`` row-sharded (its partial output summed over
 ``model``); ``wk`` / ``wv`` stay replicated (``"kv"`` maps to no mesh
 axis) and each rank attends with the KV heads its local query heads
 read, so their outputs' cotangent is summed over ``model`` before the
-capture sees it.  MLA, qk-norm on sliced heads (its scale's gradient is
-a sum of the ranks' partial gradients), block taps (``dp_attn``), a
-cache and cross attention on a model axis are ROADMAP.md item 14
-part 3.
+capture sees it.  MLA slices its per-head projections the same way
+beside a replicated latent path (:func:`mla_apply`).  qk-norm on sliced
+heads (its scale's gradient is a sum of the ranks' partial gradients),
+block taps (``dp_attn``), a cache and cross attention on a model axis
+are ROADMAP.md item 14 part 3.
 """
 from __future__ import annotations
 
@@ -386,12 +387,27 @@ def mla_apply(tp: Tapper, name: str, p, x, *, n_heads, q_lora_rank,
     take one head dim for q, k and v, and MLA's q/k (``qk_nope_dim +
     qk_rope_dim``) differ from v's: ``attn_impl="flash"`` raises
     :class:`FlashUnsupportedError`.  ``dp_attn``: the block-level
-    ``"attn"`` tap over the train path (see :func:`gqa_apply`)."""
-    if sh.active() is not None:
-        raise NotImplementedError(f"{name}: MLA on a model axis is "
-                                  f"{sh.DEFERRED}")
+    ``"attn"`` tap over the train path (see :func:`gqa_apply`).
+
+    On a model axis that slices the heads, ``wq_b`` (or ``wq``) and
+    ``wkv_b`` are column-sharded by heads and ``wo`` row-sharded (its
+    partial output summed over ``model``); the latent path (``wq_a``,
+    ``q_norm``, ``wkv_a``, ``kv_norm``) stays replicated.  The normed
+    latents and the shared RoPE key feed every head, so each passes a
+    :func:`~repro_torch.launch.sharding.copy_to_model` before the
+    sliced projections: their cotangent on a rank covers its heads
+    only."""
+    if sh.active() is not None and (cache is not None
+                                    or (dp_attn and tp.active())):
+        what = ("a latent cache" if cache is not None
+                else "block taps (dp_attn)")
+        raise NotImplementedError(f"{name}: MLA with {what} on a model "
+                                  f"axis is {sh.DEFERRED}")
     B, T, D = x.shape
     qd = qk_nope_dim + qk_rope_dim
+    cut = sh.split(p["wkv_b"]["w"].shape[-1],
+                   n_heads * (qk_nope_dim + v_head_dim))
+    H = n_heads // sh.active().size if cut else n_heads
     if attn_impl == "flash":
         raise FlashUnsupportedError(
             f"MLA with attn_impl='flash': the flash kernels take one head "
@@ -417,13 +433,14 @@ def mla_apply(tp: Tapper, name: str, p, x, *, n_heads, q_lora_rank,
                                  n_heads * (qk_nope_dim + v_head_dim)),
                                 (n_heads * v_head_dim, D)))
 
+    copy = sh.copy_to_model if cut else (lambda t: t)
     if q_lora_rank:
         cq = tp.dense(f"{name}/wq_a", x, p["wq_a"]["w"])
         cq = cm.rmsnorm(tp, f"{name}/q_norm", p["q_norm"], cq)
-        q = tp.dense(f"{name}/wq_b", cq, p["wq_b"]["w"])
+        q = tp.dense(f"{name}/wq_b", copy(cq), p["wq_b"]["w"])
     else:
-        q = tp.dense(f"{name}/wq", x, p["wq"]["w"])
-    q = q.reshape(B, T, n_heads, qd)
+        q = tp.dense(f"{name}/wq", copy(x), p["wq"]["w"])
+    q = q.reshape(B, T, H, qd)
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
 
     kv_a = tp.dense(f"{name}/wkv_a", x, p["wkv_a"]["w"])
@@ -475,15 +492,16 @@ def mla_apply(tp: Tapper, name: str, p, x, *, n_heads, q_lora_rank,
         return tp.dense(f"{name}/wo", out, p["wo"]["w"]), new_cache
 
     # train / prefill-style full pass
-    kv = tp.dense(f"{name}/wkv_b", ckv, p["wkv_b"]["w"]).reshape(
-        B, T, n_heads, qk_nope_dim + v_head_dim)
+    kv = tp.dense(f"{name}/wkv_b", copy(ckv), p["wkv_b"]["w"]).reshape(
+        B, T, H, qk_nope_dim + v_head_dim)
     k_nope, v = kv[..., :qk_nope_dim], kv[..., qk_nope_dim:]
-    k_full = torch.cat([k_nope, k_rope.expand(B, T, n_heads, qk_rope_dim)],
+    k_full = torch.cat([k_nope, copy(k_rope).expand(B, T, H, qk_rope_dim)],
                        -1)
     qf = torch.cat([q_nope, q_rope], -1)
     out = attend(qf, k_full, v, causal=True, impl=attn_impl)
-    out = out.reshape(B, T, n_heads * v_head_dim)
-    return tp.dense(f"{name}/wo", out, p["wo"]["w"]), None
+    out = out.reshape(B, T, H * v_head_dim)
+    out = tp.dense(f"{name}/wo", out, p["wo"]["w"])
+    return (sh.reduce_from_model(out) if cut else out), None
 
 
 def mla_cache(batch, max_len, kv_lora_rank, qk_rope_dim, dtype=F32,

@@ -28,13 +28,15 @@ and the head — with tied embeddings the head is the transposed table,
 tapped as ``"~tok_emb"`` so the two uses of one parameter form one group.
 Params and tap names are the JAX package's.
 
-On a model axis (``launch.sharding``) the dense family runs
+On a model axis (``launch.sharding``) the dense and MoE families run
 tensor-sharded: the vocabulary-sharded ``tok_emb`` (looked up in each
-rank's shard and summed over ``model``), head-sharded attention and
-``d_ff``-sharded MLPs, and a vocabulary-sharded head (tied or not)
-whose logits feed the vocabulary-parallel cross entropy, never
-gathered.  The MoE, enc-dec and recurrent families there, and MLA, are
-ROADMAP.md item 14 part 3.
+rank's shard and summed over ``model``), head-sharded attention (GQA,
+and MLA beside its replicated latent path), ``d_ff``-sharded MLPs,
+expert-sharded MoE layers (``models/moe.py``), and a vocabulary-sharded
+head (tied or not) whose logits feed the vocabulary-parallel cross
+entropy, never gathered.  Every rank of a model slot routes alike, so
+the per-example load-balance loss is whole on each and added once.
+The enc-dec and recurrent families there are ROADMAP.md item 14 part 3.
 
 Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
 params and runs the blocks as a Python loop over the stack, under
@@ -220,7 +222,8 @@ class TransformerLM:
         if c.n_experts:
             return moe_apply(tp, "moe", p_l["moe"], x, impl=c.moe_impl,
                              n_experts=c.n_experts, topk=c.topk,
-                             capacity_factor=c.capacity_factor)
+                             capacity_factor=c.capacity_factor,
+                             d_ff=c.d_ff, n_shared=c.n_shared_experts)
         return mlp_apply(tp, "mlp", p_l["mlp"], x, c.mlp, d_ff=c.d_ff), None
 
     def _ssm_kw(self):

@@ -31,16 +31,24 @@ def mlp_init(gen: torch.Generator, d_model, d_ff, kind="swiglu", *,
 
 
 def mlp_apply(tp: Tapper, name: str, p, x, kind="swiglu", *,
-              d_ff: int | None = None):
+              d_ff: int | None = None, partial: bool = False):
     """``d_ff``: the whole hidden width, when ``p`` may arrive as this
-    rank's slices of it."""
+    rank's slices of it.  ``partial``: on such slices, ``x`` is already
+    copied to ``model`` and the partial output is returned unsummed, for
+    a caller that sums it with partial terms of its own (a MoE layer's
+    shared expert)."""
     cut = d_ff is not None and sh.split(p["w_up"]["w"].shape[-1], d_ff)
+    if partial and not cut:
+        raise NotImplementedError(
+            f"{name}: a replicated MLP beside sliced partial outputs is "
+            f"{sh.DEFERRED}")
     if cut:
         if p["w_down"].get("b") is not None:
             raise NotImplementedError(
                 f"{name}: a row-sharded w_down with a replicated bias is "
                 f"{sh.DEFERRED}")
-        x = sh.copy_to_model(x)
+        if not partial:
+            x = sh.copy_to_model(x)
     up = tp.dense(f"{name}/w_up", x, p["w_up"]["w"], p["w_up"].get("b"))
     if kind == "swiglu":
         gate = tp.dense(f"{name}/w_gate", x, p["w_gate"]["w"])
@@ -50,4 +58,4 @@ def mlp_apply(tp: Tapper, name: str, p, x, kind="swiglu", *,
         h = F.gelu(up, approximate="tanh")
     y = tp.dense(f"{name}/w_down", h, p["w_down"]["w"],
                  p["w_down"].get("b"))
-    return sh.reduce_from_model(y) if cut else y
+    return sh.reduce_from_model(y) if cut and not partial else y

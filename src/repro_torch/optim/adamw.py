@@ -4,7 +4,10 @@ The JAX package's update math, not ``torch.optim``'s: moments are float32
 regardless of parameter dtype, ``eps`` sits outside the square root, the
 bias correction comes from the step count held in the state, and the
 update is computed in float32 and cast back.  Functions return new
-tensors; nothing is updated in place.
+tensors and leave their inputs alone, unless the caller gives the state
+up (``inplace=True``): then the moments are updated in place, with the
+same roundings in the same order (bitwise the same values), so that a
+step holds one copy of them and not two.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def adamw_init(params):
 
 
 def adamw_update(grads, state, params, *, lr=1e-4, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.0):
+                 eps=1e-8, weight_decay=0.0, inplace=False):
     step = state["step"] + 1
     t = step.to(F32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32, device=t.device), t)
@@ -48,8 +51,12 @@ def adamw_update(grads, state, params, *, lr=1e-4, b1=0.9, b2=0.95,
 
     def upd(g, m, v, p):
         g = g.to(F32)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
+        if inplace:
+            m = m.mul_(b1).add_((1 - b1) * g)
+            v = v.mul_(b2).add_((1 - b2) * g * g)
+        else:
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         if weight_decay:
             u = u + weight_decay * p.to(F32)
@@ -66,12 +73,12 @@ def sgdm_init(params):
 
 
 def sgdm_update(grads, state, params, *, lr=0.1, momentum=0.9,
-                weight_decay=0.0):
+                weight_decay=0.0, inplace=False):
     def upd(g, mo, p):
         g = g.to(F32)
         if weight_decay:
             g = g + weight_decay * p.to(F32)
-        mo = momentum * mo + g
+        mo = mo.mul_(momentum).add_(g) if inplace else momentum * mo + g
         return (p.to(F32) - lr * mo).to(p.dtype), mo
 
     out = tree_map(upd, grads, state["mom"], params)

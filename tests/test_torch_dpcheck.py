@@ -50,25 +50,27 @@ def test_failing_lane_exits_one(monkeypatch, capsys):
 
 def test_mesh_lanes_raise_naming_item_14():
     """``--mesh data:4,model:2`` runs the tensor-sharded lanes (item 14
-    part 2; ``tests/test_torch_model_axis.py``); the families it leaves
-    out raise naming item 14 part 3 — MLA (DeepSeek-V3), qk-norm on
-    sliced heads (Chameleon), MoE experts on ``model`` (Granite), the
-    enc-dec (Seamless) and recurrent (xLSTM, Zamba2) families — and so
-    do the FSDP rules on a live mesh."""
+    parts 2 and 3; ``tests/test_torch_model_axis.py``,
+    ``tests/test_torch_moe_model_axis.py``); what it leaves out raises
+    naming item 14 part 3 — MLA under block taps (DeepSeek-V3 with
+    ``--dp-attn``) or against a latent cache, qk-norm on sliced heads
+    (Chameleon), the enc-dec (Seamless) and recurrent (xLSTM, Zamba2)
+    families — and so do the FSDP rules on a live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import fake_world, make_mesh_from_spec
     from repro_torch.launch.sharding import param_sharding
     from repro_torch.models.registry import build_model
-    for arch, what in (("deepseek-v3-671b", "MLA"),
-                       ("chameleon-34b", "qk-norm"),
-                       ("granite-moe-1b-a400m", "MoE experts"),
-                       ("seamless-m4t-large-v2", "enc-dec"),
-                       ("xlstm-125m", "ssm family"),
-                       ("zamba2-2.7b", "hybrid family")):
+    import torch_shard_worker as sw
+    for arch, what, extra in (
+            ("deepseek-v3-671b", "MLA with block taps", ["--dp-attn"]),
+            ("chameleon-34b", "qk-norm", []),
+            ("seamless-m4t-large-v2", "enc-dec", []),
+            ("xlstm-125m", "ssm family", []),
+            ("zamba2-2.7b", "hybrid family", [])):
         with pytest.raises(NotImplementedError,
                            match=f"{what}.*item 14 part 3"):
             dpcheck.main(["--archs", arch, "--mesh", "data:4,model:2",
-                          "--seq", "8", "--batch", "4"] + CPU)
+                          "--seq", "8", "--batch", "4"] + extra + CPU)
     _, axes = build_model(get_config("llama3.2-1b").reduced()).init(
         0, device="cpu")
     assert param_sharding(axes, "data:4,model:2", fsdp=True)  # plans
@@ -77,6 +79,29 @@ def test_mesh_lanes_raise_naming_item_14():
         with pytest.raises(NotImplementedError,
                            match="FSDP_PARAM_RULES.*item 14 part 3"):
             param_sharding(axes, mesh, fsdp=True)
+        msg = sw.mla_cache_on_model_axis(mesh)
+    assert "MLA with a latent cache" in msg and "item 14 part 3" in msg
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-1b-a400m",
+                                  "deepseek-v3-671b"))
+def test_moe_arch_on_a_model_axis_gives_the_one_device_verdict(arch,
+                                                                capsys):
+    """The MoE archs run on ``data:2,model:2`` (item 14 part 3) and get
+    their one-device verdict: FAIL, from the gather dispatch's slot
+    competition alone (``unclipped_batch_reduction``), with no finding
+    of the model half and none of the data half (the per-expert counts
+    the data ranks exchange are integers, no gradient sync)."""
+    argv = ["--archs", arch, "--mesh", "none", "data:2,model:2",
+            "--clip-modes", "flat", "--seq", "8", "--batch", "4",
+            "-v"] + CPU
+    assert dpcheck.main(argv) == 1
+    out = capsys.readouterr().out
+    for spec in ("none", "data:2,model:2"):
+        assert f"FAIL  {arch} clip=flat mesh={spec}" in out
+    codes = {line.split()[1] for line in out.splitlines()
+             if line.startswith("    error")}
+    assert codes == {"unclipped_batch_reduction"}, out
 
 
 def test_unserved_arch_raises_naming_item_12():

@@ -660,20 +660,22 @@ def test_collective_calibration_over_the_group(runs):
 
 def test_indivisible_batch_and_model_axis_raise(runs):
     """An indivisible batch still raises.  A live model axis runs (item
-    14 part 2, ``tests/test_torch_model_axis.py``); what it leaves out
-    raises naming item 14 part 3: MLA, qk-norm on sliced heads, MoE
-    experts on ``model``, the enc-dec and recurrent families, and
-    ``fsdp=True``."""
+    14 parts 2 and 3, ``tests/test_torch_model_axis.py`` and
+    ``tests/test_torch_moe_model_axis.py``); what it leaves out raises
+    naming item 14 part 3: MLA under block taps or against a latent
+    cache, qk-norm on sliced heads, the enc-dec and recurrent families,
+    and ``fsdp=True``."""
     r0 = runs[2][0]
     assert "not divisible" in r0["indivisible"]
     assert "degree 2" in r0["indivisible"]
     got = r0["model_axis"]
-    assert sorted(got) == sorted(sw.DEFERRED_ARCHS + ("fsdp",))
+    assert sorted(got) == sorted(sw.DEFERRED_ARCHS + (
+        "mla-dp_attn", "mla-cache", "fsdp"))
     for case, msg in got.items():
         assert "item 14 part 3" in msg, (case, msg)
-    assert "MLA" in got["deepseek-v3-671b"]
+    assert "MLA with block taps (dp_attn)" in got["mla-dp_attn"]
+    assert "MLA with a latent cache" in got["mla-cache"]
     assert "qk-norm" in got["chameleon-34b"]
-    assert "MoE experts" in got["granite-moe-1b-a400m"]
     assert "enc-dec" in got["seamless-m4t-large-v2"]
     assert "ssm family" in got["xlstm-125m"]
     assert "hybrid family" in got["zamba2-2.7b"]

@@ -284,13 +284,15 @@ def lanes_2(rank, mesh, data, out_dir):
     return res
 
 
-DEFERRED_ARCHS = ("deepseek-v3-671b", "chameleon-34b", "granite-moe-1b-a400m",
-                  "seamless-m4t-large-v2", "xlstm-125m", "zamba2-2.7b")
+DEFERRED_ARCHS = ("chameleon-34b", "seamless-m4t-large-v2", "xlstm-125m",
+                  "zamba2-2.7b")
 
 
 def deferred_on_model_axis(mesh):
     """{case: the NotImplementedError's message} of one private step of
-    each deferred family (reduced) on ``mesh``'s model axis, and of
+    each deferred family (reduced) on ``mesh``'s model axis, of reduced
+    DeepSeek-V3's under block taps (``"mla-dp_attn"``), of MLA against
+    a latent cache there (``"mla-cache"``), and of
     ``param_sharding(fsdp=True)`` on the live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
@@ -298,8 +300,9 @@ def deferred_on_model_axis(mesh):
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init
     out = {}
-    for arch in DEFERRED_ARCHS:
-        cfg = get_config(arch).reduced()
+    for arch in DEFERRED_ARCHS + ("mla-dp_attn",):
+        cfg = (get_config("deepseek-v3-671b").reduced().replace(dp_attn=True)
+               if arch == "mla-dp_attn" else get_config(arch).reduced())
         model = build_model(cfg)
         p, axes = model.init(0, device="cpu")
         b = to_device(make_batch_fn(cfg, 2, 8)(0), "cpu")
@@ -312,6 +315,7 @@ def deferred_on_model_axis(mesh):
             out[arch] = "ran"
         except NotImplementedError as e:
             out[arch] = str(e)
+    out["mla-cache"] = mla_cache_on_model_axis(mesh)
     from repro_torch.launch.sharding import param_sharding
     try:
         param_sharding(axes, mesh, fsdp=True)
@@ -319,6 +323,31 @@ def deferred_on_model_axis(mesh):
     except NotImplementedError as e:
         out["fsdp"] = str(e)
     return out
+
+
+def mla_cache_on_model_axis(mesh) -> str:
+    """The message of reduced DeepSeek-V3's MLA, one decode step against
+    its latent cache, under ``mesh``'s model group."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tapper import Tapper
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import attention
+    from repro_torch.models.registry import build_model
+    c = get_config("deepseek-v3-671b").reduced()
+    layers = build_model(c).init(0, device="cpu")[0]["blocks"]["attn"]
+    p = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in layers.items()}
+    cache = attention.mla_cache(2, 8, c.kv_lora_rank, c.qk_rope_dim)
+    try:
+        with sh.model_parallel(sh.model_shard_of(mesh)):
+            attention.mla_apply(
+                Tapper(), "attn", p, torch.zeros(2, 1, c.d_model),
+                n_heads=c.n_heads, q_lora_rank=c.q_lora_rank,
+                kv_lora_rank=c.kv_lora_rank, qk_nope_dim=c.qk_nope_dim,
+                qk_rope_dim=c.qk_rope_dim, v_head_dim=c.v_head_dim,
+                cache=cache)
+        return "ran"
+    except NotImplementedError as e:
+        return str(e)
 
 
 LANES = {2: lanes_2, 4: lanes_4}
