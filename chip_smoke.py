@@ -132,10 +132,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    VGG16 and Llama-3.2-1B under every clipping mode must exit 0.
 9h. the MoE and enc-dec families (``run_moe_encdec``): full-width
    Granite-3.0-1B-A400M (phase ``moe_main_path``: cut from 24 layers to
-   GR_DEPTH = 6, d_model 1024, 16/8 heads, 32 experts top-8 of d_ff
+   GR_DEPTH = 3, d_model 1024, 16/8 heads, 32 experts top-8 of d_ff
    512, vocab 49 155, bf16, gather dispatch, flash; B = 8, T = 1024)
    under ghost (``gram_norm`` on every dense layer that is not an
-   expert, 31 a step; flash 12 of each kernel a step), ``auto`` flat and
+   expert, 16 a step; flash 6 of each kernel a step), ``auto`` flat and
    stale (the launches their plans
    say; the plan's realization of each expert layer printed; no expert
    fuses), then stale fused against unfused, the ghost norms with the
@@ -163,17 +163,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    B = 8, T = 128) under bk (``gram_norm`` 23 a step), ``auto`` stale (``gram_norm_fused`` once a
    fused dense of the stack, as its plan says) and ``auto`` flat (no
    kernel of this repo: its plan realizes every norm with the plain
-   versions); Zamba2-2.7B at full width cut to 2 super-blocks (phase
-   ``hybrid_main_path``: 12 Mamba2 layers and the shared attention + MLP
-   block applied twice, d_model 2560, bf16, remat; B = 4, T = 512) under
-   bk (``gram_norm`` 32 a step) and ``auto`` flat; on each, in f32 at
+   versions); Zamba2-2.7B at full width cut to 1 super-block (phase
+   ``hybrid_main_path``: 6 Mamba2 layers and the shared attention + MLP
+   block applied once, d_model 2560, bf16, remat; B = 4, T = 512) under
+   bk (``gram_norm`` 20 a step) and ``auto`` flat; on each, in f32 at
    full width on 2 examples at the lane's T, bk's group norms (the
    ``local_vjp`` and the shared block's folded groups included) against
    ``naive``'s, each example alone and the two together
    (``recurrent_exactness``), and on Zamba2 bk's clipped sums with
-   ``remat=True`` bitwise those with ``remat=False``; then serving both,
-   not cut (phase ``ssm_serve``, beside the CLI lanes' AlexNet
-   processes: Zamba2 54 layers; prompts prefilled one
+   ``remat=True`` bitwise those with ``remat=False``; then serving both
+   (phase ``ssm_serve``, beside the CLI lanes' processes: xLSTM not
+   cut, Zamba2 cut to 18 of its 54 layers; prompts prefilled one
    token at a time), held decode-equals-forward (``serve_checks_f32_ref``:
    bf16 within twice the bf16 forward's distance from the f32 forward,
    f32 within RECURRENT_F32_OF_LARGEST of the largest logit; one
@@ -197,10 +197,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13. CLI lanes: ``python -m repro_torch.launch.train`` in a process of its
    own, twice per lane (the AlexNet lanes' six processes at once, then
    the Llama lane's two; beside the AlexNet processes this process
-   serves, phases 14, 15 and ``ssm_serve``, and the Llama pair waits for
-   it, ``cli_lanes_beside_serving``), once straight through and once with
-   ``--fail-at 3`` (it restarts from its step-1 checkpoint): full-width
-   AlexNet ``auto`` flat and stale (B = 32, 4 steps, checkpoint every 2),
+   serves, phases 14, 15 and ``ssm_serve``, and the Llama pair waits
+   for phase 14, ``cli_lanes_beside_serving``), once straight through
+   and once with ``--fail-at 3`` (it restarts from its step-1
+   checkpoint): full-width AlexNet ``auto`` flat and stale (B = 32, 4
+   steps, checkpoint every 2),
    AlexNet ``auto`` stale with ``--calibration`` the blob of phase 4 (its
    ``[calibrate]`` and ``[replan]`` lines printed; it must end bitwise
    equal to the uncalibrated stale lane where the calibrated tile is the
@@ -235,7 +236,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    sharing cuda:0, as 13b's: full-width AlexNet, B = 32, σ = 1, SGD with
    momentum, 2 steps each of crb (``conv_impl="pallas"``), ``auto`` flat
    and ``auto`` stale on ``model:2`` (2 ranks) and on ``data:2,model:2``
-   (4 ranks); Llama-3.2-1B at full width cut to 2 layers, B = 8,
+   (4 ranks); Llama-3.2-1B at full width cut to 1 layer, B = 8,
    T = 1024, bf16, flash, ``auto`` stale and bk (the kernel norms:
    ``gram_norm`` on every sliced dense) on ``model:2``; each lane twice.
    Per rank: step ms (first run), ms in the model-group and
@@ -260,12 +261,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    --backend gloo``, straight and ``--fail-at 2``: the step-3
    checkpoints (whole arrays) bitwise equal.
 13d. the MoE family on a model axis (phase ``moe_model_axis_path``, its
-   comment below): Granite-3.0-1B-A400M at full width cut to 2 layers on
+   comment below): Granite-3.0-1B-A400M at full width cut to 1 layer on
    ``model:2`` and ``data:2,model:2``, one DeepSeek-V3 MoE layer at full
    width (routed experts cut to 64) on ``model:2``; ranks and runs
    bitwise, within a derived bound of one device, an f32 gradient of
    each (the DeepSeek-V3 layer's at 16 routed experts), the kernels at
-   the slice shapes.
+   the slice shapes.  In the same two worlds, the attention-only families
+   on a model axis (its comment): SeamlessM4T-large-v2 at full width
+   cut to 2 + 2 layers on ``model:2`` and ``data:2,model:2``,
+   Chameleon-34B (qk-norm on sliced heads) at full width cut to depth 2
+   on ``model:2``, remat on; the same checks, an f32 gradient of each.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -387,8 +392,9 @@ LM_B, LM_T, LM_LAYERS = 8, 1024, 16
 GR_B, GR_T, GR_LAYERS = 8, 1024, 24
 # The Granite lanes' depth: cut from GR_LAYERS to make room for phase
 # moe_model_axis_path in the script's time (12, then 6 when its DeepSeek-V3
-# layer grew to 64 routed experts).
-GR_DEPTH = 6
+# layer grew to 64 routed experts, then 3 beside the attention families'
+# model-axis lanes).
+GR_DEPTH = 3
 SM_B, SM_T, SM_LAYERS = 8, 512, 12
 # (case, B, T, H, Hkv, hd, causal, dtype, on the main path)
 FLASH_CASES = [("llama_bf16", LM_B, LM_T, 32, 32, 64, True, "bfloat16", True),
@@ -2911,11 +2917,14 @@ def check_cli_lane(calib, tile, base, lane, steps, ref_lane, result):
 def cli_lanes_beside_serving(torch, calib):
     """Phases 13 (``cli_lanes``), 14, 15 and ``ssm_serve`` at once, for
     the script's time: this thread serves (``serve_lane``: GLM-4-9B's
-    weights, 34 GB while they are built; then ``ssm_serve``: Zamba2 and
-    its f32 copy, about 20 GB) beside the AlexNet CLI processes (six,
-    about 4 GB each), and ``serve_cli`` runs its own process meanwhile;
-    the Llama CLI pair (60 GB) starts once the serving has handed its
-    memory back.  The serving times are read beside the CLI processes'
+    weights, 34 GB while they are built), checks Zamba2's shared block
+    over two applications (``hybrid_two_applications``, about 15 GB),
+    then serves again (``ssm_serve``: Zamba2 cut to 18 layers and its f32
+    copy, about 7 GB) beside the AlexNet CLI processes (six, about 4 GB
+    each), and ``serve_cli`` runs its own process meanwhile; the Llama
+    CLI pair (60 GB) starts once this thread has handed the memory of
+    the first two back and the AlexNet processes are done, beside
+    ``ssm_serve``.  The serving times are read beside the CLI processes'
     load."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -2935,10 +2944,14 @@ def cli_lanes_beside_serving(torch, calib):
             torch.cuda.empty_cache()
             log({"phase": "serve_lane_done",
                  "seconds": time.perf_counter() - t})
-            ssm_serve(torch)
-            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            hybrid_two_applications(torch)
+            log({"phase": "hybrid_two_applications_done",
+                 "seconds": time.perf_counter() - t})
         finally:
             served.set()
+        ssm_serve(torch)
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         scli.result()
         cli.result()
@@ -3584,21 +3597,25 @@ def run_moe_encdec(torch, launches, lanes):
 # The recurrent families' lanes: xLSTM-125M at full width cut from 12
 # layers to XL_DEPTH = 4 (one super-block of 3 mLSTM and 1 sLSTM, to make
 # room for phase moe_model_axis_path), B = 8, T = 128; Zamba2-2.7B at
-# full width cut to ZB_LAYERS layers (2 super-blocks of 6 Mamba2 layers,
-# the shared block applied twice), B = 4, T = 512.  Widths as the configs
+# full width cut to ZB_LAYERS layers (1 super-block of 6 Mamba2 layers,
+# the shared block applied once, to make room for the attention families'
+# model-axis lanes), B = 4, T = 512; the shared block's fold over two
+# applications and remat on ZB_FOLD_LAYERS (2 super-blocks) at EXACT_B x
+# REMAT_T (hybrid_two_applications).  Widths as the configs
 # give them: (layers, d_model, heads, vocab, slstm_every) and (layers,
 # d_model, heads, KV heads, d_ff, vocab, head_dim, ssm_state, attn_every,
 # window).
 XL_B, XL_T = 8, 128
 XL_WIDTHS = (12, 768, 4, 50304, 4)
 XL_DEPTH = 4
-ZB_B, ZB_T, ZB_LAYERS = 4, 512, 12
+ZB_B, ZB_T, ZB_LAYERS = 4, 512, 6
+ZB_FOLD_LAYERS = 12
 ZB_WIDTHS = (54, 2560, 32, 32, 10240, 32000, 80, 64, 6, 4096)
 # bk's gram_norm launches a step (norm_method="pallas"): one a dense layer
 # of every stacked layer, once for each folded shared dense, and the
 # head.  xLSTM: 6 denses an mLSTM layer and 4 an sLSTM layer (3 and 1 a
 # super-block of XL_WIDTHS[4] layers) + head; Zamba2: in_proj and out_proj
-# x 12 + the shared block's 7 + head.
+# x ZB_LAYERS + the shared block's 7 + head.
 XL_GRAM = (6 * 3 + 4) * (XL_DEPTH // XL_WIDTHS[4]) + 1
 ZB_GRAM = 2 * ZB_LAYERS + 7 + 1
 # Exactness at full width in f32: EXACT_B examples of the lane's first
@@ -3611,6 +3628,8 @@ EXACT_B, REMAT_T = 2, 128
 # grows.  A wrong gate or a state dropped moves a logit by a large share
 # of the largest.
 RECURRENT_F32_OF_LARGEST = 4e-4
+# Zamba2's serving depth (phase ssm_serve): 3 super-blocks of 6.
+SERVE_ZB_LAYERS = 18
 # gram_norm at the recurrent lanes' shapes (contiguous (B, T, D) rows, as
 # the dense taps hand them over): xLSTM's mLSTM wq, Zamba2's in_proj, and
 # a shared dense folded over its two applications (T twice the lane's).
@@ -3842,25 +3861,13 @@ def ssm_main_path(torch, launches, lanes):
 def hybrid_main_path(torch, launches, lanes):
     """Phase hybrid_main_path: Zamba2-2.7B at full width (d_model 2560,
     32 heads at head_dim 80, SwiGLU d_ff 10 240, ssm_state 64, window
-    4096, vocab 32 000, bf16, remat) cut to 2 super-blocks (12 Mamba2
-    layers, the shared block applied twice; about 7.5e8 params drawn on
-    the card), B = 4, T = 512, σ = 1: bk and ``auto`` flat
-    (``recurrent_lanes``), ``recurrent_exactness`` in f32, and bk's
-    clipped sums with ``remat=True`` bitwise equal to ``remat=False``'s
-    (deterministic algorithms, on the exactness examples of the lane's
-    first batch cut to REMAT_T tokens, in the lane's bf16)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import clipped_grad_sum
-    from repro_torch.launch.train import deterministic_step
-    from repro_torch.models.lm import TransformerLM
-    from repro_torch.tree import get_subtree, leaf_paths
+    4096, vocab 32 000, bf16, remat) cut to 1 super-block (6 Mamba2
+    layers, the shared block applied once; drawn on the card), B = 4,
+    T = 512, σ = 1: bk and ``auto`` flat (``recurrent_lanes``), then
+    ``recurrent_exactness`` in f32.  The shared block over two
+    applications: ``hybrid_two_applications``."""
     t0 = time.perf_counter()
-    full = get_config("zamba2-2.7b")
-    check((full.n_layers, full.d_model, full.n_heads, full.n_kv, full.d_ff,
-           full.vocab, full.hd, full.ssm_state, full.attn_every,
-           full.window) == ZB_WIDTHS and full.remat
-          and full.dtype == "bfloat16", "zamba2 config")
-    cfg = full.replace(n_layers=ZB_LAYERS)
+    cfg = zamba2_config(torch, ZB_LAYERS)
     model, params, batches = recurrent_inputs(torch, cfg, ZB_B, ZB_T,
                                               "hybrid_setup")
     # No profiled bk step: it took about 20 s, which phase
@@ -3869,8 +3876,50 @@ def hybrid_main_path(torch, launches, lanes):
                                  launches, lanes, ZB_GRAM,
                                  "zamba2_auto_flat", profile_bk=False)
     exact = recurrent_exactness(torch, model, params, batches[0], "zamba2")
-    sums, peaks = {}, {}
+    log({"phase": "hybrid_main_path",
+         "cuts": {"n_layers": ZB_LAYERS},
+         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
+         "plans": plans, "exactness_f32": exact,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    del params, batches
+    torch.cuda.empty_cache()
+
+
+def zamba2_config(torch, n_layers):
+    """Zamba2-2.7B's config, its widths checked, cut to ``n_layers``."""
+    from repro_torch.configs import get_config
+    full = get_config("zamba2-2.7b")
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv, full.d_ff,
+           full.vocab, full.hd, full.ssm_state, full.attn_every,
+           full.window) == ZB_WIDTHS and full.remat
+          and full.dtype == "bfloat16", "zamba2 config")
+    return full.replace(n_layers=n_layers)
+
+
+def hybrid_two_applications(torch):
+    """Zamba2-2.7B at full width cut to ZB_FOLD_LAYERS (2 super-blocks:
+    the shared block applied twice, its gradient folded over both), on
+    EXACT_B examples of a (ZB_B, ZB_T) batch cut to REMAT_T tokens:
+    ``recurrent_exactness`` in f32 (bk's folded shared groups against
+    ``naive``'s), and bk's clipped sums with ``remat=True`` bitwise equal
+    to ``remat=False``'s (deterministic algorithms, in bf16).  Run
+    beside the AlexNet CLI processes (``cli_lanes_beside_serving``)."""
+    from repro_torch.core import clipped_grad_sum
+    from repro_torch.launch.train import deterministic_step
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths
+    t0 = time.perf_counter()
+    cfg = zamba2_config(torch, ZB_FOLD_LAYERS)
+    check(cfg.n_layers // cfg.attn_every == 2, "zamba2: the fold check "
+          "needs the shared block applied twice")
+    model, params, batches = recurrent_inputs(torch, cfg, ZB_B, ZB_T,
+                                              "hybrid_fold_setup")
     b = {k: v[:EXACT_B, :REMAT_T] for k, v in batches[0].items()}
+    del batches
+    exact = recurrent_exactness(torch, model, params, b,
+                                "zamba2_two_applications")
+    check(exact["shared_groups"], "zamba2: no folded shared group")
+    sums, peaks = {}, {}
     with deterministic_step():
         for remat in (True, False):
             torch.cuda.empty_cache()
@@ -3886,24 +3935,23 @@ def hybrid_main_path(torch, launches, lanes):
         for q in leaf_paths(g2))
     check(bitwise, "zamba2: bk clipped sums differ between remat=True and "
           "remat=False")
-    del sums, g1, g2
+    del sums, g1, g2, params
     torch.cuda.empty_cache()
-    log({"phase": "hybrid_main_path",
-         "cuts": {"n_layers": ZB_LAYERS},
-         "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
-         "plans": plans, "exactness_f32": exact,
-         "remat_bk_sums_bitwise": bitwise,
+    log({"phase": "hybrid_two_applications",
+         "cuts": {"n_layers": cfg.n_layers, "examples": EXACT_B,
+                  "seq": REMAT_T},
+         "shared_block_applications": cfg.n_layers // cfg.attn_every,
+         "exactness_f32": exact, "remat_bk_sums_bitwise": bitwise,
          "bk_sum_peak_gb": {"remat": peaks[True], "no_remat": peaks[False]},
          "seconds": time.perf_counter() - t0, "ok": True})
-    del params, batches
-    torch.cuda.empty_cache()
 
 
 def ssm_serve(torch):
-    """Phase ssm_serve: xLSTM-125M and Zamba2-2.7B, both not cut (Zamba2:
-    54 Mamba2 layers and 9 applications of the shared block), weights
-    drawn on the card, through ``launch.serve.generate_batch`` as
-    ``serve_one`` drives it: 4 requests in one batch, 128-token prompts
+    """Phase ssm_serve: xLSTM-125M not cut and Zamba2-2.7B at full width
+    cut to SERVE_ZB_LAYERS (18 of its 54 Mamba2 layers: 3 applications of
+    the shared block, to make room for the attention families' model-axis
+    lanes), weights drawn on the card, through
+    ``launch.serve.generate_batch`` as ``serve_one`` drives it: 4 requests in one batch, 128-token prompts
     prefilled one token at a time (the JAX package's recurrent prefill),
     32 out.  Decode-equals-forward (``serve_checks_f32_ref``): bf16
     within twice the bf16 forward's own distance from the f32 forward
@@ -3915,6 +3963,8 @@ def ssm_serve(torch):
     gen = torch.Generator(device="cuda").manual_seed(2)
     for arch in ("xlstm-125m", "zamba2-2.7b"):
         cfg = get_config(arch)
+        if arch == "zamba2-2.7b":
+            cfg = cfg.replace(n_layers=SERVE_ZB_LAYERS)
         model = TransformerLM(cfg)
         params, _ = model.init(gen, device="cuda")
         prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
@@ -3954,6 +4004,9 @@ SH_STEPS = 2
 # Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024: 2 steps
 # (the stale bootstrap, then a stale step).
 SH_LLAMA_LAYERS, SH_LLAMA_STEPS = 2, 2
+# Phase model_axis_path's Llama lanes: cut to 1 layer (2 before the
+# attention families' model-axis lanes needed the script's time).
+MA_LLAMA_LAYERS = 1
 SH_CLI = ["--arch", "alexnet", "--full", "--batch", "32", "--strategy",
           "auto", "--noise", "1.0", "--mesh", f"data:{SH_RANKS}",
           "--backend", "gloo", "--steps", "4", "--ckpt-every", "2"]
@@ -4566,9 +4619,9 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
     Rank 0's readings, an empty record on the other ranks."""
     from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
     from repro_torch.kernels import ops
-    from repro_torch.models.lm import TransformerLM
+    from repro_torch.models.registry import build_model
     from repro_torch.tree import get_subtree, leaf_paths
-    model = TransformerLM(cfg)
+    model = build_model(cfg)
     params, axes = model.init(key, device=device)
     dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="bk",
                   norm=NormCfg(dense="pallas"),
@@ -4622,7 +4675,8 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
 def model_axis_worker(spec, out_dir):
     """One rank of phase model_axis_path (under torch.distributed.run) on
     mesh ``spec``: full-width AlexNet's lanes and, on ``model:2``, the
-    depth-2 Llama lanes and the model group's collective calibration;
+    Llama lanes (MA_LLAMA_LAYERS deep) and the model group's collective
+    calibration;
     this rank's record goes to ``out_dir/<spec>_rank<r>.json``."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4673,14 +4727,14 @@ def model_axis_worker(spec, out_dir):
         torch.cuda.empty_cache()
         if spec == "model:2":
             cfg = get_config("llama3.2-1b").replace(
-                attn_impl="flash", n_layers=SH_LLAMA_LAYERS)
+                attn_impl="flash", n_layers=MA_LLAMA_LAYERS)
             model = TransformerLM(cfg)
             params, axes = model.init(0, device="cuda")
             ds = SyntheticLMDataset(cfg.vocab, LM_T, n_examples=4096, seed=0)
             batches = [{k: torch.from_numpy(v).cuda() for k, v in
                         ds.batch(range(s * LM_B, (s + 1) * LM_B)).items()}
                        for s in range(SH_LLAMA_STEPS)]
-            flash = flash_needs(SH_LLAMA_STEPS, layers=SH_LLAMA_LAYERS)
+            flash = flash_needs(SH_LLAMA_STEPS, layers=MA_LLAMA_LAYERS)
 
             def stale_needs(eng, steps):
                 # the model-axis plan's fused layers, read off it
@@ -4688,7 +4742,7 @@ def model_axis_worker(spec, out_dir):
             # bk with the kernel norms: gram_norm once a dense a layer
             # (wq, wk, wv, wo, w_gate, w_up, w_down) and once at the
             # tied head, on the rank's slices.
-            bk_needs = dict(flash, gram_norm=[7 * SH_LLAMA_LAYERS + 1]
+            bk_needs = dict(flash, gram_norm=[7 * MA_LLAMA_LAYERS + 1]
                             * SH_LLAMA_STEPS)
             from repro_torch.kernels import ops
             real_gram, slices = ops.gram_norm, set()
@@ -4714,12 +4768,12 @@ def model_axis_worker(spec, out_dir):
                 finally:
                     ops.gram_norm = real_gram
                 ma_agree(torch, dist, mesh, r, f"llama {lane}")
-                r["cuts"] = {"n_layers": SH_LLAMA_LAYERS}
+                r["cuts"] = {"n_layers": MA_LLAMA_LAYERS}
                 r["local_heads"] = cfg.n_heads // 2
                 del whole
                 torch.cuda.empty_cache()
                 dist.barrier()
-                rec[f"llama_depth2_{lane}"] = r
+                rec[f"llama_depth{MA_LLAMA_LAYERS}_{lane}"] = r
             b0 = batches[0]
             del params, batches, model
             torch.cuda.empty_cache()
@@ -4883,7 +4937,8 @@ def model_axis_path(torch, launches, lanes):
 # after the 4-rank group has exited.  Gloo ranks share cuda:0, as
 # in the earlier sharded phases.  SGD with momentum, σ = 1, C = 1; each
 # lane runs twice (``shard_lane``).
-#   * Granite-3.0-1B-A400M at full width, cut to depth 2 (MX_GR_LAYERS),
+#   * Granite-3.0-1B-A400M at full width, cut to depth 1 (MX_GR_LAYERS;
+#     2 before the attention families' lanes needed the room),
 #     bf16, flash, B = 8, T = 1024: on model:2 (8 of 16 query heads, 16 of
 #     32 experts, 24 640 of 49 280 vocabulary rows a rank) under ``auto``
 #     stale and ghost (``gram_norm`` on the sliced denses and the router's
@@ -4903,7 +4958,7 @@ def model_axis_path(torch, launches, lanes):
 # show a wrong gradient, so one f32 gradient on model:2 (bk with the
 # kernel norms, per-layer clipping: ghost takes no per-layer clipping) is
 # held against one device's (``ma_f32_check``'s rules) for each
-# model: Granite at depth 2, and the DeepSeek-V3 layer with its routed
+# model: Granite at depth 1, and the DeepSeek-V3 layer with its routed
 # experts cut to MX_DS_F32_EXPERTS (MLA's sliced heads and latent
 # copies, the shared expert's partial output, the expert slices).  Each
 # lane prints the entries dropped and the share of the expert slot rows
@@ -4915,7 +4970,7 @@ MX_DIR = ROOT / "build" / "chip_smoke_moe_model_axis"
 MX_SIDE_DONE = "data2_model2.done"
 MX_TIMEOUT_S = 420
 MX_MESHES = {"data:2,model:2": 4, "model:2": 2}
-MX_GR_LAYERS = 2
+MX_GR_LAYERS = 1
 MX_STEPS = 2
 MX_DS_EXPERTS = 64
 MX_DS_B, MX_DS_T = 4, 512
@@ -5075,7 +5130,7 @@ def mx_slice_kernels(torch, store):
                          "max_rel_err": max(e[1] for e in errs), "ok": ok})
             check(ok, f"{name} at model-axis heads q {qs}, k {ks}: {errs}")
         del q, k, v, do, o, lse, bwd, dq, dk, dv, ro, rl, rdq, rdk, rdv
-    check(store["flash"] and store["gram_norm_fused"], "the Granite lanes "
+    check(store["flash"] and store["gram_norm_fused"], "the model-axis lanes "
           f"handed the flash kernels or gram_norm_fused nothing: {store}")
     torch.cuda.empty_cache()
     return rows
@@ -5119,7 +5174,7 @@ def mx_granite(torch, dist, mesh, spec, rank, rec):
         r["local"] = {"query_heads": cfg.n_heads // 2,
                       "experts": cfg.n_experts // 2,
                       "vocab_rows": cfg.padded_vocab // 2}
-        rec[f"granite_depth2_{lane}"] = r
+        rec[f"granite_depth{L}_{lane}"] = r
     b0 = batches[0]
     del params, batches
     torch.cuda.empty_cache()
@@ -5257,6 +5312,163 @@ def mx_deepseek(torch, dist, mesh, rank, rec):
     torch.cuda.empty_cache()
 
 
+# The attention-only families on a model axis (ROADMAP item 14 part 3,
+# second part) run in phase moe_model_axis_path's two worlds, with no
+# bootstrap of their own: bf16, flash, remat on (their configs'), SGD with
+# momentum, σ = 1, C = 1, each lane twice (``mx_lane``).
+#   * SeamlessM4T-large-v2 at full width cut to 2 + 2 of its 12 + 12
+#     layers (AX_SM_LAYERS; d_model 1024, 16 heads of 64: 8 a rank, GeLU
+#     d_ff 8192: 4096 a rank, vocabulary 256 206 padded to 256 256: 128 128
+#     rows a rank), B = 8, 512 source frames and 512 target tokens:
+#     ``auto`` flat and bk (the kernel norms) on model:2 beside the 4-rank
+#     world, ``auto`` stale on data:2,model:2 after its Granite lane; its
+#     f32 gradient on model:2 against one device's (``ma_f32_check``).
+#   * Chameleon-34B at full width cut to depth 2 of 48 (AX_CH_LAYERS;
+#     d_model 8192, 64 heads of 128 with qk-norm: 32 a rank, 8 KV heads
+#     whole, SwiGLU d_ff 22 016: 11 008 a rank, vocabulary 65 536: 32 768
+#     rows a rank, LayerNorm with a bias; about 2.46e9 params drawn on the
+#     card), B = 4, T = 512, on model:2 only, ``auto`` stale and bk, after
+#     the DeepSeek-V3 layer (it needs the card alone: a rank about 18 GB,
+#     one device's run about 27 GB more); data:2,model:2 is left out (it
+#     would all-reduce about 5 GB of f32 gradient a rank and step over
+#     data, through the host).  Its f32 gradient at depth 1 (bk, the
+#     kernel norms, per-layer clipping) against one device's.
+# ``gram_norm``, ``gram_norm_fused`` and the flash kernels at the shapes
+# these lanes handed them, against their plain versions.
+AX_SM_LAYERS = 2
+AX_CH_LAYERS = 2
+AX_CH_B, AX_CH_T = 4, 512
+AX_CH_WIDTHS = (48, 8192, 64, 8, 22016, 65536, 128)
+
+
+def ax_seamless(torch, dist, mesh, spec, rank, rec, store):
+    """The Seamless lanes of ``spec``; on model:2 also its f32 gradient
+    check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.launch.train import make_batch_fn, to_device
+    from repro_torch.models.encdec import EncDecLM
+    cfg = get_config("seamless-m4t-large-v2").replace(attn_impl="flash")
+    check((cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv, cfg.d_ff, cfg.vocab, cfg.hd) == SM_WIDTHS
+          and cfg.padded_vocab == 256256 and cfg.remat
+          and cfg.dtype == "bfloat16", "seamless config")
+    L = AX_SM_LAYERS
+    cfg = cfg.replace(n_enc_layers=L, n_dec_layers=L, n_layers=2 * L)
+    model = EncDecLM(cfg)
+    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    fn = make_batch_fn(cfg, SM_B, 2 * SM_T)
+    batches = [to_device(fn(s), "cuda") for s in range(MX_STEPS)]
+    # a pass: the flash forward L times full (encoder), L causal
+    # (decoder), L full over the source (cross), 2L more under remat (the
+    # decoder's recompute); dq and dk/dv 3L
+    fwd, bwd = 3 * L + 2 * L, 3 * L
+    if spec == "model:2":
+        bk = {"flash_fwd": [fwd] * MX_STEPS, "flash_dq": [bwd] * MX_STEPS,
+              "flash_dkv": [bwd] * MX_STEPS,
+              "gram_norm": [6 * L + 10 * L + 1] * MX_STEPS}
+        lanes = (("auto_flat", "auto", ClipPolicy(), NormCfg(),
+                  planned_lm_needs(fwd, bwd)),
+                 ("bk", "bk", ClipPolicy(), NormCfg(dense="pallas"), bk))
+    else:
+        lanes = (("auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg(),
+                  planned_lm_needs(fwd, bwd)),)
+    for lane, strategy, clip, knobs, needs in lanes:
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
+                      norm=knobs, clipping=clip)
+        r = mx_lane(torch, dist, mesh, f"seamless {lane} on {spec}", model,
+                    params, batches, dp, needs, axes, rank, store)
+        r["cuts"] = {"n_enc_layers": [SM_LAYERS, L],
+                     "n_dec_layers": [SM_LAYERS, L]}
+        r["local"] = {"query_heads": cfg.n_heads // 2,
+                      "d_ff": cfg.d_ff // 2,
+                      "vocab_rows": cfg.padded_vocab // 2}
+        rec[f"seamless_2x2_{lane}"] = r
+    b0 = batches[0]
+    del params, batches
+    torch.cuda.empty_cache()
+    if spec == "model:2":
+        rec["seamless_f32_check"] = ma_f32_check(
+            torch, dist, mesh, cfg.replace(dtype="float32"), b0, "cuda",
+            key=torch.Generator(device="cuda").manual_seed(0))
+    del b0
+    torch.cuda.empty_cache()
+
+
+def ax_seamless_kernels(torch, store):
+    """(data:2,model:2, rank 0) ``gram_norm_fused``, which only Seamless's
+    ``auto`` stale lane on that mesh launches, and the flash kernels at
+    the shapes that lane handed them (B/2 rows a rank; the head's slice,
+    1024 x 128 128, among them), against their plain versions;
+    ``gram_norm``'s where the lane launched it."""
+    heads = [ds for _, (ds, _), _, _ in store["gram_norm_fused"]
+             if ds[-1] == 256256 // 2]
+    check(heads, "seamless auto stale on data:2,model:2 handed "
+          "gram_norm_fused no head slice: "
+          f"{sorted(store['gram_norm_fused'])}")
+    out = {"fused_and_flash": mx_slice_kernels(torch, store)}
+    if store["gram_norm"]:
+        out["gram_norm"] = ma_gram_slices(
+            torch, {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
+                    dt, hb in store["gram_norm"]})
+    return out
+
+
+def ax_chameleon(torch, dist, mesh, rank, rec, store):
+    """The Chameleon lanes on model:2, its f32 gradient check at depth 1,
+    and (rank 0) the kernels at the attention lanes' slice shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.models.lm import TransformerLM
+    full = get_config("chameleon-34b")
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv, full.d_ff,
+           full.vocab, full.hd) == AX_CH_WIDTHS and full.qk_norm
+          and full.remat and full.norm == "layernorm"
+          and full.dtype == "bfloat16", "chameleon config")
+    L = AX_CH_LAYERS
+    cfg = full.replace(attn_impl="flash", n_layers=L, fsdp=False)
+    model = TransformerLM(cfg)
+    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    n_params = param_count(params)
+    batches = mx_lm_batches(torch, cfg, AX_CH_B, AX_CH_T, MX_STEPS)
+    # remat: the flash forward once more a layer (the recompute); bk's
+    # kernel norms once a dense a layer (wq, wk, wv, wo, w_gate, w_up,
+    # w_down) and once at the head, on the rank's slices
+    lanes = (("auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg(),
+              planned_lm_needs(2 * L, L)),
+             ("bk", "bk", ClipPolicy(), NormCfg(dense="pallas"),
+              dict(flash_needs(MX_STEPS, remat=True, layers=L),
+                   gram_norm=[7 * L + 1] * MX_STEPS)))
+    for lane, strategy, clip, knobs, needs in lanes:
+        dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy=strategy,
+                      norm=knobs, clipping=clip)
+        r = mx_lane(torch, dist, mesh, f"chameleon {lane} on model:2",
+                    model, params, batches, dp, needs, axes, rank, store)
+        r["params"] = n_params
+        r["cuts"] = {"n_layers": [full.n_layers, L], "fsdp": False}
+        r["local"] = {"query_heads": cfg.n_heads // 2, "kv_heads": cfg.n_kv,
+                      "d_ff": cfg.d_ff // 2,
+                      "vocab_rows": cfg.padded_vocab // 2}
+        rec[f"chameleon_depth2_{lane}"] = r
+    b0 = batches[0]
+    del params, batches
+    torch.cuda.empty_cache()
+    rec["chameleon_f32_check"] = ma_f32_check(
+        torch, dist, mesh, cfg.replace(dtype="float32", n_layers=1), b0,
+        "cuda", key=torch.Generator(device="cuda").manual_seed(0))
+    rec["chameleon_f32_check"]["cuts"] = {"n_layers": [full.n_layers, 1]}
+    del b0
+    torch.cuda.empty_cache()
+    if rank == 0:
+        slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
+                  dt, hb in store["gram_norm"]}
+        rec["attn_gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+        rec["attn_kernels_on_slices"] = mx_slice_kernels(torch, store)
+    dist.barrier()
+
+
 def moe_model_axis_worker(spec, out_dir):
     """One rank of phase moe_model_axis_path (under torch.distributed.run)
     on mesh ``spec``; this rank's record goes to
@@ -5280,9 +5492,19 @@ def moe_model_axis_worker(spec, out_dir):
            "model_rank": mesh.get_local_rank(
                tuple(mesh.mesh_dim_names).index("model"))}
     t = time.perf_counter()
+    attn_store = {"gram_norm": set(), "gram_norm_fused": set(),
+                  "flash": set()}
     with deterministic_step():
         mx_granite(torch, dist, mesh, spec, rank, rec)
         rec["granite_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ax_seamless(torch, dist, mesh, spec, rank, rec, attn_store)
+        rec["seamless_s"] = time.perf_counter() - t
+        if spec == "data:2,model:2" and rank == 0:
+            t = time.perf_counter()
+            rec["seamless_kernels_on_slices"] = ax_seamless_kernels(
+                torch, attn_store)
+            rec["seamless_kernels_s"] = time.perf_counter() - t
         if spec == "model:2":
             # the data:2,model:2 ranks run beside the Granite lanes; the
             # DeepSeek layer needs the card to itself
@@ -5298,6 +5520,9 @@ def moe_model_axis_worker(spec, out_dir):
             t = time.perf_counter()
             mx_deepseek(torch, dist, mesh, rank, rec)
             rec["deepseek_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            ax_chameleon(torch, dist, mesh, rank, rec, attn_store)
+            rec["chameleon_s"] = time.perf_counter() - t
     tag = spec.replace(":", "").replace(",", "_")
     with open(os.path.join(out_dir, f"{tag}_rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -5347,6 +5572,9 @@ def moe_model_axis_path(torch, launches, lanes):
     ranks = {spec: [json.loads((MX_DIR / "{}_rank{}.json".format(
         spec.replace(":", "").replace(",", "_"), r)).read_text())
         for r in range(n)] for spec, n in MX_MESHES.items()}
+    check("seamless_kernels_on_slices" in ranks["data:2,model:2"][0]
+          and "attn_kernels_on_slices" in ranks["model:2"][0],
+          "the attention families' kernels were not held at their slices")
     for spec, rs in ranks.items():
         tag = spec.replace(":", "").replace(",", "_")
         for r in rs:
@@ -5363,6 +5591,8 @@ def moe_model_axis_path(torch, launches, lanes):
                         launches[k] += sum(v)
                 print(json.dumps({
                     "moe_model_axis_lane": name,
+                    "model_rank": r["model_rank"],
+                    "digests": [x["digest"] for x in rec["runs"]],
                     "step_ms": [x["step_ms"] for x in rec["runs"]],
                     "peak_mem_gb": [x["peak_mem_gb"] for x in rec["runs"]],
                     "collectives": rec["runs"][1]["collectives_each_step"],

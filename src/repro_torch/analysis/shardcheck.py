@@ -38,10 +38,21 @@ the JAX package's pass reads the declared param shardings:
     (``model_norm_sum_missing`` / ``model_norm_sum_repeated``); a
     replicated group's norm, whole on every rank, through none
     (``model_norm_overcount``);
+  * a partial replicated group — a replicated parameter applied to a
+    rank's slice (qk-norm's query scale on sliced heads), whose
+    per-example gradient the kind marks ``partial_pe`` — has that
+    gradient summed over the model group exactly once before any norm
+    reads it (``model_partial_unsummed``: each rank would clip with the
+    norm of its own heads' share); the sum is a legitimate model-group
+    sum of a value with the example axis, neither a norm sum nor a
+    contribution's;
   * no clipped contribution (a value without the example axis) is summed
     over the model group on its way to a released leaf
     (``model_contrib_reduced``: a slice would add the other ranks'
-    slices, a replicated leaf M copies of itself);
+    slices, a replicated leaf M copies of itself), but for a partial
+    replicated parameter's autograd gradient, marked ``partial_grad``
+    (``launch.sharding.copy_to_model(param=True)``), whose sum over
+    ``model`` completes it;
   * the noise of every leaf is drawn at the leaf's full shape, and a
     sliced leaf keeps the rank's slice of it; the model ranks draw from
     one seed (``noise_slice_mismatch``, comparing two model ranks'
@@ -270,6 +281,14 @@ def _slices_of(node, depth: int = 6) -> list:
     return out
 
 
+def _partial_grad(node) -> bool:
+    """A ``partial_grad`` marker: a partial replicated parameter's
+    autograd gradient, which its sum over ``model`` completes."""
+    from repro_torch.analysis.markers import is_marker, marker_params
+    return (is_marker(node)
+            and marker_params(node).get("kind") == "partial_grad")
+
+
 def check_model(traces: Sequence, *, taints, specs, param_shapes,
                 model_size: int,
                 noise_expected: bool) -> List[Finding]:
@@ -323,6 +342,24 @@ def check_model(traces: Sequence, *, taints, specs, param_shapes,
             reported.add((code, key))
             findings.append(Finding("error", code, msg, WHERE))
 
+    # -- partial replicated groups: their per-example grad summed once -----
+    for node, p in graph.markers():
+        if p.get("kind") != "partial_pe" or node not in upstream:
+            continue
+        key = str(p.get("group"))
+        n = len(msums & _descendants(node, upstream))
+        if n != 1 and ("model_partial_unsummed", key) not in reported:
+            reported.add(("model_partial_unsummed", key))
+            findings.append(Finding(
+                "error", "model_partial_unsummed",
+                f"group {key} is replicated but applied to this rank's "
+                f"slice: its partial per-example gradient reaches a norm "
+                f"through {n} sum all-reduce(s) over the model group, not "
+                f"exactly one — " + (
+                    "each rank clips with its own slice's share"
+                    if n == 0 else "the gradient is counted more than once"),
+                WHERE))
+
     # -- clipped contributions stay local -----------------------------------
     # A contribution has a released leaf's local shape and no example
     # axis (the shape tells it from a one-example activation, B/d = 1).
@@ -334,7 +371,8 @@ def check_model(traces: Sequence, *, taints, specs, param_shapes,
             continue
         bad = [s for s in msums & graph.backward_slice([out])
                if not getattr(taints.get(s.args[0]), "batch", True)
-               and shape(s.args[0]) in leaf_shapes]
+               and shape(s.args[0]) in leaf_shapes
+               and not _partial_grad(s.args[0])]
         if bad:
             findings.append(Finding(
                 "error", "model_contrib_reduced",

@@ -414,7 +414,24 @@ def scale_pe_grad(meta: LayerMeta, cap, dy, gshape):
     if meta.bias_key:
         pb = g.to(F32).sum(dim=axes)
         out[meta.bias_key] = pb.reshape((x.shape[0],) + tuple(gshape))
-    return out
+    return (model_partial_sum(out, meta)
+            if meta.static.get("model_partial") else out)
+
+
+def model_partial_sum(pe: dict, meta: LayerMeta) -> dict:
+    """The per-example gradient of a ``model_partial`` scale layer
+    (``LayerMeta.static``), partial on each rank (the rank's heads
+    only), summed over the active model group: whole on every rank, so
+    the group counts as replicated (its norm never summed again, its
+    contribution kept local).  The sum is made each time a norm or a
+    contribution reads the gradient (twice a step under crb and bk, a
+    (B, hd) all-reduce each, counted in ``COLL_STATS``).  Each leaf is
+    marked ``partial_pe`` first, which the verifier's model half reads."""
+    from repro_torch.launch import sharding
+    group = sharding.active().group
+    key = "/".join(map(str, meta.path))
+    return {k: sharding.all_reduce(tag(v, kind="partial_pe", group=key),
+                                   group) for k, v in pe.items()}
 
 
 def scale_norm_sq(meta: LayerMeta, cap, dy, gshape):

@@ -114,7 +114,13 @@ class LayerMeta:
       shared: parameter is shared across call sites (path absolute).
       static: extra static configuration (conv strides, kernel shape;
         an attention block's projection widths; a segmented layer's
-        ``n_examples``).
+        ``n_examples``; ``model_partial`` on a "scale" layer that runs
+        on this rank's slice of an activation sharded over ``model``
+        with a replicated parameter, qk-norm's query scale on sliced
+        heads: its per-example gradient here is partial, and the kind
+        sums it over the model group each time a norm or a contribution
+        reads it.  Set only on a live model axis, so never by a probe:
+        plans see a replicated group).
       fn: for "attn": the block's rebuild closure
         ``fn(tapper, params_sub, x) -> y``, which the kind runs again to
         recover each projection's captures and cotangents; for
@@ -258,15 +264,25 @@ class Tapper:
         y = self.tap(name, table[lid], {"ids": lid}, meta)
         return sharding.reduce_from_model(y * mine[..., None].to(y.dtype))
 
-    def scale(self, name: str, x, g, b=None):
-        """Tapped elementwise affine (RMSNorm/LayerNorm): y = x*g (+ b)."""
+    def scale(self, name: str, x, g, b=None, *, model_partial: bool = False):
+        """Tapped elementwise affine (RMSNorm/LayerNorm): y = x*g (+ b).
+        ``model_partial``: ``x`` is this rank's slice of an activation
+        sharded over the active model group and ``g`` is replicated, so
+        ``g`` enters through ``copy_to_model(param=True)`` (autograd's
+        gradient summed over ``model``) and ``LayerMeta.static`` marks
+        the tap partial."""
+        if model_partial:
+            from repro_torch.launch import sharding
+            g = sharding.copy_to_model(g, param=True)
         y = x * g
         if b is not None:
             y = y + b
         path, shared = _parse_name(name)
         meta = LayerMeta("scale", path, param_key="g",
                          bias_key="b" if b is not None else None,
-                         shared=shared)
+                         shared=shared,
+                         static={"model_partial": True} if model_partial
+                         else {})
         return self.tap(name, y, {"x": x}, meta)
 
     def conv(self, name: str, x, w, b=None, *, stride=1, dilation=1,

@@ -22,7 +22,8 @@ the identity):
 
   * :func:`copy_to_model`   — a full activation entering a
     column-sharded layer: identity forward, its cotangent summed over
-    ``model`` in the backward (Megatron's ``f``);
+    ``model`` in the backward (Megatron's ``f``); also a replicated
+    parameter read by a rank's slice (``param=True``);
   * :func:`reduce_from_model` — a row-sharded layer's partial output, a
     partial loss term: summed over ``model`` forward, identity backward
     (Megatron's ``g``);
@@ -355,16 +356,19 @@ def _own(t, dim: int, ms: ModelShard):
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(x, ms):
+    def forward(x, ms, param):
         return torch.ops.aten.alias(x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.ms = inputs[1]
+        ctx.ms, ctx.param = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.ms.group), None
+        if ctx.param:
+            from repro_torch.analysis.markers import tag
+            g = tag(g, kind="partial_grad")
+        return all_reduce(g, ctx.ms.group), None, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -397,10 +401,17 @@ class _Gather(torch.autograd.Function):
         return _own(g, ctx.dim, ctx.ms).contiguous(), None, None, None
 
 
-def copy_to_model(x):
-    """Identity forward; the cotangent summed over ``model`` backward."""
+def copy_to_model(x, *, param: bool = False):
+    """Identity forward; the cotangent summed over ``model`` backward.
+    ``param``: ``x`` is a replicated parameter read by this rank's slice
+    of a sharded activation (qk-norm's query scale on sliced heads), so
+    its gradient from autograd (a weighted backward's, ``naive``'s) is a
+    partial sum, and the sum over ``model`` completes it; marked
+    ``partial_grad`` for the verifier's model half, which otherwise
+    reads a sum of a value without the example axis as a clipped
+    contribution reduced over ``model``."""
     ms = active()
-    return x if ms is None else _Copy.apply(x, ms)
+    return x if ms is None else _Copy.apply(x, ms, param)
 
 
 def reduce_from_model(x):

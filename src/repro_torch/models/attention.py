@@ -17,10 +17,14 @@ column-sharded and ``wo`` row-sharded (its partial output summed over
 axis) and each rank attends with the KV heads its local query heads
 read, so their outputs' cotangent is summed over ``model`` before the
 capture sees it.  MLA slices its per-head projections the same way
-beside a replicated latent path (:func:`mla_apply`).  qk-norm on sliced
-heads (its scale's gradient is a sum of the ranks' partial gradients),
-block taps (``dp_attn``), a cache and cross attention on a model axis
-are ROADMAP.md item 14 part 3.
+beside a replicated latent path (:func:`mla_apply`).  Cross attention
+takes its K and V the same way, from the replicated ``wk`` / ``wv`` on
+the source.  qk-norm: ``kn`` normalizes the replicated keys before
+their copy to ``model``; ``qn`` normalizes the rank's query heads, so
+its scale's per-example gradient is a partial sum over those heads,
+which the ``scale`` kind sums over ``model`` each time a norm or a
+contribution reads it (``Tapper.scale(model_partial=True)``).  Block taps (``dp_attn``) and a
+cache beside sliced heads are ROADMAP.md item 14 part 3.
 """
 from __future__ import annotations
 
@@ -260,28 +264,37 @@ def _gqa_heads_sharded(tp: Tapper, name: str, p, x, *, n_heads, n_kv,
                        head_dim, rope_theta, qk_norm, positions, causal,
                        window, cache, x_kv, attn_impl, use_rope):
     """:func:`gqa_apply` on this rank's slice of the query heads: ``wq``
-    column-sharded, ``wk`` / ``wv`` replicated, ``wo`` row-sharded."""
-    if qk_norm or cache is not None or x_kv is not None:
-        what = ("qk-norm on sliced heads" if qk_norm else
-                "a KV cache" if cache is not None else "cross attention")
-        raise NotImplementedError(f"{name}: {what} on a model axis is "
-                                  f"{sh.DEFERRED}")
+    column-sharded, ``wk`` / ``wv`` replicated (on ``x_kv`` for cross
+    attention), ``wo`` row-sharded."""
+    if cache is not None:
+        raise NotImplementedError(f"{name}: a KV cache beside sliced heads "
+                                  f"is {sh.DEFERRED}")
     if any("b" in p[n] for n in ("wq", "wk", "wv", "wo")):
         raise NotImplementedError(
             f"{name}: attention biases beside sliced heads are "
             f"{sh.DEFERRED}")
     ms = sh.active()
     B, T, _ = x.shape
+    src = x if x_kv is None else x_kv
+    S = src.shape[1]
     hl = n_heads // ms.size
     q = tp.dense(f"{name}/wq", sh.copy_to_model(x), p["wq"]["w"])
-    # The replicated wk / wv see every rank's partial use of their heads:
-    # the cotangent is summed over model before the capture reads it.
-    k = sh.copy_to_model(tp.dense(f"{name}/wk", x, p["wk"]["w"]))
-    v = sh.copy_to_model(tp.dense(f"{name}/wv", x, p["wv"]["w"]))
+    k = tp.dense(f"{name}/wk", src, p["wk"]["w"])
+    v = tp.dense(f"{name}/wv", src, p["wv"]["w"])
     q = q.reshape(B, T, hl, head_dim)
-    k = k.reshape(B, T, n_kv, head_dim)
-    v = v.reshape(B, T, n_kv, head_dim)
-    if use_rope:
+    k = k.reshape(B, S, n_kv, head_dim)
+    v = v.reshape(B, S, n_kv, head_dim)
+    if qk_norm:
+        # qn reads the rank's heads only: its replicated scale's tap is
+        # partial over model.
+        q = tp.scale(f"{name}/qn", cm.rmsnorm(tp, f"{name}/qn", None, q),
+                     p["qn"]["g"], model_partial=True)
+        k = cm.rmsnorm(tp, f"{name}/kn", p["kn"], k)
+    # The replicated keys and values (kn's output among them) see every
+    # rank's partial use of their heads: the cotangent is summed over
+    # model before a capture reads it.
+    k, v = sh.copy_to_model(k), sh.copy_to_model(v)
+    if use_rope and x_kv is None:
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :] \
                 .expand(B, T)
@@ -300,8 +313,9 @@ def _gqa_heads_sharded(tp: Tapper, name: str, p, x, *, n_heads, n_kv,
     kv1 = ((ms.rank + 1) * hl - 1) // rep + 1
     r_l = hl // (kv1 - kv0)
     out = attend(q, repeat_kv(k[:, :, kv0:kv1], r_l),
-                 repeat_kv(v[:, :, kv0:kv1], r_l), causal=causal,
-                 window=window, impl=attn_impl)
+                 repeat_kv(v[:, :, kv0:kv1], r_l),
+                 causal=causal and x_kv is None, window=window,
+                 impl=attn_impl)
     out = out.reshape(B, T, hl * head_dim)
     return (sh.reduce_from_model(tp.dense(f"{name}/wo", out, p["wo"]["w"])),
             None)

@@ -11,6 +11,15 @@ per-example gradients.  Params and tap names are the JAX package's:
 :func:`~repro_torch.core.tapper.scan_with_taps`; the decoder's under
 ``remat``), the token embedding, the final norm and the head.
 
+On a model axis (``launch.sharding.model_parallel``) the attention
+heads, the MLPs' hidden width and the vocabulary are sliced, with the
+dense LM's layout moves (``models/lm.py``): the embedding looked up in
+the rank's rows, the head's input copied to ``model``, the cross
+entropy over the sliced logits; cross attention's K and V come from the
+replicated ``wk`` / ``wv`` on the encoder's output, whose cotangent is
+so whole on every rank (``attention.gqa_apply``).  Serving beside
+sliced heads is ROADMAP.md item 14 part 3.
+
 Serving (``init_cache``, ``prefill``, ``decode_step``) runs the layers as
 a Python loop over the stack under ``torch.no_grad()`` with an inactive
 ``Tapper``: the prefill encodes the source once, projects each decoder
@@ -29,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tapper import Tapper, scan_with_taps
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -97,7 +107,8 @@ class EncDecLM:
                                   **self._attn_kw())
             h = h + a
             z = cm.apply_norm(stp, "ln2", p_l.get("ln2"), h, c.norm)
-            return h + mlp_apply(stp, "mlp", p_l["mlp"], z, c.mlp)
+            return h + mlp_apply(stp, "mlp", p_l["mlp"], z, c.mlp,
+                                 d_ff=c.d_ff)
 
         return scan_with_taps(tp, "enc", body, src, params["enc"])
 
@@ -109,7 +120,8 @@ class EncDecLM:
         c = self.cfg
         tp = tp or Tapper()
         enc_out = self.encode(params, src.to(c.torch_dtype), tp)
-        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens)
+        h = tp.embed("tok_emb", params["tok_emb"]["emb"], tokens,
+                     n_rows=c.padded_vocab)
 
         def body(stp, hh, p_l):
             z = cm.apply_norm(stp, "ln1", p_l.get("ln1"), hh, c.norm)
@@ -121,21 +133,23 @@ class EncDecLM:
                                   x_kv=enc_out, **self._attn_kw())
             hh = hh + a
             z = cm.apply_norm(stp, "ln3", p_l.get("ln3"), hh, c.norm)
-            return hh + mlp_apply(stp, "mlp", p_l["mlp"], z, c.mlp)
+            return hh + mlp_apply(stp, "mlp", p_l["mlp"], z, c.mlp,
+                                  d_ff=c.d_ff)
 
         h = scan_with_taps(tp, "dec", body, h, params["dec"], remat=c.remat)
         h = cm.apply_norm(tp, "final_norm", params.get("final_norm"), h,
                           c.norm)
-        return tp.dense("head", h, params["head"]["w"])
+        w = params["head"]["w"]
+        if sh.split(w.shape[1], c.padded_vocab):
+            h = sh.copy_to_model(h)
+        return tp.dense("head", h, w)
 
     def apply(self, params, batch, tp: Tapper):
-        from repro_torch.launch import sharding as sh
-        if sh.active() is not None:
-            raise NotImplementedError(
-                f"the enc-dec family on a model axis is {sh.DEFERRED}")
+        c = self.cfg
         return cm.per_example_xent(
             self.logits(params, batch["src_frames"], batch["tokens"], tp),
-            batch["labels"], batch.get("mask"), vocab_valid=self.cfg.vocab)
+            batch["labels"], batch.get("mask"), vocab_valid=c.vocab,
+            n_vocab=c.padded_vocab)
 
     # -- serve -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, src_len: int, *,
@@ -143,6 +157,7 @@ class EncDecLM:
         """An empty cache: per decoder layer the self-attention K and V
         and the cross K and V (stacked with a leading L), and ``pos`` (a
         Python int)."""
+        _no_sliced_caches()
         c = self.cfg
         dev = resolve_device(device)
         one = attn.gqa_cache(batch, max_len, c.n_kv, c.hd, c.torch_dtype,
@@ -172,6 +187,7 @@ class EncDecLM:
     def _layers(self, params, cache, h):
         """Every decoder layer in order against the cache -> (h, the new
         self-attention cache)."""
+        _no_sliced_caches()
         c = self.cfg
         tp = Tapper()
         new = []
@@ -227,3 +243,10 @@ class EncDecLM:
         h, layers = self._layers(params, cache, h)
         return self._last_logits(params, h), dict(
             cache, self=layers, pos=cache["pos"] + 1)
+
+
+def _no_sliced_caches():
+    if sh.active() is not None:
+        raise NotImplementedError(
+            f"the enc-dec family's self and cross caches beside sliced "
+            f"heads are {sh.DEFERRED}")

@@ -51,11 +51,13 @@ def test_failing_lane_exits_one(monkeypatch, capsys):
 def test_mesh_lanes_raise_naming_item_14():
     """``--mesh data:4,model:2`` runs the tensor-sharded lanes (item 14
     parts 2 and 3; ``tests/test_torch_model_axis.py``,
-    ``tests/test_torch_moe_model_axis.py``); what it leaves out raises
-    naming item 14 part 3 — MLA under block taps (DeepSeek-V3 with
-    ``--dp-attn``) or against a latent cache, qk-norm on sliced heads
-    (Chameleon), the enc-dec (Seamless) and recurrent (xLSTM, Zamba2)
-    families — and so do the FSDP rules on a live mesh."""
+    ``tests/test_torch_moe_model_axis.py``,
+    ``tests/test_torch_attn_model_axis.py``); what it leaves out raises
+    naming item 14 part 3 — block taps beside sliced heads (DeepSeek-V3's
+    MLA and Chameleon's GQA with ``--dp-attn``), serving against a cache
+    there (MLA's latent cache, Chameleon's KV cache, Seamless's self and
+    cross caches), the recurrent (xLSTM, Zamba2) families — and so do the
+    FSDP rules on a live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import fake_world, make_mesh_from_spec
     from repro_torch.launch.sharding import param_sharding
@@ -63,8 +65,7 @@ def test_mesh_lanes_raise_naming_item_14():
     import torch_shard_worker as sw
     for arch, what, extra in (
             ("deepseek-v3-671b", "MLA with block taps", ["--dp-attn"]),
-            ("chameleon-34b", "qk-norm", []),
-            ("seamless-m4t-large-v2", "enc-dec", []),
+            ("chameleon-34b", "block taps", ["--dp-attn"]),
             ("xlstm-125m", "ssm family", []),
             ("zamba2-2.7b", "hybrid family", [])):
         with pytest.raises(NotImplementedError,
@@ -80,7 +81,29 @@ def test_mesh_lanes_raise_naming_item_14():
                            match="FSDP_PARAM_RULES.*item 14 part 3"):
             param_sharding(axes, mesh, fsdp=True)
         msg = sw.mla_cache_on_model_axis(mesh)
+        kv = sw.prefill_on_model_axis(mesh, "chameleon-34b")
+        cross = sw.prefill_on_model_axis(mesh, "seamless-m4t-large-v2")
     assert "MLA with a latent cache" in msg and "item 14 part 3" in msg
+    assert "a KV cache beside sliced heads" in kv and "item 14 part 3" in kv
+    assert "self and cross caches beside sliced heads" in cross
+    assert "item 14 part 3" in cross
+
+
+def test_attn_archs_on_a_model_axis_give_the_one_device_verdict(capsys):
+    """Reduced Chameleon-34B (qk-norm on sliced heads) and SeamlessM4T-
+    large-v2 (the enc-dec family) run on ``data:2,model:2`` (item 14
+    part 3) and get their one-device verdict, PASS: no finding of the
+    model half (``qn``'s partial per-example gradient summed over model
+    once before its norm) and none of the data half."""
+    argv = ["--archs", "chameleon-34b", "seamless-m4t-large-v2", "--mesh",
+            "none", "data:2,model:2", "--clip-modes", "flat", "--seq", "8",
+            "--batch", "4"] + CPU
+    assert dpcheck.main(argv) == 0
+    out = capsys.readouterr().out
+    for arch in ("chameleon-34b", "seamless-m4t-large-v2"):
+        for spec in ("none", "data:2,model:2"):
+            assert f"PASS  {arch} clip=flat mesh={spec}" in out, out
+    assert "4/4 lanes clean" in out
 
 
 @pytest.mark.parametrize("arch", ("granite-moe-1b-a400m",

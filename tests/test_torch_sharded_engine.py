@@ -660,23 +660,27 @@ def test_collective_calibration_over_the_group(runs):
 
 def test_indivisible_batch_and_model_axis_raise(runs):
     """An indivisible batch still raises.  A live model axis runs (item
-    14 parts 2 and 3, ``tests/test_torch_model_axis.py`` and
-    ``tests/test_torch_moe_model_axis.py``); what it leaves out raises
-    naming item 14 part 3: MLA under block taps or against a latent
-    cache, qk-norm on sliced heads, the enc-dec and recurrent families,
-    and ``fsdp=True``."""
+    14 parts 2 and 3, ``tests/test_torch_model_axis.py``,
+    ``tests/test_torch_moe_model_axis.py`` and ``tests/
+    test_torch_attn_model_axis.py``); what it leaves out raises naming
+    item 14 part 3: block taps (MLA's, GQA's) beside sliced heads,
+    serving against a latent, KV or cross cache there, the recurrent
+    families, and ``fsdp=True``."""
     r0 = runs[2][0]
     assert "not divisible" in r0["indivisible"]
     assert "degree 2" in r0["indivisible"]
     got = r0["model_axis"]
-    assert sorted(got) == sorted(sw.DEFERRED_ARCHS + (
-        "mla-dp_attn", "mla-cache", "fsdp"))
+    assert sorted(got) == sorted(sw.DEFERRED_ARCHS + tuple(
+        sw.DP_ATTN_ARCHS) + ("mla-cache", "gqa-cache", "cross-cache",
+                             "fsdp"))
     for case, msg in got.items():
         assert "item 14 part 3" in msg, (case, msg)
     assert "MLA with block taps (dp_attn)" in got["mla-dp_attn"]
+    assert "block taps (dp_attn) on a model axis" in got["gqa-dp_attn"]
     assert "MLA with a latent cache" in got["mla-cache"]
-    assert "qk-norm" in got["chameleon-34b"]
-    assert "enc-dec" in got["seamless-m4t-large-v2"]
+    assert "a KV cache beside sliced heads" in got["gqa-cache"]
+    assert "self and cross caches beside sliced heads" in \
+        got["cross-cache"]
     assert "ssm family" in got["xlstm-125m"]
     assert "hybrid family" in got["zamba2-2.7b"]
     assert "FSDP_PARAM_RULES" in got["fsdp"]

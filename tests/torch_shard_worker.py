@@ -284,15 +284,20 @@ def lanes_2(rank, mesh, data, out_dir):
     return res
 
 
-DEFERRED_ARCHS = ("chameleon-34b", "seamless-m4t-large-v2", "xlstm-125m",
-                  "zamba2-2.7b")
+DEFERRED_ARCHS = ("xlstm-125m", "zamba2-2.7b")
+# Block taps (dp_attn) beside sliced heads: reduced DeepSeek-V3 (MLA) and
+# reduced Chameleon-34B (GQA with qk-norm).
+DP_ATTN_ARCHS = {"mla-dp_attn": "deepseek-v3-671b",
+                 "gqa-dp_attn": "chameleon-34b"}
 
 
 def deferred_on_model_axis(mesh):
     """{case: the NotImplementedError's message} of one private step of
     each deferred family (reduced) on ``mesh``'s model axis, of reduced
-    DeepSeek-V3's under block taps (``"mla-dp_attn"``), of MLA against
-    a latent cache there (``"mla-cache"``), and of
+    DeepSeek-V3's and Chameleon's under block taps (``"mla-dp_attn"``,
+    ``"gqa-dp_attn"``), of serving against a cache there: MLA's latent
+    cache (``"mla-cache"``), Chameleon's KV cache (``"gqa-cache"``),
+    Seamless's self and cross caches (``"cross-cache"``), and of
     ``param_sharding(fsdp=True)`` on the live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
@@ -300,9 +305,10 @@ def deferred_on_model_axis(mesh):
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init
     out = {}
-    for arch in DEFERRED_ARCHS + ("mla-dp_attn",):
-        cfg = (get_config("deepseek-v3-671b").reduced().replace(dp_attn=True)
-               if arch == "mla-dp_attn" else get_config(arch).reduced())
+    for arch in DEFERRED_ARCHS + tuple(DP_ATTN_ARCHS):
+        cfg = (get_config(DP_ATTN_ARCHS[arch]).reduced().replace(
+                   dp_attn=True) if arch in DP_ATTN_ARCHS
+               else get_config(arch).reduced())
         model = build_model(cfg)
         p, axes = model.init(0, device="cpu")
         b = to_device(make_batch_fn(cfg, 2, 8)(0), "cpu")
@@ -316,6 +322,9 @@ def deferred_on_model_axis(mesh):
         except NotImplementedError as e:
             out[arch] = str(e)
     out["mla-cache"] = mla_cache_on_model_axis(mesh)
+    out["gqa-cache"] = prefill_on_model_axis(mesh, "chameleon-34b")
+    out["cross-cache"] = prefill_on_model_axis(mesh,
+                                               "seamless-m4t-large-v2")
     from repro_torch.launch.sharding import param_sharding
     try:
         param_sharding(axes, mesh, fsdp=True)
@@ -323,6 +332,29 @@ def deferred_on_model_axis(mesh):
     except NotImplementedError as e:
         out["fsdp"] = str(e)
     return out
+
+
+def prefill_on_model_axis(mesh, arch) -> str:
+    """The message of ``arch``'s (reduced) prefill on this rank's slices
+    under ``mesh``'s model group: serving against a cache beside sliced
+    heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.registry import build_model
+    model = build_model(get_config(arch).reduced())
+    params, axes = model.init(0, device="cpu")
+    specs = sh.param_sharding(axes, mesh, shapes_tree=params)
+    ms = sh.model_shard_of(mesh, specs)
+    local = sh.shard_params(params, specs, ms)
+    tokens = torch.zeros((2, 4), dtype=torch.int32)
+    args = ((torch.zeros((2, 4, model.cfg.d_model)),)
+            if model.cfg.family == "encdec" else ())
+    try:
+        with sh.model_parallel(ms):
+            model.prefill(local, *args, tokens, 8)
+        return "ran"
+    except NotImplementedError as e:
+        return str(e)
 
 
 def mla_cache_on_model_axis(mesh) -> str:
