@@ -178,8 +178,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bf16 within twice the bf16 forward's distance from the f32 forward,
    f32 within RECURRENT_F32_OF_LARGEST of the largest logit; one
    ``generate_batch`` pass a model, its prefill and decode steps timed
-   in place).  Each recurrent lane runs one timed step and a profiled
-   one (stale: the bootstrap and a stale step timed).
+   in place).  Each recurrent lane runs one timed step, none profiled
+   (stale: the bootstrap and a stale step timed).
 10. ``gram_norm_tokmask`` at its own entry point (no model path calls it,
    as in the JAX package): once on Llama-3.2-1B's embedding cotangent
    shape (B = 8, T = 1024, D = 2048, bf16, the token ids of a synthetic
@@ -220,9 +220,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the ranks' params bitwise equal, the two runs bitwise equal, and the
    single-device engine's params on the same global batches within the
    bound ``shard_reference`` derives from the f32 sum bound.  Then
-   Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024, bf16,
+   Llama-3.2-1B at full width cut to 1 layer, B = 8, T = 1024, bf16,
    flash, ``auto`` stale on ``data:2``: every flash kernel once a layer
-   a step per rank, ``gram_norm_fused`` 10 a step after the bootstrap,
+   a step per rank, ``gram_norm_fused`` 5 a layer and step after the
+   bootstrap,
    one all-reduce a param leaf (the tied embed/head group once), ranks
    bitwise equal; the collective calibration over the gloo group
    (``measure_collective_bytes_per_second``); ``engine.verify()`` of
@@ -268,9 +269,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    each (the DeepSeek-V3 layer's at 16 routed experts), the kernels at
    the slice shapes.  In the same two worlds, the attention-only families
    on a model axis (its comment): SeamlessM4T-large-v2 at full width
-   cut to 2 + 2 layers on ``model:2`` and ``data:2,model:2``,
-   Chameleon-34B (qk-norm on sliced heads) at full width cut to depth 2
+   cut to 1 + 1 layers on ``model:2`` and ``data:2,model:2``,
+   Chameleon-34B (qk-norm on sliced heads) at full width cut to depth 1
    on ``model:2``, remat on; the same checks, an f32 gradient of each.
+13e. the recurrent families on a model axis (phase
+   ``recurrent_model_axis_path``, its comment below): xLSTM-125M at full
+   width cut to 4 layers, bk and ``auto`` stale on ``model:2``, ``auto``
+   flat on ``data:2,model:2``; Zamba2-2.7B at full width cut to 1
+   super-block on 128 of its 512 tokens, bk on ``model:2``, ``auto`` flat
+   on ``data:2,model:2``; each recurrence on the rank's heads.  Ranks and
+   runs bitwise, within a derived bound of one device, the model group's
+   all-reduces a step as reckoned from the layers and the same at
+   T = 16, an f32 gradient of each, the kernels at the slice shapes.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -3846,9 +3856,12 @@ def ssm_main_path(torch, launches, lanes):
     cfg = cfg.replace(n_layers=XL_DEPTH)
     model, params, batches = recurrent_inputs(torch, cfg, XL_B, XL_T,
                                               "ssm_setup")
+    # No profiled bk step (PERF.md §5 keeps PR 24's profile): the
+    # recurrent families' model-axis lanes needed the script's time.
     out, plans = recurrent_lanes(torch, "xlstm", model, params, batches,
                                  launches, lanes, XL_GRAM,
-                                 "xlstm_auto_flat", "xlstm_auto_stale")
+                                 "xlstm_auto_flat", "xlstm_auto_stale",
+                                 profile_bk=False)
     exact = recurrent_exactness(torch, model, params, batches[0], "xlstm")
     log({"phase": "ssm_main_path",
          "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
@@ -4001,9 +4014,11 @@ SH_DIR = ROOT / "build" / "chip_smoke_shard"
 SH_TIMEOUT_S = 300
 SH_LR = 1e-3
 SH_STEPS = 2
-# Llama-3.2-1B at full width cut to 2 layers, B = 8, T = 1024: 2 steps
-# (the stale bootstrap, then a stale step).
-SH_LLAMA_LAYERS, SH_LLAMA_STEPS = 2, 2
+# Llama-3.2-1B at full width cut to 1 layer (2 before the recurrent
+# families' model-axis lanes needed the script's time), B = 8, T = 1024:
+# 2 steps (the stale bootstrap, then a stale step).
+SH_LLAMA_LAYERS, SH_LLAMA_STEPS = 1, 2
+SH_LLAMA_LANE = f"llama_depth{SH_LLAMA_LAYERS}_auto_stale"
 # Phase model_axis_path's Llama lanes: cut to 1 layer (2 before the
 # attention families' model-axis lanes needed the script's time).
 MA_LLAMA_LAYERS = 1
@@ -4234,7 +4249,7 @@ def shard_reference(torch, model, params, batches, dp, steps, got):
 def shard_worker(out_dir):
     """One rank of phase sharded_main_path (under torch.distributed.run):
     the gloo group on cuda:0, then full-width AlexNet's lanes, the
-    depth-2 Llama lane and the collective calibration; this rank's
+    cut Llama lane and the collective calibration; this rank's
     record goes to ``out_dir/rank<r>.json``."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4333,7 +4348,7 @@ def shard_worker(out_dir):
               "embed/head group must sync once)")
         r["tied_group_synced_once"] = True
         r["cuts"] = {"n_layers": SH_LLAMA_LAYERS}
-        rec["llama_depth2_auto_stale"] = r
+        rec[SH_LLAMA_LANE] = r
         del p, params, batches, model
         torch.cuda.empty_cache()
 
@@ -4497,7 +4512,7 @@ def sharded_main_path(torch, launches, lanes):
              "accepted" if nccl else f"no record (exit {prc})")
     for r in ranks:
         for lane, rec in list(r["alexnet"].items()) + [
-                ("llama_depth2_auto_stale", r["llama_depth2_auto_stale"])]:
+                (SH_LLAMA_LANE, r[SH_LLAMA_LANE])]:
             name = f"sharded_{lane}_rank{r['rank']}"
             lanes[name] = {k: [c[k] for c in
                                rec["runs"][0]["launches_each_step"]]
@@ -4518,8 +4533,7 @@ def sharded_main_path(torch, launches, lanes):
          "gloo_cuda_all_reduce": [r["gloo_cuda_all_reduce"] for r in ranks],
          "ranks_wall_s": wall,
          "alexnet": {r["rank"]: r["alexnet"] for r in ranks},
-         "llama_depth2_auto_stale": {r["rank"]: r["llama_depth2_auto_stale"]
-                                     for r in ranks},
+         SH_LLAMA_LANE: {r["rank"]: r[SH_LLAMA_LANE] for r in ranks},
          "collective_bytes_per_second": [r["collective_bytes_per_second"]
                                          for r in ranks],
          "verify": verify_rec, "cli_lane": cli_rec,
@@ -4609,21 +4623,26 @@ def ma_gram_slices(torch, slices):
     return rows
 
 
-def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
+def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0, sigma=1.0,
+                 grad_rtol=0.0):
     """One noised clipped mean gradient (``noisy_grad``) of ``cfg`` (f32)
     under bk with the kernel norms and per-layer clipping, on this rank's
     slices and then, on rank 0, on one device from the same whole params
     (``model.init(key)``: a seed, or a generator on the card, which every
     rank seeds alike), batch and key: the loss, every per-example and
-    per-layer norm and the gathered gradient are held (bounds above).
-    Rank 0's readings, an empty record on the other ranks."""
+    per-layer norm and the gathered gradient are held (bounds above; the
+    gradient's bound grows by ``grad_rtol`` of one device's largest
+    coordinate, where the model's per-example gradients themselves carry
+    rounding: the recurrences, ``RX_GRAD_RTOL``).  ``sigma``: the noise
+    multiplier.  Rank 0's readings, an empty record on the other
+    ranks."""
     from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
     from repro_torch.tree import get_subtree, leaf_paths
     model = build_model(cfg)
     params, axes = model.init(key, device=device)
-    dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0, strategy="bk",
+    dp = DPConfig(l2_clip=1.0, noise_multiplier=sigma, strategy="bk",
                   norm=NormCfg(dense="pallas"),
                   clipping=ClipPolicy(mode="per_layer"))
     kw = dict(optimizer="sgdm", lr=SH_LR, run_seed=0, device=device)
@@ -4648,8 +4667,12 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
                "loss_one_device": float(l1),
                "loss_rel_diff": abs(float(loss) - float(l1))
                / abs(float(l1)), "loss_rtol": MA_LOSS_RTOL,
-               "norm_rtol": MA_NORM_RTOL,
-               "grad_bound": released_mean_bound(B, dp.l2_clip)}
+               "norm_rtol": MA_NORM_RTOL, "sigma": sigma,
+               "grad_largest": max(float(get_subtree(g1, q).abs().max())
+                                   for q in leaf_paths(g1)),
+               "grad_rtol": grad_rtol}
+        rec["grad_bound"] = (released_mean_bound(B, dp.l2_clip)
+                             + grad_rtol * rec["grad_largest"])
         for k in ("per_example_norms", "per_layer_norms"):
             abs_err, rel_err, ok = compare(torch, aux[k], a1[k], "float32",
                                            rtol=MA_NORM_RTOL)
@@ -4665,6 +4688,23 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0):
         check(rec["grad_max_abs_diff"] <= rec["grad_bound"], f"f32 model-axis "
               f"check: gradients {rec['grad_max_abs_diff']:.3e} apart > "
               f"{rec['grad_bound']:.3e}")
+        if grad_rtol:
+            # each leaf against its own largest coordinate too: a small
+            # leaf's gradient is not hidden by a large one's scale
+            rel = {"/".join(map(str, q)): float(
+                (get_subtree(grad, q) - get_subtree(g1, q)).abs().max()
+                / get_subtree(g1, q).abs().max().clamp_min(1e-30))
+                for q in leaf_paths(g1)}
+            worst = max(rel, key=rel.get)
+            rec["grad_leaf_rel_diff"] = {"largest": rel[worst],
+                                         "leaf": worst}
+            for q in leaf_paths(g1):
+                d = float((get_subtree(grad, q)
+                           - get_subtree(g1, q)).abs().max())
+                lim = released_mean_bound(B, dp.l2_clip) + grad_rtol * float(
+                    get_subtree(g1, q).abs().max())
+                check(d <= lim, f"f32 model-axis check: leaf "
+                      f"{'/'.join(map(str, q))} {d:.3e} apart > {lim:.3e}")
         del one, g1, a1
     del params, grad, aux
     torch.cuda.empty_cache()
@@ -5018,13 +5058,13 @@ def mx_lm_batches(torch, cfg, B, T, steps):
 
 
 def mx_lane(torch, dist, mesh, lane, model, params, batches, dp, needs,
-            axes, rank, store):
-    """One lane through ``shard_lane`` with the dropped-entry spy and the
-    kernels' shape spies (``mx_spies`` into ``store``), the slot and run
-    agreement, and (rank 0, the other ranks waiting) one device's run;
-    the whole params go to the host first."""
+            axes, rank, store, moe=True):
+    """One lane through ``shard_lane`` with (``moe``) the dropped-entry
+    spy and the kernels' shape spies (``mx_spies`` into ``store``), the
+    slot and run agreement, and (rank 0, the other ranks waiting) one
+    device's run; the whole params go to the host first."""
     dropped = []
-    undo = mx_dropped_spy(dropped)
+    undo = mx_dropped_spy(dropped) if moe else (lambda: None)
     undo_spies = mx_spies(store)
     try:
         r, whole = shard_lane(torch, model, params, batches, dp, MX_STEPS,
@@ -5032,8 +5072,9 @@ def mx_lane(torch, dist, mesh, lane, model, params, batches, dp, needs,
     finally:
         undo()
         undo_spies()
-    # the spy saw every dispatch of both runs: each run's own share
-    r.update(mx_dispatch_reading(dropped[:len(dropped) // 2]))
+    if moe:
+        # the spy saw every dispatch of both runs: each run's own share
+        r.update(mx_dispatch_reading(dropped[:len(dropped) // 2]))
     ma_agree(torch, dist, mesh, r, lane)
     from repro_torch.tree import tree_map
     host = tree_map(lambda t: t.cpu(), whole)
@@ -5078,11 +5119,11 @@ def mx_spies(store):
     return lambda: [setattr(ops, k, v) for k, v in real.items()]
 
 
-def mx_slice_kernels(torch, store):
-    """``gram_norm_fused`` and the flash forward, dq and dk/dv at the
-    shapes the model-axis lanes handed them (``gram_norm``'s go through
-    ``ma_gram_slices``), on seeded random inputs, against their plain
-    versions at the existing tolerances."""
+def mx_slice_kernels(torch, store, flash=True):
+    """``gram_norm_fused`` and (``flash``) the flash forward, dq and
+    dk/dv at the shapes the model-axis lanes handed them (``gram_norm``'s
+    go through ``ma_gram_slices``), on seeded random inputs, against
+    their plain versions at the existing tolerances."""
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -5130,8 +5171,9 @@ def mx_slice_kernels(torch, store):
                          "max_rel_err": max(e[1] for e in errs), "ok": ok})
             check(ok, f"{name} at model-axis heads q {qs}, k {ks}: {errs}")
         del q, k, v, do, o, lse, bwd, dq, dk, dv, ro, rl, rdq, rdk, rdv
-    check(store["flash"] and store["gram_norm_fused"], "the model-axis lanes "
-          f"handed the flash kernels or gram_norm_fused nothing: {store}")
+    check((store["flash"] or not flash) and store["gram_norm_fused"],
+          f"the model-axis lanes handed the flash kernels or "
+          f"gram_norm_fused nothing: {store}")
     torch.cuda.empty_cache()
     return rows
 
@@ -5316,17 +5358,19 @@ def mx_deepseek(torch, dist, mesh, rank, rec):
 # second part) run in phase moe_model_axis_path's two worlds, with no
 # bootstrap of their own: bf16, flash, remat on (their configs'), SGD with
 # momentum, σ = 1, C = 1, each lane twice (``mx_lane``).
-#   * SeamlessM4T-large-v2 at full width cut to 2 + 2 of its 12 + 12
-#     layers (AX_SM_LAYERS; d_model 1024, 16 heads of 64: 8 a rank, GeLU
+#   * SeamlessM4T-large-v2 at full width cut to 1 + 1 of its 12 + 12
+#     layers (AX_SM_LAYERS; 2 + 2 before the recurrent families'
+#     model-axis lanes needed the room; d_model 1024, 16 heads of 64: 8 a rank, GeLU
 #     d_ff 8192: 4096 a rank, vocabulary 256 206 padded to 256 256: 128 128
 #     rows a rank), B = 8, 512 source frames and 512 target tokens:
 #     ``auto`` flat and bk (the kernel norms) on model:2 beside the 4-rank
 #     world, ``auto`` stale on data:2,model:2 after its Granite lane; its
 #     f32 gradient on model:2 against one device's (``ma_f32_check``).
-#   * Chameleon-34B at full width cut to depth 2 of 48 (AX_CH_LAYERS;
+#   * Chameleon-34B at full width cut to depth 1 of 48 (AX_CH_LAYERS;
+#     2 before the recurrent families' model-axis lanes needed the room;
 #     d_model 8192, 64 heads of 128 with qk-norm: 32 a rank, 8 KV heads
 #     whole, SwiGLU d_ff 22 016: 11 008 a rank, vocabulary 65 536: 32 768
-#     rows a rank, LayerNorm with a bias; about 2.46e9 params drawn on the
+#     rows a rank, LayerNorm with a bias; about 1.6e9 params drawn on the
 #     card), B = 4, T = 512, on model:2 only, ``auto`` stale and bk, after
 #     the DeepSeek-V3 layer (it needs the card alone: a rank about 18 GB,
 #     one device's run about 27 GB more); data:2,model:2 is left out (it
@@ -5335,8 +5379,8 @@ def mx_deepseek(torch, dist, mesh, rank, rec):
 #     kernel norms, per-layer clipping) against one device's.
 # ``gram_norm``, ``gram_norm_fused`` and the flash kernels at the shapes
 # these lanes handed them, against their plain versions.
-AX_SM_LAYERS = 2
-AX_CH_LAYERS = 2
+AX_SM_LAYERS = 1
+AX_CH_LAYERS = 1
 AX_CH_B, AX_CH_T = 4, 512
 AX_CH_WIDTHS = (48, 8192, 64, 8, 22016, 65536, 128)
 
@@ -5384,7 +5428,7 @@ def ax_seamless(torch, dist, mesh, spec, rank, rec, store):
         r["local"] = {"query_heads": cfg.n_heads // 2,
                       "d_ff": cfg.d_ff // 2,
                       "vocab_rows": cfg.padded_vocab // 2}
-        rec[f"seamless_2x2_{lane}"] = r
+        rec[f"seamless_{L}x{L}_{lane}"] = r
     b0 = batches[0]
     del params, batches
     torch.cuda.empty_cache()
@@ -5451,7 +5495,7 @@ def ax_chameleon(torch, dist, mesh, rank, rec, store):
         r["local"] = {"query_heads": cfg.n_heads // 2, "kv_heads": cfg.n_kv,
                       "d_ff": cfg.d_ff // 2,
                       "vocab_rows": cfg.padded_vocab // 2}
-        rec[f"chameleon_depth2_{lane}"] = r
+        rec[f"chameleon_depth{L}_{lane}"] = r
     b0 = batches[0]
     del params, batches
     torch.cuda.empty_cache()
@@ -5609,6 +5653,296 @@ def moe_model_axis_path(torch, launches, lanes):
          "ranks_wall_s": walls, "ranks": ranks,
          "seconds": time.perf_counter() - t0, "ok": True})
     shutil.rmtree(MX_DIR, ignore_errors=True)
+
+
+# Phase recurrent_model_axis_path: the recurrent families on a model axis
+# (ROADMAP item 14 part 3, third part), each recurrence on the rank's
+# heads, gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card),
+# a model:2 world and a data:2,model:2 world at once (the script
+# re-entering itself with --recurrent-model-axis-worker):
+#   * xLSTM-125M at full width (d_model 768, 4 heads, vocab 50 304,
+#     bf16) cut to XL_DEPTH layers (one super-block: 3 mLSTM, 1 sLSTM),
+#     B = XL_B, T = XL_T: bk (``gram_norm`` on every sliced dense) and
+#     ``auto`` stale on model:2, ``auto`` flat on data:2,model:2;
+#   * Zamba2-2.7B at full width (80 SSD heads of 64, 32 attention heads
+#     of 80, d_ff 10 240, bf16, remat) cut to ZB_LAYERS (one super-block:
+#     6 Mamba2 layers, the shared block once), B = ZB_B and T = RX_ZB_T,
+#     not ZB_T (a cut of the traffic, for the phase's time): bk on
+#     model:2, ``auto`` flat on data:2,model:2.
+# Held: the ranks of a model slot and the two runs bitwise equal, the
+# released params within ``released_param_bound`` of one device's run;
+# a bk step's model-group all-reduces as ``rx_bk_calls`` reckons them
+# from the layers, the same at T = RX_CENSUS_T (no collective in a
+# scan's time loop); an f32 gradient of each model against one device's
+# (``ma_f32_check`` at σ = 0, each leaf also within RX_GRAD_RTOL of its
+# largest coordinate), on data:2,model:2, whose lanes end first;
+# ``gram_norm`` and ``gram_norm_fused`` at the slice shapes the model:2
+# lanes handed them.
+RX_DIR = ROOT / "build" / "chip_smoke_recurrent_model_axis"
+RX_TIMEOUT_S = 420
+RX_MESHES = {"data:2,model:2": 4, "model:2": 2}
+RX_ZB_T = 128
+RX_CENSUS_T = 16
+# The recurrences carry the forward's rounding (a row-sharded product's
+# partial sums added in another order) through T steps into the
+# per-example gradients themselves, which the sum bound of
+# ``released_mean_bound`` does not cover (the CPU's reduced lanes: up to
+# 1.5e-5 of a leaf's largest entry at T = 8): each f32 leaf is held
+# within this share of its largest coordinate, the share its norms are
+# held to (MA_NORM_RTOL).  A partial cotangent or an unsummed partial
+# gradient misses by tens of percent.
+RX_GRAD_RTOL = MA_NORM_RTOL
+
+
+def rx_bk_calls(cfg):
+    """The model group's all-reduces in one bk step of ``cfg`` on a model
+    axis, reckoned from its layers; T appears nowhere (every collective
+    sits outside the scans).  An mLSTM layer 14: forward ``up``'s gather,
+    the four reduce-scatters (``wq``, ``wk``, ``wv``, ``wif``), the
+    norm's sum of squares, ``down``'s sum; backward ``x``'s copy, ``up``'s
+    gather, the four reduce-scatters' gathers, the norm's sum.  An sLSTM
+    layer 8: forward ``wx``'s and ``h``'s gathers and the FFN's sum;
+    backward ``x``'s copy, ``wx``'s gather and the FFN's copy; the kind's
+    two sums of the gate bias's per-example gradient (norm, contribution).
+    A Mamba2 layer 10: forward ``in_proj``'s and the conv's gathers, the
+    norm's sum of squares, ``out_proj``'s sum; backward ``x``'s copy, the
+    two gathers, the norm's sum; the two sums of the ``ssd`` per-example
+    gradient.  The shared block 6 an application: forward ``wo``'s and
+    ``w_down``'s sums; backward the copies into ``wq``, of ``k`` and ``v``,
+    into the MLP; under remat its recompute re-issues a super-block's
+    forward moves but the last (``w_down``'s sum feeds the residual
+    alone).  Once a step: the embedding's sum, the head's copy, the
+    cross entropy's three sums, the norms' one sum."""
+    if cfg.family == "ssm":
+        n_s = cfg.n_layers // cfg.slstm_every
+        return 14 * (cfg.n_layers - n_s) + 8 * n_s + 6
+    n_app = cfg.n_layers // cfg.attn_every
+    return (10 * cfg.n_layers + 6 * n_app + 6
+            + cfg.remat * (4 * cfg.attn_every + 1) * n_app)
+
+
+def rx_census(torch, model, params, axes, mesh, dp, B):
+    """One bk step at T = RX_CENSUS_T from this rank's slices: the model
+    group's calls (``COLL_STATS``)."""
+    from repro_torch.core import PrivacyEngine
+    from repro_torch.launch import sharding
+    from repro_torch.optim import sgdm_init
+    (b,) = mx_lm_batches(torch, model.cfg, B, RX_CENSUS_T, 1)
+    eng = PrivacyEngine(model.apply, params, b, dp, optimizer="sgdm",
+                        lr=SH_LR, run_seed=0, sampling_rate=1 / 128,
+                        device="cuda", mesh=mesh, param_axes=axes)
+    p = eng.shard_params(params)
+    sharding.COLL_STATS.reset()
+    eng.private_step(p, sgdm_init(p), b, step=0)
+    torch.cuda.synchronize()
+    calls = sharding.COLL_STATS.calls["model"]
+    del eng, p
+    torch.cuda.empty_cache()
+    return calls
+
+
+def rx_config(torch, arch):
+    """(full config, the lanes' config) of ``arch``, its widths checked."""
+    from repro_torch.configs import get_config
+    if arch == "zamba2-2.7b":
+        return get_config(arch), zamba2_config(torch, ZB_LAYERS)
+    full = get_config(arch)
+    check((full.n_layers, full.d_model, full.n_heads, full.vocab,
+           full.slstm_every) == XL_WIDTHS and full.family == "ssm"
+          and full.dtype == "bfloat16", "xlstm config")
+    return full, full.replace(n_layers=XL_DEPTH)
+
+
+def rx_shape(arch):
+    return (XL_B, XL_T) if arch == "xlstm-125m" else (ZB_B, RX_ZB_T)
+
+
+def rx_lanes(torch, dist, mesh, spec, rank, rec, store):
+    """The lanes of ``spec`` (module comment above), each through
+    ``mx_lane``; on model:2 each bk lane's census."""
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg
+    from repro_torch.models.lm import TransformerLM
+    bk = ("bk", "bk", ClipPolicy(), NormCfg(dense="pallas"))
+    stale = ("auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg())
+    flat = ("auto_flat", "auto", ClipPolicy(), NormCfg())
+    todo = {"model:2": {"xlstm-125m": (bk, stale), "zamba2-2.7b": (bk,)},
+            "data:2,model:2": {"xlstm-125m": (flat,),
+                               "zamba2-2.7b": (flat,)}}[spec]
+    for arch, lanes in todo.items():
+        t = time.perf_counter()
+        full, cfg = rx_config(torch, arch)
+        model = TransformerLM(cfg)
+        params, axes = model.init(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        B, T = rx_shape(arch)
+        batches = mx_lm_batches(torch, cfg, B, T, MX_STEPS)
+        short = arch.split("-")[0]
+        for lane, strategy, clip, knobs in lanes:
+            dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                          strategy=strategy, norm=knobs, clipping=clip)
+            gram = XL_GRAM if arch == "xlstm-125m" else ZB_GRAM
+            needs = ({"gram_norm": [gram] * MX_STEPS,
+                      "gram_norm_fused": [0] * MX_STEPS}
+                     if strategy == "bk" else planned_lm_needs(0, 0))
+            r = mx_lane(torch, dist, mesh, f"{short} {lane} on {spec}",
+                        model, params, batches, dp, needs, axes, rank,
+                        store, moe=False)
+            r["params"] = param_count(params)
+            r["cuts"] = {"n_layers": [full.n_layers, cfg.n_layers]}
+            if arch == "zamba2-2.7b":
+                r["cuts"]["seq"] = [ZB_T, RX_ZB_T]
+            if strategy == "bk":
+                want = rx_bk_calls(cfg)
+                got = [c["calls"]["model"] for run in r["runs"]
+                       for c in run["collectives_each_step"]]
+                short_t = rx_census(torch, model, params, axes, mesh, dp, B)
+                r["model_calls"] = {"reckoned": want, f"T={T}": got,
+                                    f"T={RX_CENSUS_T}": short_t}
+                check(set(got) == {want} and short_t == want,
+                      f"{short} bk on {spec}: the model group's calls a "
+                      f"step {got} (T = {T}) and {short_t} (T = "
+                      f"{RX_CENSUS_T}), reckoned {want}")
+            rec[f"{short}_{lane}"] = r
+        del params, batches
+        torch.cuda.empty_cache()
+        rec[f"{short}_s"] = time.perf_counter() - t
+
+
+def rx_f32_checks(torch, dist, mesh, rec):
+    """An f32 gradient of each model against one device's (Zamba2's,
+    the smaller, first: the model:2 ranks may still run xLSTM's lanes)."""
+    for arch in ("zamba2-2.7b", "xlstm-125m"):
+        t = time.perf_counter()
+        _, cfg = rx_config(torch, arch)
+        (b,) = mx_lm_batches(torch, cfg, *rx_shape(arch), 1)
+        short = arch.split("-")[0]
+        rec[f"{short}_f32_check"] = ma_f32_check(
+            torch, dist, mesh, cfg.replace(dtype="float32"), b, "cuda",
+            key=torch.Generator(device="cuda").manual_seed(0), sigma=0.0,
+            grad_rtol=RX_GRAD_RTOL)
+        rec[f"{short}_f32_check_s"] = time.perf_counter() - t
+        del b
+        torch.cuda.empty_cache()
+
+
+def recurrent_model_axis_worker(spec, out_dir):
+    """One rank of phase recurrent_model_axis_path (under
+    torch.distributed.run) on mesh ``spec``; this rank's record, with the
+    wall-clock times it entered, had its mesh and was done, goes to
+    ``out_dir/<spec>_rank<r>.json``."""
+    wall = {"entered": time.time()}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh_from_spec
+    from repro_torch.launch.train import deterministic_step
+    check(torch.cuda.is_available(), "a rank sees no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh_from_spec(spec, device_type="cuda")
+    rec = {"rank": rank, "mesh": spec, "device": str(dev),
+           "model_rank": mesh.get_local_rank(
+               tuple(mesh.mesh_dim_names).index("model")), "wall": wall}
+    wall["ready"] = time.time()
+    store = {"gram_norm": set(), "gram_norm_fused": set(), "flash": set()}
+    with deterministic_step():
+        rx_lanes(torch, dist, mesh, spec, rank, rec, store)
+        if spec == "data:2,model:2":
+            rx_f32_checks(torch, dist, mesh, rec)
+        elif rank == 0:
+            slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
+                      dt, hb in store["gram_norm"]}
+            rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+            rec["gram_norm_fused_on_slices"] = mx_slice_kernels(
+                torch, store, flash=False)
+        dist.barrier()
+    wall["done"] = time.time()
+    tag = spec.replace(":", "").replace(",", "_")
+    with open(os.path.join(out_dir, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def recurrent_model_axis_path(torch, launches, lanes):
+    """Phase recurrent_model_axis_path (module comment above): the
+    data:2,model:2 ranks and the model:2 ranks at once; each world's
+    start-up, lanes and exit read off its ranks' wall-clock times."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    wall0 = time.time()
+    shutil.rmtree(RX_DIR, ignore_errors=True)
+    RX_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+
+    def run(spec, n):
+        return torchrun([str(ROOT / "chip_smoke.py"),
+                         "--recurrent-model-axis-worker", spec,
+                         str(RX_DIR)], RX_TIMEOUT_S, nproc=n)
+
+    walls = {}
+    with ThreadPoolExecutor(len(RX_MESHES)) as pool:
+        futs = {spec: pool.submit(run, spec, n)
+                for spec, n in RX_MESHES.items()}
+        results = {spec: f.result() for spec, f in futs.items()}
+    for spec, n in RX_MESHES.items():
+        rc, out, err, walls[spec] = results[spec]
+        why = [ln for ln in err.splitlines()
+               if "chip_smoke: FAILED" in ln or ln.startswith(
+                   tuple(f"[rank{r}]: {e}" for r in range(n)
+                         for e in ("RuntimeError", "ValueError",
+                                   "TypeError", "KeyError",
+                                   "AttributeError", "torch.OutOfMemory",
+                                   "NotImplementedError", "AssertionError",
+                                   "IndexError", "NameError")))]
+        check(rc == 0, f"recurrent model-axis ranks ({spec}): exit {rc}\n"
+              f"{why[:12]}\n{out[-3000:]}\n{err[-5000:]}")
+    ranks = {spec: [json.loads((RX_DIR / "{}_rank{}.json".format(
+        spec.replace(":", "").replace(",", "_"), r)).read_text())
+        for r in range(n)] for spec, n in RX_MESHES.items()}
+    r0 = ranks["model:2"][0]
+    check(r0.get("gram_norm_on_slices") and r0.get(
+        "gram_norm_fused_on_slices"), "the recurrent lanes' kernels were "
+          "not held at their slices")
+    check(all(f"{a}_f32_check" in ranks["data:2,model:2"][0]
+              for a in ("xlstm", "zamba2")), "an f32 check is missing")
+    timeline = {spec: {k: max(r["wall"][k] for r in rs) - wall0
+                       for k in ("entered", "ready", "done")}
+                for spec, rs in ranks.items()}
+    for spec, rs in ranks.items():
+        tag = spec.replace(":", "").replace(",", "_")
+        for r in rs:
+            for lane, rec in r.items():
+                if not (isinstance(rec, dict) and "runs" in rec):
+                    continue
+                steps = rec["runs"][0]["launches_each_step"]
+                name = f"recurrent_model_axis_{tag}_{lane}_rank{r['rank']}"
+                lanes[name] = {k: [c.get(k, 0) for c in steps]
+                               for k in launches
+                               if any(c.get(k, 0) for c in steps)}
+                if r["rank"] == 0:
+                    for k, v in lanes[name].items():
+                        launches[k] += sum(v)
+                print(json.dumps({
+                    "recurrent_model_axis_lane": name,
+                    "model_rank": r["model_rank"],
+                    "digests": [x["digest"] for x in rec["runs"]],
+                    "step_ms": [x["step_ms"] for x in rec["runs"]],
+                    "peak_mem_gb": [x["peak_mem_gb"] for x in rec["runs"]],
+                    "collectives": rec["runs"][1]["collectives_each_step"],
+                    "launches": lanes[name],
+                    "model_calls": rec.get("model_calls"),
+                    "vs_single_device": rec.get("vs_single_device")}),
+                    flush=True)
+    log({"phase": "recurrent_model_axis_path", "backend": "gloo",
+         "ranks_wall_s": walls, "timeline_s": timeline, "ranks": ranks,
+         "seconds": time.perf_counter() - t0, "ok": True})
+    shutil.rmtree(RX_DIR, ignore_errors=True)
 
 
 def profile_step(torch, fn, top=8, named=()):
@@ -5858,6 +6192,10 @@ def main():
     moe_model_axis_path(torch, launches, lanes)
     log({"phase": "moe_model_axis_path_done",
          "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    recurrent_model_axis_path(torch, launches, lanes)
+    log({"phase": "recurrent_model_axis_path_done",
+         "seconds": time.perf_counter() - t})
 
     log(nvidia_smi_line())
     log({"kernels": summarize(rows, launches, lanes, profiled)})
@@ -5874,6 +6212,8 @@ if __name__ == "__main__":
             model_axis_worker(sys.argv[2], sys.argv[3])
         elif sys.argv[1:2] == ["--moe-model-axis-worker"]:
             moe_model_axis_worker(sys.argv[2], sys.argv[3])
+        elif sys.argv[1:2] == ["--recurrent-model-axis-worker"]:
+            recurrent_model_axis_worker(sys.argv[2], sys.argv[3])
         elif sys.argv[1:2] == ["--nccl-probe"]:
             nccl_probe(sys.argv[2])
         else:

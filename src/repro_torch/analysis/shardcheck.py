@@ -38,14 +38,17 @@ the JAX package's pass reads the declared param shardings:
     (``model_norm_sum_missing`` / ``model_norm_sum_repeated``); a
     replicated group's norm, whole on every rank, through none
     (``model_norm_overcount``);
-  * a partial replicated group — a replicated parameter applied to a
-    rank's slice (qk-norm's query scale on sliced heads), whose
+  * a partial replicated leaf — a replicated parameter applied to a
+    rank's slice (qk-norm's query scale on sliced heads, Mamba2's ``ssd``
+    params and sLSTM's gate bias in their ``local_vjp`` scans), whose
     per-example gradient the kind marks ``partial_pe`` — has that
-    gradient summed over the model group exactly once before any norm
-    reads it (``model_partial_unsummed``: each rank would clip with the
-    norm of its own heads' share); the sum is a legitimate model-group
-    sum of a value with the example axis, neither a norm sum nor a
-    contribution's;
+    gradient summed over the model group exactly once before its group's
+    norm (its ``group_norm`` marker) takes it (``model_partial_unsummed``:
+    each rank would clip with the norm of its own heads' share); the sum
+    is a legitimate model-group sum of a value with the example axis,
+    neither a norm sum nor a contribution's, and the one sum a sliced
+    group's norm takes after its marker (sLSTM's ``rec``: ``R`` sliced
+    beside the partial ``b``) is the norm rule's;
   * no clipped contribution (a value without the example axis) is summed
     over the model group on its way to a released leaf
     (``model_contrib_reduced``: a slice would add the other ranks'
@@ -342,12 +345,18 @@ def check_model(traces: Sequence, *, taints, specs, param_shapes,
             reported.add((code, key))
             findings.append(Finding("error", code, msg, WHERE))
 
-    # -- partial replicated groups: their per-example grad summed once -----
+    # -- partial replicated leaves: their per-example grad summed once ----
+    # before the group's norm; the sums after a group_norm marker are the
+    # norm rule's above.
+    normed = set()
+    for node, p in graph.markers():
+        if p.get("kind") == "group_norm":
+            normed |= _descendants(node, upstream)
     for node, p in graph.markers():
         if p.get("kind") != "partial_pe" or node not in upstream:
             continue
         key = str(p.get("group"))
-        n = len(msums & _descendants(node, upstream))
+        n = len((msums & _descendants(node, upstream)) - normed)
         if n != 1 and ("model_partial_unsummed", key) not in reported:
             reported.add(("model_partial_unsummed", key))
             findings.append(Finding(

@@ -50,7 +50,7 @@ import torch
 from repro_torch.analysis.markers import tag
 from repro_torch.core import costmodel
 from repro_torch.core.tapper import STATS, LayerMeta, Tapper, cap_map
-from repro_torch.tree import get_subtree, set_subtree, tree_map
+from repro_torch.tree import get_subtree, leaf_paths, set_subtree, tree_map
 
 F32 = torch.float32
 
@@ -104,6 +104,35 @@ def _sumsq(tree):
     return tot
 
 
+def group_sumsq(pe, path: tuple):
+    """Σ leaf² per example of the per-example gradient tree of the param
+    group at ``path``, each leaf as this rank counts it on the active
+    model axis (``ModelShard.counts``: a replicated leaf of a sliced
+    group on model rank 0 only, its share of the group's one norm sum);
+    off a model axis :func:`_sumsq`."""
+    from repro_torch.launch import sharding
+    ms = sharding.active()
+    if ms is None:
+        return _sumsq(pe)
+    tot = 0.0
+    for p in leaf_paths(pe):
+        if ms.counts(path, p):
+            leaf = get_subtree(pe, p)
+            tot = tot + leaf.to(F32).square().sum(
+                dim=tuple(range(1, leaf.ndim)))
+    return tot
+
+
+def _counts_bias(meta: LayerMeta) -> bool:
+    """Whether this rank counts the layer's bias in its norm²: a
+    row-sharded layer's replicated bias (``Tapper.dense(
+    bias_after_sum=True)``) on model rank 0 only."""
+    from repro_torch.launch import sharding
+    ms = sharding.active()
+    return bool(meta.bias_key) and (
+        ms is None or ms.counts(meta.path, (meta.bias_key,)))
+
+
 def _flatten_seq(x):
     """(B, *S, D) -> (B, T, D) with T = prod(S) (possibly 1)."""
     return x.reshape(x.shape[0], -1, x.shape[-1])
@@ -133,25 +162,25 @@ def dense_norm_sq(meta: LayerMeta, cap, dy, method: str = "auto"):
         method = costmodel.dense_norm_method(T, Di, Do, B)
     if method == "rank1" and T != 1:
         method = "gram"
+    need_bias = _counts_bias(meta)
     if method == "pallas":
         from repro_torch.kernels import ops as kops
-        return _realized(kops.gram_norm(x, g, has_bias=bool(meta.bias_key)),
+        return _realized(kops.gram_norm(x, g, has_bias=need_bias),
                          meta, "pallas")
     if method == "rank1":
         n = _ee("bti,bti->b", x, x) * _ee("bto,bto->b", g, g)
-        if meta.bias_key:
+        if need_bias:
             n = n + _ee("bto,bto->b", g, g)
         return _realized(n, meta, "rank1")
     if method == "stream":
         pe = dense_pe_grad(meta, cap, dy)
-        return _realized(_sumsq(pe), meta, "stream")
+        return _realized(group_sumsq(pe, meta.path), meta, "stream")
     if method != "gram":
         raise ValueError(f"unknown dense norm method {method!r}")
     # gram, chunked over rows to bound the (B, chunk, T) intermediate;
     # the f32 copies of x and δy are made once, not per chunk (none for
     # bf16 on the card: the Grams are bf16 GEMMs with f32 output, _ee2)
     chunk = costmodel.GRAM_CHUNK
-    need_bias = bool(meta.bias_key)
     if x.is_cuda and x.dtype == g.dtype == torch.bfloat16:
         xf, gf = x, g
     else:
@@ -182,10 +211,13 @@ def dense_norm_and_contrib(meta: LayerMeta, cap, dy, w):
     from repro_torch.kernels import ops as kops
     STATS.fused += 1
     x, g = _flatten_seq(cap["x"]), _flatten_seq(dy)
-    n, cw, cb = kops.gram_norm_fused(x, g, w, has_bias=bool(meta.bias_key))
+    counted = _counts_bias(meta)
+    n, cw, cb = kops.gram_norm_fused(x, g, w, has_bias=counted)
     out = {meta.param_key: cw.T if meta.w_transposed else cw}
     if meta.bias_key:
-        out[meta.bias_key] = cb
+        # a bias this rank leaves out of its norm² still takes its
+        # (whole) contribution
+        out[meta.bias_key] = cb if counted else _ee("b,bto->o", w, g)
     return _fused_marker(n, meta, "pallas"), out
 
 
@@ -419,19 +451,28 @@ def scale_pe_grad(meta: LayerMeta, cap, dy, gshape):
 
 
 def model_partial_sum(pe: dict, meta: LayerMeta) -> dict:
-    """The per-example gradient of a ``model_partial`` scale layer
-    (``LayerMeta.static``), partial on each rank (the rank's heads
-    only), summed over the active model group: whole on every rank, so
-    the group counts as replicated (its norm never summed again, its
+    """The per-example gradient of a ``model_partial`` layer's replicated
+    leaves (``LayerMeta.static``: a scale layer's, a ``local_vjp``
+    layer's named leaves), partial on each rank (the rank's heads only),
+    summed over the active model group: whole on every rank, so such a
+    leaf counts as replicated (its norm never summed again unless its
+    group is sliced, and then counted on model rank 0 only; its
     contribution kept local).  The sum is made each time a norm or a
-    contribution reads the gradient (twice a step under crb and bk, a
-    (B, hd) all-reduce each, counted in ``COLL_STATS``).  Each leaf is
-    marked ``partial_pe`` first, which the verifier's model half reads."""
+    contribution reads the gradient (twice a step under crb and bk, one
+    all-reduce of the layer's leaves side by side each, counted in
+    ``COLL_STATS``).  Each leaf is marked ``partial_pe`` first, which the
+    verifier's model half reads."""
     from repro_torch.launch import sharding
     group = sharding.active().group
     key = "/".join(map(str, meta.path))
-    return {k: sharding.all_reduce(tag(v, kind="partial_pe", group=key),
-                                   group) for k, v in pe.items()}
+    ks = list(pe)
+    flat = [tag(pe[k], kind="partial_pe", group=key).reshape(
+        pe[k].shape[0], -1) for k in ks]
+    # one all-reduce for every leaf of the layer (Mamba2's three ssd
+    # vectors), each leaf a run of columns
+    summed = sharding.all_reduce(torch.cat(flat, dim=1), group).split(
+        [f.shape[1] for f in flat], dim=1)
+    return {k: t.reshape(pe[k].shape) for k, t in zip(ks, summed)}
 
 
 def scale_norm_sq(meta: LayerMeta, cap, dy, gshape):
@@ -678,11 +719,26 @@ def attn_contrib(meta: LayerMeta, cap, dy, w, params_sub):
 # with ``params_sub`` shared.  It runs after the capture backward, outside
 # any ``torch.utils.checkpoint``, so the saved-tensor hooks that
 # ``torch.func`` refuses (fault F4) never meet it.
+#
+# On a model axis a local_vjp layer runs on the rank's heads, and ``fn``
+# stays rank-local (no collective under vmap).  Its leaves are counted
+# thus: a sliced leaf (sLSTM's R, sliced on heads) gives the rank's
+# slice of the per-example gradient, its norm² partial; a replicated
+# leaf that ``fn`` reads for the rank's heads only (``static
+# ["model_partial"]``: Mamba2's ``ssd`` params, sLSTM's gate bias ``b``
+# at the rank's channels) gives a partial gradient, zero off those heads,
+# which ``model_partial_sum`` sums over ``model`` each time a norm or a
+# contribution reads it, and which is then whole.  A wholly replicated
+# group (``ssd``) so has a whole norm on every rank, never summed again;
+# a mixed one (``rec``: R beside b) is a sliced group, whose partial
+# norm² takes R's slice on every rank and the whole b on model rank 0
+# only (``group_sumsq``), summed over ``model`` once.
 
 
 def local_vjp_pe_grad(meta: LayerMeta, cap, dy, params_sub):
     """(B, *param) per-example grads of ``params_sub``: δy is cast to the
-    layer output's dtype before the VJP, as the JAX package does."""
+    layer output's dtype before the VJP, as the JAX package does; the
+    ``model_partial`` leaves' summed over ``model``."""
     if meta.fn is None:
         raise ValueError(
             f"local_vjp layer {'/'.join(map(str, meta.path))} has no fn "
@@ -698,11 +754,16 @@ def local_vjp_pe_grad(meta: LayerMeta, cap, dy, params_sub):
         return g
 
     with torch.enable_grad():
-        return torch.func.vmap(one)(cap["inputs"], dy)
+        pe = torch.func.vmap(one)(cap["inputs"], dy)
+    keys = meta.static.get("model_partial")
+    if not keys:
+        return pe
+    return {**pe, **model_partial_sum({k: pe[k] for k in keys}, meta)}
 
 
 def local_vjp_norm_sq(meta: LayerMeta, cap, dy, params_sub):
-    return _realized(_sumsq(local_vjp_pe_grad(meta, cap, dy, params_sub)),
+    return _realized(group_sumsq(local_vjp_pe_grad(meta, cap, dy,
+                                                   params_sub), meta.path),
                      meta, "vjp")
 
 
@@ -765,7 +826,7 @@ def apply_kind(op: str, meta: LayerMeta, cap, dy, *, params_sub=None,
         # (exact cross terms), then take norms.
         pe = apply_kind("pe_grad", meta, cap, dy, params_sub=params_sub,
                         conv_impl=conv_impl)
-        return _realized(_sumsq(pe), meta, "pe")
+        return _realized(group_sumsq(pe, meta.path), meta, "pe")
     if not meta.scanned:
         return _apply_flat(op, meta, cap, dy, params_sub=params_sub,
                            weights=weights, **kw)

@@ -31,8 +31,11 @@ On a model axis (the strategies run under ``launch.sharding.
 model_parallel``) every sliced parameter group's per-example norm² is
 partial, and is summed over ``model`` exactly once, before any clip
 coefficient (:func:`model_summed`, :func:`pe_norms_sq`); a replicated
-group's norm is whole on every rank and never summed.  The clipped
-contributions stay this rank's slices.
+group's norm is whole on every rank and never summed.  A sliced group's
+replicated leaves (a bias added after the sum, sLSTM's gate bias) are
+whole on every rank and enter the partial norm² on model rank 0 only
+(``kinds.group_sumsq``).  The clipped contributions stay this rank's
+slices.
 
 ``apply_fn(params, batch, tapper) -> (B,) per-example losses`` is the only
 contract a model must satisfy.  Execution counts (forwards / backwards)
@@ -236,8 +239,8 @@ def group_norms_from_captures(params, caps, dtaps, metas, *,
                 names, metas, caps, dtaps, psub,
                 lambda n: kw[metas[n].kind]), path, "tied"))
             continue
-        norms.append(_tagged(kinds._sumsq(_summed_pe(
-            names, metas, caps, dtaps, psub, conv_impl)), path, "pe"))
+        norms.append(_tagged(kinds.group_sumsq(_summed_pe(
+            names, metas, caps, dtaps, psub, conv_impl), path), path, "pe"))
     if not norms:
         raise ValueError("no tapped layers")
     return tuple(keys), torch.stack(model_summed(
@@ -480,7 +483,8 @@ def _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
             pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
                                   params_sub=psub, conv_impl=conv_impl)
             stash[n] = pe
-            return _group_norm_tag(kinds._sumsq(pe), g, "stash")
+            return _group_norm_tag(kinds.group_sumsq(pe, g.path), g,
+                                   "stash")
         return _group_norm_tag(kinds.apply_kind(
             "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
             conv_impl=conv_impl, **_norm_kwargs(lp)), g, lp.norm_method)
@@ -492,7 +496,7 @@ def _planned_group_norm(g, plan, metas, caps, dtaps, params, conv_impl,
     pe_sum = _summed_pe(g.members, metas, caps, dtaps, psub, conv_impl)
     if g.sum_method == "stash":
         stash[g.path] = pe_sum
-    return _group_norm_tag(kinds._sumsq(pe_sum), g, "pe")
+    return _group_norm_tag(kinds.group_sumsq(pe_sum, g.path), g, "pe")
 
 
 def _weighted_stash_sum(pe, w):
@@ -520,7 +524,7 @@ def _stale_group_norm_contrib(g, plan, metas, caps, dtaps, params, coef,
         pe_sum = _summed_pe(g.members, metas, caps, dtaps, psub, conv_impl)
         _accumulate_param_grads(acc, g.path,
                                 _weighted_stash_sum(pe_sum, coef))
-        return _group_norm_tag(kinds._sumsq(pe_sum), g, "pe")
+        return _group_norm_tag(kinds.group_sumsq(pe_sum, g.path), g, "pe")
     n = g.members[0]
     lp, meta = plan.layers[n], metas[n]
     if lp.fused and fused_ok:
@@ -533,7 +537,7 @@ def _stale_group_norm_contrib(g, plan, metas, caps, dtaps, params, coef,
         pe = kinds.apply_kind("pe_grad", meta, caps[n], dtaps[n],
                               params_sub=psub, conv_impl=conv_impl)
         _accumulate_param_grads(acc, g.path, _weighted_stash_sum(pe, coef))
-        return _group_norm_tag(kinds._sumsq(pe), g, "stash")
+        return _group_norm_tag(kinds.group_sumsq(pe, g.path), g, "stash")
     n_g = kinds.apply_kind(
         "norm_sq", meta, caps[n], dtaps[n], params_sub=psub,
         conv_impl=conv_impl, **_norm_kwargs(lp))

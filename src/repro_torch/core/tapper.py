@@ -119,8 +119,10 @@ class LayerMeta:
         with a replicated parameter, qk-norm's query scale on sliced
         heads: its per-example gradient here is partial, and the kind
         sums it over the model group each time a norm or a contribution
-        reads it.  Set only on a live model axis, so never by a probe:
-        plans see a replicated group).
+        reads it; on a "local_vjp" layer the tuple of the replicated
+        leaves its ``fn`` reads for the rank's heads only, Mamba2's
+        ``ssd`` params, sLSTM's gate bias.  Set only on a live model
+        axis, so never by a probe: plans see a replicated group).
       fn: for "attn": the block's rebuild closure
         ``fn(tapper, params_sub, x) -> y``, which the kind runs again to
         recover each projection's captures and cotangents; for
@@ -220,10 +222,15 @@ class Tapper:
 
     # -- layer helpers ----------------------------------------------------
     def dense(self, name: str, x, w, b=None, *, w_transposed: bool = False,
-              param_key: str = "w"):
-        """Tapped dense layer ``y = x @ W (+ b)``."""
+              param_key: str = "w", bias_after_sum: bool = False):
+        """Tapped dense layer ``y = x @ W (+ b)``.  ``bias_after_sum``: a
+        row-sharded layer whose replicated bias ``b`` the caller adds once,
+        after the sum over ``model``: the tapped output is the partial
+        product without it, whose cotangent is the whole one, and the
+        meta keeps ``bias_key`` (the bias's per-example gradient, the
+        cotangent summed over positions, is whole on every rank)."""
         y = torch.matmul(x, w.T if w_transposed else w)
-        if b is not None:
+        if b is not None and not bias_after_sum:
             y = y + b
         path, shared = _parse_name(name)
         meta = LayerMeta("dense", path, param_key=param_key,
@@ -302,13 +309,28 @@ class Tapper:
                     "kernel_shape": tuple(w.shape)})
         return self.tap(name, y, {"x": x}, meta)
 
-    def local_vjp(self, name: str, fn: Callable, params_sub, *inputs):
+    def local_vjp(self, name: str, fn: Callable, params_sub, *inputs,
+                  model_partial=()):
         """Tapped generic layer ``y = fn(params_sub, *inputs)`` (pure;
         every input has a leading B): its per-example grads come from the
-        layer-local VJP under ``torch.func.vmap`` (``kinds``)."""
+        layer-local VJP under ``torch.func.vmap`` (``kinds``).
+        ``model_partial``: the keys of ``params_sub`` (``True``: all)
+        that are replicated and that ``fn`` reads for this rank's slice of
+        a sharded activation only (its heads, its channels): each enters
+        through ``copy_to_model(param=True)``, and ``LayerMeta.static``
+        names them, whose per-example gradient the kind sums over
+        ``model``.  ``fn`` itself stays rank-local: the kind runs it
+        under ``vmap``, which the collectives do not take."""
+        keys = tuple(params_sub) if model_partial is True \
+            else tuple(model_partial)
+        if keys:
+            from repro_torch.launch import sharding
+            params_sub = {k: sharding.copy_to_model(v, param=True)
+                          if k in keys else v for k, v in params_sub.items()}
         y = fn(params_sub, *inputs)
         path, shared = _parse_name(name)
-        meta = LayerMeta("local_vjp", path, shared=shared, fn=fn)
+        meta = LayerMeta("local_vjp", path, shared=shared, fn=fn,
+                         static={"model_partial": keys} if keys else {})
         return self.tap(name, y, {"inputs": tuple(inputs)}, meta)
 
 

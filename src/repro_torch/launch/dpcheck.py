@@ -27,9 +27,9 @@ a single step*:
 
 Exit status is 1 if any lane reports an error (or, with
 ``--fail-on-warn``, a warning), so a CI job wired to this module is a
-hard gate.  On a model axis the enc-dec and recurrent families,
-qk-norm on sliced heads and block taps (``--dp-attn``) raise
-``NotImplementedError`` (ROADMAP.md item 14 part 3).  Every arch of
+hard gate.  On a model axis block taps (``--dp-attn``) raise
+``NotImplementedError`` (ROADMAP.md item 14 part 3); every other family,
+the enc-dec and recurrent ones included, runs tensor-sharded.  Every arch of
 ``configs.PAPER_IDS`` and ``configs.SERVED_LM`` runs, reduced.  The MoE
 archs' gather dispatch has global capacity (the
 examples' tokens compete for one expert's slots), and their lanes fail

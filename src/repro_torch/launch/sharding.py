@@ -31,6 +31,14 @@ the identity):
     consumer that needs the full input; the backward takes the rank's
     slice of the cotangent (a replicated consumer) or reduce-scatters it
     (``sharded_consumer=True``: a column-sharded one);
+  * :func:`reduce_scatter_from_model` — a row-sharded layer's partial
+    output summed over ``model``, keeping the rank's slice (its heads);
+    the backward gathers the cotangent, which the partial product takes
+    whole;
+  * :func:`sum_over_model` — a partial statistic of a sliced activation
+    (an RMSNorm's sum of squares over a sliced width) summed over
+    ``model`` for the rank's slice: its cotangent, partial too, summed
+    again in the backward;
   * :func:`parallel_xent` — cross entropy over vocabulary-sharded
     logits (max, sum of exponentials and target logit summed over
     ``model``; the logits are never gathered).
@@ -40,13 +48,22 @@ the data group the same way (:func:`data_parallel`): the MoE dispatch's
 global capacity sums each data rank's per-expert entry counts.
 
 Every one is a sum all-reduce of the model group (the gathers sum
-zero-padded slices, exact; the reduce-scatter all-reduces and keeps
-the slice): one ``_c10d_functional.all_reduce`` node a move, in a
-fixed order, which the verifier's model half reads, and the one
-collective gloo runs on CUDA tensors.  A gather or a reduce-scatter so
-moves the full tensor, about twice a ring all-gather's or
-reduce-scatter's bytes; ``all_gather_tensor`` / ``reduce_scatter_tensor``
-under NCCL, read by the verifier, are ROADMAP.md item 14 part 3.
+zero-padded slices, exact; the reduce-scatters all-reduce and keep the
+slice): one ``_c10d_functional.all_reduce`` node a move, in a fixed
+order, which the verifier's model half reads, and the one collective
+gloo runs on CUDA tensors.  A gather or a reduce-scatter so moves the
+full tensor, about twice a ring all-gather's or reduce-scatter's
+bytes; ``all_gather_tensor`` / ``reduce_scatter_tensor`` under NCCL,
+FSDP's rules on a live mesh and the moves' prices in the plan are
+ROADMAP.md item 14 part 3.
+
+A param group (a layer's param dict) may mix sliced and replicated
+leaves: a row-sharded layer's bias added once after the sum over
+``model`` (xLSTM's ``wif``), sLSTM's gate bias ``b`` beside its
+head-sliced ``R``.  Such a group is sliced: its norm² on a rank is
+partial and summed over ``model`` once.  Its replicated leaves'
+per-example gradients are whole on every rank, and model rank 0 alone
+counts them in that partial (:meth:`ModelShard.counts`).
 :data:`COLL_STATS` counts the calls and bytes by axis and, when
 ``timing`` is on, the host time.
 """
@@ -225,18 +242,22 @@ class ModelShard:
 
     def sharded_path(self, path: tuple) -> bool:
         """Whether the param group at ``path`` (a layer's param dict, or
-        one leaf) is sliced over the model axis.  A group must be wholly
-        sliced or wholly replicated: a row-sharded layer with a
-        replicated bias is not executed yet."""
+        one leaf) is sliced over the model axis: any leaf of it is."""
         sub = get_subtree(self.specs, path)
-        flags = ({is_sharded(get_subtree(sub, p)) for p in leaf_paths(sub)}
-                 if isinstance(sub, dict) else {is_sharded(sub)})
-        if len(flags) > 1:
-            raise NotImplementedError(
-                f"param group {'/'.join(map(str, path))} mixes sliced and "
-                f"replicated leaves (a row-sharded layer with a bias); "
-                f"{DEFERRED}")
-        return flags == {True}
+        if isinstance(sub, dict):
+            return any(is_sharded(get_subtree(sub, p))
+                       for p in leaf_paths(sub))
+        return is_sharded(sub)
+
+    def counts(self, path: tuple, key: tuple) -> bool:
+        """Whether this rank counts leaf ``key`` (a path inside the group)
+        of the group at ``path`` in the group's norm²: every leaf of a
+        replicated group and every sliced leaf, on each rank; a
+        replicated leaf of a sliced group, whose per-example gradient is
+        whole on every rank, on model rank 0 only, so that the group's
+        one sum over ``model`` counts it once."""
+        return (self.rank == 0 or not self.sharded_path(path)
+                or self.sharded_path(tuple(path) + tuple(key)))
 
     def run(self, n: int) -> tuple:
         """``[lo, hi)``: this rank's contiguous run of ``n`` rows sliced
@@ -354,6 +375,14 @@ def _own(t, dim: int, ms: ModelShard):
     return t.narrow(dim, ms.rank * n, n)
 
 
+def own(t, dim: int):
+    """This rank's contiguous slice along ``dim`` of a tensor whole on
+    every rank of the active model group (a view; ``t`` itself without
+    one)."""
+    ms = active()
+    return t if ms is None else _own(t, dim % t.ndim, ms)
+
+
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(x, ms, param):
@@ -401,6 +430,35 @@ class _Gather(torch.autograd.Function):
         return _own(g, ctx.dim, ctx.ms).contiguous(), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dim, ms):
+        return _own(all_reduce(x, ms.group), dim, ms).contiguous()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.dim, ctx.ms = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_pad_slice(g, ctx.dim, ctx.ms), ctx.ms.group), \
+            None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ms):
+        return all_reduce(x, ms.group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ms = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ms.group), None
+
+
 def copy_to_model(x, *, param: bool = False):
     """Identity forward; the cotangent summed over ``model`` backward.
     ``param``: ``x`` is a replicated parameter read by this rank's slice
@@ -418,6 +476,28 @@ def reduce_from_model(x):
     """Summed over ``model`` forward; identity backward."""
     ms = active()
     return x if ms is None else _Reduce.apply(x, ms)
+
+
+def reduce_scatter_from_model(x, dim: int):
+    """A row-sharded layer's partial output ``x`` (whole extent) summed
+    over ``model``, and this rank's contiguous slice along ``dim`` kept
+    (the heads its recurrence runs on).  Backward: the slice's cotangent
+    zero-padded and summed over ``model``, a gather: the partial product
+    feeds every rank's slice, so its cotangent is the whole one (an
+    identity backward would hand the layer its own heads' only)."""
+    ms = active()
+    if ms is None:
+        return x
+    return _Scatter.apply(x, dim % x.ndim, ms)
+
+
+def sum_over_model(x):
+    """A partial statistic of this rank's slice of an activation (an
+    RMSNorm's f32 sum of squares over a sliced width) summed over
+    ``model``.  Its consumers are the rank's slices, so its cotangent is
+    partial too and is summed again in the backward."""
+    ms = active()
+    return x if ms is None else _SumBoth.apply(x, ms)
 
 
 def gather_from_model(x, dim: int, *, sharded_consumer: bool = False):

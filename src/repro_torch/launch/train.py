@@ -49,9 +49,11 @@ Resume follows the JAX CLI: an explicit ``--mesh`` wins; otherwise the
 checkpoint's mesh is collapsed onto the live world size
 (``runtime.elastic_mesh_axes``) and re-planned, and a fingerprint that
 differs only by the mesh is accepted (re-keyed under the checkpoint's
-mesh); the ledger and the ``(run_seed, step)`` noise stream continue.  A
-mesh with a model axis raises ``NotImplementedError`` (ROADMAP.md item
-14 part 2).
+mesh); the ledger and the ``(run_seed, step)`` noise stream continue.  On
+a mesh with a model axis (``--mesh data:2,model:2``) the step runs
+tensor-sharded, the params sliced by their logical axes; what the axis
+leaves out (block taps beside sliced heads, FSDP) raises
+``NotImplementedError`` naming ROADMAP.md item 14 part 3.
 The last line printed is a JSON summary (losses, per-step ms, the part
 of it spent making the batch on the host and copying it over,
 checkpoint save ms and bytes, re-plans).

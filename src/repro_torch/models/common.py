@@ -73,9 +73,18 @@ def stack_layers(gen: torch.Generator, n: int, layer_init):
 # Norms (affine parts are tapped so their per-example grads are covered)
 
 
-def rmsnorm(tp: Tapper, name: str, p, x, eps: float = 1e-6):
+def rmsnorm(tp: Tapper, name: str, p, x, eps: float = 1e-6, *,
+            width: int | None = None):
+    """``width``: the whole normalized width, when ``x`` may arrive as
+    this rank's slice of it (sliced with its scale ``g``): the f32 sum
+    of squares is summed over ``model`` before the ``rsqrt``, so each
+    rank normalizes its slice by the one-device statistic."""
     xf = x.to(F32)
-    nx = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if width is not None and sh.split(x.shape[-1], width):
+        ss = sh.sum_over_model((xf * xf).sum(-1, keepdim=True))
+        nx = xf * torch.rsqrt(ss / width + eps)
+    else:
+        nx = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     nx = nx.to(x.dtype)
     if p is None:
         return nx

@@ -28,15 +28,18 @@ and the head — with tied embeddings the head is the transposed table,
 tapped as ``"~tok_emb"`` so the two uses of one parameter form one group.
 Params and tap names are the JAX package's.
 
-On a model axis (``launch.sharding``) the dense and MoE families run
+On a model axis (``launch.sharding``) every family trains
 tensor-sharded: the vocabulary-sharded ``tok_emb`` (looked up in each
 rank's shard and summed over ``model``), head-sharded attention (GQA,
-and MLA beside its replicated latent path), ``d_ff``-sharded MLPs,
-expert-sharded MoE layers (``models/moe.py``), and a vocabulary-sharded
-head (tied or not) whose logits feed the vocabulary-parallel cross
-entropy, never gathered.  Every rank of a model slot routes alike, so
-the per-example load-balance loss is whole on each and added once.
-The enc-dec and recurrent families there are ROADMAP.md item 14 part 3.
+qk-norm, and MLA beside its replicated latent path), ``d_ff``-sharded
+MLPs, expert-sharded MoE layers (``models/moe.py``), the recurrent
+blocks on the rank's heads (``models/ssm.py``; Zamba2's shared block
+head-sharded like a dense block), and a vocabulary-sharded head (tied
+or not) whose logits feed the vocabulary-parallel cross entropy, never
+gathered.  Every rank of a model slot routes alike, so the per-example
+load-balance loss is whole on each and added once.  The enc-dec family
+is ``models/encdec.py``'s.  Serving beside sliced heads (a KV, latent or
+recurrent cache) is ROADMAP.md item 14 part 3.
 
 Serving (``init_cache``, ``prefill``, ``decode_step``) takes the same
 params and runs the blocks as a Python loop over the stack, under
@@ -244,9 +247,6 @@ class TransformerLM:
 
     def _recurrent_train(self, params, h, tp: Tapper):
         c = self.cfg
-        if sh.active() is not None:
-            raise NotImplementedError(
-                f"the {c.family} family on a model axis is {sh.DEFERRED}")
         kw = self._ssm_kw()
         lb0 = torch.zeros((h.shape[0],), dtype=torch.float32,
                           device=h.device)
@@ -284,7 +284,7 @@ class TransformerLM:
             z = cm.apply_norm(stp, "~shared/ln2", shared.get("ln2"), hh,
                               c.norm)
             return hh + mlp_apply(stp, "~shared/mlp", shared["mlp"], z,
-                                  c.mlp), carry[1]
+                                  c.mlp, d_ff=c.d_ff), carry[1]
         return scan_with_taps(tp, "blocks", body, (h, lb0), params["blocks"],
                               remat=c.remat, shared_params=params["shared"])
 
@@ -399,6 +399,11 @@ class TransformerLM:
 
     def _recurrent_step(self, params_l, cache_l, h, pos, shared):
         c = self.cfg
+        if sh.active() is not None:
+            raise NotImplementedError(
+                f"serving the {c.family} family on a model axis (a "
+                f"recurrent state, and Zamba2's ring KV cache, beside "
+                f"sliced heads) is {sh.DEFERRED}")
         kw = self._ssm_kw()
         x = h[:, 0]
 

@@ -19,18 +19,35 @@ and each per-step input is one ``unbind`` over time, whose backward is
 one ``stack``: an index a step would write a full-size zero gradient
 and add it up, a step at a time.
 
+On a model axis (``launch.sharding``) each block runs its recurrence on
+the rank's heads, with every collective outside the time loop: the
+column-sharded input projections (mLSTM's ``up``, sLSTM's ``wx``,
+Mamba2's ``in_proj``) are gathered whole, each rank takes its channels
+of the pieces they split into, the row-sharded ``wq`` / ``wk`` / ``wv`` /
+``wif`` partial products are reduce-scattered to the rank's heads (with
+``wif``'s replicated bias added once, after the sum), the RMSNorms over
+a sliced width sum their sums of squares over ``model``, and the
+row-sharded output projections are summed over ``model``.  The
+replicated params a recurrence reads for the rank's heads only
+(Mamba2's ``ssd``, sLSTM's gate bias) are ``model_partial`` leaves of
+their ``local_vjp`` tap; sLSTM's ``R`` is sliced on heads.  A model
+degree that does not divide the heads raises naming ROADMAP.md item 14
+part 3.
+
 Decode paths (``*_step``) carry explicit recurrent state and need no taps.
 Params, init shapes, dtypes and logical axes are the JAX package's
 (``repro.models.ssm``), so its parameters load unchanged.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tapper import Tapper
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
@@ -58,6 +75,35 @@ def _causal_depthwise(tp: Tapper, name: str, p_conv, x, d_conv: int):
     ci = F.pad(x.transpose(1, 2), (d_conv - 1, 0))          # (B, C, T+K-1)
     co = tp.conv(name, ci, p_conv["w"], p_conv["b"], groups=x.shape[-1])
     return co.transpose(1, 2)
+
+
+def _heads_cut(name: str, n_heads: int, *pairs) -> bool:
+    """Whether the block runs sliced over the active model group: each
+    ``(local, full)`` pair of its params' sliced dimensions arrived
+    sliced.  A degree that does not divide ``n_heads``, or params sliced
+    in part (the spec rules keep a dimension they do not divide
+    replicated), raise naming the deferred item."""
+    ms = sh.active()
+    if ms is None:
+        return False
+    if n_heads % ms.size:
+        raise NotImplementedError(
+            f"{name}: {n_heads} heads on a model axis of {ms.size} (a "
+            f"degree that does not divide the heads) is {sh.DEFERRED}")
+    cuts = {sh.split(local, full) for local, full in pairs}
+    if len(cuts) > 1:
+        raise NotImplementedError(
+            f"{name}: params sliced over model in part (shapes "
+            f"{pairs}) are {sh.DEFERRED}")
+    return cuts == {True}
+
+
+def _narrowed(fn, cuts: dict, params, *inputs):
+    """``fn`` on ``params`` with each leaf named in ``cuts`` narrowed to
+    ``(dim, start, length)`` first: a recurrence reading a replicated
+    leaf for the rank's heads only (rank-local, so ``vmap`` takes it)."""
+    return fn({k: v.narrow(*cuts[k]) if k in cuts else v
+               for k, v in params.items()}, *inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +158,11 @@ def mamba2_apply(tp: Tapper, name: str, p, x, *, d_state, expand=2,
     B, T, D = x.shape
     di = expand * D
     nh = di // HEADDIM
+    if _heads_cut(name, nh, (p["in_proj"]["w"].shape[-1],
+                             2 * di + 2 * d_state + nh),
+                  (p["conv"]["b"].shape[0], di + 2 * d_state),
+                  (p["out_proj"]["w"].shape[0], di)):
+        return _mamba2_sliced(tp, name, p, x, d_state=d_state, d_conv=d_conv)
     zxbcdt = tp.dense(f"{name}/in_proj", x, p["in_proj"]["w"])
     z, xc, Bm, Cm, dt_raw = torch.split(
         zxbcdt, [di, di, d_state, d_state, nh], dim=-1)
@@ -124,6 +175,39 @@ def mamba2_apply(tp: Tapper, name: str, p, x, *, d_state, expand=2,
     y = y.reshape(B, T, di)
     y = cm.rmsnorm(tp, f"{name}/norm", p["norm"], y * F.silu(z))
     return tp.dense(f"{name}/out_proj", y, p["out_proj"]["w"])
+
+
+def _mamba2_sliced(tp: Tapper, name: str, p, x, *, d_state, d_conv):
+    """:func:`mamba2_apply` on this rank's SSD heads.  ``in_proj``'s
+    column slice is gathered; the conv runs on the rank's contiguous
+    slice of the (xc, B, C) channels, which need not fall on a head
+    boundary (Zamba2-2.7B at model:2: 2624 of 5248 channels beside 40
+    heads of 64, 2560 channels), and its output is gathered too; the
+    scan takes the rank's heads of xc and dt with the whole B and C, and
+    the replicated ``ssd`` params at those heads."""
+    ms = sh.active()
+    B, T, _ = x.shape
+    di = p["out_proj"]["w"].shape[0] * ms.size
+    nh = di // HEADDIM
+    h0, h1 = ms.run(nh)
+    zxbcdt = sh.gather_from_model(
+        tp.dense(f"{name}/in_proj", sh.copy_to_model(x), p["in_proj"]["w"]),
+        -1, sharded_consumer=True)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * d_state, nh], dim=-1)
+    co = F.silu(_causal_depthwise(tp, f"{name}/conv", p["conv"],
+                                  sh.own(xbc, -1), d_conv))
+    co = sh.gather_from_model(co, -1, sharded_consumer=True)
+    xc, Bm, Cm = torch.split(co, [di, d_state, d_state], dim=-1)
+    xh = sh.own(xc, -1).reshape(B, T, h1 - h0, HEADDIM)
+    fn = functools.partial(_narrowed, _ssd_scan,
+                           {k: (0, h0, h1 - h0) for k in p["ssd"]})
+    y = tp.local_vjp(f"{name}/ssd", fn, p["ssd"], xh, Bm, Cm,
+                     sh.own(dt_raw, -1), model_partial=True)
+    y = y.reshape(B, T, (h1 - h0) * HEADDIM)
+    y = cm.rmsnorm(tp, f"{name}/norm", p["norm"], y * F.silu(sh.own(z, -1)),
+                   width=di)
+    return sh.reduce_from_model(
+        tp.dense(f"{name}/out_proj", y, p["out_proj"]["w"]))
 
 
 def mamba2_state(batch, d_model, *, d_state, expand=2, d_conv=4, dtype=F32,
@@ -230,6 +314,11 @@ def mlstm_apply(tp: Tapper, name: str, p, x, *, expand=2, d_conv=4,
     B, T, D = x.shape
     di = expand * D
     hd = di // n_heads
+    if _heads_cut(name, n_heads, (p["up"]["w"].shape[-1], 2 * di),
+                  (p["wq"]["w"].shape[0], di), (p["wif"]["w"].shape[0], di),
+                  (p["down"]["w"].shape[0], di)):
+        return _mlstm_sliced(tp, name, p, x, di=di, d_conv=d_conv,
+                             n_heads=n_heads)
     up = tp.dense(f"{name}/up", x, p["up"]["w"])
     xin, z = torch.chunk(up, 2, dim=-1)
     xc = F.silu(_causal_depthwise(tp, f"{name}/conv", p["conv"], xin,
@@ -243,6 +332,49 @@ def mlstm_apply(tp: Tapper, name: str, p, x, *, expand=2, d_conv=4,
     h = _mlstm_scan(q, k, v, i_pre, f_pre).reshape(B, T, di).to(x.dtype)
     h = cm.rmsnorm(tp, f"{name}/norm", p["norm"], h) * F.silu(z)
     return tp.dense(f"{name}/down", h, p["down"]["w"])
+
+
+def _mlstm_sliced(tp: Tapper, name: str, p, x, *, di, d_conv, n_heads):
+    """:func:`mlstm_apply` on this rank's heads, which are its
+    contiguous ``di/M`` channels of ``xin`` and of the conv output.
+    ``up``'s column slice is gathered (at M = 2 rank 0 holds all of
+    ``xin``, rank 1 all of ``z``); the row-sharded ``wq`` / ``wk`` /
+    ``wv`` / ``wif`` partial products are reduce-scattered to the rank's
+    heads, ``wif``'s replicated bias added once after the sum."""
+    ms = sh.active()
+    B, T, _ = x.shape
+    hd = di // n_heads
+    H = n_heads // ms.size
+    up = sh.gather_from_model(
+        tp.dense(f"{name}/up", sh.copy_to_model(x), p["up"]["w"]), -1,
+        sharded_consumer=True)
+    xin, z = (sh.own(t, -1) for t in torch.chunk(up, 2, dim=-1))
+    xc = F.silu(_causal_depthwise(tp, f"{name}/conv", p["conv"], xin,
+                                  d_conv))
+
+    def heads(n, inp):
+        y = tp.dense(f"{name}/{n}", inp, p[n]["w"])
+        return sh.reduce_scatter_from_model(y, -1).reshape(B, T, H, hd)
+    q = heads("wq", xc)
+    k = heads("wk", xc) / math.sqrt(hd)
+    v = heads("wv", xin)
+    i_pre, f_pre = _wif_gates(tp, name, p, xin, n_heads)
+    h = _mlstm_scan(q, k, v, i_pre, f_pre).reshape(B, T, H * hd) \
+        .to(x.dtype)
+    h = cm.rmsnorm(tp, f"{name}/norm", p["norm"], h, width=di) * F.silu(z)
+    return sh.reduce_from_model(tp.dense(f"{name}/down", h, p["down"]["w"]))
+
+
+def _wif_gates(tp: Tapper, name: str, p, xin, n_heads: int):
+    """The rank's heads' input and forget gate pre-activations: ``wif``'s
+    row-sharded partial product reduce-scattered to the heads, and its
+    replicated bias added once, after the sum."""
+    B, T, _ = xin.shape
+    g = tp.dense(f"{name}/wif", xin, p["wif"]["w"], p["wif"]["b"],
+                 bias_after_sum=True)
+    g = sh.reduce_scatter_from_model(g.reshape(B, T, 2, n_heads), -1)
+    b = sh.copy_to_model(p["wif"]["b"], param=True).reshape(2, n_heads)
+    return (g + sh.own(b, -1)).unbind(2)
 
 
 def mlstm_state(batch, d_model, *, expand=2, d_conv=4, n_heads=4,
@@ -297,8 +429,7 @@ def slstm_init(gen: torch.Generator, d_model, *, n_heads=4, dtype=F32,
                 "b": cm.mk(gen, (4, d_model), (None, "embed"), dist="zeros",
                            **f32)},
         "norm": {"g": cm.mk(gen, (d_model,), ("embed",), dist="ones", **kw)},
-        "ffn": mlp_init(gen, d_model, int(d_model * 4 / 3) // 8 * 8,
-                        "swiglu", **kw),
+        "ffn": mlp_init(gen, d_model, _slstm_ff(d_model), "swiglu", **kw),
     }
 
 
@@ -338,10 +469,37 @@ def _slstm_scan(params, gx):
 
 def slstm_apply(tp: Tapper, name: str, p, x, *, n_heads=4):
     B, T, D = x.shape
-    gx = tp.dense(f"{name}/wx", x, p["wx"]["w"]).reshape(B, T, 4, D)
-    h = tp.local_vjp(f"{name}/rec", _slstm_scan, p["rec"], gx)
+    if _heads_cut(name, n_heads, (p["wx"]["w"].shape[-1], 4 * D),
+                  (p["rec"]["R"].shape[1], n_heads)):
+        h = _slstm_sliced(tp, name, p, x)
+    else:
+        gx = tp.dense(f"{name}/wx", x, p["wx"]["w"]).reshape(B, T, 4, D)
+        h = tp.local_vjp(f"{name}/rec", _slstm_scan, p["rec"], gx)
     h = cm.rmsnorm(tp, f"{name}/norm", p["norm"], h)
-    return mlp_apply(tp, f"{name}/ffn", p["ffn"], h, "swiglu")
+    return mlp_apply(tp, f"{name}/ffn", p["ffn"], h, "swiglu",
+                     d_ff=_slstm_ff(D))
+
+
+def _slstm_ff(d_model: int) -> int:
+    return int(d_model * 4 / 3) // 8 * 8
+
+
+def _slstm_sliced(tp: Tapper, name: str, p, x):
+    """sLSTM's recurrence on this rank's heads -> h (B, T, D), gathered
+    whole for the replicated norm and the FFN.  ``wx``'s column slice is
+    gathered (at M = 2 rank 0 holds gates i and f, rank 1 z and o, for
+    every head), and the scan takes the rank's channels of all four
+    gates, its slice of ``R`` and the replicated ``b`` at its channels."""
+    ms = sh.active()
+    B, T, D = x.shape
+    gx = sh.gather_from_model(
+        tp.dense(f"{name}/wx", sh.copy_to_model(x), p["wx"]["w"]), -1,
+        sharded_consumer=True)
+    c0, c1 = ms.run(D)
+    gx = sh.own(gx.reshape(B, T, 4, D), -1)
+    fn = functools.partial(_narrowed, _slstm_scan, {"b": (1, c0, c1 - c0)})
+    h = tp.local_vjp(f"{name}/rec", fn, p["rec"], gx, model_partial=("b",))
+    return sh.gather_from_model(h, -1)
 
 
 def slstm_state(batch, d_model, dtype=F32, device="cpu"):

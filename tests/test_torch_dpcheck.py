@@ -52,12 +52,13 @@ def test_mesh_lanes_raise_naming_item_14():
     """``--mesh data:4,model:2`` runs the tensor-sharded lanes (item 14
     parts 2 and 3; ``tests/test_torch_model_axis.py``,
     ``tests/test_torch_moe_model_axis.py``,
-    ``tests/test_torch_attn_model_axis.py``); what it leaves out raises
-    naming item 14 part 3 — block taps beside sliced heads (DeepSeek-V3's
-    MLA and Chameleon's GQA with ``--dp-attn``), serving against a cache
-    there (MLA's latent cache, Chameleon's KV cache, Seamless's self and
-    cross caches), the recurrent (xLSTM, Zamba2) families — and so do the
-    FSDP rules on a live mesh."""
+    ``tests/test_torch_attn_model_axis.py``,
+    ``tests/test_torch_recurrent_model_axis.py``); what it leaves out
+    raises naming item 14 part 3 — block taps beside sliced heads
+    (DeepSeek-V3's MLA and Chameleon's GQA with ``--dp-attn``), serving
+    against a cache there (MLA's latent cache, Chameleon's KV cache,
+    Seamless's self and cross caches, xLSTM's and Zamba2's recurrent
+    states) — and so do the FSDP rules on a live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import fake_world, make_mesh_from_spec
     from repro_torch.launch.sharding import param_sharding
@@ -65,9 +66,7 @@ def test_mesh_lanes_raise_naming_item_14():
     import torch_shard_worker as sw
     for arch, what, extra in (
             ("deepseek-v3-671b", "MLA with block taps", ["--dp-attn"]),
-            ("chameleon-34b", "block taps", ["--dp-attn"]),
-            ("xlstm-125m", "ssm family", []),
-            ("zamba2-2.7b", "hybrid family", [])):
+            ("chameleon-34b", "block taps", ["--dp-attn"])):
         with pytest.raises(NotImplementedError,
                            match=f"{what}.*item 14 part 3"):
             dpcheck.main(["--archs", arch, "--mesh", "data:4,model:2",
@@ -83,10 +82,34 @@ def test_mesh_lanes_raise_naming_item_14():
         msg = sw.mla_cache_on_model_axis(mesh)
         kv = sw.prefill_on_model_axis(mesh, "chameleon-34b")
         cross = sw.prefill_on_model_axis(mesh, "seamless-m4t-large-v2")
+        serve = {arch: sw.prefill_on_model_axis(mesh, arch)
+                 for arch in sw.RECURRENT_SERVE.values()}
     assert "MLA with a latent cache" in msg and "item 14 part 3" in msg
     assert "a KV cache beside sliced heads" in kv and "item 14 part 3" in kv
     assert "self and cross caches beside sliced heads" in cross
     assert "item 14 part 3" in cross
+    for arch, family in zip(sw.RECURRENT_SERVE.values(), ("ssm", "hybrid")):
+        assert f"serving the {family} family on a model axis" in serve[arch]
+        assert "item 14 part 3" in serve[arch]
+
+
+def test_recurrent_archs_on_a_model_axis_give_the_one_device_verdict(
+        capsys):
+    """Reduced xLSTM-125M and Zamba2-2.7B run on ``data:2,model:2`` (item
+    14 part 3) and get their one-device verdict, PASS: no finding of the
+    model half (the ``local_vjp`` kind's partial per-example gradients
+    of ``ssd`` and sLSTM's gate bias summed over model once before their
+    norms; ``wif``'s and ``rec``'s mixed groups one norm sum each) and
+    none of the data half.  Their one-device lanes are
+    ``test_unserved_arch_raises_naming_item_12``'s."""
+    argv = ["--archs", "xlstm-125m", "zamba2-2.7b", "--mesh",
+            "data:2,model:2", "--clip-modes", "flat", "--seq", "8",
+            "--batch", "4"] + CPU
+    assert dpcheck.main(argv) == 0
+    out = capsys.readouterr().out
+    for arch in ("xlstm-125m", "zamba2-2.7b"):
+        assert f"PASS  {arch} clip=flat mesh=data:2,model:2" in out, out
+    assert "2/2 lanes clean" in out
 
 
 def test_attn_archs_on_a_model_axis_give_the_one_device_verdict(capsys):

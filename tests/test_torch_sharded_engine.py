@@ -661,18 +661,19 @@ def test_collective_calibration_over_the_group(runs):
 def test_indivisible_batch_and_model_axis_raise(runs):
     """An indivisible batch still raises.  A live model axis runs (item
     14 parts 2 and 3, ``tests/test_torch_model_axis.py``,
-    ``tests/test_torch_moe_model_axis.py`` and ``tests/
-    test_torch_attn_model_axis.py``); what it leaves out raises naming
-    item 14 part 3: block taps (MLA's, GQA's) beside sliced heads,
-    serving against a latent, KV or cross cache there, the recurrent
-    families, and ``fsdp=True``."""
+    ``tests/test_torch_moe_model_axis.py``, ``tests/
+    test_torch_attn_model_axis.py`` and ``tests/
+    test_torch_recurrent_model_axis.py``); what it leaves out raises
+    naming item 14 part 3: block taps (MLA's, GQA's) beside sliced
+    heads, serving against a latent, KV or cross cache or a recurrent
+    state there, and ``fsdp=True``."""
     r0 = runs[2][0]
     assert "not divisible" in r0["indivisible"]
     assert "degree 2" in r0["indivisible"]
     got = r0["model_axis"]
-    assert sorted(got) == sorted(sw.DEFERRED_ARCHS + tuple(
-        sw.DP_ATTN_ARCHS) + ("mla-cache", "gqa-cache", "cross-cache",
-                             "fsdp"))
+    assert sorted(got) == sorted(
+        tuple(sw.DP_ATTN_ARCHS) + tuple(sw.RECURRENT_SERVE)
+        + ("mla-cache", "gqa-cache", "cross-cache", "fsdp"))
     for case, msg in got.items():
         assert "item 14 part 3" in msg, (case, msg)
     assert "MLA with block taps (dp_attn)" in got["mla-dp_attn"]
@@ -681,6 +682,7 @@ def test_indivisible_batch_and_model_axis_raise(runs):
     assert "a KV cache beside sliced heads" in got["gqa-cache"]
     assert "self and cross caches beside sliced heads" in \
         got["cross-cache"]
-    assert "ssm family" in got["xlstm-125m"]
-    assert "hybrid family" in got["zamba2-2.7b"]
+    assert "serving the ssm family on a model axis" in got["ssm-serve"]
+    assert "serving the hybrid family on a model axis" in \
+        got["hybrid-serve"]
     assert "FSDP_PARAM_RULES" in got["fsdp"]

@@ -284,7 +284,9 @@ def lanes_2(rank, mesh, data, out_dir):
     return res
 
 
-DEFERRED_ARCHS = ("xlstm-125m", "zamba2-2.7b")
+# Serving the recurrent families beside sliced heads: a recurrent state
+# (and Zamba2's ring KV cache) there.
+RECURRENT_SERVE = {"ssm-serve": "xlstm-125m", "hybrid-serve": "zamba2-2.7b"}
 # Block taps (dp_attn) beside sliced heads: reduced DeepSeek-V3 (MLA) and
 # reduced Chameleon-34B (GQA with qk-norm).
 DP_ATTN_ARCHS = {"mla-dp_attn": "deepseek-v3-671b",
@@ -292,12 +294,13 @@ DP_ATTN_ARCHS = {"mla-dp_attn": "deepseek-v3-671b",
 
 
 def deferred_on_model_axis(mesh):
-    """{case: the NotImplementedError's message} of one private step of
-    each deferred family (reduced) on ``mesh``'s model axis, of reduced
-    DeepSeek-V3's and Chameleon's under block taps (``"mla-dp_attn"``,
-    ``"gqa-dp_attn"``), of serving against a cache there: MLA's latent
-    cache (``"mla-cache"``), Chameleon's KV cache (``"gqa-cache"``),
-    Seamless's self and cross caches (``"cross-cache"``), and of
+    """{case: the NotImplementedError's message} of one private step on
+    ``mesh``'s model axis of reduced DeepSeek-V3 and Chameleon under
+    block taps (``"mla-dp_attn"``, ``"gqa-dp_attn"``), of serving against
+    a cache there: MLA's latent cache (``"mla-cache"``), Chameleon's KV
+    cache (``"gqa-cache"``), Seamless's self and cross caches
+    (``"cross-cache"``), xLSTM's and Zamba2's recurrent states
+    (``"ssm-serve"``, ``"hybrid-serve"``), and of
     ``param_sharding(fsdp=True)`` on the live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
@@ -305,10 +308,8 @@ def deferred_on_model_axis(mesh):
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init
     out = {}
-    for arch in DEFERRED_ARCHS + tuple(DP_ATTN_ARCHS):
-        cfg = (get_config(DP_ATTN_ARCHS[arch]).reduced().replace(
-                   dp_attn=True) if arch in DP_ATTN_ARCHS
-               else get_config(arch).reduced())
+    for arch in DP_ATTN_ARCHS:
+        cfg = get_config(DP_ATTN_ARCHS[arch]).reduced().replace(dp_attn=True)
         model = build_model(cfg)
         p, axes = model.init(0, device="cpu")
         b = to_device(make_batch_fn(cfg, 2, 8)(0), "cpu")
@@ -325,6 +326,8 @@ def deferred_on_model_axis(mesh):
     out["gqa-cache"] = prefill_on_model_axis(mesh, "chameleon-34b")
     out["cross-cache"] = prefill_on_model_axis(mesh,
                                                "seamless-m4t-large-v2")
+    for case, arch in RECURRENT_SERVE.items():
+        out[case] = prefill_on_model_axis(mesh, arch)
     from repro_torch.launch.sharding import param_sharding
     try:
         param_sharding(axes, mesh, fsdp=True)
