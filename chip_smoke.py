@@ -167,7 +167,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``hybrid_main_path``: 6 Mamba2 layers and the shared attention + MLP
    block applied once, d_model 2560, bf16, remat; B = 4, T = 512) under
    bk (``gram_norm`` 20 a step) and ``auto`` flat; on each, in f32 at
-   full width on 2 examples at the lane's T, bk's group norms (the
+   full width on 2 examples at the lane's T (Zamba2's first 256 of its
+   512 tokens), bk's group norms (the
    ``local_vjp`` and the shared block's folded groups included) against
    ``naive``'s, each example alone and the two together
    (``recurrent_exactness``), and on Zamba2 bk's clipped sums with
@@ -274,13 +275,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    on ``model:2``, remat on; the same checks, an f32 gradient of each.
 13e. the recurrent families on a model axis (phase
    ``recurrent_model_axis_path``, its comment below): xLSTM-125M at full
-   width cut to 4 layers, bk and ``auto`` stale on ``model:2``, ``auto``
-   flat on ``data:2,model:2``; Zamba2-2.7B at full width cut to 1
-   super-block on 128 of its 512 tokens, bk on ``model:2``, ``auto`` flat
-   on ``data:2,model:2``; each recurrence on the rank's heads.  Ranks and
+   width cut to 4 layers on 64 of its 128 tokens, bk and ``auto`` stale
+   on ``model:2``, ``auto`` flat on ``data:2,model:2``; Zamba2-2.7B at
+   full width cut to 1 super-block on 64 of its 512 tokens, bk on
+   ``model:2``, ``auto`` flat on ``data:2,model:2``; each recurrence on
+   the rank's heads.  Ranks and
    runs bitwise, within a derived bound of one device, the model group's
    all-reduces a step as reckoned from the layers and the same at
    T = 16, an f32 gradient of each, the kernels at the slice shapes.
+13f. FSDP on a live mesh (phase ``fsdp_path``, its comment below; its
+   lanes run in worlds 13b and 13e start anyway): full-width GLM-4-9B cut
+   to 1 layer on ``data:2,model:2`` with ``fsdp=True``, ``auto`` stale
+   twice and bk with and without FSDP; each rank's persistent params
+   half the replicated lane's, the runs and the two bk lanes bitwise, the
+   data group's gather and gradient bytes as reckoned, the kernels at
+   GLM's slice shapes; an f32 Llama-3.2-1B gradient under FSDP on
+   ``data:2`` against one device's.
+   The mesh phases' torchrun worlds start while the phase before runs
+   (``World``, ``await_gate``): their ranks import, load the kernel
+   libraries and join their gloo group, then wait for the parent's go
+   before they touch the card.
 14. serving (phase ``serve_lane``): ``launch.serve.generate_batch`` at
    full width on Llama-3.2-1B and GLM-4-9B (40 layers, d_model 4096,
    32/2 heads, head_dim 128, vocab 151 552; bf16, weights drawn on the
@@ -3611,7 +3625,9 @@ def run_moe_encdec(torch, launches, lanes):
 # the shared block applied once, to make room for the attention families'
 # model-axis lanes), B = 4, T = 512; the shared block's fold over two
 # applications and remat on ZB_FOLD_LAYERS (2 super-blocks) at EXACT_B x
-# REMAT_T (hybrid_two_applications).  Widths as the configs
+# REMAT_T (hybrid_two_applications); Zamba2's exactness at 1 super-block
+# on HY_EXACT_T of its ZB_T tokens (for the script's time).  Widths as
+# the configs
 # give them: (layers, d_model, heads, vocab, slstm_every) and (layers,
 # d_model, heads, KV heads, d_ff, vocab, head_dim, ssm_state, attn_every,
 # window).
@@ -3619,6 +3635,7 @@ XL_B, XL_T = 8, 128
 XL_WIDTHS = (12, 768, 4, 50304, 4)
 XL_DEPTH = 4
 ZB_B, ZB_T, ZB_LAYERS = 4, 512, 6
+HY_EXACT_T = 256
 ZB_FOLD_LAYERS = 12
 ZB_WIDTHS = (54, 2560, 32, 32, 10240, 32000, 80, 64, 6, 4096)
 # bk's gram_norm launches a step (norm_method="pallas"): one a dense layer
@@ -3877,8 +3894,9 @@ def hybrid_main_path(torch, launches, lanes):
     4096, vocab 32 000, bf16, remat) cut to 1 super-block (6 Mamba2
     layers, the shared block applied once; drawn on the card), B = 4,
     T = 512, σ = 1: bk and ``auto`` flat (``recurrent_lanes``), then
-    ``recurrent_exactness`` in f32.  The shared block over two
-    applications: ``hybrid_two_applications``."""
+    ``recurrent_exactness`` in f32 on the batch's first HY_EXACT_T
+    tokens (512 before FSDP's lanes needed the script's time).  The
+    shared block over two applications: ``hybrid_two_applications``."""
     t0 = time.perf_counter()
     cfg = zamba2_config(torch, ZB_LAYERS)
     model, params, batches = recurrent_inputs(torch, cfg, ZB_B, ZB_T,
@@ -3888,9 +3906,11 @@ def hybrid_main_path(torch, launches, lanes):
     out, plans = recurrent_lanes(torch, "zamba2", model, params, batches,
                                  launches, lanes, ZB_GRAM,
                                  "zamba2_auto_flat", profile_bk=False)
-    exact = recurrent_exactness(torch, model, params, batches[0], "zamba2")
+    exact = recurrent_exactness(
+        torch, model, params,
+        {k: v[:, :HY_EXACT_T] for k, v in batches[0].items()}, "zamba2")
     log({"phase": "hybrid_main_path",
-         "cuts": {"n_layers": ZB_LAYERS},
+         "cuts": {"n_layers": ZB_LAYERS, "exactness_seq": [ZB_T, HY_EXACT_T]},
          "lanes": {lane: lane_record(out, lanes, lane) for lane in out},
          "plans": plans, "exactness_f32": exact,
          "seconds": time.perf_counter() - t0, "ok": True})
@@ -4066,6 +4086,111 @@ def torchrun(args, timeout, nproc=SH_RANKS):
     return run_group(cmd, timeout, env)
 
 
+# Mesh worlds started ahead of their phase.  A torchrun world's ranks take
+# about 20 s to start on an H100 host (entering 9.4 s after the launch,
+# the mesh at 21.1 s; most of it the interpreter, torch and the port's
+# imports; PERF.md).  Each mesh phase has its worlds started while the
+# phase before runs: the ranks import, load the kernel libraries and join
+# their gloo group, then wait for the gate file GATE in their directory
+# (``await_gate``), which the parent writes once the card's memory is free
+# for them; only then does a rank touch the card (its device, its mesh).
+GATE = "go"
+GATE_TIMEOUT_S = 900
+WORLDS = []
+
+
+class World:
+    """A torchrun world of ``nproc`` ranks running ``args``, started now
+    (its output read by a thread of its own), released by writing
+    ``gate`` under ``gate_dir``; ``result()`` waits at most ``timeout`` s
+    from the release and kills the world's session beyond it."""
+
+    def __init__(self, args, nproc, timeout, gate_dir):
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                                   if env.get("PYTHONPATH") else []))
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+               "--master_port", str(free_port()), *args]
+        self.gate = pathlib.Path(gate_dir) / GATE
+        self.timeout = timeout
+        self.started = time.perf_counter()
+        self.released = None
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
+        self.out = ("", "")
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        WORLDS.append(self)
+
+    def _read(self):
+        self.out = self.proc.communicate()
+
+    def release(self):
+        if self.released is None:
+            self.gate.touch()
+            self.released = time.perf_counter()
+
+    def stop(self):
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+
+    def result(self):
+        """(exit code or None if killed, stdout, stderr, seconds from the
+        release, seconds it waited ready before it)."""
+        self.release()
+        self.reader.join(max(self.released + self.timeout
+                             - time.perf_counter(), 0.1))
+        rc = None
+        if self.reader.is_alive():
+            self.stop()
+            self.reader.join()
+        else:
+            rc = self.proc.returncode
+        return (rc, *self.out, time.perf_counter() - self.released,
+                self.released - self.started)
+
+
+def stop_worlds():
+    for w in WORLDS:
+        w.stop()
+
+
+def await_gate(out_dir, wall=None):
+    """What a rank does before its phase: load the built kernel
+    libraries and join the gloo group (the default group, on the host:
+    no card memory is taken while the phase before runs), then wait for
+    the parent's ``gate`` under ``out_dir``; the caller then takes its
+    device and builds its mesh.  ``wall`` gets the times."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed
+    for stem in build.ENTRY_POINTS:
+        build.load(stem)
+    init_distributed("gloo", device_type="cpu")
+    if wall is not None:
+        wall["ready"] = time.time()
+    flag = pathlib.Path(out_dir) / GATE
+    t = time.perf_counter()
+    while not flag.exists():
+        check(time.perf_counter() - t < GATE_TIMEOUT_S,
+              f"no {GATE} from the parent in {GATE_TIMEOUT_S} s")
+        time.sleep(0.05)
+    if wall is not None:
+        wall["released"] = time.time()
+
+
+def tree_bytes(tree):
+    """Bytes of every tensor leaf of a (nested) dict."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
 def tree_digest(tree):
     """sha256 of every leaf's bytes in leaf-path order."""
     import hashlib
@@ -4079,21 +4204,26 @@ def tree_digest(tree):
 
 
 def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
-               optimizer, lr, runs=2, axes=None):
+               optimizer, lr, runs=2, axes=None, fsdp=False,
+               donate_opt=False, whole=True):
     """One sharded lane, ``runs`` times from the same whole params (on a
-    model axis, ``axes`` the logical axes: this rank's slices of them):
+    model axis or under ``fsdp``, ``axes`` the logical axes: this rank's
+    slices of them):
     per step the rank's step ms, the all-reduce's ms
     (``clipping.sync_grads`` timed between synchronizations) and the
     leaves synced, the calls and MB of the model- and data-group
-    collectives and, in the second run, their ms (each synchronized and
+    collectives (FSDP's param gathers also on their own) and, in the
+    second run, their ms (each synchronized and
     timed: ``sharding.COLL_STATS``), the launches (counts set to 0 before
-    the step, read after); the slices' digest and the rank's peak.
-    Returns (record, the first run's whole params)."""
+    the step, read after); the slices' digest, the rank's peak and its
+    persistent GB (params and optimizer state after the last step).
+    ``donate_opt``: the moments updated in place.  Returns (record, the
+    first run's whole params, or with ``whole=False`` its slices)."""
     from repro_torch.core import PrivacyEngine, clipping
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding
     from repro_torch.optim import adamw_init, sgdm_init
-    from repro_torch.tree import get_subtree, leaf_paths
+    from repro_torch.tree import get_subtree, leaf_paths, tree_map
     real = clipping.sync_grads
     st = sharding.COLL_STATS
     sync = []
@@ -4114,11 +4244,13 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
             eng = PrivacyEngine(model.apply, params, batches[0], dp,
                                 optimizer=optimizer, lr=lr, run_seed=0,
                                 sampling_rate=1 / 128, device="cuda",
-                                mesh=mesh, param_axes=axes)
+                                mesh=mesh, param_axes=axes, fsdp=fsdp,
+                                donate_opt=donate_opt)
             if callable(needs):
                 needs = needs(eng, steps)
             init = sgdm_init if optimizer == "sgdm" else adamw_init
-            p = eng.shard_params(params)
+            # whole params may wait on the host: the slices go to the card
+            p = tree_map(lambda t: t.to(eng.device), eng.shard_params(params))
             opt = init(p)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4137,7 +4269,12 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
                 coll.append({"calls": dict(st.calls),
                              "mb": {a: v / 2**20 for a, v in st.bytes.items()},
                              "ms": ({a: v * 1e3 for a, v in st.seconds.items()}
-                                    if st.timing else "not timed")})
+                                    if st.timing else "not timed"),
+                             "fsdp_gather": {
+                                 "calls": st.gather["calls"],
+                                 "mb": st.gather["bytes"] / 2**20,
+                                 "ms": (st.gather["seconds"] * 1e3
+                                        if st.timing else "not timed")}})
                 losses.append(float(loss))
             st.timing = False
             for k, want in needs.items():
@@ -4152,6 +4289,8 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
                 "collectives_each_step": coll,
                 "launches_each_step": per_step, "losses": losses,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "persistent_gb": {"params": tree_bytes(p) / 1e9,
+                                  "opt": tree_bytes(opt) / 1e9},
                 "clip_fraction": float(aux["clip_fraction"]),
                 "digest": tree_digest(p)})
             if r == 0:
@@ -4166,7 +4305,11 @@ def shard_lane(torch, model, params, batches, dp, steps, mesh, needs,
                     rec["leaves_sliced"] = sum(
                         sharding.is_sharded(get_subtree(specs, q))
                         for q in leaf_paths(specs))
-                first = eng.gather_params(p)
+                if fsdp:
+                    rec["leaves_data_sliced"] = sum(
+                        bool(sharding.data_dims(get_subtree(specs, q)))
+                        for q in leaf_paths(specs))
+                first = eng.gather_params(p) if whole else p
             del p, opt, eng
             torch.cuda.empty_cache()
     finally:
@@ -4264,11 +4407,13 @@ def shard_worker(out_dir):
     from repro_torch.models.cnn import CNN
     from repro_torch.models.lm import TransformerLM
     check(torch.cuda.is_available(), "a rank sees no card")
+    wall = {}
+    await_gate(out_dir, wall)
     dev = init_distributed("gloo")
     rank = dist.get_rank()
     mesh = make_mesh_from_spec(f"data:{SH_RANKS}", device_type="cuda")
     rec = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
-           "world": dist.get_world_size()}
+           "world": dist.get_world_size(), "wall": wall}
     x = torch.full((4,), float(rank + 1), device=dev)
     dist.all_reduce(x)
     rec["gloo_cuda_all_reduce"] = {
@@ -4350,6 +4495,22 @@ def shard_worker(out_dir):
         r["cuts"] = {"n_layers": SH_LLAMA_LAYERS}
         rec[SH_LLAMA_LANE] = r
         del p, params, batches, model
+        torch.cuda.empty_cache()
+
+        # Phase fsdp_path's f32 gradient: Llama-3.2-1B at full width, cut
+        # to FS_LLAMA_LAYERS, its params sliced over data (FSDP), σ = 0,
+        # against one device's.
+        t = time.perf_counter()
+        cfg = get_config("llama3.2-1b").replace(
+            attn_impl="flash", n_layers=FS_LLAMA_LAYERS, dtype="float32")
+        (b,) = mx_lm_batches(torch, cfg, LM_B, LM_T, 1)
+        rec["llama_f32_fsdp_check"] = ma_f32_check(
+            torch, dist, mesh, cfg, b, "cuda",
+            key=torch.Generator(device="cuda").manual_seed(0), sigma=0.0,
+            fsdp=True)
+        rec["llama_f32_fsdp_check"]["cuts"] = {"n_layers": FS_LLAMA_LAYERS}
+        rec["llama_f32_fsdp_check_s"] = time.perf_counter() - t
+        del b
         torch.cuda.empty_cache()
 
     rec["collective_bytes_per_second"] = {
@@ -4475,36 +4636,45 @@ def sharded_cli(base):
                          for s in summaries]}
 
 
-def sharded_main_path(torch, launches, lanes):
-    """Phase sharded_main_path (module comment above): the ranks' lanes
-    (``shard_worker``), the NCCL probe and the sharded CLI lane, each in
-    processes of their own and at once, and the verifier in this process
-    meanwhile."""
-    t0 = time.perf_counter()
+def sharded_worlds():
+    """Phase sharded_main_path's ranks, started now (``World``)."""
     shutil.rmtree(SH_DIR, ignore_errors=True)
     SH_DIR.mkdir(parents=True)
+    return {f"data:{SH_RANKS}": World([str(ROOT / "chip_smoke.py"),
+                                       "--shard-worker", str(SH_DIR)],
+                                      SH_RANKS, SH_TIMEOUT_S, SH_DIR)}
+
+
+def sharded_main_path(torch, launches, lanes, worlds):
+    """Phase sharded_main_path (module comment above): the ranks' lanes
+    (``shard_worker``; ``worlds``: started ahead, released now), the
+    NCCL probe and the sharded CLI lane, each in processes of their own
+    and at once, and the verifier in this process meanwhile."""
+    t0 = time.perf_counter()
+    (world,) = worlds.values()
     torch.cuda.empty_cache()
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(3) as pool:
         # The CLI lane's and the probe's processes run beside the ranks,
         # and this process verifies while the ranks start (so the ranks'
         # times below are read under that host load).
-        ranks_run = pool.submit(torchrun, [str(ROOT / "chip_smoke.py"),
-                                           "--shard-worker", str(SH_DIR)],
-                                SH_TIMEOUT_S)
+        ranks_run = pool.submit(world.result)
         probe = pool.submit(torchrun, [str(ROOT / "chip_smoke.py"),
                                        "--nccl-probe", str(SH_DIR)], 120)
         cli = pool.submit(sharded_cli, SH_DIR)
         t = time.perf_counter()
         verify_rec = shard_verify(torch)
         verify_rec["seconds"] = time.perf_counter() - t
-        rc, out, err, wall = ranks_run.result()
+        rc, out, err, wall, waited = ranks_run.result()
         check(rc == 0, f"sharded ranks: exit {rc}\n{out[-3000:]}\n"
               f"{err[-5000:]}")
         prc, pout, perr, pwall = probe.result()
         cli_rec = cli.result()
     ranks = [json.loads((SH_DIR / f"rank{r}.json").read_text())
              for r in range(SH_RANKS)]
+    FSDP_RECORDS["llama_f32"] = dict(
+        ranks[0]["llama_f32_fsdp_check"],
+        seconds=ranks[0]["llama_f32_fsdp_check_s"])
     nccl = [json.loads(p.read_text())
             for p in sorted(SH_DIR.glob("nccl_rank*.json"))]
     found = ("killed after 120 s" if prc is None else
@@ -4531,7 +4701,8 @@ def sharded_main_path(torch, launches, lanes):
          "nccl_probe": {"found": found, "exit": prc, "seconds": pwall,
                         "ranks": nccl, "stderr_tail": perr[-600:]},
          "gloo_cuda_all_reduce": [r["gloo_cuda_all_reduce"] for r in ranks],
-         "ranks_wall_s": wall,
+         "ranks_wall_s": wall, "world_ready_ahead_s": waited,
+         "ranks_wall": [r["wall"] for r in ranks],
          "alexnet": {r["rank"]: r["alexnet"] for r in ranks},
          SH_LLAMA_LANE: {r["rank"]: r[SH_LLAMA_LANE] for r in ranks},
          "collective_bytes_per_second": [r["collective_bytes_per_second"]
@@ -4624,7 +4795,7 @@ def ma_gram_slices(torch, slices):
 
 
 def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0, sigma=1.0,
-                 grad_rtol=0.0):
+                 grad_rtol=0.0, fsdp=False):
     """One noised clipped mean gradient (``noisy_grad``) of ``cfg`` (f32)
     under bk with the kernel norms and per-layer clipping, on this rank's
     slices and then, on rank 0, on one device from the same whole params
@@ -4634,10 +4805,12 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0, sigma=1.0,
     gradient's bound grows by ``grad_rtol`` of one device's largest
     coordinate, where the model's per-example gradients themselves carry
     rounding: the recurrences, ``RX_GRAD_RTOL``).  ``sigma``: the noise
-    multiplier.  Rank 0's readings, an empty record on the other
-    ranks."""
+    multiplier; ``fsdp``: the params sliced over the data axes too (the
+    collectives' bytes by axis then recorded).  Rank 0's readings, an
+    empty record on the other ranks."""
     from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
     from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
     from repro_torch.models.registry import build_model
     from repro_torch.tree import get_subtree, leaf_paths
     model = build_model(cfg)
@@ -4647,10 +4820,16 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0, sigma=1.0,
                   clipping=ClipPolicy(mode="per_layer"))
     kw = dict(optimizer="sgdm", lr=SH_LR, run_seed=0, device=device)
     eng = PrivacyEngine(model.apply, params, batch, dp, mesh=mesh,
-                        param_axes=axes, **kw)
+                        param_axes=axes, fsdp=fsdp, **kw)
+    local = eng.shard_params(params)
     ops.reset_launches()
-    loss, grad, aux = eng.noisy_grad(eng.shard_params(params), batch,
-                                     step=0)
+    sharding.COLL_STATS.reset()
+    loss, grad, aux = eng.noisy_grad(local, batch, step=0)
+    st = sharding.COLL_STATS
+    coll = {"mb": {a: v / 2**20 for a, v in st.bytes.items()},
+            "fsdp_gather_mb": st.gather["bytes"] / 2**20,
+            "calls": dict(st.calls)}
+    del local
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     check(launches.get("gram_norm", 0) > 0, f"f32 model-axis check: no "
           f"gram_norm launch ({launches})")
@@ -4670,7 +4849,8 @@ def ma_f32_check(torch, dist, mesh, cfg, batch, device, key=0, sigma=1.0,
                "norm_rtol": MA_NORM_RTOL, "sigma": sigma,
                "grad_largest": max(float(get_subtree(g1, q).abs().max())
                                    for q in leaf_paths(g1)),
-               "grad_rtol": grad_rtol}
+               "grad_rtol": grad_rtol, "fsdp": fsdp,
+               "collectives": coll}
         rec["grad_bound"] = (released_mean_bound(B, dp.l2_clip)
                              + grad_rtol * rec["grad_largest"])
         for k in ("per_example_norms", "per_layer_norms"):
@@ -4731,12 +4911,14 @@ def model_axis_worker(spec, out_dir):
     from repro_torch.models.cnn import CNN
     from repro_torch.models.lm import TransformerLM
     check(torch.cuda.is_available(), "a rank sees no card")
+    wall = {}
+    await_gate(out_dir, wall)
     dev = init_distributed("gloo")
     rank = dist.get_rank()
     mesh = make_mesh_from_spec(spec, device_type="cuda")
     rec = {"rank": rank, "mesh": spec, "device": str(dev),
            "model_rank": mesh.get_local_rank(
-               tuple(mesh.mesh_dim_names).index("model"))}
+               tuple(mesh.mesh_dim_names).index("model")), "wall": wall}
     with deterministic_step():
         cfg = get_config("alexnet")
         model = CNN(cfg)
@@ -4907,30 +5089,34 @@ def ma_cli(base):
             "mesh_axes": meta["mesh_axes"]}
 
 
-def model_axis_path(torch, launches, lanes):
-    """Phase model_axis_path (module comment above): the ``model:2`` and
-    ``data:2,model:2`` ranks at once, the verifier in this process
-    meanwhile, then the CLI lane."""
-    t0 = time.perf_counter()
+def model_axis_worlds():
+    """Phase model_axis_path's worlds, started now (``World``)."""
     shutil.rmtree(MA_DIR, ignore_errors=True)
     MA_DIR.mkdir(parents=True)
+    return {spec: World([str(ROOT / "chip_smoke.py"), "--model-axis-worker",
+                         spec, str(MA_DIR)], n, MA_TIMEOUT_S, MA_DIR)
+            for spec, n in MA_MESHES.items()}
+
+
+def model_axis_path(torch, launches, lanes, worlds):
+    """Phase model_axis_path (module comment above): the ``model:2`` and
+    ``data:2,model:2`` ranks at once (``worlds``: started ahead, released
+    now), the verifier in this process meanwhile, then the CLI lane."""
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(3) as pool:
         # The CLI lane's processes run beside the ranks, and this process
         # verifies meanwhile (so the ranks' times are read under that
         # host load).
-        runs = {spec: pool.submit(torchrun, [
-            str(ROOT / "chip_smoke.py"), "--model-axis-worker", spec,
-            str(MA_DIR)], MA_TIMEOUT_S, nproc=n)
-            for spec, n in MA_MESHES.items()}
+        runs = {spec: pool.submit(w.result) for spec, w in worlds.items()}
         cli = pool.submit(ma_cli, MA_DIR)
         t = time.perf_counter()
         verify_rec = ma_verify(torch)
         verify_rec["seconds"] = time.perf_counter() - t
-        walls = {}
+        walls, waited = {}, {}
         for spec, fut in runs.items():
-            rc, out, err, walls[spec] = fut.result()
+            rc, out, err, walls[spec], waited[spec] = fut.result()
             check(rc == 0, f"model-axis ranks ({spec}): exit {rc}\n"
                   f"{out[-3000:]}\n{err[-5000:]}")
         cli_rec = cli.result()
@@ -4962,7 +5148,8 @@ def model_axis_path(torch, launches, lanes):
          "why": "NCCL refuses two ranks on one device (sharded_main_path's "
                 "probe); every layout move is a gloo all-reduce staged "
                 "through the host, so the collective times are the host's",
-         "ranks_wall_s": walls, "ranks": ranks, "verify": verify_rec,
+         "ranks_wall_s": walls, "worlds_ready_ahead_s": waited,
+         "ranks": ranks, "verify": verify_rec,
          "verify_kernel_nodes_equal_rank0_stale_step": True,
          "cli_lane": cli_rec, "seconds": time.perf_counter() - t0,
          "ok": True})
@@ -5529,12 +5716,14 @@ def moe_model_axis_worker(spec, out_dir):
     check(torch.cuda.is_available(), "a rank sees no card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wall = {}
+    await_gate(out_dir, wall)
     dev = init_distributed("gloo")
     rank = dist.get_rank()
     mesh = make_mesh_from_spec(spec, device_type="cuda")
     rec = {"rank": rank, "mesh": spec, "device": str(dev),
            "model_rank": mesh.get_local_rank(
-               tuple(mesh.mesh_dim_names).index("model"))}
+               tuple(mesh.mesh_dim_names).index("model")), "wall": wall}
     t = time.perf_counter()
     attn_store = {"gram_norm": set(), "gram_norm_fused": set(),
                   "flash": set()}
@@ -5574,33 +5763,39 @@ def moe_model_axis_worker(spec, out_dir):
     dist.destroy_process_group()
 
 
-def moe_model_axis_path(torch, launches, lanes):
-    """Phase moe_model_axis_path (module comment above): the
-    data:2,model:2 ranks and the model:2 ranks at once, the model:2
-    ranks' DeepSeek-V3 layer after the others have exited (so the
-    Granite lanes' times are read under the other group's load)."""
-    from concurrent.futures import ThreadPoolExecutor
-    t0 = time.perf_counter()
+def moe_model_axis_worlds():
+    """Phase moe_model_axis_path's worlds, started now (``World``)."""
     shutil.rmtree(MX_DIR, ignore_errors=True)
     MX_DIR.mkdir(parents=True)
+    return {spec: World([str(ROOT / "chip_smoke.py"),
+                         "--moe-model-axis-worker", spec, str(MX_DIR)], n,
+                        MX_TIMEOUT_S, MX_DIR)
+            for spec, n in MX_MESHES.items()}
+
+
+def moe_model_axis_path(torch, launches, lanes, worlds):
+    """Phase moe_model_axis_path (module comment above): the
+    data:2,model:2 ranks and the model:2 ranks at once (``worlds``:
+    started ahead, released now), the model:2 ranks' DeepSeek-V3 layer
+    after the others have exited (so the Granite lanes' times are read
+    under the other group's load)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
 
-    def run(spec, n):
+    def run(spec):
         try:
-            return torchrun([str(ROOT / "chip_smoke.py"),
-                             "--moe-model-axis-worker", spec, str(MX_DIR)],
-                            MX_TIMEOUT_S, nproc=n)
+            return worlds[spec].result()
         finally:
             if spec == "data:2,model:2":
                 (MX_DIR / MX_SIDE_DONE).touch()
 
-    walls = {}
+    walls, waited = {}, {}
     with ThreadPoolExecutor(len(MX_MESHES)) as pool:
-        futs = {spec: pool.submit(run, spec, n)
-                for spec, n in MX_MESHES.items()}
+        futs = {spec: pool.submit(run, spec) for spec in MX_MESHES}
         results = {spec: f.result() for spec, f in futs.items()}
     for spec, n in MX_MESHES.items():
-        rc, out, err, walls[spec] = results[spec]
+        rc, out, err, walls[spec], waited[spec] = results[spec]
         # the failing rank's own message, which the others' tracebacks
         # (a peer closed) would push out of the tail
         why = [ln for ln in err.splitlines()
@@ -5650,7 +5845,8 @@ def moe_model_axis_path(torch, launches, lanes):
                     "vs_single_device": rec.get("vs_single_device")}),
                     flush=True)
     log({"phase": "moe_model_axis_path", "backend": "gloo",
-         "ranks_wall_s": walls, "ranks": ranks,
+         "ranks_wall_s": walls, "worlds_ready_ahead_s": waited,
+         "ranks": ranks,
          "seconds": time.perf_counter() - t0, "ok": True})
     shutil.rmtree(MX_DIR, ignore_errors=True)
 
@@ -5662,13 +5858,17 @@ def moe_model_axis_path(torch, launches, lanes):
 # re-entering itself with --recurrent-model-axis-worker):
 #   * xLSTM-125M at full width (d_model 768, 4 heads, vocab 50 304,
 #     bf16) cut to XL_DEPTH layers (one super-block: 3 mLSTM, 1 sLSTM),
-#     B = XL_B, T = XL_T: bk (``gram_norm`` on every sliced dense) and
+#     B = XL_B and T = RX_XL_T, not XL_T (a cut of the traffic, for the
+#     script's time): bk (``gram_norm`` on every sliced dense) and
 #     ``auto`` stale on model:2, ``auto`` flat on data:2,model:2;
 #   * Zamba2-2.7B at full width (80 SSD heads of 64, 32 attention heads
 #     of 80, d_ff 10 240, bf16, remat) cut to ZB_LAYERS (one super-block:
 #     6 Mamba2 layers, the shared block once), B = ZB_B and T = RX_ZB_T,
 #     not ZB_T (a cut of the traffic, for the phase's time): bk on
 #     model:2, ``auto`` flat on data:2,model:2.
+# The data:2,model:2 world then waits for the model:2 world to exit
+# (RX_M2_DONE, written by the parent) before phase fsdp_path's GLM-4-9B
+# lanes, which need most of the card.
 # Held: the ranks of a model slot and the two runs bitwise equal, the
 # released params within ``released_param_bound`` of one device's run;
 # a bk step's model-group all-reduces as ``rx_bk_calls`` reckons them
@@ -5681,8 +5881,9 @@ def moe_model_axis_path(torch, launches, lanes):
 RX_DIR = ROOT / "build" / "chip_smoke_recurrent_model_axis"
 RX_TIMEOUT_S = 420
 RX_MESHES = {"data:2,model:2": 4, "model:2": 2}
-RX_ZB_T = 128
+RX_XL_T, RX_ZB_T = 64, 64
 RX_CENSUS_T = 16
+RX_M2_DONE = "model2.done"
 # The recurrences carry the forward's rounding (a row-sharded product's
 # partial sums added in another order) through T steps into the
 # per-example gradients themselves, which the sum bound of
@@ -5754,7 +5955,7 @@ def rx_config(torch, arch):
 
 
 def rx_shape(arch):
-    return (XL_B, XL_T) if arch == "xlstm-125m" else (ZB_B, RX_ZB_T)
+    return (XL_B, RX_XL_T) if arch == "xlstm-125m" else (ZB_B, RX_ZB_T)
 
 
 def rx_lanes(torch, dist, mesh, spec, rank, rec, store):
@@ -5788,9 +5989,9 @@ def rx_lanes(torch, dist, mesh, spec, rank, rec, store):
                         model, params, batches, dp, needs, axes, rank,
                         store, moe=False)
             r["params"] = param_count(params)
-            r["cuts"] = {"n_layers": [full.n_layers, cfg.n_layers]}
-            if arch == "zamba2-2.7b":
-                r["cuts"]["seq"] = [ZB_T, RX_ZB_T]
+            r["cuts"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                         "seq": [XL_T, RX_XL_T] if arch == "xlstm-125m"
+                         else [ZB_T, RX_ZB_T]}
             if strategy == "bk":
                 want = rx_bk_calls(cfg)
                 got = [c["calls"]["model"] for run in r["runs"]
@@ -5825,6 +6026,206 @@ def rx_f32_checks(torch, dist, mesh, rec):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase fsdp_path: FSDP on a live mesh (ROADMAP item 14 part 3, fourth
+# part; ``PrivacyEngine(fsdp=True)``: params and moments sliced over the
+# data axes too, gathered at the step's start, each clipped sum summed over
+# data keeping the rank's slice).  Its lanes run in worlds the smoke starts
+# anyway: GLM-4-9B's in the recurrent phase's data:2,model:2 world after
+# that world's own lanes and the model:2 world's exit, the Llama f32
+# gradient in sharded_main_path's data:2 world; the parent logs them as a
+# phase of their own.
+#   * GLM-4-9B at full width (d_model 4096, 32 heads of 128, 2 KV heads,
+#     d_ff 13 696, vocab 151 552, untied; bf16, flash, remat as
+#     configured) cut to FS_GLM_LAYERS of its 40 layers, B = FS_B,
+#     T = FS_T, σ = 1, C = 1, SGD with momentum, on data:2,model:2 with
+#     fsdp=True: ``auto`` stale (the flat bootstrap, then a stale step)
+#     run twice; bk with the kernels' norms once with FSDP and once
+#     without it.
+#   * Llama-3.2-1B at full width cut to FS_LLAMA_LAYERS, f32, bk with the
+#     kernels' norms, per-layer clipping, σ = 0, on data:2 with fsdp=True,
+#     against one device (``ma_f32_check``).
+# Held: each rank's persistent params at most FS_PERSIST_MAX of the lane
+# without FSDP; the two stale runs bitwise equal; bk under FSDP bitwise
+# equal to bk without it (the gathered params); every rank's gathered
+# params equal; the data group's gather and gradient bytes a step within
+# FS_BYTES_RTOL of the reckoning from the specs (``fs_reckoning``); each
+# rank launches what the plan says; ``gram_norm``, ``gram_norm_fused``
+# and the flash kernels at the shapes the GLM lanes handed them, against
+# their plain versions.
+FS_GLM_LAYERS = 1
+FS_GLM_WIDTHS = (40, 4096, 32, 2, 13696, 151552, 128)
+FS_B, FS_T = 4, 512
+FS_STEPS = 2
+FS_LLAMA_LAYERS = 1
+FS_PERSIST_MAX = 0.55
+FS_BYTES_RTOL = 0.10
+FSDP_RECORDS = {}
+
+
+def fs_reckoning(eng, whole):
+    """The data group's MB a step under FSDP, reckoned from the specs:
+    each data-sliced leaf's model slice gathered in its dtype, and every
+    leaf's model slice of the clipped sum summed in f32, each a sum
+    all-reduce of the whole model slice."""
+    from repro_torch.core import costmodel
+    from repro_torch.launch import sharding
+    from repro_torch.tree import get_subtree, leaf_paths
+    specs = eng.param_specs
+    m = costmodel.mesh_model_size(eng.mesh_axes)
+    gather = grad = 0
+    for q in leaf_paths(specs):
+        t, spec = get_subtree(whole, q), get_subtree(specs, q)
+        n = math.prod(sharding.local_shape(tuple(t.shape), spec, m))
+        grad += n * 4
+        if sharding.data_dims(spec):
+            gather += n * t.element_size()
+    return {"gather_mb": gather / 2**20, "grad_mb": grad / 2**20}
+
+
+def fs_glm(torch, dist, mesh, rank):
+    """Phase fsdp_path's GLM-4-9B lanes on this data:2,model:2 rank (the
+    comment above); this rank's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClipPolicy, DPConfig, NormCfg, PrivacyEngine
+    from repro_torch.core.clipping import DataShard
+    from repro_torch.launch import sharding
+    from repro_torch.models.lm import TransformerLM
+    from repro_torch.tree import get_subtree, leaf_paths, tree_map
+    full = get_config("glm4-9b")
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv, full.d_ff,
+           full.vocab, full.hd) == FS_GLM_WIDTHS and full.fsdp
+          and full.remat and full.dtype == "bfloat16", "glm4-9b config")
+    L = FS_GLM_LAYERS
+    cfg = full.replace(attn_impl="flash", n_layers=L)
+    model = TransformerLM(cfg)
+    params, axes = model.init(torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    # the whole params wait on the host (shard_lane moves each rank's
+    # slices to the card): 2.9 GB less a rank
+    params = tree_map(lambda t: t.cpu(), params)
+    batches = mx_lm_batches(torch, cfg, FS_B, FS_T, FS_STEPS)
+    bk_needs = dict(flash_needs(FS_STEPS, remat=True, layers=L),
+                    gram_norm=[7 * L + 1] * FS_STEPS)
+    lanes = (("bk_replicated", "bk", ClipPolicy(), NormCfg(dense="pallas"),
+              bk_needs, False, 1),
+             ("bk", "bk", ClipPolicy(), NormCfg(dense="pallas"), bk_needs,
+              True, 1),
+             ("auto_stale", "auto", ClipPolicy(mode="stale"), NormCfg(),
+              planned_lm_needs(2 * L, L), True, 2))
+    rec = {"params": param_count(params),
+           "cuts": {"n_layers": [full.n_layers, L]}, "B": FS_B, "T": FS_T}
+    eng = PrivacyEngine(model.apply, params, batches[0], mesh=mesh,
+                        param_axes=axes, fsdp=True, device="cuda")
+    rec["reckoned"] = fs_reckoning(eng, params)
+    data = DataShard(mesh.get_group("data"), mesh.get_local_rank("data"),
+                     2, eng.param_specs)
+    store = {"gram_norm": set(), "gram_norm_fused": set(), "flash": set()}
+    undo = mx_spies(store)
+    local = {}
+    try:
+        for lane, strategy, clip, knobs, needs, fsdp, runs in lanes:
+            dp = DPConfig(l2_clip=1.0, noise_multiplier=1.0,
+                          strategy=strategy, norm=knobs, clipping=clip)
+            t = time.perf_counter()
+            r, p = shard_lane(torch, model, params, batches, dp, FS_STEPS,
+                              mesh, needs, "sgdm", SH_LR, runs=runs,
+                              axes=axes, fsdp=fsdp, donate_opt=True,
+                              whole=False)
+            r["seconds"] = time.perf_counter() - t
+            local[lane] = tree_map(lambda x: x.cpu(), p)
+            del p
+            check(r["runs_bitwise_equal"], f"glm fsdp {lane}: two runs "
+                  f"differ")
+            torch.cuda.empty_cache()
+            rec[lane] = r
+    finally:
+        undo()
+    del eng, params, batches
+    # bk under FSDP against bk without it: each rank's data slices of its
+    # model slice, bitwise
+    want = sharding.shard_params(local["bk_replicated"], data.specs, None,
+                                 data=data)
+    same = all(torch.equal(get_subtree(local["bk"], q), get_subtree(want, q))
+               for q in leaf_paths(want))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, same)
+    rec["bk_equals_bk_replicated_on_every_rank"] = all(got)
+    check(all(got), f"glm: bk under FSDP differs from bk without it "
+          f"(ranks {got})")
+    del local, want
+    torch.cuda.empty_cache()
+    bk, rep = rec["bk"], rec["bk_replicated"]
+    mine, theirs = (bk["runs"][0]["persistent_gb"],
+                    rep["runs"][0]["persistent_gb"])
+    rec["persistent_ratio"] = {k: mine[k] / theirs[k] for k in mine}
+    check(rec["persistent_ratio"]["params"] <= FS_PERSIST_MAX,
+          f"glm: a rank's persistent params {mine} against {theirs} "
+          f"without FSDP")
+    rec["data_mb_a_step"] = []
+    for lane in ("bk", "auto_stale"):
+        for c in rec[lane]["runs"][-1]["collectives_each_step"]:
+            g = c["fsdp_gather"]["mb"]
+            rec["data_mb_a_step"].append(
+                {"lane": lane, "gather_mb": g,
+                 "grad_and_stats_mb": c["mb"]["data"] - g,
+                 "gather_ms": c["fsdp_gather"]["ms"],
+                 "data_ms": c["ms"] if c["ms"] == "not timed"
+                 else c["ms"]["data"]})
+            for k, want in (("gather_mb", rec["reckoned"]["gather_mb"]),
+                            ("grad_and_stats_mb",
+                             rec["reckoned"]["grad_mb"])):
+                got = rec["data_mb_a_step"][-1][k]
+                check(abs(got - want) <= FS_BYTES_RTOL * want,
+                      f"glm {lane}: {k} {got:.1f} against the reckoned "
+                      f"{want:.1f}")
+    if rank == 0:
+        slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
+                  dt, hb in store["gram_norm"]}
+        rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+        rec["kernels_on_slices"] = mx_slice_kernels(torch, store)
+    dist.barrier()
+    return rec
+
+
+def fsdp_path(torch, launches, lanes):
+    """Phase fsdp_path (its comment above): what the GLM-4-9B lanes and
+    the Llama f32 check recorded in their worlds, each rank's launches
+    against the plan (held in the worlds), logged as a phase."""
+    glm, llama = FSDP_RECORDS.get("glm"), FSDP_RECORDS.get("llama_f32")
+    check(glm and llama, "phase fsdp_path: a world recorded no FSDP lane")
+    check(glm[0].get("gram_norm_on_slices")
+          and glm[0].get("kernels_on_slices"), "phase fsdp_path: the "
+          "kernels were not held at the GLM slices")
+    for r, rec in enumerate(glm):
+        for lane in ("auto_stale", "bk", "bk_replicated"):
+            steps = rec[lane]["runs"][0]["launches_each_step"]
+            name = f"fsdp_glm_{lane}_rank{r}"
+            lanes[name] = {k: [c.get(k, 0) for c in steps] for k in launches
+                           if any(c.get(k, 0) for c in steps)}
+            if r == 0:
+                for k, v in lanes[name].items():
+                    launches[k] += sum(v)
+    summary = {
+        lane: {"step_ms": [x["step_ms"] for x in glm[0][lane]["runs"]],
+               "peak_mem_gb": [[x["peak_mem_gb"] for x in rec[lane]["runs"]]
+                               for rec in glm],
+               "persistent_gb": [rec[lane]["runs"][0]["persistent_gb"]
+                                 for rec in glm],
+               "launches": lanes[f"fsdp_glm_{lane}_rank0"],
+               "seconds": glm[0][lane]["seconds"]}
+        for lane in ("auto_stale", "bk", "bk_replicated")}
+    log({"phase": "fsdp_path", "glm_mesh": "data:2,model:2",
+         "glm_params": glm[0]["params"], "glm_cuts": glm[0]["cuts"],
+         "glm": summary,
+         "persistent_ratio": [rec["persistent_ratio"] for rec in glm],
+         "data_mb_a_step": glm[0]["data_mb_a_step"],
+         "reckoned": glm[0]["reckoned"],
+         "glm_ranks": glm, "llama_f32_fsdp_check": llama,
+         "seconds": {"glm_lanes": max(rec["seconds"] for rec in glm),
+                     "llama_f32_check": llama["seconds"]}, "ok": True})
+
+
 def recurrent_model_axis_worker(spec, out_dir):
     """One rank of phase recurrent_model_axis_path (under
     torch.distributed.run) on mesh ``spec``; this rank's record, with the
@@ -5842,24 +6243,39 @@ def recurrent_model_axis_worker(spec, out_dir):
     check(torch.cuda.is_available(), "a rank sees no card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    await_gate(out_dir, wall)
     dev = init_distributed("gloo")
     rank = dist.get_rank()
     mesh = make_mesh_from_spec(spec, device_type="cuda")
     rec = {"rank": rank, "mesh": spec, "device": str(dev),
            "model_rank": mesh.get_local_rank(
                tuple(mesh.mesh_dim_names).index("model")), "wall": wall}
-    wall["ready"] = time.time()
     store = {"gram_norm": set(), "gram_norm_fused": set(), "flash": set()}
     with deterministic_step():
         rx_lanes(torch, dist, mesh, spec, rank, rec, store)
-        if spec == "data:2,model:2":
+        if spec == "model:2":
+            if rank == 0:
+                slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst),
+                          (ds, dst), dt, hb in store["gram_norm"]}
+                rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
+                rec["gram_norm_fused_on_slices"] = mx_slice_kernels(
+                    torch, store, flash=False)
+        else:
             rx_f32_checks(torch, dist, mesh, rec)
-        elif rank == 0:
-            slices = {(xs, xst, ds, dst, dt, hb) for (xs, xst), (ds, dst),
-                      dt, hb in store["gram_norm"]}
-            rec["gram_norm_on_slices"] = ma_gram_slices(torch, slices)
-            rec["gram_norm_fused_on_slices"] = mx_slice_kernels(
-                torch, store, flash=False)
+            # GLM-4-9B's lanes need most of the card: after the model:2
+            # world has exited
+            t = time.perf_counter()
+            if rank == 0:
+                flag = pathlib.Path(out_dir) / RX_M2_DONE
+                while not flag.exists():
+                    check(time.perf_counter() - t < RX_TIMEOUT_S,
+                          "the model:2 ranks did not finish")
+                    time.sleep(0.5)
+            dist.barrier()
+            rec["waited_for_model2_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            rec["fsdp"] = fs_glm(torch, dist, mesh, rank)
+            rec["fsdp"]["seconds"] = time.perf_counter() - t
         dist.barrier()
     wall["done"] = time.time()
     tag = spec.replace(":", "").replace(",", "_")
@@ -5869,29 +6285,40 @@ def recurrent_model_axis_worker(spec, out_dir):
     dist.destroy_process_group()
 
 
-def recurrent_model_axis_path(torch, launches, lanes):
-    """Phase recurrent_model_axis_path (module comment above): the
-    data:2,model:2 ranks and the model:2 ranks at once; each world's
-    start-up, lanes and exit read off its ranks' wall-clock times."""
-    from concurrent.futures import ThreadPoolExecutor
-    t0 = time.perf_counter()
-    wall0 = time.time()
+def recurrent_model_axis_worlds():
+    """Phase recurrent_model_axis_path's worlds, started now (``World``)."""
     shutil.rmtree(RX_DIR, ignore_errors=True)
     RX_DIR.mkdir(parents=True)
+    return {spec: World([str(ROOT / "chip_smoke.py"),
+                         "--recurrent-model-axis-worker", spec, str(RX_DIR)],
+                        n, RX_TIMEOUT_S, RX_DIR)
+            for spec, n in RX_MESHES.items()}
+
+
+def recurrent_model_axis_path(torch, launches, lanes, worlds):
+    """Phase recurrent_model_axis_path (module comment above): the
+    data:2,model:2 ranks and the model:2 ranks at once (``worlds``:
+    started ahead, released now); each world's start-up, lanes and exit read off its ranks'
+    wall-clock times (from this phase's start).  The data:2,model:2
+    ranks' FSDP lanes go to ``FSDP_RECORDS`` for phase fsdp_path."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    wall0 = time.time()
+    walls, waited = {}, {}
 
-    def run(spec, n):
-        return torchrun([str(ROOT / "chip_smoke.py"),
-                         "--recurrent-model-axis-worker", spec,
-                         str(RX_DIR)], RX_TIMEOUT_S, nproc=n)
+    def run(spec):
+        try:
+            return worlds[spec].result()
+        finally:
+            if spec == "model:2":
+                (RX_DIR / RX_M2_DONE).touch()
 
-    walls = {}
     with ThreadPoolExecutor(len(RX_MESHES)) as pool:
-        futs = {spec: pool.submit(run, spec, n)
-                for spec, n in RX_MESHES.items()}
+        futs = {spec: pool.submit(run, spec) for spec in worlds}
         results = {spec: f.result() for spec, f in futs.items()}
     for spec, n in RX_MESHES.items():
-        rc, out, err, walls[spec] = results[spec]
+        rc, out, err, walls[spec], waited[spec] = results[spec]
         why = [ln for ln in err.splitlines()
                if "chip_smoke: FAILED" in ln or ln.startswith(
                    tuple(f"[rank{r}]: {e}" for r in range(n)
@@ -5905,6 +6332,7 @@ def recurrent_model_axis_path(torch, launches, lanes):
     ranks = {spec: [json.loads((RX_DIR / "{}_rank{}.json".format(
         spec.replace(":", "").replace(",", "_"), r)).read_text())
         for r in range(n)] for spec, n in RX_MESHES.items()}
+    FSDP_RECORDS["glm"] = [r.pop("fsdp") for r in ranks["data:2,model:2"]]
     r0 = ranks["model:2"][0]
     check(r0.get("gram_norm_on_slices") and r0.get(
         "gram_norm_fused_on_slices"), "the recurrent lanes' kernels were "
@@ -5912,7 +6340,7 @@ def recurrent_model_axis_path(torch, launches, lanes):
     check(all(f"{a}_f32_check" in ranks["data:2,model:2"][0]
               for a in ("xlstm", "zamba2")), "an f32 check is missing")
     timeline = {spec: {k: max(r["wall"][k] for r in rs) - wall0
-                       for k in ("entered", "ready", "done")}
+                       for k in ("entered", "ready", "released", "done")}
                 for spec, rs in ranks.items()}
     for spec, rs in ranks.items():
         tag = spec.replace(":", "").replace(",", "_")
@@ -5940,7 +6368,8 @@ def recurrent_model_axis_path(torch, launches, lanes):
                     "vs_single_device": rec.get("vs_single_device")}),
                     flush=True)
     log({"phase": "recurrent_model_axis_path", "backend": "gloo",
-         "ranks_wall_s": walls, "timeline_s": timeline, "ranks": ranks,
+         "ranks_wall_s": walls, "worlds_ready_ahead_s": waited,
+         "timeline_s": timeline, "ranks": ranks,
          "seconds": time.perf_counter() - t0, "ok": True})
     shutil.rmtree(RX_DIR, ignore_errors=True)
 
@@ -6095,6 +6524,25 @@ def summarize(rows, launches, lanes, profiled):
     return out
 
 
+def mesh_phases(torch, launches, lanes, sharded):
+    """The mesh phases in order.  Each phase's worlds start (``World``)
+    while the phase before runs and are released when it ends; the first
+    phase's, ``sharded``, the caller started."""
+    phases = ((sharded_main_path, model_axis_worlds),
+              (model_axis_path, moe_model_axis_worlds),
+              (moe_model_axis_path, recurrent_model_axis_worlds),
+              (recurrent_model_axis_path, None))
+    worlds = sharded
+    for phase, next_worlds in phases:
+        t = time.perf_counter()
+        ahead = next_worlds() if next_worlds else None
+        phase(torch, launches, lanes, worlds)
+        log({"phase": f"{phase.__name__}_done",
+             "seconds": time.perf_counter() - t})
+        worlds = ahead
+    fsdp_path(torch, launches, lanes)
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SmokeFailure("src/repro_torch is missing: run chip_smoke.py "
@@ -6177,25 +6625,12 @@ def main():
     calibrated_plans(torch, calib, timings)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    # the first mesh phase's ranks start up beside the CLI lanes
+    ahead = sharded_worlds()
     cli_lanes_beside_serving(torch, calib)
     log({"phase": "cli_and_serving_done",
          "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    sharded_main_path(torch, launches, lanes)
-    log({"phase": "sharded_main_path_done",
-         "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    model_axis_path(torch, launches, lanes)
-    log({"phase": "model_axis_path_done",
-         "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    moe_model_axis_path(torch, launches, lanes)
-    log({"phase": "moe_model_axis_path_done",
-         "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    recurrent_model_axis_path(torch, launches, lanes)
-    log({"phase": "recurrent_model_axis_path_done",
-         "seconds": time.perf_counter() - t})
+    mesh_phases(torch, launches, lanes, ahead)
 
     log(nvidia_smi_line())
     log({"kernels": summarize(rows, launches, lanes, profiled)})
@@ -6221,3 +6656,5 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)
+    finally:
+        stop_worlds()

@@ -60,6 +60,26 @@ the JAX package's pass reads the declared param shardings:
     sliced leaf keeps the rank's slice of it; the model ranks draw from
     one seed (``noise_slice_mismatch``, comparing two model ranks'
     traces, as ``noise_seed_rank_dependent`` compares data ranks').
+
+The data-slice half (:func:`check_fsdp`), over the traces of an FSDP
+step (params and moments sliced over the data axes too; each data rank
+traced on its slices).  The JAX package's pass reports any declared
+sharding of a param over a data axis (``params_not_replicated``,
+``outputs_not_replicated``), since its engine never hands it such a
+layout; the port judges an FSDP step by the guarantee behind that rule,
+stated in terms of the moves in the graph:
+
+  * the param gathers at the step's start (``fsdp_gather`` markers) are
+    layout moves, not sums over examples: they are left out of the
+    counts above, so a released data-sliced leaf still passes through
+    exactly one sum all-reduce over data (``grad_sync_missing`` /
+    ``grad_sync_repeated``);
+  * after that sum the rank keeps **its own** slice of each data-sliced
+    leaf (``fsdp_slice_mismatch``: another rank's slice would release a
+    sum twice and another never);
+  * its noise is drawn at the leaf's full shape and the rank keeps its
+    slice at its data coordinate (``noise_slice_mismatch``, as the
+    model half checks the model coordinate).
 """
 from __future__ import annotations
 
@@ -86,6 +106,15 @@ def sync_nodes(graph: FlatGraph, group_name: str) -> list:
             if op_name(n) == "all_reduce" and len(n.args) >= 3
             and str(n.args[1]) == "sum" and str(n.args[2]) == group_name
             and _floating(n)]
+
+
+def gather_nodes(graph: FlatGraph, group_name: str) -> set:
+    """FSDP's param gathers over the group: the sum all-reduces behind an
+    ``fsdp_gather`` marker (a layout move, not a reduction)."""
+    marks = [n for n, p in graph.markers() if p.get("kind") == "fsdp_gather"]
+    if not marks:
+        return set()
+    return set(sync_nodes(graph, group_name)) & graph.backward_slice(marks)
 
 
 def _floating(node) -> bool:
@@ -173,8 +202,8 @@ def check_sharding(graph: FlatGraph, *, taints, batch_size: int,
                     f"split over the data group", WHERE))
                 break
 
-    syncs = sync_nodes(graph, group_name)
-    sync_set = set(syncs)
+    sync_set = set(sync_nodes(graph, group_name)) - gather_nodes(
+        graph, group_name)
 
     # -- one gradient all-reduce a released leaf ----------------------------
     grad_syncs = set()
@@ -421,4 +450,76 @@ def check_model(traces: Sequence, *, taints, specs, param_shapes,
                 "the model ranks draw their noise from generators of "
                 "different seeds: their slices are not of one draw",
                 WHERE))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# The data-slice half (FSDP)
+
+
+def _leaf_key(path) -> tuple:
+    """A released output's param path (its pytree path past the output
+    index)."""
+    return tuple(_out_key(path, i) for i in range(1, len(path)))
+
+
+def check_fsdp(traces: Sequence, *, specs, param_shapes, data_size: int,
+               noise_expected: bool) -> List[Finding]:
+    """The data-slice half over ``traces``: ``(data rank, data group
+    name, graph)`` of each traced rank.  ``specs``: the FSDP param spec
+    tree; ``param_shapes``: the whole params' shapes."""
+    from repro_torch.analysis.noise import _DRAWS
+    from repro_torch.launch.sharding import data_dims
+    from repro_torch.tree import get_subtree, leaf_paths
+    findings: List[Finding] = []
+    reported = set()
+
+    def want(dr, p):
+        full = tuple(get_subtree(param_shapes, p).shape)
+        n = {d: full[d] // data_size
+             for d in data_dims(get_subtree(specs, p))}
+        return full, [(d, dr * k, (dr + 1) * k) for d, k in n.items()]
+
+    for dr, gname, graph in traces:
+        syncs = set(sync_nodes(graph, gname)) - gather_nodes(graph, gname)
+        # -- the rank's own slice of each summed leaf ----------------------
+        for path, out in zip(graph.out_paths, graph.outvars):
+            if _out_index(path) != 0:
+                continue
+            p = _leaf_key(path)
+            _, cuts = want(dr, p)
+            if not cuts:
+                continue
+            within = graph.backward_slice([out])
+            kept = {tuple(u.args[1:4]) for s in syncs & within
+                    for u in _descendants(s, within)
+                    if op_name(u) == "slice" and len(u.args) >= 4}
+            mine = syncs & within
+            if mine and not set(cuts) <= kept \
+                    and ("fsdp_slice_mismatch", p) not in reported:
+                reported.add(("fsdp_slice_mismatch", p))
+                findings.append(Finding(
+                    "error", "fsdp_slice_mismatch",
+                    f"data rank {dr}: released parameter {'/'.join(p)} "
+                    f"keeps {sorted(kept)} of its sum over the data group, "
+                    f"not its own slice {cuts}: a slice would be released "
+                    f"by two ranks and another by none", WHERE))
+        # -- noise: the rank's slice of one full draw ----------------------
+        if not noise_expected:
+            continue
+        draws = [n for n in graph.nodes if op_name(n) in _DRAWS]
+        for node, p in zip(draws, leaf_paths(param_shapes)):
+            full, cuts = want(dr, p)
+            if not cuts:
+                continue
+            got = tuple(node.meta["val"].shape) if isinstance(
+                node.meta.get("val"), torch.Tensor) else ()
+            if got != full or not set(cuts) <= set(_slices_of(node)):
+                findings.append(Finding(
+                    "error", "noise_slice_mismatch",
+                    f"data rank {dr}: the noise of {'/'.join(p)} is drawn "
+                    f"at {got}, not as its slice {cuts} of one draw at the "
+                    f"leaf's full shape {full}: the data ranks' noise is "
+                    f"not the single-device noise", WHERE))
+                break
     return findings

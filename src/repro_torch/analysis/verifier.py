@@ -30,6 +30,10 @@ one node.  Three passes read it:
     and the model half reads it: one model sum of each sliced group's
     partial norm², none of a replicated one's, no model sum of a
     clipped contribution, the noise as slices of one full draw.
+    Under FSDP each traced rank holds its data slices too, and the
+    data-slice half reads every traced data rank: the param gathers are
+    layout moves, each summed leaf keeps the rank's own slice, and its
+    noise is the rank's slice of the one draw.
 
 Violations that only feed the *monitoring* outputs (the mean
 loss, clip fractions, the stale norms) are filtered by a backward slice
@@ -124,7 +128,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     from repro_torch.core.clipping import DataShard
     from repro_torch.core.engine import noise_seed
     from repro_torch.core.tapper import STATS, TensorSpec
-    from repro_torch.launch.sharding import is_sharded
+    from repro_torch.launch.sharding import data_dims, is_sharded
     from repro_torch.tree import get_subtree, leaf_paths, tree_map
 
     findings: List[Finding] = []
@@ -137,8 +141,10 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
     stale_steady = mode == "stale"
     axes = engine.mesh_axes
     specs = engine.param_specs
-    msize = costmodel.mesh_model_size(axes) if specs is not None else 1
+    msize = (costmodel.mesh_model_size(axes)
+             if costmodel.mesh_model_axes(axes) and specs is not None else 1)
     d = costmodel.mesh_data_size(axes)
+    fsdp = specs if engine.fsdp and d > 1 else None
     if B % d:
         raise ValueError(f"global batch {B} is not divisible by the mesh's "
                          f"data-parallel degree {d}")
@@ -164,10 +170,11 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
 
     fm = FakeTensorMode(allow_non_fake_inputs=True)
     params = engine._params_spec
-    if msize > 1:
+    if msize > 1 or fsdp is not None:
         from repro_torch.launch.sharding import local_shape
+        dl = 1 if fsdp is None else d
         params = tree_map(lambda s, sp: TensorSpec(
-            local_shape(s.shape, sp, msize), s.dtype), params, specs)
+            local_shape(s.shape, sp, msize, dl), s.dtype), params, specs)
     params = tree_map(lambda s: _fake(fm, s, dev), params)
     batch = tree_map(lambda s: _fake(fm, s, dev), engine._batch_spec)
     opt_state = _opt_state(engine, opt, fm, params)
@@ -207,7 +214,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
                 dr, mr = entry
                 with fake_mesh(d, msize, rank=dr * msize + mr) as (dg, mg):
                     ms = ModelShard(mg, mr, msize, specs)
-                    shard = MeshShard(dg, dr, d, model=ms)
+                    shard = MeshShard(dg, dr, d, fsdp, model=ms)
                     gname = "" if dg is None else dg.group_name
                     g = _trace_step(engine, shard, key, params, opt_state,
                                     batch, clip_state)
@@ -230,7 +237,7 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
         for r in sorted({0, d - 1}):
             with fake_world(d, rank=r) as group:
                 traces.append((r, group.group_name, _trace_step(
-                    engine, DataShard(group, r, d), key, params,
+                    engine, DataShard(group, r, d, fsdp), key, params,
                     opt_state, batch, clip_state)))
             if stats_delta is None:
                 stats_delta = {k: getattr(STATS, k) - v
@@ -330,6 +337,18 @@ def _verify(engine, opt, coll_bytes_warn) -> VerifyReport:
             f"{B // d}, one sum all-reduce a released leaf over the data "
             f"group, noise after it from one seed, divisor B = {B}, "
             f"statistics over the group")
+        if fsdp is not None:
+            findings.extend(shardcheck.check_fsdp(
+                traces, specs=specs, param_shapes=engine._params_spec,
+                data_size=d, noise_expected=sigma_mult > 0))
+            n_dl = sum(1 for p in leaf_paths(specs)
+                       if data_dims(get_subtree(specs, p)))
+            checked["sharding"] += (
+                f"; FSDP: {n_dl} of {len(leaf_paths(specs))} leaves sliced "
+                f"{d} ways over data, traced as data rank(s) "
+                f"{[r for r, _, _ in traces]}: the param gathers layout "
+                f"moves, each summed leaf the rank's own slice, its noise "
+                f"the rank's slice of one full draw")
     elif axes:
         checked["sharding"] = (f"mesh {costmodel.format_mesh(axes)}: no "
                                f"data degree")

@@ -31,6 +31,14 @@ the plan fingerprint, the monitor state, the noise stream's seed and the
 device its generator runs on (a CUDA and a CPU ``torch.Generator`` draw
 different numbers from one seed, so a resume must stay on the device the
 run drew its noise on).
+
+On a mesh a checkpoint holds whole arrays: the engine gathers the
+params and the optimizer state over the model group and, under FSDP,
+the data group (``PrivacyEngine.gather_params`` / ``gather_opt``)
+before it is written, and a resuming run cuts them for its own mesh and
+``fsdp`` setting (``shard_params`` / ``shard_opt``).  So a run resumes
+across FSDP on and off and across data and model degrees; ``mesh_axes``
+and ``fsdp`` record the writer's layout.
 """
 from __future__ import annotations
 
@@ -66,7 +74,8 @@ class DPTrainState:
     accountant's ``state_dict()``; ``plan_fingerprint`` pins the plan the
     checkpoint was produced under; ``run_seed`` pins the deterministic
     noise stream and ``noise_device`` the device type (``"cuda"`` /
-    ``"cpu"``) of its generator."""
+    ``"cpu"``) of its generator; ``mesh_axes`` and ``fsdp`` record the
+    writing run's layout (the arrays are whole either way)."""
 
     params: Any
     opt: Any
@@ -77,6 +86,7 @@ class DPTrainState:
     run_seed: int | None = None
     mesh_axes: tuple = ()
     noise_device: str | None = None
+    fsdp: bool = False
 
 
 class _AnyLeaf:
@@ -222,6 +232,7 @@ class Checkpointer:
                 "run_seed": state.run_seed,
                 "mesh_axes": [[n, int(s)] for n, s in state.mesh_axes],
                 "noise_device": state.noise_device,
+                "fsdp": bool(state.fsdp),
                 "clip_keys": sorted(clip)}
         return tree, meta
 
@@ -386,6 +397,7 @@ class Checkpointer:
                 run_seed=meta.get("run_seed"),
                 mesh_axes=tuple((n, int(sz))
                                 for n, sz in meta.get("mesh_axes", ())),
-                noise_device=meta.get("noise_device"))
+                noise_device=meta.get("noise_device"),
+                fsdp=bool(meta.get("fsdp", False)))
             return state, s
         raise last_err

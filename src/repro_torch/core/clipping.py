@@ -26,6 +26,16 @@ contributions of sliced leaves stay local (summed over the data group
 only), and the noise is the single-device noise: every rank draws each
 leaf's full shape from the one generator and keeps its slice
 (:func:`add_noise`).
+
+FSDP (a shard whose ``specs`` name the data axes: ``PrivacyEngine(
+fsdp=True)``): the engine gathers each data-sliced param over the data
+group before the step and hands this function the rank's model slices,
+so the strategies see the tensors of the step without FSDP.  A
+data-sliced leaf's clipped sum is then summed over the data group and
+the rank keeps its slice (``sharding.reduce_scatter_to_data``: still
+one all-reduce a leaf, in sorted leaf-path order), its noise is the
+rank's slice of the one full draw in every sliced dimension, data and
+model alike, and the divisor applies to the slice.
 """
 from __future__ import annotations
 
@@ -261,11 +271,14 @@ class DPConfig:
 class DataShard:
     """One rank's place in a data-parallel group: the process group the
     clipped sums and the statistics are reduced over, this rank's index
-    in it, and its size."""
+    in it, and its size.  ``specs``: under FSDP the param spec tree,
+    whose data-axis dimensions (``sharding.data_dims``) this rank holds
+    a slice of; ``None`` without FSDP."""
 
     group: Any
     rank: int
     size: int
+    specs: Any = None
 
     def local(self, B: int) -> slice:
         """This rank's contiguous slice of a global batch of ``B``."""
@@ -304,12 +317,34 @@ def _psum(t, shard: DataShard):
     return all_reduce(t, shard.group, axis="data")
 
 
+def fsdp_of(shard) -> DataShard | None:
+    """The shard when its ``specs`` slice the params over its data group
+    (FSDP, a group of more than one rank), else ``None``."""
+    if shard is None or shard.specs is None or shard.size == 1:
+        return None
+    return shard
+
+
+def _data_dims(shard, path) -> tuple:
+    """The dimensions of leaf ``path`` sliced over the data group (FSDP;
+    ``()`` without it)."""
+    if fsdp_of(shard) is None:
+        return ()
+    from repro_torch.launch.sharding import data_dims
+    return data_dims(get_subtree(shard.specs, path))
+
+
 def sync_grads(gsum, shard: DataShard):
     """The clipped sum summed over the data group: one all-reduce a leaf,
-    in sorted leaf-path order (the same on every rank and every run)."""
+    in sorted leaf-path order (the same on every rank and every run).
+    Under FSDP a data-sliced leaf keeps this rank's slice of its sum."""
+    from repro_torch.launch.sharding import reduce_scatter_to_data
     out = gsum
     for path in leaf_paths(gsum):
-        out = set_subtree(out, path, _psum(get_subtree(gsum, path), shard))
+        g = get_subtree(gsum, path)
+        dims = _data_dims(shard, path)
+        out = set_subtree(out, path, reduce_scatter_to_data(g, dims[0], shard)
+                          if dims else _psum(g, shard))
     return out
 
 
@@ -334,13 +369,15 @@ def release_sum(gsum, key, cfg, shard: DataShard | None = None):
         gsum = sync_grads(gsum, shard)
     if key is not None and cfg.noise_multiplier > 0:
         ms = model_of(shard)
-        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip,
-                         **({} if ms is None else {"model": ms}))
+        kw = {} if ms is None else {"model": ms}
+        if fsdp_of(shard) is not None:
+            kw["data"] = shard
+        gsum = add_noise(gsum, key, cfg.noise_multiplier, cfg.l2_clip, **kw)
     return gsum
 
 
 def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
-              l2_clip: float, *, model=None):
+              l2_clip: float, *, model=None, data=None):
     """Add N(0, (σC)²) noise per coordinate.  The noise is drawn in float32
     from ``generator`` (on the grads' device), leaf by leaf in sorted
     leaf-path order, and summed in float32; only the result is cast back
@@ -349,7 +386,10 @@ def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
     not two.  On a model axis (``model``: the rank's ``ModelShard``) a
     sliced leaf's noise is drawn at the leaf's full shape and this rank
     keeps its slice, so the model ranks add the slices of the one draw a
-    single device adds."""
+    single device adds.  Under FSDP (``data``: the rank's
+    :class:`DataShard`, its ``specs`` naming the data axes) the same
+    holds for the data-sliced dimensions: drawn whole, this rank's data
+    slice kept."""
     if noise_multiplier == 0.0:
         return grad_sum
     from repro_torch.launch import sharding
@@ -357,18 +397,20 @@ def add_noise(grad_sum, generator: torch.Generator, noise_multiplier: float,
     out = grad_sum
     for path in leaf_paths(grad_sum):
         g = get_subtree(grad_sum, path)
-        dims = (() if model is None
-                else sharding.model_dims(get_subtree(model.specs, path)))
+        cuts = [] if model is None else [
+            (d, model)
+            for d in sharding.model_dims(get_subtree(model.specs, path))]
+        cuts += [(d, data) for d in _data_dims(data, path)]
         full = list(g.shape)
-        for d in dims:
-            full[d] *= model.size
+        for d, sh in cuts:
+            full[d] *= sh.size
         noise = torch.randn(full, generator=generator, dtype=F32,
                             device=g.device)
         noise = tag(noise.mul_(sigma), kind="noise", sigma=float(sigma),
                     noise_multiplier=float(noise_multiplier),
                     l2_clip=float(l2_clip))
-        for d in dims:
-            noise = sharding._own(noise, d, model)
+        for d, sh in cuts:
+            noise = sharding._own(noise, d, sh)
         out = set_subtree(out, path, g.add_(noise) if g.dtype == F32
                           else (g.to(F32) + noise).to(g.dtype))
     return out

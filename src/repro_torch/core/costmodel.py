@@ -65,7 +65,12 @@ shared weighted backward twice), and a tensor-sharded layer psums its
 partial norms over the model axes.  A spec plans for a topology this
 process need not have (no devices are touched).  The mesh is part of the
 fingerprint, the cache key and the payload: a plan built for another
-topology fails loudly (:func:`check_plan_matches`).
+topology fails loudly (:func:`check_plan_matches`).  FSDP
+(``PrivacyEngine(fsdp=True)``) is not an input: its step does the same
+work on the same tensors, so the plan and the fingerprint are those of
+the step without it, and its param gathers over the data axes are not
+priced, as the JAX package's planner does not price them (ROADMAP.md
+item 14 part 3, "pricing the moves").
 :func:`predicted_step_seconds` is what the engine's mispredict loop
 compares measured step times against.
 Plans are cached on (model identity, batch/param shapes, knobs,

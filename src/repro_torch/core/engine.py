@@ -54,6 +54,20 @@ the one full-shape noise draw, so the step equals the single-device
 step up to the order of the sums.  Without ``param_axes`` a model axis
 runs replicated, as the JAX package's does.
 
+FSDP (``fsdp=True`` beside ``param_axes``, on a live ``data:D`` or
+``data:D,model:M`` mesh): the specs follow ``launch.sharding.
+FSDP_PARAM_RULES``, so every ``embed`` dimension the data degree
+divides is sliced over the data axes as well, and between steps each
+rank holds the ``(data, model)`` slice of such a leaf and of its
+moments.  The step gathers each data-sliced param over the data group
+at its start, runs the step above on the rank's model slices, and keeps
+the rank's slice of each summed clipped gradient and of the one noise
+draw (:mod:`repro_torch.core.clipping`); the optimizer updates the
+slices, and the gathered params are freed when the step returns.  The
+values are the replicated step's on the same mesh.  The engine reads no
+config's ``fsdp`` field: the caller asks for it, as the JAX package's
+dry run does.  The plans and the fingerprint do not change with it.
+
 Noise: step ``n``'s noise is drawn from a ``torch.Generator`` on the
 engine's device seeded from ``SeedSequence([run_seed, n])`` — a pure
 function of (run_seed, n), so a replayed step re-adds the *same* noise
@@ -70,7 +84,7 @@ import torch
 
 from repro_torch.core import costmodel
 from repro_torch.core.clipping import (DataShard, DPConfig, MeshShard,
-                                       dp_gradient, gather_examples,
+                                       dp_gradient, fsdp_of, gather_examples,
                                        model_of, resolve_budgets,
                                        resolve_microbatches)
 from repro_torch.core.privacy import PrivacyAccountant, clipping_sensitivity
@@ -167,7 +181,12 @@ class PrivacyEngine:
                   conv and embedding layers then execute sharded, and
                   ``params`` here are the *whole* params (their shapes
                   plan), while the step takes each rank's slices.
-                  Ignored on pure-data meshes.
+                  Ignored on pure-data meshes without ``fsdp``.
+      fsdp:       slice the params and moments over the data axes too
+                  (``launch.sharding.FSDP_PARAM_RULES``; module
+                  docstring); needs ``param_axes``.  ``private_step``
+                  then takes and returns each rank's ``(data, model)``
+                  slices (:meth:`shard_params`).
       calibration: measured cost constants for planning.  ``None`` takes
                   the calibration registered for the engine's device and
                   mesh, if any (a pure-data mesh otherwise keeps the
@@ -195,7 +214,7 @@ class PrivacyEngine:
                  donate_opt: bool = False, lr=1e-3, weight_decay: float = 0.0,
                  sampling_rate: float | None = None,
                  accountant: PrivacyAccountant | None = None,
-                 plan=None, mesh=None, param_axes=None,
+                 plan=None, mesh=None, param_axes=None, fsdp: bool = False,
                  calibration=None,
                  mispredict_threshold: float | None = 0.5, monitor=None,
                  run_seed: int | None = None, device="cuda"):
@@ -205,6 +224,11 @@ class PrivacyEngine:
         self._params_spec = tree_map(spec_of, params)
         self._batch_spec = tree_map(spec_of, batch_spec)
         self._mesh_axes = costmodel.mesh_axes(mesh)
+        if fsdp and param_axes is None:
+            raise ValueError("fsdp=True needs param_axes= (the logical axes "
+                             "model.init returns): FSDP slices the embed "
+                             "dimensions they name")
+        self._fsdp = bool(fsdp)
         self._specs = self._param_specs(param_axes)
         live = getattr(mesh, "mesh_dim_names", None) is not None
         self._shard = self._mesh_shard(mesh) if live else None
@@ -246,18 +270,36 @@ class PrivacyEngine:
 
     def _param_specs(self, param_axes):
         """The param spec tree on a mesh with a model axis and
-        ``param_axes`` (``None`` otherwise: every leaf replicated)."""
+        ``param_axes``, or under FSDP on any mesh (``None`` otherwise:
+        every leaf replicated)."""
         from repro_torch.launch import sharding
+        from repro_torch.tree import get_subtree, leaf_paths
         axes = self._mesh_axes
         maxes = costmodel.mesh_model_axes(axes)
-        if param_axes is None or not maxes:
+        if param_axes is None or not (maxes or self._fsdp):
             return None
-        if [a for a, _ in maxes] != ["model"]:
+        if maxes and [a for a, _ in maxes] != ["model"]:
             raise NotImplementedError(
                 f"model-parallel axes {maxes}: the port executes one axis "
                 f"named 'model'; others are {sharding.DEFERRED}")
-        return sharding.param_sharding(param_axes, axes,
-                                       shapes_tree=self._params_spec)
+        specs = sharding.param_sharding(param_axes, axes, fsdp=self._fsdp,
+                                        shapes_tree=self._params_spec)
+        sizes = dict(axes)
+        d = costmodel.mesh_data_size(axes)
+        for p in leaf_paths(specs):
+            spec = get_subtree(specs, p)
+            for i in sharding.data_dims(spec):
+                names = (spec[i],) if isinstance(spec[i], str) else spec[i]
+                n = 1
+                for a in names:
+                    n *= sizes.get(a, 1)
+                if n != d:
+                    raise NotImplementedError(
+                        f"param {'/'.join(map(str, p))} is sliced over "
+                        f"{names} ({n} ways) on a mesh of data degree {d}: "
+                        f"FSDP over a part of the data axes is "
+                        f"{sharding.DEFERRED}")
+        return specs
 
     def _mesh_shard(self, mesh) -> DataShard | None:
         """This rank's shard of a live mesh: a :class:`DataShard` of the
@@ -278,16 +320,19 @@ class PrivacyEngine:
         names = tuple(mesh.mesh_dim_names)
         dims = [i for i, n in enumerate(tuple(mesh.shape))
                 if n > 1 and names[i] in costmodel.DATA_AXIS_NAMES]
+        fsdp = self._specs if self._fsdp else None
         if d == 1:
             data = DataShard(None, 0, 1)
         elif len(dims) == 1:
             data = DataShard(mesh.get_group(dims[0]),
-                             mesh.get_local_rank(dims[0]), d)
+                             mesh.get_local_rank(dims[0]), d, fsdp)
         else:
             flat = mesh[tuple(names[i] for i in dims)]._flatten()
-            data = DataShard(flat.get_group(), flat.get_local_rank(), d)
+            data = DataShard(flat.get_group(), flat.get_local_rank(), d,
+                             fsdp)
         if model is not None:
-            return MeshShard(data.group, data.rank, data.size, model=model)
+            return MeshShard(data.group, data.rank, data.size, data.specs,
+                             model=model)
         return None if d == 1 else data
 
     # -- tensor-sharded params -------------------------------------------------
@@ -297,24 +342,32 @@ class PrivacyEngine:
         """The param spec tree (``None``: every leaf replicated)."""
         return self._specs
 
+    @property
+    def fsdp(self) -> bool:
+        """Whether the params and moments are sliced over the data axes
+        too (``FSDP_PARAM_RULES``)."""
+        return self._fsdp
+
     def _model(self):
         return model_of(self._shard)
 
+    def _data(self):
+        """The rank's data shard when FSDP slices over it (else ``None``)."""
+        return fsdp_of(self._shard)
+
     def shard_params(self, params):
         """This rank's slices of whole params (the tree ``private_step``
-        takes on a model axis; whole params elsewhere)."""
+        takes on a model axis or under FSDP; whole params elsewhere)."""
         from repro_torch.launch import sharding
-        ms = self._model()
-        return params if ms is None else sharding.shard_params(
-            params, self._specs, ms)
+        return sharding.shard_params(params, self._specs, self._model(),
+                                     data=self._data())
 
     def gather_params(self, params):
         """Whole params from every rank's slices (a collective over the
-        model group)."""
+        model group and, under FSDP, the data group)."""
         from repro_torch.launch import sharding
-        ms = self._model()
-        return params if ms is None else sharding.gather_params(
-            params, self._specs, ms)
+        return sharding.gather_params(params, self._specs, self._model(),
+                                      data=self._data())
 
     def opt_specs(self, opt):
         """Specs of an optimizer state: a subtree with the params'
@@ -337,35 +390,44 @@ class PrivacyEngine:
     def shard_opt(self, opt):
         """This rank's slices of a whole optimizer state."""
         from repro_torch.launch import sharding
-        ms = self._model()
-        return opt if ms is None else sharding.shard_params(
-            opt, self.opt_specs(opt), ms)
+        if self._model() is None and self._data() is None:
+            return opt
+        return sharding.shard_params(opt, self.opt_specs(opt), self._model(),
+                                     data=self._data())
 
     def gather_opt(self, opt):
         """A whole optimizer state from every rank's slices."""
         from repro_torch.launch import sharding
-        ms = self._model()
-        return opt if ms is None else sharding.gather_params(
-            opt, self.opt_specs(opt), ms)
+        if self._model() is None and self._data() is None:
+            return opt
+        return sharding.gather_params(opt, self.opt_specs(opt),
+                                      self._model(), data=self._data())
 
     def _check_local(self, params):
-        """On a model axis the step takes this rank's slices: a whole
-        leaf where a slice belongs raises, naming the leaf."""
+        """On a model axis or under FSDP the step takes this rank's
+        slices: a whole leaf where a slice belongs raises, naming the
+        leaf."""
         from repro_torch.launch import sharding
         from repro_torch.tree import get_subtree, leaf_paths
-        ms = self._model()
-        if ms is None:
+        ms, ds = self._model(), self._data()
+        if ms is None and ds is None:
             return
+        msize = 1 if ms is None else ms.size
+        dsize = 1 if ds is None else ds.size
         for p in leaf_paths(self._specs):
             want = sharding.local_shape(
                 get_subtree(self._params_spec, p).shape,
-                get_subtree(self._specs, p), ms.size)
+                get_subtree(self._specs, p), msize, dsize)
             got = tuple(get_subtree(params, p).shape)
             if got != want:
+                where = " and ".join(
+                    f"{ax} rank {sh.rank} of {sh.size}"
+                    for ax, sh in (("model", ms), ("data", ds))
+                    if sh is not None)
                 raise ValueError(
                     f"param {'/'.join(map(str, p))} has shape {got}; on "
-                    f"model rank {ms.rank} of {ms.size} the step takes its "
-                    f"slice {want} (engine.shard_params)")
+                    f"{where} the step takes its slice {want} "
+                    f"(engine.shard_params)")
 
     @property
     def mesh_axes(self) -> tuple:
@@ -742,8 +804,12 @@ class PrivacyEngine:
 
         sharded = {} if shard is None else {"shard": shard}
         boot = model_of(shard) is not None and self.dp.clipping.mode == "stale"
+        from repro_torch.launch.sharding import gather_over_data
 
         def grad(params, batch, key, clip_state, denom=None):
+            # FSDP: each data-sliced param joined into the rank's model
+            # slice; the gathered tensors live until this call returns.
+            params = gather_over_data(params, fsdp_of(shard))
             kw = dict(sharded)
             if boot and (clip_state or {}).get("prev_norms_sq") is None:
                 # The bootstrap's flat plan, of the whole shapes and the

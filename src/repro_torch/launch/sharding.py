@@ -47,15 +47,30 @@ Layers whose forward couples the examples of the global batch read
 the data group the same way (:func:`data_parallel`): the MoE dispatch's
 global capacity sums each data rank's per-expert entry counts.
 
-Every one is a sum all-reduce of the model group (the gathers sum
+FSDP (``param_sharding(fsdp=True)``, :data:`FSDP_PARAM_RULES`) slices
+every ``embed`` dimension over the data axes as well: between steps a
+rank holds the ``(data, model)`` slice of each such leaf and of its
+optimizer moments (:func:`shard_params` with ``data=``).  The step
+gathers each data-sliced leaf over the data group into the rank's model
+slice at its start (:func:`gather_from_data`), runs the data x model
+step unchanged on those tensors, and keeps the rank's slice of each
+leaf's summed clipped gradient (:func:`reduce_scatter_to_data`, in
+``clipping.sync_grads``); the noise is the rank's slice of the one full
+draw (``clipping.add_noise``).  A leaf whose ``embed`` dimension the
+data degree does not divide stays replicated over data (the
+``shapes_tree`` rule).  The values are the replicated step's: the
+gather sums zero-padded slices (exact), the gradient sum is the same
+all-reduce, and every later operation is elementwise.
+
+Every one is a sum all-reduce of its group (the gathers sum
 zero-padded slices, exact; the reduce-scatters all-reduce and keep the
 slice): one ``_c10d_functional.all_reduce`` node a move, in a fixed
-order, which the verifier's model half reads, and the one collective
-gloo runs on CUDA tensors.  A gather or a reduce-scatter so moves the
-full tensor, about twice a ring all-gather's or reduce-scatter's
-bytes; ``all_gather_tensor`` / ``reduce_scatter_tensor`` under NCCL,
-FSDP's rules on a live mesh and the moves' prices in the plan are
-ROADMAP.md item 14 part 3.
+order, which the verifier's model and data halves read, and the one
+collective gloo runs on CUDA tensors.  A gather or a reduce-scatter so
+moves the full tensor, about twice a ring all-gather's or
+reduce-scatter's bytes; ``all_gather_tensor`` /
+``reduce_scatter_tensor`` under NCCL and the moves' prices in the plan
+are ROADMAP.md item 14 part 3.
 
 A param group (a layer's param dict) may mix sliced and replicated
 leaves: a row-sharded layer's bias added once after the sum over
@@ -65,7 +80,9 @@ partial and summed over ``model`` once.  Its replicated leaves'
 per-example gradients are whole on every rank, and model rank 0 alone
 counts them in that partial (:meth:`ModelShard.counts`).
 :data:`COLL_STATS` counts the calls and bytes by axis and, when
-``timing`` is on, the host time.
+``timing`` is on, the host time; FSDP's param gathers are counted under
+``data`` and again on their own (``COLL_STATS.gather``), so that the
+gather is told apart from the gradient sum.
 """
 from __future__ import annotations
 
@@ -172,13 +189,9 @@ def param_sharding(axes_tree, mesh, *, fsdp: bool = False,
     """The logical-axes tree as a tree of specs.  With ``shapes_tree``
     (tensors or specs, same structure) mesh axes that do not divide a
     dimension are dropped instead of kept (4 heads on an 8-way model
-    axis stay replicated).  ``fsdp=True`` plans over a mesh spec; on a
-    live ``DeviceMesh`` it raises, since no step executes those rules."""
-    if fsdp and getattr(mesh, "mesh_dim_names", None) is not None:
-        raise NotImplementedError(
-            f"fsdp=True on a live mesh {tuple(mesh.mesh_dim_names)}: "
-            f"FSDP_PARAM_RULES (params sharded over the data axes) is "
-            f"{DEFERRED}")
+    axis stay replicated).  ``fsdp=True`` takes :data:`FSDP_PARAM_RULES`
+    (``embed`` over the data axes too), over a mesh spec or a live
+    ``DeviceMesh`` alike."""
     rules = FSDP_PARAM_RULES if fsdp else PARAM_RULES
     if shapes_tree is None:
         return tree_map(lambda axes: _axes_to_spec(axes, rules, mesh),
@@ -213,15 +226,29 @@ def model_dims(spec) -> tuple:
     return tuple(out)
 
 
+def data_dims(spec) -> tuple:
+    """The dimensions of a leaf's spec that name a data axis (FSDP's
+    ``embed`` dimensions: ``"data"`` or ``("pod", "data")``)."""
+    out = []
+    for i, m in enumerate(spec or ()):
+        ms = (m,) if isinstance(m, str) else tuple(m or ())
+        if any(a in DATA_AXIS_NAMES for a in ms):
+            out.append(i)
+    return tuple(out)
+
+
 def is_sharded(spec) -> bool:
     return bool(model_dims(spec))
 
 
-def local_shape(shape, spec, size: int) -> tuple:
-    """A leaf's shape on one rank of a model axis of ``size``."""
+def local_shape(shape, spec, size: int, data_size: int = 1) -> tuple:
+    """A leaf's shape on one rank of a model axis of ``size`` (and, under
+    FSDP, a data group of ``data_size``)."""
     out = list(shape)
     for i in model_dims(spec):
         out[i] //= size
+    for i in data_dims(spec):
+        out[i] //= data_size
     return tuple(out)
 
 
@@ -280,6 +307,8 @@ class CollStats:
         self.calls = {"model": 0, "data": 0}
         self.bytes = {"model": 0, "data": 0}
         self.seconds = {"model": 0.0, "data": 0.0}
+        # FSDP's param gathers, also counted under "data" above.
+        self.gather = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 
 COLL_STATS = CollStats()
@@ -343,13 +372,19 @@ def split(local: int, full: int) -> bool:
     return True
 
 
-def all_reduce(t, group, op: str = "sum", axis: str = "model"):
+def all_reduce(t, group, op: str = "sum", axis: str = "model",
+               gather: bool = False):
     """A functional all-reduce over ``group`` (one graph node when traced),
-    counted in :data:`COLL_STATS` under ``axis``."""
+    counted in :data:`COLL_STATS` under ``axis`` (and, ``gather``: an
+    FSDP param gather, under ``COLL_STATS.gather`` too)."""
     import torch.distributed._functional_collectives as funcol
     st = COLL_STATS
+    nbytes = t.numel() * t.element_size()
     st.calls[axis] += 1
-    st.bytes[axis] += t.numel() * t.element_size()
+    st.bytes[axis] += nbytes
+    if gather:
+        st.gather["calls"] += 1
+        st.gather["bytes"] += nbytes
     if not st.timing:
         return funcol.wait_tensor(funcol.all_reduce(t, op, group))
     sync = torch.cuda.synchronize if t.is_cuda else (lambda: None)
@@ -357,7 +392,10 @@ def all_reduce(t, group, op: str = "sum", axis: str = "model"):
     t0 = time.perf_counter()
     out = funcol.wait_tensor(funcol.all_reduce(t, op, group))
     sync()
-    st.seconds[axis] += time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    st.seconds[axis] += dt
+    if gather:
+        st.gather["seconds"] += dt
     return out
 
 
@@ -512,6 +550,44 @@ def gather_from_model(x, dim: int, *, sharded_consumer: bool = False):
     return _Gather.apply(x, dim % x.ndim, sharded_consumer, ms)
 
 
+def gather_from_data(t, dim: int, ds):
+    """FSDP's param gather: the rank's data slice ``t`` of a leaf joined
+    along ``dim`` over the data group ``ds`` (a ``clipping.DataShard``):
+    a sum all-reduce of the zero-padded slices (exact), marked
+    ``fsdp_gather`` for the verifier, which reads it as a layout move
+    and not as a sum over examples."""
+    if ds is None or ds.size == 1:
+        return t
+    from repro_torch.analysis.markers import tag
+    out = all_reduce(_pad_slice(t, dim % t.ndim, ds), ds.group, axis="data",
+                     gather=True)
+    return tag(out, kind="fsdp_gather", dim=int(dim % t.ndim))
+
+
+def gather_over_data(params, ds):
+    """Every param the data group ``ds`` slices (FSDP: ``ds.specs``;
+    ``None`` without FSDP) gathered into this rank's model slice
+    (:func:`gather_from_data`, in the params' order, the same on every
+    rank); the rest kept."""
+    if ds is None:
+        return params
+
+    def whole(t, spec):
+        dims = data_dims(spec)
+        return gather_from_data(t, dims[0], ds) if dims else t
+    return tree_map(whole, params, ds.specs)
+
+
+def reduce_scatter_to_data(t, dim: int, ds):
+    """FSDP's gradient sum: ``t`` (a leaf's clipped sum, whole along
+    ``dim``) summed over the data group ``ds``, and this rank's slice
+    along ``dim`` kept (a copy, so the whole sum is freed)."""
+    if ds is None or ds.size == 1:
+        return t
+    return _own(all_reduce(t, ds.group, axis="data"), dim % t.ndim,
+                ds).clone()
+
+
 def parallel_xent(lg, labels, *, vocab_valid: int | None = None):
     """Per-position ``logsumexp(lg) - lg[label]`` over logits ``lg``
     (f32, ``(..., V/M)``: this rank's contiguous slice of the
@@ -559,39 +635,52 @@ def model_shard_of(mesh, specs=None) -> ModelShard | None:
 
 
 def _model_of(mesh_or_shard, specs):
-    if isinstance(mesh_or_shard, ModelShard):
+    if mesh_or_shard is None or isinstance(mesh_or_shard, ModelShard):
         return mesh_or_shard
     return model_shard_of(mesh_or_shard, specs)
 
 
-def shard_params(params, specs, mesh):
+def _cuts(spec, ms, ds) -> list:
+    """``(dim, shard)`` of each dimension of a leaf sliced over the model
+    group ``ms`` or (FSDP) the data group ``ds``."""
+    out = [] if ms is None else [(d, ms) for d in model_dims(spec)]
+    if ds is not None and ds.size > 1:
+        out += [(d, ds) for d in data_dims(spec)]
+    return out
+
+
+def shard_params(params, specs, mesh, *, data=None):
     """This rank's slices of a tree of whole tensors: every leaf whose
     spec names ``model`` cut to its contiguous part of that dimension
-    (a copy), the rest kept.  ``mesh``: a live ``DeviceMesh`` or a
-    :class:`ModelShard`."""
+    (a copy), and with ``data`` (a ``clipping.DataShard``: FSDP) every
+    dimension whose spec names a data axis cut to the rank's part too;
+    the rest kept.  ``mesh``: a live ``DeviceMesh``, a
+    :class:`ModelShard` or ``None`` (no model axis)."""
     ms = _model_of(mesh, specs)
-    if ms is None:
+    if ms is None and (data is None or data.size == 1):
         return params
 
     def cut(t, spec):
-        for d in model_dims(spec):
-            t = _own(t, d, ms)
-        return t.contiguous().clone() if model_dims(spec) else t
+        cuts = _cuts(spec, ms, data)
+        for d, sh in cuts:
+            t = _own(t, d, sh)
+        return t.contiguous().clone() if cuts else t
     return tree_map(cut, params, specs)
 
 
-def gather_params(params, specs, mesh):
+def gather_params(params, specs, mesh, *, data=None):
     """Whole tensors again from every rank's slices (a collective: every
-    rank of the model group calls; all get the whole tree)."""
+    rank of the model group, and with ``data`` of the data group, calls;
+    all get the whole tree)."""
     import torch.distributed as dist
     ms = _model_of(mesh, specs)
-    if ms is None:
+    if ms is None and (data is None or data.size == 1):
         return params
 
     def whole(t, spec):
-        for d in model_dims(spec):
-            parts = [torch.empty_like(t) for _ in range(ms.size)]
-            dist.all_gather(parts, t.contiguous(), group=ms.group)
+        for d, sh in _cuts(spec, ms, data):
+            parts = [torch.empty_like(t) for _ in range(sh.size)]
+            dist.all_gather(parts, t.contiguous(), group=sh.group)
             t = torch.cat(parts, dim=d)
         return t
     return tree_map(whole, params, specs)

@@ -361,7 +361,8 @@ def _train(args, cfg, model, dpc, batch_fn, acct, chaos, ckpt, mesh,
             ledger=acct.state_dict(),
             plan_fingerprint=engine.fingerprint(calibration="analytic"),
             monitor=mon.state_dict(), run_seed=args.run_seed,
-            noise_device=device.type, mesh_axes=engine.mesh_axes)
+            noise_device=device.type, mesh_axes=engine.mesh_axes,
+            fsdp=engine.fsdp)
 
     timing = {"step_ms": {}, "data_ms": {}, "ckpt_snapshot_ms": [],
               "ckpt_final_ms": None, "ckpt_bytes": None}

@@ -7,7 +7,9 @@ update is computed in float32 and cast back.  Functions return new
 tensors and leave their inputs alone, unless the caller gives the state
 up (``inplace=True``): then the moments are updated in place, with the
 same roundings in the same order (bitwise the same values), so that a
-step holds one copy of them and not two.
+step holds one copy of them and not two.  Every update is elementwise,
+so on a mesh the moments and the in-place update run on each rank's
+slices of the params (a model axis, FSDP's data slices) unchanged.
 """
 from __future__ import annotations
 

@@ -58,7 +58,8 @@ def test_mesh_lanes_raise_naming_item_14():
     (DeepSeek-V3's MLA and Chameleon's GQA with ``--dp-attn``), serving
     against a cache there (MLA's latent cache, Chameleon's KV cache,
     Seamless's self and cross caches, xLSTM's and Zamba2's recurrent
-    states) — and so do the FSDP rules on a live mesh."""
+    states).  The FSDP rules, deferred until a step executed them, now
+    give specs on a live mesh."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import fake_world, make_mesh_from_spec
     from repro_torch.launch.sharding import param_sharding
@@ -73,12 +74,12 @@ def test_mesh_lanes_raise_naming_item_14():
                           "--seq", "8", "--batch", "4"] + extra + CPU)
     _, axes = build_model(get_config("llama3.2-1b").reduced()).init(
         0, device="cpu")
-    assert param_sharding(axes, "data:4,model:2", fsdp=True)  # plans
+    planned = param_sharding(axes, "data:4,model:2", fsdp=True)
     with fake_world(8):
         mesh = make_mesh_from_spec("data:4,model:2", device_type="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="FSDP_PARAM_RULES.*item 14 part 3"):
-            param_sharding(axes, mesh, fsdp=True)
+        # FSDP's rules give specs on a live mesh too (a step executes
+        # them since item 14 part 3's FSDP), the same as over the spec.
+        assert param_sharding(axes, mesh, fsdp=True) == planned
         msg = sw.mla_cache_on_model_axis(mesh)
         kv = sw.prefill_on_model_axis(mesh, "chameleon-34b")
         cross = sw.prefill_on_model_axis(mesh, "seamless-m4t-large-v2")

@@ -273,14 +273,14 @@ def lanes_2(rank, mesh, data, out_dir):
     res["calibration"] = calibrate.measure(
         "data:2", quick=True, device="cpu").to_payload()
     # What raises: an indivisible batch; on a live model axis the
-    # families item 14 part 2 leaves out, and the FSDP rules.
+    # families item 14 part 2 leaves out.  FSDP runs (item 14 part 3).
     try:
         make_engine(params, {k: v[:3] for k, v in batch.items()},
                     mesh=mesh)
     except ValueError as e:
         res["indivisible"] = str(e)
     mesh2 = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
-    res["model_axis"] = deferred_on_model_axis(mesh2)
+    res["model_axis"] = deferred_on_model_axis(mesh2, mesh)
     return res
 
 
@@ -293,15 +293,15 @@ DP_ATTN_ARCHS = {"mla-dp_attn": "deepseek-v3-671b",
                  "gqa-dp_attn": "chameleon-34b"}
 
 
-def deferred_on_model_axis(mesh):
+def deferred_on_model_axis(mesh, data_mesh):
     """{case: the NotImplementedError's message} of one private step on
     ``mesh``'s model axis of reduced DeepSeek-V3 and Chameleon under
     block taps (``"mla-dp_attn"``, ``"gqa-dp_attn"``), of serving against
     a cache there: MLA's latent cache (``"mla-cache"``), Chameleon's KV
     cache (``"gqa-cache"``), Seamless's self and cross caches
     (``"cross-cache"``), xLSTM's and Zamba2's recurrent states
-    (``"ssm-serve"``, ``"hybrid-serve"``), and of
-    ``param_sharding(fsdp=True)`` on the live mesh."""
+    (``"ssm-serve"``, ``"hybrid-serve"``); and ``"fsdp"``: what one
+    FSDP step on ``data_mesh`` gave (:func:`fsdp_step_on`)."""
     from repro_torch.configs import get_config
     from repro_torch.core import DPConfig, PrivacyEngine
     from repro_torch.launch.train import make_batch_fn, to_device
@@ -328,13 +328,47 @@ def deferred_on_model_axis(mesh):
                                                "seamless-m4t-large-v2")
     for case, arch in RECURRENT_SERVE.items():
         out[case] = prefill_on_model_axis(mesh, arch)
-    from repro_torch.launch.sharding import param_sharding
-    try:
-        param_sharding(axes, mesh, fsdp=True)
-        out["fsdp"] = "ran"
-    except NotImplementedError as e:
-        out["fsdp"] = str(e)
+    out["fsdp"] = fsdp_step_on(data_mesh)
     return out
+
+
+def fsdp_step_on(mesh) -> str:
+    """``"ran"`` when one FSDP step of reduced Chameleon-34B (bk, σ = 1)
+    on the live ``mesh`` takes and returns this rank's data slices and
+    its gathered params equal the replicated step's on the same mesh;
+    otherwise what differed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig, PrivacyEngine
+    from repro_torch.launch.sharding import data_dims, param_sharding
+    from repro_torch.launch.train import make_batch_fn, to_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import get_subtree, leaf_paths
+    cfg = get_config("chameleon-34b").reduced()
+    model = build_model(cfg)
+    p, axes = model.init(0, device="cpu")
+    b = to_device(make_batch_fn(cfg, 2, 8)(0), "cpu")
+    specs = param_sharding(axes, mesh, fsdp=True, shapes_tree=p)
+    got = {}
+    for fsdp in (False, True):
+        eng = PrivacyEngine(model.apply, p, b,
+                            dp=DPConfig(strategy="bk", noise_multiplier=1.0),
+                            mesh=mesh, param_axes=axes, fsdp=fsdp,
+                            run_seed=0, device="cpu", calibration="analytic")
+        local = eng.shard_params(p)
+        new, _, _, _ = eng.private_step(local, adamw_init(local), b, step=0)
+        got[fsdp] = (local, eng.gather_params(new))
+    for q in leaf_paths(p):
+        dims = data_dims(get_subtree(specs, q))
+        want = list(get_subtree(p, q).shape)
+        for d in dims:
+            want[d] //= 2
+        if list(get_subtree(got[True][0], q).shape) != want:
+            return f"{'/'.join(q)}: not this rank's data slice"
+        if not torch.equal(get_subtree(got[True][1], q),
+                           get_subtree(got[False][1], q)):
+            return f"{'/'.join(q)}: FSDP differs from the replicated step"
+    return "ran"
 
 
 def prefill_on_model_axis(mesh, arch) -> str:
